@@ -3,18 +3,32 @@
 
     python3 chip_smoke.py        # from the root of a checkout
 
+    python3 chip_smoke.py --profile   # also a torch.profiler split of
+                                      # one 2048^2 V-cycle
+
 Builds the hand-written CUDA kernels from csrc/, holds each against its
-plain PyTorch version on the card, times both, drives the main path
-(``python -m navierstokes_parallel_tpu_torch configs/1.in --stats``, through
-``cli.main``) and checks its answer against the JAX package's recorded
-answer, then runs a small converging cavity on the GPU and on the CPU and
-compares the two.  Any failed phase prints ``FAIL: ...`` and exits 1 before
-the last line; on success the last two lines are the kernels' JSON record
-and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+plain PyTorch version on the card, times both, drives the two main paths
+through ``cli.main`` and checks each answer against the JAX package's
+recorded answer:
+
+  * SOR: ``python -m navierstokes_parallel_tpu_torch configs/1.in --stats``
+    (kernels sor_sweeps and momentum_rhs);
+  * multigrid: ``... configs/4.in --method mg --stats``, the 2048^2 cavity
+    (kernels sor_warm_sweeps, the smoother of every level, and
+    momentum_rhs), with the plain smoother barred from running;
+
+then runs small converging cavities (SOR and mg) on the GPU and on the CPU
+and compares them.  Each path runs with the launch counts set to 0 just
+before it and read just after; the JSON record's ``launches`` sums a
+kernel's counts over the two paths.  Any failed phase prints ``FAIL: ...``
+and exits 1 before the last line; on success the last two lines are the
+kernels' JSON record and ``{"ok": true, "device": {...}}``.  Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
@@ -35,6 +49,16 @@ ROOT = Path(__file__).resolve().parent
 JAX_U_CENTER = -0.003054
 JAX_V_CENTER = 0.000017
 JAX_STATS = {"steps": 3, "sor_iterations": 60000, "sor_failures": 3}
+# The JAX package's answer on configs/4.in (2048^2 cavity, Re=1000, T=0.01,
+# f32 state) with the multigrid pressure solve, recorded with
+#   JAX_PLATFORMS=cpu python -m navierstokes_parallel_tpu configs/4.in \
+#       --method mg --stats
+# which printed U-CENTER: -0.002993, V-CENTER: 0.000003 and
+# steps=168 sor_iterations=673 sor_failures=0 last_res_norm=1.182e-04
+# (sor_iterations counts V-cycles).
+JAX_MG_U_CENTER = -0.002993
+JAX_MG_V_CENTER = 0.000003
+JAX_MG_STATS = {"steps": 168, "sor_iterations": 673, "sor_failures": 0}
 # The reference comparator's contract: 1e-4, absolute where |x| <= 1,
 # relative above (tests/conftest.py::assert_close_reference_contract).
 CONTRACT = 1e-4
@@ -45,6 +69,10 @@ CONTRACT = 1e-4
 # through 64 sweeps.
 KERNEL_RTOL = 1e-5
 SOR_SWEEPS = 64  # the main path's K: one kernel call = 64 sweeps
+MG_SWEEPS = 2    # one multigrid smoother call (V(2,2)); 32 on the coarsest
+# configs/4.in's finest multigrid level: 2048^2 cells, padded, 1/dx^2.
+MG_FINE_SHAPE = (2050, 2050)
+MG_FINE_DX2_INV = 2048.0 ** 2
 
 
 class PhaseFailed(Exception):
@@ -114,7 +142,7 @@ def phase_compare(torch) -> dict:
                                                           sor_kernel)
 
     rng = np.random.default_rng(0)
-    errs = {"sor": 0.0, "momentum": 0.0}
+    errs = {"sor": 0.0, "momentum": 0.0, "sor_warm": 0.0}
     for i_max, j_max in ((256, 256), (97, 61)):
         prm = Params(i_max=i_max, j_max=j_max, a=1.0, b=0.7, Re=1000.0,
                      g_x=0.1, g_y=-0.2, omega=1.7)
@@ -149,12 +177,39 @@ def phase_compare(torch) -> dict:
             check(rel <= KERNEL_RTOL,
                   f"momentum kernel disagrees on {name} at {shape}")
             errs["momentum"] = max(errs["momentum"], err)
+
+    # The warm-start smoother at the finest and the coarsest mg level of
+    # configs/4.in and at an odd non-square shape, from a p0 whose ghost
+    # ring is not 0; it must equal its plain twin bit for bit.
+    coarse_dx2 = MG_FINE_DX2_INV / 4.0 ** 8
+    warm_cases = [(MG_FINE_SHAPE, MG_FINE_DX2_INV, MG_FINE_DX2_INV, MG_SWEEPS),
+                  ((10, 10), coarse_dx2, coarse_dx2, 32),
+                  ((99, 63), 97.0 ** 2, (61 / 0.7) ** 2, MG_SWEEPS)]
+    for shape, dx2, dy2, n in warm_cases:
+        for omega in (1.0, 1.7):
+            p0 = torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32)).cuda()
+            rhs = torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32)).cuda()
+            got = sor_kernel.warm_sweeps(p0, rhs, n, omega, dx2, dy2)
+            want = sor_kernel.warm_sweeps_plain(p0, rhs, n, omega, dx2, dy2)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            ring_kept = all(torch.equal(a, b) for a, b in (
+                (got[0], p0[0]), (got[-1], p0[-1]), (got[:, 0], p0[:, 0]),
+                (got[:, -1], p0[:, -1])))
+            print(f"[compare] sor_warm {shape} omega={omega} n={n}: max abs "
+                  f"err {err:.3e} (expected 0), ghost ring kept {ring_kept}")
+            check(err == 0.0 and ring_kept,
+                  f"warm-start kernel disagrees at {shape}, omega={omega}")
+            errs["sor_warm"] = max(errs["sor_warm"], err)
     return errs
 
 
 def phase_time(torch) -> dict:
-    """Kernel and plain times at the main path's 258^2 padded grid, in
-    turns (plain, kernel, kernel, plain)."""
+    """Kernel and plain times at the SOR main path's 258^2 padded grid and
+    (the smoother) at the mg path's finest 2050^2 level, in turns (plain,
+    kernel, kernel, plain)."""
     from navierstokes_parallel_tpu_torch.config import Params
     from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
                                                           sor_kernel)
@@ -169,6 +224,12 @@ def phase_time(torch) -> dict:
     u, v = u.cuda(), v.cuda()
     dt = torch.tensor(1e-3, device="cuda")
     gamma = torch.tensor(0.5, device="cuda")
+    p_fine = torch.from_numpy(
+        rng.standard_normal(MG_FINE_SHAPE).astype(np.float32)).cuda()
+    rhs_fine = torch.from_numpy(
+        rng.standard_normal(MG_FINE_SHAPE).astype(np.float32)).cuda()
+    warm_args = (p_fine, rhs_fine, MG_SWEEPS, 1.0, MG_FINE_DX2_INV,
+                 MG_FINE_DX2_INV)
 
     cases = {
         "sor": (lambda: sor_kernel.inner_sweeps(rhs, SOR_SWEEPS, prm),
@@ -179,6 +240,9 @@ def phase_time(torch) -> dict:
                      lambda: momentum_kernel.momentum_rhs_plain(u, v, dt,
                                                                 gamma, prm),
                      200, 20),
+        "sor_warm": (lambda: sor_kernel.warm_sweeps(*warm_args),
+                     lambda: sor_kernel.warm_sweeps_plain(*warm_args),
+                     100, 10),
     }
     times = {}
     for name, (kernel, plain, k_reps, p_reps) in cases.items():
@@ -187,50 +251,115 @@ def phase_time(torch) -> dict:
         k2 = cuda_ms(torch, kernel, k_reps)
         p2 = cuda_ms(torch, plain, p_reps)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        per = f" ({SOR_SWEEPS} sweeps)" if name == "sor" else ""
-        print(f"[time] {name} at {prm.shape}{per}: kernel {k1:.4f} / "
+        shape, per = prm.shape, ""
+        if name == "sor":
+            per = f" ({SOR_SWEEPS} sweeps)"
+        elif name == "sor_warm":
+            shape, per = MG_FINE_SHAPE, f" ({MG_SWEEPS} sweeps, omega=1)"
+        print(f"[time] {name} at {shape}{per}: kernel {k1:.4f} / "
               f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms per call")
     k_ms, p_ms = times["sor"]
     print(f"[time] sor per sweep: kernel {k_ms * 1e3 / SOR_SWEEPS:.3f} us, "
           f"plain {p_ms * 1e3 / SOR_SWEEPS:.3f} us")
     print(f"[time] momentum per call: kernel {times['momentum'][0] * 1e3:.3f}"
           f" us, plain {times['momentum'][1] * 1e3:.3f} us")
+    k_ms, p_ms = times["sor_warm"]
+    print(f"[time] sor_warm per sweep at {MG_FINE_SHAPE}: kernel "
+          f"{k_ms * 1e3 / MG_SWEEPS:.3f} us, plain "
+          f"{p_ms * 1e3 / MG_SWEEPS:.3f} us")
     return times
 
 
-def phase_main_path() -> dict:
-    """configs/1.in through the CLI; returns the kernels' launch counts."""
-    from navierstokes_parallel_tpu_torch import cli
+def reset_launches() -> None:
     from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
                                                           sor_kernel)
 
-    out, err = io.StringIO(), io.StringIO()
-    sor_kernel.LAUNCHES = 0
+    sor_kernel.LAUNCHES = sor_kernel.WARM_LAUNCHES = 0
     momentum_kernel.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
+                                                          sor_kernel)
+
+    return {"sor": sor_kernel.LAUNCHES, "sor_warm": sor_kernel.WARM_LAUNCHES,
+            "momentum": momentum_kernel.LAUNCHES}
+
+
+def run_cli(tag: str, argv: list, u_want: float, v_want: float,
+            stats_want: dict):
+    """One CLI run, its answer held to a JAX record; returns its stats line
+    as a dict and the kernels' launch counts in that run."""
+    from navierstokes_parallel_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    reset_launches()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = cli.main([str(ROOT / "configs" / "1.in"), "--stats"])
-    launches = {"sor": sor_kernel.LAUNCHES,
-                "momentum": momentum_kernel.LAUNCHES}
-    print("[main] stdout:", out.getvalue().strip().replace("\n", " | "))
-    print("[main] stderr:", err.getvalue().strip().replace("\n", " | "))
+        rc = cli.main(argv)
+    launches = read_launches()
+    print(f"[{tag}] stdout:", out.getvalue().strip().replace("\n", " | "))
+    print(f"[{tag}] stderr:", err.getvalue().strip().replace("\n", " | "))
     check(rc == 0, f"cli.main returned {rc}")
     lines = out.getvalue().splitlines()
     uc = float(lines[0].split()[1])
     vc = float(lines[1].split()[1])
     stats = dict(tok.split("=") for tok in
                  err.getvalue().strip().splitlines()[0].split())
-    for key, want in JAX_STATS.items():
+    for key, want in stats_want.items():
         check(int(stats[key]) == want,
               f"{key}={stats[key]}, JAX recorded {want}")
-    du, dv = contract_err(uc, JAX_U_CENTER), contract_err(vc, JAX_V_CENTER)
-    print(f"[main] U-CENTER {uc:.6f} vs JAX {JAX_U_CENTER:.6f} (err {du:.2e})"
-          f", V-CENTER {vc:.6f} vs JAX {JAX_V_CENTER:.6f} (err {dv:.2e}), "
+    du, dv = contract_err(uc, u_want), contract_err(vc, v_want)
+    print(f"[{tag}] U-CENTER {uc:.6f} vs JAX {u_want:.6f} (err {du:.2e})"
+          f", V-CENTER {vc:.6f} vs JAX {v_want:.6f} (err {dv:.2e}), "
           f"contract {CONTRACT:.0e}")
     check(max(du, dv) <= CONTRACT, "centre values outside the contract")
-    print(f"[main] solve seconds {float(err.getvalue().splitlines()[-1])}; "
+    print(f"[{tag}] solve seconds {float(err.getvalue().splitlines()[-1])}; "
           f"launches {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"the main path launched no {name} kernel")
+    return stats, launches
+
+
+def phase_main_path() -> dict:
+    """configs/1.in through the CLI; returns the kernels' launch counts."""
+    _, launches = run_cli("main", [str(ROOT / "configs" / "1.in"), "--stats"],
+                          JAX_U_CENTER, JAX_V_CENTER, JAX_STATS)
+    for name in ("sor", "momentum"):
+        check(launches[name] > 0, f"the main path launched no {name} kernel")
+    return launches
+
+
+def phase_mg_path() -> dict:
+    """configs/4.in with --method mg through the CLI, the plain smoother
+    barred; returns the kernels' launch counts.  Each V-cycle over L levels
+    smooths 2 L - 1 times, and the CLI's warm-up runs one cycle."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops import mg
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+
+    config = ROOT / "configs" / "4.in"
+    levels = mg.build_levels(Params.from_file(str(config)))
+    print(f"[mg] {len(levels)} levels: "
+          f"{' '.join('x'.join(map(str, lv.shape)) for lv in levels)}")
+
+    def barred(*_args, **_kw):
+        raise PhaseFailed("the mg path ran the plain smoother on the card")
+
+    plain = sor_kernel.warm_sweeps_plain
+    sor_kernel.warm_sweeps_plain = barred
+    try:
+        stats, launches = run_cli(
+            "mg", [str(config), "--method", "mg", "--stats"],
+            JAX_MG_U_CENTER, JAX_MG_V_CENTER, JAX_MG_STATS)
+    finally:
+        sor_kernel.warm_sweeps_plain = plain
+    cycles = int(stats["sor_iterations"])
+    smooths = (cycles + 1) * (2 * len(levels) - 1)
+    print(f"[mg] {cycles} V-cycles in {stats['steps']} steps "
+          f"({cycles / int(stats['steps']):.3f} per step); smoother calls "
+          f"expected {smooths}, kernel launches {launches['sor_warm']}")
+    check(launches["sor_warm"] == smooths,
+          "warm-start kernel launches differ from the smoother calls")
+    check(launches["momentum"] > 0, "the mg path launched no momentum kernel")
+    check(launches["sor"] == 0, "the mg path launched the SOR kernel")
     return launches
 
 
@@ -242,27 +371,99 @@ def phase_cpu_gpu(torch) -> None:
 
     prm = Params(problem=1, i_max=64, j_max=64, T=0.06, Re=100.0, tau=0.5,
                  omega=1.7, epsilon=1e-4, max_it=20000, dtype="float32")
-    runs = {}
-    for device in ("cuda", "cpu"):
+    for method in ("pallas_sor", "mg"):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            state, stats = solver.solve(prm, device=device,
+                                        pressure_method=method)
+            runs[device] = (state, stats)
+            print(f"[cpu-gpu] {method} {device}: {stats} in "
+                  f"{time.perf_counter() - t0:.3f} s")
+        (sg, tg), (sc, tc) = runs["cuda"], runs["cpu"]
+        check(tg.sor_failures == 0, f"the converging {method} cavity hit "
+                                    f"max_it")
+        check((tg.steps, tg.total_sor_iterations, tg.sor_failures)
+              == (tc.steps, tc.total_sor_iterations, tc.sor_failures),
+              f"GPU and CPU iteration counts differ ({method})")
+        errs = {name: contract_err(getattr(sg, name).cpu().numpy(),
+                                   getattr(sc, name).numpy())
+                for name in ("u", "v", "p")}
+        print(f"[cpu-gpu] {method} contract errors {errs} "
+              f"(tol {CONTRACT:.0e})")
+        check(max(errs.values()) <= CONTRACT,
+              f"GPU and CPU fields differ ({method})")
+
+
+def phase_profile(torch, trace_path) -> None:
+    """One outer pass of the mg pressure solve at configs/4.in's 2048^2
+    (f64 defect, one V-cycle, f64 defect and norm, one host sync): CUDA
+    event times of the pass and of the V-cycle alone, then a torch.profiler
+    split of one pass by device kernel, with the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops import mg, sor
+
+    prm = Params.from_file(str(ROOT / "configs" / "4.in"))
+    rng = np.random.default_rng(3)
+    rhs = np.zeros(prm.shape, np.float32)
+    inner = rng.standard_normal((prm.i_max, prm.j_max))
+    rhs[1:-1, 1:-1] = inner - inner.mean()
+    rhs = torch.from_numpy(rhs).cuda()
+    p0 = torch.zeros(prm.shape, device="cuda")
+    one_pass = prm.replace(max_it=1)
+
+    def outer_pass():
+        return sor.solve_pressure(p0, rhs, one_pass, method="mg")
+
+    def v_cycle():
+        return mg.inner_v_cycle(rhs, 1, prm)
+
+    cycle_ms = cuda_ms(torch, v_cycle, 20)
+    pass_ms = cuda_ms(torch, outer_pass, 20)
+    print(f"[profile] 2048^2, {len(mg.build_levels(prm))} levels: one "
+          f"V-cycle {cycle_ms:.4f} ms, one outer pass (V-cycle + f64 outer)"
+          f" {pass_ms:.4f} ms (CUDA events, mean of 20)")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, stats = solver.solve(prm, device=device,
-                                    pressure_method="pallas_sor")
-        runs[device] = (state, stats)
-        print(f"[cpu-gpu] {device}: {stats} in "
-              f"{time.perf_counter() - t0:.3f} s")
-    (sg, tg), (sc, tc) = runs["cuda"], runs["cpu"]
-    check(tg.sor_failures == 0, "the converging cavity hit max_it")
-    check((tg.steps, tg.total_sor_iterations, tg.sor_failures)
-          == (tc.steps, tc.total_sor_iterations, tc.sor_failures),
-          "GPU and CPU iteration counts differ")
-    errs = {name: contract_err(getattr(sg, name).cpu().numpy(),
-                               getattr(sc, name).numpy())
-            for name in ("u", "v", "p")}
-    print(f"[cpu-gpu] contract errors {errs} (tol {CONTRACT:.0e})")
-    check(max(errs.values()) <= CONTRACT, "GPU and CPU fields differ")
+        outer_pass()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if trace_path:
+        prof.export_chrome_trace(trace_path)
+        print(f"[profile] chrome trace: {trace_path}")
+
+    def device_us(evt):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(evt, name):
+                return getattr(evt, name)
+        return 0.0
+
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy_us = sum(device_us(e) for e in kernels)
+    n_launches = sum(e.count for e in kernels)
+    print(f"[profile] one outer pass under the profiler: wall "
+          f"{wall_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms (share "
+          f"{busy_us / 1e3 / wall_ms:.3f}) over {n_launches} kernel "
+          f"launches")
+    check(n_launches > 0, "the profiler saw no device kernel")
+    for e in sorted(kernels, key=device_us, reverse=True)[:15]:
+        print(f"[profile]   {device_us(e) / 1e3:9.4f} ms  {e.count:6d} x  "
+              f"{e.key[:90]}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile one 2048^2 mg outer pass")
+    ap.add_argument("--trace", default=None,
+                    help="with --profile, write its chrome trace here")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -281,17 +482,22 @@ def main() -> int:
         phase_build()
         errs = phase_compare(torch)
         times = phase_time(torch)
-        launches = phase_main_path()
+        sor_path = phase_main_path()
+        mg_path = phase_mg_path()
         phase_cpu_gpu(torch)
+        if args.profile:
+            phase_profile(torch, args.trace)
     except PhaseFailed as e:
         print(f"FAIL: {e}")
         return 1
 
-    sources = {"sor": ("sor_sweeps", "sor.cu",
-                       "navierstokes_parallel_tpu/ops/pallas/sor_kernel.py:67"),
+    launches = {key: sor_path[key] + mg_path[key] for key in sor_path}
+    tpu = "navierstokes_parallel_tpu/ops/pallas/"
+    sources = {"sor": ("sor_sweeps", "sor.cu", f"{tpu}sor_kernel.py:67"),
+               "sor_warm": ("sor_warm_sweeps", "sor.cu",
+                            f"{tpu}sor_kernel.py:67 (warm_start=True)"),
                "momentum": ("momentum_rhs", "momentum.cu",
-                            "navierstokes_parallel_tpu/ops/pallas/"
-                            "momentum_kernel.py:36")}
+                            f"{tpu}momentum_kernel.py:36")}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"navierstokes_parallel_tpu_torch/csrc/{src}",
                 "replaces": replaces, "launches": launches[key],

@@ -9,9 +9,10 @@ the reference executables (src/serial/main.c:31-158):
     a single "%.6f" float — solver seconds (main.c:153's protocol)
 
 The kernels are built and launched once before the timer starts, as the JAX
-CLI compiles before it starts its timer.  The JAX CLI's other options
-(backends, meshes, AB2, obstacles, output frames, checkpoints, history) are
-not ported yet (ROADMAP A4).
+CLI compiles before it starts its timer.  ``--max-steps N`` stops after N
+steps and exits with code 3 while t < T remains, as the JAX CLI does.  The
+JAX CLI's other options (backends, meshes, AB2, obstacles, output frames,
+checkpoints, history) are not ported yet (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -41,7 +42,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "fft"],
                     default="rb_sor",
                     help="pressure solver; rb_sor and pallas_sor both run "
-                         "the f64-refined red-black SOR (the others are not "
+                         "the f64-refined red-black SOR, mg geometric "
+                         "multigrid V-cycles and cg conjugate gradients in "
+                         "the same refinement (jacobi and fft are not "
                          "ported yet)")
     ap.add_argument("--dtype", choices=["float32", "float64"], default=None,
                     help="override dtype (default: config / float32)")
@@ -53,6 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "fallback to the CPU)")
     ap.add_argument("--stats", action="store_true",
                     help="print SOR iteration / convergence stats to stderr")
+    ap.add_argument("--max-steps", type=int, default=0,
+                    help="stop after N steps (exit code 3 if t < T remains; "
+                         "0, the default, runs to T)")
     return ap
 
 
@@ -68,6 +74,10 @@ def main(argv=None) -> int:
                   f"{args.refine_every}", file=sys.stderr)
             return 1
         overrides["sor_refine_every"] = args.refine_every
+    if args.max_steps < 0:
+        print(f"error: --max-steps must be >= 0, got {args.max_steps}",
+              file=sys.stderr)
+        return 1
     try:
         params = Params.from_file(args.param_file, **overrides)
     except (OSError, ValueError) as e:
@@ -91,7 +101,8 @@ def main(argv=None) -> int:
     state = allocate_state(params, device)
 
     start = time.perf_counter()
-    state, stats = solve(params, state, pressure_method=pressure_method)
+    state, stats = solve(params, state, pressure_method=pressure_method,
+                         max_steps=args.max_steps)
     device_fence(state)
     elapsed = time.perf_counter() - start
 
@@ -112,6 +123,9 @@ def main(argv=None) -> int:
         print("", file=sys.stderr)
 
     print(f"{elapsed:.6f}", file=sys.stderr, end="")
+    # T in the state's dtype, as solve compares it.
+    if args.max_steps and float(state.t) < float(state.t.new_tensor(params.T)):
+        return 3  # stopped by --max-steps before T
     return 0
 
 

@@ -40,6 +40,9 @@ SIGNATURES = {
     # d, rhs, ni, nj, n_sweeps, one_minus_omega, coef, dx2_inv, dy2_inv,
     # device, stream
     "nsp_sor_sweeps": (_P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    # d, p0, rhs, ni, nj, n_sweeps, one_minus_omega, coef, dx2_inv, dy2_inv,
+    # device, stream
+    "nsp_sor_warm_sweeps": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P),
     # scalars(dt, gamma), u, v, F, G, rhs, ni, nj, i_max, j_max, inv_dx,
     # inv_dy, inv_re, inv_dx2, inv_dy2, g_x, g_y, device, stream
     "nsp_momentum_rhs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,

@@ -1,4 +1,4 @@
-"""Pressure-Poisson solve: mixed-precision refinement around red-black SOR.
+"""Pressure-Poisson solve: mixed-precision refinement around an f32 inner.
 
 PyTorch counterpart of ``navierstokes_parallel_tpu/ops/sor.py`` for the main
 path.  Convergence contract (serial reference, integration.c:135,164): stop
@@ -13,7 +13,10 @@ red-black sweeps on the correction in between.  The H100 has native FP64, so
 the outer is plain PyTorch in float64; the sweeps are the hand-written
 kernel (ops/cuda/sor_kernel.py).  ``method="pallas_sor"`` and ``"rb_sor"``
 take this same route: in JAX they differ only in how the TPU lowers the
-sweeps.
+sweeps.  ``method="mg"`` and ``"cg"`` run the same outer around another
+inner stage, as the JAX package does: ``mg_cycles_per_outer`` multigrid
+V-cycles (ops/mg.py), or ``sor_refine_every`` conjugate-gradient steps; the
+solve's ``iterations`` then count V-cycles or CG steps.
 
 The loop runs on the host: each outer pass reads one scalar (the residual
 norm) back to decide whether to go on, i.e. one device sync per K sweeps.
@@ -22,11 +25,12 @@ norm) back to decide whether to go on, i.e. one device sync per K sweeps.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from ..config import Params
+from . import mg
 from .cuda import sor_kernel
 from .stencils import l2_norm
 
@@ -37,10 +41,13 @@ NORM_OFFSET = 1.5
 # ports each.
 NOT_PORTED = {
     "jacobi": "ROADMAP A5 (jacobi)",
-    "cg": "ROADMAP A5 (cg)",
-    "mg": "ROADMAP A5 (mg; its smoother is kernel B3)",
     "fft": "ROADMAP A5 (fft)",
 }
+
+# An inner stage: (rhs_full, n) -> delta, n steps of an approximate solve of
+# A delta = rhs_full from delta = 0 on the padded f32 grid (ring of rhs_full
+# is 0).
+Inner = Callable[[torch.Tensor, int], torch.Tensor]
 
 
 class SORResult(NamedTuple):
@@ -84,7 +91,7 @@ def solve_pressure(p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
         raise NotImplementedError(
             f"pressure method {method!r} is not ported yet: "
             f"{NOT_PORTED[method]}")
-    if method not in ("rb_sor", "pallas_sor"):
+    if method not in ("rb_sor", "pallas_sor", "mg", "cg"):
         raise ValueError(f"unknown pressure solver method {method!r}")
     if params.obstacles:
         raise NotImplementedError(
@@ -97,6 +104,20 @@ def solve_pressure(p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
         raise NotImplementedError(
             "outer_precision='compensated' is not ported (the H100 has "
             "native FP64): ROADMAP A9")
+    if method == "mg":
+        # mg_cycles_per_outer V-cycles per f64 defect check; iterations
+        # count V-cycles.
+        return _solve_pressure_refined(
+            p, rhs, params.replace(
+                sor_refine_every=max(1, params.mg_cycles_per_outer)),
+            inner=lambda r, n: mg.inner_v_cycle(r, n, params))
+    if method == "cg":
+        # K = sor_refine_every CG steps per outer pass (a restart each);
+        # iterations count CG steps.
+        return _solve_pressure_refined(
+            p, rhs, params.replace(
+                sor_refine_every=max(1, params.sor_refine_every)),
+            inner=_cg_inner(params))
     if method == "pallas_sor":
         return _solve_pressure_refined(
             p, rhs, params.replace(
@@ -108,14 +129,53 @@ def solve_pressure(p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
         f"(_solve_pressure_direct); use float32 with sor_refine_every >= 1")
 
 
-def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
-                            params: Params) -> SORResult:
-    """Mixed-precision iterative refinement around f32 SOR sweeps.
+def _cg_inner(params: Params) -> Inner:
+    """n f32 conjugate-gradient steps on B x = -b, B = -A (symmetric
+    positive semi-definite), from x = 0, on mg's level-0 Laplacian.  Plain
+    PyTorch: the JAX package has no kernel behind it.  Every scalar stays a
+    0-d device tensor, so the steps need no host sync."""
+    lvl = mg.build_levels(params)[0]
 
-    Outer loop (f64, once per K sweeps): defect r = A p - RHS, L2 norm,
-    convergence test against the reference threshold, p += delta.
-    Inner (f32): K red-black sweeps on A delta = -r from delta = 0.
+    def B(x):
+        return -mg._lap(mg.ghost_zero(x), lvl)
+
+    def dot(a, c):
+        return torch.sum(a[1:-1, 1:-1] * c[1:-1, 1:-1])
+
+    def inner(b: torch.Tensor, n_steps: int) -> torch.Tensor:
+        x = torch.zeros_like(b)
+        r = -b
+        d = r
+        rs = dot(r, r)
+        zero = torch.zeros_like(rs)
+        for _ in range(int(n_steps)):
+            Bd = B(d)
+            denom = dot(d, Bd)
+            alpha = torch.where(denom > 0, rs / denom, zero)
+            x = x + alpha * d
+            r = r - alpha * Bd
+            rs_new = dot(r, r)
+            beta = torch.where(rs > 0, rs_new / rs, zero)
+            d = r + beta * d
+            rs = rs_new
+        return x
+
+    return inner
+
+
+def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
+                            params: Params,
+                            inner: Optional[Inner] = None) -> SORResult:
+    """Mixed-precision iterative refinement around an f32 inner stage.
+
+    Outer loop (f64, once per K inner steps): defect r = A p - RHS, L2
+    norm, convergence test against the reference threshold, p += delta.
+    Inner (f32): `inner(-r, K)`, by default K red-black sweeps on
+    A delta = -r from delta = 0 (the SOR kernel).
     """
+    if inner is None:
+        def inner(rhs_full, n):
+            return sor_kernel.inner_sweeps(rhs_full, n, params)
     K = params.sor_refine_every
     f64, f32 = torch.float64, torch.float32
     dx2_inv = 1.0 / (params.dx * params.dx)
@@ -138,7 +198,7 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
         n_inner = min(K, params.max_it - it)
         # rhs_full's ghost ring stays 0; only its interior is rewritten.
         rhs_full[1:-1, 1:-1] = -r64.to(f32)
-        delta = sor_kernel.inner_sweeps(rhs_full, n_inner, params)
+        delta = inner(rhs_full, n_inner)
         p64[1:-1, 1:-1] += delta[1:-1, 1:-1].to(f64)
         r64 = defect()
         res_norm = float(l2_norm(r64, i_max, j_max))  # the one sync per pass

@@ -4,13 +4,14 @@ PyTorch counterpart of ``navierstokes_parallel_tpu/solver.py`` for the
 cavity problems (1 and 2).  One time step (reference main.c:86-146):
 
     adaptive CFL dt  ->  velocity BCs  ->  tentative F/G  ->  Poisson RHS
-    ->  red-black SOR pressure solve  ->  velocity projection
+    ->  pressure solve (SOR, multigrid or CG)  ->  velocity projection
 
 On an f32 CUDA state F, G and the RHS come from the hand-written momentum
-kernel and the sweeps from the SOR kernel; elsewhere the plain PyTorch
-formulations run.  ``solve`` is a host loop ``while t < T``: PyTorch runs
-eagerly, so the JAX package's on-device ``lax.while_loop`` becomes one
-scalar read of ``t`` per step.
+kernel, the SOR sweeps from the SOR kernel and the multigrid smoothing from
+the warm-start kernel; elsewhere the plain PyTorch formulations run.
+``solve`` is a host loop ``while t < T``: PyTorch runs eagerly, so the JAX
+package's on-device ``lax.while_loop`` becomes one scalar read of ``t`` per
+step.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from .utils.timing import device_fence
 
 class StepDiagnostics(NamedTuple):
     dt: torch.Tensor      # time step taken (0-d, on the state's device)
-    sor_iterations: int   # SOR sweeps in this step
+    sor_iterations: int   # SOR sweeps (mg: V-cycles, cg: CG steps)
     sor_res_norm: float   # final SOR residual norm
     sor_converged: bool   # SOR met tolerance (the reference ignores it)
 
@@ -73,9 +74,10 @@ def step(state: State, params: Params, *,
 
 
 def solve(params: Params, state: Optional[State] = None, *,
-          device=None, pressure_method: str = "rb_sor"
+          device=None, pressure_method: str = "rb_sor", max_steps: int = 0
           ) -> Tuple[State, SolveStats]:
-    """Integrate from `state` (or zeros on `device`) to t >= T."""
+    """Integrate from `state` (or zeros on `device`) to t >= T, or stop
+    after `max_steps` steps when it is > 0."""
     if state is None:
         if device is None:
             raise ValueError("solve needs a state or a device")
@@ -86,7 +88,7 @@ def solve(params: Params, state: Optional[State] = None, *,
     T = torch.full((), params.T, dtype=state.t.dtype, device=state.t.device)
     steps = iters = failures = 0
     last = 0.0
-    while bool(state.t < T):
+    while not 0 < max_steps <= steps and bool(state.t < T):
         state, diag = step(state, params, pressure_method=pressure_method)
         steps += 1
         iters += diag.sor_iterations

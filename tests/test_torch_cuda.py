@@ -1,5 +1,6 @@
 """The CUDA side of the port: the build, the wrappers' checks, and (on a
-machine with an NVIDIA GPU) each kernel against its plain PyTorch version.
+machine with an NVIDIA GPU) each kernel against its plain PyTorch version
+and the GPU solves against the CPU ones.
 
 The tests marked ``gpu`` need the card and skip without one; run them on
 the GPU machine with (tests/conftest.py imports jax, which that machine
@@ -126,6 +127,28 @@ def test_sor_checks_before_launch(bad):
     sor_kernel.check_inputs(_rhs(prm), 4, prm)  # the good case passes
 
 
+@pytest.mark.parametrize("bad", ["float64", "shape", "strided", "negative",
+                                 "1d", "device"])
+def test_warm_checks_before_launch(bad):
+    prm = _params(10, 6)
+    p, rhs, n = _rhs(prm, seed=1), _rhs(prm), 2
+    if bad == "float64":
+        p = p.double()
+    elif bad == "shape":
+        rhs = rhs[:, :-1].contiguous()
+    elif bad == "strided":
+        p = torch.zeros(prm.shape[1], prm.shape[0]).t()
+    elif bad == "negative":
+        n = -1
+    elif bad == "1d":
+        p, rhs = p.flatten(), rhs.flatten()
+    else:
+        p = p.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        sor_kernel.check_warm_inputs(p, rhs, n)
+    sor_kernel.check_warm_inputs(_rhs(prm, seed=1), _rhs(prm), 2)
+
+
 @pytest.mark.parametrize("bad", ["float64", "shape", "strided"])
 def test_momentum_checks_before_launch(bad):
     prm = _params(10, 6)
@@ -148,6 +171,8 @@ def test_wrappers_raise_on_other_devices():
     meta = torch.zeros(prm.shape, device="meta")
     with pytest.raises(ValueError, match="no SOR kernel"):
         sor_kernel.inner_sweeps(meta, 2, prm)
+    with pytest.raises(ValueError, match="no SOR kernel"):
+        sor_kernel.warm_sweeps(meta, meta, 2, 1.0, 4.0, 4.0)
     with pytest.raises(ValueError, match="no momentum kernel"):
         momentum_kernel.momentum_rhs(meta, meta, 0.1, 0.1, prm)
 
@@ -175,6 +200,27 @@ def test_sor_kernel_matches_plain(cuda, shape, n):
     assert sor_kernel.LAUNCHES == before + 1
     scale = max(float(want.abs().max()), 1e-30)
     assert float((got - want).abs().max()) / scale <= KERNEL_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 2, 32])
+@pytest.mark.parametrize("omega", [1.0, 1.7])
+@pytest.mark.parametrize("shape", [(2050, 2050), (10, 10), (99, 63)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_warm_kernel_matches_plain(cuda, shape, omega, n):
+    """Bit for bit, from a random p0 whose ghost ring is not 0."""
+    rng = np.random.default_rng(n)
+    p = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    rhs = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    p, rhs = p.to(cuda), rhs.to(cuda)
+    dx2, dy2 = 0.9 * shape[0] ** 2, 1.3 * shape[1] ** 2
+    before = sor_kernel.WARM_LAUNCHES
+    got = sor_kernel.warm_sweeps(p, rhs, n, omega, dx2, dy2)
+    want = sor_kernel.warm_sweeps_plain(p, rhs, n, omega, dx2, dy2)
+    torch.cuda.synchronize()
+    assert sor_kernel.WARM_LAUNCHES == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got[0], p[0]) and torch.equal(got[:, -1], p[:, -1])
 
 
 @pytest.mark.gpu
@@ -214,6 +260,34 @@ def test_gpu_solve_matches_cpu_solve(cuda):
     gs, gstats = solver.solve(prm, device=cuda, pressure_method="pallas_sor")
     assert sor_kernel.LAUNCHES > 0 and momentum_kernel.LAUNCHES == gstats.steps
     cs, cstats = solver.solve(prm, device="cpu", pressure_method="pallas_sor")
+    assert gstats[:3] == cstats[:3] and gstats.sor_failures == 0
+    for name in ("u", "v", "p"):
+        g = getattr(gs, name).cpu().numpy()
+        c = getattr(cs, name).numpy()
+        assert np.max(np.abs(g - c)) <= 1e-4 * max(1.0, np.max(np.abs(c)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["mg", "cg"])
+def test_gpu_mg_cg_solve_matches_cpu_solve(cuda, method):
+    """The multigrid (warm-start kernel on every level) and CG paths on the
+    card and on the CPU: equal counts, fields within the 1e-4 contract; mg
+    launches the smoother 2 L - 1 times per V-cycle and never the SOR
+    kernel."""
+    from navierstokes_parallel_tpu_torch.ops import mg
+
+    prm = Params(i_max=64, j_max=64, T=0.06, Re=100.0, tau=0.5,
+                 max_it=2000)
+    sor_kernel.LAUNCHES = sor_kernel.WARM_LAUNCHES = 0
+    gs, gstats = solver.solve(prm, device=cuda, pressure_method=method)
+    if method == "mg":
+        per_cycle = 2 * len(mg.build_levels(prm)) - 1
+        assert sor_kernel.WARM_LAUNCHES == (
+            per_cycle * gstats.total_sor_iterations)
+    else:
+        assert sor_kernel.WARM_LAUNCHES == 0
+    assert sor_kernel.LAUNCHES == 0
+    cs, cstats = solver.solve(prm, device="cpu", pressure_method=method)
     assert gstats[:3] == cstats[:3] and gstats.sor_failures == 0
     for name in ("u", "v", "p"):
         g = getattr(gs, name).cpu().numpy()

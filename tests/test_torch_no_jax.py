@@ -1,7 +1,8 @@
 """The port must run without JAX: the machine with the GPU has none.
 
 A subprocess blocks every ``jax`` import with a ``sys.meta_path`` finder
-that raises, imports every module of the port and runs one CPU time step.
+that raises, imports every module of the port and runs one CPU time step
+with each ported pressure method (SOR, multigrid, CG).
 """
 
 import os
@@ -29,6 +30,10 @@ SCRIPT = textwrap.dedent("""
     prm = Params(i_max=8, j_max=8, T=0.01, Re=100.0, tau=0.5, max_it=200)
     state, diag = step(allocate_state(prm, "cpu"), prm)
     assert state.n == 1 and diag.sor_iterations > 0, diag
+    for method in ("mg", "cg"):  # ops/mg.py: the V-cycle and CG's Laplacian
+        _, d = step(allocate_state(prm, "cpu"), prm, pressure_method=method)
+        assert d.sor_iterations > 0 and d.sor_converged, (method, d)
+    assert "navierstokes_parallel_tpu_torch.ops.mg" in sys.modules
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
     print("OK", diag.sor_iterations)
 """)

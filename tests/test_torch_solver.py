@@ -178,7 +178,7 @@ def test_cli_refine_every_and_dtype(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--device", "cpu", "--method", "mg"], "not ported"),
+    (["--device", "cpu", "--method", "jacobi"], "not ported"),
     (["--device", "cpu", "--refine-every", "0"], "refine-every"),
     (["--device", "cuda"], "CUDA"),
 ])
