@@ -3,24 +3,34 @@
 
     python3 chip_smoke.py        # from the root of a checkout
 
-    python3 chip_smoke.py --profile   # also a torch.profiler split of
-                                      # one 2048^2 V-cycle
+    python3 chip_smoke.py --profile   # also a torch.profiler split of one
+                                      # 2048^2 outer pass, mg and SOR
 
 Builds the hand-written CUDA kernels from csrc/, holds each against its
-plain PyTorch version on the card, times both, drives the two main paths
-through ``cli.main`` and checks each answer against the JAX package's
-recorded answer:
+plain PyTorch version (and each SOR sweep kernel against the whole-grid
+one) on the card, times them, drives the paths and checks each answer
+against the JAX package's recorded answer:
 
   * SOR: ``python -m navierstokes_parallel_tpu_torch configs/1.in --stats``
-    (kernels sor_sweeps and momentum_rhs);
-  * multigrid: ``... configs/4.in --method mg --stats``, the 2048^2 cavity
-    (kernels sor_warm_sweeps, the smoother of every level, and
-    momentum_rhs), with the plain smoother barred from running;
+    through ``cli.main`` (kernels sor_sweeps and momentum_rhs);
+  * multigrid: ``... configs/4.in --method mg --stats`` through
+    ``cli.main``, the 2048^2 cavity (kernels sor_warm_sweeps, the smoother
+    of every level, and momentum_rhs), with the plain smoother barred;
+  * tiled SOR: ``... configs/4.in --max-steps 2 --stats`` through
+    ``cli.main``, the default method on the 2048^2 cavity, which routes the
+    sweeps to the temporal-blocked kernel sor_tiled_sweeps, with the
+    whole-grid kernel and the plain sweeps barred; then the same 2 steps
+    through ``solver.solve`` on the tiled and the whole-grid route, which
+    must give the same fields bit for bit;
+  * compressed SOR: configs/1.in through ``solver.solve`` with
+    ``sor_kernel.USE_COMPRESSED`` (kernel sor_compressed_sweeps), the
+    whole-grid kernel barred; it must give the JAX record exactly and the
+    whole-grid route's fields bit for bit;
 
 then runs small converging cavities (SOR and mg) on the GPU and on the CPU
 and compares them.  Each path runs with the launch counts set to 0 just
 before it and read just after; the JSON record's ``launches`` sums a
-kernel's counts over the two paths.  Any failed phase prints ``FAIL: ...``
+kernel's counts over the paths.  Each phase prints its seconds.  Any failed phase prints ``FAIL: ...``
 and exits 1 before the last line; on success the last two lines are the
 kernels' JSON record and ``{"ok": true, "device": {...}}``.  Imports nothing
 of JAX.
@@ -59,6 +69,21 @@ JAX_STATS = {"steps": 3, "sor_iterations": 60000, "sor_failures": 3}
 JAX_MG_U_CENTER = -0.002993
 JAX_MG_V_CENTER = 0.000003
 JAX_MG_STATS = {"steps": 168, "sor_iterations": 673, "sor_failures": 0}
+# The JAX package's answer on configs/4.in with its default method (the SOR
+# route; on the TPU the strip-tiled kernel, on the CPU _roll_sweeps_xla, the
+# same sweeps), stopped after 2 steps, recorded with
+#   JAX_PLATFORMS=cpu python -m navierstokes_parallel_tpu configs/4.in \
+#       --backend pallas --max-steps 2 --stats
+# which printed U-CENTER: -0.000006, V-CENTER: 0.000000 and
+# steps=2 sor_iterations=40000 sor_failures=2 last_res_norm=1.075e+02
+# (both steps run into max_it).
+TILED_STEPS = 2
+JAX_TILED_U_CENTER = -0.000006
+JAX_TILED_V_CENTER = 0.000000
+JAX_TILED_STATS = {"steps": 2, "sor_iterations": 40000, "sor_failures": 2}
+# Its last residual norm, printed to 4 digits; held to 2e-3 relative.
+JAX_TILED_RES_NORM = 1.075e2
+RES_NORM_RTOL = 2e-3
 # The reference comparator's contract: 1e-4, absolute where |x| <= 1,
 # relative above (tests/conftest.py::assert_close_reference_contract).
 CONTRACT = 1e-4
@@ -73,6 +98,9 @@ MG_SWEEPS = 2    # one multigrid smoother call (V(2,2)); 32 on the coarsest
 # configs/4.in's finest multigrid level: 2048^2 cells, padded, 1/dx^2.
 MG_FINE_SHAPE = (2050, 2050)
 MG_FINE_DX2_INV = 2048.0 ** 2
+# The tiled kernel's tile heights held against the plain twin: the default
+# (64) and 256 (221,184 B of shared memory, near the 232,448 B limit).
+TILE_SIZES = (64, 256)
 
 
 class PhaseFailed(Exception):
@@ -91,6 +119,33 @@ def contract_err(a, b) -> float:
     denom = np.maximum(np.abs(a), np.abs(b))
     rel = np.abs(a - b) / np.where(denom == 0, 1.0, denom)
     return float(np.max(np.where(big, rel, np.abs(a - b))))
+
+
+@contextlib.contextmanager
+def barred(module, names, where: str):
+    """Replace module.<name> for each name by a function that fails the
+    phase, for the duration of the block."""
+    saved = {name: getattr(module, name) for name in names}
+
+    def refusal(name):
+        def refuse(*_args, **_kw):
+            raise PhaseFailed(f"{where} ran {name}")
+        return refuse
+
+    for name in names:
+        setattr(module, name, refusal(name))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def timed_phase(name: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[phase] {name}: {time.perf_counter() - t0:.3f} s")
+    return out
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -135,14 +190,16 @@ def phase_build():
 
 
 def phase_compare(torch) -> dict:
-    """Each kernel against its plain version at the main path's shape and
-    at an odd non-square one; returns the max abs error per kernel."""
+    """Each kernel against its plain version at its paths' shapes and at an
+    odd non-square one, the tiled and compressed SOR kernels also against
+    the whole-grid one; returns the max abs error per kernel."""
     from navierstokes_parallel_tpu_torch.config import Params
     from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
                                                           sor_kernel)
 
     rng = np.random.default_rng(0)
-    errs = {"sor": 0.0, "momentum": 0.0, "sor_warm": 0.0}
+    errs = {"sor": 0.0, "momentum": 0.0, "sor_warm": 0.0, "sor_tiled": 0.0,
+            "sor_compressed": 0.0}
     for i_max, j_max in ((256, 256), (97, 61)):
         prm = Params(i_max=i_max, j_max=j_max, a=1.0, b=0.7, Re=1000.0,
                      g_x=0.1, g_y=-0.2, omega=1.7)
@@ -203,13 +260,53 @@ def phase_compare(torch) -> dict:
             check(err == 0.0 and ring_kept,
                   f"warm-start kernel disagrees at {shape}, omega={omega}")
             errs["sor_warm"] = max(errs["sor_warm"], err)
+
+    # The tiled kernel at the SOR paths' 258^2 and 2050^2 and at 99 x 63,
+    # over one sweep, one chunk, the path's 64 and 20 (a short last chunk),
+    # at two tile heights; the compressed kernel at 258^2 and 98 x 64.
+    # Both must equal their plain twins and the whole-grid kernel bit for
+    # bit.
+    cases = [("sor_tiled", (i_max, j_max), n, tile)
+             for i_max, j_max in ((256, 256), (2048, 2048), (97, 61))
+             for n in (1, sor_kernel.SWEEPS_PER_CHUNK, SOR_SWEEPS, 20)
+             for tile in TILE_SIZES]
+    cases += [("sor_compressed", shape, SOR_SWEEPS, None)
+              for shape in ((256, 256), (96, 62))]
+    for key, (i_max, j_max), n, tile in cases:
+        prm = Params(i_max=i_max, j_max=j_max, a=1.0, b=0.7, Re=1000.0,
+                     omega=1.7)
+        rhs = np.zeros(prm.shape, np.float32)
+        rhs[1:-1, 1:-1] = rng.standard_normal((i_max, j_max))
+        rhs_d = torch.from_numpy(rhs).cuda()
+        if key == "sor_tiled":
+            got = sor_kernel.inner_sweeps_tiled(rhs_d, n, prm, tile_rows=tile)
+            want = sor_kernel.inner_sweeps_tiled_plain(rhs_d, n, prm,
+                                                       tile_rows=tile)
+        else:
+            got = sor_kernel.inner_sweeps_compressed(rhs_d, n, prm)
+            want = sor_kernel.inner_sweeps_compressed_plain(rhs_d, n, prm)
+        whole = sor_kernel.whole_grid_sweeps(rhs_d, n, prm)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        same = torch.equal(got, whole)
+        print(f"[compare] {key} {prm.shape} n={n}"
+              f"{'' if tile is None else f' tile={tile}'}: max abs err "
+              f"{err:.3e}, rel {rel:.3e} (expected 0), equals sor_sweeps "
+              f"{same}")
+        check(err == 0.0 and same, f"{key} kernel disagrees at {prm.shape}, "
+                                   f"n={n}, tile={tile}")
+        errs[key] = max(errs[key], err)
     return errs
 
 
 def phase_time(torch) -> dict:
-    """Kernel and plain times at the SOR main path's 258^2 padded grid and
-    (the smoother) at the mg path's finest 2050^2 level, in turns (plain,
-    kernel, kernel, plain)."""
+    """Kernel and plain times at the SOR main path's 258^2 padded grid, (the
+    smoother) at the mg path's finest 2050^2 level and (the tiled kernel) at
+    the tiled path's 2050^2, in turns (plain, kernel, kernel, plain); the
+    tiled and compressed kernels with the whole-grid sor_sweeps beside them
+    (plain, kernel, sor_sweeps, sor_sweeps, kernel, plain).  Returns
+    (kernel ms, plain ms) per kernel: the tiled kernel's at 2050^2."""
     from navierstokes_parallel_tpu_torch.config import Params
     from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
                                                           sor_kernel)
@@ -230,6 +327,10 @@ def phase_time(torch) -> dict:
         rng.standard_normal(MG_FINE_SHAPE).astype(np.float32)).cuda()
     warm_args = (p_fine, rhs_fine, MG_SWEEPS, 1.0, MG_FINE_DX2_INV,
                  MG_FINE_DX2_INV)
+    prm4 = Params.from_file(str(ROOT / "configs" / "4.in"))
+    rhs4 = np.zeros(prm4.shape, np.float32)
+    rhs4[1:-1, 1:-1] = rng.standard_normal((prm4.i_max, prm4.j_max))
+    rhs4 = torch.from_numpy(rhs4).cuda()
 
     cases = {
         "sor": (lambda: sor_kernel.inner_sweeps(rhs, SOR_SWEEPS, prm),
@@ -258,6 +359,38 @@ def phase_time(torch) -> dict:
             shape, per = MG_FINE_SHAPE, f" ({MG_SWEEPS} sweeps, omega=1)"
         print(f"[time] {name} at {shape}{per}: kernel {k1:.4f} / "
               f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms per call")
+
+    # The tiled kernel at 258^2 and 2050^2 and the compressed one at 258^2,
+    # each beside its plain twin and the whole-grid kernel, 64 sweeps.
+    side_by_side = [
+        ("sor_tiled", prm, rhs, sor_kernel.inner_sweeps_tiled,
+         sor_kernel.inner_sweeps_tiled_plain, 10),
+        ("sor_tiled", prm4, rhs4, sor_kernel.inner_sweeps_tiled,
+         sor_kernel.inner_sweeps_tiled_plain, 2),
+        ("sor_compressed", prm, rhs, sor_kernel.inner_sweeps_compressed,
+         sor_kernel.inner_sweeps_compressed_plain, 3)]
+    for name, p_, r_, kernel, plain, p_reps in side_by_side:
+        def run(fn, p_=p_, r_=r_):
+            return lambda: fn(r_, SOR_SWEEPS, p_)
+        p1 = cuda_ms(torch, run(plain), p_reps)
+        k1 = cuda_ms(torch, run(kernel), 20)
+        b1 = cuda_ms(torch, run(sor_kernel.whole_grid_sweeps), 20)
+        b2 = cuda_ms(torch, run(sor_kernel.whole_grid_sweeps), 20)
+        k2 = cuda_ms(torch, run(kernel), 20)
+        p2 = cuda_ms(torch, run(plain), p_reps)
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"[time] {name} at {p_.shape} ({SOR_SWEEPS} sweeps): kernel "
+              f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
+              f"sor_sweeps {b1:.4f} / {b2:.4f} ms per call; per sweep "
+              f"kernel {(k1 + k2) / 2 * 1e3 / SOR_SWEEPS:.3f} us, "
+              f"sor_sweeps {(b1 + b2) / 2 * 1e3 / SOR_SWEEPS:.3f} us")
+    for tile in TILE_SIZES[1:]:
+        def tiled(tile=tile):
+            return sor_kernel.inner_sweeps_tiled(rhs4, SOR_SWEEPS, prm4,
+                                                 tile_rows=tile)
+        t1, t2 = cuda_ms(torch, tiled, 20), cuda_ms(torch, tiled, 20)
+        print(f"[time] sor_tiled at {prm4.shape} tile={tile} ({SOR_SWEEPS} "
+              f"sweeps): kernel {t1:.4f} / {t2:.4f} ms per call")
     k_ms, p_ms = times["sor"]
     print(f"[time] sor per sweep: kernel {k_ms * 1e3 / SOR_SWEEPS:.3f} us, "
           f"plain {p_ms * 1e3 / SOR_SWEEPS:.3f} us")
@@ -275,6 +408,7 @@ def reset_launches() -> None:
                                                           sor_kernel)
 
     sor_kernel.LAUNCHES = sor_kernel.WARM_LAUNCHES = 0
+    sor_kernel.TILED_LAUNCHES = sor_kernel.COMPRESSED_LAUNCHES = 0
     momentum_kernel.LAUNCHES = 0
 
 
@@ -283,13 +417,25 @@ def read_launches() -> dict:
                                                           sor_kernel)
 
     return {"sor": sor_kernel.LAUNCHES, "sor_warm": sor_kernel.WARM_LAUNCHES,
-            "momentum": momentum_kernel.LAUNCHES}
+            "momentum": momentum_kernel.LAUNCHES,
+            "sor_tiled": sor_kernel.TILED_LAUNCHES,
+            "sor_compressed": sor_kernel.COMPRESSED_LAUNCHES}
+
+
+def check_only(launches: dict, kernels, where: str) -> None:
+    """Every kernel in `kernels` ran in the path and no other SOR kernel."""
+    for name in kernels:
+        check(launches[name] > 0, f"{where} launched no {name} kernel")
+    for name in ("sor", "sor_warm", "sor_tiled", "sor_compressed"):
+        if name not in kernels:
+            check(launches[name] == 0, f"{where} launched the {name} kernel")
 
 
 def run_cli(tag: str, argv: list, u_want: float, v_want: float,
-            stats_want: dict):
+            stats_want: dict, rc_want: int = 0):
     """One CLI run, its answer held to a JAX record; returns its stats line
-    as a dict and the kernels' launch counts in that run."""
+    as a dict and the kernels' launch counts in that run.  A run stopped by
+    --max-steps before T exits with rc_want = 3."""
     from navierstokes_parallel_tpu_torch import cli
 
     out, err = io.StringIO(), io.StringIO()
@@ -299,7 +445,7 @@ def run_cli(tag: str, argv: list, u_want: float, v_want: float,
     launches = read_launches()
     print(f"[{tag}] stdout:", out.getvalue().strip().replace("\n", " | "))
     print(f"[{tag}] stderr:", err.getvalue().strip().replace("\n", " | "))
-    check(rc == 0, f"cli.main returned {rc}")
+    check(rc == rc_want, f"cli.main returned {rc}, expected {rc_want}")
     lines = out.getvalue().splitlines()
     uc = float(lines[0].split()[1])
     vc = float(lines[1].split()[1])
@@ -322,8 +468,7 @@ def phase_main_path() -> dict:
     """configs/1.in through the CLI; returns the kernels' launch counts."""
     _, launches = run_cli("main", [str(ROOT / "configs" / "1.in"), "--stats"],
                           JAX_U_CENTER, JAX_V_CENTER, JAX_STATS)
-    for name in ("sor", "momentum"):
-        check(launches[name] > 0, f"the main path launched no {name} kernel")
+    check_only(launches, ("sor", "momentum"), "the main path")
     return launches
 
 
@@ -340,17 +485,10 @@ def phase_mg_path() -> dict:
     print(f"[mg] {len(levels)} levels: "
           f"{' '.join('x'.join(map(str, lv.shape)) for lv in levels)}")
 
-    def barred(*_args, **_kw):
-        raise PhaseFailed("the mg path ran the plain smoother on the card")
-
-    plain = sor_kernel.warm_sweeps_plain
-    sor_kernel.warm_sweeps_plain = barred
-    try:
+    with barred(sor_kernel, ("warm_sweeps_plain",), "the mg path"):
         stats, launches = run_cli(
             "mg", [str(config), "--method", "mg", "--stats"],
             JAX_MG_U_CENTER, JAX_MG_V_CENTER, JAX_MG_STATS)
-    finally:
-        sor_kernel.warm_sweeps_plain = plain
     cycles = int(stats["sor_iterations"])
     smooths = (cycles + 1) * (2 * len(levels) - 1)
     print(f"[mg] {cycles} V-cycles in {stats['steps']} steps "
@@ -358,8 +496,117 @@ def phase_mg_path() -> dict:
           f"expected {smooths}, kernel launches {launches['sor_warm']}")
     check(launches["sor_warm"] == smooths,
           "warm-start kernel launches differ from the smoother calls")
-    check(launches["momentum"] > 0, "the mg path launched no momentum kernel")
-    check(launches["sor"] == 0, "the mg path launched the SOR kernel")
+    check_only(launches, ("sor_warm", "momentum"), "the mg path")
+    return launches
+
+
+def solve_on_card(torch, tag, prm, **kw):
+    """solver.solve on the card with the launch counts from 0; returns the
+    state, its stats and the counts."""
+    from navierstokes_parallel_tpu_torch import solver
+
+    reset_launches()
+    t0 = time.perf_counter()
+    state, stats = solver.solve(prm, device="cuda",
+                                pressure_method="pallas_sor", **kw)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"[{tag}] {stats} in {time.perf_counter() - t0:.3f} s; launches "
+          f"{launches}")
+    return state, stats, launches
+
+
+def check_same_fields(a, b, what: str) -> None:
+    same = {name: bool(getattr(a, name).equal(getattr(b, name)))
+            for name in ("u", "v", "p")}
+    print(f"[{what}] fields equal bit for bit: {same}")
+    check(all(same.values()), f"{what}: the fields differ")
+
+
+def phase_tiled_path(torch) -> dict:
+    """configs/4.in --max-steps 2 through the CLI with the default method:
+    the sweeps take the tiled kernel, with the whole-grid kernel and the
+    plain sweeps barred.  One inner call per outer pass of K = 64 sweeps
+    plus one for the CLI's warm-up.  Then the same steps through
+    solver.solve on the tiled and the whole-grid route: the same fields,
+    bit for bit.  Returns the CLI run's launch counts."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+
+    config = ROOT / "configs" / "4.in"
+    prm = Params.from_file(str(config))
+    check(sor_kernel.route(prm) == "tiled",
+          f"configs/4.in routes to {sor_kernel.route(prm)}, not tiled")
+    plain = ("inner_sweeps_plain", "inner_sweeps_tiled_plain",
+             "whole_grid_sweeps")
+    with barred(sor_kernel, plain, "the tiled path"):
+        stats, launches = run_cli(
+            "tiled", [str(config), "--max-steps", str(TILED_STEPS), "--stats"],
+            JAX_TILED_U_CENTER, JAX_TILED_V_CENTER, JAX_TILED_STATS,
+            rc_want=3)
+    res = float(stats["last_res_norm"])
+    print(f"[tiled] last_res_norm {res:.4e} vs JAX {JAX_TILED_RES_NORM:.4e}")
+    check(abs(res - JAX_TILED_RES_NORM) <= RES_NORM_RTOL * JAX_TILED_RES_NORM,
+          "last_res_norm differs from the JAX record")
+    # Every step ran into max_it: ceil(max_it / K) outer passes each.
+    passes = TILED_STEPS * -(-prm.max_it // prm.sor_refine_every)
+    print(f"[tiled] tiled kernel calls expected {passes} + 1 warm-up, "
+          f"launched {launches['sor_tiled']}")
+    check(launches["sor_tiled"] == passes + 1,
+          "tiled kernel launches differ from the outer passes")
+    check_only(launches, ("sor_tiled", "momentum"), "the tiled path")
+
+    with barred(sor_kernel, plain, "the tiled solve"):
+        tiled, tstats, tl = solve_on_card(torch, "tiled", prm,
+                                          max_steps=TILED_STEPS)
+    sor_kernel.PREFER_TILED = False
+    try:
+        whole, wstats, wl = solve_on_card(torch, "tiled/sor_sweeps", prm,
+                                          max_steps=TILED_STEPS)
+    finally:
+        sor_kernel.PREFER_TILED = None
+    check(tstats == wstats, "the tiled and whole-grid solves' stats differ")
+    check(tl["sor_tiled"] == wl["sor"] == passes,
+          "the solves' kernel calls differ from the outer passes")
+    check_same_fields(tiled, whole, "tiled vs sor_sweeps")
+    return launches
+
+
+def phase_compressed_path(torch) -> dict:
+    """configs/1.in through solver.solve on the colour-compressed kernel,
+    the whole-grid kernel and the plain sweeps barred: the JAX record
+    exactly, one kernel call per outer pass, and the whole-grid route's
+    fields bit for bit.  Returns its launch counts."""
+    from navierstokes_parallel_tpu_torch import solver
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+
+    prm = Params.from_file(str(ROOT / "configs" / "1.in"))
+    sor_kernel.USE_COMPRESSED = True
+    try:
+        check(sor_kernel.route(prm) == "compressed",
+              f"configs/1.in routes to {sor_kernel.route(prm)}")
+        with barred(sor_kernel, ("inner_sweeps_plain",
+                                 "inner_sweeps_compressed_plain",
+                                 "whole_grid_sweeps"), "the compressed path"):
+            state, stats, launches = solve_on_card(torch, "compressed", prm)
+    finally:
+        sor_kernel.USE_COMPRESSED = False
+    uc, vc = solver.center_values(state, prm)
+    got = (stats.steps, stats.total_sor_iterations, stats.sor_failures,
+           f"{uc:.6f}", f"{vc:.6f}")
+    want = (*JAX_STATS.values(), f"{JAX_U_CENTER:.6f}", f"{JAX_V_CENTER:.6f}")
+    print(f"[compressed] steps, sweeps, failures, U/V-CENTER {got}; JAX "
+          f"{want}")
+    check(got == want, "the compressed path differs from the JAX record")
+    passes = stats.steps * -(-prm.max_it // prm.sor_refine_every)
+    check(launches["sor_compressed"] == passes,
+          f"compressed kernel calls {launches['sor_compressed']}, expected "
+          f"{passes}")
+    check_only(launches, ("sor_compressed", "momentum"), "the compressed path")
+    whole, wstats, _ = solve_on_card(torch, "compressed/sor_sweeps", prm)
+    check(stats == wstats, "the compressed and whole-grid solves differ")
+    check_same_fields(state, whole, "compressed vs sor_sweeps")
     return launches
 
 
@@ -395,16 +642,19 @@ def phase_cpu_gpu(torch) -> None:
               f"GPU and CPU fields differ ({method})")
 
 
-def phase_profile(torch, trace_path) -> None:
-    """One outer pass of the mg pressure solve at configs/4.in's 2048^2
-    (f64 defect, one V-cycle, f64 defect and norm, one host sync): CUDA
-    event times of the pass and of the V-cycle alone, then a torch.profiler
-    split of one pass by device kernel, with the device's busy share."""
+def phase_profile(torch, trace_prefix) -> None:
+    """One outer pass of the pressure solve at configs/4.in's 2048^2, for
+    mg (f64 defect, one V-cycle, f64 defect and norm, one host sync) and for
+    the SOR route (the same around K = 64 sweeps of the tiled kernel): CUDA
+    event times of the pass and of its inner stage alone, then a
+    torch.profiler split of one pass by device kernel, with the device's
+    busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from navierstokes_parallel_tpu_torch.config import Params
     from navierstokes_parallel_tpu_torch.ops import mg, sor
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
 
     prm = Params.from_file(str(ROOT / "configs" / "4.in"))
     rng = np.random.default_rng(3)
@@ -413,29 +663,13 @@ def phase_profile(torch, trace_path) -> None:
     rhs[1:-1, 1:-1] = inner - inner.mean()
     rhs = torch.from_numpy(rhs).cuda()
     p0 = torch.zeros(prm.shape, device="cuda")
-    one_pass = prm.replace(max_it=1)
-
-    def outer_pass():
-        return sor.solve_pressure(p0, rhs, one_pass, method="mg")
-
-    def v_cycle():
-        return mg.inner_v_cycle(rhs, 1, prm)
-
-    cycle_ms = cuda_ms(torch, v_cycle, 20)
-    pass_ms = cuda_ms(torch, outer_pass, 20)
-    print(f"[profile] 2048^2, {len(mg.build_levels(prm))} levels: one "
-          f"V-cycle {cycle_ms:.4f} ms, one outer pass (V-cycle + f64 outer)"
-          f" {pass_ms:.4f} ms (CUDA events, mean of 20)")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        outer_pass()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    if trace_path:
-        prof.export_chrome_trace(trace_path)
-        print(f"[profile] chrome trace: {trace_path}")
+    K = prm.sor_refine_every
+    cases = [("mg", prm.replace(max_it=1),
+              f"one V-cycle on {len(mg.build_levels(prm))} levels",
+              lambda: mg.inner_v_cycle(rhs, 1, prm)),
+             ("pallas_sor", prm.replace(max_it=K),
+              f"{K} sweeps on the {sor_kernel.route(prm)} route",
+              lambda: sor_kernel.inner_sweeps(rhs, K, prm))]
 
     def device_us(evt):
         for name in ("self_device_time_total", "self_cuda_time_total"):
@@ -443,26 +677,48 @@ def phase_profile(torch, trace_path) -> None:
                 return getattr(evt, name)
         return 0.0
 
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
-    busy_us = sum(device_us(e) for e in kernels)
-    n_launches = sum(e.count for e in kernels)
-    print(f"[profile] one outer pass under the profiler: wall "
-          f"{wall_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms (share "
-          f"{busy_us / 1e3 / wall_ms:.3f}) over {n_launches} kernel "
-          f"launches")
-    check(n_launches > 0, "the profiler saw no device kernel")
-    for e in sorted(kernels, key=device_us, reverse=True)[:15]:
-        print(f"[profile]   {device_us(e) / 1e3:9.4f} ms  {e.count:6d} x  "
-              f"{e.key[:90]}")
+    for method, one_pass, what, inner_stage in cases:
+        def outer_pass(one_pass=one_pass, method=method):
+            return sor.solve_pressure(p0, rhs, one_pass, method=method)
+
+        inner_ms = cuda_ms(torch, inner_stage, 20)
+        pass_ms = cuda_ms(torch, outer_pass, 20)
+        print(f"[profile] {method} at 2048^2: {what} {inner_ms:.4f} ms, one "
+              f"outer pass (inner + f64 outer) {pass_ms:.4f} ms (CUDA "
+              f"events, mean of 20)")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            outer_pass()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if trace_prefix:
+            path = f"{trace_prefix}.{method}.json"
+            prof.export_chrome_trace(path)
+            print(f"[profile] chrome trace: {path}")
+        kernels = [e for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA]
+        busy_us = sum(device_us(e) for e in kernels)
+        n_launches = sum(e.count for e in kernels)
+        print(f"[profile] {method}: one outer pass under the profiler: wall "
+              f"{wall_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms (share "
+              f"{busy_us / 1e3 / wall_ms:.3f}) over {n_launches} kernel "
+              f"launches")
+        check(n_launches > 0, "the profiler saw no device kernel")
+        for e in sorted(kernels, key=device_us, reverse=True)[:15]:
+            print(f"[profile]   {device_us(e) / 1e3:9.4f} ms  {e.count:6d} x"
+                  f"  {e.key[:90]}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one 2048^2 mg outer pass")
-    ap.add_argument("--trace", default=None,
-                    help="with --profile, write its chrome trace here")
+                    help="also profile one 2048^2 outer pass of mg and of "
+                         "the SOR route")
+    ap.add_argument("--trace", default=None, metavar="PREFIX",
+                    help="with --profile, write the chrome traces to "
+                         "PREFIX.mg.json and PREFIX.pallas_sor.json")
     args = ap.parse_args(argv)
     import torch
 
@@ -479,25 +735,32 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     try:
         phase_device(torch)
-        phase_build()
-        errs = phase_compare(torch)
-        times = phase_time(torch)
-        sor_path = phase_main_path()
-        mg_path = phase_mg_path()
-        phase_cpu_gpu(torch)
+        timed_phase("build", phase_build)
+        errs = timed_phase("compare", phase_compare, torch)
+        times = timed_phase("time", phase_time, torch)
+        paths = [timed_phase("main path", phase_main_path),
+                 timed_phase("mg path", phase_mg_path),
+                 timed_phase("tiled path", phase_tiled_path, torch),
+                 timed_phase("compressed path", phase_compressed_path, torch)]
+        timed_phase("cpu-gpu", phase_cpu_gpu, torch)
         if args.profile:
             phase_profile(torch, args.trace)
     except PhaseFailed as e:
         print(f"FAIL: {e}")
         return 1
 
-    launches = {key: sor_path[key] + mg_path[key] for key in sor_path}
+    launches = {key: sum(path[key] for path in paths) for key in paths[0]}
     tpu = "navierstokes_parallel_tpu/ops/pallas/"
     sources = {"sor": ("sor_sweeps", "sor.cu", f"{tpu}sor_kernel.py:67"),
                "sor_warm": ("sor_warm_sweeps", "sor.cu",
                             f"{tpu}sor_kernel.py:67 (warm_start=True)"),
                "momentum": ("momentum_rhs", "momentum.cu",
-                            f"{tpu}momentum_kernel.py:36")}
+                            f"{tpu}momentum_kernel.py:36"),
+               "sor_tiled": ("sor_tiled_sweeps", "sor_tiled.cu",
+                             f"{tpu}sor_kernel.py:207 (and :293, "
+                             f"double-buffered)"),
+               "sor_compressed": ("sor_compressed_sweeps", "sor_compressed.cu",
+                                  f"{tpu}sor_kernel.py:782")}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"navierstokes_parallel_tpu_torch/csrc/{src}",
                 "replaces": replaces, "launches": launches[key],

@@ -1,9 +1,11 @@
 """Command-line entry point, protocol-compatible with the JAX package's CLI and
 the reference executables (src/serial/main.c:31-158):
 
-    python -m navierstokes_parallel_tpu_torch <param-file> [options]
+    python -m navierstokes_parallel_tpu_torch <param-file> [tile-size] [options]
 
   * argv[1] = 15-line parameter file (defaults to parameters.txt)
+  * argv[2] = optional tile size, the rows of a tile of the tiled SOR kernel
+    (the reference's CUDA block-size argument; sor_kernel.set_default_tile)
   * stdout: "U-CENTER: %.6f" / "V-CENTER: %.6f" (main.c:148-149)
   * stderr: with --stats, the SOR statistics line and an empty line; then
     a single "%.6f" float — solver seconds (main.c:153's protocol)
@@ -12,7 +14,8 @@ The kernels are built and launched once before the timer starts, as the JAX
 CLI compiles before it starts its timer.  ``--max-steps N`` stops after N
 steps and exits with code 3 while t < T remains, as the JAX CLI does.  The
 JAX CLI's other options (backends, meshes, AB2, obstacles, output frames,
-checkpoints, history) are not ported yet (ROADMAP A4).
+checkpoints, history) are not ported yet (ROADMAP A4).  Unlike the JAX CLI,
+a tile size of 0 is refused rather than ignored.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import time
 
 from .config import Params
 from .grid import allocate_state, resolve_device
+from .ops.cuda import sor_kernel
 from .ops.sor import default_method
 from .solver import center_values, solve, warm_up
 from .utils.checks import validate_state
@@ -37,6 +41,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument("param_file", nargs="?", default="parameters.txt",
                     help="15-line parameter file (reference .in format)")
+    ap.add_argument("tile_size", nargs="?", type=int, default=None,
+                    help="rows of a tile of the tiled SOR kernel, in "
+                         "[1, 4096] and within one block's shared memory "
+                         "(reference CUDA block-size analogue)")
     ap.add_argument("--method",
                     choices=["rb_sor", "pallas_sor", "jacobi", "mg", "cg",
                              "fft"],
@@ -78,6 +86,12 @@ def main(argv=None) -> int:
         print(f"error: --max-steps must be >= 0, got {args.max_steps}",
               file=sys.stderr)
         return 1
+    if args.tile_size is not None:
+        try:
+            sor_kernel.set_default_tile(args.tile_size)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
     try:
         params = Params.from_file(args.param_file, **overrides)
     except (OSError, ValueError) as e:

@@ -40,48 +40,19 @@
 // stays 0 for nsp_sor_sweeps (the caller passes delta = 0), and it is
 // p0's ring for nsp_sor_warm_sweeps (multigrid keeps its rings at 0 too).
 // Temporal blocking in shared memory (the 2K halo of sor_kernel.py:188-201)
-// and TMA are later work.
+// is sor_tiled.cu's, on the route of the grids beyond the JAX whole-grid
+// budget; TMA is later work.
 //
-// Arithmetic order and constants follow the Pallas kernel:
-//   nb    = (d_W + d_E) * dx2_inv + (d_S + d_N) * dy2_inv + d * self_coef
-//   d_new = (1 - omega) * d + coef * (nb - rhs)
-// with every constant rounded to f32 once on the host.  With omega = 1 the
-// first term is still computed, as 0 * d, as the Pallas body does.
+// The cell update and its arithmetic order are nsp_sor.cuh's.
 
 #include <cuda_runtime.h>
 
-#include "nsp_round.cuh"
+#include "nsp_sor.cuh"
 
 namespace {
 
 constexpr int kBlockJ = 32;  // threads along j, the contiguous axis
 constexpr int kBlockI = 8;   // threads along i
-
-// The new value of interior cell (i, j), c = i * nj + j, read from d.
-__device__ __forceinline__ float rb_update(const float* d,
-                                           const float* __restrict__ rhs,
-                                           size_t c, int i, int j, int ni,
-                                           int nj, float one_minus_omega,
-                                           float coef, float dx2_inv,
-                                           float dy2_inv) {
-  using namespace nsp;
-  const float self_coef =
-      add(mul(static_cast<float>((i == 1) + (i == ni - 2)), dx2_inv),
-          mul(static_cast<float>((j == 1) + (j == nj - 2)), dy2_inv));
-  const float dc = d[c];
-  const float nb = add(add(mul(add(d[c - nj], d[c + nj]), dx2_inv),
-                           mul(add(d[c - 1], d[c + 1]), dy2_inv)),
-                       mul(dc, self_coef));
-  return add(mul(one_minus_omega, dc), mul(coef, sub(nb, rhs[c])));
-}
-
-// Interior cell of colour `parity`: (i + j) & 1 on the padded (= 1-based
-// interior) indices, red = 0 first.
-__device__ __forceinline__ bool updates(int i, int j, int ni, int nj,
-                                        int parity) {
-  return i >= 1 && i <= ni - 2 && j >= 1 && j <= nj - 2 &&
-         ((i + j) & 1) == parity;
-}
 
 // One half-sweep in place on d.
 __global__ void rb_half_sweep(float* d, const float* __restrict__ rhs, int ni,
@@ -89,10 +60,10 @@ __global__ void rb_half_sweep(float* d, const float* __restrict__ rhs, int ni,
                               float coef, float dx2_inv, float dy2_inv) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (!updates(i, j, ni, nj, parity)) return;
+  if (!nsp::rb_updates(i, j, ni, nj, parity)) return;
   const size_t c = static_cast<size_t>(i) * nj + j;
-  d[c] = rb_update(d, rhs, c, i, j, ni, nj, one_minus_omega, coef, dx2_inv,
-                   dy2_inv);
+  d[c] = nsp::rb_update(d, rhs[c], c, nj, i, j, ni, nj, one_minus_omega, coef,
+                        dx2_inv, dy2_inv);
 }
 
 // One half-sweep out of place: every cell of dst, ghost ring included, gets
@@ -109,9 +80,9 @@ __global__ void rb_half_sweep_from(const float* __restrict__ src,
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ni || j >= nj) return;
   const size_t c = static_cast<size_t>(i) * nj + j;
-  dst[c] = updates(i, j, ni, nj, parity)
-               ? rb_update(src, rhs, c, i, j, ni, nj, one_minus_omega, coef,
-                           dx2_inv, dy2_inv)
+  dst[c] = nsp::rb_updates(i, j, ni, nj, parity)
+               ? nsp::rb_update(src, rhs[c], c, nj, i, j, ni, nj,
+                                one_minus_omega, coef, dx2_inv, dy2_inv)
                : src[c];
 }
 

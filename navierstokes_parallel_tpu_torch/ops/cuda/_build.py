@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 The sources have a plain C interface (no PyTorch headers), so ``nvcc``
-compiles them in seconds into one shared library, which is loaded with
-``ctypes``.  Pointers and the stream are passed as ``c_void_p``; every entry
+compiles them in seconds, one process per source, all started together, and
+links the objects into one shared library, which is loaded with ``ctypes``.  Pointers and the stream are passed as ``c_void_p``; every entry
 point returns ``cudaGetLastError()`` after its launches, and the wrappers
 raise on anything but 0.
 
@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 # $CUDA_HOME.
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +43,15 @@ SIGNATURES = {
     # d, p0, rhs, ni, nj, n_sweeps, one_minus_omega, coef, dx2_inv, dy2_inv,
     # device, stream
     "nsp_sor_warm_sweeps": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    # d, scratch, rhs, ni, nj, n_sweeps, tile_rows, tile_cols,
+    # sweeps_per_chunk, one_minus_omega, coef, dx2_inv, dy2_inv, device,
+    # stream
+    "nsp_sor_tiled_sweeps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                             _F, _I, _P),
+    # red, black, rhs_red, rhs_black, ni, nj, n_sweeps, one_minus_omega,
+    # coef, dx2_inv, dy2_inv, device, stream
+    "nsp_sor_compressed_sweeps": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
+                                  _I, _P),
     # scalars(dt, gamma), u, v, F, G, rhs, ni, nj, i_max, j_max, inv_dx,
     # inv_dy, inv_re, inv_dx2, inv_dy2, g_x, g_y, device, stream
     "nsp_momentum_rhs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
@@ -87,6 +96,22 @@ def find_nvcc() -> str:
         f"{DEFAULT_CUDA_HOME}: the CUDA kernels cannot be built")
 
 
+def _run_all(cmds: list) -> None:
+    """Run the commands at once; raise KernelBuildError with the output of
+    the first that fails, after all have ended."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}"
+                      f"\n{out}{err}")
+    if failed:
+        raise KernelBuildError(failed)
+
+
 def build() -> Path:
     """Compile the sources for sm_90a unless the library for their current
     contents exists; returns its path.  Raises KernelBuildError with the
@@ -96,17 +121,20 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build under a private name and rename: a concurrent build never loads
-    # a half-written library.
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    # Objects and library under private names, the library renamed when
+    # done: a concurrent build never loads a half-written library.
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(sources(), objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return out
 
 

@@ -2,17 +2,29 @@
 
 Counterpart of ``navierstokes_parallel_tpu/ops/pallas/sor_kernel.py``:
 
-  * ``inner_sweeps`` (``_make_kernel`` through ``inner_sweeps`` there): n
-    red-black SOR sweeps on A delta = rhs_neg from delta = 0 over the padded
-    grid, the SOR route's refinement inner stage;
-  * ``warm_sweeps`` (the same body with ``warm_start=True``, through
-    ``warm_sweeps``): n red-black sweeps from a given p0, with omega and
-    the level's dx^2 / dy^2 per call, the multigrid smoother (ops/mg.py).
+  * ``whole_grid_sweeps`` (``_make_kernel`` through ``_sweeps_call``
+    there): n red-black SOR sweeps on A delta = rhs_neg from delta = 0 over
+    the padded grid, one launch per half-sweep (``csrc/sor.cu``);
+  * ``inner_sweeps_tiled`` (``_make_tiled_kernel`` / ``_make_tiled_kernel_db``
+    through ``inner_sweeps_tiled``): the same sweeps in chunks of K, each
+    chunk one launch over tiles that carry a 2K-deep halo and sweep K times
+    in shared memory (``csrc/sor_tiled.cu``);
+  * ``inner_sweeps_compressed`` (``_make_compressed_kernel`` through
+    ``inner_sweeps_compressed``): the same sweeps on the red and the black
+    cells compacted into two half-width arrays (``csrc/sor_compressed.cu``);
+  * ``inner_sweeps`` routes between those three as the JAX package's
+    ``inner_sweeps`` does: the tiled kernel where the grid exceeds the JAX
+    whole-grid budget, else the compressed one when ``USE_COMPRESSED`` is
+    set and the padded width is even, else the whole-grid one;
+  * ``warm_sweeps`` (``_make_kernel`` with ``warm_start=True``): n
+    red-black sweeps from a given p0, with omega and the level's dx^2 /
+    dy^2 per call, the multigrid smoother (ops/mg.py).
 
-Both fold the Neumann boundary into a per-cell self coefficient.  The
-kernels are ``csrc/sor.cu``; its source note says what bounds them on the
-card.  Each wrapper dispatches on the tensor's device: a CPU tensor goes to
-its ``*_plain`` twin; a CUDA tensor launches the kernel or raises.
+All fold the Neumann boundary into a per-cell self coefficient, and all
+give the same bits: every updated cell goes through the same expression on
+the same neighbour values.  The kernels' source notes say what bounds them
+on the card.  Each wrapper dispatches on the tensor's device: a CPU tensor
+goes to its ``*_plain`` twin; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -22,11 +34,35 @@ import torch
 from ...config import Params
 from . import _build
 
-# Kernel launches, one per call of the wrapper (each call runs all its
-# half-sweep launches in C): inner_sweeps counts in LAUNCHES, warm_sweeps
-# in WARM_LAUNCHES.
+# Kernel launches, one per call of a wrapper that launches (each call runs
+# all its launches in C): whole_grid_sweeps counts in LAUNCHES,
+# inner_sweeps_tiled in TILED_LAUNCHES, inner_sweeps_compressed in
+# COMPRESSED_LAUNCHES and warm_sweeps in WARM_LAUNCHES.
 LAUNCHES = 0
+TILED_LAUNCHES = 0
+COMPRESSED_LAUNCHES = 0
 WARM_LAUNCHES = 0
+
+# The tiled route (JAX TILE_ROWS, SWEEPS_PER_CHUNK).  A tile writes
+# TILE_ROWS x TILE_COLS cells per chunk of SWEEPS_PER_CHUNK = K sweeps and
+# carries a halo of 2K cells on each side; the CLI's tile-size positional
+# sets TILE_ROWS (set_default_tile).  The plain twin cuts full-width strips
+# of TILE_ROWS rows, as the TPU kernel does; the CUDA kernel cuts 2-D tiles.
+TILE_ROWS = 64
+TILE_COLS = 64
+SWEEPS_PER_CHUNK = 8
+# Shared memory one block may use on an H100 (232,448 bytes): the tiled
+# kernel holds delta and rhs of its haloed tile there.
+MAX_SHARED_BYTES = 232448
+# None: the tiled route where the grid exceeds WHOLE_GRID_BUDGET_BYTES;
+# True / False force it on or off (JAX PREFER_TILED_DMA).
+PREFER_TILED = None
+# The JAX package's whole-grid VMEM budget (fits_in_vmem), kept as the
+# route boundary.
+WHOLE_GRID_BUDGET_BYTES = 48 * 1024 * 1024
+# The colour-compressed kernel instead of the whole-grid one (JAX
+# USE_COMPRESSED; off there, as here).
+USE_COMPRESSED = False
 
 
 def warm_constants(omega: float, dx2_inv: float, dy2_inv: float):
@@ -44,44 +80,51 @@ def sweep_constants(params: Params):
                           1.0 / (params.dy * params.dy))
 
 
+def _masks(ii, jj, i_max: int, j_max: int, dx2_inv: float, dy2_inv: float):
+    """(red, black, self_coef) of the cells at padded indices (ii, jj),
+    broadcast against each other: parity (ii + jj) & 1 on the padded (=
+    1-based interior) indices, red = 0; the Neumann boundary folded in (the
+    ghost neighbour contributes 0, as the ring is never written, and
+    self_coef * d adds the mirrored one)."""
+    f32 = torch.float32
+    interior = (ii >= 1) & (ii <= i_max) & (jj >= 1) & (jj <= j_max)
+    par = (ii + jj) & 1
+    self_coef = (((ii == 1).to(f32) + (ii == i_max).to(f32)) * dx2_inv
+                 + ((jj == 1).to(f32) + (jj == j_max).to(f32)) * dy2_inv)
+    return interior & (par == 0), interior & (par == 1), self_coef
+
+
+def _half_sweep(d, rhs, mask, self_coef, constants):
+    """One half-sweep of the cells in `mask`, neighbours by circular rolls
+    of d (the wrap lands only where no updated cell reads it)."""
+    one_minus_omega, coef, dx2_inv, dy2_inv = constants
+    nb = ((torch.roll(d, 1, 0) + torch.roll(d, -1, 0)) * dx2_inv
+          + (torch.roll(d, 1, 1) + torch.roll(d, -1, 1)) * dy2_inv
+          + d * self_coef)
+    d_new = one_minus_omega * d + coef * (nb - rhs)
+    return torch.where(mask, d_new, d)
+
+
 def _sweeps_plain(d: torch.Tensor, rhs: torch.Tensor, n_sweeps: int,
                   constants) -> torch.Tensor:
     """The kernels' formulation in plain PyTorch, n red-black sweeps from
-    the f32 field d: rolls of the whole padded field (the wrap lands only
-    in the ghost ring, which the masks exclude; interior cells next to it
-    read the ring as given), masks, self coefficient, one Python loop
-    iteration per sweep.  With omega = 1 the (1 - omega) * d term is still
-    computed, as the Pallas body does."""
-    one_minus_omega, coef, dx2_inv, dy2_inv = constants
+    the f32 field d: rolls of the whole padded field (interior cells next
+    to the ghost ring read the ring as given), masks, self coefficient, one
+    Python loop iteration per sweep.  With omega = 1 the (1 - omega) * d
+    term is still computed, as the Pallas body does."""
     ni, nj = d.shape
-    f32 = torch.float32
     ii = torch.arange(ni, device=d.device).view(ni, 1)
     jj = torch.arange(nj, device=d.device).view(1, nj)
-    interior = (ii >= 1) & (ii <= ni - 2) & (jj >= 1) & (jj <= nj - 2)
-    par = (ii + jj) & 1  # parity on the padded (= 1-based interior) indices
-    red = interior & (par == 0)
-    black = interior & (par == 1)
-    # Neumann BC folded in: the ghost neighbour contributes 0 (the ring is
-    # never written) and self_coef * d adds the mirrored one.
-    self_coef = (((ii == 1).to(f32) + (ii == ni - 2).to(f32)) * dx2_inv
-                 + ((jj == 1).to(f32) + (jj == nj - 2).to(f32)) * dy2_inv)
-
-    def half_sweep(d, mask):
-        nb = ((torch.roll(d, 1, 0) + torch.roll(d, -1, 0)) * dx2_inv
-              + (torch.roll(d, 1, 1) + torch.roll(d, -1, 1)) * dy2_inv
-              + d * self_coef)
-        d_new = one_minus_omega * d + coef * (nb - rhs)
-        return torch.where(mask, d_new, d)
-
+    red, black, self_coef = _masks(ii, jj, ni - 2, nj - 2, *constants[2:])
     for _ in range(int(n_sweeps)):
-        d = half_sweep(d, red)
-        d = half_sweep(d, black)
+        d = _half_sweep(d, rhs, red, self_coef, constants)
+        d = _half_sweep(d, rhs, black, self_coef, constants)
     return d
 
 
 def inner_sweeps_plain(rhs_neg: torch.Tensor, n_sweeps: int,
                        params: Params) -> torch.Tensor:
-    """inner_sweeps in plain PyTorch: sweeps from delta = 0."""
+    """whole_grid_sweeps in plain PyTorch: sweeps from delta = 0."""
     d = torch.zeros(rhs_neg.shape, dtype=torch.float32, device=rhs_neg.device)
     return _sweeps_plain(d, rhs_neg.to(torch.float32), n_sweeps,
                          sweep_constants(params))
@@ -97,7 +140,7 @@ def warm_sweeps_plain(p: torch.Tensor, rhs: torch.Tensor, n_sweeps: int,
 
 
 def check_inputs(rhs_neg: torch.Tensor, n_sweeps: int, params: Params) -> None:
-    """Raise on anything the CUDA kernel does not take."""
+    """Raise on anything the CUDA kernels of inner_sweeps do not take."""
     if rhs_neg.dtype != torch.float32:
         raise TypeError(f"SOR kernel takes float32, got {rhs_neg.dtype}")
     if tuple(rhs_neg.shape) != params.shape:
@@ -109,15 +152,24 @@ def check_inputs(rhs_neg: torch.Tensor, n_sweeps: int, params: Params) -> None:
         raise ValueError(f"n_sweeps must be >= 0, got {n_sweeps}")
 
 
-def inner_sweeps(rhs_neg: torch.Tensor, n_sweeps: int,
-                 params: Params) -> torch.Tensor:
-    """n_sweeps f32 red-black sweeps on A delta = rhs_neg from delta = 0:
-    the plain version for a CPU tensor, the CUDA kernel for a CUDA one."""
+def _cuda_tensor(x: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain twin's), True for a CUDA one;
+    raises for any other device: no silent fallback."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"no SOR kernel for device {x.device}")
+    return True
+
+
+def whole_grid_sweeps(rhs_neg: torch.Tensor, n_sweeps: int,
+                      params: Params) -> torch.Tensor:
+    """n_sweeps f32 red-black sweeps on A delta = rhs_neg from delta = 0,
+    over the whole padded grid: the plain version for a CPU tensor, the
+    CUDA kernel (one launch per half-sweep) for a CUDA one."""
     global LAUNCHES
-    if rhs_neg.device.type == "cpu":
+    if not _cuda_tensor(rhs_neg):
         return inner_sweeps_plain(rhs_neg, n_sweeps, params)
-    if rhs_neg.device.type != "cuda":
-        raise ValueError(f"no SOR kernel for device {rhs_neg.device}")
     check_inputs(rhs_neg, n_sweeps, params)
     lib = _build.load()
     ni, nj = params.shape
@@ -130,6 +182,257 @@ def inner_sweeps(rhs_neg: torch.Tensor, n_sweeps: int,
     LAUNCHES += 1
     return d
 
+
+# --- the route ---------------------------------------------------------------
+
+def whole_grid_fits(shape) -> bool:
+    """The JAX package's whole-grid budget (fits_in_vmem, with its
+    vmem_bytes_required), verbatim: delta + rhs + one temporary, each padded
+    to (8, 128) tiles of f32, within 48 MiB.  It only draws the route
+    boundary here; nothing of the CUDA kernels needs it."""
+    ni, nj = shape
+
+    def pad(a, m):
+        return -(-a // m) * m
+
+    return 3 * pad(ni, 8) * pad(nj, 128) * 4 <= WHOLE_GRID_BUDGET_BYTES
+
+
+def route(params: Params) -> str:
+    """'tiled', 'compressed' or 'whole': the kernel inner_sweeps takes, in
+    the JAX package's order."""
+    tiled = (not whole_grid_fits(params.shape) if PREFER_TILED is None
+             else PREFER_TILED)
+    if tiled:
+        return "tiled"
+    if USE_COMPRESSED and params.shape[1] % 2 == 0:
+        return "compressed"
+    return "whole"
+
+
+def inner_sweeps(rhs_neg: torch.Tensor, n_sweeps: int,
+                 params: Params) -> torch.Tensor:
+    """n_sweeps f32 red-black sweeps on A delta = rhs_neg from delta = 0,
+    the refinement solver's inner stage, by the kernel `route` picks (its
+    plain twin for a CPU tensor)."""
+    which = route(params)
+    if which == "tiled":
+        return inner_sweeps_tiled(rhs_neg, n_sweeps, params)
+    if which == "compressed":
+        return inner_sweeps_compressed(rhs_neg, n_sweeps, params)
+    return whole_grid_sweeps(rhs_neg, n_sweeps, params)
+
+
+# --- the tiled kernel ----------------------------------------------------------
+
+def tiled_shared_bytes(tile_rows: int, sweeps_per_chunk: int,
+                       tile_cols: int = TILE_COLS) -> int:
+    """Shared memory of one block of the tiled kernel: delta and rhs, f32,
+    over the tile and its 2K-deep halo on each side."""
+    halo = 2 * sweeps_per_chunk
+    return 2 * 4 * (tile_rows + 2 * halo) * (tile_cols + 2 * halo)
+
+
+def check_tile(tile_rows: int, sweeps_per_chunk: int) -> None:
+    """Raise ValueError on a tile the tiled kernel cannot take: a size
+    outside [1, 4096] (the JAX rule), K < 1, or a footprint beyond the
+    shared memory of one block (never clamped)."""
+    if not 1 <= int(tile_rows) <= 4096:
+        raise ValueError(f"tile size must be in [1, 4096], got {tile_rows}")
+    if int(sweeps_per_chunk) < 1:
+        raise ValueError(f"sweeps_per_chunk must be >= 1, got "
+                         f"{sweeps_per_chunk}")
+    need = tiled_shared_bytes(int(tile_rows), int(sweeps_per_chunk))
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"tile size {tile_rows} (x {TILE_COLS} columns, halo "
+            f"{2 * sweeps_per_chunk}) needs {need} bytes of shared memory "
+            f"per block; a block may use at most {MAX_SHARED_BYTES}")
+
+
+def set_default_tile(tile_size: int) -> None:
+    """CLI hook (the reference's CUDA block-size argument, main.cu:987-1000):
+    the rows of a tile of the tiled route.  Validated by check_tile at the
+    current SWEEPS_PER_CHUNK; the JAX package's rounding up to 8 rows is a
+    TPU DMA rule and has no counterpart here."""
+    global TILE_ROWS
+    check_tile(tile_size, SWEEPS_PER_CHUNK)
+    TILE_ROWS = int(tile_size)
+
+
+def inner_sweeps_tiled_plain(rhs_neg: torch.Tensor, n_sweeps: int,
+                             params: Params, tile_rows: int = None,
+                             sweeps_per_chunk: int = SWEEPS_PER_CHUNK
+                             ) -> torch.Tensor:
+    """inner_sweeps_tiled in plain PyTorch, as the TPU kernel computes it:
+    chunks of K sweeps (a short last one); within a chunk every strip of
+    tile_rows rows reads the pre-chunk snapshot with H = 2K rows of halo on
+    each side (rows outside the grid are 0), sweeps in place with rolls
+    within the strip, and its own rows come back.  Masks and self_coef come
+    from the global indices.  Stale halo values travel one row per
+    half-sweep, so the returned rows equal the whole-grid sweeps."""
+    ni, nj = params.shape
+    B, K = int(tile_rows or TILE_ROWS), int(sweeps_per_chunk)
+    check_tile(B, K)
+    H = 2 * K
+    S = -(-ni // B)
+    constants = sweep_constants(params)
+    dev, f32 = rhs_neg.device, torch.float32
+    # Extended layout: grid row r at row r + H; rows beyond the grid are 0.
+    rhs_ext = torch.zeros((S * B + 2 * H, nj), dtype=f32, device=dev)
+    rhs_ext[H:H + ni] = rhs_neg
+    d_ext = torch.zeros_like(rhs_ext)
+    jj = torch.arange(nj, device=dev).view(1, nj)
+    tt = torch.arange(B + 2 * H, device=dev).view(B + 2 * H, 1)
+    strips = [(s * B, _masks(tt + (s * B - H), jj, params.i_max, params.j_max,
+                             *constants[2:]))
+              for s in range(S)]
+    done = 0
+    while done < int(n_sweeps):
+        ns = min(K, int(n_sweeps) - done)
+        out = torch.zeros_like(d_ext)
+        for row0, (red, black, self_coef) in strips:
+            rows = slice(row0, row0 + B + 2 * H)
+            d, rhs = d_ext[rows].clone(), rhs_ext[rows]
+            for _ in range(ns):
+                d = _half_sweep(d, rhs, red, self_coef, constants)
+                d = _half_sweep(d, rhs, black, self_coef, constants)
+            out[row0 + H:row0 + H + B] = d[H:H + B]
+        d_ext = out
+        done += ns
+    return d_ext[H:H + ni].clone()
+
+
+def inner_sweeps_tiled(rhs_neg: torch.Tensor, n_sweeps: int, params: Params,
+                       tile_rows: int = None,
+                       sweeps_per_chunk: int = SWEEPS_PER_CHUNK
+                       ) -> torch.Tensor:
+    """n_sweeps f32 red-black sweeps on A delta = rhs_neg from delta = 0 in
+    chunks of sweeps_per_chunk, tiles of tile_rows (default TILE_ROWS) x
+    TILE_COLS cells: the plain version for a CPU tensor, the CUDA kernel
+    (one launch per chunk) for a CUDA one."""
+    global TILED_LAUNCHES
+    B, K = int(tile_rows or TILE_ROWS), int(sweeps_per_chunk)
+    if not _cuda_tensor(rhs_neg):
+        return inner_sweeps_tiled_plain(rhs_neg, n_sweeps, params, B, K)
+    check_inputs(rhs_neg, n_sweeps, params)
+    check_tile(B, K)
+    lib = _build.load()
+    ni, nj = params.shape
+    # Each chunk reads one buffer and writes the other; neither ghost ring
+    # is ever written, so both stay 0.
+    d = torch.zeros((ni, nj), dtype=torch.float32, device=rhs_neg.device)
+    scratch = torch.zeros_like(d)
+    status = lib.nsp_sor_tiled_sweeps(
+        d.data_ptr(), scratch.data_ptr(), rhs_neg.data_ptr(), ni, nj,
+        int(n_sweeps), B, TILE_COLS, K, *sweep_constants(params),
+        *_build.device_and_stream(rhs_neg))
+    _build.check_status(status, "nsp_sor_tiled_sweeps")
+    TILED_LAUNCHES += 1
+    n_chunks = -(-int(n_sweeps) // K)
+    return scratch if n_chunks % 2 else d
+
+
+# --- the colour-compressed kernel -----------------------------------------------
+#
+# Index algebra (JAX sor_kernel.py:751-757; b = i & 1 is the row parity, nj
+# even):
+#   red[i, k]   = d[i, 2k + b]       black[i, k] = d[i, 2k + 1 - b]
+#   red W/E neighbours  = black[i -/+ 1, k]
+#   red N = black[i, k + b],   red S = black[i, k + b - 1]
+#   black N = red[i, k + 1 - b], black S = red[i, k - b]
+
+def _row_odd(ni: int, device) -> torch.Tensor:
+    return ((torch.arange(ni, device=device) & 1) == 1).view(ni, 1)
+
+
+def _compress_colors(full: torch.Tensor):
+    """full (ni, nj even) -> (red, black), each (ni, nj // 2)."""
+    even_j, odd_j = full[:, 0::2], full[:, 1::2]
+    row_odd = _row_odd(full.shape[0], full.device)
+    return (torch.where(row_odd, odd_j, even_j),
+            torch.where(row_odd, even_j, odd_j))
+
+
+def _decompress_colors(red: torch.Tensor, black: torch.Tensor) -> torch.Tensor:
+    ni, njc = red.shape
+    row_odd = _row_odd(ni, red.device)
+    even_j = torch.where(row_odd, black, red)
+    odd_j = torch.where(row_odd, red, black)
+    return torch.stack([even_j, odd_j], dim=-1).reshape(ni, 2 * njc)
+
+
+def inner_sweeps_compressed_plain(rhs_neg: torch.Tensor, n_sweeps: int,
+                                  params: Params) -> torch.Tensor:
+    """inner_sweeps_compressed in plain PyTorch, as the TPU kernel computes
+    it: each half-sweep updates every interior cell of one compacted colour
+    array from rolls of the other."""
+    ni, nj = params.shape
+    njc = nj // 2
+    one_minus_omega, coef, dx2_inv, dy2_inv = sweep_constants(params)
+    dev, f32 = rhs_neg.device, torch.float32
+    rhs_r, rhs_b = _compress_colors(rhs_neg.to(f32))
+    ii = torch.arange(ni, device=dev).view(ni, 1)
+    kk = torch.arange(njc, device=dev).view(1, njc)
+    b = ii & 1
+    row_odd = b == 1
+
+    def cell_meta(jj):
+        interior = (ii >= 1) & (ii <= ni - 2) & (jj >= 1) & (jj <= nj - 2)
+        self_coef = (((ii == 1).to(f32) + (ii == ni - 2).to(f32)) * dx2_inv
+                     + ((jj == 1).to(f32) + (jj == nj - 2).to(f32)) * dy2_inv)
+        return interior, self_coef
+
+    int_r, sc_r = cell_meta(2 * kk + b)
+    int_b, sc_b = cell_meta(2 * kk + 1 - b)
+
+    def update(tgt, other, rhs, interior, self_coef, sel):
+        we = (torch.roll(other, 1, 0) + torch.roll(other, -1, 0)) * dx2_inv
+        o_m = torch.roll(other, 1, 1)   # k - 1
+        o_p = torch.roll(other, -1, 1)  # k + 1
+        nth = torch.where(sel, o_p, other)
+        sth = torch.where(sel, other, o_m)
+        nb = we + (nth + sth) * dy2_inv + tgt * self_coef
+        new = one_minus_omega * tgt + coef * (nb - rhs)
+        return torch.where(interior, new, tgt)
+
+    red = torch.zeros((ni, njc), dtype=f32, device=dev)
+    black = torch.zeros_like(red)
+    for _ in range(int(n_sweeps)):
+        red = update(red, black, rhs_r, int_r, sc_r, row_odd)
+        black = update(black, red, rhs_b, int_b, sc_b, ~row_odd)
+    return _decompress_colors(red, black)
+
+
+def inner_sweeps_compressed(rhs_neg: torch.Tensor, n_sweeps: int,
+                            params: Params) -> torch.Tensor:
+    """n_sweeps f32 red-black sweeps on A delta = rhs_neg from delta = 0 on
+    the colour-compacted arrays: the plain version for a CPU tensor, the
+    CUDA kernel for a CUDA one.  The padded width must be even."""
+    global COMPRESSED_LAUNCHES
+    if params.shape[1] % 2:
+        raise ValueError(f"the compressed SOR kernel takes an even padded "
+                         f"width, got {params.shape[1]}")
+    if not _cuda_tensor(rhs_neg):
+        return inner_sweeps_compressed_plain(rhs_neg, n_sweeps, params)
+    check_inputs(rhs_neg, n_sweeps, params)
+    lib = _build.load()
+    ni, nj = params.shape
+    # Compaction stays outside the kernel, as in the JAX package.
+    rhs_r, rhs_b = _compress_colors(rhs_neg)
+    red = torch.zeros((ni, nj // 2), dtype=torch.float32,
+                      device=rhs_neg.device)
+    black = torch.zeros_like(red)
+    status = lib.nsp_sor_compressed_sweeps(
+        red.data_ptr(), black.data_ptr(), rhs_r.data_ptr(), rhs_b.data_ptr(),
+        ni, nj, int(n_sweeps), *sweep_constants(params),
+        *_build.device_and_stream(rhs_neg))
+    _build.check_status(status, "nsp_sor_compressed_sweeps")
+    COMPRESSED_LAUNCHES += 1
+    return _decompress_colors(red, black)
+
+
+# --- the multigrid smoother ------------------------------------------------------
 
 def check_warm_inputs(p: torch.Tensor, rhs: torch.Tensor,
                       n_sweeps: int) -> None:
@@ -157,10 +460,8 @@ def warm_sweeps(p: torch.Tensor, rhs: torch.Tensor, n_sweeps: int,
     whose ghost ring is p's: the plain version for a CPU tensor, the CUDA
     kernel for a CUDA one."""
     global WARM_LAUNCHES
-    if p.device.type == "cpu":
+    if not _cuda_tensor(p):
         return warm_sweeps_plain(p, rhs, n_sweeps, omega, dx2_inv, dy2_inv)
-    if p.device.type != "cuda":
-        raise ValueError(f"no SOR kernel for device {p.device}")
     check_warm_inputs(p, rhs, n_sweeps)
     lib = _build.load()
     ni, nj = p.shape

@@ -10,13 +10,19 @@ sweeps (the Laplacian amplifies p's storage rounding), so the solve is the
 JAX package's mixed-precision iterative refinement: an f64 master pressure,
 an f64 defect and L2 check every K = ``sor_refine_every`` sweeps, and K f32
 red-black sweeps on the correction in between.  The H100 has native FP64, so
-the outer is plain PyTorch in float64; the sweeps are the hand-written
-kernel (ops/cuda/sor_kernel.py).  ``method="pallas_sor"`` and ``"rb_sor"``
-take this same route: in JAX they differ only in how the TPU lowers the
-sweeps.  ``method="mg"`` and ``"cg"`` run the same outer around another
-inner stage, as the JAX package does: ``mg_cycles_per_outer`` multigrid
-V-cycles (ops/mg.py), or ``sor_refine_every`` conjugate-gradient steps; the
-solve's ``iterations`` then count V-cycles or CG steps.
+the outer is plain PyTorch in float64; the sweeps are hand-written kernels
+(ops/cuda/sor_kernel.py::inner_sweeps), routed as the JAX package routes its
+Pallas kernels: the temporal-blocked tiled kernel where the grid exceeds the
+JAX whole-grid budget (2048^2 and up), else the whole-grid kernel (or the
+colour-compressed one with ``sor_kernel.USE_COMPRESSED``).
+``method="pallas_sor"`` and ``"rb_sor"`` take this same route: in JAX they
+differ only in how the TPU lowers the sweeps.  The f32 inner is the only
+one: ``sor_inner_dtype="bfloat16"``, which JAX's kernel route honours, is
+refused on ``pallas_sor`` (ROADMAP "Left out"); ``rb_sor`` ignores it, as
+JAX's jnp route does.  ``method="mg"`` and ``"cg"`` run the same outer
+around another inner stage, as the JAX package does: ``mg_cycles_per_outer``
+multigrid V-cycles (ops/mg.py), or ``sor_refine_every`` conjugate-gradient
+steps; the solve's ``iterations`` then count V-cycles or CG steps.
 
 The loop runs on the host: each outer pass reads one scalar (the residual
 norm) back to decide whether to go on, i.e. one device sync per K sweeps.
@@ -119,6 +125,11 @@ def solve_pressure(p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
                 sor_refine_every=max(1, params.sor_refine_every)),
             inner=_cg_inner(params))
     if method == "pallas_sor":
+        if params.sor_inner_dtype != "float32":
+            raise NotImplementedError(
+                f"sor_inner_dtype={params.sor_inner_dtype!r} (bf16 sweeps and "
+                f"transport) is not ported: ROADMAP A, \"Left out of the "
+                f"port\"; the kernels sweep in float32")
         return _solve_pressure_refined(
             p, rhs, params.replace(
                 sor_refine_every=max(1, params.sor_refine_every)))

@@ -103,7 +103,8 @@ def test_library_name_follows_source_contents(monkeypatch, tmp_path):
     shutil.copytree(_build.CSRC_DIR, csrc)
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     first = _build.library_path()
-    assert [p.name for p in _build.sources()] == ["momentum.cu", "sor.cu"]
+    assert [p.name for p in _build.sources()] == [
+        "momentum.cu", "sor.cu", "sor_compressed.cu", "sor_tiled.cu"]
     with open(csrc / "nsp_round.cuh", "a") as fh:
         fh.write("// edited\n")
     assert _build.library_path() != first
@@ -164,6 +165,29 @@ def test_momentum_checks_before_launch(bad):
     momentum_kernel.check_inputs(*_uv(prm), prm)
 
 
+@pytest.mark.parametrize("bad", ["zero", "over_4096", "shared", "chunk"])
+def test_tiled_checks_before_launch(bad):
+    """A tile the tiled kernel cannot take is refused, never clamped; the
+    error names the shared-memory size."""
+    tile, k, match = {"zero": (0, 8, r"\[1, 4096\]"),
+                      "over_4096": (4097, 8, r"\[1, 4096\]"),
+                      "shared": (271, 8, "232704 bytes of shared memory"),
+                      "chunk": (64, 0, "sweeps_per_chunk")}[bad]
+    with pytest.raises(ValueError, match=match):
+        sor_kernel.check_tile(tile, k)
+    sor_kernel.check_tile(270, 8)  # the largest tile that fits at K = 8
+    assert sor_kernel.tiled_shared_bytes(270, 8) <= sor_kernel.MAX_SHARED_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        sor_kernel.inner_sweeps_tiled(_rhs(_params(8, 8)), 2, _params(8, 8),
+                                      tile_rows=64, sweeps_per_chunk=32)
+
+
+def test_compressed_takes_even_widths_only():
+    prm = _params(10, 7)  # padded width 9
+    with pytest.raises(ValueError, match="even padded width"):
+        sor_kernel.inner_sweeps_compressed(_rhs(prm), 2, prm)
+
+
 def test_wrappers_raise_on_other_devices():
     """No silent fallback: a tensor that is neither on the CPU nor on CUDA
     is refused, not computed by the plain version."""
@@ -171,6 +195,10 @@ def test_wrappers_raise_on_other_devices():
     meta = torch.zeros(prm.shape, device="meta")
     with pytest.raises(ValueError, match="no SOR kernel"):
         sor_kernel.inner_sweeps(meta, 2, prm)
+    with pytest.raises(ValueError, match="no SOR kernel"):
+        sor_kernel.inner_sweeps_tiled(meta, 2, prm)
+    with pytest.raises(ValueError, match="no SOR kernel"):
+        sor_kernel.inner_sweeps_compressed(meta, 2, prm)
     with pytest.raises(ValueError, match="no SOR kernel"):
         sor_kernel.warm_sweeps(meta, meta, 2, 1.0, 4.0, 4.0)
     with pytest.raises(ValueError, match="no momentum kernel"):
@@ -200,6 +228,84 @@ def test_sor_kernel_matches_plain(cuda, shape, n):
     assert sor_kernel.LAUNCHES == before + 1
     scale = max(float(want.abs().max()), 1e-30)
     assert float((got - want).abs().max()) / scale <= KERNEL_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [64, 256])
+@pytest.mark.parametrize("n", [1, 8, 20, 64])
+@pytest.mark.parametrize("shape", [(256, 256), (2048, 2048), (97, 61)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_tiled_kernel_matches_plain_and_whole_grid(cuda, shape, n, tile):
+    """B4 bit for bit against its plain twin (full-width strips) and the
+    whole-grid kernel B1: n = 20 ends on a short chunk (8 + 8 + 4)."""
+    prm = _params(*shape)
+    rhs = _rhs(prm, seed=n).to(cuda)
+    before = sor_kernel.TILED_LAUNCHES
+    got = sor_kernel.inner_sweeps_tiled(rhs, n, prm, tile_rows=tile)
+    torch.cuda.synchronize()
+    assert sor_kernel.TILED_LAUNCHES == before + 1
+    assert torch.equal(got, sor_kernel.whole_grid_sweeps(rhs, n, prm))
+    assert torch.equal(got, sor_kernel.inner_sweeps_tiled_plain(
+        rhs, n, prm, tile_rows=tile))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 64])
+@pytest.mark.parametrize("shape", [(256, 256), (96, 62)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_compressed_kernel_matches_plain_and_whole_grid(cuda, shape, n):
+    """B5 bit for bit against its plain twin and the whole-grid kernel B1."""
+    prm = _params(*shape)
+    rhs = _rhs(prm, seed=n).to(cuda)
+    before = sor_kernel.COMPRESSED_LAUNCHES
+    got = sor_kernel.inner_sweeps_compressed(rhs, n, prm)
+    torch.cuda.synchronize()
+    assert sor_kernel.COMPRESSED_LAUNCHES == before + 1
+    assert torch.equal(got, sor_kernel.whole_grid_sweeps(rhs, n, prm))
+    assert torch.equal(got, sor_kernel.inner_sweeps_compressed_plain(
+        rhs, n, prm))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["budget", "forced_off", "compressed",
+                                  "compressed_odd", "forced_on"])
+def test_inner_sweeps_routes_on_the_card(cuda, case, monkeypatch):
+    shape, counter = {"budget": ((2048, 2048), "TILED_LAUNCHES"),
+                      "forced_off": ((2048, 2048), "LAUNCHES"),
+                      "compressed": ((64, 62), "COMPRESSED_LAUNCHES"),
+                      "compressed_odd": ((64, 61), "LAUNCHES"),
+                      "forced_on": ((64, 61), "TILED_LAUNCHES")}[case]
+    if case == "forced_off":
+        monkeypatch.setattr(sor_kernel, "PREFER_TILED", False)
+    if case == "forced_on":
+        monkeypatch.setattr(sor_kernel, "PREFER_TILED", True)
+    if case.startswith("compressed"):
+        monkeypatch.setattr(sor_kernel, "USE_COMPRESSED", True)
+    prm = _params(*shape)
+    rhs = _rhs(prm).to(cuda)
+    counts = {name: getattr(sor_kernel, name) for name in (
+        "LAUNCHES", "TILED_LAUNCHES", "COMPRESSED_LAUNCHES")}
+    got = sor_kernel.inner_sweeps(rhs, 9, prm)
+    for name, before in counts.items():
+        assert getattr(sor_kernel, name) == before + (name == counter)
+    assert torch.equal(got, sor_kernel.inner_sweeps_plain(rhs, 9, prm))
+
+
+@pytest.mark.gpu
+def test_tiled_solve_equals_whole_grid_solve(cuda, monkeypatch):
+    """A cavity forced onto the tiled route (small tiles, several per axis)
+    gives the whole-grid route's fields bit for bit."""
+    prm = Params(i_max=48, j_max=40, T=0.02, Re=100.0, tau=0.5, max_it=500)
+    monkeypatch.setattr(sor_kernel, "TILE_ROWS", 13)
+    runs = {}
+    for tiled in (True, False):
+        monkeypatch.setattr(sor_kernel, "PREFER_TILED", tiled)
+        runs[tiled] = solver.solve(prm, device=cuda,
+                                   pressure_method="pallas_sor")
+    (ts, tstats), (ws, wstats) = runs[True], runs[False]
+    assert tstats == wstats and tstats.steps > 1
+    for name in ("u", "v", "p"):
+        assert torch.equal(getattr(ts, name), getattr(ws, name))
 
 
 @pytest.mark.gpu
@@ -245,6 +351,18 @@ def test_kernels_raise_on_bad_cuda_input(cuda):
     prm = _params(16, 16)
     with pytest.raises(TypeError):
         sor_kernel.inner_sweeps(_rhs(prm).double().to(cuda), 2, prm)
+    for wrapper in (sor_kernel.inner_sweeps_tiled,
+                    sor_kernel.inner_sweeps_compressed):
+        with pytest.raises(TypeError):
+            wrapper(_rhs(prm).double().to(cuda), 2, prm)
+        with pytest.raises(ValueError):
+            wrapper(_rhs(prm)[:-1].to(cuda), 2, prm)
+    with pytest.raises(ValueError, match="shared memory"):
+        sor_kernel.inner_sweeps_tiled(_rhs(prm).to(cuda), 2, prm,
+                                      tile_rows=300)
+    odd = _params(16, 15)
+    with pytest.raises(ValueError, match="even padded width"):
+        sor_kernel.inner_sweeps_compressed(_rhs(odd).to(cuda), 2, odd)
     u, v = (x.to(cuda) for x in _uv(prm))
     with pytest.raises(ValueError):
         momentum_kernel.momentum_rhs(u, v.cpu(), 0.1, 0.1, prm)

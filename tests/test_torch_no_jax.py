@@ -1,8 +1,9 @@
 """The port must run without JAX: the machine with the GPU has none.
 
 A subprocess blocks every ``jax`` import with a ``sys.meta_path`` finder
-that raises, imports every module of the port and runs one CPU time step
-with each ported pressure method (SOR, multigrid, CG).
+that raises, imports every module of the port, runs one CPU time step
+with each ported pressure method (SOR, multigrid, CG) and the plain twins
+of the tiled and colour-compressed SOR kernels.
 """
 
 import os
@@ -33,6 +34,13 @@ SCRIPT = textwrap.dedent("""
     for method in ("mg", "cg"):  # ops/mg.py: the V-cycle and CG's Laplacian
         _, d = step(allocate_state(prm, "cpu"), prm, pressure_method=method)
         assert d.sor_iterations > 0 and d.sor_converged, (method, d)
+    import torch
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel as sk
+    rhs = torch.zeros(prm.shape)
+    rhs[1:-1, 1:-1] = torch.linspace(-1.0, 1.0, 64).view(8, 8)
+    whole = sk.inner_sweeps_plain(rhs, 9, prm)
+    assert torch.equal(sk.inner_sweeps_tiled_plain(rhs, 9, prm, 3), whole)
+    assert torch.equal(sk.inner_sweeps_compressed_plain(rhs, 9, prm), whole)
     assert "navierstokes_parallel_tpu_torch.ops.mg" in sys.modules
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
     print("OK", diag.sor_iterations)

@@ -146,6 +146,23 @@ def test_unported_routes_raise(case):
         sor.solve_pressure(z, z, prm, method="rb_sor")
 
 
+def test_pallas_sor_refuses_bf16_inner():
+    """The kernels sweep in f32 only, so a bf16 request on the kernel route
+    is refused, not answered in f32; rb_sor, mg and cg ignore the knob, as
+    the JAX package's jnp routes do."""
+    prm, _ = _params(12, 10, max_it=200)
+    bf16 = prm.replace(sor_inner_dtype="bfloat16")
+    rhs = torch.from_numpy(_rhs(12, 10, seed=8, zero_mean=True))
+    p0 = torch.zeros(prm.shape)
+    with pytest.raises(NotImplementedError, match="Left out"):
+        sor.solve_pressure(p0, rhs, bf16, method="pallas_sor")
+    for method in ("rb_sor", "mg", "cg"):
+        got = sor.solve_pressure(p0, rhs, bf16, method=method)
+        want = sor.solve_pressure(p0, rhs, prm, method=method)
+        assert got.iterations == want.iterations
+        assert torch.equal(got.p, want.p)
+
+
 def test_unknown_method_and_default_method():
     prm, _ = _params(8, 8)
     z = torch.zeros(prm.shape)
