@@ -4,7 +4,7 @@
     python3 chip_smoke.py        # from the root of a checkout
 
     python3 chip_smoke.py --profile   # also a torch.profiler split of one
-                                      # 2048^2 outer pass, mg and SOR
+                                      # 2048^2 outer pass: mg, SOR, sharded
 
 Builds the hand-written CUDA kernels from csrc/, holds each against its
 plain PyTorch version (and each SOR sweep kernel against the whole-grid
@@ -26,14 +26,26 @@ against the JAX package's recorded answer:
     ``sor_kernel.USE_COMPRESSED`` (kernel sor_compressed_sweeps), the
     whole-grid kernel barred; it must give the JAX record exactly and the
     whole-grid route's fields bit for bit;
+  * sharded SOR: ``... configs/4.in --backend sharded --mesh 1x1
+    --max-steps 2 --stats`` through ``cli.main`` on a one-rank NCCL group,
+    every chunk of sweeps through the extended-block kernel sor_ext_sweeps,
+    with every other SOR kernel and every plain sweep function barred; then
+    the same steps through ``solve_sharded`` against ``solver.solve`` on the
+    tiled route;
 
 then runs small converging cavities (SOR and mg) on the GPU and on the CPU
-and compares them.  Each path runs with the launch counts set to 0 just
-before it and read just after; the JSON record's ``launches`` sums a
-kernel's counts over the paths.  Each phase prints its seconds.  Any failed phase prints ``FAIL: ...``
-and exits 1 before the last line; on success the last two lines are the
-kernels' JSON record and ``{"ok": true, "device": {...}}``.  Imports nothing
-of JAX.
+and compares them.  Before the paths, the "decomposition" check cuts whole
+grids into the blocks of 1x1, 2x2 and 2x4 meshes, sweeps each block's
+extended block with sor_ext_sweeps and holds the assembled cores against
+the whole-grid kernels bit for bit (the deep-halo exactness argument,
+parallel/deep_halo.py).  Each path runs with the launch counts set to 0
+just before it and read just after; the JSON record's ``launches`` sums a
+kernel's counts over the paths.  Each phase prints its seconds.  Any failed
+phase prints ``FAIL: ...`` and exits 1 before the last line; on success the
+last two lines are the kernels' JSON record (with each kernel's bound: the
+least time the card could take for its timed call, from the bytes it must
+move and the f32 operations it must do) and ``{"ok": true, "device":
+{...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -84,6 +96,15 @@ JAX_TILED_STATS = {"steps": 2, "sor_iterations": 40000, "sor_failures": 2}
 # Its last residual norm, printed to 4 digits; held to 2e-3 relative.
 JAX_TILED_RES_NORM = 1.075e2
 RES_NORM_RTOL = 2e-3
+# The JAX package's sharded backend on configs/4.in over a one-device mesh
+# (the deep-halo SOR inner), stopped after 2 steps, recorded with
+#   JAX_PLATFORMS=cpu python -m navierstokes_parallel_tpu configs/4.in \
+#       --backend sharded --mesh 1x1 --max-steps 2 --stats
+# printed the single-device record above: U-CENTER: -0.000006, V-CENTER:
+# 0.000000 and steps=2 sor_iterations=40000 sor_failures=2
+# last_res_norm=1.075e+02.  The sharded path is held to the same numbers.
+SHARDED_ARGV = ["--backend", "sharded", "--mesh", "1x1", "--max-steps",
+                str(TILED_STEPS), "--stats"]
 # The reference comparator's contract: 1e-4, absolute where |x| <= 1,
 # relative above (tests/conftest.py::assert_close_reference_contract).
 CONTRACT = 1e-4
@@ -101,6 +122,25 @@ MG_FINE_DX2_INV = 2048.0 ** 2
 # The tiled kernel's tile heights held against the plain twin: the default
 # (64) and 256 (221,184 B of shared memory, near the 232,448 B limit).
 TILE_SIZES = (64, 256)
+# The extended-block kernel's cases: (tag, interior, mesh, sweeps per call,
+# warm).  A 1x1 block of configs/4.in (the sharded path on one card: ext
+# 2080^2, H = 16), the four blocks of a 2x2 cut of the same grid, a padded
+# 99 x 63 interior over 2x4, and the multigrid use (a warm start from a
+# non-zero delta with its ghost ring, omega = 1, H = 2 ns) over 2x2.
+EXT_CASES = [("configs/4.in 1x1", (2048, 2048), (1, 1), (1, 8), False),
+             ("2048^2 2x2", (2048, 2048), (2, 2), (1, 8), False),
+             ("99x63 2x4", (99, 63), (2, 4), (1, 8), False),
+             ("mg 130^2 2x2", (130, 130), (2, 2), (MG_SWEEPS,), True)]
+# The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
+# memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# f32 operations per cell update of a red-black sweep (csrc/nsp_sor.cuh:
+# 7 in the neighbour sum, 4 in the relaxation; self_coef not counted) and
+# per interior cell of the momentum pass (csrc/momentum.cu: 57 for F, 57
+# for G, 2 for the gamma factors, 6 for rhs).
+SWEEP_FLOPS_PER_CELL = 11
+MOMENTUM_FLOPS_PER_CELL = 122
 
 
 class PhaseFailed(Exception):
@@ -297,7 +337,150 @@ def phase_compare(torch) -> dict:
         check(err == 0.0 and same, f"{key} kernel disagrees at {prm.shape}, "
                                    f"n={n}, tile={tile}")
         errs[key] = max(errs[key], err)
+    errs["sor_ext"] = compare_ext(torch, rng)
     return errs
+
+
+def ext_setup(tag: str, size, mesh, warm: bool):
+    """(ext_sweeps' last argument, li, lj, K, the blocks' global origins)
+    of an EXT_CASES cut: configs/4.in's Params, another grid's, or (warm)
+    a multigrid level's constants with omega = 1 and K = its sweeps."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.parallel import deep_halo, topology
+
+    li, lj = topology.local_block_dims(mesh, *size)
+    origins = [(ax * li, ay * lj) for ax in range(mesh[0])
+               for ay in range(mesh[1])]
+    if warm:
+        return ((*size, 1.0, 0.9 * size[0] ** 2, 1.3 * size[1] ** 2), li, lj,
+                MG_SWEEPS, origins)
+    if tag.startswith("configs/4.in"):
+        prm = Params.from_file(str(ROOT / "configs" / "4.in"))
+    else:
+        prm = Params(i_max=size[0], j_max=size[1], a=1.0, b=0.7, Re=1000.0,
+                     omega=1.7)
+    return prm, li, lj, deep_halo.comm_depth(prm, li, lj), origins
+
+
+def random_grid(torch, rng, size, ring: bool):
+    """A padded f32 grid on the card, random on the interior (and on the
+    ghost ring when `ring`), else 0."""
+    shape = (size[0] + 2, size[1] + 2)
+    g = rng.standard_normal(shape).astype(np.float32)
+    if not ring:
+        g[0], g[-1], g[:, 0], g[:, -1] = 0, 0, 0, 0
+    return torch.from_numpy(g).cuda()
+
+
+def compare_ext(torch, rng) -> float:
+    """sor_ext_sweeps against its twin ext_sweeps_plain on every block of
+    every EXT_CASES cut, on every cell at least 2 ns from the block's edge
+    (the twin's rolls wrap around there, the kernel reads zeros): error
+    0.0, and the cells outside the global interior keep their input.
+    Returns the max abs error."""
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+    from navierstokes_parallel_tpu_torch.parallel import deep_halo
+
+    worst = 0.0
+    for tag, size, mesh, sweeps, warm in EXT_CASES:
+        consts, li, lj, K, origins = ext_setup(tag, size, mesh, warm)
+        H = 2 * K
+        i_max, j_max, (_, _, dx2, dy2) = sor_kernel.ext_constants(consts)
+        delta0 = random_grid(torch, rng, size, ring=warm)
+        rhs = random_grid(torch, rng, size, ring=warm)
+        for ns in sweeps:
+            err, kept = 0.0, True
+            for origin in origins:
+                d_ext = deep_halo.cut_ext_block(delta0, origin, li, lj, H)
+                r_ext = deep_halo.cut_ext_block(rhs, origin, li, lj, H)
+                got = sor_kernel.ext_sweeps(d_ext, r_ext, ns, origin, H,
+                                            consts)
+                want = sor_kernel.ext_sweeps_plain(d_ext, r_ext, ns, origin,
+                                                   H, consts)
+                interior = sor_kernel.ext_masks(got.shape, H, origin, i_max,
+                                                j_max, dx2, dy2,
+                                                device=got.device)[0]
+                torch.cuda.synchronize()
+                e = 2 * ns
+                inner = (slice(e, got.shape[0] - e),
+                         slice(e, got.shape[1] - e))
+                err = max(err, float((got[inner] - want[inner]).abs().max()))
+                kept = kept and torch.equal(got[~interior], d_ext[~interior])
+            print(f"[compare] sor_ext {tag}: {len(origins)} blocks of ext "
+                  f"{li + 2 * H}x{lj + 2 * H}, H={H}, ns={ns}: max abs err "
+                  f"{err:.3e} on cells >= {2 * ns} from the edge (expected 0)"
+                  f", cells outside the interior kept {kept}")
+            check(err == 0.0 and kept,
+                  f"extended-block kernel disagrees ({tag}, ns={ns})")
+            worst = max(worst, err)
+    return worst
+
+
+def phase_decomposition(torch) -> None:
+    """For every EXT_CASES cut: n sweeps block by block through
+    sor_ext_sweeps in chunks of K (each chunk's blocks cut from the grid
+    the chunk before left: the deep exchange), the cores assembled, equal
+    the whole-grid kernels on the whole grid bit for bit: sor_sweeps and
+    sor_tiled_sweeps from delta = 0, sor_warm_sweeps for the warm start."""
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+    from navierstokes_parallel_tpu_torch.parallel import deep_halo
+
+    rng = np.random.default_rng(5)
+    for tag, size, mesh, sweeps, warm in EXT_CASES:
+        consts, li, lj, K, origins = ext_setup(tag, size, mesh, warm)
+        H = 2 * K
+        rhs = random_grid(torch, rng, size, ring=warm)
+        start = (random_grid(torch, rng, size, ring=True) if warm
+                 else torch.zeros_like(rhs))
+        # A cold start also runs two chunks (K + 5 sweeps).
+        for n in sweeps if warm else (*sweeps, K + 5):
+            delta, done = start, 0
+            while done < n:
+                ns = min(K, n - done)
+                nxt = delta.clone()
+                for ox, oy in origins:
+                    ext = sor_kernel.ext_sweeps(
+                        deep_halo.cut_ext_block(delta, (ox, oy), li, lj, H),
+                        deep_halo.cut_ext_block(rhs, (ox, oy), li, lj, H),
+                        ns, (ox, oy), H, consts)
+                    ri, rj = min(li, size[0] - ox), min(lj, size[1] - oy)
+                    nxt[1 + ox:1 + ox + ri, 1 + oy:1 + oy + rj] = \
+                        ext[H:H + ri, H:H + rj]
+                delta, done = nxt, done + ns
+            if warm:
+                refs = {"sor_warm_sweeps": sor_kernel.warm_sweeps(
+                    start, rhs, n, *consts[2:])}
+            else:
+                refs = {"sor_sweeps": sor_kernel.whole_grid_sweeps(
+                            rhs, n, consts),
+                        "sor_tiled_sweeps": sor_kernel.inner_sweeps_tiled(
+                            rhs, n, consts)}
+            torch.cuda.synchronize()
+            same = {name: torch.equal(delta, ref)
+                    for name, ref in refs.items()}
+            print(f"[decomposition] {tag}: {len(origins)} blocks, n={n} in "
+                  f"chunks of {K}: assembled cores equal {same}")
+            check(all(same.values()),
+                  f"the decomposition differs from the whole grid ({tag}, "
+                  f"n={n})")
+
+
+def bound(n_bytes: float, n_flops: float):
+    """(bound_ms, bound_by): the least time the card could take to move
+    n_bytes through device memory and do n_flops f32 operations, the larger
+    of the two at the published peaks, and which one it is."""
+    t_mem = n_bytes / PEAK_BYTES_PER_S
+    t_ops = n_flops / PEAK_F32_FLOPS
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
+                                     else "operations")
+
+
+def sweeps_bound(shape, arrays: int, updated_cells: int, n_sweeps: int):
+    """bound() of n_sweeps red-black sweeps over `updated_cells` cells of
+    an f32 array of `shape`, with `arrays` such arrays read once or written
+    once (rhs and delta from delta = 0: 2; delta0, rhs and delta: 3)."""
+    return bound(arrays * 4 * shape[0] * shape[1],
+                 SWEEP_FLOPS_PER_CELL * updated_cells * n_sweeps)
 
 
 def phase_time(torch) -> dict:
@@ -305,11 +488,15 @@ def phase_time(torch) -> dict:
     smoother) at the mg path's finest 2050^2 level and (the tiled kernel) at
     the tiled path's 2050^2, in turns (plain, kernel, kernel, plain); the
     tiled and compressed kernels with the whole-grid sor_sweeps beside them
-    (plain, kernel, sor_sweeps, sor_sweeps, kernel, plain).  Returns
-    (kernel ms, plain ms) per kernel: the tiled kernel's at 2050^2."""
+    (plain, kernel, sor_sweeps, sor_sweeps, kernel, plain); the
+    extended-block kernel at the sharded path's 2080^2 block of
+    configs/4.in, one call of K = 8 sweeps, with one 8-sweep chunk of the
+    tiled kernel at 2050^2 beside it.  Returns (kernel ms, plain ms,
+    bound ms, bound by) per kernel: the tiled kernel's at 2050^2."""
     from navierstokes_parallel_tpu_torch.config import Params
     from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
                                                           sor_kernel)
+    from navierstokes_parallel_tpu_torch.parallel import deep_halo
 
     prm = Params.from_file(str(ROOT / "configs" / "1.in"))
     rng = np.random.default_rng(1)
@@ -345,13 +532,24 @@ def phase_time(torch) -> dict:
                      lambda: sor_kernel.warm_sweeps_plain(*warm_args),
                      100, 10),
     }
+    interior = prm.i_max * prm.j_max
+    bounds = {"sor": sweeps_bound(prm.shape, 2, interior, SOR_SWEEPS),
+              "momentum": bound(5 * 4 * prm.shape[0] * prm.shape[1],
+                                MOMENTUM_FLOPS_PER_CELL * interior),
+              "sor_warm": sweeps_bound(MG_FINE_SHAPE, 3,
+                                       (MG_FINE_SHAPE[0] - 2)
+                                       * (MG_FINE_SHAPE[1] - 2), MG_SWEEPS),
+              "sor_tiled": sweeps_bound(prm4.shape, 2,
+                                        prm4.i_max * prm4.j_max, SOR_SWEEPS),
+              "sor_compressed": sweeps_bound(prm.shape, 2, interior,
+                                             SOR_SWEEPS)}
     times = {}
     for name, (kernel, plain, k_reps, p_reps) in cases.items():
         p1 = cuda_ms(torch, plain, p_reps)
         k1 = cuda_ms(torch, kernel, k_reps)
         k2 = cuda_ms(torch, kernel, k_reps)
         p2 = cuda_ms(torch, plain, p_reps)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2, *bounds[name])
         shape, per = prm.shape, ""
         if name == "sor":
             per = f" ({SOR_SWEEPS} sweeps)"
@@ -378,7 +576,7 @@ def phase_time(torch) -> dict:
         b2 = cuda_ms(torch, run(sor_kernel.whole_grid_sweeps), 20)
         k2 = cuda_ms(torch, run(kernel), 20)
         p2 = cuda_ms(torch, run(plain), p_reps)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2, *bounds[name])
         print(f"[time] {name} at {p_.shape} ({SOR_SWEEPS} sweeps): kernel "
               f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
               f"sor_sweeps {b1:.4f} / {b2:.4f} ms per call; per sweep "
@@ -391,12 +589,45 @@ def phase_time(torch) -> dict:
         t1, t2 = cuda_ms(torch, tiled, 20), cuda_ms(torch, tiled, 20)
         print(f"[time] sor_tiled at {prm4.shape} tile={tile} ({SOR_SWEEPS} "
               f"sweeps): kernel {t1:.4f} / {t2:.4f} ms per call")
-    k_ms, p_ms = times["sor"]
+
+    # The extended-block kernel on the sharded path's one block of
+    # configs/4.in (li = lj = 2048, K = 8, H = 16): one call of K sweeps,
+    # beside one K-sweep chunk of the tiled kernel on the whole grid.
+    K = deep_halo.comm_depth(prm4, prm4.i_max, prm4.j_max)
+    H = 2 * K
+    delta4 = np.zeros(prm4.shape, np.float32)
+    delta4[1:-1, 1:-1] = rng.standard_normal((prm4.i_max, prm4.j_max))
+    d_ext, r_ext = (deep_halo.cut_ext_block(g, (0, 0), prm4.i_max,
+                                            prm4.j_max, H)
+                    for g in (torch.from_numpy(delta4).cuda(), rhs4))
+
+    def ext(fn):
+        return lambda: fn(d_ext, r_ext, K, (0, 0), H, prm4)
+
+    p1 = cuda_ms(torch, ext(sor_kernel.ext_sweeps_plain), 5)
+    k1 = cuda_ms(torch, ext(sor_kernel.ext_sweeps), 50)
+    b1 = cuda_ms(torch, lambda: sor_kernel.inner_sweeps_tiled(rhs4, K, prm4),
+                 50)
+    b2 = cuda_ms(torch, lambda: sor_kernel.inner_sweeps_tiled(rhs4, K, prm4),
+                 50)
+    k2 = cuda_ms(torch, ext(sor_kernel.ext_sweeps), 50)
+    p2 = cuda_ms(torch, ext(sor_kernel.ext_sweeps_plain), 5)
+    times["sor_ext"] = ((k1 + k2) / 2, (p1 + p2) / 2,
+                        *sweeps_bound(d_ext.shape, 3,
+                                      prm4.i_max * prm4.j_max, K))
+    print(f"[time] sor_ext at {tuple(d_ext.shape)} ({K} sweeps, H={H}): "
+          f"kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
+          f"sor_tiled ({K} sweeps at {prm4.shape}) {b1:.4f} / {b2:.4f} ms "
+          f"per call")
+    for name, (k_ms, _, b_ms, by) in times.items():
+        print(f"[time] {name}: bound {b_ms * 1e3:.3f} us ({by}), kernel "
+              f"{k_ms * 1e3:.3f} us, {b_ms / k_ms:.4f} of the bound")
+    k_ms, p_ms = times["sor"][:2]
     print(f"[time] sor per sweep: kernel {k_ms * 1e3 / SOR_SWEEPS:.3f} us, "
           f"plain {p_ms * 1e3 / SOR_SWEEPS:.3f} us")
     print(f"[time] momentum per call: kernel {times['momentum'][0] * 1e3:.3f}"
           f" us, plain {times['momentum'][1] * 1e3:.3f} us")
-    k_ms, p_ms = times["sor_warm"]
+    k_ms, p_ms = times["sor_warm"][:2]
     print(f"[time] sor_warm per sweep at {MG_FINE_SHAPE}: kernel "
           f"{k_ms * 1e3 / MG_SWEEPS:.3f} us, plain "
           f"{p_ms * 1e3 / MG_SWEEPS:.3f} us")
@@ -409,6 +640,7 @@ def reset_launches() -> None:
 
     sor_kernel.LAUNCHES = sor_kernel.WARM_LAUNCHES = 0
     sor_kernel.TILED_LAUNCHES = sor_kernel.COMPRESSED_LAUNCHES = 0
+    sor_kernel.EXT_LAUNCHES = 0
     momentum_kernel.LAUNCHES = 0
 
 
@@ -419,14 +651,16 @@ def read_launches() -> dict:
     return {"sor": sor_kernel.LAUNCHES, "sor_warm": sor_kernel.WARM_LAUNCHES,
             "momentum": momentum_kernel.LAUNCHES,
             "sor_tiled": sor_kernel.TILED_LAUNCHES,
-            "sor_compressed": sor_kernel.COMPRESSED_LAUNCHES}
+            "sor_compressed": sor_kernel.COMPRESSED_LAUNCHES,
+            "sor_ext": sor_kernel.EXT_LAUNCHES}
 
 
 def check_only(launches: dict, kernels, where: str) -> None:
     """Every kernel in `kernels` ran in the path and no other SOR kernel."""
     for name in kernels:
         check(launches[name] > 0, f"{where} launched no {name} kernel")
-    for name in ("sor", "sor_warm", "sor_tiled", "sor_compressed"):
+    for name in ("sor", "sor_warm", "sor_tiled", "sor_compressed",
+                 "sor_ext"):
         if name not in kernels:
             check(launches[name] == 0, f"{where} launched the {name} kernel")
 
@@ -449,8 +683,10 @@ def run_cli(tag: str, argv: list, u_want: float, v_want: float,
     lines = out.getvalue().splitlines()
     uc = float(lines[0].split()[1])
     vc = float(lines[1].split()[1])
-    stats = dict(tok.split("=") for tok in
-                 err.getvalue().strip().splitlines()[0].split())
+    # The stats line (a library warning may precede it on stderr).
+    stats = dict(tok.split("=") for tok in next(
+        line for line in err.getvalue().splitlines()
+        if line.startswith("steps=")).split())
     for key, want in stats_want.items():
         check(int(stats[key]) == want,
               f"{key}={stats[key]}, JAX recorded {want}")
@@ -610,6 +846,77 @@ def phase_compressed_path(torch) -> dict:
     return launches
 
 
+def phase_sharded_path(torch) -> dict:
+    """configs/4.in --backend sharded --mesh 1x1 --max-steps 2 through the
+    CLI (a one-rank NCCL group): the JAX record, every chunk of K sweeps one
+    sor_ext_sweeps call, with the whole-grid, tiled and compressed kernels
+    and every plain sweep function barred.  Then the same steps through
+    solve_sharded beside solver.solve on the tiled route: equal counts,
+    fields within the contract.  Returns the CLI run's launch counts."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+    from navierstokes_parallel_tpu_torch.parallel import (deep_halo, sharded,
+                                                          topology)
+    from navierstokes_parallel_tpu_torch.utils import distributed
+
+    config = ROOT / "configs" / "4.in"
+    prm = Params.from_file(str(config))
+    # Each step runs into max_it: max_it // R outer passes of R sweeps and
+    # one of the rest, each in chunks of K (R = sor_refine_every = 64,
+    # K = 8: 312 passes of 8 chunks and one pass of 32 sweeps in 4).
+    K = deep_halo.comm_depth(prm, prm.i_max, prm.j_max)
+    R = prm.sor_refine_every
+    per_step = (prm.max_it // R) * -(-R // K) + -(-(prm.max_it % R) // K)
+    barred_fns = ("whole_grid_sweeps", "inner_sweeps_tiled",
+                  "inner_sweeps_compressed", "inner_sweeps_plain",
+                  "inner_sweeps_tiled_plain", "inner_sweeps_compressed_plain",
+                  "warm_sweeps_plain", "ext_sweeps_plain")
+    with barred(sor_kernel, barred_fns, "the sharded path"):
+        stats, launches = run_cli(
+            "sharded", [str(config), *SHARDED_ARGV], JAX_TILED_U_CENTER,
+            JAX_TILED_V_CENTER, JAX_TILED_STATS, rc_want=3)
+    res = float(stats["last_res_norm"])
+    print(f"[sharded] last_res_norm {res:.4e} vs JAX {JAX_TILED_RES_NORM:.4e}")
+    check(abs(res - JAX_TILED_RES_NORM) <= RES_NORM_RTOL * JAX_TILED_RES_NORM,
+          "last_res_norm differs from the JAX record")
+    # The CLI's warm-up step runs one pass of one sweep: one more call.
+    want = TILED_STEPS * per_step + 1
+    print(f"[sharded] extended-block kernel calls expected {TILED_STEPS} x "
+          f"{per_step} + 1 warm-up = {want}, launched {launches['sor_ext']}")
+    check(launches["sor_ext"] == want,
+          "extended-block kernel launches differ from the chunks")
+    check_only(launches, ("sor_ext",), "the sharded path")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with barred(sor_kernel, barred_fns, "the sharded solve"), \
+            distributed.process_group("cuda") as device:
+        mesh = topology.make_grid_mesh(shape=(1, 1), device=device)
+        state, sstats = sharded.solve_sharded(prm, mesh=mesh,
+                                              max_steps=TILED_STEPS)
+        torch.cuda.synchronize()
+    ext_calls = read_launches()["sor_ext"]
+    print(f"[sharded] solve_sharded {sstats} in {time.perf_counter() - t0:.3f}"
+          f" s; extended-block kernel calls {ext_calls}")
+    check(ext_calls == TILED_STEPS * per_step,
+          "solve_sharded's kernel calls differ from the chunks")
+    tiled, tstats, _ = solve_on_card(torch, "sharded/tiled", prm,
+                                     max_steps=TILED_STEPS)
+    check(sstats[:3] == tstats[:3],
+          "the sharded and tiled solves' counts differ")
+    errs = {name: contract_err(getattr(state, name).cpu().numpy(),
+                               getattr(tiled, name).cpu().numpy())
+            for name in ("u", "v", "p")}
+    same = {name: bool(getattr(state, name).equal(getattr(tiled, name)))
+            for name in ("u", "v", "p")}
+    print(f"[sharded] vs the tiled route: contract errors {errs} (tol "
+          f"{CONTRACT:.0e}), max {max(errs.values()):.3e}; fields equal bit "
+          f"for bit: {same}")
+    check(max(errs.values()) <= CONTRACT,
+          "the sharded and tiled solves differ beyond the contract")
+    return launches
+
+
 def phase_cpu_gpu(torch) -> None:
     """A small converging cavity on the GPU and on the CPU through the
     port: equal iteration counts, fields within the contract."""
@@ -644,17 +951,17 @@ def phase_cpu_gpu(torch) -> None:
 
 def phase_profile(torch, trace_prefix) -> None:
     """One outer pass of the pressure solve at configs/4.in's 2048^2, for
-    mg (f64 defect, one V-cycle, f64 defect and norm, one host sync) and for
-    the SOR route (the same around K = 64 sweeps of the tiled kernel): CUDA
-    event times of the pass and of its inner stage alone, then a
-    torch.profiler split of one pass by device kernel, with the device's
-    busy share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    mg (f64 defect, one V-cycle, f64 defect and norm, one host sync), for
+    the SOR route (the same around K = 64 sweeps of the tiled kernel) and
+    for the sharded backend on one rank (the same around 8 chunks of a deep
+    exchange and 8 sweeps of the extended-block kernel), each through
+    profile_pass."""
     from navierstokes_parallel_tpu_torch.config import Params
     from navierstokes_parallel_tpu_torch.ops import mg, sor
     from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+    from navierstokes_parallel_tpu_torch.parallel import (deep_halo, sharded,
+                                                          topology)
+    from navierstokes_parallel_tpu_torch.utils import distributed
 
     prm = Params.from_file(str(ROOT / "configs" / "4.in"))
     rng = np.random.default_rng(3)
@@ -664,12 +971,35 @@ def phase_profile(torch, trace_prefix) -> None:
     rhs = torch.from_numpy(rhs).cuda()
     p0 = torch.zeros(prm.shape, device="cuda")
     K = prm.sor_refine_every
-    cases = [("mg", prm.replace(max_it=1),
-              f"one V-cycle on {len(mg.build_levels(prm))} levels",
-              lambda: mg.inner_v_cycle(rhs, 1, prm)),
-             ("pallas_sor", prm.replace(max_it=K),
-              f"{K} sweeps on the {sor_kernel.route(prm)} route",
-              lambda: sor_kernel.inner_sweeps(rhs, K, prm))]
+    li, lj = prm.i_max, prm.j_max
+    one_pass = prm.replace(max_it=K)
+    with distributed.process_group("cuda") as device:
+        mesh = topology.make_grid_mesh(shape=(1, 1), device=device)
+        deep = deep_halo.make_deep_inner(prm, li, lj, mesh)
+        # (name, what the inner stage is, the inner stage, one outer pass)
+        cases = [("mg", f"one V-cycle on {len(mg.build_levels(prm))} levels",
+                  lambda: mg.inner_v_cycle(rhs, 1, prm),
+                  lambda: sor.solve_pressure(p0, rhs, prm.replace(max_it=1),
+                                             method="mg")),
+                 ("pallas_sor", f"{K} sweeps on the {sor_kernel.route(prm)} "
+                                f"route",
+                  lambda: sor_kernel.inner_sweeps(rhs, K, prm),
+                  lambda: sor.solve_pressure(p0, rhs, one_pass,
+                                             method="pallas_sor")),
+                 ("sharded", f"{K} sweeps of the deep-halo inner (1x1 mesh)",
+                  lambda: deep(rhs, K),
+                  lambda: sharded._sharded_pressure_solve(
+                      p0, rhs, one_pass, "rb_sor", li, lj, None, mesh))]
+        for case in cases:
+            profile_pass(torch, *case, trace_prefix)
+
+
+def profile_pass(torch, method: str, what: str, inner_stage, outer_pass,
+                 trace_prefix) -> None:
+    """CUDA event times of one outer pass and of its inner stage, then a
+    torch.profiler split of one pass by device kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     def device_us(evt):
         for name in ("self_device_time_total", "self_cuda_time_total"):
@@ -677,48 +1007,45 @@ def phase_profile(torch, trace_prefix) -> None:
                 return getattr(evt, name)
         return 0.0
 
-    for method, one_pass, what, inner_stage in cases:
-        def outer_pass(one_pass=one_pass, method=method):
-            return sor.solve_pressure(p0, rhs, one_pass, method=method)
-
-        inner_ms = cuda_ms(torch, inner_stage, 20)
-        pass_ms = cuda_ms(torch, outer_pass, 20)
-        print(f"[profile] {method} at 2048^2: {what} {inner_ms:.4f} ms, one "
-              f"outer pass (inner + f64 outer) {pass_ms:.4f} ms (CUDA "
-              f"events, mean of 20)")
+    inner_ms = cuda_ms(torch, inner_stage, 20)
+    pass_ms = cuda_ms(torch, outer_pass, 20)
+    print(f"[profile] {method} at 2048^2: {what} {inner_ms:.4f} ms, one "
+          f"outer pass (inner + f64 outer) {pass_ms:.4f} ms (CUDA "
+          f"events, mean of 20)")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        outer_pass()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            outer_pass()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        if trace_prefix:
-            path = f"{trace_prefix}.{method}.json"
-            prof.export_chrome_trace(path)
-            print(f"[profile] chrome trace: {path}")
-        kernels = [e for e in prof.key_averages()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA]
-        busy_us = sum(device_us(e) for e in kernels)
-        n_launches = sum(e.count for e in kernels)
-        print(f"[profile] {method}: one outer pass under the profiler: wall "
-              f"{wall_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms (share "
-              f"{busy_us / 1e3 / wall_ms:.3f}) over {n_launches} kernel "
-              f"launches")
-        check(n_launches > 0, "the profiler saw no device kernel")
-        for e in sorted(kernels, key=device_us, reverse=True)[:15]:
-            print(f"[profile]   {device_us(e) / 1e3:9.4f} ms  {e.count:6d} x"
-                  f"  {e.key[:90]}")
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if trace_prefix:
+        path = f"{trace_prefix}.{method}.json"
+        prof.export_chrome_trace(path)
+        print(f"[profile] chrome trace: {path}")
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy_us = sum(device_us(e) for e in kernels)
+    n_launches = sum(e.count for e in kernels)
+    print(f"[profile] {method}: one outer pass under the profiler: wall "
+          f"{wall_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms (share "
+          f"{busy_us / 1e3 / wall_ms:.3f}) over {n_launches} kernel "
+          f"launches")
+    check(n_launches > 0, "the profiler saw no device kernel")
+    for e in sorted(kernels, key=device_us, reverse=True)[:15]:
+        print(f"[profile]   {device_us(e) / 1e3:9.4f} ms  {e.count:6d} x"
+              f"  {e.key[:90]}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one 2048^2 outer pass of mg and of "
-                         "the SOR route")
+                    help="also profile one 2048^2 outer pass of mg, of "
+                         "the SOR route and of the sharded backend")
     ap.add_argument("--trace", default=None, metavar="PREFIX",
                     help="with --profile, write the chrome traces to "
-                         "PREFIX.mg.json and PREFIX.pallas_sor.json")
+                         "PREFIX.mg.json, PREFIX.pallas_sor.json and "
+                         "PREFIX.sharded.json")
     args = ap.parse_args(argv)
     import torch
 
@@ -737,11 +1064,13 @@ def main(argv=None) -> int:
         phase_device(torch)
         timed_phase("build", phase_build)
         errs = timed_phase("compare", phase_compare, torch)
+        timed_phase("decomposition", phase_decomposition, torch)
         times = timed_phase("time", phase_time, torch)
         paths = [timed_phase("main path", phase_main_path),
                  timed_phase("mg path", phase_mg_path),
                  timed_phase("tiled path", phase_tiled_path, torch),
-                 timed_phase("compressed path", phase_compressed_path, torch)]
+                 timed_phase("compressed path", phase_compressed_path, torch),
+                 timed_phase("sharded path", phase_sharded_path, torch)]
         timed_phase("cpu-gpu", phase_cpu_gpu, torch)
         if args.profile:
             phase_profile(torch, args.trace)
@@ -760,12 +1089,16 @@ def main(argv=None) -> int:
                              f"{tpu}sor_kernel.py:207 (and :293, "
                              f"double-buffered)"),
                "sor_compressed": ("sor_compressed_sweeps", "sor_compressed.cu",
-                                  f"{tpu}sor_kernel.py:782")}
+                                  f"{tpu}sor_kernel.py:782"),
+               "sor_ext": ("sor_ext_sweeps", "sor_ext.cu",
+                           "navierstokes_parallel_tpu/parallel/"
+                           "deep_halo.py:226")}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"navierstokes_parallel_tpu_torch/csrc/{src}",
                 "replaces": replaces, "launches": launches[key],
                 "max_abs_err": errs[key], "ms": times[key][0],
-                "plain_ms": times[key][1]}
+                "plain_ms": times[key][1], "bound_ms": times[key][2],
+                "bound_by": times[key][3], "library_ms": None}
                for key, (name, src, replaces) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

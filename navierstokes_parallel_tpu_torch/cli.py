@@ -12,10 +12,17 @@ the reference executables (src/serial/main.c:31-158):
 
 The kernels are built and launched once before the timer starts, as the JAX
 CLI compiles before it starts its timer.  ``--max-steps N`` stops after N
-steps and exits with code 3 while t < T remains, as the JAX CLI does.  The
-JAX CLI's other options (backends, meshes, AB2, obstacles, output frames,
-checkpoints, history) are not ported yet (ROADMAP A4).  Unlike the JAX CLI,
-a tile size of 0 is refused rather than ignored.
+steps and exits with code 3 while t < T remains, as the JAX CLI does.
+
+``--backend sharded`` runs the sharded solver (parallel/sharded.py) over a
+``torch.distributed`` group, one rank per shard of a ``--mesh PxQ`` mesh
+(P * Q must equal the number of ranks): a one-rank group by itself, or the
+ranks ``torchrun`` starts.  Only rank 0 prints; the timer brackets the
+solve between a barrier and a synchronize.  ``jnp`` and ``pallas`` are the
+single-device route, as in the JAX CLI; ``gspmd`` is not ported.  The JAX
+CLI's other options (AB2, obstacles, output frames, checkpoints, history)
+are not ported yet (ROADMAP A4).  Unlike the JAX CLI, a tile size of 0 is
+refused rather than ignored.
 """
 
 from __future__ import annotations
@@ -24,11 +31,15 @@ import argparse
 import sys
 import time
 
+import torch
+import torch.distributed as dist
+
 from .config import Params
 from .grid import allocate_state, resolve_device
 from .ops.cuda import sor_kernel
 from .ops.sor import default_method
 from .solver import center_values, solve, warm_up
+from .utils import distributed
 from .utils.checks import validate_state
 from .utils.timing import device_fence, mlups
 
@@ -45,15 +56,28 @@ def build_parser() -> argparse.ArgumentParser:
                     help="rows of a tile of the tiled SOR kernel, in "
                          "[1, 4096] and within one block's shared memory "
                          "(reference CUDA block-size analogue)")
+    ap.add_argument("--backend",
+                    choices=["auto", "jnp", "pallas", "sharded", "gspmd"],
+                    default="auto",
+                    help="compute path: auto, jnp and pallas run on one "
+                         "device (pallas forces pallas_sor); sharded runs one "
+                         "rank per shard of --mesh over torch.distributed; "
+                         "gspmd is not ported")
     ap.add_argument("--method",
-                    choices=["rb_sor", "pallas_sor", "jacobi", "mg", "cg",
-                             "fft"],
+                    choices=["rb_sor", "pallas_sor", "rb_sor_sync", "jacobi",
+                             "mg", "cg", "fft"],
                     default="rb_sor",
                     help="pressure solver; rb_sor and pallas_sor both run "
-                         "the f64-refined red-black SOR, mg geometric "
+                         "the f64-refined red-black SOR (on the sharded "
+                         "backend with the deep-halo inner), mg geometric "
                          "multigrid V-cycles and cg conjugate gradients in "
-                         "the same refinement (jacobi and fft are not "
-                         "ported yet)")
+                         "the same refinement (rb_sor_sync is rb_sor off the "
+                         "sharded backend; jacobi, fft and the sharded "
+                         "rb_sor_sync, mg and cg are not ported yet)")
+    ap.add_argument("--mesh", default=None, metavar="PxQ",
+                    help="process mesh of the sharded backend, e.g. 2x2; "
+                         "P * Q must equal the number of ranks (default: "
+                         "the pad-optimal mesh over them)")
     ap.add_argument("--dtype", choices=["float32", "float64"], default=None,
                     help="override dtype (default: config / float32)")
     ap.add_argument("--refine-every", type=int, default=None,
@@ -104,9 +128,31 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
 
+    if args.backend == "gspmd":
+        print("error: --backend gspmd is not ported (XLA's SPMD partitioner "
+              "has no PyTorch counterpart; ROADMAP \"Left out of the "
+              "port\"); use --backend sharded", file=sys.stderr)
+        return 1
+    try:
+        mesh_shape = parse_mesh_arg(args.mesh)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if mesh_shape is not None and args.backend != "sharded":
+        print(f"error: --mesh applies to the sharded backend, not "
+              f"{args.backend!r}", file=sys.stderr)
+        return 1
+
     pressure_method = args.method
-    if pressure_method == "rb_sor":
+    if pressure_method == "rb_sor_sync" and args.backend != "sharded":
+        pressure_method = "rb_sor"  # sync vs deep only differs across shards
+    if args.backend == "pallas":
+        pressure_method = "pallas_sor"
+    elif args.backend == "auto" and pressure_method == "rb_sor":
         pressure_method = default_method(params, device)
+    if args.backend == "sharded":
+        return _main_sharded(args, params, device, mesh_shape,
+                             pressure_method)
     try:
         warm_up(params, device, pressure_method)
     except NotImplementedError as e:  # an unported route, found at once
@@ -119,7 +165,61 @@ def main(argv=None) -> int:
                          max_steps=args.max_steps)
     device_fence(state)
     elapsed = time.perf_counter() - start
+    return _report(args, params, state, stats, elapsed)
 
+
+def _main_sharded(args, params: Params, device, mesh_shape,
+                  pressure_method: str) -> int:
+    """The sharded backend inside a process group; rank 0 reports."""
+    from .parallel import sharded
+    from .parallel.topology import make_grid_mesh
+
+    with distributed.process_group(device) as rank_device:
+        try:
+            mesh = make_grid_mesh(i_max=params.i_max, j_max=params.j_max,
+                                  shape=mesh_shape, device=rank_device)
+            sharded.warm_up(params, mesh, pressure_method)
+        except (NotImplementedError, ValueError) as e:
+            if dist.get_rank() == 0:
+                print(f"error: {e}", file=sys.stderr)
+            return 1
+        local = sharded.scatter_state(params, None, mesh)
+        dist.barrier()
+        start = time.perf_counter()
+        local, stats = sharded.run_local(params, local, mesh,
+                                         pressure_method=pressure_method,
+                                         max_steps=args.max_steps)
+        if rank_device.type == "cuda":
+            torch.cuda.synchronize(rank_device)
+        elapsed = time.perf_counter() - start
+        state = sharded.gather_state(params, local, mesh)
+        if dist.get_rank() != 0:
+            return _exit_code(args, params, state)
+        return _report(args, params, state, stats, elapsed)
+
+
+def parse_mesh_arg(spec):
+    """'PxQ' -> (P, Q); None -> None (the backend picks its mesh)."""
+    if spec is None:
+        return None
+    try:
+        px, py = (int(tok) for tok in spec.lower().split("x"))
+        if px < 1 or py < 1:
+            raise ValueError
+    except ValueError:
+        raise ValueError(f"--mesh expects PxQ (e.g. 2x4), got {spec!r}")
+    return px, py
+
+
+def _exit_code(args, params: Params, state) -> int:
+    # T in the state's dtype, as solve compares it.
+    if args.max_steps and float(state.t) < float(state.t.new_tensor(params.T)):
+        return 3  # stopped by --max-steps before T
+    return 0
+
+
+def _report(args, params: Params, state, stats, elapsed: float) -> int:
+    """Check the state, print the protocol's lines; returns the exit code."""
     validate_state(state, where="end of integration")
     uc, vc = center_values(state, params)
     print(f"U-CENTER: {uc:.6f}")
@@ -137,10 +237,7 @@ def main(argv=None) -> int:
         print("", file=sys.stderr)
 
     print(f"{elapsed:.6f}", file=sys.stderr, end="")
-    # T in the state's dtype, as solve compares it.
-    if args.max_steps and float(state.t) < float(state.t.new_tensor(params.T)):
-        return 3  # stopped by --max-steps before T
-    return 0
+    return _exit_code(args, params, state)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 // The red-black SOR cell update shared by the sweep kernels (sor.cu,
-// sor_tiled.cu), so that every kernel computes each cell with the same
-// expression and they agree bit for bit.
+// sor_tiled.cu, sor_ext.cu), so that every kernel computes each cell with
+// the same expression and they agree bit for bit.
 //
 // Arithmetic order and constants follow the Pallas kernel
 // (navierstokes_parallel_tpu/ops/pallas/sor_kernel.py::_make_kernel):

@@ -1,0 +1,93 @@
+// Red-black SOR sweeps on one shard's extended block (B6).
+//
+// nsp_sor_ext_sweeps replaces the Pallas TPU kernel navierstokes_parallel_
+// tpu/parallel/deep_halo.py::_make_ext_kernel (called through
+// _ext_sweeps_call by make_deep_inner): the communication-avoiding sharded
+// SOR inner.  Each shard holds an li x lj block of the interior; one deep
+// exchange builds its extended (li + 2H) x (lj + 2H) block, whose H-deep
+// ring holds the neighbours' edge strips, and ns <= H / 2 red-black sweeps
+// on it then leave the central li x lj core exactly as a sweep of the whole
+// grid would, with no communication in between.  Extended cell (a, b) is
+// global padded cell (ox - H + 1 + a, oy - H + 1 + b), (ox, oy) the shard's
+// global interior origin; interior mask, parity and self_coef come from that
+// index (nsp_sor.cuh), so the core equals B1 / B4 on the whole grid bit for
+// bit.
+//
+// The TPU kernel holds the whole block in VMEM and rebuilds its masks from
+// (ox, oy) in SMEM scalars.  A 2080^2 block (configs/4.in on one card) does
+// not fit one block's 227 KB of shared memory, so this kernel runs B4's
+// temporal-blocked tile (nsp_sor_tile.cuh) over the extended block as its
+// whole domain: one launch per call, out of place, tiles of TI x TJ cells
+// with a halo of 2 ns cells, cells outside the extended block loaded as 0.
+// Every cell of the block is written: cells outside the global interior
+// keep their input value, as the Pallas kernel's where() keeps them.  The
+// TPU kernel's rolls wrap around at the block's edge and this kernel reads
+// zeros there; either pollutes only cells within 2 ns of the edge, which
+// never reach the core because H >= 2 ns.
+//
+// What bounds it on an H100: the least time for one call of 8 sweeps at
+// 2080^2 is set by device memory, delta and rhs read once and delta written
+// once (3 x 17.3 MB, ~15.5 us at 3.35 TB/s), against 11 flops per cell
+// update (0.38 GFLOP, ~5.7 us at 67 TFLOP/s f32).  Like B4 it pays instead
+// (TI + 4 ns)(TJ + 4 ns) / (TI * TJ) updates per written cell for the halo
+// (2.25 at TI = TJ = 64, ns = 8) and a __syncthreads() per half-sweep.
+// cp.async / TMA loads and tuning of the tile are later work.
+
+#include <cuda_runtime.h>
+
+#include "nsp_sor_tile.cuh"
+
+namespace {
+
+constexpr int kThreadsJ = 16;  // threads along j (each takes every 2nd cell)
+constexpr int kThreadsI = 32;  // threads along i
+
+__global__ void __launch_bounds__(kThreadsJ * kThreadsI)
+    ext_chunk(const float* __restrict__ src, float* __restrict__ dst,
+              const float* __restrict__ rhs, nsp::TileDomain dom, int ti,
+              int tj, int ns, float one_minus_omega, float coef,
+              float dx2_inv, float dy2_inv) {
+  nsp::sweep_tile(src, dst, rhs, dom, ti, tj, 2 * ns, ns, one_minus_omega,
+                  coef, dx2_inv, dy2_inv);
+}
+
+}  // namespace
+
+// n_sweeps red-black sweeps on the rows x cols extended block d0 (row-major
+// f32) with right-hand side rhs, into out (same shape; every cell written).
+// The block's cell (0, 0) is global padded cell (ox - H + 1, oy - H + 1) of
+// the (i_max + 2) x (j_max + 2) grid.  One launch; tiles of tile_rows x
+// tile_cols cells with a 2 n_sweeps halo.  Returns cudaGetLastError() after
+// the launch.
+extern "C" int nsp_sor_ext_sweeps(float* out, const float* d0,
+                                  const float* rhs, int rows, int cols,
+                                  int n_sweeps, int ox, int oy, int H,
+                                  int i_max, int j_max, int tile_rows,
+                                  int tile_cols, float one_minus_omega,
+                                  float coef, float dx2_inv, float dy2_inv,
+                                  int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rows < 1 || cols < 1 || tile_rows < 1 || tile_cols < 1 ||
+      n_sweeps < 0 || 2 * n_sweeps > H) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int halo = 2 * n_sweeps;
+  const size_t smem = 2 * sizeof(float) *
+                      static_cast<size_t>(tile_rows + 2 * halo) *
+                      static_cast<size_t>(tile_cols + 2 * halo);
+  err = cudaFuncSetAttribute(ext_chunk,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const nsp::TileDomain dom{rows,        cols,        ox - H + 1, oy - H + 1,
+                            i_max + 2,   j_max + 2,   0,          rows,
+                            0,           cols};
+  const dim3 block(kThreadsJ, kThreadsI);
+  const dim3 grid((cols + tile_cols - 1) / tile_cols,
+                  (rows + tile_rows - 1) / tile_rows);
+  ext_chunk<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      d0, out, rhs, dom, tile_rows, tile_cols, n_sweeps, one_minus_omega,
+      coef, dx2_inv, dy2_inv);
+  return static_cast<int>(cudaGetLastError());
+}

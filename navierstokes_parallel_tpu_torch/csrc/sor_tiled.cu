@@ -31,7 +31,8 @@
 //   - Each half-sweep visits only the cells of its colour: thread x takes
 //     every second column of a row, starting on the row's first cell of
 //     that colour.  Interior masks, parity and self_coef come from each
-//     cell's global (i, j).
+//     cell's global (i, j).  The tile body is nsp_sor_tile.cuh's
+//     sweep_tile, shared with the extended-block kernel (sor_ext.cu).
 //
 // What bounds it on an H100: not device memory.  A chunk reads
 // (TI + 2H)(TJ + 2H) cells of delta and rhs per tile and writes TI * TJ,
@@ -50,66 +51,23 @@
 
 #include <cuda_runtime.h>
 
-#include "nsp_sor.cuh"
+#include "nsp_sor_tile.cuh"
 
 namespace {
 
 constexpr int kThreadsJ = 16;  // threads along j (each takes every 2nd cell)
 constexpr int kThreadsI = 32;  // threads along i
 
-// One chunk of ns <= halo / 2 sweeps: src (pre-chunk) -> dst, both ni x nj.
+// One chunk of ns <= halo / 2 sweeps over the padded grid: src (pre-chunk)
+// -> dst, both ni x nj; only interior cells are written.
 __global__ void __launch_bounds__(kThreadsJ * kThreadsI)
     tiled_chunk(const float* __restrict__ src, float* __restrict__ dst,
                 const float* __restrict__ rhs, int ni, int nj, int ti, int tj,
                 int halo, int ns, float one_minus_omega, float coef,
                 float dx2_inv, float dy2_inv) {
-  extern __shared__ float smem[];
-  const int ei = ti + 2 * halo;  // rows of the shared tile
-  const int ej = tj + 2 * halo;  // its columns
-  float* sd = smem;
-  float* sr = smem + static_cast<size_t>(ei) * ej;
-  const int i0 = static_cast<int>(blockIdx.y) * ti - halo;  // row of sd row 0
-  const int j0 = static_cast<int>(blockIdx.x) * tj - halo;  // column of col 0
-
-  for (int r = threadIdx.y; r < ei; r += blockDim.y) {
-    const int i = i0 + r;
-    for (int c = threadIdx.x; c < ej; c += blockDim.x) {
-      const int j = j0 + c;
-      const bool in = i >= 0 && i < ni && j >= 0 && j < nj;
-      const size_t g = in ? static_cast<size_t>(i) * nj + j : 0;
-      sd[r * ej + c] = in ? src[g] : 0.0f;
-      sr[r * ej + c] = in ? rhs[g] : 0.0f;
-    }
-  }
-  __syncthreads();
-
-  for (int h = 0; h < 2 * ns; ++h) {
-    const int parity = h & 1;
-    for (int r = 1 + threadIdx.y; r < ei - 1; r += blockDim.y) {
-      const int i = i0 + r;
-      // (i + j0 + c) & 1 == parity on the columns c this row updates.
-      const int first = (parity - i - j0) & 1;
-      for (int c = first + 2 * threadIdx.x; c < ej - 1; c += 2 * blockDim.x) {
-        const int j = j0 + c;
-        if (c == 0 || !nsp::rb_updates(i, j, ni, nj, parity)) continue;
-        const int e = r * ej + c;
-        sd[e] = nsp::rb_update(sd, sr[e], e, ej, i, j, ni, nj,
-                               one_minus_omega, coef, dx2_inv, dy2_inv);
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int r = halo + threadIdx.y; r < halo + ti; r += blockDim.y) {
-    const int i = i0 + r;
-    if (i < 1 || i > ni - 2) continue;
-    for (int c = halo + threadIdx.x; c < halo + tj; c += blockDim.x) {
-      const int j = j0 + c;
-      if (j >= 1 && j <= nj - 2) {
-        dst[static_cast<size_t>(i) * nj + j] = sd[r * ej + c];
-      }
-    }
-  }
+  const nsp::TileDomain dom{ni, nj, 0, 0, ni, nj, 1, ni - 1, 1, nj - 1};
+  nsp::sweep_tile(src, dst, rhs, dom, ti, tj, halo, ns, one_minus_omega, coef,
+                  dx2_inv, dy2_inv);
 }
 
 }  // namespace

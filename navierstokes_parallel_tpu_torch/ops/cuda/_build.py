@@ -48,6 +48,11 @@ SIGNATURES = {
     # stream
     "nsp_sor_tiled_sweeps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                              _F, _I, _P),
+    # out, d0, rhs, rows, cols, n_sweeps, ox, oy, H, i_max, j_max,
+    # tile_rows, tile_cols, one_minus_omega, coef, dx2_inv, dy2_inv, device,
+    # stream
+    "nsp_sor_ext_sweeps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _F, _F, _F, _F, _I, _P),
     # red, black, rhs_red, rhs_black, ni, nj, n_sweeps, one_minus_omega,
     # coef, dx2_inv, dy2_inv, device, stream
     "nsp_sor_compressed_sweeps": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,

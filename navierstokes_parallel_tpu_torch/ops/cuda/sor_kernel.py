@@ -18,7 +18,12 @@ Counterpart of ``navierstokes_parallel_tpu/ops/pallas/sor_kernel.py``:
     set and the padded width is even, else the whole-grid one;
   * ``warm_sweeps`` (``_make_kernel`` with ``warm_start=True``): n
     red-black sweeps from a given p0, with omega and the level's dx^2 /
-    dy^2 per call, the multigrid smoother (ops/mg.py).
+    dy^2 per call, the multigrid smoother (ops/mg.py);
+  * ``ext_sweeps`` (``parallel/deep_halo.py::_make_ext_kernel`` through
+    ``_ext_sweeps_call``): ns <= H / 2 sweeps from a given delta on one
+    shard's extended block, masks and parity from the shard's global
+    origin, the sharded deep-halo inner (parallel/deep_halo.py;
+    ``csrc/sor_ext.cu``).
 
 All fold the Neumann boundary into a per-cell self coefficient, and all
 give the same bits: every updated cell goes through the same expression on
@@ -37,11 +42,13 @@ from . import _build
 # Kernel launches, one per call of a wrapper that launches (each call runs
 # all its launches in C): whole_grid_sweeps counts in LAUNCHES,
 # inner_sweeps_tiled in TILED_LAUNCHES, inner_sweeps_compressed in
-# COMPRESSED_LAUNCHES and warm_sweeps in WARM_LAUNCHES.
+# COMPRESSED_LAUNCHES, warm_sweeps in WARM_LAUNCHES and ext_sweeps in
+# EXT_LAUNCHES.
 LAUNCHES = 0
 TILED_LAUNCHES = 0
 COMPRESSED_LAUNCHES = 0
 WARM_LAUNCHES = 0
+EXT_LAUNCHES = 0
 
 # The tiled route (JAX TILE_ROWS, SWEEPS_PER_CHUNK).  A tile writes
 # TILE_ROWS x TILE_COLS cells per chunk of SWEEPS_PER_CHUNK = K sweeps and
@@ -63,6 +70,9 @@ WHOLE_GRID_BUDGET_BYTES = 48 * 1024 * 1024
 # The colour-compressed kernel instead of the whole-grid one (JAX
 # USE_COMPRESSED; off there, as here).
 USE_COMPRESSED = False
+# The extended-block kernel's tile: EXT_TILE_ROWS x TILE_COLS cells written
+# per block, with a halo of 2 ns cells for ns sweeps per call.
+EXT_TILE_ROWS = 64
 
 
 def warm_constants(omega: float, dx2_inv: float, dy2_inv: float):
@@ -472,4 +482,99 @@ def warm_sweeps(p: torch.Tensor, rhs: torch.Tensor, n_sweeps: int,
         *_build.device_and_stream(p))
     _build.check_status(status, "nsp_sor_warm_sweeps")
     WARM_LAUNCHES += 1
+    return out
+
+
+# --- the extended-block kernel of the sharded inner -------------------------------
+
+def ext_constants(params_or_consts):
+    """(i_max, j_max, constants) of ext_sweeps' last argument: a Params (the
+    grid and sweep_constants) or a tuple (i_max, j_max, omega, dx2_inv,
+    dy2_inv) (warm_constants), e.g. one multigrid level."""
+    if isinstance(params_or_consts, Params):
+        prm = params_or_consts
+        return prm.i_max, prm.j_max, sweep_constants(prm)
+    i_max, j_max, omega, dx2_inv, dy2_inv = params_or_consts
+    return int(i_max), int(j_max), warm_constants(omega, dx2_inv, dy2_inv)
+
+
+def ext_masks(ext_shape, H: int, origin, i_max: int, j_max: int,
+              dx2_inv: float, dy2_inv: float, device="cpu"):
+    """(interior, red, black, self_coef) of an extended block (JAX
+    deep_halo._ext_masks): extended cell (a, b) is global padded cell
+    (ox - H + 1 + a, oy - H + 1 + b), (ox, oy) = origin the shard's global
+    interior origin."""
+    rows, cols = ext_shape
+    ox, oy = (int(o) for o in origin)
+    ii = torch.arange(rows, device=device).view(rows, 1) + (ox - H + 1)
+    jj = torch.arange(cols, device=device).view(1, cols) + (oy - H + 1)
+    red, black, self_coef = _masks(ii, jj, i_max, j_max, dx2_inv, dy2_inv)
+    return red | black, red, black, self_coef
+
+
+def ext_sweeps_plain(delta_ext: torch.Tensor, rhs_ext: torch.Tensor, ns: int,
+                     origin, H: int, params_or_consts) -> torch.Tensor:
+    """ext_sweeps in plain PyTorch, as the JAX package's _ext_sweeps_jnp
+    computes it: ns red-black sweeps by circular rolls of the whole block
+    (the wrap lands only within 2 ns cells of the block's edge), masks
+    from the global indices."""
+    i_max, j_max, constants = ext_constants(params_or_consts)
+    _, red, black, self_coef = ext_masks(delta_ext.shape, H, origin, i_max,
+                                         j_max, *constants[2:],
+                                         device=delta_ext.device)
+    d = delta_ext.to(torch.float32, copy=True)
+    rhs = rhs_ext.to(torch.float32)
+    for _ in range(int(ns)):
+        d = _half_sweep(d, rhs, red, self_coef, constants)
+        d = _half_sweep(d, rhs, black, self_coef, constants)
+    return d
+
+
+def ext_shared_bytes(ns: int) -> int:
+    """Shared memory of one block of the extended-block kernel: delta and
+    rhs, f32, over its tile and a halo of 2 ns cells on each side."""
+    return tiled_shared_bytes(EXT_TILE_ROWS, max(int(ns), 0))
+
+
+def check_ext_inputs(delta_ext: torch.Tensor, rhs_ext: torch.Tensor, ns: int,
+                     H: int) -> None:
+    """Raise on anything the extended-block kernel does not take: ns
+    outside [0, H / 2] (the core would not be exact), a tile beyond one
+    block's shared memory, or blocks that are not matching contiguous 2-D
+    f32 tensors on one device."""
+    check_warm_inputs(delta_ext, rhs_ext, 0)
+    if not 0 <= int(ns) <= int(H) // 2:
+        raise ValueError(f"ext_sweeps takes 0 <= ns <= H / 2 = {int(H) // 2}"
+                         f" sweeps, got {ns}")
+    need = ext_shared_bytes(ns)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"ext_sweeps with ns={ns} needs {need} bytes of shared memory per "
+            f"block ({EXT_TILE_ROWS} x {TILE_COLS} tile, halo {2 * int(ns)});"
+            f" a block may use at most {MAX_SHARED_BYTES}")
+
+
+def ext_sweeps(delta_ext: torch.Tensor, rhs_ext: torch.Tensor, ns: int,
+               origin, H: int, params_or_consts) -> torch.Tensor:
+    """ns <= H / 2 f32 red-black sweeps on one shard's extended block from
+    delta_ext, into a new tensor: the plain version for a CPU tensor, the
+    CUDA kernel (one launch) for a CUDA one.  Cells of the core (H deep
+    inside the block) equal a sweep of the whole grid; the kernel and its
+    twin agree on every cell at least 2 ns from the block's edge."""
+    global EXT_LAUNCHES
+    if not _cuda_tensor(delta_ext):
+        return ext_sweeps_plain(delta_ext, rhs_ext, ns, origin, H,
+                                params_or_consts)
+    check_ext_inputs(delta_ext, rhs_ext, ns, H)
+    i_max, j_max, constants = ext_constants(params_or_consts)
+    ox, oy = (int(o) for o in origin)
+    lib = _build.load()
+    rows, cols = delta_ext.shape
+    out = torch.empty_like(delta_ext)
+    status = lib.nsp_sor_ext_sweeps(
+        out.data_ptr(), delta_ext.data_ptr(), rhs_ext.data_ptr(), rows, cols,
+        int(ns), ox, oy, int(H), i_max, j_max, EXT_TILE_ROWS, TILE_COLS,
+        *constants, *_build.device_and_stream(delta_ext))
+    _build.check_status(status, "nsp_sor_ext_sweeps")
+    EXT_LAUNCHES += 1
     return out

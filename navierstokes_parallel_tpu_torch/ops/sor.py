@@ -116,14 +116,14 @@ def solve_pressure(p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
         return _solve_pressure_refined(
             p, rhs, params.replace(
                 sor_refine_every=max(1, params.mg_cycles_per_outer)),
-            inner=lambda r, n: mg.inner_v_cycle(r, n, params))
+            inner_fn=lambda r, n: mg.inner_v_cycle(r, n, params))
     if method == "cg":
         # K = sor_refine_every CG steps per outer pass (a restart each);
         # iterations count CG steps.
         return _solve_pressure_refined(
             p, rhs, params.replace(
                 sor_refine_every=max(1, params.sor_refine_every)),
-            inner=_cg_inner(params))
+            inner_fn=_cg_inner(params))
     if method == "pallas_sor":
         if params.sor_inner_dtype != "float32":
             raise NotImplementedError(
@@ -175,31 +175,71 @@ def _cg_inner(params: Params) -> Inner:
 
 
 def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
-                            params: Params,
-                            inner: Optional[Inner] = None) -> SORResult:
+                            params: Params, *,
+                            ghost_fn: Callable = ghost_fill,
+                            l2_fn: Optional[Callable] = None, parity: int = 0,
+                            inner_fn: Optional[Inner] = None,
+                            valid_mask: Optional[torch.Tensor] = None,
+                            mean_fn: Optional[Callable] = None,
+                            residual_fn: Optional[Callable] = None
+                            ) -> SORResult:
     """Mixed-precision iterative refinement around an f32 inner stage.
 
     Outer loop (f64, once per K inner steps): defect r = A p - RHS, L2
     norm, convergence test against the reference threshold, p += delta.
-    Inner (f32): `inner(-r, K)`, by default K red-black sweeps on
-    A delta = -r from delta = 0 (the SOR kernel).
+    Inner (f32): `inner_fn(-r, K)`, by default K red-black sweeps on
+    A delta = -r from delta = 0 (the SOR kernel route).
+
+    The hooks are the JAX package's (``_refined_setup``), for a shard of
+    the sharded backend (parallel/sharded.py): `ghost_fn` fills the ring
+    before each defect (it may work in place or return a new tensor),
+    `l2_fn` is the norm of an interior-shaped array (all-reduced across
+    shards), `valid_mask` zeroes the pad cells of a padded block in the
+    defect and the norms, and `parity` is the block's colour offset
+    (ox + oy) % 2, which the default inner (the whole grid, parity 0)
+    cannot take: a shard brings its own `inner_fn`.  The JAX package's
+    other two hooks are not ported and raise: `mean_fn` (the constant-mode
+    deflation of problem 3) and `residual_fn` (the masked defect of
+    obstacle domains).
     """
-    if inner is None:
-        def inner(rhs_full, n):
+    if mean_fn is not None:
+        raise NotImplementedError(
+            "the refinement's mean_fn hook (problem 3's constant-mode "
+            "deflation) is not ported yet: ROADMAP A6")
+    if residual_fn is not None:
+        raise NotImplementedError(
+            "the refinement's residual_fn hook (the masked defect of "
+            "obstacle domains) is not ported yet: ROADMAP A7, A10 "
+            "(obstacles)")
+    if inner_fn is None:
+        if parity % 2:
+            raise ValueError(
+                "the SOR kernel route sweeps a whole grid (parity 0); a "
+                "block of parity 1 needs its own inner_fn")
+
+        def inner_fn(rhs_full, n):
             return sor_kernel.inner_sweeps(rhs_full, n, params)
     K = params.sor_refine_every
     f64, f32 = torch.float64, torch.float32
     dx2_inv = 1.0 / (params.dx * params.dx)
     dy2_inv = 1.0 / (params.dy * params.dy)
-    i_max, j_max = params.i_max, params.j_max
+    if l2_fn is None:
+        def l2_fn(arr):
+            return l2_norm(arr, params.i_max, params.j_max)
+
+    def masked(arr):
+        if valid_mask is None:
+            return arr
+        return torch.where(valid_mask, arr, torch.zeros((), dtype=arr.dtype,
+                                                        device=arr.device))
 
     p64 = p.to(f64, copy=True)  # the master; updated in place below
     rhs_int64 = rhs[1:-1, 1:-1].to(f64)
-    norm_p0 = l2_norm(p64[1:-1, 1:-1], i_max, j_max)
+    norm_p0 = l2_fn(masked(p64[1:-1, 1:-1]))
     threshold = float(params.epsilon * (norm_p0 + NORM_OFFSET))
 
     def defect():
-        return residual(ghost_fill(p64), rhs_int64, dx2_inv, dy2_inv)
+        return masked(residual(ghost_fn(p64), rhs_int64, dx2_inv, dy2_inv))
 
     rhs_full = torch.zeros(p.shape, dtype=f32, device=p.device)
     r64 = defect()
@@ -209,12 +249,12 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
         n_inner = min(K, params.max_it - it)
         # rhs_full's ghost ring stays 0; only its interior is rewritten.
         rhs_full[1:-1, 1:-1] = -r64.to(f32)
-        delta = inner(rhs_full, n_inner)
+        delta = inner_fn(rhs_full, n_inner)
         p64[1:-1, 1:-1] += delta[1:-1, 1:-1].to(f64)
         r64 = defect()
-        res_norm = float(l2_norm(r64, i_max, j_max))  # the one sync per pass
+        res_norm = float(l2_fn(r64))  # the one sync per pass
         it += n_inner
-    p_out = ghost_fill(p64).to(p.dtype)
+    p_out = ghost_fn(p64).to(p.dtype)
     return SORResult(
         p=p_out,
         iterations=it,

@@ -1,0 +1,427 @@
+"""Multi-device sharded solver: one rank per shard, halos and reductions
+through ``torch.distributed``.
+
+Counterpart of ``navierstokes_parallel_tpu/parallel/sharded.py`` for the
+cavity (problems 1-2) with the Euler step and the deep-halo SOR pressure
+solve.  The staggered grid's interior is block-sharded over a (px, py)
+process mesh (parallel/topology.py); every rank advances its (li+2, lj+2)
+padded block with the single-device stencils, exchanges one-cell halo
+strips with its neighbours (parallel/halo.py) and combines reductions with
+``dist.all_reduce`` on 0-d device tensors (the JAX package's ``pmax`` /
+``psum``).  The pressure solve is the f64 refinement of ops/sor.py with
+the sharded hooks and the deep-halo inner (parallel/deep_halo.py), whose
+sweeps are kernel B6 on the card.
+
+The JAX package runs the whole ``while t < T`` on the device inside
+``shard_map``; PyTorch runs eagerly, so the loop is on the host: one
+``t < T`` read per step, as ``solver.solve`` does, and one residual read
+per outer pass of the pressure solve.  Every rank takes the same steps:
+dt comes from the all-reduced maxima.
+
+Pad-to-divisible sharding: any interior size runs.  Each axis is padded to
+the next multiple of the mesh extent; every boundary condition, update
+mask and reduction is keyed on *global* indices against the true
+i_max/j_max, so pad cells stay inert.
+
+``solve_sharded`` takes and returns reference-layout (i_max+2, j_max+2)
+states: a JAX ``State`` goes in unchanged (its arrays through numpy), the
+blocks are cut with the JAX package's ``_scatter_blocks`` layout and put
+back with ``_gather_blocks`` after an all-gather, on every rank.
+
+Not ported here (ROADMAP A10): the sharded mg, cg, fft and
+exchange-per-half-sweep (``rb_sor_sync``) solves, AB2, the thermal and
+free-surface steppers, obstacle domains and ``ShardedStepper``; each
+raises ``NotImplementedError`` naming its item.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..config import Params
+from ..grid import State
+from ..ops import boundary, sor
+from ..ops import stencils as st
+from ..solver import SolveStats
+from . import deep_halo, halo
+from .topology import Mesh, local_block_dims, make_grid_mesh
+
+# Pressure methods of the JAX sharded backend not ported yet, with the
+# ROADMAP item that ports each.
+NOT_PORTED = {
+    "mg": "ROADMAP A10 (the sharded multigrid smoother on B6)",
+    "cg": "ROADMAP A10 (sharded cg)",
+    "fft": "ROADMAP A10 (sharded fft)",
+    "rb_sor_sync": "ROADMAP A10 (rb_sor_sync)",
+    "jacobi": "ROADMAP A5 (jacobi)",
+}
+
+
+def _all_reduce(x: torch.Tensor, op, mesh: Mesh) -> torch.Tensor:
+    """`x` reduced over the mesh's ranks (in place; returned)."""
+    dist.all_reduce(x, op=op, group=mesh.group)
+    return x
+
+
+def _global_indices(shape, li: int, lj: int, mesh: Mesh):
+    """(gi, gj): global 1-based interior indices of the local interior
+    cells, broadcastable (li, 1) and (1, lj) int tensors."""
+    ox, oy = mesh.origin(li, lj)
+    gi = torch.arange(shape[0], device=mesh.device).view(-1, 1) + ox + 1
+    gj = torch.arange(shape[1], device=mesh.device).view(1, -1) + oy + 1
+    return gi, gj
+
+
+def _valid_mask_or_none(params: Params, li: int, lj: int, mesh: Mesh):
+    """(mask of the true, non-pad interior cells or None if there is no
+    pad, gi, gj)."""
+    gi, gj = _global_indices((li, lj), li, lj, mesh)
+    px, py = mesh.shape
+    if li * px == params.i_max and lj * py == params.j_max:
+        return None, gi, gj
+    return (gi <= params.i_max) & (gj <= params.j_max), gi, gj
+
+
+def _apply_bcs_sharded(u, v, lid_u, params: Params, mesh: Mesh):
+    """Serial-semantics cavity velocity BCs (boundaries.c:7-39) on padded
+    local blocks, as global-index-masked roll updates, so they land wherever
+    the true wall or ghost line falls (block edge, or block interior under
+    padding).  Side order LEFT, RIGHT, BOTTOM, TOP (main.c:95-104) matters:
+    BOTTOM/TOP read u values that RIGHT writes.  The masked writes land on
+    halo positions too, which keeps every halo copy of a BC-written cell
+    equal to its owner's without a second exchange.  Returns new blocks."""
+    I, J = params.i_max, params.j_max
+    u = halo.exchange_halo(u, mesh)
+    v = halo.exchange_halo(v, mesh)
+    gi, gj = halo.padded_global_indices(u.shape, mesh)
+    in_j = (gj >= 1) & (gj <= J)
+    in_i = (gi >= 1) & (gi <= I)
+    zero = torch.zeros((), dtype=u.dtype, device=u.device)
+    # LEFT: u wall edge on gi == 0; v tangential ghost reflection.
+    u = torch.where((gi == 0) & in_j, zero, u)
+    v = torch.where((gi == 0) & in_j, -torch.roll(v, -1, 0), v)
+    # RIGHT: u wall edge on gi == i_max; v ghost at gi == i_max + 1.
+    u = torch.where((gi == I) & in_j, zero, u)
+    v = torch.where((gi == I + 1) & in_j, -torch.roll(v, 1, 0), v)
+    # BOTTOM: v wall edge on gj == 0; u tangential reflection.
+    v = torch.where(in_i & (gj == 0), zero, v)
+    u = torch.where(in_i & (gj == 0), -torch.roll(u, -1, 1), u)
+    # TOP: v wall edge on gj == j_max; u reflected against the moving lid.
+    v = torch.where(in_i & (gj == J), zero, v)
+    u = torch.where(in_i & (gj == J + 1), 2.0 * lid_u - torch.roll(u, 1, 1),
+                    u)
+    return u, v
+
+
+def _local_fg(u, v, dt, gamma, params: Params, gi, gj, mesh: Mesh):
+    """Tentative velocities on a local block (integration.c:73-96), masked
+    by the global F/G domains, with F = u / G = v on the walls."""
+    dx, dy, Re = params.dx, params.dy, params.Re
+    u_int = st.shifted(u, 0, 0)
+    v_int = st.shifted(v, 0, 0)
+
+    diff_u = (st.d2_dx2(u, dx) + st.d2_dy2(u, dy)) / Re
+    conv_u = st.du2_dx(u, v, dx, gamma) + st.duv_dy(u, v, dy, gamma)
+    f_all = u_int + dt * (diff_u - conv_u + params.g_x)
+
+    diff_v = (st.d2_dx2(v, dx) + st.d2_dy2(v, dy)) / Re
+    conv_v = st.duv_dx(u, v, dx, gamma) + st.dv2_dy(u, v, dy, gamma)
+    g_all = v_int + dt * (diff_v - conv_v + params.g_y)
+
+    F = torch.zeros_like(u)
+    G = torch.zeros_like(v)
+    F[1:-1, 1:-1] = torch.where(gi <= params.i_max - 1, f_all, u_int)
+    G[1:-1, 1:-1] = torch.where(gj <= params.j_max - 1, g_all, v_int)
+
+    # The divergence reads F's west and G's south halo: the neighbour's F/G
+    # inside the mesh, u/v on the left and bottom walls (padding is on the
+    # high side only, so the physical west/south boundary always sits on a
+    # mesh-edge shard's halo ring).
+    F[0, :] = halo._shift_up(F[-2, :], mesh, "x")
+    G[:, 0] = halo._shift_up(G[:, -2], mesh, "y")
+    edges = halo.edge_masks(mesh)
+    if edges["left"]:
+        F[0, :] = u[0, :]
+    if edges["bottom"]:
+        G[:, 0] = v[:, 0]
+    return F, G
+
+
+def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
+                  mesh: Mesh):
+    """One Euler time step on local padded blocks (reference main.c:86-146);
+    returns (u, v, p, dt, SORResult) with new blocks."""
+    li, lj = u.shape[0] - 2, u.shape[1] - 2
+    valid, gi, gj = _valid_mask_or_none(params, li, lj, mesh)
+    zero = torch.zeros((), dtype=u.dtype, device=u.device)
+
+    def mask_pad(arr_int):
+        return arr_int if valid is None else torch.where(valid, arr_int, zero)
+
+    def const(x):
+        # Device tensors, not Python scalars: CUDA divides by a host scalar
+        # as a multiply by its reciprocal, which rounds differently.
+        return torch.full((), x, dtype=u.dtype, device=u.device)
+
+    # Adaptive dt from the signed global maxima, seeded with 0 (the
+    # reference's u[0][0] seed is always 0 for the cavity); pad cells are
+    # excluded.
+    u_max = torch.maximum(zero, _all_reduce(torch.max(mask_pad(u[1:-1, 1:-1])),
+                                            dist.ReduceOp.MAX, mesh))
+    v_max = torch.maximum(zero, _all_reduce(torch.max(mask_pad(v[1:-1, 1:-1])),
+                                            dist.ReduceOp.MAX, mesh))
+    dx, dy = params.dx, params.dy
+    dx_t, dy_t = const(dx), const(dy)
+    visc = const(params.Re / 2.0 / (1.0 / (dx * dx) + 1.0 / (dy * dy)))
+    dt = params.tau * torch.minimum(
+        visc, torch.minimum(dx_t / torch.abs(u_max), dy_t / torch.abs(v_max)))
+    if params.gamma_fixed is not None:
+        gamma = const(params.gamma_fixed)
+    else:
+        gamma = torch.maximum(u_max * dt / dx_t, v_max * dt / dy_t)
+
+    lid = boundary.lid_velocity(params.problem, params.f, t)
+    u, v = _apply_bcs_sharded(u, v, lid, params, mesh)
+    F, G = _local_fg(u, v, dt, gamma, params, gi, gj, mesh)
+    rhs = torch.zeros_like(p)
+    rhs[1:-1, 1:-1] = mask_pad(
+        ((F[1:-1, 1:-1] - F[:-2, 1:-1]) / dx_t
+         + (G[1:-1, 1:-1] - G[1:-1, :-2]) / dy_t) / dt)
+
+    result = _sharded_pressure_solve(p, rhs, params, pressure_method, li, lj,
+                                     valid, mesh)
+    p = result.p
+
+    # Projection (main.c:131-136), masked by the global update domains.
+    u_new = F[1:-1, 1:-1] - dt * (p[2:, 1:-1] - p[1:-1, 1:-1]) / dx_t
+    v_new = G[1:-1, 1:-1] - dt * (p[1:-1, 2:] - p[1:-1, 1:-1]) / dy_t
+    u[1:-1, 1:-1] = torch.where((gi <= params.i_max - 1) & (gj <= params.j_max),
+                                u_new, u[1:-1, 1:-1])
+    v[1:-1, 1:-1] = torch.where((gj <= params.j_max - 1) & (gi <= params.i_max),
+                                v_new, v[1:-1, 1:-1])
+    return u, v, p, dt, result
+
+
+def _sharded_pressure_solve(p, rhs, params: Params, pressure_method: str,
+                            li: int, lj: int, valid, mesh: Mesh):
+    """The deep-halo SOR pressure solve on local padded blocks: the f64
+    refinement with the exchange-and-Neumann ghost fill (masked on padded
+    grids), the all-reduced L2 norm, the block's parity and pad mask, and
+    one deep exchange per K sweeps."""
+    if pressure_method not in ("rb_sor", "pallas_sor"):
+        raise NotImplementedError(
+            f"sharded pressure method {pressure_method!r} is not ported: "
+            f"{NOT_PORTED.get(pressure_method, 'ROADMAP A10')}")
+    ox, oy = mesh.origin(li, lj)
+    n_cells = params.i_max * params.j_max
+    if valid is None:
+        def ghost_fn(q):
+            return halo.neumann_or_exchange(q, mesh)
+    else:
+        ghost_fn = halo.make_masked_ghost_fn(params.i_max, params.j_max, mesh)
+
+    def l2_fn(arr):
+        return torch.sqrt(_all_reduce(torch.sum(arr * arr), dist.ReduceOp.SUM,
+                                      mesh) / n_cells)
+
+    return sor._solve_pressure_refined(
+        p, rhs, params.replace(sor_refine_every=max(1, params.sor_refine_every)),
+        ghost_fn=ghost_fn, l2_fn=l2_fn, parity=(ox + oy) % 2,
+        inner_fn=deep_halo.make_deep_inner(params, li, lj, mesh),
+        valid_mask=valid)
+
+
+def _check_method(params: Params, mesh: Mesh, pressure_method: str,
+                  time_order: int = 1):
+    """Refuse what the port's sharded backend does not run; returns
+    (px, py, li, lj)."""
+    if time_order != 1:
+        raise NotImplementedError(
+            "time_order=2 (AB2) on the sharded backend is not ported: "
+            "ROADMAP A10 (AB2)")
+    if params.problem not in (1, 2):
+        raise NotImplementedError(
+            f"problem {params.problem} on the sharded backend is not ported: "
+            f"ROADMAP A10 (the port's sharded step runs the cavity, problems "
+            f"1 and 2)")
+    if params.obstacles:
+        raise NotImplementedError(
+            "obstacle domains on the sharded backend are not ported: "
+            "ROADMAP A10 (obstacles)")
+    if pressure_method in NOT_PORTED:
+        raise NotImplementedError(
+            f"sharded pressure method {pressure_method!r} is not ported: "
+            f"{NOT_PORTED[pressure_method]}")
+    if pressure_method not in ("rb_sor", "pallas_sor"):
+        raise ValueError(f"unknown pressure solver method {pressure_method!r}")
+    if params.outer_precision == "compensated":
+        raise NotImplementedError(
+            "outer_precision='compensated' is not ported (the H100 has "
+            "native FP64): ROADMAP A9")
+    px, py = mesh.shape
+    li, lj = local_block_dims((px, py), params.i_max, params.j_max)
+    if params.dtype != "float32" or params.sor_refine_every < 1 or \
+            min(li, lj) < 2:
+        raise NotImplementedError(
+            f"the sharded deep-halo SOR takes a float32 state, "
+            f"sor_refine_every >= 1 and blocks of >= 2 x 2 cells (got "
+            f"{params.dtype}, {params.sor_refine_every}, {li} x {lj}); the "
+            f"exchange-per-half-sweep solve the JAX package runs otherwise "
+            f"is not ported: ROADMAP A10 (rb_sor_sync)")
+    return px, py, li, lj
+
+
+# ---------------------------------------------------------------------------
+# Block layout (the JAX package's): each shard's (li+2, lj+2) padded block is
+# one tile of a (px*(li+2), py*(lj+2)) concatenation, halo copies included,
+# so the gathered ghost ring holds the exact values the single-device path
+# leaves there.
+# ---------------------------------------------------------------------------
+
+def _scatter_blocks(arr, px: int, py: int, li: int, lj: int) -> np.ndarray:
+    """Reference-layout (i_max+2, j_max+2) array -> block-concatenated
+    (px*(li+2), py*(lj+2)) layout (overlapping halo copies included)."""
+    arr = np.asarray(arr)
+    g = np.zeros((px * li + 2, py * lj + 2), arr.dtype)
+    g[: arr.shape[0], : arr.shape[1]] = arr
+    rows = []
+    for ax in range(px):
+        cols = [g[ax * li: ax * li + li + 2, ay * lj: ay * lj + lj + 2]
+                for ay in range(py)]
+        rows.append(np.concatenate(cols, axis=1))
+    return np.concatenate(rows, axis=0)
+
+
+def _gather_blocks(blocks, px: int, py: int, li: int, lj: int,
+                   shape) -> np.ndarray:
+    """Inverse of `_scatter_blocks`: the reference-layout padded array,
+    interiors from in-block cells, the global ghost ring from the edge
+    shards' halo rings, pad rows/columns dropped."""
+    b = np.asarray(blocks).reshape(px, li + 2, py, lj + 2)
+    out = np.zeros((px * li + 2, py * lj + 2), b.dtype)
+    for ax in range(px):
+        for ay in range(py):
+            out[ax * li + 1: (ax + 1) * li + 1,
+                ay * lj + 1: (ay + 1) * lj + 1] = b[ax, 1:-1, ay, 1:-1]
+    for ay in range(py):
+        out[0, ay * lj + 1: (ay + 1) * lj + 1] = b[0, 0, ay, 1:-1]
+        out[-1, ay * lj + 1: (ay + 1) * lj + 1] = b[px - 1, -1, ay, 1:-1]
+    for ax in range(px):
+        out[ax * li + 1: (ax + 1) * li + 1, 0] = b[ax, 1:-1, 0, 0]
+        out[ax * li + 1: (ax + 1) * li + 1, -1] = b[ax, 1:-1, py - 1, -1]
+    out[0, 0] = b[0, 0, 0, 0]
+    out[0, -1] = b[0, 0, py - 1, -1]
+    out[-1, 0] = b[px - 1, -1, 0, 0]
+    out[-1, -1] = b[px - 1, -1, py - 1, -1]
+    return out[: shape[0], : shape[1]]
+
+
+def _host(x) -> np.ndarray:
+    """A torch tensor (any device) or an array-like as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def scatter_state(params: Params, state, mesh: Mesh) -> State:
+    """This rank's padded blocks of a reference-layout state (a port or a
+    JAX ``State``; None for the zero state) as a ``State`` of local blocks
+    on the mesh's device, in the configuration's dtype."""
+    px, py = mesh.shape
+    li, lj = local_block_dims((px, py), params.i_max, params.j_max)
+    ax, ay = mesh.coords
+    dtype = params.torch_dtype
+
+    def block(arr):
+        if arr is None:
+            return torch.zeros((li + 2, lj + 2), dtype=dtype,
+                               device=mesh.device)
+        blocks = _scatter_blocks(_host(arr), px, py, li, lj)
+        mine = blocks[ax * (li + 2):(ax + 1) * (li + 2),
+                      ay * (lj + 2):(ay + 1) * (lj + 2)]
+        return torch.tensor(mine, dtype=dtype, device=mesh.device)
+
+    if state is None:
+        return State(u=block(None), v=block(None), p=block(None),
+                     t=torch.zeros((), dtype=dtype, device=mesh.device), n=0)
+    return State(u=block(state.u), v=block(state.v), p=block(state.p),
+                 t=torch.tensor(float(_host(state.t)), dtype=dtype,
+                                device=mesh.device),
+                 n=int(_host(state.n)))
+
+
+def gather_state(params: Params, local: State, mesh: Mesh) -> State:
+    """The reference-layout state of every rank's blocks, on every rank
+    (an all-gather, then `_gather_blocks`), on the mesh's device."""
+    px, py = mesh.shape
+    li, lj = local_block_dims((px, py), params.i_max, params.j_max)
+
+    def field(x):
+        parts = [torch.empty_like(x) for _ in range(px * py)]
+        dist.all_gather(parts, x.contiguous(), group=mesh.group)
+        rows = [torch.cat(parts[ax * py:(ax + 1) * py], dim=1)
+                for ax in range(px)]
+        blocks = torch.cat(rows, dim=0).cpu().numpy()
+        out = _gather_blocks(blocks, px, py, li, lj, params.shape)
+        return torch.tensor(out, device=mesh.device)
+
+    return State(u=field(local.u), v=field(local.v), p=field(local.p),
+                 t=local.t, n=local.n)
+
+
+def run_local(params: Params, local: State, mesh: Mesh, *,
+              pressure_method: str = "rb_sor", max_steps: int = 0
+              ) -> Tuple[State, SolveStats]:
+    """``while t < T`` (or `max_steps` steps when > 0) on this rank's
+    blocks; returns the local blocks and the solve's stats, equal on every
+    rank."""
+    _check_method(params, mesh, pressure_method)
+    u, v, p, t, n = local
+    # T in the state's dtype, as solver.solve compares it.
+    T = torch.full((), params.T, dtype=t.dtype, device=t.device)
+    steps = iters = failures = 0
+    last = 0.0
+    while not 0 < max_steps <= steps and bool(t < T):
+        u, v, p, dt, result = _sharded_step(u, v, p, t, params,
+                                            pressure_method, mesh)
+        t = t + dt
+        steps += 1
+        iters += result.iterations
+        failures += 0 if result.converged else 1
+        last = result.res_norm
+    return (State(u=u, v=v, p=p, t=t, n=n + steps),
+            SolveStats(steps=steps, total_sor_iterations=iters,
+                       sor_failures=failures, last_res_norm=last))
+
+
+def warm_up(params: Params, mesh: Mesh, pressure_method: str = "rb_sor"
+            ) -> None:
+    """One throw-away step with a single sweep from the zero state, so a
+    timed solve excludes the kernel build and first-use costs (the JAX CLI
+    compiles before its timer starts); an unported route raises here."""
+    local = scatter_state(params, None, mesh)
+    local, _ = run_local(params.replace(max_it=1), local, mesh,
+                         pressure_method=pressure_method, max_steps=1)
+    if local.u.device.type == "cuda":
+        torch.cuda.synchronize(local.u.device)
+
+
+def solve_sharded(params: Params, state=None, mesh: Optional[Mesh] = None, *,
+                  pressure_method: str = "rb_sor", max_steps: int = 0,
+                  time_order: int = 1) -> Tuple[State, SolveStats]:
+    """Sharded counterpart of ``solver.solve`` over the initialised process
+    group: scatter -> solve on the local blocks -> gather, returning a
+    reference-layout state (ghost ring included) on every rank.  `mesh`
+    defaults to the pad-optimal mesh over the group."""
+    if mesh is None:
+        mesh = make_grid_mesh(i_max=params.i_max, j_max=params.j_max)
+    _check_method(params, mesh, pressure_method, time_order)
+    local = scatter_state(params, state, mesh)
+    local, stats = run_local(params, local, mesh,
+                             pressure_method=pressure_method,
+                             max_steps=max_steps)
+    return gather_state(params, local, mesh), stats

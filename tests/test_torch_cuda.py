@@ -104,7 +104,8 @@ def test_library_name_follows_source_contents(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     first = _build.library_path()
     assert [p.name for p in _build.sources()] == [
-        "momentum.cu", "sor.cu", "sor_compressed.cu", "sor_tiled.cu"]
+        "momentum.cu", "sor.cu", "sor_compressed.cu", "sor_ext.cu",
+        "sor_tiled.cu"]
     with open(csrc / "nsp_round.cuh", "a") as fh:
         fh.write("// edited\n")
     assert _build.library_path() != first
@@ -203,6 +204,38 @@ def test_wrappers_raise_on_other_devices():
         sor_kernel.warm_sweeps(meta, meta, 2, 1.0, 4.0, 4.0)
     with pytest.raises(ValueError, match="no momentum kernel"):
         momentum_kernel.momentum_rhs(meta, meta, 0.1, 0.1, prm)
+
+
+@pytest.mark.parametrize("bad", ["ns_over_half_H", "negative", "shared",
+                                 "float64", "shape", "strided", "device"])
+def test_ext_checks_before_launch(bad):
+    """What the extended-block kernel does not take is refused before a
+    launch: ns beyond H / 2 (the core would not be exact), a tile beyond
+    one block's shared memory (named), mismatched or strided blocks, and
+    tensors neither on the CPU nor on CUDA (no silent fallback)."""
+    d, rhs = torch.zeros(40, 36), torch.zeros(40, 36)
+    ns, H, match = 4, 8, None
+    if bad == "ns_over_half_H":
+        ns, match = 5, "H / 2"
+    elif bad == "negative":
+        ns = -1
+    elif bad == "shared":
+        ns, H, match = 32, 64, "shared memory"
+    elif bad == "float64":
+        d = d.double()
+    elif bad == "shape":
+        rhs = rhs[:, :-1].contiguous()
+    elif bad == "strided":
+        d = torch.zeros(36, 40).t()
+    if bad == "device":
+        meta = torch.zeros(40, 36, device="meta")
+        with pytest.raises(ValueError, match="no SOR kernel"):
+            sor_kernel.ext_sweeps(meta, meta, 2, (0, 0), 4, _params(38, 34))
+        return
+    with pytest.raises((TypeError, ValueError), match=match):
+        sor_kernel.check_ext_inputs(d, rhs, ns, H)
+    sor_kernel.check_ext_inputs(torch.zeros(40, 36), torch.zeros(40, 36), 4, 8)
+    assert sor_kernel.ext_shared_bytes(26) <= sor_kernel.MAX_SHARED_BYTES
 
 
 def test_kernel_used_only_for_f32_cuda():
@@ -406,6 +439,134 @@ def test_gpu_mg_cg_solve_matches_cpu_solve(cuda, method):
         assert sor_kernel.WARM_LAUNCHES == 0
     assert sor_kernel.LAUNCHES == 0
     cs, cstats = solver.solve(prm, device="cpu", pressure_method=method)
+    assert gstats[:3] == cstats[:3] and gstats.sor_failures == 0
+    for name in ("u", "v", "p"):
+        g = getattr(gs, name).cpu().numpy()
+        c = getattr(cs, name).numpy()
+        assert np.max(np.abs(g - c)) <= 1e-4 * max(1.0, np.max(np.abs(c)))
+
+
+# --- the extended-block kernel (B6) and the sharded path on the card ----------
+
+# Cuts of a grid into the blocks of a process mesh: (interior, mesh shape).
+EXT_CUTS = {"1x1_64x48": ((64, 48), (1, 1)), "2x2_50x50": ((50, 50), (2, 2)),
+            "2x4_99x63": ((99, 63), (2, 4))}
+
+
+def _cut(cut):
+    """(params, li, lj, K, the blocks' global origins) of one cut."""
+    from navierstokes_parallel_tpu_torch.parallel import deep_halo, topology
+
+    size, mesh_shape = EXT_CUTS[cut]
+    prm = _params(*size)
+    li, lj = topology.local_block_dims(mesh_shape, *size)
+    origins = [(ax * li, ay * lj) for ax in range(mesh_shape[0])
+               for ay in range(mesh_shape[1])]
+    return prm, li, lj, deep_halo.comm_depth(prm, li, lj), origins
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ns", [0, 1, 8])
+@pytest.mark.parametrize("cut", sorted(EXT_CUTS))
+def test_ext_kernel_matches_plain(cuda, cut, ns):
+    """B6 bit for bit against its twin on every block of the cut, on every
+    cell at least 2 ns from the block's edge (the twin's rolls wrap there,
+    the kernel reads zeros); cells outside the global interior keep their
+    input."""
+    from navierstokes_parallel_tpu_torch.parallel import deep_halo
+
+    prm, li, lj, K, origins = _cut(cut)
+    H = 2 * K
+    d0, rhs = _rhs(prm, seed=1).to(cuda), _rhs(prm, seed=2).to(cuda)
+    for origin in origins:
+        d_ext = deep_halo.cut_ext_block(d0, origin, li, lj, H)
+        r_ext = deep_halo.cut_ext_block(rhs, origin, li, lj, H)
+        before = sor_kernel.EXT_LAUNCHES
+        got = sor_kernel.ext_sweeps(d_ext, r_ext, ns, origin, H, prm)
+        want = sor_kernel.ext_sweeps_plain(d_ext, r_ext, ns, origin, H, prm)
+        torch.cuda.synchronize()
+        assert sor_kernel.EXT_LAUNCHES == before + 1
+        e = 2 * ns
+        inner = (slice(e, got.shape[0] - e), slice(e, got.shape[1] - e))
+        assert torch.equal(got[inner], want[inner])
+        interior = sor_kernel.ext_masks(got.shape, H, origin, prm.i_max,
+                                        prm.j_max, 1.0, 1.0, device=cuda)[0]
+        assert torch.equal(got[~interior], d_ext[~interior])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 8, 13])
+@pytest.mark.parametrize("cut", sorted(EXT_CUTS))
+def test_ext_kernel_decomposition_equals_whole_grid(cuda, cut, n):
+    """n sweeps from delta = 0 block by block in chunks of K, each chunk's
+    blocks cut from the grid the chunk before left (the deep exchange),
+    equal the whole-grid kernel B1 bit for bit."""
+    from navierstokes_parallel_tpu_torch.parallel import deep_halo
+
+    prm, li, lj, K, origins = _cut(cut)
+    H = 2 * K
+    rhs = _rhs(prm, seed=n).to(cuda)
+    delta, done = torch.zeros_like(rhs), 0
+    while done < n:
+        ns = min(K, n - done)
+        nxt = delta.clone()
+        for ox, oy in origins:
+            ext = sor_kernel.ext_sweeps(
+                deep_halo.cut_ext_block(delta, (ox, oy), li, lj, H),
+                deep_halo.cut_ext_block(rhs, (ox, oy), li, lj, H), ns,
+                (ox, oy), H, prm)
+            ri, rj = min(li, prm.i_max - ox), min(lj, prm.j_max - oy)
+            nxt[1 + ox:1 + ox + ri, 1 + oy:1 + oy + rj] = \
+                ext[H:H + ri, H:H + rj]
+        delta, done = nxt, done + ns
+    assert torch.equal(delta, sor_kernel.whole_grid_sweeps(rhs, n, prm))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("omega", [1.0, 1.7])
+def test_ext_kernel_warm_start_equals_smoother(cuda, omega):
+    """The multigrid use: sweeps from a non-zero delta (its ghost ring too)
+    with a level's constants and H = 2 ns; the cores of a 2x2 cut equal the
+    warm-start kernel B3 on the whole grid bit for bit."""
+    from navierstokes_parallel_tpu_torch.parallel import deep_halo
+
+    n, ns, H, li = 130, 2, 4, 65
+    rng = np.random.default_rng(7)
+    p0, rhs = (torch.from_numpy(rng.standard_normal((n + 2, n + 2)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    dx2, dy2 = 0.9 * n ** 2, 1.3 * n ** 2
+    out = p0.clone()
+    for ox in (0, li):
+        for oy in (0, li):
+            ext = sor_kernel.ext_sweeps(
+                deep_halo.cut_ext_block(p0, (ox, oy), li, li, H),
+                deep_halo.cut_ext_block(rhs, (ox, oy), li, li, H), ns,
+                (ox, oy), H, (n, n, omega, dx2, dy2))
+            out[1 + ox:1 + ox + li, 1 + oy:1 + oy + li] = \
+                ext[H:H + li, H:H + li]
+    want = sor_kernel.warm_sweeps(p0, rhs, ns, omega, dx2, dy2)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+def test_sharded_solve_on_card_matches_cpu(cuda):
+    """The sharded backend on a one-rank NCCL group (B6 for every chunk of
+    sweeps) and on a one-rank gloo group on the CPU (the twin): equal
+    counts, fields within the 1e-4 contract."""
+    from navierstokes_parallel_tpu_torch.parallel import sharded, topology
+    from navierstokes_parallel_tpu_torch.utils import distributed
+
+    prm = Params(i_max=32, j_max=24, T=0.05, Re=100.0, tau=0.5, max_it=2000)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        sor_kernel.EXT_LAUNCHES = 0
+        with distributed.process_group(device) as dev:
+            mesh = topology.make_grid_mesh(shape=(1, 1), device=dev)
+            runs[device] = (*sharded.solve_sharded(prm, mesh=mesh),
+                            sor_kernel.EXT_LAUNCHES)
+    (gs, gstats, g_launches), (cs, cstats, c_launches) = (runs["cuda"],
+                                                          runs["cpu"])
+    assert g_launches > 0 and c_launches == 0
     assert gstats[:3] == cstats[:3] and gstats.sor_failures == 0
     for name in ("u", "v", "p"):
         g = getattr(gs, name).cpu().numpy()

@@ -2,8 +2,10 @@
 
 A subprocess blocks every ``jax`` import with a ``sys.meta_path`` finder
 that raises, imports every module of the port, runs one CPU time step
-with each ported pressure method (SOR, multigrid, CG) and the plain twins
-of the tiled and colour-compressed SOR kernels.
+with each ported pressure method (SOR, multigrid, CG), the plain twins
+of the tiled and colour-compressed SOR kernels, and one step of the
+sharded backend on a one-rank process group (parallel/, including the
+extended-block twin, and utils/distributed.py).
 """
 
 import os
@@ -42,6 +44,14 @@ SCRIPT = textwrap.dedent("""
     assert torch.equal(sk.inner_sweeps_tiled_plain(rhs, 9, prm, 3), whole)
     assert torch.equal(sk.inner_sweeps_compressed_plain(rhs, 9, prm), whole)
     assert "navierstokes_parallel_tpu_torch.ops.mg" in sys.modules
+    from navierstokes_parallel_tpu_torch.parallel import sharded
+    from navierstokes_parallel_tpu_torch.utils import distributed
+    with distributed.process_group("cpu"):
+        sh_state, sh_stats = sharded.solve_sharded(prm, max_steps=1)
+    assert sh_stats.steps == 1 and sh_stats.total_sor_iterations > 0
+    for name in ("parallel.topology", "parallel.halo", "parallel.deep_halo",
+                 "parallel.sharded", "utils.distributed"):
+        assert "navierstokes_parallel_tpu_torch." + name in sys.modules, name
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
     print("OK", diag.sor_iterations)
 """)
@@ -71,4 +81,8 @@ def test_no_jax_import_in_sources():
                 if line.strip().startswith(banned) or \
                         line.strip() + "\n" in banned:
                     offenders.append(f"{path}: {line.strip()}")
+    scanned = {os.path.relpath(p, pkg) for p in paths}
+    for name in ("topology", "halo", "deep_halo", "sharded"):
+        assert os.path.join("parallel", f"{name}.py") in scanned, name
+    assert os.path.join("utils", "distributed.py") in scanned
     assert len(paths) > 10 and not offenders, offenders

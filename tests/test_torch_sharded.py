@@ -1,0 +1,440 @@
+"""The port's sharded backend vs the JAX package's.
+
+  * One rank (a one-rank gloo group on an in-process store):
+    ``solve_sharded`` on a 1x1 mesh against the port's ``solver.solve`` and
+    the JAX package's ``solve_sharded`` on a one-device mesh, at 24^2,
+    Re=100, max_it=2000: equal steps, sweeps and failures, fields within
+    the reference contract (1e-4); the same from a JAX state; the CLI's
+    ``--backend sharded --mesh 1x1`` against the JAX CLI's.
+  * Four ranks: one ``torch.multiprocessing.spawn`` of four gloo ranks on
+    loopback runs the halo exchange (and the Neumann and masked ghost
+    fills) on a 2x2 mesh, the deep-halo inner on 2x2 and 1x4 meshes and
+    full solves at 24^2 (divisible) and 17^2 (padded) on 2x2.  Against the
+    JAX package on the same mesh shapes (8 virtual CPU devices): the halo
+    fills exactly, the inner's cores within 5e-6 of max|delta| (XLA's FMA
+    contraction), the solves with equal counts and u/v/p and the centre
+    values within 1e-4.
+  * Every branch of the JAX sharded backend the port does not run raises
+    ``NotImplementedError`` naming its ROADMAP item.
+
+The spawned workers import this module, which imports no jax at its top:
+the JAX side runs in the test process only.
+"""
+
+import dataclasses
+import datetime
+import os
+import socket
+import time
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from navierstokes_parallel_tpu_torch import cli, solver
+from navierstokes_parallel_tpu_torch.config import Params
+from navierstokes_parallel_tpu_torch.parallel import (deep_halo, halo,
+                                                      sharded, topology)
+from navierstokes_parallel_tpu_torch.utils import distributed
+
+WORLD = 4
+WORKER_TIMEOUT_S = 240
+INNER_TOL = 5e-6  # of max|delta|
+CONTRACT = 1e-4
+SOLVE_SIZES = (24, 17)
+DEEP_MESHES = ((2, 2), (1, 4))
+DEEP_SIZE, DEEP_SWEEPS = (21, 18), 13
+
+
+def _fields(**kw):
+    base = {"problem": 1, "i_max": 24, "j_max": 24, "T": 0.05, "Re": 100.0,
+            "tau": 0.5, "omega": 1.7, "epsilon": 1e-4, "max_it": 2000,
+            "dtype": "float32"}
+    return {**base, **kw}
+
+
+def _params(**kw):
+    return Params(**_fields(**kw))
+
+
+def _jax_params(**kw):
+    from navierstokes_parallel_tpu.config import Params as JaxParams
+
+    return JaxParams(**_fields(**kw))
+
+
+def _halo_grid(n_i, n_j, seed):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((n_i + 2, n_j + 2)).astype(np.float32)
+
+
+def _deep_rhs():
+    g = np.zeros((DEEP_SIZE[0] + 2, DEEP_SIZE[1] + 2), np.float32)
+    g[1:-1, 1:-1] = np.random.default_rng(3).standard_normal(DEEP_SIZE)
+    return g
+
+
+def _assert_contract(a, b, tol=CONTRACT):
+    from conftest import assert_close_reference_contract
+
+    assert_close_reference_contract(np.asarray(a, np.float64),
+                                    np.asarray(b, np.float64), tol=tol)
+
+
+# --- four gloo ranks ------------------------------------------------------------
+
+def _my_block(arr, mesh, li, lj):
+    px, py = mesh.shape
+    ax, ay = mesh.coords
+    blocks = sharded._scatter_blocks(arr, px, py, li, lj)
+    return torch.from_numpy(np.ascontiguousarray(
+        blocks[ax * (li + 2):(ax + 1) * (li + 2),
+               ay * (lj + 2):(ay + 1) * (lj + 2)]))
+
+
+def _concat_blocks(x, mesh):
+    """Every rank's block, block-concatenated (the JAX shard_map layout)."""
+    px, py = mesh.shape
+    parts = [torch.empty_like(x) for _ in range(px * py)]
+    dist.all_gather(parts, x.contiguous())
+    rows = [torch.cat(parts[ax * py:(ax + 1) * py], dim=1) for ax in range(px)]
+    return torch.cat(rows, dim=0).numpy()
+
+
+def _gloo_worker(rank, port, outdir):
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=WORLD,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        out = {}
+        # Halo exchange and ghost fills on 2x2: 10 x 8 (divisible) and
+        # 17 x 13 (padded, masked ghost fill).
+        mesh = topology.make_grid_mesh(shape=(2, 2), device="cpu")
+        local = _my_block(_halo_grid(10, 8, 1), mesh, 5, 4)
+        out["exchange"] = _concat_blocks(halo.exchange_halo(local, mesh),
+                                         mesh)
+        out["neumann"] = _concat_blocks(
+            halo.neumann_or_exchange(local, mesh), mesh)
+        local = _my_block(_halo_grid(17, 13, 2), mesh, 9, 7)
+        ghost = halo.make_masked_ghost_fn(17, 13, mesh)
+        out["masked_ghost"] = _concat_blocks(ghost(local), mesh)
+
+        prm = _params(i_max=DEEP_SIZE[0], j_max=DEEP_SIZE[1])
+        for shape in DEEP_MESHES:
+            mesh = topology.make_grid_mesh(shape=shape, device="cpu")
+            li, lj = topology.local_block_dims(shape, *DEEP_SIZE)
+            rhs = _my_block(_deep_rhs(), mesh, li, lj)
+            delta = deep_halo.make_deep_inner(prm, li, lj, mesh)(rhs,
+                                                                 DEEP_SWEEPS)
+            out[f"deep_{shape[0]}x{shape[1]}"] = sharded._gather_blocks(
+                _concat_blocks(delta, mesh), *shape, li, lj, prm.shape)
+
+        for n in SOLVE_SIZES:
+            prm = _params(i_max=n, j_max=n)
+            mesh = topology.make_grid_mesh(shape=(2, 2), device="cpu")
+            state, stats = sharded.solve_sharded(
+                prm, mesh=mesh, pressure_method="pallas_sor")
+            for name in ("u", "v", "p"):
+                out[f"solve{n}_{name}"] = getattr(state, name).numpy()
+            out[f"solve{n}_t"] = state.t.numpy()
+            out[f"solve{n}_stats"] = np.asarray(
+                [stats.steps, stats.total_sor_iterations, stats.sor_failures])
+        if rank == 0:
+            np.savez(os.path.join(outdir, "gloo.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture(scope="module")
+def gloo4(tmp_path_factory):
+    """The four-rank run's results (rank 0's npz)."""
+    outdir = str(tmp_path_factory.mktemp("gloo4"))
+    ctx = mp.start_processes(_gloo_worker, args=(_free_port(), outdir),
+                             nprocs=WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + WORKER_TIMEOUT_S
+    try:
+        # join() returns False while some worker runs, and raises if one
+        # failed.
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"gloo workers ran past {WORKER_TIMEOUT_S} s")
+    finally:
+        # Reap workers on any failure path: a deadlocked group would
+        # otherwise outlive the test holding its port.
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    with np.load(os.path.join(outdir, "gloo.npz")) as data:
+        return dict(data)
+
+
+def _jax_mesh(shape):
+    import jax
+    from jax.sharding import Mesh
+
+    return Mesh(np.asarray(jax.devices()[:shape[0] * shape[1]]).reshape(
+        shape), ("x", "y"))
+
+
+def _jax_blocks(fn, blocks, shape):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    try:
+        shard_map = jax.shard_map
+    except AttributeError:  # pragma: no cover
+        from jax.experimental.shard_map import shard_map
+    mapped = jax.jit(shard_map(fn, mesh=_jax_mesh(shape), in_specs=P("x", "y"),
+                               out_specs=P("x", "y"), check_vma=False))
+    return np.asarray(mapped(jnp.asarray(blocks)))
+
+
+@pytest.mark.parametrize("which", ["exchange", "neumann", "masked_ghost"])
+def test_gloo_halo_fills_match_jax_exactly(gloo4, which):
+    from navierstokes_parallel_tpu.parallel import halo as jhalo
+
+    if which == "masked_ghost":
+        blocks = sharded._scatter_blocks(_halo_grid(17, 13, 2), 2, 2, 9, 7)
+        fn = jhalo.make_masked_ghost_fn(17, 13)
+    else:
+        blocks = sharded._scatter_blocks(_halo_grid(10, 8, 1), 2, 2, 5, 4)
+        fn = (jhalo.exchange_halo if which == "exchange"
+              else jhalo.neumann_or_exchange)
+    want = _jax_blocks(fn, blocks, (2, 2))
+    assert np.array_equal(gloo4[which], want)
+
+
+@pytest.mark.parametrize("shape", DEEP_MESHES, ids=["2x2", "1x4"])
+def test_gloo_deep_inner_matches_jax(gloo4, shape):
+    import jax.numpy as jnp
+
+    from navierstokes_parallel_tpu.parallel import deep_halo as jdh
+
+    jprm = _jax_params(i_max=DEEP_SIZE[0], j_max=DEEP_SIZE[1])
+    li, lj = topology.local_block_dims(shape, *DEEP_SIZE)
+
+    def local_fn(rhs_block):
+        inner = jdh.make_deep_inner(jprm, li, lj, use_pallas=True)
+        return inner(rhs_block, jnp.asarray(DEEP_SWEEPS, jnp.int32))
+
+    blocks = sharded._scatter_blocks(_deep_rhs(), *shape, li, lj)
+    want = sharded._gather_blocks(_jax_blocks(local_fn, blocks, shape),
+                                  *shape, li, lj, jprm.shape)
+    got = gloo4[f"deep_{shape[0]}x{shape[1]}"]
+    scale = float(np.max(np.abs(want)))
+    assert scale > 0 and deep_halo.comm_depth(_params(), li, lj) < DEEP_SWEEPS
+    np.testing.assert_allclose(got[1:-1, 1:-1] / scale,
+                               want[1:-1, 1:-1] / scale, rtol=0,
+                               atol=INNER_TOL)
+
+
+@pytest.mark.parametrize("n", SOLVE_SIZES, ids=["24_divisible", "17_padded"])
+def test_gloo_solve_matches_jax(gloo4, n):
+    from navierstokes_parallel_tpu.parallel import sharded as jsh
+
+    jstate, jstats = jsh.solve_sharded(_jax_params(i_max=n, j_max=n),
+                                       mesh=_jax_mesh((2, 2)),
+                                       pressure_method="pallas_sor")
+    want = [int(jstats.steps), int(jstats.total_sor_iterations),
+            int(jstats.sor_failures)]
+    assert list(gloo4[f"solve{n}_stats"]) == want
+    for name in ("u", "v", "p"):
+        _assert_contract(gloo4[f"solve{n}_{name}"], getattr(jstate, name))
+    c = n // 2
+    _assert_contract([gloo4[f"solve{n}_u"][c, c], gloo4[f"solve{n}_v"][c, c]],
+                     [jstate.u[c, c], jstate.v[c, c]])
+    assert float(gloo4[f"solve{n}_t"]) == pytest.approx(float(jstate.t),
+                                                       rel=1e-6)
+
+
+# --- one rank -----------------------------------------------------------------------
+
+@pytest.fixture
+def one_rank():
+    with distributed.process_group("cpu"):
+        yield topology.make_grid_mesh(shape=(1, 1), device="cpu")
+    assert not dist.is_initialized()
+
+
+def test_one_rank_solve_matches_solver_and_jax(one_rank):
+    from navierstokes_parallel_tpu.parallel import sharded as jsh
+
+    prm = _params()
+    state, stats = sharded.solve_sharded(prm, mesh=one_rank,
+                                         pressure_method="pallas_sor")
+    single, sstats = solver.solve(prm, device="cpu",
+                                  pressure_method="pallas_sor")
+    jstate, jstats = jsh.solve_sharded(_jax_params(), mesh=_jax_mesh((1, 1)),
+                                       pressure_method="pallas_sor")
+    counts = (stats.steps, stats.total_sor_iterations, stats.sor_failures)
+    assert counts == (sstats.steps, sstats.total_sor_iterations,
+                      sstats.sor_failures)
+    assert counts == (int(jstats.steps), int(jstats.total_sor_iterations),
+                      int(jstats.sor_failures))
+    assert state.n == stats.steps == 3
+    for name in ("u", "v", "p"):
+        _assert_contract(getattr(state, name), getattr(single, name))
+        _assert_contract(getattr(state, name), getattr(jstate, name))
+
+
+def test_one_rank_solve_from_a_jax_state(one_rank):
+    """A JAX State goes in as it is (its arrays through numpy)."""
+    from navierstokes_parallel_tpu import solver as jsolver
+    from navierstokes_parallel_tpu.parallel import sharded as jsh
+
+    jprm = _jax_params()
+    jstart, _ = jsolver.solve(jprm.replace(T=0.02))
+    state, stats = sharded.solve_sharded(_params(), jstart, one_rank)
+    jstate, jstats = jsh.solve_sharded(jprm, jstart, _jax_mesh((1, 1)))
+    assert (stats.steps, stats.total_sor_iterations) == \
+        (int(jstats.steps), int(jstats.total_sor_iterations))
+    assert state.n == int(jstart.n) + stats.steps
+    for name in ("u", "v", "p"):
+        _assert_contract(getattr(state, name), getattr(jstate, name))
+
+
+def test_one_rank_max_steps_and_default_mesh(one_rank):
+    prm = _params()
+    state, stats = sharded.solve_sharded(prm, max_steps=2)
+    assert stats.steps == 2 and state.n == 2
+    assert float(state.t) < prm.T
+    assert topology.make_grid_mesh(i_max=5, j_max=5).shape == (1, 1)
+    with pytest.raises(ValueError, match="needs 4 ranks"):
+        topology.make_grid_mesh(shape=(2, 2))
+    with pytest.raises(ValueError, match="group of that size"):
+        topology.make_grid_mesh(4, 8, 8)
+
+
+def test_mesh_neighbours_and_origin():
+    mesh = topology.Mesh((2, 3), (1, 0), torch.device("cpu"), None)
+    assert mesh.neighbour("x", -1) == 0 and mesh.neighbour("x", 1) is None
+    assert mesh.neighbour("y", 1) == 4 and mesh.neighbour("y", -1) is None
+    assert mesh.origin(5, 7) == (5, 0)
+    assert halo.edge_masks(mesh) == {"left": False, "right": True,
+                                     "bottom": True, "top": False}
+
+
+@pytest.mark.parametrize("case,needle", [
+    ("mg", "A10"), ("cg", "A10"), ("fft", "A10"), ("rb_sor_sync", "A10"),
+    ("jacobi", "A5"), ("time_order_2", "AB2"), ("obstacles", "obstacles"),
+    ("problem_3", "problem 3"), ("problem_4", "problem 4"),
+    ("float64", "rb_sor_sync"), ("refine_0", "rb_sor_sync"),
+    ("compensated", "A9")])
+def test_unported_sharded_branches_raise(one_rank, case, needle):
+    kw, method, order = {}, "rb_sor", 1
+    if case in ("mg", "cg", "fft", "rb_sor_sync", "jacobi"):
+        method = case
+    elif case == "time_order_2":
+        order = 2
+    elif case == "obstacles":
+        kw = {"obstacles": ((8, 8, 12, 12),)}
+    elif case.startswith("problem_"):
+        kw = {"problem": int(case[-1])}
+    elif case == "float64":
+        kw = {"dtype": "float64"}
+    elif case == "refine_0":
+        kw = {"sor_refine_every": 0}
+    else:
+        kw = {"outer_precision": "compensated"}
+    with pytest.raises(NotImplementedError, match=needle):
+        sharded.solve_sharded(_params(**kw), mesh=one_rank,
+                              pressure_method=method, time_order=order)
+
+
+def test_refined_solver_hooks_refuse_a_parity_without_inner():
+    from navierstokes_parallel_tpu_torch.ops import sor
+
+    prm = _params(i_max=8, j_max=8)
+    z = torch.zeros(prm.shape)
+    with pytest.raises(ValueError, match="parity"):
+        sor._solve_pressure_refined(z, z, prm, parity=1)
+
+
+@pytest.mark.parametrize("hook,needle", [("mean_fn", "A6"),
+                                         ("residual_fn", "obstacles")])
+def test_refined_solver_refuses_unported_hooks(hook, needle):
+    from navierstokes_parallel_tpu_torch.ops import sor
+
+    prm = _params(i_max=8, j_max=8)
+    z = torch.zeros(prm.shape)
+    with pytest.raises(NotImplementedError, match=needle):
+        sor._solve_pressure_refined(z, z, prm, **{hook: torch.mean})
+
+
+# --- the CLI ------------------------------------------------------------------
+
+def _param_file(tmp_path, n=24, T=0.05):
+    path = tmp_path / "p.in"
+    path.write_text("\n".join(map(str, [1, 1, n, n, 1.0, 1.0, T, 100.0, 0.0,
+                                        0.0, 0.5, 1.7, 1e-4, 2000, 1])) + "\n")
+    return str(path)
+
+
+def _run(main, argv, capsys):
+    rc = main(argv)
+    out, err = capsys.readouterr()
+    return rc, out, err
+
+
+def test_cli_sharded_matches_jax_cli(tmp_path, capsys):
+    from navierstokes_parallel_tpu import cli as jcli
+
+    path = _param_file(tmp_path)
+    rc, out, err = _run(cli.main, [path, "--device", "cpu", "--backend",
+                                   "sharded", "--mesh", "1x1", "--stats"],
+                        capsys)
+    assert not dist.is_initialized()  # the CLI's own group is gone
+    jrc, jout, jerr = _run(jcli.main, [path, "--backend", "sharded", "--mesh",
+                                       "1x1", "--stats"], capsys)
+    assert rc == jrc == 0
+    assert out.splitlines() == jout.splitlines()
+    stats = err.splitlines()[0].split()[:3]
+    assert stats == jerr.splitlines()[0].split()[:3]
+    assert stats == ["steps=3", "sor_iterations=832", "sor_failures=0"]
+
+
+def test_cli_backends_and_max_steps(tmp_path, capsys):
+    path = _param_file(tmp_path)
+    runs = {b: _run(cli.main, [path, "--device", "cpu", "--backend", b,
+                               "--stats"], capsys)
+            for b in ("auto", "jnp", "pallas", "sharded")}
+    lines = {b: (rc, out, err.splitlines()[0].split()[:3])
+             for b, (rc, out, err) in runs.items()}
+    assert len(set(map(repr, lines.values()))) == 1, lines
+    rc, out, err = _run(cli.main, [path, "--device", "cpu", "--backend",
+                                   "sharded", "--max-steps", "1", "--stats"],
+                        capsys)
+    assert rc == 3 and err.startswith("steps=1 ")
+
+
+@pytest.mark.parametrize("argv,needle", [
+    (["--backend", "gspmd"], "gspmd is not ported"),
+    (["--backend", "sharded", "--mesh", "2x2"], "needs 4 ranks"),
+    (["--mesh", "1x1"], "applies to the sharded backend"),
+    (["--backend", "sharded", "--mesh", "2y2"], "expects PxQ"),
+    (["--backend", "sharded", "--method", "mg"], "A10"),
+])
+def test_cli_sharded_errors(tmp_path, capsys, argv, needle):
+    rc, out, err = _run(cli.main, [_param_file(tmp_path), "--device", "cpu",
+                                   *argv], capsys)
+    assert rc == 1 and needle in err and out == ""
+    assert not dist.is_initialized()
+
+
+def test_params_from_jax_fields():
+    """The shared field set of both packages' Params (used above)."""
+    from navierstokes_parallel_tpu.config import Params as JaxParams
+
+    ref = JaxParams(**_fields())
+    assert Params.from_mapping(dataclasses.asdict(ref)) == _params()
