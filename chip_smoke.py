@@ -120,7 +120,8 @@ MG_SWEEPS = 2    # one multigrid smoother call (V(2,2)); 32 on the coarsest
 MG_FINE_SHAPE = (2050, 2050)
 MG_FINE_DX2_INV = 2048.0 ** 2
 # The tiled kernel's tile heights held against the plain twin: the default
-# (64) and 256 (221,184 B of shared memory, near the 232,448 B limit).
+# (64) and 256, whose rhs no longer fits the threads' registers (the
+# kernel reads it from device memory; 110,592 B of shared memory).
 TILE_SIZES = (64, 256)
 # The extended-block kernel's cases: (tag, interior, mesh, sweeps per call,
 # warm).  A 1x1 block of configs/4.in (the sharded path on one card: ext
@@ -483,6 +484,22 @@ def sweeps_bound(shape, arrays: int, updated_cells: int, n_sweeps: int):
                  SWEEP_FLOPS_PER_CELL * updated_cells * n_sweeps)
 
 
+def tile_note(sor_kernel, tile_rows: int, ns: int, halo: int,
+              updates: int, k_ms: float) -> str:
+    """The tile's geometry on the card, its cell updates per written cell
+    and the call's useful cell updates per second (`updates` in k_ms)."""
+    g = sor_kernel.tile_report(tile_rows, sor_kernel.TILE_COLS, halo)
+    per_cell = sor_kernel.tile_updates_per_cell(tile_rows,
+                                                sor_kernel.TILE_COLS, ns)
+    return (f"; tile {tile_rows}x{sor_kernel.TILE_COLS} + halo {halo} "
+            f"({g['rows']}x{g['cols']} in shared memory), {ns} sweeps per "
+            f"launch, {g['threads']} threads, {g['shared_bytes']} B shared, "
+            f"{g['blocks_per_sm']} blocks per SM, {g['registers']} registers,"
+            f" rows per thread {g['rows_per_thread']}; "
+            f"{per_cell:.3f} updates per written cell; "
+            f"{updates / (k_ms * 1e-3) / 1e9:.2f} G cell updates/s")
+
+
 def phase_time(torch) -> dict:
     """Kernel and plain times at the SOR main path's 258^2 padded grid, (the
     smoother) at the mg path's finest 2050^2 level and (the tiled kernel) at
@@ -577,18 +594,26 @@ def phase_time(torch) -> dict:
         k2 = cuda_ms(torch, run(kernel), 20)
         p2 = cuda_ms(torch, run(plain), p_reps)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2, *bounds[name])
+        note = ""
+        if name == "sor_tiled":
+            K = sor_kernel.SWEEPS_PER_CHUNK
+            note = tile_note(sor_kernel, sor_kernel.TILE_ROWS, K, 2 * K,
+                             p_.i_max * p_.j_max * SOR_SWEEPS, (k1 + k2) / 2)
         print(f"[time] {name} at {p_.shape} ({SOR_SWEEPS} sweeps): kernel "
               f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
               f"sor_sweeps {b1:.4f} / {b2:.4f} ms per call; per sweep "
               f"kernel {(k1 + k2) / 2 * 1e3 / SOR_SWEEPS:.3f} us, "
-              f"sor_sweeps {(b1 + b2) / 2 * 1e3 / SOR_SWEEPS:.3f} us")
+              f"sor_sweeps {(b1 + b2) / 2 * 1e3 / SOR_SWEEPS:.3f} us{note}")
     for tile in TILE_SIZES[1:]:
         def tiled(tile=tile):
             return sor_kernel.inner_sweeps_tiled(rhs4, SOR_SWEEPS, prm4,
                                                  tile_rows=tile)
         t1, t2 = cuda_ms(torch, tiled, 20), cuda_ms(torch, tiled, 20)
+        K = sor_kernel.SWEEPS_PER_CHUNK
+        note = tile_note(sor_kernel, tile, K, 2 * K,
+                         prm4.i_max * prm4.j_max * SOR_SWEEPS, (t1 + t2) / 2)
         print(f"[time] sor_tiled at {prm4.shape} tile={tile} ({SOR_SWEEPS} "
-              f"sweeps): kernel {t1:.4f} / {t2:.4f} ms per call")
+              f"sweeps): kernel {t1:.4f} / {t2:.4f} ms per call{note}")
 
     # The extended-block kernel on the sharded path's one block of
     # configs/4.in (li = lj = 2048, K = 8, H = 16): one call of K sweeps,
@@ -615,10 +640,12 @@ def phase_time(torch) -> dict:
     times["sor_ext"] = ((k1 + k2) / 2, (p1 + p2) / 2,
                         *sweeps_bound(d_ext.shape, 3,
                                       prm4.i_max * prm4.j_max, K))
+    note = tile_note(sor_kernel, sor_kernel.EXT_TILE_ROWS, K, H,
+                     prm4.i_max * prm4.j_max * K, (k1 + k2) / 2)
     print(f"[time] sor_ext at {tuple(d_ext.shape)} ({K} sweeps, H={H}): "
           f"kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
           f"sor_tiled ({K} sweeps at {prm4.shape}) {b1:.4f} / {b2:.4f} ms "
-          f"per call")
+          f"per call{note}")
     for name, (k_ms, _, b_ms, by) in times.items():
         print(f"[time] {name}: bound {b_ms * 1e3:.3f} us ({by}), kernel "
               f"{k_ms * 1e3:.3f} us, {b_ms / k_ms:.4f} of the bound")

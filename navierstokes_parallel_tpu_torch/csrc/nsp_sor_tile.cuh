@@ -1,22 +1,59 @@
-// The temporal-blocked tile body shared by the tiled sweep kernel (B4,
+// The temporal-blocked tile shared by the tiled sweep kernel (B4,
 // sor_tiled.cu) and the extended-block sweep kernel (B6, sor_ext.cu).
 //
-// A block sweeps one tile of the array it is given: it loads delta and rhs
-// for its TI x TJ centre and a halo of `halo` cells on each side into
-// dynamic shared memory (cells outside the array load as 0), runs 2 ns
-// half-sweeps there with a __syncthreads() after each, and writes back the
-// cells of its centre that lie in the write window.  Stale values at the
-// tile's edge travel one cell per half-sweep, so with halo >= 2 ns the
-// centre equals the same sweeps over the whole array, and the tiles of one
-// launch are independent.  The outermost ring of the shared tile has no
-// neighbours in it and is never updated.
+// A block sweeps one tile of the array it is given: it loads delta for its
+// TI x TJ centre and a halo of `halo` cells on each side into dynamic shared
+// memory (cells outside the array load as 0), runs 2 ns half-sweeps there
+// with a __syncthreads() between two, and writes back the cells of its
+// centre that lie in the write window.  Stale values at the tile's edge
+// travel one cell per half-sweep, so with halo >= 2 ns the centre equals the
+// same sweeps over the whole array, and the tiles of one launch are
+// independent.
 //
 // Array cell (a, b) is global padded cell (off_i + a, off_j + b) of an
 // ni x nj padded grid: interior mask, parity and self_coef come from the
-// global index (nsp_sor.cuh), so an array cut out of a larger grid (B6's
-// extended block of one shard) sweeps exactly as the grid would.  B4 passes
-// the grid itself (offset 0).
+// global index, so an array cut out of a larger grid (B6's extended block of
+// one shard) sweeps exactly as the grid would.  B4 passes the grid itself
+// (offset 0).
+//
+// The layout, chosen because the first version of this tile spent its time
+// issuing instructions, not moving bytes (PERF.md):
+//   - Shared memory holds delta alone, compacted by colour: colour c of the
+//     (TI + 2H) x (TJ + 2H) tile is an array of (TI + 2H) x (TJ / 2 + H)
+//     floats, cell (r, 2k + t) at [r][k] in the array of its colour.  A
+//     red cell's four neighbours are then black[r -/+ 1][k] and
+//     black[r][k + s - 1], black[r][k + s] (s its column's offset in the
+//     pair), contiguous across a warp.
+//   - Thread (k, y) owns the pair of cells (r, 2k), (r, 2k + 1), one of
+//     each colour, in rows r = y, y + RS, y + 2 RS, ... (RS = blockDim.y,
+//     even, so one colour offset q serves all its rows): each half-sweep it
+//     updates one cell of each of its pairs.  Ownership is fixed for the
+//     chunk, so rhs of its cells is loaded once into registers (when the
+//     rows per thread, M, are a compile-time constant), and its cells are
+//     written by it alone.
+//   - Per half-sweep only the cells that can still reach the centre are
+//     updated: after half-sweep h the cells within 2 ns - 1 - h of the
+//     centre hold what a sweep of the full tile holds (by induction: such
+//     a cell reads itself and neighbours within 2 ns - h), so the box of
+//     half-sweep h is the centre widened by 2 ns - 1 - h, and the centre's
+//     bits equal the full tile's.  It never reaches the tile's outer ring.
+//   - Tiles whose first box lies inside global rows and columns
+//     [2, n - 3] take a path without masks (self_coef is the same 0 for all
+//     its cells); the others test each cell's global index as before.
+//   - The main paths' tile has a kernel compiled for its shape (below);
+//     any other tile runs the same body with its shape read at run time.
+// The arithmetic is nsp_sor.cuh's rb_update, in the same order and
+// rounding; self_coef is formed with the same operations.
+//
+// On an H100 (tile_bench.py, PERF.md) a chunk of 8 sweeps at 2050^2
+// takes ~83 us against the first tile's 213 us; about a quarter of it is
+// loading delta and storing the centre.  Delta held in registers as well,
+// delta loaded by cp.async, and 128-wide or 128-tall tiles each ran slower
+// and are left out.
 #pragma once
+
+#include <cstddef>
+#include <cstdint>
 
 #include "nsp_sor.cuh"
 
@@ -30,63 +67,334 @@ struct TileDomain {
   int w_lo_j, w_hi_j;  // columns [w_lo_j, w_hi_j)
 };
 
-// One chunk of ns <= halo / 2 sweeps of one tile: src -> dst (both of the
-// domain's shape).  Block (blockIdx.x, blockIdx.y) takes the tile of
-// columns blockIdx.x * tj and rows blockIdx.y * ti.
-__device__ __forceinline__ void sweep_tile(
-    const float* __restrict__ src, float* __restrict__ dst,
-    const float* __restrict__ rhs, const TileDomain& dom, int ti, int tj,
-    int halo, int ns, float one_minus_omega, float coef, float dx2_inv,
-    float dy2_inv) {
-  extern __shared__ float smem[];
-  const int ei = ti + 2 * halo;  // rows of the shared tile
-  const int ej = tj + 2 * halo;  // its columns
-  float* sd = smem;
-  float* sr = smem + static_cast<size_t>(ei) * ej;
-  const int a0 = static_cast<int>(blockIdx.y) * ti - halo;  // row of sd row 0
-  const int b0 = static_cast<int>(blockIdx.x) * tj - halo;  // column of col 0
+// One chunk: ns <= halo / 2 sweeps of every tile, src -> dst (both of the
+// domain's shape).  zero_src: delta = 0 on entry, src is not read.
+struct TileChunk {
+  const float* src;
+  float* dst;
+  const float* rhs;
+  TileDomain dom;
+  int ti, tj;  // the written centre of a tile (tj even)
+  int halo;    // H: cells of halo on each side (even)
+  int ns;      // sweeps of this chunk
+  int zero_src;
+  float one_minus_omega, coef, dx2_inv, dy2_inv;
+};
 
-  for (int r = threadIdx.y; r < ei; r += blockDim.y) {
-    const int a = a0 + r;
-    for (int c = threadIdx.x; c < ej; c += blockDim.x) {
-      const int b = b0 + c;
-      const bool in = a >= 0 && a < dom.rows && b >= 0 && b < dom.cols;
-      const size_t g = in ? static_cast<size_t>(a) * dom.cols + b : 0;
-      sd[r * ej + c] = in ? src[g] : 0.0f;
-      sr[r * ej + c] = in ? rhs[g] : 0.0f;
+// At most this many threads per block.
+constexpr int kTileMaxThreads = 576;
+// The tile of the main paths, a 64 x 64 centre with a 16-deep halo (B4 at
+// K = 8, B6 at ns = 8), has a kernel compiled for its shape, so that its
+// shared-memory offsets are immediates: 48 pairs per row, 12 rows between
+// a thread's rows, 8 rows per thread (576 threads), two blocks per SM.
+constexpr int kHotTi = 64;
+constexpr int kHotTj = 64;
+constexpr int kHotHalo = 16;
+constexpr int kHotRowStep = 12;
+constexpr int kHotRows = 8;
+constexpr int kHotMinBlocks = 2;
+// Any other tile: 16 rows per thread with rhs in registers where that
+// takes at most kTileMaxThreads threads, else rhs from device memory.
+constexpr int kRegRows = 16;
+
+// How a chunk's tile maps onto a block.
+struct TileGeometry {
+  int er, pc;   // shared tile rows (ti + 2 halo), cell pairs per row
+  int rs;       // blockDim.y: rows between two rows of one thread (even)
+  int m;        // rows per thread, compile-time; 0: any, rhs not in
+                // registers but read from device memory at each update
+  bool hot;     // the kernel compiled for the main paths' tile
+  size_t smem;  // dynamic shared memory, bytes
+};
+
+inline TileGeometry tile_geometry(int ti, int tj, int halo) {
+  TileGeometry g{};
+  g.er = ti + 2 * halo;
+  g.pc = (tj + 2 * halo) / 2;
+  g.smem = sizeof(float) * static_cast<size_t>(g.er) * 2 * g.pc;
+  if (ti == kHotTi && tj == kHotTj && halo == kHotHalo) {
+    g.rs = kHotRowStep;
+    g.m = kHotRows;
+    g.hot = true;
+    return g;
+  }
+  g.rs = ((g.er + kRegRows - 1) / kRegRows + 1) & ~1;
+  if (g.pc * g.rs <= kTileMaxThreads) {
+    g.m = kRegRows;
+    return g;
+  }
+  g.m = 0;
+  g.rs = (kTileMaxThreads / g.pc) & ~1;
+  if (g.rs < 2) g.rs = 2;
+  if (g.rs > g.er + (g.er & 1)) g.rs = g.er + (g.er & 1);
+  return g;
+}
+
+namespace tile_detail {
+
+// Cells (a, b) and (a, b + 1) of a row-major rows x cols array, 0 outside
+// it; one 8-byte access where both lie inside and `vec` holds (even cols,
+// even b, 8-byte aligned base).
+__device__ __forceinline__ void load_pair(const float* __restrict__ p,
+                                          int rows, int cols, int a, int b,
+                                          bool vec, float& x0, float& x1) {
+  x0 = 0.0f;
+  x1 = 0.0f;
+  if (a < 0 || a >= rows) return;
+  const float* row = p + static_cast<size_t>(a) * cols;
+  if (vec && b >= 0 && b + 1 < cols) {
+    const float2 v = *reinterpret_cast<const float2*>(row + b);
+    x0 = v.x;
+    x1 = v.y;
+    return;
+  }
+  if (b >= 0 && b < cols) x0 = row[b];
+  if (b + 1 >= 0 && b + 1 < cols) x1 = row[b + 1];
+}
+
+__device__ __forceinline__ bool vec_ok(const void* p, int cols, int b0) {
+  return ((cols | b0) & 1) == 0 &&
+         (reinterpret_cast<uintptr_t>(p) & 7) == 0;
+}
+
+// What a thread knows of its block for the chunk.
+struct Block {
+  int k, ty, rs, pc, er;  // its pair column and first row; the geometry
+  int a0, b0;             // array cell of shared (0, 0)
+  int i0, j0;             // its global index
+  int q;                  // colour of column 2k in the thread's rows
+  float sc0;              // self_coef of a cell off the boundary rows/cols
+};
+
+// Half-sweep h (of colour P) over the box of cells that can still reach
+// the centre: own is the colour-P array, oth the other; rhs_p the thread's
+// rhs of colour P per row (M > 0).
+template <int M, int P, bool kMasked>
+__device__ __forceinline__ void half_sweep(const TileChunk& t, const Block& k,
+                                           float* own, const float* oth,
+                                           const float (&rhs_p)[M > 0 ? M : 1],
+                                           int h) {
+  const int s = k.q ^ P;  // the colour-P cell of pair k is column 2k + s
+  const int c = 2 * k.k + s;
+  const int span = 2 * t.ns - 1 - h;
+  const int lo = t.halo - span;  // first row and column of the box
+  if (static_cast<unsigned>(c - lo) >=
+      static_cast<unsigned>(t.tj + 2 * span)) {
+    return;
+  }
+  float sc_col = 0.0f;
+  if constexpr (kMasked) {
+    const int j = k.j0 + c;
+    if (j < 1 || j > t.dom.nj - 2) return;
+    sc_col = mul(static_cast<float>((j == 1) + (j == t.dom.nj - 2)),
+                 t.dy2_inv);
+  }
+  const unsigned box_rows = static_cast<unsigned>(t.ti + 2 * span);
+  const int count = M > 0 ? M : (k.er - k.ty + k.rs - 1) / k.rs;
+#pragma unroll
+  for (int m = 0; m < count; ++m) {
+    const int r = k.ty + k.rs * m;
+    if (static_cast<unsigned>(r - lo) >= box_rows) continue;
+    float sc = k.sc0;
+    if constexpr (kMasked) {
+      const int i = k.i0 + r;
+      if (i < 1 || i > t.dom.ni - 2) continue;
+      sc = add(mul(static_cast<float>((i == 1) + (i == t.dom.ni - 2)),
+                   t.dx2_inv),
+               sc_col);
     }
+    float rv;
+    if constexpr (M > 0) {
+      rv = rhs_p[m];
+    } else {
+      const int a = k.a0 + r, b = k.b0 + c;
+      rv = (a >= 0 && a < t.dom.rows && b >= 0 && b < t.dom.cols)
+               ? t.rhs[static_cast<size_t>(a) * t.dom.cols + b]
+               : 0.0f;
+    }
+    const int f = r * k.pc + k.k;
+    const float dc = own[f];
+    const float nb =
+        add(add(mul(add(oth[f - k.pc], oth[f + k.pc]), t.dx2_inv),
+                mul(add(oth[f + s - 1], oth[f + s]), t.dy2_inv)),
+            mul(dc, sc));
+    own[f] = add(mul(t.one_minus_omega, dc), mul(t.coef, sub(nb, rv)));
+  }
+}
+
+template <int M, bool kMasked>
+__device__ __forceinline__ void sweeps(const TileChunk& t, const Block& k,
+                                       float* col0, float* col1,
+                                       const float (&rhs0)[M > 0 ? M : 1],
+                                       const float (&rhs1)[M > 0 ? M : 1]) {
+  for (int h = 0; h < 2 * t.ns; h += 2) {
+    half_sweep<M, 0, kMasked>(t, k, col0, col1, rhs0, h);
+    __syncthreads();
+    half_sweep<M, 1, kMasked>(t, k, col1, col0, rhs1, h + 1);
+    // No barrier after the last: each thread writes back its own cells.
+    if (h + 2 < 2 * t.ns) __syncthreads();
+  }
+}
+
+}  // namespace tile_detail
+
+namespace {
+
+// One chunk; block (blockIdx.x, blockIdx.y) takes the tile of columns
+// blockIdx.x * tj and rows blockIdx.y * ti; blockDim = (pc, rs).  kHot:
+// the main paths' tile, its shape known at compile time.
+template <int M, bool kHot>
+__global__ void __launch_bounds__(kHot ? (kHotTj / 2 + kHotHalo) *
+                                             kHotRowStep
+                                       : kTileMaxThreads,
+                                  kHot ? kHotMinBlocks : 1)
+    tile_chunk(const TileChunk chunk) {
+  using namespace tile_detail;
+  extern __shared__ float smem[];
+  TileChunk t = chunk;
+  if constexpr (kHot) {
+    t.ti = kHotTi;
+    t.tj = kHotTj;
+    t.halo = kHotHalo;
+  }
+  Block k;
+  k.k = static_cast<int>(threadIdx.x);
+  k.ty = static_cast<int>(threadIdx.y);
+  k.rs = kHot ? kHotRowStep : static_cast<int>(blockDim.y);
+  k.pc = kHot ? kHotTj / 2 + kHotHalo : static_cast<int>(blockDim.x);
+  k.er = t.ti + 2 * t.halo;
+  k.a0 = static_cast<int>(blockIdx.y) * t.ti - t.halo;
+  k.b0 = static_cast<int>(blockIdx.x) * t.tj - t.halo;
+  k.i0 = k.a0 + t.dom.off_i;
+  k.j0 = k.b0 + t.dom.off_j;
+  k.q = (k.i0 + k.ty + k.j0) & 1;
+  k.sc0 = add(mul(0.0f, t.dx2_inv), mul(0.0f, t.dy2_inv));
+  float* col0 = smem;
+  float* col1 = smem + static_cast<size_t>(k.er) * k.pc;
+  const int count = M > 0 ? M : (k.er - k.ty + k.rs - 1) / k.rs;
+  const int b = k.b0 + 2 * k.k;
+
+  // Load delta into the colour arrays and rhs into registers.
+  float rhs0[M > 0 ? M : 1], rhs1[M > 0 ? M : 1];
+  const bool vec_src = vec_ok(t.src, t.dom.cols, k.b0);
+  const bool vec_rhs = vec_ok(t.rhs, t.dom.cols, k.b0);
+#pragma unroll
+  for (int m = 0; m < count; ++m) {
+    const int r = k.ty + k.rs * m;
+    if (r >= k.er) continue;
+    float d0 = 0.0f, d1 = 0.0f;
+    if (!t.zero_src) {
+      load_pair(t.src, t.dom.rows, t.dom.cols, k.a0 + r, b, vec_src, d0, d1);
+    }
+    if constexpr (M > 0) {
+      float x0, x1;
+      load_pair(t.rhs, t.dom.rows, t.dom.cols, k.a0 + r, b, vec_rhs, x0,
+                x1);
+      rhs0[m] = k.q ? x1 : x0;
+      rhs1[m] = k.q ? x0 : x1;
+    }
+    const int f = r * k.pc + k.k;
+    col0[f] = k.q ? d1 : d0;
+    col1[f] = k.q ? d0 : d1;
   }
   __syncthreads();
 
-  const int i0 = a0 + dom.off_i;  // global row of sd row 0
-  const int j0 = b0 + dom.off_j;  // global column of sd column 0
-  for (int h = 0; h < 2 * ns; ++h) {
-    const int parity = h & 1;
-    for (int r = 1 + threadIdx.y; r < ei - 1; r += blockDim.y) {
-      const int i = i0 + r;
-      // (i + j0 + c) & 1 == parity on the columns c this row updates.
-      const int first = (parity - i - j0) & 1;
-      for (int c = first + 2 * threadIdx.x; c < ej - 1; c += 2 * blockDim.x) {
-        const int j = j0 + c;
-        if (c == 0 || !rb_updates(i, j, dom.ni, dom.nj, parity)) continue;
-        const int e = r * ej + c;
-        sd[e] = rb_update(sd, sr[e], e, ej, i, j, dom.ni, dom.nj,
-                          one_minus_omega, coef, dx2_inv, dy2_inv);
-      }
-    }
-    __syncthreads();
+  const int span0 = 2 * t.ns - 1;
+  const int lo = t.halo - span0;
+  const bool inside = k.i0 + lo >= 2 &&
+                      k.i0 + lo + t.ti - 1 + 2 * span0 <= t.dom.ni - 3 &&
+                      k.j0 + lo >= 2 &&
+                      k.j0 + lo + t.tj - 1 + 2 * span0 <= t.dom.nj - 3;
+  if (inside) {
+    sweeps<M, false>(t, k, col0, col1, rhs0, rhs1);
+  } else {
+    sweeps<M, true>(t, k, col0, col1, rhs0, rhs1);
   }
 
-  for (int r = halo + threadIdx.y; r < halo + ti; r += blockDim.y) {
-    const int a = a0 + r;
-    if (a < dom.w_lo_i || a >= dom.w_hi_i) continue;
-    for (int c = halo + threadIdx.x; c < halo + tj; c += blockDim.x) {
-      const int b = b0 + c;
-      if (b >= dom.w_lo_j && b < dom.w_hi_j) {
-        dst[static_cast<size_t>(a) * dom.cols + b] = sd[r * ej + c];
-      }
+  // Write back this thread's cells of the centre that lie in the window.
+  const int c0 = 2 * k.k;
+  if (c0 < t.halo || c0 >= t.halo + t.tj) return;
+  const bool in0 = b >= t.dom.w_lo_j && b < t.dom.w_hi_j;
+  const bool in1 = b + 1 >= t.dom.w_lo_j && b + 1 < t.dom.w_hi_j;
+  const bool vec_dst = vec_ok(t.dst, t.dom.cols, k.b0) && in0 && in1;
+#pragma unroll
+  for (int m = 0; m < count; ++m) {
+    const int r = k.ty + k.rs * m;
+    if (r < t.halo || r >= t.halo + t.ti) continue;
+    const int a = k.a0 + r;
+    if (a < t.dom.w_lo_i || a >= t.dom.w_hi_i) continue;
+    const int f = r * k.pc + k.k;
+    const float v0 = k.q ? col1[f] : col0[f];
+    const float v1 = k.q ? col0[f] : col1[f];
+    float* row = t.dst + static_cast<size_t>(a) * t.dom.cols;
+    if (vec_dst) {
+      *reinterpret_cast<float2*>(row + b) = make_float2(v0, v1);
+    } else {
+      if (in0) row[b] = v0;
+      if (in1) row[b + 1] = v1;
     }
   }
 }
+
+// The kernel for a tile of geometry g, allowed g.smem of shared memory.
+cudaError_t tile_kernel(const TileGeometry& g, const void** fn) {
+  *fn = g.hot     ? reinterpret_cast<const void*>(tile_chunk<kHotRows, true>)
+        : g.m > 0 ? reinterpret_cast<const void*>(tile_chunk<kRegRows, false>)
+                  : reinterpret_cast<const void*>(tile_chunk<0, false>);
+  return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(g.smem));
+}
+
+// Launches one chunk; cudaErrorInvalidValue for a geometry the tile does
+// not take (odd tj or halo, ns beyond halo / 2).
+cudaError_t launch_tile_chunk(const TileChunk& t, cudaStream_t s) {
+  if (t.ti < 1 || t.tj < 2 || (t.tj & 1) || t.halo < 0 || (t.halo & 1) ||
+      t.ns < 0 || 2 * t.ns > t.halo) {
+    return cudaErrorInvalidValue;
+  }
+  const TileGeometry g = tile_geometry(t.ti, t.tj, t.halo);
+  if (!g.hot && g.pc * g.rs > kTileMaxThreads) return cudaErrorInvalidValue;
+  const void* fn = nullptr;
+  cudaError_t err = tile_kernel(g, &fn);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t.dom.cols + t.tj - 1) / t.tj,
+                  (t.dom.rows + t.ti - 1) / t.ti);
+  TileChunk arg = t;
+  void* args[] = {&arg};
+  err = cudaLaunchKernel(fn, grid, dim3(g.pc, g.rs), args, g.smem, s);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The geometry of a tile and the blocks of it one SM holds: out[0..6] =
+// shared rows, shared columns, rows per thread (0: rhs not in registers),
+// threads per block, shared bytes, resident blocks per SM, registers per
+// thread.
+cudaError_t tile_report(int ti, int tj, int halo, int* out) {
+  if (ti < 1 || tj < 2 || (tj & 1) || halo < 0 || (halo & 1)) {
+    return cudaErrorInvalidValue;
+  }
+  const TileGeometry g = tile_geometry(ti, tj, halo);
+  const void* fn = nullptr;
+  cudaError_t err = tile_kernel(g, &fn);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                      g.pc * g.rs, g.smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr{};
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  out[0] = g.er;
+  out[1] = 2 * g.pc;
+  out[2] = g.m;
+  out[3] = g.pc * g.rs;
+  out[4] = static_cast<int>(g.smem);
+  out[5] = blocks;
+  out[6] = attr.numRegs;
+  return cudaSuccess;
+}
+
+}  // namespace
 
 }  // namespace nsp

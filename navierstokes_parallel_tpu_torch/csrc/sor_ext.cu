@@ -28,30 +28,14 @@
 // What bounds it on an H100: the least time for one call of 8 sweeps at
 // 2080^2 is set by device memory, delta and rhs read once and delta written
 // once (3 x 17.3 MB, ~15.5 us at 3.35 TB/s), against 11 flops per cell
-// update (0.38 GFLOP, ~5.7 us at 67 TFLOP/s f32).  Like B4 it pays instead
-// (TI + 4 ns)(TJ + 4 ns) / (TI * TJ) updates per written cell for the halo
-// (2.25 at TI = TJ = 64, ns = 8) and a __syncthreads() per half-sweep.
-// cp.async / TMA loads and tuning of the tile are later work.
+// update (0.38 GFLOP, ~5.7 us at 67 TFLOP/s f32, half of that rate without
+// FMA).  The first tile took 200 us a call, most of it in issuing the
+// per-update index and mask arithmetic; the current one (~89 us) is
+// described in nsp_sor_tile.cuh and measured in PERF.md.
 
 #include <cuda_runtime.h>
 
 #include "nsp_sor_tile.cuh"
-
-namespace {
-
-constexpr int kThreadsJ = 16;  // threads along j (each takes every 2nd cell)
-constexpr int kThreadsI = 32;  // threads along i
-
-__global__ void __launch_bounds__(kThreadsJ * kThreadsI)
-    ext_chunk(const float* __restrict__ src, float* __restrict__ dst,
-              const float* __restrict__ rhs, nsp::TileDomain dom, int ti,
-              int tj, int ns, float one_minus_omega, float coef,
-              float dx2_inv, float dy2_inv) {
-  nsp::sweep_tile(src, dst, rhs, dom, ti, tj, 2 * ns, ns, one_minus_omega,
-                  coef, dx2_inv, dy2_inv);
-}
-
-}  // namespace
 
 // n_sweeps red-black sweeps on the rows x cols extended block d0 (row-major
 // f32) with right-hand side rhs, into out (same shape; every cell written).
@@ -68,26 +52,23 @@ extern "C" int nsp_sor_ext_sweeps(float* out, const float* d0,
                                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows < 1 || cols < 1 || tile_rows < 1 || tile_cols < 1 ||
-      n_sweeps < 0 || 2 * n_sweeps > H) {
+  if (rows < 1 || cols < 1 || n_sweeps < 0 || 2 * n_sweeps > H) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int halo = 2 * n_sweeps;
-  const size_t smem = 2 * sizeof(float) *
-                      static_cast<size_t>(tile_rows + 2 * halo) *
-                      static_cast<size_t>(tile_cols + 2 * halo);
-  err = cudaFuncSetAttribute(ext_chunk,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const nsp::TileDomain dom{rows,        cols,        ox - H + 1, oy - H + 1,
-                            i_max + 2,   j_max + 2,   0,          rows,
-                            0,           cols};
-  const dim3 block(kThreadsJ, kThreadsI);
-  const dim3 grid((cols + tile_cols - 1) / tile_cols,
-                  (rows + tile_rows - 1) / tile_rows);
-  ext_chunk<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      d0, out, rhs, dom, tile_rows, tile_cols, n_sweeps, one_minus_omega,
-      coef, dx2_inv, dy2_inv);
-  return static_cast<int>(cudaGetLastError());
+  const nsp::TileChunk t{d0,
+                         out,
+                         rhs,
+                         {rows, cols, ox - H + 1, oy - H + 1, i_max + 2,
+                          j_max + 2, 0, rows, 0, cols},
+                         tile_rows,
+                         tile_cols,
+                         2 * n_sweeps,
+                         n_sweeps,
+                         0,
+                         one_minus_omega,
+                         coef,
+                         dx2_inv,
+                         dy2_inv};
+  return static_cast<int>(
+      nsp::launch_tile_chunk(t, static_cast<cudaStream_t>(stream)));
 }

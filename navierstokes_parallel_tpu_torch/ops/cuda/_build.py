@@ -53,6 +53,8 @@ SIGNATURES = {
     # stream
     "nsp_sor_ext_sweeps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _F, _F, _F, _F, _I, _P),
+    # tile_rows, tile_cols, halo, out (int[7]), device
+    "nsp_sor_tile_report": (_I, _I, _I, _P, _I),
     # red, black, rhs_red, rhs_black, ni, nj, n_sweeps, one_minus_omega,
     # coef, dx2_inv, dy2_inv, device, stream
     "nsp_sor_compressed_sweeps": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,

@@ -34,6 +34,8 @@ goes to its ``*_plain`` twin; a CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ...config import Params
@@ -58,8 +60,9 @@ EXT_LAUNCHES = 0
 TILE_ROWS = 64
 TILE_COLS = 64
 SWEEPS_PER_CHUNK = 8
-# Shared memory one block may use on an H100 (232,448 bytes): the tiled
-# kernel holds delta and rhs of its haloed tile there.
+# Shared memory one block may use on an H100 (232,448 bytes): the tile of
+# the tiled and extended-block kernels holds delta of its haloed tile there
+# (rhs stays in registers or device memory).
 MAX_SHARED_BYTES = 232448
 # None: the tiled route where the grid exceeds WHOLE_GRID_BUDGET_BYTES;
 # True / False force it on or off (JAX PREFER_TILED_DMA).
@@ -237,16 +240,43 @@ def inner_sweeps(rhs_neg: torch.Tensor, n_sweeps: int,
 
 def tiled_shared_bytes(tile_rows: int, sweeps_per_chunk: int,
                        tile_cols: int = TILE_COLS) -> int:
-    """Shared memory of one block of the tiled kernel: delta and rhs, f32,
-    over the tile and its 2K-deep halo on each side."""
+    """Shared memory of one block of the tiled kernel: delta, f32, over the
+    tile and its 2K-deep halo on each side (csrc/nsp_sor_tile.cuh)."""
     halo = 2 * sweeps_per_chunk
-    return 2 * 4 * (tile_rows + 2 * halo) * (tile_cols + 2 * halo)
+    return 4 * (tile_rows + 2 * halo) * (tile_cols + 2 * halo)
+
+
+def tile_updates_per_cell(tile_rows: int, tile_cols: int, ns: int) -> float:
+    """Cell updates per written cell and sweep of one tile away from the
+    boundary: half-sweep h updates the cells of its colour in the centre
+    widened by 2 ns - 1 - h (csrc/nsp_sor_tile.cuh), half of the box."""
+    ns = int(ns)
+    if ns == 0:
+        return 0.0
+    boxes = sum((tile_rows + 2 * w) * (tile_cols + 2 * w)
+                for w in range(2 * ns))
+    return boxes / 2 / ns / (tile_rows * tile_cols)
+
+
+def tile_report(tile_rows: int, tile_cols: int, halo: int) -> dict:
+    """The tile's layout on the current card (CUDA only): shared rows and
+    columns, rows per thread (0: rhs read from device memory at each
+    update), threads per block, shared bytes, resident blocks per SM and
+    registers per thread, as the kernel library reports them."""
+    out = (ctypes.c_int * 7)()
+    status = _build.load().nsp_sor_tile_report(
+        int(tile_rows), int(tile_cols), int(halo), ctypes.addressof(out),
+        torch.cuda.current_device())
+    _build.check_status(status, "nsp_sor_tile_report")
+    keys = ("rows", "cols", "rows_per_thread", "threads", "shared_bytes",
+            "blocks_per_sm", "registers")
+    return dict(zip(keys, out))
 
 
 def check_tile(tile_rows: int, sweeps_per_chunk: int) -> None:
     """Raise ValueError on a tile the tiled kernel cannot take: a size
-    outside [1, 4096] (the JAX rule), K < 1, or a footprint beyond the
-    shared memory of one block (never clamped)."""
+    outside [1, 4096] (the JAX rule), K < 1, or delta of the haloed tile
+    beyond the shared memory of one block (never clamped)."""
     if not 1 <= int(tile_rows) <= 4096:
         raise ValueError(f"tile size must be in [1, 4096], got {tile_rows}")
     if int(sweeps_per_chunk) < 1:
@@ -320,7 +350,7 @@ def inner_sweeps_tiled(rhs_neg: torch.Tensor, n_sweeps: int, params: Params,
     """n_sweeps f32 red-black sweeps on A delta = rhs_neg from delta = 0 in
     chunks of sweeps_per_chunk, tiles of tile_rows (default TILE_ROWS) x
     TILE_COLS cells: the plain version for a CPU tensor, the CUDA kernel
-    (one launch per chunk) for a CUDA one."""
+    (one launch per chunk, one for n_sweeps = 0) for a CUDA one."""
     global TILED_LAUNCHES
     B, K = int(tile_rows or TILE_ROWS), int(sweeps_per_chunk)
     if not _cuda_tensor(rhs_neg):
@@ -329,17 +359,18 @@ def inner_sweeps_tiled(rhs_neg: torch.Tensor, n_sweeps: int, params: Params,
     check_tile(B, K)
     lib = _build.load()
     ni, nj = params.shape
-    # Each chunk reads one buffer and writes the other; neither ghost ring
-    # is ever written, so both stay 0.
-    d = torch.zeros((ni, nj), dtype=torch.float32, device=rhs_neg.device)
-    scratch = torch.zeros_like(d)
+    # Each chunk reads one buffer and writes every cell of the other, the
+    # ghost ring's zeros included; the first reads none (delta = 0), so
+    # neither buffer needs zeroing.
+    d = torch.empty((ni, nj), dtype=torch.float32, device=rhs_neg.device)
+    scratch = torch.empty_like(d)
     status = lib.nsp_sor_tiled_sweeps(
         d.data_ptr(), scratch.data_ptr(), rhs_neg.data_ptr(), ni, nj,
         int(n_sweeps), B, TILE_COLS, K, *sweep_constants(params),
         *_build.device_and_stream(rhs_neg))
     _build.check_status(status, "nsp_sor_tiled_sweeps")
     TILED_LAUNCHES += 1
-    n_chunks = -(-int(n_sweeps) // K)
+    n_chunks = max(1, -(-int(n_sweeps) // K))
     return scratch if n_chunks % 2 else d
 
 
@@ -531,8 +562,8 @@ def ext_sweeps_plain(delta_ext: torch.Tensor, rhs_ext: torch.Tensor, ns: int,
 
 
 def ext_shared_bytes(ns: int) -> int:
-    """Shared memory of one block of the extended-block kernel: delta and
-    rhs, f32, over its tile and a halo of 2 ns cells on each side."""
+    """Shared memory of one block of the extended-block kernel: delta, f32,
+    over its tile and a halo of 2 ns cells on each side."""
     return tiled_shared_bytes(EXT_TILE_ROWS, max(int(ns), 0))
 
 

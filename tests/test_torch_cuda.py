@@ -172,15 +172,49 @@ def test_tiled_checks_before_launch(bad):
     error names the shared-memory size."""
     tile, k, match = {"zero": (0, 8, r"\[1, 4096\]"),
                       "over_4096": (4097, 8, r"\[1, 4096\]"),
-                      "shared": (271, 8, "232704 bytes of shared memory"),
+                      "shared": (574, 8, "232704 bytes of shared memory"),
                       "chunk": (64, 0, "sweeps_per_chunk")}[bad]
     with pytest.raises(ValueError, match=match):
         sor_kernel.check_tile(tile, k)
-    sor_kernel.check_tile(270, 8)  # the largest tile that fits at K = 8
-    assert sor_kernel.tiled_shared_bytes(270, 8) <= sor_kernel.MAX_SHARED_BYTES
+    sor_kernel.check_tile(573, 8)  # the largest tile that fits at K = 8
+    assert sor_kernel.tiled_shared_bytes(573, 8) <= sor_kernel.MAX_SHARED_BYTES
     with pytest.raises(ValueError, match="shared memory"):
         sor_kernel.inner_sweeps_tiled(_rhs(_params(8, 8)), 2, _params(8, 8),
-                                      tile_rows=64, sweeps_per_chunk=32)
+                                      tile_rows=64, sweeps_per_chunk=64)
+
+
+@pytest.mark.parametrize("rows,k,cols,want", [
+    (64, 8, 64, 4 * 96 * 96),      # the default tile: delta alone, f32
+    (573, 8, 64, 4 * 605 * 96),    # the largest at K = 8
+    (1, 1, 64, 4 * 5 * 68),
+    (13, 3, 8, 4 * 25 * 20)])
+def test_tiled_shared_bytes_hold_delta_alone(rows, k, cols, want):
+    """The tile keeps rhs out of shared memory: 4 bytes per cell of the
+    tile and its 2K-deep halo."""
+    assert sor_kernel.tiled_shared_bytes(rows, k, cols) == want
+
+
+def test_ext_shared_bytes_and_the_largest_ns():
+    """B6's tile (EXT_TILE_ROWS x TILE_COLS, halo 2 ns): delta alone; ns =
+    44 is the most that fits one block at 64 x 64, 45 is refused."""
+    assert sor_kernel.ext_shared_bytes(8) == 4 * 96 * 96
+    assert sor_kernel.ext_shared_bytes(0) == 4 * 64 * 64
+    assert sor_kernel.ext_shared_bytes(44) <= sor_kernel.MAX_SHARED_BYTES
+    assert sor_kernel.ext_shared_bytes(45) > sor_kernel.MAX_SHARED_BYTES
+    sor_kernel.check_ext_inputs(torch.zeros(8, 8), torch.zeros(8, 8), 44, 88)
+    with pytest.raises(ValueError, match="shared memory"):
+        sor_kernel.check_ext_inputs(torch.zeros(8, 8), torch.zeros(8, 8), 45,
+                                    90)
+
+
+@pytest.mark.parametrize("rows,cols,ns,want", [
+    (64, 64, 8, 1.54443359375),  # vs 94^2 / 64^2 = 2.157 over the full tile
+    (64, 64, 1, 1.03173828125),
+    (10, 10, 0, 0.0)])
+def test_tile_updates_per_cell(rows, cols, ns, want):
+    """The trapezoid: half-sweep h updates the centre widened by
+    2 ns - 1 - h, half of it (one colour)."""
+    assert sor_kernel.tile_updates_per_cell(rows, cols, ns) == want
 
 
 def test_compressed_takes_even_widths_only():
@@ -220,7 +254,7 @@ def test_ext_checks_before_launch(bad):
     elif bad == "negative":
         ns = -1
     elif bad == "shared":
-        ns, H, match = 32, 64, "shared memory"
+        ns, H, match = 48, 96, "shared memory"
     elif bad == "float64":
         d = d.double()
     elif bad == "shape":
@@ -235,7 +269,7 @@ def test_ext_checks_before_launch(bad):
     with pytest.raises((TypeError, ValueError), match=match):
         sor_kernel.check_ext_inputs(d, rhs, ns, H)
     sor_kernel.check_ext_inputs(torch.zeros(40, 36), torch.zeros(40, 36), 4, 8)
-    assert sor_kernel.ext_shared_bytes(26) <= sor_kernel.MAX_SHARED_BYTES
+    assert sor_kernel.ext_shared_bytes(44) <= sor_kernel.MAX_SHARED_BYTES
 
 
 def test_kernel_used_only_for_f32_cuda():
@@ -266,7 +300,8 @@ def test_sor_kernel_matches_plain(cuda, shape, n):
 @pytest.mark.gpu
 @pytest.mark.parametrize("tile", [64, 256])
 @pytest.mark.parametrize("n", [1, 8, 20, 64])
-@pytest.mark.parametrize("shape", [(256, 256), (2048, 2048), (97, 61)],
+@pytest.mark.parametrize("shape", [(256, 256), (2048, 2048), (97, 61),
+                                   (8, 33)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_tiled_kernel_matches_plain_and_whole_grid(cuda, shape, n, tile):
     """B4 bit for bit against its plain twin (full-width strips) and the
@@ -392,7 +427,7 @@ def test_kernels_raise_on_bad_cuda_input(cuda):
             wrapper(_rhs(prm)[:-1].to(cuda), 2, prm)
     with pytest.raises(ValueError, match="shared memory"):
         sor_kernel.inner_sweeps_tiled(_rhs(prm).to(cuda), 2, prm,
-                                      tile_rows=300)
+                                      tile_rows=600)
     odd = _params(16, 15)
     with pytest.raises(ValueError, match="even padded width"):
         sor_kernel.inner_sweeps_compressed(_rhs(odd).to(cuda), 2, odd)
@@ -446,6 +481,81 @@ def test_gpu_mg_cg_solve_matches_cpu_solve(cuda, method):
         assert np.max(np.abs(g - c)) <= 1e-4 * max(1.0, np.max(np.abs(c)))
 
 
+def _tile_kinds(prm, tile_rows, k):
+    """(tiles that take the path without masks, tiles that do not) of the
+    tiled kernel on prm's grid: a tile's first box, its centre widened by
+    2K - 1, inside global rows and columns [2, n - 3]."""
+    ni, nj = prm.shape
+    tc, w = sor_kernel.TILE_COLS, 2 * k - 1
+    kinds = [r - w >= 2 and r + tile_rows - 1 + w <= ni - 3 and c - w >= 2
+             and c + tc - 1 + w <= nj - 3
+             for r in range(0, ni, tile_rows) for c in range(0, nj, tc)]
+    return sum(kinds), len(kinds) - sum(kinds)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile,k", [(16, 2), (64, 8), (5, 1)])
+def test_tiled_interior_and_boundary_tiles_in_one_grid(cuda, tile, k):
+    """Tiles without masks and tiles with them in one grid, with a chunk
+    size other than the default: B4 equals B1 bit for bit."""
+    prm = _params(300, 250)
+    inside, edge = _tile_kinds(prm, tile, k)
+    assert inside > 0 and edge > 0
+    rhs = _rhs(prm, seed=tile).to(cuda)
+    for n in (1, 2 * k + 1):
+        got = sor_kernel.inner_sweeps_tiled(rhs, n, prm, tile_rows=tile,
+                                            sweeps_per_chunk=k)
+        assert torch.equal(got, sor_kernel.whole_grid_sweeps(rhs, n, prm))
+
+
+@pytest.mark.gpu
+def test_largest_tile_the_footprint_admits(cuda):
+    """573 rows x 64 columns with a 16-deep halo (232,320 B of shared
+    memory; its rhs no longer fits the threads' registers, so the kernel
+    reads it from device memory) equals B1 bit for bit."""
+    assert sor_kernel.tiled_shared_bytes(574, 8) > sor_kernel.MAX_SHARED_BYTES
+    prm = _params(2048, 2048)
+    rhs = _rhs(prm, seed=3).to(cuda)
+    got = sor_kernel.inner_sweeps_tiled(rhs, 20, prm, tile_rows=573)
+    assert torch.equal(got, sor_kernel.whole_grid_sweeps(rhs, 20, prm))
+    report = sor_kernel.tile_report(573, sor_kernel.TILE_COLS, 16)
+    assert report["rows_per_thread"] == 0
+    assert report["shared_bytes"] == sor_kernel.tiled_shared_bytes(573, 8)
+
+
+@pytest.mark.gpu
+def test_tile_report_of_the_default_tile(cuda):
+    """The default tile (the main paths' kernel, compiled for its shape):
+    96 x 96 cells of delta in shared memory, rhs of 8 rows per thread in
+    registers, 576 threads, two blocks resident per SM."""
+    report = sor_kernel.tile_report(64, 64, 16)
+    assert (report["rows"], report["cols"]) == (96, 96)
+    assert report["shared_bytes"] == sor_kernel.tiled_shared_bytes(64, 8)
+    assert (report["rows_per_thread"], report["threads"]) == (8, 576)
+    assert report["blocks_per_sm"] >= 2
+
+
+@pytest.mark.gpu
+def test_tiled_kernel_fills_uninitialised_buffers(cuda, monkeypatch):
+    """The wrapper hands the kernel torch.empty buffers: every cell of the
+    result, the ghost ring's zeros included, comes from the kernel, also
+    for n = 0 (one chunk of no sweeps) and n = K (one chunk)."""
+    prm = _params(97, 61)
+    rhs = _rhs(prm, seed=4).to(cuda)
+    real_empty = torch.empty
+
+    def poisoned(*args, **kw):
+        return real_empty(*args, **kw).fill_(float("nan"))
+
+    monkeypatch.setattr(torch, "empty", poisoned)
+    monkeypatch.setattr(torch, "empty_like",
+                        lambda x, **kw: poisoned(x.shape, dtype=x.dtype,
+                                                 device=x.device))
+    for n in (0, 1, 8, 16):
+        got = sor_kernel.inner_sweeps_tiled(rhs, n, prm)
+        assert torch.equal(got, sor_kernel.whole_grid_sweeps(rhs, n, prm))
+
+
 # --- the extended-block kernel (B6) and the sharded path on the card ----------
 
 # Cuts of a grid into the blocks of a process mesh: (interior, mesh shape).
@@ -466,7 +576,7 @@ def _cut(cut):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("ns", [0, 1, 8])
+@pytest.mark.parametrize("ns", [0, 1, 2, 7, 8])
 @pytest.mark.parametrize("cut", sorted(EXT_CUTS))
 def test_ext_kernel_matches_plain(cuda, cut, ns):
     """B6 bit for bit against its twin on every block of the cut, on every

@@ -225,7 +225,7 @@ def test_tile_size_positional_sets_the_tile(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("size,needle", [("0", "[1, 4096]"),
                                          ("4097", "[1, 4096]"),
-                                         ("271", "shared memory")])
+                                         ("574", "shared memory")])
 def test_tile_size_positional_errors(size, needle, tmp_path, capsys,
                                      monkeypatch):
     monkeypatch.setattr(sor_kernel, "TILE_ROWS", sor_kernel.TILE_ROWS)
