@@ -4,28 +4,35 @@
     python3 chip_smoke.py        # from the root of a checkout
 
     python3 chip_smoke.py --profile   # also a torch.profiler split of one
-                                      # 2048^2 outer pass: mg, SOR, sharded
+                                      # 2048^2 outer pass: mg, SOR, sharded,
+                                      # and one 256^2 outer pass of SOR
 
 Builds the hand-written CUDA kernels from csrc/, holds each against its
-plain PyTorch version (and each SOR sweep kernel against the whole-grid
-one) on the card, times them, drives the paths and checks each answer
-against the JAX package's recorded answer:
+plain PyTorch version (and each SOR sweep kernel against the first
+whole-grid kernels, sor_sweeps_simple and sor_warm_sweeps_simple, which
+launch once per half-sweep and share nothing with the temporal-blocked tile
+but the cell update) on the card, times them, drives the paths and checks
+each answer against the JAX package's recorded answer:
 
   * SOR: ``python -m navierstokes_parallel_tpu_torch configs/1.in --stats``
-    through ``cli.main`` (kernels sor_sweeps and momentum_rhs);
+    through ``cli.main`` (kernels sor_sweeps and momentum_rhs), at the
+    CLI's K = 64 sweeps per outer pass and again with ``--refine-every
+    2048``;
   * multigrid: ``... configs/4.in --method mg --stats`` through
     ``cli.main``, the 2048^2 cavity (kernels sor_warm_sweeps, the smoother
-    of every level, and momentum_rhs), with the plain smoother barred;
+    of the four levels from 2050^2 to 258^2, mg_coarse_cycle, the rest of
+    each V-cycle from 130^2 down in one launch, and momentum_rhs), with
+    both plain twins barred;
   * tiled SOR: ``... configs/4.in --max-steps 2 --stats`` through
     ``cli.main``, the default method on the 2048^2 cavity, which routes the
     sweeps to the temporal-blocked kernel sor_tiled_sweeps, with the
     whole-grid kernel and the plain sweeps barred; then the same 2 steps
-    through ``solver.solve`` on the tiled and the whole-grid route, which
-    must give the same fields bit for bit;
+    through ``solver.solve`` on the tiled route and on the first whole-grid
+    kernel, which must give the same fields bit for bit;
   * compressed SOR: configs/1.in through ``solver.solve`` with
     ``sor_kernel.USE_COMPRESSED`` (kernel sor_compressed_sweeps), the
     whole-grid kernel barred; it must give the JAX record exactly and the
-    whole-grid route's fields bit for bit;
+    whole-grid route's and the first whole-grid kernel's fields bit for bit;
   * sharded SOR: ``... configs/4.in --backend sharded --mesh 1x1
     --max-steps 2 --stats`` through ``cli.main`` on a one-rank NCCL group,
     every chunk of sweeps through the extended-block kernel sor_ext_sweeps,
@@ -38,9 +45,11 @@ and compares them.  Before the paths, the "decomposition" check cuts whole
 grids into the blocks of 1x1, 2x2 and 2x4 meshes, sweeps each block's
 extended block with sor_ext_sweeps and holds the assembled cores against
 the whole-grid kernels bit for bit (the deep-halo exactness argument,
-parallel/deep_halo.py).  Each path runs with the launch counts set to 0
-just before it and read just after; the JSON record's ``launches`` sums a
-kernel's counts over the paths.  Each phase prints its seconds.  Any failed
+parallel/deep_halo.py).  The "cycle" phase times one V-cycle at 2048^2 and
+counts its kernel launches under the profiler, as it is and as it was with
+the first smoother kernel on every level.  Each path runs with the launch
+counts set to 0 just before it and read just after; the JSON record's
+``launches`` sums a kernel's counts over the paths.  Each phase prints its seconds.  Any failed
 phase prints ``FAIL: ...`` and exits 1 before the last line; on success the
 last two lines are the kernels' JSON record (with each kernel's bound: the
 least time the card could take for its timed call, from the bytes it must
@@ -115,6 +124,9 @@ CONTRACT = 1e-4
 # through 64 sweeps.
 KERNEL_RTOL = 1e-5
 SOR_SWEEPS = 64  # the main path's K: one kernel call = 64 sweeps
+# The refinement interval of the benchmark's SOR arm; the main path runs a
+# second time with it.
+BENCH_REFINE_EVERY = 2048
 MG_SWEEPS = 2    # one multigrid smoother call (V(2,2)); 32 on the coarsest
 # configs/4.in's finest multigrid level: 2048^2 cells, padded, 1/dx^2.
 MG_FINE_SHAPE = (2050, 2050)
@@ -232,33 +244,20 @@ def phase_build():
 
 def phase_compare(torch) -> dict:
     """Each kernel against its plain version at its paths' shapes and at an
-    odd non-square one, the tiled and compressed SOR kernels also against
-    the whole-grid one; returns the max abs error per kernel."""
+    odd non-square one, every SOR sweep kernel also against the first
+    whole-grid kernels (one launch per half-sweep, no tile); returns the
+    max abs error per kernel."""
     from navierstokes_parallel_tpu_torch.config import Params
     from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
                                                           sor_kernel)
 
     rng = np.random.default_rng(0)
-    errs = {"sor": 0.0, "momentum": 0.0, "sor_warm": 0.0, "sor_tiled": 0.0,
-            "sor_compressed": 0.0}
+    errs = {"sor": compare_whole_grid(torch, rng), "momentum": 0.0,
+            "sor_tiled": 0.0, "sor_compressed": 0.0}
     for i_max, j_max in ((256, 256), (97, 61)):
         prm = Params(i_max=i_max, j_max=j_max, a=1.0, b=0.7, Re=1000.0,
                      g_x=0.1, g_y=-0.2, omega=1.7)
         shape = prm.shape
-
-        rhs = np.zeros(shape, np.float32)
-        rhs[1:-1, 1:-1] = rng.standard_normal((i_max, j_max))
-        rhs_d = torch.from_numpy(rhs).cuda()
-        got = sor_kernel.inner_sweeps(rhs_d, SOR_SWEEPS, prm)
-        want = sor_kernel.inner_sweeps_plain(rhs_d, SOR_SWEEPS, prm)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        rel = err / float(want.abs().max())
-        print(f"[compare] sor {shape} n={SOR_SWEEPS}: max abs err {err:.3e}"
-              f", rel {rel:.3e} (tol {KERNEL_RTOL:.0e})")
-        check(rel <= KERNEL_RTOL, f"sor kernel disagrees at {shape}")
-        errs["sor"] = max(errs["sor"], err)
-
         u = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
         v = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
         u, v = u.cuda(), v.cuda()
@@ -276,37 +275,14 @@ def phase_compare(torch) -> dict:
                   f"momentum kernel disagrees on {name} at {shape}")
             errs["momentum"] = max(errs["momentum"], err)
 
-    # The warm-start smoother at the finest and the coarsest mg level of
-    # configs/4.in and at an odd non-square shape, from a p0 whose ghost
-    # ring is not 0; it must equal its plain twin bit for bit.
-    coarse_dx2 = MG_FINE_DX2_INV / 4.0 ** 8
-    warm_cases = [(MG_FINE_SHAPE, MG_FINE_DX2_INV, MG_FINE_DX2_INV, MG_SWEEPS),
-                  ((10, 10), coarse_dx2, coarse_dx2, 32),
-                  ((99, 63), 97.0 ** 2, (61 / 0.7) ** 2, MG_SWEEPS)]
-    for shape, dx2, dy2, n in warm_cases:
-        for omega in (1.0, 1.7):
-            p0 = torch.from_numpy(
-                rng.standard_normal(shape).astype(np.float32)).cuda()
-            rhs = torch.from_numpy(
-                rng.standard_normal(shape).astype(np.float32)).cuda()
-            got = sor_kernel.warm_sweeps(p0, rhs, n, omega, dx2, dy2)
-            want = sor_kernel.warm_sweeps_plain(p0, rhs, n, omega, dx2, dy2)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            ring_kept = all(torch.equal(a, b) for a, b in (
-                (got[0], p0[0]), (got[-1], p0[-1]), (got[:, 0], p0[:, 0]),
-                (got[:, -1], p0[:, -1])))
-            print(f"[compare] sor_warm {shape} omega={omega} n={n}: max abs "
-                  f"err {err:.3e} (expected 0), ghost ring kept {ring_kept}")
-            check(err == 0.0 and ring_kept,
-                  f"warm-start kernel disagrees at {shape}, omega={omega}")
-            errs["sor_warm"] = max(errs["sor_warm"], err)
+    errs["sor_warm"] = compare_warm(torch, rng)
+    errs["mg_coarse_cycle"] = compare_coarse_cycle(torch, rng)
 
     # The tiled kernel at the SOR paths' 258^2 and 2050^2 and at 99 x 63,
     # over one sweep, one chunk, the path's 64 and 20 (a short last chunk),
     # at two tile heights; the compressed kernel at 258^2 and 98 x 64.
-    # Both must equal their plain twins and the whole-grid kernel bit for
-    # bit.
+    # Both must equal their plain twins and the first whole-grid kernel
+    # (no tile) bit for bit.
     cases = [("sor_tiled", (i_max, j_max), n, tile)
              for i_max, j_max in ((256, 256), (2048, 2048), (97, 61))
              for n in (1, sor_kernel.SWEEPS_PER_CHUNK, SOR_SWEEPS, 20)
@@ -326,20 +302,150 @@ def phase_compare(torch) -> dict:
         else:
             got = sor_kernel.inner_sweeps_compressed(rhs_d, n, prm)
             want = sor_kernel.inner_sweeps_compressed_plain(rhs_d, n, prm)
-        whole = sor_kernel.whole_grid_sweeps(rhs_d, n, prm)
+        whole = sor_kernel.whole_grid_sweeps_simple(rhs_d, n, prm)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
         same = torch.equal(got, whole)
         print(f"[compare] {key} {prm.shape} n={n}"
               f"{'' if tile is None else f' tile={tile}'}: max abs err "
-              f"{err:.3e}, rel {rel:.3e} (expected 0), equals sor_sweeps "
-              f"{same}")
+              f"{err:.3e}, rel {rel:.3e} (expected 0), equals "
+              f"sor_sweeps_simple {same}")
         check(err == 0.0 and same, f"{key} kernel disagrees at {prm.shape}, "
                                    f"n={n}, tile={tile}")
         errs[key] = max(errs[key], err)
     errs["sor_ext"] = compare_ext(torch, rng)
     return errs
+
+
+def compare_whole_grid(torch, rng) -> float:
+    """sor_sweeps (the temporal tile) against its plain twin and against
+    its first kernel sor_sweeps_simple, at the SOR paths' 258^2 and 2050^2
+    and at 99 x 63 and 98 x 64, for no sweep, one, a short chunk, the
+    path's 64 and one outer pass of the benchmark's K = 2048: error 0.0
+    (the plain twin is left out where it would take minutes).  Returns the
+    max abs error."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+
+    worst = 0.0
+    for i_max, j_max in ((256, 256), (2048, 2048), (97, 61), (96, 62)):
+        prm = Params(i_max=i_max, j_max=j_max, a=1.0, b=0.7, Re=1000.0,
+                     omega=1.7)
+        rhs = random_grid(torch, rng, (i_max, j_max), ring=False)
+        tile = "x".join(map(str, sor_kernel.whole_grid_tile(prm.shape)))
+        for n in (0, 1, 7, SOR_SWEEPS, BENCH_REFINE_EVERY):
+            got = sor_kernel.whole_grid_sweeps(rhs, n, prm)
+            first = sor_kernel.whole_grid_sweeps_simple(rhs, n, prm)
+            err = float((got - first).abs().max())
+            with_plain = n * rhs.numel() <= SOR_SWEEPS * 2050 * 2050
+            if with_plain:
+                want = sor_kernel.inner_sweeps_plain(rhs, n, prm)
+                err = max(err, float((got - want).abs().max()))
+            torch.cuda.synchronize()
+            print(f"[compare] sor {prm.shape} n={n} tile={tile}: max abs err "
+                  f"{err:.3e} vs sor_sweeps_simple"
+                  f"{' and the plain twin' if with_plain else ''} "
+                  f"(expected 0)")
+            check(err == 0.0, f"sor kernel disagrees at {prm.shape}, n={n}")
+            worst = max(worst, err)
+    return worst
+
+
+def mg_levels():
+    """The multigrid levels of configs/4.in and the depth from which the
+    coarse cycle takes them."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops import mg
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+
+    levels = mg.build_levels(Params.from_file(str(ROOT / "configs" / "4.in")))
+    return levels, sor_kernel.coarse_cycle_depth(levels)
+
+
+def compare_warm(torch, rng) -> float:
+    """sor_warm_sweeps at the four levels the mg path gives it (2050^2,
+    1026^2, 514^2, 258^2), at levels smaller than a few tiles (130^2, 66^2,
+    10^2) and at 99 x 63, against its plain twin and against its first
+    kernel sor_warm_sweeps_simple, for omega 1 and 1.7 and 0, 1, 2 and 32
+    sweeps (32 sweeps are four launches), from a p0 whose ghost ring is not
+    0: error 0.0 and the ring kept.  Returns the max abs error."""
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+
+    levels, _ = mg_levels()
+    cases = [(lv.shape, lv.dx2_inv, lv.dy2_inv) for lv in levels
+             if lv.shape[0] in (2050, 1026, 514, 258, 130, 66, 10)]
+    cases.append(((99, 63), 97.0 ** 2, (61 / 0.7) ** 2))
+    worst = 0.0
+    for shape, dx2, dy2 in cases:
+        for omega in (1.0, 1.7):
+            for n in (0, 1, MG_SWEEPS, 32):
+                p0, rhs = (random_grid(torch, rng,
+                                       (shape[0] - 2, shape[1] - 2),
+                                       ring=True) for _ in range(2))
+                got = sor_kernel.warm_sweeps(p0, rhs, n, omega, dx2, dy2)
+                want = sor_kernel.warm_sweeps_plain(p0, rhs, n, omega, dx2,
+                                                    dy2)
+                first = sor_kernel.warm_sweeps_simple(p0, rhs, n, omega, dx2,
+                                                      dy2)
+                torch.cuda.synchronize()
+                err = max(float((got - want).abs().max()),
+                          float((got - first).abs().max()))
+                ring_kept = all(torch.equal(a, b) for a, b in (
+                    (got[0], p0[0]), (got[-1], p0[-1]), (got[:, 0], p0[:, 0]),
+                    (got[:, -1], p0[:, -1])))
+                print(f"[compare] sor_warm {shape} omega={omega} "
+                      f"n={n}: max abs err {err:.3e} vs the plain twin and "
+                      f"sor_warm_sweeps_simple (expected 0), ghost ring kept "
+                      f"{ring_kept}")
+                check(err == 0.0 and ring_kept,
+                      f"warm-start kernel disagrees at {shape}, "
+                      f"omega={omega}, n={n}")
+                worst = max(worst, err)
+    return worst
+
+
+def cycle_on_simple(p, rhs, levels):
+    """ops/mg.py's V-cycle from levels[0] down with the first smoother
+    kernel (sor_warm_sweeps_simple) on every level and no coarse cycle:
+    the cycle as it ran before the smoother's redesign."""
+    from navierstokes_parallel_tpu_torch.ops import mg
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+
+    def smooth(q, rhs_l, lvl, n):
+        return sor_kernel.warm_sweeps_simple(q, rhs_l, n, 1.0, lvl.dx2_inv,
+                                             lvl.dy2_inv)
+
+    return mg._cycle(p, rhs, levels, 0, 2, 2, 32, smooth, len(levels))
+
+
+def compare_coarse_cycle(torch, rng) -> float:
+    """mg_coarse_cycle on the tail of configs/4.in's hierarchy (from the
+    depth the mg path enters it, and one level further down) against its
+    plain twin coarse_cycle_plain and against the same recursion on
+    sor_warm_sweeps_simple, from a random p and rhs (ghost rings not 0):
+    error 0.0.  Returns the max abs error."""
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+
+    levels, depth = mg_levels()
+    worst = 0.0
+    for d in (depth, depth + 1):
+        tail = levels[d:]
+        size = (tail[0].shape[0] - 2, tail[0].shape[1] - 2)
+        p, rhs = (random_grid(torch, rng, size, ring=True) for _ in range(2))
+        got = sor_kernel.coarse_cycle(p, rhs, tail)
+        want = sor_kernel.coarse_cycle_plain(p, rhs, tail)
+        first = cycle_on_simple(p, rhs, tail)
+        torch.cuda.synchronize()
+        err = max(float((got - want).abs().max()),
+                  float((got - first).abs().max()))
+        print(f"[compare] mg_coarse_cycle {len(tail)} levels from "
+              f"{tail[0].shape} ({sor_kernel.cycle_shared_bytes(tail)} B of "
+              f"shared memory): max abs err {err:.3e} vs coarse_cycle_plain "
+              f"and the recursion on sor_warm_sweeps_simple (expected 0)")
+        check(err == 0.0, f"coarse cycle disagrees from {tail[0].shape}")
+        worst = max(worst, err)
+    return worst
 
 
 def ext_setup(tag: str, size, mesh, warm: bool):
@@ -421,8 +527,10 @@ def phase_decomposition(torch) -> None:
     """For every EXT_CASES cut: n sweeps block by block through
     sor_ext_sweeps in chunks of K (each chunk's blocks cut from the grid
     the chunk before left: the deep exchange), the cores assembled, equal
-    the whole-grid kernels on the whole grid bit for bit: sor_sweeps and
-    sor_tiled_sweeps from delta = 0, sor_warm_sweeps for the warm start."""
+    the whole-grid kernels on the whole grid bit for bit: sor_sweeps_simple
+    (the first kernel, no tile), sor_sweeps and sor_tiled_sweeps from
+    delta = 0, sor_warm_sweeps_simple and sor_warm_sweeps for the warm
+    start."""
     from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
     from navierstokes_parallel_tpu_torch.parallel import deep_halo
 
@@ -449,10 +557,15 @@ def phase_decomposition(torch) -> None:
                         ext[H:H + ri, H:H + rj]
                 delta, done = nxt, done + ns
             if warm:
-                refs = {"sor_warm_sweeps": sor_kernel.warm_sweeps(
-                    start, rhs, n, *consts[2:])}
+                refs = {"sor_warm_sweeps_simple":
+                        sor_kernel.warm_sweeps_simple(start, rhs, n,
+                                                      *consts[2:]),
+                        "sor_warm_sweeps": sor_kernel.warm_sweeps(
+                            start, rhs, n, *consts[2:])}
             else:
-                refs = {"sor_sweeps": sor_kernel.whole_grid_sweeps(
+                refs = {"sor_sweeps_simple":
+                        sor_kernel.whole_grid_sweeps_simple(rhs, n, consts),
+                        "sor_sweeps": sor_kernel.whole_grid_sweeps(
                             rhs, n, consts),
                         "sor_tiled_sweeps": sor_kernel.inner_sweeps_tiled(
                             rhs, n, consts)}
@@ -484,6 +597,22 @@ def sweeps_bound(shape, arrays: int, updated_cells: int, n_sweeps: int):
                  SWEEP_FLOPS_PER_CELL * updated_cells * n_sweeps)
 
 
+def cycle_bound(levels, nu1: int = 2, nu2: int = 2, coarse_sweeps: int = 32):
+    """bound() of one coarse cycle: p and rhs of the first level read and p
+    written once; the sweeps' updates, 12 operations per cell for the
+    residual (self_coef not counted), 4 per coarse cell for the restriction
+    and 1 per cell for the correction."""
+    flops, last = 0, len(levels) - 1
+    for k, lvl in enumerate(levels):
+        cells = (lvl.shape[0] - 2) * (lvl.shape[1] - 2)
+        if k == last:
+            flops += SWEEP_FLOPS_PER_CELL * cells * coarse_sweeps
+        else:
+            flops += (SWEEP_FLOPS_PER_CELL * (nu1 + nu2) + 12 + 1 + 1) * cells
+    shape = levels[0].shape
+    return bound(3 * 4 * shape[0] * shape[1], flops)
+
+
 def tile_note(sor_kernel, tile_rows: int, ns: int, halo: int,
               updates: int, k_ms: float) -> str:
     """The tile's geometry on the card, its cell updates per written cell
@@ -503,9 +632,13 @@ def tile_note(sor_kernel, tile_rows: int, ns: int, halo: int,
 def phase_time(torch) -> dict:
     """Kernel and plain times at the SOR main path's 258^2 padded grid, (the
     smoother) at the mg path's finest 2050^2 level and (the tiled kernel) at
-    the tiled path's 2050^2, in turns (plain, kernel, kernel, plain); the
-    tiled and compressed kernels with the whole-grid sor_sweeps beside them
-    (plain, kernel, sor_sweeps, sor_sweeps, kernel, plain); the
+    the tiled path's 2050^2, in turns (plain, kernel, kernel, plain), the
+    whole-grid kernel and the smoother with their first kernels
+    (sor_sweeps_simple, sor_warm_sweeps_simple) between the turns; the
+    smoother at 66^2 for 2 and 32 sweeps and the coarse cycle from 130^2
+    and from 66^2 down the same way; the tiled and
+    compressed kernels with the first whole-grid kernel and the current one
+    beside them (plain, kernel, simple, sor_sweeps, kernel, plain); the
     extended-block kernel at the sharded path's 2080^2 block of
     configs/4.in, one call of K = 8 sweeps, with one 8-sweep chunk of the
     tiled kernel at 2050^2 beside it.  Returns (kernel ms, plain ms,
@@ -536,18 +669,30 @@ def phase_time(torch) -> dict:
     rhs4[1:-1, 1:-1] = rng.standard_normal((prm4.i_max, prm4.j_max))
     rhs4 = torch.from_numpy(rhs4).cuda()
 
+    levels, depth = mg_levels()
+    tail = levels[depth:]
+    p_tail, rhs_tail = (torch.from_numpy(rng.standard_normal(
+        tail[0].shape).astype(np.float32)).cuda() for _ in range(2))
+    # name: (kernel, plain, first kernel or None, kernel reps, plain reps)
     cases = {
         "sor": (lambda: sor_kernel.inner_sweeps(rhs, SOR_SWEEPS, prm),
                 lambda: sor_kernel.inner_sweeps_plain(rhs, SOR_SWEEPS, prm),
-                20, 3),
+                lambda: sor_kernel.whole_grid_sweeps_simple(rhs, SOR_SWEEPS,
+                                                            prm),
+                50, 3),
         "momentum": (lambda: momentum_kernel.momentum_rhs(u, v, dt, gamma,
                                                           prm),
                      lambda: momentum_kernel.momentum_rhs_plain(u, v, dt,
                                                                 gamma, prm),
-                     200, 20),
+                     None, 200, 20),
         "sor_warm": (lambda: sor_kernel.warm_sweeps(*warm_args),
                      lambda: sor_kernel.warm_sweeps_plain(*warm_args),
+                     lambda: sor_kernel.warm_sweeps_simple(*warm_args),
                      100, 10),
+        "mg_coarse_cycle": (
+            lambda: sor_kernel.coarse_cycle(p_tail, rhs_tail, tail),
+            lambda: sor_kernel.coarse_cycle_plain(p_tail, rhs_tail, tail),
+            lambda: cycle_on_simple(p_tail, rhs_tail, tail), 100, 5),
     }
     interior = prm.i_max * prm.j_max
     bounds = {"sor": sweeps_bound(prm.shape, 2, interior, SOR_SWEEPS),
@@ -556,27 +701,64 @@ def phase_time(torch) -> dict:
               "sor_warm": sweeps_bound(MG_FINE_SHAPE, 3,
                                        (MG_FINE_SHAPE[0] - 2)
                                        * (MG_FINE_SHAPE[1] - 2), MG_SWEEPS),
+              "mg_coarse_cycle": cycle_bound(tail),
               "sor_tiled": sweeps_bound(prm4.shape, 2,
                                         prm4.i_max * prm4.j_max, SOR_SWEEPS),
               "sor_compressed": sweeps_bound(prm.shape, 2, interior,
                                              SOR_SWEEPS)}
     times = {}
-    for name, (kernel, plain, k_reps, p_reps) in cases.items():
+    for name, (kernel, plain, first, k_reps, p_reps) in cases.items():
         p1 = cuda_ms(torch, plain, p_reps)
         k1 = cuda_ms(torch, kernel, k_reps)
+        f_ms = cuda_ms(torch, first, k_reps) if first else None
         k2 = cuda_ms(torch, kernel, k_reps)
         p2 = cuda_ms(torch, plain, p_reps)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2, *bounds[name])
         shape, per = prm.shape, ""
         if name == "sor":
-            per = f" ({SOR_SWEEPS} sweeps)"
+            per = (f" ({SOR_SWEEPS} sweeps, tile "
+                   f"{'x'.join(map(str, sor_kernel.whole_grid_tile(shape)))})")
         elif name == "sor_warm":
             shape, per = MG_FINE_SHAPE, f" ({MG_SWEEPS} sweeps, omega=1)"
+        elif name == "mg_coarse_cycle":
+            shape, per = tail[0].shape, f" ({len(tail)} levels, V(2,2), 32)"
+        simple = ""
+        if first:
+            what = ("the recursion on the first kernel"
+                    if name == "mg_coarse_cycle" else "first kernel")
+            simple = f", {what} (one launch per half-sweep) {f_ms:.4f} ms"
         print(f"[time] {name} at {shape}{per}: kernel {k1:.4f} / "
-              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms per call")
+              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms{simple} per call")
+
+    # The smoother at 66^2 (two tiles), a V-cycle's 2 sweeps and the coarse
+    # solve's 32, and the coarse cycle entered one level further down
+    # (66^2), each beside the first kernel.
+    lv66 = next(lv for lv in levels if lv.shape[0] == 66)
+    p66, rhs66 = (torch.from_numpy(rng.standard_normal(lv66.shape).astype(
+        np.float32)).cuda() for _ in range(2))
+    for n in (MG_SWEEPS, 32):
+        args66 = (p66, rhs66, n, 1.0, lv66.dx2_inv, lv66.dy2_inv)
+        k1 = cuda_ms(torch, lambda: sor_kernel.warm_sweeps(*args66), 200)
+        f_ms = cuda_ms(torch, lambda: sor_kernel.warm_sweeps_simple(*args66),
+                       200)
+        k2 = cuda_ms(torch, lambda: sor_kernel.warm_sweeps(*args66), 200)
+        b_ms, by = sweeps_bound(lv66.shape, 3, 64 * 64, n)
+        print(f"[time] sor_warm at {lv66.shape} ({n} sweeps): kernel "
+              f"{k1:.4f} / {k2:.4f} ms, first kernel {f_ms:.4f} ms per call; bound "
+              f"{b_ms * 1e3:.4f} us ({by})")
+    tail66 = levels[depth + 1:]
+    k1 = cuda_ms(torch, lambda: sor_kernel.coarse_cycle(p66, rhs66, tail66),
+                 200)
+    f_ms = cuda_ms(torch, lambda: cycle_on_simple(p66, rhs66, tail66), 20)
+    k2 = cuda_ms(torch, lambda: sor_kernel.coarse_cycle(p66, rhs66, tail66),
+                 200)
+    print(f"[time] mg_coarse_cycle at {tail66[0].shape} ({len(tail66)} "
+          f"levels): kernel {k1:.4f} / {k2:.4f} ms, the recursion on the "
+          f"first kernel {f_ms:.4f} ms per call")
 
     # The tiled kernel at 258^2 and 2050^2 and the compressed one at 258^2,
-    # each beside its plain twin and the whole-grid kernel, 64 sweeps.
+    # each beside its plain twin, the first whole-grid kernel and the
+    # current one, 64 sweeps.
     side_by_side = [
         ("sor_tiled", prm, rhs, sor_kernel.inner_sweeps_tiled,
          sor_kernel.inner_sweeps_tiled_plain, 10),
@@ -589,7 +771,7 @@ def phase_time(torch) -> dict:
             return lambda: fn(r_, SOR_SWEEPS, p_)
         p1 = cuda_ms(torch, run(plain), p_reps)
         k1 = cuda_ms(torch, run(kernel), 20)
-        b1 = cuda_ms(torch, run(sor_kernel.whole_grid_sweeps), 20)
+        b1 = cuda_ms(torch, run(sor_kernel.whole_grid_sweeps_simple), 20)
         b2 = cuda_ms(torch, run(sor_kernel.whole_grid_sweeps), 20)
         k2 = cuda_ms(torch, run(kernel), 20)
         p2 = cuda_ms(torch, run(plain), p_reps)
@@ -601,9 +783,10 @@ def phase_time(torch) -> dict:
                              p_.i_max * p_.j_max * SOR_SWEEPS, (k1 + k2) / 2)
         print(f"[time] {name} at {p_.shape} ({SOR_SWEEPS} sweeps): kernel "
               f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
-              f"sor_sweeps {b1:.4f} / {b2:.4f} ms per call; per sweep "
-              f"kernel {(k1 + k2) / 2 * 1e3 / SOR_SWEEPS:.3f} us, "
-              f"sor_sweeps {(b1 + b2) / 2 * 1e3 / SOR_SWEEPS:.3f} us{note}")
+              f"sor_sweeps_simple {b1:.4f} ms, sor_sweeps {b2:.4f} ms per "
+              f"call; per sweep kernel "
+              f"{(k1 + k2) / 2 * 1e3 / SOR_SWEEPS:.3f} us, sor_sweeps "
+              f"{b2 * 1e3 / SOR_SWEEPS:.3f} us{note}")
     for tile in TILE_SIZES[1:]:
         def tiled(tile=tile):
             return sor_kernel.inner_sweeps_tiled(rhs4, SOR_SWEEPS, prm4,
@@ -667,7 +850,7 @@ def reset_launches() -> None:
 
     sor_kernel.LAUNCHES = sor_kernel.WARM_LAUNCHES = 0
     sor_kernel.TILED_LAUNCHES = sor_kernel.COMPRESSED_LAUNCHES = 0
-    sor_kernel.EXT_LAUNCHES = 0
+    sor_kernel.EXT_LAUNCHES = sor_kernel.CYCLE_LAUNCHES = 0
     momentum_kernel.LAUNCHES = 0
 
 
@@ -676,6 +859,7 @@ def read_launches() -> dict:
                                                           sor_kernel)
 
     return {"sor": sor_kernel.LAUNCHES, "sor_warm": sor_kernel.WARM_LAUNCHES,
+            "mg_coarse_cycle": sor_kernel.CYCLE_LAUNCHES,
             "momentum": momentum_kernel.LAUNCHES,
             "sor_tiled": sor_kernel.TILED_LAUNCHES,
             "sor_compressed": sor_kernel.COMPRESSED_LAUNCHES,
@@ -686,8 +870,8 @@ def check_only(launches: dict, kernels, where: str) -> None:
     """Every kernel in `kernels` ran in the path and no other SOR kernel."""
     for name in kernels:
         check(launches[name] > 0, f"{where} launched no {name} kernel")
-    for name in ("sor", "sor_warm", "sor_tiled", "sor_compressed",
-                 "sor_ext"):
+    for name in ("sor", "sor_warm", "mg_coarse_cycle", "sor_tiled",
+                 "sor_compressed", "sor_ext"):
         if name not in kernels:
             check(launches[name] == 0, f"{where} launched the {name} kernel")
 
@@ -722,56 +906,100 @@ def run_cli(tag: str, argv: list, u_want: float, v_want: float,
           f", V-CENTER {vc:.6f} vs JAX {v_want:.6f} (err {dv:.2e}), "
           f"contract {CONTRACT:.0e}")
     check(max(du, dv) <= CONTRACT, "centre values outside the contract")
-    print(f"[{tag}] solve seconds {float(err.getvalue().splitlines()[-1])}; "
+    stats["solve_seconds"] = float(err.getvalue().splitlines()[-1])
+    print(f"[{tag}] solve seconds {stats['solve_seconds']}; "
           f"launches {launches}")
     return stats, launches
 
 
 def phase_main_path() -> dict:
-    """configs/1.in through the CLI; returns the kernels' launch counts."""
-    _, launches = run_cli("main", [str(ROOT / "configs" / "1.in"), "--stats"],
-                          JAX_U_CENTER, JAX_V_CENTER, JAX_STATS)
-    check_only(launches, ("sor", "momentum"), "the main path")
-    return launches
+    """configs/1.in through the CLI at its K = 64 sweeps per outer pass,
+    then with the benchmark's --refine-every 2048: the JAX record both
+    times (every step runs into max_it, so the counts do not depend on K),
+    one sor_sweeps call per outer pass and one for the CLI's warm-up.
+    Returns the first run's launch counts."""
+    from navierstokes_parallel_tpu_torch.config import Params
+
+    config = str(ROOT / "configs" / "1.in")
+    prm = Params.from_file(config)
+    runs = {}
+    for tag, K, argv in (
+            ("main", prm.sor_refine_every, []),
+            (f"main K={BENCH_REFINE_EVERY}", BENCH_REFINE_EVERY,
+             ["--refine-every", str(BENCH_REFINE_EVERY)])):
+        stats, launches = run_cli(tag, [config, *argv, "--stats"],
+                                  JAX_U_CENTER, JAX_V_CENTER, JAX_STATS)
+        check_only(launches, ("sor", "momentum"), "the main path")
+        calls = JAX_STATS["steps"] * -(-prm.max_it // K) + 1
+        check(launches["sor"] == calls,
+              f"{launches['sor']} sor_sweeps calls at K={K}, expected {calls}")
+        runs[K] = (stats["solve_seconds"], launches)
+    for K, (seconds, launches) in runs.items():
+        print(f"[main] configs/1.in at K={K}: solve {seconds:.6f} s, "
+              f"{launches['sor']} sor_sweeps calls")
+    return runs[prm.sor_refine_every][1]
 
 
 def phase_mg_path() -> dict:
-    """configs/4.in with --method mg through the CLI, the plain smoother
-    barred; returns the kernels' launch counts.  Each V-cycle over L levels
-    smooths 2 L - 1 times, and the CLI's warm-up runs one cycle."""
+    """configs/4.in with --method mg through the CLI, the plain twins of
+    the smoother and of the coarse cycle barred (and the first smoother
+    kernel); returns the kernels' launch counts.  With the coarse cycle
+    entered at depth t, each V-cycle smooths twice on each of the t levels
+    above it and calls the coarse cycle once, and the CLI's warm-up runs
+    one cycle."""
     from navierstokes_parallel_tpu_torch.config import Params
     from navierstokes_parallel_tpu_torch.ops import mg
     from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
 
     config = ROOT / "configs" / "4.in"
     levels = mg.build_levels(Params.from_file(str(config)))
+    depth = sor_kernel.coarse_cycle_depth(levels)
     print(f"[mg] {len(levels)} levels: "
-          f"{' '.join('x'.join(map(str, lv.shape)) for lv in levels)}")
+          f"{' '.join('x'.join(map(str, lv.shape)) for lv in levels)}; the "
+          f"coarse cycle from depth {depth} ({levels[depth].shape}, "
+          f"{sor_kernel.cycle_shared_bytes(levels[depth:])} B of shared "
+          f"memory)")
+    check(0 < depth < len(levels), "the coarse cycle is not on the mg path")
 
-    with barred(sor_kernel, ("warm_sweeps_plain",), "the mg path"):
+    with barred(sor_kernel, ("warm_sweeps_plain", "coarse_cycle_plain",
+                             "warm_sweeps_simple"), "the mg path"):
         stats, launches = run_cli(
             "mg", [str(config), "--method", "mg", "--stats"],
             JAX_MG_U_CENTER, JAX_MG_V_CENTER, JAX_MG_STATS)
     cycles = int(stats["sor_iterations"])
-    smooths = (cycles + 1) * (2 * len(levels) - 1)
+    smooths = (cycles + 1) * 2 * depth
     print(f"[mg] {cycles} V-cycles in {stats['steps']} steps "
           f"({cycles / int(stats['steps']):.3f} per step); smoother calls "
-          f"expected {smooths}, kernel launches {launches['sor_warm']}")
+          f"expected ({cycles} + 1) x 2 x {depth} = {smooths}, launched "
+          f"{launches['sor_warm']}; coarse cycles expected {cycles + 1}, "
+          f"launched {launches['mg_coarse_cycle']}")
     check(launches["sor_warm"] == smooths,
           "warm-start kernel launches differ from the smoother calls")
-    check_only(launches, ("sor_warm", "momentum"), "the mg path")
+    check(launches["mg_coarse_cycle"] == cycles + 1,
+          "coarse-cycle launches differ from the V-cycles")
+    check_only(launches, ("sor_warm", "mg_coarse_cycle", "momentum"),
+               "the mg path")
     return launches
 
 
-def solve_on_card(torch, tag, prm, **kw):
+def solve_on_card(torch, tag, prm, first_kernel: bool = False, **kw):
     """solver.solve on the card with the launch counts from 0; returns the
-    state, its stats and the counts."""
+    state, its stats and the counts.  first_kernel: with PREFER_TILED off
+    and sor_sweeps_simple, which counts no launch, in sor_sweeps' place."""
     from navierstokes_parallel_tpu_torch import solver
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
 
     reset_launches()
     t0 = time.perf_counter()
-    state, stats = solver.solve(prm, device="cuda",
-                                pressure_method="pallas_sor", **kw)
+    saved = (sor_kernel.PREFER_TILED, sor_kernel.whole_grid_sweeps)
+    if first_kernel:
+        sor_kernel.PREFER_TILED = False
+        sor_kernel.whole_grid_sweeps = sor_kernel.whole_grid_sweeps_simple
+    try:
+        state, stats = solver.solve(prm, device="cuda",
+                                    pressure_method="pallas_sor", **kw)
+    finally:
+        sor_kernel.PREFER_TILED, sor_kernel.whole_grid_sweeps = saved
     torch.cuda.synchronize()
     launches = read_launches()
     print(f"[{tag}] {stats} in {time.perf_counter() - t0:.3f} s; launches "
@@ -791,8 +1019,10 @@ def phase_tiled_path(torch) -> dict:
     the sweeps take the tiled kernel, with the whole-grid kernel and the
     plain sweeps barred.  One inner call per outer pass of K = 64 sweeps
     plus one for the CLI's warm-up.  Then the same steps through
-    solver.solve on the tiled and the whole-grid route: the same fields,
-    bit for bit.  Returns the CLI run's launch counts."""
+    solver.solve on the tiled route and on the first whole-grid kernel (no
+    tile): the same fields, bit for bit.  (sor_sweeps at 2050^2 is the
+    tiled kernel with the same tile, so it is no second check.)  Returns
+    the CLI run's launch counts."""
     from navierstokes_parallel_tpu_torch.config import Params
     from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
 
@@ -801,7 +1031,7 @@ def phase_tiled_path(torch) -> dict:
     check(sor_kernel.route(prm) == "tiled",
           f"configs/4.in routes to {sor_kernel.route(prm)}, not tiled")
     plain = ("inner_sweeps_plain", "inner_sweeps_tiled_plain",
-             "whole_grid_sweeps")
+             "whole_grid_sweeps", "whole_grid_sweeps_simple")
     with barred(sor_kernel, plain, "the tiled path"):
         stats, launches = run_cli(
             "tiled", [str(config), "--max-steps", str(TILED_STEPS), "--stats"],
@@ -822,16 +1052,14 @@ def phase_tiled_path(torch) -> dict:
     with barred(sor_kernel, plain, "the tiled solve"):
         tiled, tstats, tl = solve_on_card(torch, "tiled", prm,
                                           max_steps=TILED_STEPS)
-    sor_kernel.PREFER_TILED = False
-    try:
-        whole, wstats, wl = solve_on_card(torch, "tiled/sor_sweeps", prm,
-                                          max_steps=TILED_STEPS)
-    finally:
-        sor_kernel.PREFER_TILED = None
-    check(tstats == wstats, "the tiled and whole-grid solves' stats differ")
-    check(tl["sor_tiled"] == wl["sor"] == passes,
+    first, fstats, fl = solve_on_card(torch, "tiled/sor_sweeps_simple", prm,
+                                      first_kernel=True,
+                                      max_steps=TILED_STEPS)
+    check(tstats == fstats,
+          "the tiled and first-kernel solves' stats differ")
+    check(tl["sor_tiled"] == passes and fl["sor"] == 0,
           "the solves' kernel calls differ from the outer passes")
-    check_same_fields(tiled, whole, "tiled vs sor_sweeps")
+    check_same_fields(tiled, first, "tiled vs sor_sweeps_simple")
     return launches
 
 
@@ -839,7 +1067,8 @@ def phase_compressed_path(torch) -> dict:
     """configs/1.in through solver.solve on the colour-compressed kernel,
     the whole-grid kernel and the plain sweeps barred: the JAX record
     exactly, one kernel call per outer pass, and the whole-grid route's
-    fields bit for bit.  Returns its launch counts."""
+    and the first whole-grid kernel's fields bit for bit.  Returns its
+    launch counts."""
     from navierstokes_parallel_tpu_torch import solver
     from navierstokes_parallel_tpu_torch.config import Params
     from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
@@ -851,7 +1080,9 @@ def phase_compressed_path(torch) -> dict:
               f"configs/1.in routes to {sor_kernel.route(prm)}")
         with barred(sor_kernel, ("inner_sweeps_plain",
                                  "inner_sweeps_compressed_plain",
-                                 "whole_grid_sweeps"), "the compressed path"):
+                                 "whole_grid_sweeps",
+                                 "whole_grid_sweeps_simple"),
+                    "the compressed path"):
             state, stats, launches = solve_on_card(torch, "compressed", prm)
     finally:
         sor_kernel.USE_COMPRESSED = False
@@ -868,8 +1099,12 @@ def phase_compressed_path(torch) -> dict:
           f"{passes}")
     check_only(launches, ("sor_compressed", "momentum"), "the compressed path")
     whole, wstats, _ = solve_on_card(torch, "compressed/sor_sweeps", prm)
-    check(stats == wstats, "the compressed and whole-grid solves differ")
+    first, fstats, _ = solve_on_card(torch, "compressed/sor_sweeps_simple",
+                                     prm, first_kernel=True)
+    check(stats == wstats == fstats,
+          "the compressed, whole-grid and first-kernel solves differ")
     check_same_fields(state, whole, "compressed vs sor_sweeps")
+    check_same_fields(state, first, "compressed vs sor_sweeps_simple")
     return launches
 
 
@@ -897,7 +1132,9 @@ def phase_sharded_path(torch) -> dict:
     barred_fns = ("whole_grid_sweeps", "inner_sweeps_tiled",
                   "inner_sweeps_compressed", "inner_sweeps_plain",
                   "inner_sweeps_tiled_plain", "inner_sweeps_compressed_plain",
-                  "warm_sweeps_plain", "ext_sweeps_plain")
+                  "warm_sweeps_plain", "ext_sweeps_plain",
+                  "whole_grid_sweeps_simple", "warm_sweeps_simple",
+                  "coarse_cycle_plain")
     with barred(sor_kernel, barred_fns, "the sharded path"):
         stats, launches = run_cli(
             "sharded", [str(config), *SHARDED_ARGV], JAX_TILED_U_CENTER,
@@ -944,6 +1181,77 @@ def phase_sharded_path(torch) -> dict:
     return launches
 
 
+def device_kernels(prof):
+    """The profile's device-side events (kernels and copies)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+
+def device_us(evt) -> float:
+    """A profile event's own device time, microseconds."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return getattr(evt, name)
+    return 0.0
+
+
+def phase_cycle(torch) -> None:
+    """One V-cycle at configs/4.in's 2048^2 from delta = 0: CUDA-event time
+    and kernel launches counted under the profiler, for the cycle as it
+    runs (the smoother on the four fine levels, the coarse cycle from
+    130^2) and as it ran with the first smoother kernel on every level and
+    no coarse cycle.  Both give the same bits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from navierstokes_parallel_tpu_torch.ops import mg
+
+    levels, depth = mg_levels()
+    rng = np.random.default_rng(4)
+    inner = rng.standard_normal((levels[0].shape[0] - 2,
+                                 levels[0].shape[1] - 2))
+    rhs = np.zeros(levels[0].shape, np.float32)
+    rhs[1:-1, 1:-1] = inner - inner.mean()
+    rhs = torch.from_numpy(rhs).cuda()
+    p0 = torch.zeros_like(rhs)
+
+    cases = [(f"coarse cycle from {levels[depth].shape}",
+              lambda: mg.v_cycle(p0, rhs, levels)),
+             ("first smoother kernel on every level, no coarse cycle",
+              lambda: cycle_on_simple(p0, rhs, levels))]
+    # Every time first, in two turns, then the profiles: once the profiler
+    # has run, every later launch costs the host more.
+    turns = [[cuda_ms(torch, fn, 20) for _, fn in cases] for _ in range(2)]
+    # A process's first profile can miss launches while the tracer starts:
+    # one throw-away profile before the counted ones.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        cases[0][1]()
+        torch.cuda.synchronize()
+    results = []
+    for k, (what, fn) in enumerate(cases):
+        ms = [turn[k] for turn in turns]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        n_launches = sum(e.count for e in kernels)
+        check(n_launches > 0, "the profiler saw no device kernel")
+        results.append(out)
+        busy_ms = sum(device_us(e) for e in kernels) / 1e3
+        print(f"[cycle] one V-cycle at {levels[0].shape}, {what}: "
+              f"{ms[0]:.4f} / {ms[1]:.4f} ms (CUDA events, mean of 20), "
+              f"{n_launches} kernel launches, {busy_ms:.4f} ms of device "
+              f"time under the profiler")
+        for e in sorted(kernels, key=device_us, reverse=True)[:6]:
+            print(f"[cycle]   {device_us(e) / 1e3:9.4f} ms  {e.count:6d} x"
+                  f"  {e.key[:90]}")
+    same = all(torch.equal(results[0], r) for r in results[1:])
+    print(f"[cycle] the two cycles give the same bits: {same}")
+    check(same, "the V-cycle differs between its routes")
+
+
 def phase_cpu_gpu(torch) -> None:
     """A small converging cavity on the GPU and on the CPU through the
     port: equal iteration counts, fields within the contract."""
@@ -981,8 +1289,9 @@ def phase_profile(torch, trace_prefix) -> None:
     mg (f64 defect, one V-cycle, f64 defect and norm, one host sync), for
     the SOR route (the same around K = 64 sweeps of the tiled kernel) and
     for the sharded backend on one rank (the same around 8 chunks of a deep
-    exchange and 8 sweeps of the extended-block kernel), each through
-    profile_pass."""
+    exchange and 8 sweeps of the extended-block kernel), and one of the SOR
+    route at configs/1.in's 256^2 (K = 64 sweeps of the whole-grid kernel),
+    each through profile_pass."""
     from navierstokes_parallel_tpu_torch.config import Params
     from navierstokes_parallel_tpu_torch.ops import mg, sor
     from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
@@ -990,53 +1299,64 @@ def phase_profile(torch, trace_prefix) -> None:
                                                           topology)
     from navierstokes_parallel_tpu_torch.utils import distributed
 
-    prm = Params.from_file(str(ROOT / "configs" / "4.in"))
     rng = np.random.default_rng(3)
-    rhs = np.zeros(prm.shape, np.float32)
-    inner = rng.standard_normal((prm.i_max, prm.j_max))
-    rhs[1:-1, 1:-1] = inner - inner.mean()
-    rhs = torch.from_numpy(rhs).cuda()
-    p0 = torch.zeros(prm.shape, device="cuda")
+
+    def inputs(prm):
+        """(p0, a zero-mean rhs) on the card."""
+        rhs = np.zeros(prm.shape, np.float32)
+        inner = rng.standard_normal((prm.i_max, prm.j_max))
+        rhs[1:-1, 1:-1] = inner - inner.mean()
+        return (torch.zeros(prm.shape, device="cuda"),
+                torch.from_numpy(rhs).cuda())
+
+    prm = Params.from_file(str(ROOT / "configs" / "4.in"))
+    p0, rhs = inputs(prm)
     K = prm.sor_refine_every
+    prm1 = Params.from_file(str(ROOT / "configs" / "1.in"))
+    p1, rhs1 = inputs(prm1)
     li, lj = prm.i_max, prm.j_max
     one_pass = prm.replace(max_it=K)
     with distributed.process_group("cuda") as device:
         mesh = topology.make_grid_mesh(shape=(1, 1), device=device)
         deep = deep_halo.make_deep_inner(prm, li, lj, mesh)
-        # (name, what the inner stage is, the inner stage, one outer pass)
-        cases = [("mg", f"one V-cycle on {len(mg.build_levels(prm))} levels",
+        # (name, grid, what the inner stage is, the inner stage, one outer
+        # pass)
+        cases = [("mg", "2048^2",
+                  f"one V-cycle on {len(mg.build_levels(prm))} levels",
                   lambda: mg.inner_v_cycle(rhs, 1, prm),
                   lambda: sor.solve_pressure(p0, rhs, prm.replace(max_it=1),
                                              method="mg")),
-                 ("pallas_sor", f"{K} sweeps on the {sor_kernel.route(prm)} "
-                                f"route",
+                 ("pallas_sor", "2048^2",
+                  f"{K} sweeps on the {sor_kernel.route(prm)} route",
                   lambda: sor_kernel.inner_sweeps(rhs, K, prm),
                   lambda: sor.solve_pressure(p0, rhs, one_pass,
                                              method="pallas_sor")),
-                 ("sharded", f"{K} sweeps of the deep-halo inner (1x1 mesh)",
+                 ("sharded", "2048^2",
+                  f"{K} sweeps of the deep-halo inner (1x1 mesh)",
                   lambda: deep(rhs, K),
                   lambda: sharded._sharded_pressure_solve(
-                      p0, rhs, one_pass, "rb_sor", li, lj, None, mesh))]
+                      p0, rhs, one_pass, "rb_sor", li, lj, None, mesh)),
+                 ("pallas_sor_256", "256^2",
+                  f"{prm1.sor_refine_every} sweeps on the "
+                  f"{sor_kernel.route(prm1)} route",
+                  lambda: sor_kernel.inner_sweeps(
+                      rhs1, prm1.sor_refine_every, prm1),
+                  lambda: sor.solve_pressure(
+                      p1, rhs1, prm1.replace(max_it=prm1.sor_refine_every),
+                      method="pallas_sor"))]
         for case in cases:
             profile_pass(torch, *case, trace_prefix)
 
 
-def profile_pass(torch, method: str, what: str, inner_stage, outer_pass,
-                 trace_prefix) -> None:
+def profile_pass(torch, method: str, grid: str, what: str, inner_stage,
+                 outer_pass, trace_prefix) -> None:
     """CUDA event times of one outer pass and of its inner stage, then a
     torch.profiler split of one pass by device kernel."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def device_us(evt):
-        for name in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(evt, name):
-                return getattr(evt, name)
-        return 0.0
 
     inner_ms = cuda_ms(torch, inner_stage, 20)
     pass_ms = cuda_ms(torch, outer_pass, 20)
-    print(f"[profile] {method} at 2048^2: {what} {inner_ms:.4f} ms, one "
+    print(f"[profile] {method} at {grid}: {what} {inner_ms:.4f} ms, one "
           f"outer pass (inner + f64 outer) {pass_ms:.4f} ms (CUDA "
           f"events, mean of 20)")
     torch.cuda.synchronize()
@@ -1050,8 +1370,7 @@ def profile_pass(torch, method: str, what: str, inner_stage, outer_pass,
         path = f"{trace_prefix}.{method}.json"
         prof.export_chrome_trace(path)
         print(f"[profile] chrome trace: {path}")
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy_us = sum(device_us(e) for e in kernels)
     n_launches = sum(e.count for e in kernels)
     print(f"[profile] {method}: one outer pass under the profiler: wall "
@@ -1068,11 +1387,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one 2048^2 outer pass of mg, of "
-                         "the SOR route and of the sharded backend")
+                         "the SOR route and of the sharded backend, and "
+                         "one 256^2 outer pass of the SOR route")
     ap.add_argument("--trace", default=None, metavar="PREFIX",
                     help="with --profile, write the chrome traces to "
-                         "PREFIX.mg.json, PREFIX.pallas_sor.json and "
-                         "PREFIX.sharded.json")
+                         "PREFIX.mg.json, PREFIX.pallas_sor.json, "
+                         "PREFIX.sharded.json and "
+                         "PREFIX.pallas_sor_256.json")
     args = ap.parse_args(argv)
     import torch
 
@@ -1099,6 +1420,9 @@ def main(argv=None) -> int:
                  timed_phase("compressed path", phase_compressed_path, torch),
                  timed_phase("sharded path", phase_sharded_path, torch)]
         timed_phase("cpu-gpu", phase_cpu_gpu, torch)
+        # After the paths: once the profiler has run in a process, every
+        # later launch costs the host more.
+        timed_phase("cycle", phase_cycle, torch)
         if args.profile:
             phase_profile(torch, args.trace)
     except PhaseFailed as e:
@@ -1107,9 +1431,14 @@ def main(argv=None) -> int:
 
     launches = {key: sum(path[key] for path in paths) for key in paths[0]}
     tpu = "navierstokes_parallel_tpu/ops/pallas/"
-    sources = {"sor": ("sor_sweeps", "sor.cu", f"{tpu}sor_kernel.py:67"),
+    sources = {"sor": ("sor_sweeps", "sor_tiled.cu",
+                       f"{tpu}sor_kernel.py:67"),
                "sor_warm": ("sor_warm_sweeps", "sor.cu",
                             f"{tpu}sor_kernel.py:67 (warm_start=True)"),
+               "mg_coarse_cycle": ("mg_coarse_cycle", "mg_cycle.cu",
+                                   f"{tpu}sor_kernel.py:67 (warm_start=True,"
+                                   f" the smoother of the V-cycle's coarse "
+                                   f"levels)"),
                "momentum": ("momentum_rhs", "momentum.cu",
                             f"{tpu}momentum_kernel.py:36"),
                "sor_tiled": ("sor_tiled_sweeps", "sor_tiled.cu",

@@ -1,5 +1,7 @@
-// The temporal-blocked tile shared by the tiled sweep kernel (B4,
-// sor_tiled.cu) and the extended-block sweep kernel (B6, sor_ext.cu).
+// The temporal-blocked tile shared by the whole-grid sweep kernel (B1) and
+// the multigrid smoother's route for large levels (B3), both in sor.cu, the
+// tiled sweep kernel (B4, sor_tiled.cu) and the extended-block sweep kernel
+// (B6, sor_ext.cu).
 //
 // A block sweeps one tile of the array it is given: it loads delta for its
 // TI x TJ centre and a halo of `halo` cells on each side into dynamic shared
@@ -13,8 +15,8 @@
 // Array cell (a, b) is global padded cell (off_i + a, off_j + b) of an
 // ni x nj padded grid: interior mask, parity and self_coef come from the
 // global index, so an array cut out of a larger grid (B6's extended block of
-// one shard) sweeps exactly as the grid would.  B4 passes the grid itself
-// (offset 0).
+// one shard) sweeps exactly as the grid would.  B1, B3 and B4 pass the grid
+// itself (offset 0).
 //
 // The layout, chosen because the first version of this tile spent its time
 // issuing instructions, not moving bytes (PERF.md):
@@ -40,8 +42,9 @@
 //   - Tiles whose first box lies inside global rows and columns
 //     [2, n - 3] take a path without masks (self_coef is the same 0 for all
 //     its cells); the others test each cell's global index as before.
-//   - The main paths' tile has a kernel compiled for its shape (below);
-//     any other tile runs the same body with its shape read at run time.
+//   - The main paths' tiles each have a kernel compiled for their shape
+//     (kHotShapes below); any other tile runs the same body with its shape
+//     read at run time.
 // The arithmetic is nsp_sor.cuh's rb_update, in the same order and
 // rounding; self_coef is formed with the same operations.
 //
@@ -49,11 +52,16 @@
 // takes ~83 us against the first tile's 213 us; about a quarter of it is
 // loading delta and storing the centre.  Delta held in registers as well,
 // delta loaded by cp.async, and 128-wide or 128-tall tiles each ran slower
-// and are left out.
+// and are left out.  A 258^2 grid is 25 tiles of 64 x 64, a fifth of the
+// card: 64 sweeps take 0.129 ms there and 0.068 ms in 81 tiles of 32 x 32
+// (same halo), which lose from 1026^2 up (0.31 against 0.26 ms) to their
+// 2.24 updates per written cell; two sweeps of a 2050^2 multigrid level
+// take 0.034 ms in 32 x 64 tiles with a 4-deep halo (0.035 in 64 x 64).
 #pragma once
 
 #include <cstddef>
 #include <cstdint>
+#include <utility>
 
 #include "nsp_sor.cuh"
 
@@ -81,21 +89,42 @@ struct TileChunk {
   float one_minus_omega, coef, dx2_inv, dy2_inv;
 };
 
-// At most this many threads per block.
+// At most this many threads per block of a tile whose shape is read at run
+// time.
 constexpr int kTileMaxThreads = 576;
-// The tile of the main paths, a 64 x 64 centre with a 16-deep halo (B4 at
-// K = 8, B6 at ns = 8), has a kernel compiled for its shape, so that its
-// shared-memory offsets are immediates: 48 pairs per row, 12 rows between
-// a thread's rows, 8 rows per thread (576 threads), two blocks per SM.
-constexpr int kHotTi = 64;
-constexpr int kHotTj = 64;
-constexpr int kHotHalo = 16;
-constexpr int kHotRowStep = 12;
-constexpr int kHotRows = 8;
-constexpr int kHotMinBlocks = 2;
+// The tiles of the main paths each have a kernel compiled for their shape,
+// so that the shared-memory offsets are immediates (a run-time shape takes
+// three times the registers): a ti x tj centre with a halo of `halo` cells,
+// rs rows between a thread's rows (even), m rows per thread (rs m >= ti +
+// 2 halo), min_blocks blocks per SM asked of the compiler.  tj / 2 + halo
+// pairs per row times rs is the block's threads.
+struct HotShape {
+  int ti, tj, halo, rs, m, min_blocks;
+};
+constexpr HotShape kHotShapes[] = {
+    {64, 64, 16, 12, 8, 2},  // B4 at K = 8, B6 at ns = 8, B1 on large grids
+    {32, 64, 4, 10, 4, 2},   // B3: the two sweeps of a multigrid level
+    {32, 32, 16, 16, 4, 1},  // B1 on small grids
+};
+constexpr int kHotCount = sizeof(kHotShapes) / sizeof(kHotShapes[0]);
 // Any other tile: 16 rows per thread with rhs in registers where that
 // takes at most kTileMaxThreads threads, else rhs from device memory.
 constexpr int kRegRows = 16;
+
+constexpr int hot_pairs(int i) {
+  return kHotShapes[i].tj / 2 + kHotShapes[i].halo;
+}
+constexpr bool hot_shapes_valid() {
+  for (int i = 0; i < kHotCount; ++i) {
+    const HotShape s = kHotShapes[i];
+    if (s.ti < 1 || s.tj < 2 || (s.tj & 1) || (s.halo & 1) || (s.rs & 1) ||
+        s.rs * s.m < s.ti + 2 * s.halo || hot_pairs(i) * s.rs > 1024) {
+      return false;
+    }
+  }
+  return true;
+}
+static_assert(hot_shapes_valid(), "a tile of kHotShapes does not fit a block");
 
 // How a chunk's tile maps onto a block.
 struct TileGeometry {
@@ -103,7 +132,8 @@ struct TileGeometry {
   int rs;       // blockDim.y: rows between two rows of one thread (even)
   int m;        // rows per thread, compile-time; 0: any, rhs not in
                 // registers but read from device memory at each update
-  bool hot;     // the kernel compiled for the main paths' tile
+  int hot;      // index in kHotShapes of the kernel compiled for this
+                // shape, -1: the shape is read at run time
   size_t smem;  // dynamic shared memory, bytes
 };
 
@@ -112,11 +142,15 @@ inline TileGeometry tile_geometry(int ti, int tj, int halo) {
   g.er = ti + 2 * halo;
   g.pc = (tj + 2 * halo) / 2;
   g.smem = sizeof(float) * static_cast<size_t>(g.er) * 2 * g.pc;
-  if (ti == kHotTi && tj == kHotTj && halo == kHotHalo) {
-    g.rs = kHotRowStep;
-    g.m = kHotRows;
-    g.hot = true;
-    return g;
+  g.hot = -1;
+  for (int i = 0; i < kHotCount; ++i) {
+    const HotShape s = kHotShapes[i];
+    if (ti == s.ti && tj == s.tj && halo == s.halo) {
+      g.rs = s.rs;
+      g.m = s.m;
+      g.hot = i;
+      return g;
+    }
   }
   g.rs = ((g.er + kRegRows - 1) / kRegRows + 1) & ~1;
   if (g.pc * g.rs <= kTileMaxThreads) {
@@ -241,27 +275,31 @@ __device__ __forceinline__ void sweeps(const TileChunk& t, const Block& k,
 namespace {
 
 // One chunk; block (blockIdx.x, blockIdx.y) takes the tile of columns
-// blockIdx.x * tj and rows blockIdx.y * ti; blockDim = (pc, rs).  kHot:
-// the main paths' tile, its shape known at compile time.
-template <int M, bool kHot>
-__global__ void __launch_bounds__(kHot ? (kHotTj / 2 + kHotHalo) *
-                                             kHotRowStep
-                                       : kTileMaxThreads,
-                                  kHot ? kHotMinBlocks : 1)
+// blockIdx.x * tj and rows blockIdx.y * ti; blockDim = (pc, rs).  HOT >= 0:
+// the tile kHotShapes[HOT], its shape known at compile time (M its rows per
+// thread); HOT < 0: the shape comes with the chunk.
+template <int M, int HOT>
+__global__ void __launch_bounds__(
+    HOT >= 0 ? hot_pairs(HOT >= 0 ? HOT : 0) *
+                   kHotShapes[HOT >= 0 ? HOT : 0].rs
+             : kTileMaxThreads,
+    HOT >= 0 ? kHotShapes[HOT >= 0 ? HOT : 0].min_blocks : 1)
     tile_chunk(const TileChunk chunk) {
   using namespace tile_detail;
   extern __shared__ float smem[];
+  constexpr bool kHot = HOT >= 0;
+  constexpr HotShape kShape = kHotShapes[kHot ? HOT : 0];
   TileChunk t = chunk;
   if constexpr (kHot) {
-    t.ti = kHotTi;
-    t.tj = kHotTj;
-    t.halo = kHotHalo;
+    t.ti = kShape.ti;
+    t.tj = kShape.tj;
+    t.halo = kShape.halo;
   }
   Block k;
   k.k = static_cast<int>(threadIdx.x);
   k.ty = static_cast<int>(threadIdx.y);
-  k.rs = kHot ? kHotRowStep : static_cast<int>(blockDim.y);
-  k.pc = kHot ? kHotTj / 2 + kHotHalo : static_cast<int>(blockDim.x);
+  k.rs = kHot ? kShape.rs : static_cast<int>(blockDim.y);
+  k.pc = kHot ? kShape.tj / 2 + kShape.halo : static_cast<int>(blockDim.x);
   k.er = t.ti + 2 * t.halo;
   k.a0 = static_cast<int>(blockIdx.y) * t.ti - t.halo;
   k.b0 = static_cast<int>(blockIdx.x) * t.tj - t.halo;
@@ -336,11 +374,23 @@ __global__ void __launch_bounds__(kHot ? (kHotTj / 2 + kHotHalo) *
   }
 }
 
+template <int... I>
+const void* hot_kernel(int i, std::integer_sequence<int, I...>) {
+  const void* const fns[] = {
+      reinterpret_cast<const void*>(tile_chunk<kHotShapes[I].m, I>)...};
+  return fns[i];
+}
+
+// Dynamic shared memory a kernel may use without asking for more.
+constexpr size_t kDefaultSharedBytes = 48 * 1024;
+
 // The kernel for a tile of geometry g, allowed g.smem of shared memory.
 cudaError_t tile_kernel(const TileGeometry& g, const void** fn) {
-  *fn = g.hot     ? reinterpret_cast<const void*>(tile_chunk<kHotRows, true>)
-        : g.m > 0 ? reinterpret_cast<const void*>(tile_chunk<kRegRows, false>)
-                  : reinterpret_cast<const void*>(tile_chunk<0, false>);
+  *fn = g.hot >= 0
+            ? hot_kernel(g.hot, std::make_integer_sequence<int, kHotCount>{})
+        : g.m > 0 ? reinterpret_cast<const void*>(tile_chunk<kRegRows, -1>)
+                  : reinterpret_cast<const void*>(tile_chunk<0, -1>);
+  if (g.smem <= kDefaultSharedBytes) return cudaSuccess;
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(g.smem));
 }
@@ -353,7 +403,9 @@ cudaError_t launch_tile_chunk(const TileChunk& t, cudaStream_t s) {
     return cudaErrorInvalidValue;
   }
   const TileGeometry g = tile_geometry(t.ti, t.tj, t.halo);
-  if (!g.hot && g.pc * g.rs > kTileMaxThreads) return cudaErrorInvalidValue;
+  if (g.hot < 0 && g.pc * g.rs > kTileMaxThreads) {
+    return cudaErrorInvalidValue;
+  }
   const void* fn = nullptr;
   cudaError_t err = tile_kernel(g, &fn);
   if (err != cudaSuccess) return err;
@@ -363,6 +415,39 @@ cudaError_t launch_tile_chunk(const TileChunk& t, cudaStream_t s) {
   void* args[] = {&arg};
   err = cudaLaunchKernel(fn, grid, dim3(g.pc, g.rs), args, g.smem, s);
   if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// n_sweeps sweeps of the whole ni x nj grid from delta = 0 in chunks of
+// sweeps_per_chunk (a short last one; none: one chunk of no sweeps, which
+// writes zeros): d and scratch take turns as a chunk's output and input,
+// scratch first, so the result is in scratch when the number of chunks is
+// odd, else in d.  Every chunk writes every cell of its output, so neither
+// buffer needs initialising.  The loop of B1 and B4 (sor_tiled.cu).
+cudaError_t tile_sweeps_from_zero(float* d, float* scratch, const float* rhs,
+                                  int ni, int nj, int n_sweeps, int tile_rows,
+                                  int tile_cols, int sweeps_per_chunk,
+                                  float one_minus_omega, float coef,
+                                  float dx2_inv, float dy2_inv,
+                                  cudaStream_t s) {
+  if (sweeps_per_chunk < 1 || n_sweeps < 0) return cudaErrorInvalidValue;
+  TileChunk t{d,         scratch,   rhs,
+              {ni, nj, 0, 0, ni, nj, 0, ni, 0, nj},
+              tile_rows, tile_cols, 2 * sweeps_per_chunk,
+              0,         1,         one_minus_omega,
+              coef,      dx2_inv,   dy2_inv};
+  int done = 0;
+  do {
+    t.ns = n_sweeps - done < sweeps_per_chunk ? n_sweeps - done
+                                              : sweeps_per_chunk;
+    const cudaError_t err = launch_tile_chunk(t, s);
+    if (err != cudaSuccess) return err;
+    done += t.ns;
+    float* next_dst = const_cast<float*>(t.src);
+    t.src = t.dst;
+    t.dst = next_dst;
+    t.zero_src = 0;
+  } while (done < n_sweeps);
   return cudaGetLastError();
 }
 

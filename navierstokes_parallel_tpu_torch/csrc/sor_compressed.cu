@@ -15,7 +15,8 @@
 //   black N = red[i, k + 1 - b], black S = red[i, k - b]
 // The update is nsp_sor.cuh's expression with the Pallas kernel's order of
 // the y neighbours, (W + E) * dx2_inv + (N + S) * dy2_inv + d * self_coef;
-// IEEE addition commutes, so it equals nsp_sor_sweeps (sor.cu) bit for bit.
+// IEEE addition commutes, so it equals nsp_sor_sweeps_simple (sor.cu) bit
+// for bit.
 //
 // What bounds it on an H100: as B1, memory traffic and the launch rate.  It
 // makes one launch per half-sweep, looped in C, like B1, but every thread

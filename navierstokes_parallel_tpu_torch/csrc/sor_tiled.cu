@@ -1,13 +1,18 @@
-// Red-black SOR sweeps with temporal blocking in shared memory (B4).
+// Red-black SOR sweeps from delta = 0 with temporal blocking in shared
+// memory (B4, and B1 with a tile picked from the grid's size).
 //
 // nsp_sor_tiled_sweeps replaces the Pallas TPU kernel navierstokes_parallel_
 // tpu/ops/pallas/sor_kernel.py::_make_tiled_kernel and its double-buffered
 // twin _make_tiled_kernel_db (called through _tiled_chunk_call /
 // inner_sweeps_tiled): n red-black sweeps on A delta = rhs_neg from
 // delta = 0, for the grids beyond the JAX package's whole-grid budget
-// (2048^2 and up: configs/4.in).  It computes what nsp_sor_sweeps
+// (2048^2 and up: configs/4.in).  It computes what nsp_sor_sweeps_simple
 // (sor.cu) computes, bit for bit: every written cell goes through
-// nsp_sor.cuh's rb_update on the same neighbour values.
+// nsp_sor.cuh's rb_update on the same neighbour values.  The whole-grid
+// sweeps of the smaller grids (B1, the TPU kernel _make_kernel through
+// _sweeps_call) are this entry point too, with 32 x 32 tiles where 64 x 64
+// ones would leave most of the card idle
+// (ops/cuda/sor_kernel.py::whole_grid_tile).
 //
 // The TPU kernel cuts the grid into full-width row strips of B rows plus a
 // 2K-deep halo above and below, DMAs each strip into VMEM once per chunk of
@@ -18,9 +23,9 @@
 // changes the cut: a full-width strip of 2050 columns does not fit the
 // 227 KB of shared memory one block may use, so it tiles both axes.
 //   - One launch per chunk of K sweeps, out of place: it reads the
-//     pre-chunk delta (src) and writes the next (dst); the C entry point
-//     loops the chunks and swaps the two buffers.  The first chunk reads no
-//     delta (it is 0), and every chunk writes every cell of dst, the ghost
+//     pre-chunk delta (src) and writes the next (dst); the chunks' loop
+//     (tile_sweeps_from_zero) swaps the two buffers.  The first chunk reads
+//     no delta (it is 0), and every chunk writes every cell of dst, the ghost
 //     ring's zeros included (they are never updated), so the caller may
 //     pass uninitialised buffers.
 //   - One block per tile of TI x TJ interior cells, loaded with an H-deep
@@ -60,30 +65,12 @@ extern "C" int nsp_sor_tiled_sweeps(float* d, float* scratch, const float* rhs,
                                     float one_minus_omega, float coef,
                                     float dx2_inv, float dy2_inv, int device,
                                     void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (sweeps_per_chunk < 1 || n_sweeps < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  nsp::TileChunk t{d,         scratch,   rhs,
-                   {ni, nj, 0, 0, ni, nj, 0, ni, 0, nj},
-                   tile_rows, tile_cols, 2 * sweeps_per_chunk,
-                   0,         1,         one_minus_omega,
-                   coef,      dx2_inv,   dy2_inv};
-  int done = 0;
-  do {
-    t.ns = n_sweeps - done < sweeps_per_chunk ? n_sweeps - done
-                                              : sweeps_per_chunk;
-    err = nsp::launch_tile_chunk(t, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    done += t.ns;
-    float* next_dst = const_cast<float*>(t.src);
-    t.src = t.dst;
-    t.dst = next_dst;
-    t.zero_src = 0;
-  } while (done < n_sweeps);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(nsp::tile_sweeps_from_zero(
+      d, scratch, rhs, ni, nj, n_sweeps, tile_rows, tile_cols,
+      sweeps_per_chunk, one_minus_omega, coef, dx2_inv, dy2_inv,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // The tile's geometry on this card for a tile_rows x tile_cols centre with

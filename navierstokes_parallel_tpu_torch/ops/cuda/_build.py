@@ -39,10 +39,19 @@ _F = ctypes.c_float
 SIGNATURES = {
     # d, rhs, ni, nj, n_sweeps, one_minus_omega, coef, dx2_inv, dy2_inv,
     # device, stream
-    "nsp_sor_sweeps": (_P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    "nsp_sor_sweeps_simple": (_P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    # out, scratch, p0, rhs, ni, nj, n_sweeps, tile_rows, tile_cols,
+    # sweeps_per_launch, one_minus_omega, coef, dx2_inv, dy2_inv, device,
+    # stream
+    "nsp_sor_warm_sweeps": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                            _F, _F, _I, _P),
     # d, p0, rhs, ni, nj, n_sweeps, one_minus_omega, coef, dx2_inv, dy2_inv,
     # device, stream
-    "nsp_sor_warm_sweeps": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    "nsp_sor_warm_sweeps_simple": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I,
+                                   _P),
+    # out, p0, rhs, shapes (int[2 n_levels], host), consts (float[5
+    # n_levels], host), n_levels, nu1, nu2, coarse_sweeps, device, stream
+    "nsp_mg_coarse_cycle": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # d, scratch, rhs, ni, nj, n_sweeps, tile_rows, tile_cols,
     # sweeps_per_chunk, one_minus_omega, coef, dx2_inv, dy2_inv, device,
     # stream

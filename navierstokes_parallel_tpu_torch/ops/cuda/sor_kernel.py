@@ -4,11 +4,14 @@ Counterpart of ``navierstokes_parallel_tpu/ops/pallas/sor_kernel.py``:
 
   * ``whole_grid_sweeps`` (``_make_kernel`` through ``_sweeps_call``
     there): n red-black SOR sweeps on A delta = rhs_neg from delta = 0 over
-    the padded grid, one launch per half-sweep (``csrc/sor.cu``);
+    the padded grid, in chunks of K sweeps, each one launch of the
+    temporal-blocked tile (``csrc/nsp_sor_tile.cuh``) whose shape
+    ``whole_grid_tile`` picks from the grid's size (the C entry point of
+    ``inner_sweeps_tiled``, ``csrc/sor_tiled.cu``, under its own counter);
   * ``inner_sweeps_tiled`` (``_make_tiled_kernel`` / ``_make_tiled_kernel_db``
     through ``inner_sweeps_tiled``): the same sweeps in chunks of K, each
     chunk one launch over tiles that carry a 2K-deep halo and sweep K times
-    in shared memory (``csrc/sor_tiled.cu``);
+    in shared memory (``csrc/sor_tiled.cu``), the tile's rows the caller's;
   * ``inner_sweeps_compressed`` (``_make_compressed_kernel`` through
     ``inner_sweeps_compressed``): the same sweeps on the red and the black
     cells compacted into two half-width arrays (``csrc/sor_compressed.cu``);
@@ -18,7 +21,13 @@ Counterpart of ``navierstokes_parallel_tpu/ops/pallas/sor_kernel.py``:
     set and the padded width is even, else the whole-grid one;
   * ``warm_sweeps`` (``_make_kernel`` with ``warm_start=True``): n
     red-black sweeps from a given p0, with omega and the level's dx^2 /
-    dy^2 per call, the multigrid smoother (ops/mg.py);
+    dy^2 per call, the multigrid smoother (ops/mg.py): one launch of the
+    tile per 8 sweeps, with a halo of twice the launch's sweeps
+    (``csrc/sor.cu``);
+  * ``coarse_cycle`` (the same TPU body, as ops/mg.py::v_cycle runs it on
+    its coarse levels): one whole V-cycle on the levels whose p and rhs fit
+    one block's shared memory together, in one launch
+    (``csrc/mg_cycle.cu``); ``coarse_cycle_depth`` says from which level;
   * ``ext_sweeps`` (``parallel/deep_halo.py::_make_ext_kernel`` through
     ``_ext_sweeps_call``): ns <= H / 2 sweeps from a given delta on one
     shard's extended block, masks and parity from the shard's global
@@ -30,6 +39,12 @@ give the same bits: every updated cell goes through the same expression on
 the same neighbour values.  The kernels' source notes say what bounds them
 on the card.  Each wrapper dispatches on the tensor's device: a CPU tensor
 goes to its ``*_plain`` twin; a CUDA tensor launches the kernel or raises.
+
+``whole_grid_sweeps_simple`` and ``warm_sweeps_simple`` are the first
+kernels of ``whole_grid_sweeps`` and ``warm_sweeps`` (one launch per
+half-sweep on the grid in device memory, ``csrc/sor.cu``).  No path calls
+them: they share nothing with the tile but the cell update, so the smoke
+test and the GPU tests hold every other sweep kernel against them.
 """
 
 from __future__ import annotations
@@ -44,12 +59,13 @@ from . import _build
 # Kernel launches, one per call of a wrapper that launches (each call runs
 # all its launches in C): whole_grid_sweeps counts in LAUNCHES,
 # inner_sweeps_tiled in TILED_LAUNCHES, inner_sweeps_compressed in
-# COMPRESSED_LAUNCHES, warm_sweeps in WARM_LAUNCHES and ext_sweeps in
-# EXT_LAUNCHES.
+# COMPRESSED_LAUNCHES, warm_sweeps in WARM_LAUNCHES, coarse_cycle in
+# CYCLE_LAUNCHES and ext_sweeps in EXT_LAUNCHES.
 LAUNCHES = 0
 TILED_LAUNCHES = 0
 COMPRESSED_LAUNCHES = 0
 WARM_LAUNCHES = 0
+CYCLE_LAUNCHES = 0
 EXT_LAUNCHES = 0
 
 # The tiled route (JAX TILE_ROWS, SWEEPS_PER_CHUNK).  A tile writes
@@ -62,8 +78,23 @@ TILE_COLS = 64
 SWEEPS_PER_CHUNK = 8
 # Shared memory one block may use on an H100 (232,448 bytes): the tile of
 # the tiled and extended-block kernels holds delta of its haloed tile there
-# (rhs stays in registers or device memory).
+# (rhs stays in registers or device memory); the coarse cycle holds p and
+# rhs of its levels there.
 MAX_SHARED_BYTES = 232448
+# The whole-grid kernel's tiles, (rows, columns, sweeps per chunk), largest
+# first, each with a kernel compiled for its shape
+# (csrc/nsp_sor_tile.cuh::kHotShapes), and the fewest blocks a launch should
+# have, one per SM of an H100: whole_grid_tile takes the first tile that
+# cuts the grid into that many.
+WHOLE_GRID_TILES = ((64, 64, 8), (32, 32, 8))
+WHOLE_GRID_MIN_BLOCKS = 132
+# The smoother's tile route: the tile, and the most sweeps of one launch
+# (its halo is twice its sweeps).  Two sweeps of a 32 x 64 tile (a V-cycle's
+# pre- or post-smoothing) have a kernel compiled for their shape.
+WARM_TILE = (32, 64)
+WARM_SWEEPS_PER_LAUNCH = 8
+# The most levels one coarse cycle takes (csrc/mg_cycle.cu::kMaxLevels).
+COARSE_CYCLE_MAX_LEVELS = 8
 # None: the tiled route where the grid exceeds WHOLE_GRID_BUDGET_BYTES;
 # True / False force it on or off (JAX PREFER_TILED_DMA).
 PREFER_TILED = None
@@ -175,24 +206,79 @@ def _cuda_tensor(x: torch.Tensor) -> bool:
     return True
 
 
+def _require_cuda(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on a CUDA tensor only, got {x.device}")
+
+
+def tile_blocks(shape, tile_rows: int, tile_cols: int) -> int:
+    """Blocks of one launch of the tile over a grid of `shape`."""
+    return -(-shape[0] // tile_rows) * -(-shape[1] // tile_cols)
+
+
+def whole_grid_tile(shape):
+    """(tile rows, tile columns, sweeps per chunk) of whole_grid_sweeps on a
+    padded grid of `shape`: the first of WHOLE_GRID_TILES that cuts it into
+    at least WHOLE_GRID_MIN_BLOCKS blocks, else the last.  A 258^2 grid is
+    25 tiles of 64 x 64, too few for the card, and 81 of 32 x 32; from
+    770^2 up the 64 x 64 tile fills it with fewer redundant halo updates."""
+    for tile in WHOLE_GRID_TILES:
+        if tile_blocks(shape, *tile[:2]) >= WHOLE_GRID_MIN_BLOCKS:
+            return tile
+    return WHOLE_GRID_TILES[-1]
+
+
+def _tile_sweeps_from_zero(rhs_neg: torch.Tensor, n_sweeps: int,
+                           params: Params, rows: int, cols: int,
+                           K: int) -> torch.Tensor:
+    """n_sweeps sweeps from delta = 0 on the card in chunks of K, one launch
+    of the rows x cols tile per chunk (one for n_sweeps = 0)."""
+    ni, nj = params.shape
+    # Each chunk reads one buffer and writes every cell of the other, the
+    # ghost ring's zeros included; the first reads none (delta = 0), so
+    # neither buffer needs zeroing.
+    d = torch.empty((ni, nj), dtype=torch.float32, device=rhs_neg.device)
+    scratch = torch.empty_like(d)
+    status = _build.load().nsp_sor_tiled_sweeps(
+        d.data_ptr(), scratch.data_ptr(), rhs_neg.data_ptr(), ni, nj,
+        int(n_sweeps), rows, cols, K, *sweep_constants(params),
+        *_build.device_and_stream(rhs_neg))
+    _build.check_status(status, "nsp_sor_tiled_sweeps")
+    n_chunks = max(1, -(-int(n_sweeps) // K))
+    return scratch if n_chunks % 2 else d
+
+
 def whole_grid_sweeps(rhs_neg: torch.Tensor, n_sweeps: int,
                       params: Params) -> torch.Tensor:
     """n_sweeps f32 red-black sweeps on A delta = rhs_neg from delta = 0,
     over the whole padded grid: the plain version for a CPU tensor, the
-    CUDA kernel (one launch per half-sweep) for a CUDA one."""
+    CUDA kernel (one launch of whole_grid_tile's tile per chunk of sweeps,
+    one for n_sweeps = 0) for a CUDA one."""
     global LAUNCHES
     if not _cuda_tensor(rhs_neg):
         return inner_sweeps_plain(rhs_neg, n_sweeps, params)
+    check_inputs(rhs_neg, n_sweeps, params)
+    out = _tile_sweeps_from_zero(rhs_neg, n_sweeps, params,
+                                 *whole_grid_tile(params.shape))
+    LAUNCHES += 1
+    return out
+
+
+def whole_grid_sweeps_simple(rhs_neg: torch.Tensor, n_sweeps: int,
+                             params: Params) -> torch.Tensor:
+    """whole_grid_sweeps by its first kernel, one launch per half-sweep on
+    the grid in device memory: the yardstick the other sweep kernels are
+    held against on the card, on no path.  CUDA tensors only."""
+    _require_cuda(rhs_neg, "whole_grid_sweeps_simple")
     check_inputs(rhs_neg, n_sweeps, params)
     lib = _build.load()
     ni, nj = params.shape
     # The kernel never writes the ghost ring, which must stay 0.
     d = torch.zeros((ni, nj), dtype=torch.float32, device=rhs_neg.device)
-    status = lib.nsp_sor_sweeps(
+    status = lib.nsp_sor_sweeps_simple(
         d.data_ptr(), rhs_neg.data_ptr(), ni, nj, int(n_sweeps),
         *sweep_constants(params), *_build.device_and_stream(rhs_neg))
-    _build.check_status(status, "nsp_sor_sweeps")
-    LAUNCHES += 1
+    _build.check_status(status, "nsp_sor_sweeps_simple")
     return d
 
 
@@ -357,21 +443,9 @@ def inner_sweeps_tiled(rhs_neg: torch.Tensor, n_sweeps: int, params: Params,
         return inner_sweeps_tiled_plain(rhs_neg, n_sweeps, params, B, K)
     check_inputs(rhs_neg, n_sweeps, params)
     check_tile(B, K)
-    lib = _build.load()
-    ni, nj = params.shape
-    # Each chunk reads one buffer and writes every cell of the other, the
-    # ghost ring's zeros included; the first reads none (delta = 0), so
-    # neither buffer needs zeroing.
-    d = torch.empty((ni, nj), dtype=torch.float32, device=rhs_neg.device)
-    scratch = torch.empty_like(d)
-    status = lib.nsp_sor_tiled_sweeps(
-        d.data_ptr(), scratch.data_ptr(), rhs_neg.data_ptr(), ni, nj,
-        int(n_sweeps), B, TILE_COLS, K, *sweep_constants(params),
-        *_build.device_and_stream(rhs_neg))
-    _build.check_status(status, "nsp_sor_tiled_sweeps")
+    out = _tile_sweeps_from_zero(rhs_neg, n_sweeps, params, B, TILE_COLS, K)
     TILED_LAUNCHES += 1
-    n_chunks = max(1, -(-int(n_sweeps) // K))
-    return scratch if n_chunks % 2 else d
+    return out
 
 
 # --- the colour-compressed kernel -----------------------------------------------
@@ -499,7 +573,8 @@ def warm_sweeps(p: torch.Tensor, rhs: torch.Tensor, n_sweeps: int,
                 omega: float, dx2_inv: float, dy2_inv: float) -> torch.Tensor:
     """n_sweeps f32 red-black sweeps on A p = rhs from p, into a new tensor
     whose ghost ring is p's: the plain version for a CPU tensor, the CUDA
-    kernel for a CUDA one."""
+    kernel (one launch of the tile per WARM_SWEEPS_PER_LAUNCH sweeps, one
+    for n_sweeps = 0) for a CUDA one."""
     global WARM_LAUNCHES
     if not _cuda_tensor(p):
         return warm_sweeps_plain(p, rhs, n_sweeps, omega, dx2_inv, dy2_inv)
@@ -507,12 +582,131 @@ def warm_sweeps(p: torch.Tensor, rhs: torch.Tensor, n_sweeps: int,
     lib = _build.load()
     ni, nj = p.shape
     out = torch.empty_like(p)
+    # A second buffer only where the sweeps take more than one launch.
+    scratch = (torch.empty_like(p)
+               if int(n_sweeps) > WARM_SWEEPS_PER_LAUNCH else out)
     status = lib.nsp_sor_warm_sweeps(
-        out.data_ptr(), p.data_ptr(), rhs.data_ptr(), ni, nj, int(n_sweeps),
+        out.data_ptr(), scratch.data_ptr(), p.data_ptr(), rhs.data_ptr(),
+        ni, nj, int(n_sweeps), *WARM_TILE, WARM_SWEEPS_PER_LAUNCH,
         *warm_constants(omega, dx2_inv, dy2_inv),
         *_build.device_and_stream(p))
     _build.check_status(status, "nsp_sor_warm_sweeps")
     WARM_LAUNCHES += 1
+    return out
+
+
+def warm_sweeps_simple(p: torch.Tensor, rhs: torch.Tensor, n_sweeps: int,
+                       omega: float, dx2_inv: float,
+                       dy2_inv: float) -> torch.Tensor:
+    """warm_sweeps by its first kernel, one launch per half-sweep on the
+    level in device memory: the yardstick the smoother's routes and the
+    coarse cycle are held against on the card, on no path.  CUDA tensors
+    only."""
+    _require_cuda(p, "warm_sweeps_simple")
+    check_warm_inputs(p, rhs, n_sweeps)
+    lib = _build.load()
+    ni, nj = p.shape
+    out = torch.empty_like(p)
+    status = lib.nsp_sor_warm_sweeps_simple(
+        out.data_ptr(), p.data_ptr(), rhs.data_ptr(), ni, nj, int(n_sweeps),
+        *warm_constants(omega, dx2_inv, dy2_inv),
+        *_build.device_and_stream(p))
+    _build.check_status(status, "nsp_sor_warm_sweeps_simple")
+    return out
+
+
+# --- the coarse tail of the multigrid V-cycle --------------------------------------
+#
+# A level is (padded shape, dx2_inv, dy2_inv), as ops/mg.py::build_levels
+# makes them, finest first; the smoother is Gauss-Seidel (omega = 1).
+
+def cycle_shared_bytes(levels) -> int:
+    """Shared memory of the one block that holds p and rhs, f32, of every
+    level."""
+    return sum(2 * 4 * int(lvl[0][0]) * int(lvl[0][1]) for lvl in levels)
+
+
+def coarse_cycle_depth(levels) -> int:
+    """The depth from which ops/mg.py::v_cycle hands the cycle to
+    coarse_cycle on the card: the first level whose whole sub-hierarchy
+    fits one block's shared memory (MAX_SHARED_BYTES) and
+    COARSE_CYCLE_MAX_LEVELS levels; len(levels) where none does.  The nine
+    levels of a 2048^2 grid split 4 + 5: 2050^2 to 258^2 level by level,
+    130^2, 66^2, 34^2, 18^2 and 10^2 (182,688 B) in the one launch."""
+    for depth in range(len(levels)):
+        tail = levels[depth:]
+        if (len(tail) <= COARSE_CYCLE_MAX_LEVELS
+                and cycle_shared_bytes(tail) <= MAX_SHARED_BYTES):
+            return depth
+    return len(levels)
+
+
+def check_cycle_inputs(p: torch.Tensor, rhs: torch.Tensor, levels, nu1: int,
+                       nu2: int, coarse_sweeps: int) -> None:
+    """Raise on anything the coarse-cycle kernel does not take: tensors
+    that are not matching contiguous 2-D f32 of the first level's shape, no
+    level or more than COARSE_CYCLE_MAX_LEVELS, a level whose interior is
+    not half the one before, levels beyond one block's shared memory, or a
+    negative sweep count."""
+    check_warm_inputs(p, rhs, 0)
+    if min(int(nu1), int(nu2), int(coarse_sweeps)) < 0:
+        raise ValueError(f"sweep counts must be >= 0, got nu1={nu1}, "
+                         f"nu2={nu2}, coarse_sweeps={coarse_sweeps}")
+    if not 1 <= len(levels) <= COARSE_CYCLE_MAX_LEVELS:
+        raise ValueError(f"coarse_cycle takes 1 to {COARSE_CYCLE_MAX_LEVELS} "
+                         f"levels, got {len(levels)}")
+    shapes = [tuple(int(n) for n in lvl[0]) for lvl in levels]
+    if tuple(p.shape) != shapes[0]:
+        raise ValueError(f"p {tuple(p.shape)} is not of the first level's "
+                         f"shape {shapes[0]}")
+    for fine, coarse in zip(shapes, shapes[1:]):
+        if min(coarse) < 3 or any(f - 2 != 2 * (c - 2)
+                                  for f, c in zip(fine, coarse)):
+            raise ValueError(f"level {coarse} does not halve the interior "
+                             f"of level {fine}")
+    need = cycle_shared_bytes(levels)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"coarse_cycle on levels {shapes} needs {need} bytes of shared "
+            f"memory in one block; a block may use at most "
+            f"{MAX_SHARED_BYTES}")
+
+
+def coarse_cycle_plain(p: torch.Tensor, rhs: torch.Tensor, levels,
+                       nu1: int = 2, nu2: int = 2,
+                       coarse_sweeps: int = 32) -> torch.Tensor:
+    """coarse_cycle in plain PyTorch: ops/mg.py's V-cycle on the plain
+    smoother, level by level."""
+    from .. import mg  # mg imports this module
+
+    return mg.v_cycle_plain(p, rhs, list(levels), nu1, nu2, coarse_sweeps)
+
+
+def coarse_cycle(p: torch.Tensor, rhs: torch.Tensor, levels, nu1: int = 2,
+                 nu2: int = 2, coarse_sweeps: int = 32) -> torch.Tensor:
+    """One V(nu1, nu2) cycle on A p = rhs over `levels` (finest first, p and
+    rhs of its shape) with coarse_sweeps sweeps on the last, into a new
+    tensor whose ghost ring is p's: the plain version for a CPU tensor, the
+    CUDA kernel (one launch, every level in one block's shared memory) for
+    a CUDA one."""
+    global CYCLE_LAUNCHES
+    if not _cuda_tensor(p):
+        return coarse_cycle_plain(p, rhs, levels, nu1, nu2, coarse_sweeps)
+    check_cycle_inputs(p, rhs, levels, nu1, nu2, coarse_sweeps)
+    lib = _build.load()
+    shapes, consts = [], []
+    for shape, dx2_inv, dy2_inv in levels:
+        shapes += [int(shape[0]), int(shape[1])]
+        consts += [*warm_constants(1.0, dx2_inv, dy2_inv),
+                   2.0 * (float(dx2_inv) + float(dy2_inv))]
+    out = torch.empty_like(p)
+    status = lib.nsp_mg_coarse_cycle(
+        out.data_ptr(), p.data_ptr(), rhs.data_ptr(),
+        (ctypes.c_int * len(shapes))(*shapes),
+        (ctypes.c_float * len(consts))(*consts), len(levels), int(nu1),
+        int(nu2), int(coarse_sweeps), *_build.device_and_stream(p))
+    _build.check_status(status, "nsp_mg_coarse_cycle")
+    CYCLE_LAUNCHES += 1
     return out
 
 

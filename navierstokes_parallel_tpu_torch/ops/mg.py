@@ -10,8 +10,8 @@ grid-independent factor, so the reference stopping rule is met in a handful
 of cycles.
 
   * smoother: red-black Gauss-Seidel (omega = 1) in the roll +
-    self-coefficient formulation, on every level the hand-written warm-start
-    kernel for a CUDA tensor and its plain twin for a CPU one
+    self-coefficient formulation, the hand-written warm-start kernel for a
+    CUDA tensor and its plain twin for a CPU one
     (ops/cuda/sor_kernel.py::warm_sweeps);
   * restriction: 2x2 full-weighting average;
   * prolongation: piecewise-constant injection, written as repeats (each
@@ -19,8 +19,13 @@ of cycles.
   * coarse solve: 32 red-black sweeps on the coarsest level.
 
 Every level keeps its ghost ring at 0, which the self-coefficient Laplacian
-expects.  The cycle runs eagerly from Python: each level costs a few dozen
-small launches, so the coarse levels are bound by the launch rate.
+expects.  The cycle runs eagerly from Python, where each level costs a few
+dozen small launches, down to the first level whose whole sub-hierarchy
+fits one thread block's shared memory (sor_kernel.coarse_cycle_depth: 130^2
+for a 2048^2 grid).  For a CUDA tensor one kernel launch runs the rest of
+the cycle from there (sor_kernel.coarse_cycle), with the same bits as the
+functions below; for a CPU tensor the recursion goes on to the coarsest
+level.  The levels above it are still bound by the host's launch rate.
 """
 
 from __future__ import annotations
@@ -131,23 +136,57 @@ def _prolong(e_coarse: torch.Tensor, fine_shape) -> torch.Tensor:
     return out
 
 
-def v_cycle(p: torch.Tensor, rhs: torch.Tensor, levels: List[_Level],
-            depth: int = 0, nu1: int = 2, nu2: int = 2,
-            coarse_sweeps: int = 32) -> torch.Tensor:
-    """One V(nu1, nu2) cycle on A p = rhs at `depth`; returns improved p.
-    It calls _smooth 2 (len(levels) - depth) - 1 times."""
+def _cycle(p: torch.Tensor, rhs: torch.Tensor, levels: List[_Level],
+           depth: int, nu1: int, nu2: int, coarse_sweeps: int, smooth,
+           tail_depth: int) -> torch.Tensor:
+    """One V(nu1, nu2) cycle at `depth` with `smooth(p, rhs, level, n)` as
+    the smoother; at tail_depth the rest of the cycle is one call of
+    sor_kernel.coarse_cycle."""
     lvl = levels[depth]
+    if depth == tail_depth:
+        return sor_kernel.coarse_cycle(p, rhs, levels[depth:], nu1, nu2,
+                                       coarse_sweeps)
     if depth == len(levels) - 1:
-        return _smooth(p, rhs, lvl, coarse_sweeps)
+        return smooth(p, rhs, lvl, coarse_sweeps)
 
-    p = _smooth(p, rhs, lvl, nu1)
+    p = smooth(p, rhs, lvl, nu1)
     r = rhs - _lap(p, lvl)
     coarse = levels[depth + 1]
     r_c = _restrict(r, coarse.shape)  # reads the interior only
     e_c = torch.zeros(coarse.shape, dtype=p.dtype, device=p.device)
-    e_c = v_cycle(e_c, r_c, levels, depth + 1, nu1, nu2, coarse_sweeps)
+    e_c = _cycle(e_c, r_c, levels, depth + 1, nu1, nu2, coarse_sweeps, smooth,
+                 tail_depth)
     p = p + _prolong(e_c, lvl.shape)
-    return _smooth(p, rhs, lvl, nu2)
+    return smooth(p, rhs, lvl, nu2)
+
+
+def v_cycle(p: torch.Tensor, rhs: torch.Tensor, levels: List[_Level],
+            depth: int = 0, nu1: int = 2, nu2: int = 2,
+            coarse_sweeps: int = 32) -> torch.Tensor:
+    """One V(nu1, nu2) cycle on A p = rhs at `depth`; returns improved p.
+    For a CPU tensor it calls _smooth 2 (len(levels) - depth) - 1 times.
+    For a CUDA tensor it calls _smooth twice on each level above
+    t = sor_kernel.coarse_cycle_depth(levels) and sor_kernel.coarse_cycle
+    once, at depth t (at `depth` itself when that lies deeper)."""
+    tail_depth = len(levels)
+    if p.device.type == "cuda":
+        tail_depth = max(depth, sor_kernel.coarse_cycle_depth(levels))
+    return _cycle(p, rhs, levels, depth, nu1, nu2, coarse_sweeps, _smooth,
+                  tail_depth)
+
+
+def v_cycle_plain(p: torch.Tensor, rhs: torch.Tensor, levels: List[_Level],
+                  nu1: int = 2, nu2: int = 2,
+                  coarse_sweeps: int = 32) -> torch.Tensor:
+    """v_cycle from levels[0] down on the plain smoother, whatever the
+    tensor's device: the plain twin of sor_kernel.coarse_cycle."""
+    def smooth(q, rhs_l, lvl, n_sweeps):
+        return sor_kernel.warm_sweeps_plain(q, rhs_l, n_sweeps, 1.0,
+                                            lvl.dx2_inv, lvl.dy2_inv)
+
+    levels = [_Level(*lvl) for lvl in levels]
+    return _cycle(p, rhs, levels, 0, nu1, nu2, coarse_sweeps, smooth,
+                  len(levels))
 
 
 def inner_v_cycle(rhs_neg: torch.Tensor, n_cycles: int,

@@ -104,8 +104,8 @@ def test_library_name_follows_source_contents(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     first = _build.library_path()
     assert [p.name for p in _build.sources()] == [
-        "momentum.cu", "sor.cu", "sor_compressed.cu", "sor_ext.cu",
-        "sor_tiled.cu"]
+        "mg_cycle.cu", "momentum.cu", "sor.cu", "sor_compressed.cu",
+        "sor_ext.cu", "sor_tiled.cu"]
     with open(csrc / "nsp_round.cuh", "a") as fh:
         fh.write("// edited\n")
     assert _build.library_path() != first
@@ -236,6 +236,8 @@ def test_wrappers_raise_on_other_devices():
         sor_kernel.inner_sweeps_compressed(meta, 2, prm)
     with pytest.raises(ValueError, match="no SOR kernel"):
         sor_kernel.warm_sweeps(meta, meta, 2, 1.0, 4.0, 4.0)
+    with pytest.raises(ValueError, match="no SOR kernel"):
+        sor_kernel.coarse_cycle(meta, meta, [(prm.shape, 4.0, 4.0)])
     with pytest.raises(ValueError, match="no momentum kernel"):
         momentum_kernel.momentum_rhs(meta, meta, 0.1, 0.1, prm)
 
@@ -295,6 +297,7 @@ def test_sor_kernel_matches_plain(cuda, shape, n):
     assert sor_kernel.LAUNCHES == before + 1
     scale = max(float(want.abs().max()), 1e-30)
     assert float((got - want).abs().max()) / scale <= KERNEL_RTOL
+    assert torch.equal(got, sor_kernel.whole_grid_sweeps_simple(rhs, n, prm))
 
 
 @pytest.mark.gpu
@@ -305,14 +308,16 @@ def test_sor_kernel_matches_plain(cuda, shape, n):
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_tiled_kernel_matches_plain_and_whole_grid(cuda, shape, n, tile):
     """B4 bit for bit against its plain twin (full-width strips) and the
-    whole-grid kernel B1: n = 20 ends on a short chunk (8 + 8 + 4)."""
+    first whole-grid kernel (one launch per half-sweep, no tile): n = 20
+    ends on a short chunk (8 + 8 + 4)."""
     prm = _params(*shape)
     rhs = _rhs(prm, seed=n).to(cuda)
     before = sor_kernel.TILED_LAUNCHES
     got = sor_kernel.inner_sweeps_tiled(rhs, n, prm, tile_rows=tile)
     torch.cuda.synchronize()
     assert sor_kernel.TILED_LAUNCHES == before + 1
-    assert torch.equal(got, sor_kernel.whole_grid_sweeps(rhs, n, prm))
+    assert torch.equal(got,
+                       sor_kernel.whole_grid_sweeps_simple(rhs, n, prm))
     assert torch.equal(got, sor_kernel.inner_sweeps_tiled_plain(
         rhs, n, prm, tile_rows=tile))
 
@@ -322,14 +327,16 @@ def test_tiled_kernel_matches_plain_and_whole_grid(cuda, shape, n, tile):
 @pytest.mark.parametrize("shape", [(256, 256), (96, 62)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_compressed_kernel_matches_plain_and_whole_grid(cuda, shape, n):
-    """B5 bit for bit against its plain twin and the whole-grid kernel B1."""
+    """B5 bit for bit against its plain twin and the first whole-grid
+    kernel."""
     prm = _params(*shape)
     rhs = _rhs(prm, seed=n).to(cuda)
     before = sor_kernel.COMPRESSED_LAUNCHES
     got = sor_kernel.inner_sweeps_compressed(rhs, n, prm)
     torch.cuda.synchronize()
     assert sor_kernel.COMPRESSED_LAUNCHES == before + 1
-    assert torch.equal(got, sor_kernel.whole_grid_sweeps(rhs, n, prm))
+    assert torch.equal(got,
+                       sor_kernel.whole_grid_sweeps_simple(rhs, n, prm))
     assert torch.equal(got, sor_kernel.inner_sweeps_compressed_plain(
         rhs, n, prm))
 
@@ -376,25 +383,204 @@ def test_tiled_solve_equals_whole_grid_solve(cuda, monkeypatch):
         assert torch.equal(getattr(ts, name), getattr(ws, name))
 
 
+def _poison_empty(monkeypatch):
+    """torch.empty and torch.empty_like hand out NaNs."""
+    real_empty = torch.empty
+
+    def poisoned(*args, **kw):
+        return real_empty(*args, **kw).fill_(float("nan"))
+
+    monkeypatch.setattr(torch, "empty", poisoned)
+    monkeypatch.setattr(torch, "empty_like",
+                        lambda x, **kw: poisoned(x.shape, dtype=x.dtype,
+                                                 device=x.device))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [0, 2, 32])
-@pytest.mark.parametrize("omega", [1.0, 1.7])
-@pytest.mark.parametrize("shape", [(2050, 2050), (10, 10), (99, 63)],
+@pytest.mark.parametrize("n", [0, 1, 7, 32, 64, 2048])
+@pytest.mark.parametrize("shape", [(256, 256), (512, 512), (2048, 2048),
+                                   (97, 61), (96, 62)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
-def test_warm_kernel_matches_plain(cuda, shape, omega, n):
-    """Bit for bit, from a random p0 whose ghost ring is not 0."""
+def test_whole_grid_kernel_equals_plain_and_first_kernel(cuda, shape, n,
+                                                         monkeypatch):
+    """B1 through the temporal tile, bit for bit against its plain twin and
+    against its first kernel (one launch per half-sweep), from buffers the
+    kernel must fill itself, the ghost ring's zeros included: n = 0 (one
+    chunk of no sweeps), short last chunks (7, 32 = what configs/1.in's
+    last outer pass runs), 2048 (one outer pass at K = 2048).  The plain
+    twin is left out where it would take minutes."""
+    prm = _params(*shape)
+    rhs = _rhs(prm, seed=n).to(cuda)
+    _poison_empty(monkeypatch)
+    got = sor_kernel.whole_grid_sweeps(rhs, n, prm)
+    assert torch.equal(got, sor_kernel.whole_grid_sweeps_simple(rhs, n, prm))
+    if n * prm.shape[0] * prm.shape[1] <= 64 * 2050 * 2050:
+        assert torch.equal(got, sor_kernel.inner_sweeps_plain(rhs, n, prm))
+    ring = torch.ones(prm.shape, dtype=torch.bool, device=cuda)
+    ring[1:-1, 1:-1] = False
+    assert not got[ring].any()
+
+
+@pytest.mark.gpu
+def test_whole_grid_tile_has_a_kernel_compiled_for_it(cuda):
+    """Every tile whole_grid_tile can pick is one of the tile's compiled
+    shapes (rhs in registers, no run-time shape)."""
+    for rows, cols, k in sor_kernel.WHOLE_GRID_TILES:
+        report = sor_kernel.tile_report(rows, cols, 2 * k)
+        assert report["rows_per_thread"] > 0
+        assert report["registers"] <= 80, report
+        assert report["shared_bytes"] == sor_kernel.tiled_shared_bytes(
+            rows, k, cols)
+    report = sor_kernel.tile_report(*sor_kernel.WARM_TILE, 4)
+    assert (report["rows"], report["cols"]) == (40, 72)
+    assert report["registers"] <= 80, report
+
+
+def test_simple_kernels_take_cuda_tensors_only():
+    """The yardstick kernels have no plain twin to fall to."""
+    prm = _params(6, 6)
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        sor_kernel.whole_grid_sweeps_simple(_rhs(prm), 2, prm)
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        sor_kernel.warm_sweeps_simple(_rhs(prm), _rhs(prm), 2, 1.0, 4.0, 4.0)
+
+
+def _levels(i_max, j_max):
+    """Multigrid levels of an i_max x j_max grid whose spacings differ
+    between the axes."""
+    from navierstokes_parallel_tpu_torch.ops import mg
+
+    return mg.build_levels(Params(i_max=i_max, j_max=j_max, a=1.0, b=0.8))
+
+
+@pytest.mark.parametrize("bad", ["float64", "shape", "strided", "negative",
+                                 "no_level", "nine_levels", "first_shape",
+                                 "not_halved", "shared", "device"])
+def test_coarse_cycle_checks_before_launch(bad):
+    """What the coarse-cycle kernel does not take is refused before a
+    launch, the shared-memory need by name."""
+    levels = list(_levels(32, 16))
+    assert [lv.shape for lv in levels] == [(34, 18), (18, 10)]
+    p, rhs = torch.zeros(34, 18), torch.zeros(34, 18)
+    counts, match = (2, 2, 32), None
+    if bad == "float64":
+        p = p.double()
+    elif bad == "shape":
+        rhs = rhs[:, :-1].contiguous()
+    elif bad == "strided":
+        p = torch.zeros(18, 34).t()
+    elif bad == "negative":
+        counts = (2, -1, 32)
+    elif bad == "no_level":
+        levels, match = [], "1 to 8 levels"
+    elif bad == "nine_levels":
+        levels, match = levels * 5, "1 to 8 levels"
+    elif bad == "first_shape":
+        levels, match = levels[1:], "first level"
+    elif bad == "not_halved":
+        levels, match = [levels[0], levels[0]], "halve"
+    elif bad == "shared":
+        levels = list(_levels(256, 256))[:2]
+        p, rhs = torch.zeros(258, 258), torch.zeros(258, 258)
+        match = "bytes of shared memory"
+    if bad == "device":
+        meta = torch.zeros(34, 18, device="meta")
+        with pytest.raises(ValueError, match="no SOR kernel"):
+            sor_kernel.coarse_cycle(meta, meta, levels)
+        return
+    with pytest.raises((TypeError, ValueError), match=match):
+        sor_kernel.check_cycle_inputs(p, rhs, levels, *counts)
+    sor_kernel.check_cycle_inputs(torch.zeros(34, 18), torch.zeros(34, 18),
+                                  _levels(32, 16), 2, 2, 32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 2, 32])
+@pytest.mark.parametrize("omega", [1.0, 1.7])
+@pytest.mark.parametrize("shape", [(2050, 2050), (1026, 1026), (514, 514),
+                                   (258, 258), (130, 130), (66, 66),
+                                   (10, 10), (99, 63), (300, 77)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_warm_kernel_matches_plain(cuda, shape, omega, n, monkeypatch):
+    """The smoother on the tile (from 2050^2 down to a level smaller than
+    one tile; n = 32 takes four launches between two buffers) bit for bit
+    against the plain twin and against the first kernel (one launch per
+    half-sweep), from a random p0 whose ghost ring is not 0, into a buffer
+    the kernel must fill itself."""
     rng = np.random.default_rng(n)
     p = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     rhs = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     p, rhs = p.to(cuda), rhs.to(cuda)
     dx2, dy2 = 0.9 * shape[0] ** 2, 1.3 * shape[1] ** 2
     before = sor_kernel.WARM_LAUNCHES
+    _poison_empty(monkeypatch)
     got = sor_kernel.warm_sweeps(p, rhs, n, omega, dx2, dy2)
     want = sor_kernel.warm_sweeps_plain(p, rhs, n, omega, dx2, dy2)
     torch.cuda.synchronize()
     assert sor_kernel.WARM_LAUNCHES == before + 1
     assert torch.equal(got, want)
+    assert torch.equal(got, sor_kernel.warm_sweeps_simple(p, rhs, n, omega,
+                                                          dx2, dy2))
     assert torch.equal(got[0], p[0]) and torch.equal(got[:, -1], p[:, -1])
+    assert torch.equal(got[-1], p[-1]) and torch.equal(got[:, 0], p[:, 0])
+
+
+# Hierarchies the coarse cycle takes whole: (i_max, j_max) of its finest
+# level.  128^2 is the tail of configs/4.in; 8^2 is a single level.
+CYCLES = [(128, 128), (64, 64), (64, 32), (96, 80), (8, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("counts", [(2, 2, 32), (0, 1, 0), (3, 0, 5)],
+                         ids=lambda c: "nu%d_%d_coarse%d" % c)
+@pytest.mark.parametrize("size", CYCLES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_coarse_cycle_matches_plain(cuda, size, counts, monkeypatch):
+    """The V-cycle's coarse tail in one launch, bit for bit against its
+    plain twin (ops/mg.py's recursion on the plain smoother) and against
+    the same recursion on the first smoother kernel, from a random p and
+    rhs whose ghost rings are not 0."""
+    from navierstokes_parallel_tpu_torch.ops import mg
+
+    levels = _levels(*size)
+    assert sor_kernel.coarse_cycle_depth(levels) == 0
+    rng = np.random.default_rng(size[0] + counts[0])
+    p, rhs = (torch.from_numpy(rng.standard_normal(levels[0].shape).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    before = sor_kernel.CYCLE_LAUNCHES
+    _poison_empty(monkeypatch)
+    got = sor_kernel.coarse_cycle(p, rhs, levels, *counts)
+    torch.cuda.synchronize()
+    assert sor_kernel.CYCLE_LAUNCHES == before + 1
+    assert torch.equal(got, sor_kernel.coarse_cycle_plain(p, rhs, levels,
+                                                          *counts))
+
+    def simple(q, rhs_l, lvl, n):
+        return sor_kernel.warm_sweeps_simple(q, rhs_l, n, 1.0, lvl.dx2_inv,
+                                             lvl.dy2_inv)
+
+    assert torch.equal(got, mg._cycle(p, rhs, levels, 0, *counts, simple,
+                                      len(levels)))
+
+
+@pytest.mark.gpu
+def test_v_cycle_on_card_calls_smoother_and_coarse_cycle(cuda):
+    """At 512^2 (7 levels, the coarse cycle from 130^2: depth 2) a V-cycle
+    launches the smoother 2 x 2 times and the coarse cycle once, and equals
+    the plain recursion bit for bit."""
+    from navierstokes_parallel_tpu_torch.ops import mg
+
+    levels = _levels(512, 512)
+    t = sor_kernel.coarse_cycle_depth(levels)
+    assert (len(levels), t, levels[t].shape) == (7, 2, (130, 130))
+    rng = np.random.default_rng(11)
+    rhs = np.zeros(levels[0].shape, np.float32)
+    rhs[1:-1, 1:-1] = rng.standard_normal((512, 512))
+    rhs = torch.from_numpy(rhs).to(cuda)
+    p = torch.zeros_like(rhs)
+    sor_kernel.WARM_LAUNCHES = sor_kernel.CYCLE_LAUNCHES = 0
+    got = mg.v_cycle(p, rhs, levels)
+    assert (sor_kernel.WARM_LAUNCHES, sor_kernel.CYCLE_LAUNCHES) == (2 * t, 1)
+    assert torch.equal(got, mg.v_cycle_plain(p, rhs, levels))
 
 
 @pytest.mark.gpu
@@ -456,22 +642,25 @@ def test_gpu_solve_matches_cpu_solve(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("method", ["mg", "cg"])
 def test_gpu_mg_cg_solve_matches_cpu_solve(cuda, method):
-    """The multigrid (warm-start kernel on every level) and CG paths on the
-    card and on the CPU: equal counts, fields within the 1e-4 contract; mg
-    launches the smoother 2 L - 1 times per V-cycle and never the SOR
-    kernel."""
+    """The multigrid and CG paths on the card and on the CPU: equal counts,
+    fields within the 1e-4 contract; a V-cycle whose coarse cycle starts at
+    depth t launches the smoother 2 t times and the coarse cycle once (all
+    four levels of a 64^2 grid fit the coarse cycle: t = 0), and never the
+    SOR kernel."""
     from navierstokes_parallel_tpu_torch.ops import mg
 
     prm = Params(i_max=64, j_max=64, T=0.06, Re=100.0, tau=0.5,
                  max_it=2000)
     sor_kernel.LAUNCHES = sor_kernel.WARM_LAUNCHES = 0
+    sor_kernel.CYCLE_LAUNCHES = 0
     gs, gstats = solver.solve(prm, device=cuda, pressure_method=method)
     if method == "mg":
-        per_cycle = 2 * len(mg.build_levels(prm)) - 1
-        assert sor_kernel.WARM_LAUNCHES == (
-            per_cycle * gstats.total_sor_iterations)
+        t = sor_kernel.coarse_cycle_depth(mg.build_levels(prm))
+        assert t == 0
+        assert sor_kernel.WARM_LAUNCHES == 2 * t * gstats.total_sor_iterations
+        assert sor_kernel.CYCLE_LAUNCHES == gstats.total_sor_iterations
     else:
-        assert sor_kernel.WARM_LAUNCHES == 0
+        assert sor_kernel.WARM_LAUNCHES == sor_kernel.CYCLE_LAUNCHES == 0
     assert sor_kernel.LAUNCHES == 0
     cs, cstats = solver.solve(prm, device="cpu", pressure_method=method)
     assert gstats[:3] == cstats[:3] and gstats.sor_failures == 0
@@ -505,7 +694,8 @@ def test_tiled_interior_and_boundary_tiles_in_one_grid(cuda, tile, k):
     for n in (1, 2 * k + 1):
         got = sor_kernel.inner_sweeps_tiled(rhs, n, prm, tile_rows=tile,
                                             sweeps_per_chunk=k)
-        assert torch.equal(got, sor_kernel.whole_grid_sweeps(rhs, n, prm))
+        assert torch.equal(
+            got, sor_kernel.whole_grid_sweeps_simple(rhs, n, prm))
 
 
 @pytest.mark.gpu
@@ -517,7 +707,8 @@ def test_largest_tile_the_footprint_admits(cuda):
     prm = _params(2048, 2048)
     rhs = _rhs(prm, seed=3).to(cuda)
     got = sor_kernel.inner_sweeps_tiled(rhs, 20, prm, tile_rows=573)
-    assert torch.equal(got, sor_kernel.whole_grid_sweeps(rhs, 20, prm))
+    assert torch.equal(got,
+                       sor_kernel.whole_grid_sweeps_simple(rhs, 20, prm))
     report = sor_kernel.tile_report(573, sor_kernel.TILE_COLS, 16)
     assert report["rows_per_thread"] == 0
     assert report["shared_bytes"] == sor_kernel.tiled_shared_bytes(573, 8)
@@ -542,18 +733,11 @@ def test_tiled_kernel_fills_uninitialised_buffers(cuda, monkeypatch):
     for n = 0 (one chunk of no sweeps) and n = K (one chunk)."""
     prm = _params(97, 61)
     rhs = _rhs(prm, seed=4).to(cuda)
-    real_empty = torch.empty
-
-    def poisoned(*args, **kw):
-        return real_empty(*args, **kw).fill_(float("nan"))
-
-    monkeypatch.setattr(torch, "empty", poisoned)
-    monkeypatch.setattr(torch, "empty_like",
-                        lambda x, **kw: poisoned(x.shape, dtype=x.dtype,
-                                                 device=x.device))
+    _poison_empty(monkeypatch)
     for n in (0, 1, 8, 16):
         got = sor_kernel.inner_sweeps_tiled(rhs, n, prm)
-        assert torch.equal(got, sor_kernel.whole_grid_sweeps(rhs, n, prm))
+        assert torch.equal(
+            got, sor_kernel.whole_grid_sweeps_simple(rhs, n, prm))
 
 
 # --- the extended-block kernel (B6) and the sharded path on the card ----------
@@ -610,7 +794,7 @@ def test_ext_kernel_matches_plain(cuda, cut, ns):
 def test_ext_kernel_decomposition_equals_whole_grid(cuda, cut, n):
     """n sweeps from delta = 0 block by block in chunks of K, each chunk's
     blocks cut from the grid the chunk before left (the deep exchange),
-    equal the whole-grid kernel B1 bit for bit."""
+    equal the first whole-grid kernel bit for bit."""
     from navierstokes_parallel_tpu_torch.parallel import deep_halo
 
     prm, li, lj, K, origins = _cut(cut)
@@ -629,7 +813,8 @@ def test_ext_kernel_decomposition_equals_whole_grid(cuda, cut, n):
             nxt[1 + ox:1 + ox + ri, 1 + oy:1 + oy + rj] = \
                 ext[H:H + ri, H:H + rj]
         delta, done = nxt, done + ns
-    assert torch.equal(delta, sor_kernel.whole_grid_sweeps(rhs, n, prm))
+    assert torch.equal(delta,
+                       sor_kernel.whole_grid_sweeps_simple(rhs, n, prm))
 
 
 @pytest.mark.gpu
@@ -637,7 +822,8 @@ def test_ext_kernel_decomposition_equals_whole_grid(cuda, cut, n):
 def test_ext_kernel_warm_start_equals_smoother(cuda, omega):
     """The multigrid use: sweeps from a non-zero delta (its ghost ring too)
     with a level's constants and H = 2 ns; the cores of a 2x2 cut equal the
-    warm-start kernel B3 on the whole grid bit for bit."""
+    smoother B3 on the whole grid, its first kernel and its current one,
+    bit for bit."""
     from navierstokes_parallel_tpu_torch.parallel import deep_halo
 
     n, ns, H, li = 130, 2, 4, 65
@@ -654,8 +840,10 @@ def test_ext_kernel_warm_start_equals_smoother(cuda, omega):
                 (ox, oy), H, (n, n, omega, dx2, dy2))
             out[1 + ox:1 + ox + li, 1 + oy:1 + oy + li] = \
                 ext[H:H + li, H:H + li]
-    want = sor_kernel.warm_sweeps(p0, rhs, ns, omega, dx2, dy2)
-    assert torch.equal(out, want)
+    assert torch.equal(out, sor_kernel.warm_sweeps_simple(p0, rhs, ns, omega,
+                                                          dx2, dy2))
+    assert torch.equal(out, sor_kernel.warm_sweeps(p0, rhs, ns, omega, dx2,
+                                                   dy2))
 
 
 @pytest.mark.gpu

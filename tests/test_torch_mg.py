@@ -13,7 +13,8 @@ Tolerances and why:
   * _lap and _prolong are exact; _restrict is within 1 f32 ulp of the
     window's mean magnitude (XLA sums the 2x2 window pairwise on power-of-two
     grids, where the port is exact, and in another order elsewhere);
-  * one V-cycle: 1e-6 of max|p| (measured <= 3.4e-7);
+  * one V-cycle: 1e-6 of max|p| (measured <= 3.4e-7); the coarse cycle's
+    plain twin (the same functions from a given depth) likewise;
   * solves: the reference contract (1e-4), with equal iteration counts and
     convergence flags.
 """
@@ -215,6 +216,209 @@ def test_v_cycle_smoother_calls(monkeypatch):
                                       coarse.dy2_inv)
     assert calls[0] == (levels[0].shape, 2, 1.0, levels[0].dx2_inv,
                         levels[0].dy2_inv)
+
+
+# --- the coarse cycle (one launch on the card) and the routes by size --------
+
+@pytest.mark.parametrize("depth", [0, 1, 2])
+@pytest.mark.parametrize("shape", [(128, 128), (64, 64), (32, 48)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_coarse_cycle_plain_matches_jax_v_cycle_from_depth(shape, depth):
+    """The plain twin of the coarse-cycle kernel is the V-cycle from a
+    given depth on the plain smoother: held against the JAX v_cycle from
+    the same depth on the same non-zero p and rhs, at
+    test_v_cycle_matches_jax's tolerance."""
+    prm, ref = _params(*shape)
+    levels, jlevels = mg.build_levels(prm), jmg.build_levels(ref)
+    assert depth < len(levels)
+    rng = np.random.default_rng(depth + shape[0])
+    # p of the size of a correction, so that A p is of the size of rhs (a
+    # p of order 1 leaves rhs - A p to cancellation, which amplifies the
+    # two packages' rounding differences beyond the V-cycle's tolerance).
+    p = _interior_field(levels[depth].shape, rng,
+                        scale=1.0 / levels[depth].dx2_inv)
+    rhs = _interior_field(levels[depth].shape, rng)
+    got = sor_kernel.coarse_cycle_plain(torch.from_numpy(p),
+                                        torch.from_numpy(rhs),
+                                        levels[depth:]).numpy()
+    want = np.asarray(jmg.v_cycle(jnp.asarray(p), jnp.asarray(rhs), jlevels,
+                                  depth=depth, allow_kernel=False))
+    scale = float(np.max(np.abs(want)))
+    np.testing.assert_allclose(got / scale, want / scale, rtol=0,
+                               atol=V_CYCLE_TOL)
+    assert not got[0].any() and not got[:, -1].any()  # the ring stays 0
+
+
+@pytest.mark.parametrize("counts", [(2, 2, 32), (0, 1, 0), (3, 0, 5)],
+                         ids=lambda c: "nu%d_%d_coarse%d" % c)
+def test_coarse_cycle_cpu_dispatches_to_plain(counts):
+    """On a CPU tensor the wrapper runs its plain twin (no launch counted),
+    which equals v_cycle from that depth bit for bit, ghost ring of p
+    included; plain tuples serve as levels."""
+    prm, _ = _params(32, 48)
+    levels = mg.build_levels(prm)
+    rng = np.random.default_rng(3)
+    shape = levels[1].shape
+    p = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    rhs = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    before_p, before = p.clone(), sor_kernel.CYCLE_LAUNCHES
+    got = sor_kernel.coarse_cycle(p, rhs, [tuple(lv) for lv in levels[1:]],
+                                  *counts)
+    assert sor_kernel.CYCLE_LAUNCHES == before and torch.equal(p, before_p)
+    assert torch.equal(got, mg.v_cycle(p, rhs, levels, 1, *counts))
+    assert torch.equal(got, mg.v_cycle_plain(p, rhs, levels[1:], *counts))
+    assert torch.equal(got[0], p[0]) and torch.equal(got[:, -1], p[:, -1])
+
+
+def test_v_cycle_hands_the_tail_to_coarse_cycle(monkeypatch):
+    """_cycle with the tail entered at depth t smooths twice on each of the
+    t levels above it and calls coarse_cycle once, with the levels from t
+    on, and gives v_cycle's bits; v_cycle on a CPU tensor never calls it."""
+    prm, _ = _params(64, 32)
+    levels = mg.build_levels(prm)
+    rhs = torch.from_numpy(_interior_field(prm.shape,
+                                           np.random.default_rng(0)))
+    p = torch.zeros(prm.shape)
+    smooths, tails = [], []
+    real_warm, real_cycle = sor_kernel.warm_sweeps, sor_kernel.coarse_cycle
+    monkeypatch.setattr(
+        sor_kernel, "warm_sweeps",
+        lambda q, *a: smooths.append(tuple(q.shape)) or real_warm(q, *a))
+    monkeypatch.setattr(
+        sor_kernel, "coarse_cycle",
+        lambda q, r, lv, *a: tails.append((tuple(q.shape), len(lv)))
+        or real_cycle(q, r, lv, *a))
+    want = mg.v_cycle(p, rhs, levels)
+    assert len(smooths) == 2 * len(levels) - 1 and not tails
+    for t in range(len(levels)):
+        del smooths[:]
+        got = mg._cycle(p, rhs, levels, 0, 2, 2, 32, mg._smooth, t)
+        assert tails == [(levels[t].shape, len(levels) - t)]
+        assert smooths == ([lv.shape for lv in levels[:t]]
+                           + [lv.shape for lv in levels[:t]][::-1])
+        assert torch.equal(got, want)
+        del tails[:]
+
+
+# (levels, the depth the coarse cycle takes over, the whole-grid tile) of
+# every configuration's grid.
+CONFIG_ROUTES = {"1.in": (6, 1, (32, 32, 8)), "2.in": (7, 2, (32, 32, 8)),
+                 "3.in": (8, 3, (64, 64, 8)), "4.in": (9, 4, (64, 64, 8)),
+                 "5.in": (10, 5, (64, 64, 8)),
+                 "channel.in": (4, 0, (32, 32, 8)),
+                 "convection.in": (4, 0, (32, 32, 8)),
+                 "dambreak.in": (4, 0, (32, 32, 8))}
+
+
+def _compiled_tile_shapes():
+    """(ti, tj, halo, rs, m, min_blocks) of every tile with a kernel
+    compiled for its shape, read from the tile's source."""
+    import re
+
+    text = open(os.path.join(ROOT, "navierstokes_parallel_tpu_torch", "csrc",
+                             "nsp_sor_tile.cuh")).read()
+    table = text[text.index("constexpr HotShape kHotShapes[] = {"):]
+    table = table[:table.index("};")]
+    return [tuple(int(x) for x in row)
+            for row in re.findall(r"\{(\d+), (\d+), (\d+), (\d+), (\d+), "
+                                  r"(\d+)\}", table)]
+
+
+def test_compiled_tile_shapes_cover_the_routes():
+    """Each tile the wrappers pick on a main path has a kernel compiled for
+    its shape, each such shape fits a block (rows per thread cover the
+    haloed tile, at most 1024 threads) and delta of its haloed tile fits
+    the shared memory of one block."""
+    shapes = _compiled_tile_shapes()
+    assert len(shapes) >= 3
+    for ti, tj, halo, rs, m, min_blocks in shapes:
+        assert tj % 2 == 0 and halo % 2 == 0 and rs % 2 == 0
+        assert rs * m >= ti + 2 * halo
+        assert (tj // 2 + halo) * rs * min_blocks <= 2048
+        assert (tj // 2 + halo) * rs <= 1024
+        assert sor_kernel.tiled_shared_bytes(ti, halo // 2, tj) \
+            <= sor_kernel.MAX_SHARED_BYTES
+    keys = {s[:3] for s in shapes}
+    for rows, cols, k in sor_kernel.WHOLE_GRID_TILES:
+        assert (rows, cols, 2 * k) in keys
+    assert (*sor_kernel.WARM_TILE, 4) in keys  # two sweeps: a 4-deep halo
+    assert (sor_kernel.TILE_ROWS, sor_kernel.TILE_COLS,
+            2 * sor_kernel.SWEEPS_PER_CHUNK) in keys
+    assert (sor_kernel.EXT_TILE_ROWS, sor_kernel.TILE_COLS, 16) in keys
+
+
+@pytest.mark.parametrize("source", sorted(CONFIG_ROUTES))
+def test_routes_by_size_on_every_config(source):
+    """On every configuration's grid: the whole-grid kernel's tile, the
+    smoother's tile and the depth of the coarse cycle, each within one
+    block's 232,448 B of shared memory."""
+    prm = Params.from_file(os.path.join(ROOT, "configs", source))
+    n_levels, depth, tile = CONFIG_ROUTES[source]
+    limit = sor_kernel.MAX_SHARED_BYTES
+    assert limit == 232448
+    assert sor_kernel.whole_grid_tile(prm.shape) == tile
+    assert sor_kernel.tiled_shared_bytes(tile[0], tile[2], tile[1]) <= limit
+    big = sor_kernel.tile_blocks(prm.shape, 64, 64)
+    assert (tile == (64, 64, 8)) == (big >= sor_kernel.WHOLE_GRID_MIN_BLOCKS)
+    levels = mg.build_levels(prm)
+    assert len(levels) == n_levels
+    assert sor_kernel.tiled_shared_bytes(
+        sor_kernel.WARM_TILE[0], sor_kernel.WARM_SWEEPS_PER_LAUNCH,
+        sor_kernel.WARM_TILE[1]) <= limit
+    assert sor_kernel.coarse_cycle_depth(levels) == depth
+    tail = levels[depth:]
+    assert sor_kernel.cycle_shared_bytes(tail) <= limit
+    assert sor_kernel.cycle_shared_bytes(tail) == sum(
+        8 * lv.shape[0] * lv.shape[1] for lv in tail)
+    assert len(tail) <= sor_kernel.COARSE_CYCLE_MAX_LEVELS
+    # Every level that fits one block alone lies in the coarse cycle: the
+    # smoother is called on none of them.
+    assert all(sor_kernel.cycle_shared_bytes([lv]) > limit
+               for lv in levels[:depth])
+    if depth:
+        assert sor_kernel.cycle_shared_bytes(levels[depth - 1:]) > limit
+    sor_kernel.check_cycle_inputs(torch.zeros(tail[0].shape),
+                                  torch.zeros(tail[0].shape), tail, 2, 2, 32)
+    if source == "4.in":  # 4 levels by the smoother, 5 in the one launch
+        assert [lv.shape[0] for lv in levels[:depth]] == [2050, 1026, 514,
+                                                          258]
+        assert [lv.shape[0] for lv in tail] == [130, 66, 34, 18, 10]
+        assert sor_kernel.cycle_shared_bytes(tail) == 182688
+
+
+@pytest.mark.parametrize("shape,fits", [((170, 170), True),
+                                        ((171, 170), False),
+                                        ((10, 10), True),
+                                        ((3, 9686), False),
+                                        ((258, 258), False)])
+def test_coarse_cycle_one_level_boundary(shape, fits):
+    """29,056 cells of p and rhs are the most one block holds: a single
+    level within that is a coarse cycle of its own, a larger one is left
+    to the smoother and refused by the coarse cycle's checks."""
+    levels = [(shape, 1.0, 1.0)]
+    assert sor_kernel.coarse_cycle_depth(levels) == (0 if fits else 1)
+    p = torch.zeros(shape)
+    if fits:
+        sor_kernel.check_cycle_inputs(p, p, levels, 2, 2, 32)
+    else:
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            sor_kernel.check_cycle_inputs(p, p, levels, 2, 2, 32)
+
+
+def test_coarse_cycle_depth_limits(monkeypatch):
+    """The depth follows the byte limit and the level limit; no level
+    fitting gives len(levels) (the V-cycle then never calls the kernel)."""
+    prm = Params.from_file(os.path.join(ROOT, "configs", "4.in"))
+    levels = mg.build_levels(prm)
+    monkeypatch.setattr(sor_kernel, "MAX_SHARED_BYTES", 47488)
+    assert sor_kernel.coarse_cycle_depth(levels) == 5  # from 66^2
+    monkeypatch.setattr(sor_kernel, "MAX_SHARED_BYTES", 47487)
+    assert sor_kernel.coarse_cycle_depth(levels) == 6
+    monkeypatch.setattr(sor_kernel, "MAX_SHARED_BYTES", 0)
+    assert sor_kernel.coarse_cycle_depth(levels) == len(levels)
+    monkeypatch.setattr(sor_kernel, "MAX_SHARED_BYTES", 1 << 40)
+    monkeypatch.setattr(sor_kernel, "COARSE_CYCLE_MAX_LEVELS", 3)
+    assert sor_kernel.coarse_cycle_depth(levels) == 6
 
 
 # --- the pressure solve -----------------------------------------------------

@@ -3,7 +3,8 @@
 A subprocess blocks every ``jax`` import with a ``sys.meta_path`` finder
 that raises, imports every module of the port, runs one CPU time step
 with each ported pressure method (SOR, multigrid, CG), the plain twins
-of the tiled and colour-compressed SOR kernels, and one step of the
+of the tiled and colour-compressed SOR kernels and of the multigrid
+coarse cycle, and one step of the
 sharded backend on a one-rank process group (parallel/, including the
 extended-block twin, and utils/distributed.py).
 """
@@ -44,6 +45,14 @@ SCRIPT = textwrap.dedent("""
     assert torch.equal(sk.inner_sweeps_tiled_plain(rhs, 9, prm, 3), whole)
     assert torch.equal(sk.inner_sweeps_compressed_plain(rhs, 9, prm), whole)
     assert "navierstokes_parallel_tpu_torch.ops.mg" in sys.modules
+    from navierstokes_parallel_tpu_torch.ops import mg
+    levels = mg.build_levels(Params(i_max=32, j_max=16))
+    tail = sk.coarse_cycle(rhs.new_zeros(levels[1].shape),
+                           torch.ones(levels[1].shape), levels[1:])
+    assert torch.equal(tail, sk.coarse_cycle_plain(
+        rhs.new_zeros(levels[1].shape), torch.ones(levels[1].shape),
+        levels[1:]))
+    assert sk.coarse_cycle_depth(levels) == 0 and sk.CYCLE_LAUNCHES == 0
     from navierstokes_parallel_tpu_torch.parallel import sharded
     from navierstokes_parallel_tpu_torch.utils import distributed
     with distributed.process_group("cpu"):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the temporal-blocked SOR tile (kernels B4 and B6) on one NVIDIA GPU.
+"""Times the temporal-blocked SOR tile (kernels B1, B3, B4, B6) on one GPU.
 
     python3 tile_bench.py                      # the checkout's csrc/
     python3 tile_bench.py --src DIR            # the kernels of another csrc/
@@ -12,6 +12,18 @@
     python3 tile_bench.py --tile 64x128 --preset wide  # (--tile 128x64
                                    # --preset tall) the main-path kernel
                                    # compiled for a wider (taller) tile
+    python3 tile_bench.py --preset geometry --b1 32x32x8,32x64x8,64x64x4,\
+64x64x8,32x32x4 --grids 256,512,1024,2048 --b3 64x64,32x64,32x32
+                                   # the whole-grid kernel B1 (64 sweeps)
+                                   # per tile ROWSxCOLSxK and grid, and the
+                                   # smoother B3 (2 sweeps at
+                                   # 2050^2) per tile; `geometry` compiles
+                                   # a kernel for each of those shapes and
+                                   # for other block shapes of B1's and
+                                   # B3's own tiles
+    python3 tile_bench.py --cycle   # also one V-cycle at 2048^2 with the
+                                   # coarse cycle entered at 130^2 (as the
+                                   # port does) and at 66^2
 
 Builds sor_tiled.cu, sor_ext.cu and sor.cu of the given source directory
 into a private library under build/tile_bench/ (nvcc for sm_90a with
@@ -23,7 +35,18 @@ CUDA events, on configs/4.in's grid:
   * B6 (nsp_sor_ext_sweeps) on the 2080^2 extended block of the 1x1 mesh,
     8 sweeps (and 0 sweeps: the load and the store alone);
   * two torch.zeros of 2050^2 f32, what B4's wrapper allocated per call
-    before it took torch.empty.
+    before it took torch.empty;
+  * with --b1: B1 (nsp_sor_tiled_sweeps with the tile given), 64 sweeps
+    from delta = 0 on each --grids grid with each tile, beside its first
+    kernel
+    (nsp_sor_sweeps_simple, one launch per half-sweep), and whether the two
+    agree bit for bit;
+  * with --b3: B3 (nsp_sor_warm_sweeps), 2 sweeps at 2050^2
+    with each tile, beside nsp_sor_warm_sweeps_simple;
+  * with --cycle: one V-cycle of ops/mg.py at 2050^2 through the port's
+    own wrappers and library, the coarse cycle entered where
+    sor_kernel.coarse_cycle_depth says (130^2) and one level further down
+    (66^2; the smoother then takes 130^2), in two turns.
 
 A preset applies text edits to the sources, each variant in a copy under
 build/tile_bench/ (never in place), and times each copy the same way,
@@ -60,11 +83,36 @@ UNITS = ("sor.cu", "sor_tiled.cu", "sor_ext.cu")
 _TILE = "nsp_sor_tile.cuh"
 
 
-def _hot(**values):
-    """Edits of the main-path kernel's compile-time shape constants."""
-    return [(_TILE, f"constexpr int {name} = {old};",
-             f"constexpr int {name} = {new};")
-            for name, (old, new) in values.items()]
+def _row(ti, tj, halo, rs, m, min_blocks):
+    """A row of the tile's table of compiled shapes (kHotShapes)."""
+    return f"    {{{ti}, {tj}, {halo}, {rs}, {m}, {min_blocks}}},"
+
+
+_B4_ROW = dict(ti=64, tj=64, halo=16, rs=12, m=8, min_blocks=2)
+_B3_ROW = dict(ti=32, tj=64, halo=4, rs=10, m=4, min_blocks=2)
+_B1_ROW = dict(ti=32, tj=32, halo=16, rs=16, m=4, min_blocks=1)
+
+
+def _hot(row=None, **values):
+    """An edit of one row of the table (B4's and B6's unless given)."""
+    row = row or _B4_ROW
+    return [(_TILE, _row(**row), _row(**{**row, **values}))]
+
+
+# Compiled shapes for the tiles --b1 and --b3 may name beside the table's
+# own: 32 x 64 and 32 x 32 centres at K = 8 and 4, 64 x 64 at K = 4, and
+# 64 x 64 and 32 x 32 tiles with the smoother's 4-deep halo.
+_MORE_ROWS = [dict(ti=32, tj=64, halo=16, rs=16, m=4, min_blocks=1),
+              dict(ti=64, tj=64, halo=8, rs=20, m=4, min_blocks=1),
+              dict(ti=32, tj=32, halo=8, rs=12, m=4, min_blocks=2),
+              dict(ti=64, tj=64, halo=4, rs=18, m=4, min_blocks=1),
+              dict(ti=32, tj=32, halo=4, rs=10, m=4, min_blocks=2)]
+
+
+def _with_more_rows(edits=()):
+    return [*edits, (_TILE, _row(**_B4_ROW),
+                     "\n".join([_row(**_B4_ROW),
+                                *(_row(**r) for r in _MORE_ROWS)]))]
 
 
 _LOAD_OLD = """    float d0 = 0.0f, d1 = 0.0f;
@@ -105,30 +153,39 @@ _CP_ASYNC = [(_TILE, _LOAD_OLD, _LOAD_CP_ASYNC),
              (_TILE, _STORE_OLD, _STORE_CP_ASYNC)]
 PRESETS = {
     "blocks": {
-        "min_blocks_1": _hot(kHotMinBlocks=(2, 1)),
-        "min_blocks_3": _hot(kHotMinBlocks=(2, 3)),
-        "rows_12_step_8": _hot(kHotRowStep=(12, 8), kHotRows=(8, 12)),
-        "rows_12_step_8_min_3": _hot(kHotRowStep=(12, 8), kHotRows=(8, 12),
-                                     kHotMinBlocks=(2, 3)),
-        "rows_6_step_16": _hot(kHotRowStep=(12, 16), kHotRows=(8, 6)),
-        "rows_6_step_16_min_1": _hot(kHotRowStep=(12, 16), kHotRows=(8, 6),
-                                     kHotMinBlocks=(2, 1)),
+        "min_blocks_1": _hot(min_blocks=1),
+        "min_blocks_3": _hot(min_blocks=3),
+        "rows_12_step_8": _hot(rs=8, m=12),
+        "rows_12_step_8_min_3": _hot(rs=8, m=12, min_blocks=3),
+        "rows_6_step_16": _hot(rs=16, m=6),
+        "rows_6_step_16_min_1": _hot(rs=16, m=6, min_blocks=1),
     },
     "loads": {"no_sweep": [_NO_SWEEP], "cp_async": _CP_ASYNC,
               "cp_async_no_sweep": [*_CP_ASYNC, _NO_SWEEP]},
     "wide": {
-        f"cols_128_step_{rs}": _hot(kHotTj=(64, 128), kHotRowStep=(12, rs),
-                                    kHotRows=(8, 96 // rs),
-                                    kHotMinBlocks=(2, 1))
+        f"cols_128_step_{rs}": _hot(tj=128, rs=rs, m=96 // rs, min_blocks=1)
         for rs in (12, 8, 6)},
     "tall": {
-        "rows_128_step_20": _hot(kHotTi=(64, 128), kHotRowStep=(12, 20),
-                                 kHotMinBlocks=(2, 1)),
-        "rows_128_step_10": _hot(kHotTi=(64, 128), kHotRowStep=(12, 10),
-                                 kHotRows=(8, 16), kHotMinBlocks=(2, 1)),
-        "rows_128_step_10_min_2": _hot(kHotTi=(64, 128),
-                                       kHotRowStep=(12, 10),
-                                       kHotRows=(8, 16)),
+        "rows_128_step_20": _hot(ti=128, rs=20, min_blocks=1),
+        "rows_128_step_10": _hot(ti=128, rs=10, m=16, min_blocks=1),
+        "rows_128_step_10_min_2": _hot(ti=128, rs=10, m=16),
+    },
+    # The shapes --b1 and --b3 may name, compiled; then other blocks for
+    # B1's small-grid tile (8 or 2 rows per thread instead of 4) and for
+    # B3's tile (2 or 8 rows per thread instead of 4; 3 blocks per SM; 64
+    # x 64 tiles with 6 rows per thread).
+    "geometry": {
+        "more_shapes": _with_more_rows(),
+        "b1_rows_8": _with_more_rows(_hot(_B1_ROW, rs=8, m=8)),
+        "b1_rows_8_min_2": _with_more_rows(_hot(_B1_ROW, rs=8, m=8,
+                                                min_blocks=2)),
+        "b1_rows_2": _with_more_rows(_hot(_B1_ROW, rs=32, m=2)),
+        "b3_rows_2": _with_more_rows(_hot(_B3_ROW, rs=20, m=2, min_blocks=1)),
+        "b3_rows_8": _with_more_rows(_hot(_B3_ROW, rs=6, m=8)),
+        "b3_min_3": _with_more_rows(_hot(_B3_ROW, min_blocks=3)),
+        "b3_64x64_rows_6": [(_TILE, _row(**_B4_ROW), "\n".join([
+            _row(**_B4_ROW),
+            _row(ti=64, tj=64, halo=4, rs=12, m=6, min_blocks=2)]))],
     },
 }
 PRESETS["ablate"] = {
@@ -152,6 +209,11 @@ PRESETS["ablate"] = {
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
+    "nsp_sor_sweeps_simple": (_P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    "nsp_sor_warm_sweeps": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                            _F, _F, _I, _P),
+    "nsp_sor_warm_sweeps_simple": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I,
+                                   _P),
     "nsp_sor_tiled_sweeps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                              _F, _I, _P),
     "nsp_sor_ext_sweeps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -209,6 +271,8 @@ def build_all(srcs: dict) -> dict:
     for name, path in libs.items():
         lib = ctypes.CDLL(str(path))
         for fname, argtypes in SIGNATURES.items():
+            if not hasattr(lib, fname):  # --src of an earlier csrc/
+                continue
             getattr(lib, fname).argtypes = list(argtypes)
             getattr(lib, fname).restype = ctypes.c_int
         loaded[name] = lib
@@ -229,6 +293,136 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _grid(torch, n: int):
+    """(constants, rhs) of an n x n cavity with configs/4.in's omega."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+
+    prm = Params(i_max=n, j_max=n, omega=1.7)
+    rng = np.random.default_rng(n)
+    rhs = np.zeros(prm.shape, np.float32)
+    rhs[1:-1, 1:-1] = rng.standard_normal((n, n))
+    return sor_kernel.sweep_constants(prm), torch.from_numpy(rhs).cuda()
+
+
+def time_b1(torch, lib, tiles, grids, n_sweeps: int = 64) -> dict:
+    """ms per n_sweeps-sweep call of nsp_sor_tiled_sweeps for each tile
+    'ROWSxCOLSxK' on each N^2 grid (mean of two turns, the first kernel
+    nsp_sor_sweeps_simple timed between them), and whether the two kernels
+    agree bit for bit."""
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for n in grids:
+        consts, rhs = _grid(torch, n)
+        ni, nj = rhs.shape
+        d, scratch = torch.empty_like(rhs), torch.empty_like(rhs)
+
+        def simple():
+            d.zero_()
+            st = lib.nsp_sor_sweeps_simple(d.data_ptr(), rhs.data_ptr(), ni,
+                                           nj, n_sweeps, *consts, 0, stream)
+            assert st == 0, st
+
+        def tiled(rows, cols, k):
+            def run():
+                st = lib.nsp_sor_tiled_sweeps(
+                    d.data_ptr(), scratch.data_ptr(), rhs.data_ptr(), ni, nj,
+                    n_sweeps, rows, cols, k, *consts, 0, stream)
+                assert st == 0, st
+            return run
+
+        simple()
+        want = d.clone()
+        reps = 50 if n <= 1024 else 10
+        runs = {t: tiled(*(int(x) for x in t.split("x"))) for t in tiles}
+        first = {t: cuda_ms(torch, fn, reps) for t, fn in runs.items()}
+        out[f"b1_{n}_simple_ms"] = cuda_ms(torch, simple, reps)
+        for t, fn in reversed(runs.items()):
+            out[f"b1_{n}_{t}_ms"] = (first[t] + cuda_ms(torch, fn, reps)) / 2
+            k = int(t.split("x")[2])
+            got = scratch if -(-n_sweeps // k) % 2 else d
+            torch.cuda.synchronize()
+            out[f"b1_{n}_{t}_equals_simple"] = bool(torch.equal(got, want))
+    return out
+
+
+def time_b3(torch, lib, tiles, n: int = 2048, n_sweeps: int = 2) -> dict:
+    """ms per call of nsp_sor_warm_sweeps (n_sweeps sweeps from a random p0
+    on the padded n^2 level, one launch) for each tile 'ROWSxCOLS', the
+    first kernel nsp_sor_warm_sweeps_simple between the two turns, and
+    whether they agree bit for bit."""
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+
+    stream = torch.cuda.current_stream().cuda_stream
+    consts = sor_kernel.warm_constants(1.0, float(n) ** 2, float(n) ** 2)
+    rng = np.random.default_rng(n)
+    p0, rhs = (torch.from_numpy(rng.standard_normal((n + 2, n + 2)).astype(
+        np.float32)).cuda() for _ in range(2))
+    got, want = torch.empty_like(p0), torch.empty_like(p0)
+
+    def simple():
+        st = lib.nsp_sor_warm_sweeps_simple(
+            want.data_ptr(), p0.data_ptr(), rhs.data_ptr(), n + 2, n + 2,
+            n_sweeps, *consts, 0, stream)
+        assert st == 0, st
+
+    def tiled(rows, cols):
+        def run():
+            st = lib.nsp_sor_warm_sweeps(
+                got.data_ptr(), got.data_ptr(), p0.data_ptr(), rhs.data_ptr(),
+                n + 2, n + 2, n_sweeps, rows, cols, 8, *consts, 0, stream)
+            assert st == 0, st
+        return run
+
+    runs = {t: tiled(*(int(x) for x in t.split("x"))) for t in tiles}
+    first = {t: cuda_ms(torch, fn, 100) for t, fn in runs.items()}
+    out = {f"b3_{n}_simple_ms": cuda_ms(torch, simple, 100)}
+    for t, fn in reversed(runs.items()):
+        out[f"b3_{n}_{t}_ms"] = (first[t] + cuda_ms(torch, fn, 100)) / 2
+        torch.cuda.synchronize()
+        out[f"b3_{n}_{t}_equals_simple"] = bool(torch.equal(got, want))
+    return out
+
+
+def time_cycle(torch) -> dict:
+    """ms per V-cycle (ops/mg.py::v_cycle from delta = 0) at configs/4.in's
+    2048^2, the coarse cycle entered at sor_kernel.coarse_cycle_depth and
+    one level further down, mean of two turns each, and whether the two
+    give the same bits."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops import mg
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+
+    levels = mg.build_levels(Params.from_file(str(ROOT / "configs" / "4.in")))
+    depth = sor_kernel.coarse_cycle_depth(levels)
+    rng = np.random.default_rng(4)
+    rhs = np.zeros(levels[0].shape, np.float32)
+    rhs[1:-1, 1:-1] = rng.standard_normal((levels[0].shape[0] - 2,
+                                           levels[0].shape[1] - 2))
+    rhs = torch.from_numpy(rhs).cuda()
+    p0 = torch.zeros_like(rhs)
+
+    def entered_at(d):
+        def run():
+            saved = sor_kernel.coarse_cycle_depth
+            sor_kernel.coarse_cycle_depth = lambda _levels: d
+            try:
+                return mg.v_cycle(p0, rhs, levels)
+            finally:
+                sor_kernel.coarse_cycle_depth = saved
+        return run
+
+    runs = {levels[d].shape[0]: entered_at(d) for d in (depth, depth + 1)}
+    first = {n: cuda_ms(torch, fn, 20) for n, fn in runs.items()}
+    out = {}
+    for n, fn in reversed(runs.items()):
+        out[f"cycle_from_{n}_ms"] = (first[n] + cuda_ms(torch, fn, 20)) / 2
+    a, b = (fn() for fn in runs.values())
+    torch.cuda.synchronize()
+    out["cycle_depths_equal"] = bool(torch.equal(a, b))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", type=Path,
@@ -238,6 +432,15 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--tile", default="64x64",
                     help="ROWSxCOLS of the tile of both kernels")
+    ap.add_argument("--b1", default="", metavar="RxCxK,...",
+                    help="also time B1 with these tiles and sweeps per chunk")
+    ap.add_argument("--grids", default="256", metavar="N,...",
+                    help="the N^2 interior grids of --b1")
+    ap.add_argument("--b3", default="", metavar="RxC,...",
+                    help="also time B3 with these tiles")
+    ap.add_argument("--cycle", action="store_true",
+                    help="also time one V-cycle at 2048^2 with the coarse "
+                         "cycle entered at 130^2 and at 66^2")
     args = ap.parse_args(argv)
     tile_rows, tile_cols = (int(x) for x in args.tile.split("x"))
     import torch
@@ -314,7 +517,19 @@ def main(argv=None) -> int:
         if reference is None:
             reference = d.clone()
         row["b4_64_equals_as_is"] = bool(torch.equal(d, reference))
+        if args.b1:
+            row.update(time_b1(torch, lib, args.b1.split(","),
+                               [int(n) for n in args.grids.split(",")]))
+        if args.b3:
+            row.update(time_b3(torch, lib, args.b3.split(",")))
         print(f"[time] {name}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in row.items() if k.endswith("_ms")))
+        print(json.dumps(row))
+        with open(OUT / "tile_bench.jsonl", "a") as fh:
+            fh.write(json.dumps(row) + "\n")
+    if args.cycle:
+        row = {"tag": args.tag, "card": card, **time_cycle(torch)}
+        print("[time] V-cycle at 2050^2: " + ", ".join(
             f"{k} {v:.4f}" for k, v in row.items() if k.endswith("_ms")))
         print(json.dumps(row))
         with open(OUT / "tile_bench.jsonl", "a") as fh:
