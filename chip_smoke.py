@@ -11,8 +11,12 @@ Builds the hand-written CUDA kernels from csrc/, holds each against its
 plain PyTorch version (and each SOR sweep kernel against the first
 whole-grid kernels, sor_sweeps_simple and sor_warm_sweeps_simple, which
 launch once per half-sweep and share nothing with the temporal-blocked tile
-but the cell update) on the card, times them, drives the paths and checks
-each answer against the JAX package's recorded answer:
+but the cell update; the compressed kernel also against its first kernel,
+and the fused momentum kernel against its first, two-launch kernel) on the
+card with error 0.0 (every kernel rounds each f32 operation once, as its
+plain twin does: csrc/nsp_round.cuh), times them beside those first
+kernels, drives the paths and checks each answer against the JAX package's
+recorded answer:
 
   * SOR: ``python -m navierstokes_parallel_tpu_torch configs/1.in --stats``
     through ``cli.main`` (kernels sor_sweeps and momentum_rhs), at the
@@ -30,9 +34,11 @@ each answer against the JAX package's recorded answer:
     through ``solver.solve`` on the tiled route and on the first whole-grid
     kernel, which must give the same fields bit for bit;
   * compressed SOR: configs/1.in through ``solver.solve`` with
-    ``sor_kernel.USE_COMPRESSED`` (kernel sor_compressed_sweeps), the
-    whole-grid kernel barred; it must give the JAX record exactly and the
-    whole-grid route's and the first whole-grid kernel's fields bit for bit;
+    ``sor_kernel.USE_COMPRESSED`` (kernel sor_compressed_sweeps, B1's tile
+    over colour-compacted arrays), the whole-grid kernel barred; it must
+    give the JAX record exactly and the whole-grid route's and the first
+    whole-grid kernel's fields bit for bit, and prints its solve time beside
+    the whole-grid route's;
   * sharded SOR: ``... configs/4.in --backend sharded --mesh 1x1
     --max-steps 2 --stats`` through ``cli.main`` on a one-rank NCCL group,
     every chunk of sweeps through the extended-block kernel sor_ext_sweeps,
@@ -49,12 +55,12 @@ parallel/deep_halo.py).  The "cycle" phase times one V-cycle at 2048^2 and
 counts its kernel launches under the profiler, as it is and as it was with
 the first smoother kernel on every level.  Each path runs with the launch
 counts set to 0 just before it and read just after; the JSON record's
-``launches`` sums a kernel's counts over the paths.  Each phase prints its seconds.  Any failed
-phase prints ``FAIL: ...`` and exits 1 before the last line; on success the
-last two lines are the kernels' JSON record (with each kernel's bound: the
-least time the card could take for its timed call, from the bytes it must
-move and the f32 operations it must do) and ``{"ok": true, "device":
-{...}}``.  Imports nothing of JAX.
+``launches`` sums a kernel's counts over the paths.  Each phase prints its
+seconds.  Any failed phase prints ``FAIL: ...`` and exits 1 before the last
+line; on success the last two lines are the kernels' JSON record (with each
+kernel's bound: the least time the card could take for its timed call,
+from the bytes it must move and the f32 operations it must do) and
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -117,12 +123,6 @@ SHARDED_ARGV = ["--backend", "sharded", "--mesh", "1x1", "--max-steps",
 # The reference comparator's contract: 1e-4, absolute where |x| <= 1,
 # relative above (tests/conftest.py::assert_close_reference_contract).
 CONTRACT = 1e-4
-# Kernel vs plain PyTorch on the card, as max |kernel - plain| / max |plain|.
-# The kernels round every operation once (csrc/nsp_round.cuh: no FMA
-# contraction), as the plain versions do, so the expected error is 0; the
-# bound leaves room for one f32 rounding step (2^-23 ~ 1.2e-7) amplified
-# through 64 sweeps.
-KERNEL_RTOL = 1e-5
 SOR_SWEEPS = 64  # the main path's K: one kernel call = 64 sweeps
 # The refinement interval of the benchmark's SOR arm; the main path runs a
 # second time with it.
@@ -217,6 +217,32 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, calls: int = 20, reps: int = 10) -> float:
+    """Mean device milliseconds per call: `calls` calls of fn captured in
+    one CUDA graph (after a warm-up call on a side stream), the graph
+    replayed `reps` times between CUDA events, so the host's cost per call
+    is left out (what is left of it: one graph launch per `calls` calls)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
 def phase_device(torch) -> str:
     check(torch.cuda.is_available(), "CUDA is not available")
     out = subprocess.run(
@@ -254,7 +280,11 @@ def phase_compare(torch) -> dict:
     rng = np.random.default_rng(0)
     errs = {"sor": compare_whole_grid(torch, rng), "momentum": 0.0,
             "sor_tiled": 0.0, "sor_compressed": 0.0}
-    for i_max, j_max in ((256, 256), (97, 61)):
+    # The fused momentum kernel at the main path's 258^2, the mg path's
+    # 2050^2 and at 99 x 63, against its twin and its first kernel
+    # (momentum_rhs_simple: two launches), dt and gamma as the time step
+    # passes them (0-d f32 tensors on the card).
+    for i_max, j_max in ((256, 256), (2048, 2048), (97, 61)):
         prm = Params(i_max=i_max, j_max=j_max, a=1.0, b=0.7, Re=1000.0,
                      g_x=0.1, g_y=-0.2, omega=1.7)
         shape = prm.shape
@@ -265,13 +295,15 @@ def phase_compare(torch) -> dict:
         gamma = torch.tensor(0.7, device="cuda")
         got = momentum_kernel.momentum_rhs(u, v, dt, gamma, prm)
         want = momentum_kernel.momentum_rhs_plain(u, v, dt, gamma, prm)
+        first = momentum_kernel.momentum_rhs_simple(u, v, dt, gamma, prm)
         torch.cuda.synchronize()
-        for name, g, w in zip(("F", "G", "rhs"), got, want):
+        for name, g, w, f in zip(("F", "G", "rhs"), got, want, first):
             err = float((g - w).abs().max())
-            rel = err / float(w.abs().max())
+            same = torch.equal(g, f)
             print(f"[compare] momentum {name} {shape}: max abs err "
-                  f"{err:.3e}, rel {rel:.3e} (tol {KERNEL_RTOL:.0e})")
-            check(rel <= KERNEL_RTOL,
+                  f"{err:.3e} vs the plain twin (expected 0), equals "
+                  f"momentum_rhs_simple {same}")
+            check(err == 0.0 and same,
                   f"momentum kernel disagrees on {name} at {shape}")
             errs["momentum"] = max(errs["momentum"], err)
 
@@ -280,15 +312,18 @@ def phase_compare(torch) -> dict:
 
     # The tiled kernel at the SOR paths' 258^2 and 2050^2 and at 99 x 63,
     # over one sweep, one chunk, the path's 64 and 20 (a short last chunk),
-    # at two tile heights; the compressed kernel at 258^2 and 98 x 64.
-    # Both must equal their plain twins and the first whole-grid kernel
-    # (no tile) bit for bit.
+    # at two tile heights; the compressed kernel at 258^2, 98 x 64, 64 x 62
+    # and 99 x 64 (odd rows) over no sweep, one, a short chunk and 64.  Both
+    # must equal their plain twins and the first whole-grid kernel (no
+    # tile) bit for bit, the compressed one also its first kernel
+    # (inner_sweeps_compressed_simple: one launch per half-sweep).
     cases = [("sor_tiled", (i_max, j_max), n, tile)
              for i_max, j_max in ((256, 256), (2048, 2048), (97, 61))
              for n in (1, sor_kernel.SWEEPS_PER_CHUNK, SOR_SWEEPS, 20)
              for tile in TILE_SIZES]
-    cases += [("sor_compressed", shape, SOR_SWEEPS, None)
-              for shape in ((256, 256), (96, 62))]
+    cases += [("sor_compressed", shape, n, None)
+              for shape in ((256, 256), (96, 62), (62, 60), (97, 62))
+              for n in (0, 1, 7, SOR_SWEEPS)]
     for key, (i_max, j_max), n, tile in cases:
         prm = Params(i_max=i_max, j_max=j_max, a=1.0, b=0.7, Re=1000.0,
                      omega=1.7)
@@ -305,12 +340,17 @@ def phase_compare(torch) -> dict:
         whole = sor_kernel.whole_grid_sweeps_simple(rhs_d, n, prm)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        rel = err / float(want.abs().max())
         same = torch.equal(got, whole)
+        also = ""
+        if key == "sor_compressed":
+            first = torch.equal(got, sor_kernel.inner_sweeps_compressed_simple(
+                rhs_d, n, prm))
+            same = same and first
+            also = f", sor_compressed_sweeps_simple {first}"
         print(f"[compare] {key} {prm.shape} n={n}"
               f"{'' if tile is None else f' tile={tile}'}: max abs err "
-              f"{err:.3e}, rel {rel:.3e} (expected 0), equals "
-              f"sor_sweeps_simple {same}")
+              f"{err:.3e} (expected 0), equals sor_sweeps_simple "
+              f"{torch.equal(got, whole)}{also}")
         check(err == 0.0 and same, f"{key} kernel disagrees at {prm.shape}, "
                                    f"n={n}, tile={tile}")
         errs[key] = max(errs[key], err)
@@ -636,16 +676,17 @@ def phase_time(torch) -> dict:
     whole-grid kernel and the smoother with their first kernels
     (sor_sweeps_simple, sor_warm_sweeps_simple) between the turns; the
     smoother at 66^2 for 2 and 32 sweeps and the coarse cycle from 130^2
-    and from 66^2 down the same way; the tiled and
-    compressed kernels with the first whole-grid kernel and the current one
-    beside them (plain, kernel, simple, sor_sweeps, kernel, plain); the
-    extended-block kernel at the sharded path's 2080^2 block of
+    and from 66^2 down the same way; the momentum kernel (time_momentum)
+    and the compressed kernel (time_compressed) beside their first
+    kernels; the tiled kernel with the first whole-grid kernel and the
+    current one beside it (plain, kernel, simple, sor_sweeps, kernel,
+    plain); the extended-block kernel at the sharded path's 2080^2 block of
     configs/4.in, one call of K = 8 sweeps, with one 8-sweep chunk of the
     tiled kernel at 2050^2 beside it.  Returns (kernel ms, plain ms,
-    bound ms, bound by) per kernel: the tiled kernel's at 2050^2."""
+    bound ms, bound by) per kernel: the tiled kernel's and the momentum
+    kernel's at 2050^2."""
     from navierstokes_parallel_tpu_torch.config import Params
-    from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
-                                                          sor_kernel)
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
     from navierstokes_parallel_tpu_torch.parallel import deep_halo
 
     prm = Params.from_file(str(ROOT / "configs" / "1.in"))
@@ -653,11 +694,6 @@ def phase_time(torch) -> dict:
     rhs = np.zeros(prm.shape, np.float32)
     rhs[1:-1, 1:-1] = rng.standard_normal((prm.i_max, prm.j_max))
     rhs = torch.from_numpy(rhs).cuda()
-    u = torch.from_numpy(rng.standard_normal(prm.shape).astype(np.float32))
-    v = torch.from_numpy(rng.standard_normal(prm.shape).astype(np.float32))
-    u, v = u.cuda(), v.cuda()
-    dt = torch.tensor(1e-3, device="cuda")
-    gamma = torch.tensor(0.5, device="cuda")
     p_fine = torch.from_numpy(
         rng.standard_normal(MG_FINE_SHAPE).astype(np.float32)).cuda()
     rhs_fine = torch.from_numpy(
@@ -680,11 +716,6 @@ def phase_time(torch) -> dict:
                 lambda: sor_kernel.whole_grid_sweeps_simple(rhs, SOR_SWEEPS,
                                                             prm),
                 50, 3),
-        "momentum": (lambda: momentum_kernel.momentum_rhs(u, v, dt, gamma,
-                                                          prm),
-                     lambda: momentum_kernel.momentum_rhs_plain(u, v, dt,
-                                                                gamma, prm),
-                     None, 200, 20),
         "sor_warm": (lambda: sor_kernel.warm_sweeps(*warm_args),
                      lambda: sor_kernel.warm_sweeps_plain(*warm_args),
                      lambda: sor_kernel.warm_sweeps_simple(*warm_args),
@@ -696,8 +727,6 @@ def phase_time(torch) -> dict:
     }
     interior = prm.i_max * prm.j_max
     bounds = {"sor": sweeps_bound(prm.shape, 2, interior, SOR_SWEEPS),
-              "momentum": bound(5 * 4 * prm.shape[0] * prm.shape[1],
-                                MOMENTUM_FLOPS_PER_CELL * interior),
               "sor_warm": sweeps_bound(MG_FINE_SHAPE, 3,
                                        (MG_FINE_SHAPE[0] - 2)
                                        * (MG_FINE_SHAPE[1] - 2), MG_SWEEPS),
@@ -756,16 +785,16 @@ def phase_time(torch) -> dict:
           f"levels): kernel {k1:.4f} / {k2:.4f} ms, the recursion on the "
           f"first kernel {f_ms:.4f} ms per call")
 
-    # The tiled kernel at 258^2 and 2050^2 and the compressed one at 258^2,
-    # each beside its plain twin, the first whole-grid kernel and the
-    # current one, 64 sweeps.
+    times["momentum"] = time_momentum(torch, rng, prm)
+    times["sor_compressed"] = time_compressed(torch, prm, rhs, bounds)
+
+    # The tiled kernel at 258^2 and 2050^2, each beside its plain twin, the
+    # first whole-grid kernel and the current one, 64 sweeps.
     side_by_side = [
         ("sor_tiled", prm, rhs, sor_kernel.inner_sweeps_tiled,
          sor_kernel.inner_sweeps_tiled_plain, 10),
         ("sor_tiled", prm4, rhs4, sor_kernel.inner_sweeps_tiled,
-         sor_kernel.inner_sweeps_tiled_plain, 2),
-        ("sor_compressed", prm, rhs, sor_kernel.inner_sweeps_compressed,
-         sor_kernel.inner_sweeps_compressed_plain, 3)]
+         sor_kernel.inner_sweeps_tiled_plain, 2)]
     for name, p_, r_, kernel, plain, p_reps in side_by_side:
         def run(fn, p_=p_, r_=r_):
             return lambda: fn(r_, SOR_SWEEPS, p_)
@@ -776,11 +805,9 @@ def phase_time(torch) -> dict:
         k2 = cuda_ms(torch, run(kernel), 20)
         p2 = cuda_ms(torch, run(plain), p_reps)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2, *bounds[name])
-        note = ""
-        if name == "sor_tiled":
-            K = sor_kernel.SWEEPS_PER_CHUNK
-            note = tile_note(sor_kernel, sor_kernel.TILE_ROWS, K, 2 * K,
-                             p_.i_max * p_.j_max * SOR_SWEEPS, (k1 + k2) / 2)
+        K = sor_kernel.SWEEPS_PER_CHUNK
+        note = tile_note(sor_kernel, sor_kernel.TILE_ROWS, K, 2 * K,
+                         p_.i_max * p_.j_max * SOR_SWEEPS, (k1 + k2) / 2)
         print(f"[time] {name} at {p_.shape} ({SOR_SWEEPS} sweeps): kernel "
               f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
               f"sor_sweeps_simple {b1:.4f} ms, sor_sweeps {b2:.4f} ms per "
@@ -835,13 +862,105 @@ def phase_time(torch) -> dict:
     k_ms, p_ms = times["sor"][:2]
     print(f"[time] sor per sweep: kernel {k_ms * 1e3 / SOR_SWEEPS:.3f} us, "
           f"plain {p_ms * 1e3 / SOR_SWEEPS:.3f} us")
-    print(f"[time] momentum per call: kernel {times['momentum'][0] * 1e3:.3f}"
-          f" us, plain {times['momentum'][1] * 1e3:.3f} us")
     k_ms, p_ms = times["sor_warm"][:2]
     print(f"[time] sor_warm per sweep at {MG_FINE_SHAPE}: kernel "
           f"{k_ms * 1e3 / MG_SWEEPS:.3f} us, plain "
           f"{p_ms * 1e3 / MG_SWEEPS:.3f} us")
     return times
+
+
+def time_momentum(torch, rng, prm1):
+    """The fused momentum kernel at configs/1.in's 258^2 and at the mg
+    path's 2050^2, in turns with its plain twin and its first kernel
+    (momentum_rhs_simple, two launches): plain, kernel, first, kernel,
+    first, plain.  Returns (kernel ms, plain ms, bound ms, bound by) at
+    2050^2, where ~169 of a path's calls run."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops.cuda import momentum_kernel
+
+    prm4 = Params.from_file(str(ROOT / "configs" / "4.in"))
+    out = None
+    for prm, reps, p_reps in ((prm1, 200, 20), (prm4, 100, 5)):
+        u, v = (torch.from_numpy(rng.standard_normal(prm.shape).astype(
+            np.float32)).cuda() for _ in range(2))
+        dt = torch.tensor(1e-3, device="cuda")
+        gamma = torch.tensor(0.5, device="cuda")
+
+        def run(fn, u=u, v=v, dt=dt, gamma=gamma, prm=prm):
+            return lambda: fn(u, v, dt, gamma, prm)
+
+        p1 = cuda_ms(torch, run(momentum_kernel.momentum_rhs_plain), p_reps)
+        k1 = cuda_ms(torch, run(momentum_kernel.momentum_rhs), reps)
+        f1 = cuda_ms(torch, run(momentum_kernel.momentum_rhs_simple), reps)
+        k2 = cuda_ms(torch, run(momentum_kernel.momentum_rhs), reps)
+        f2 = cuda_ms(torch, run(momentum_kernel.momentum_rhs_simple), reps)
+        p2 = cuda_ms(torch, run(momentum_kernel.momentum_rhs_plain), p_reps)
+        g_k1 = graph_ms(torch, run(momentum_kernel.momentum_rhs))
+        g_f = graph_ms(torch, run(momentum_kernel.momentum_rhs_simple))
+        g_k2 = graph_ms(torch, run(momentum_kernel.momentum_rhs))
+        b_ms, by = bound(5 * 4 * prm.shape[0] * prm.shape[1],
+                         MOMENTUM_FLOPS_PER_CELL * prm.i_max * prm.j_max)
+        print(f"[time] momentum at {prm.shape}: kernel {k1:.4f} / {k2:.4f} "
+              f"ms, first kernel (two launches) {f1:.4f} / {f2:.4f} ms, "
+              f"plain {p1:.4f} / {p2:.4f} ms per call; device time in a "
+              f"CUDA graph: kernel {g_k1 * 1e3:.3f} / {g_k2 * 1e3:.3f} us, "
+              f"first kernel {g_f * 1e3:.3f} us; bound {b_ms * 1e3:.3f} us "
+              f"({by}), kernel call {b_ms / ((k1 + k2) / 2):.4f} of it, "
+              f"device time {b_ms / ((g_k1 + g_k2) / 2):.4f}")
+        out = ((k1 + k2) / 2, (p1 + p2) / 2, b_ms, by)
+    return out
+
+
+def time_compressed(torch, prm, rhs, bounds):
+    """The compressed kernel at configs/1.in's 258^2, 64 sweeps, in turns
+    with its plain twin, its first kernel (inner_sweeps_compressed_simple,
+    one launch per half-sweep), the whole-grid kernel B1 (the same tile on
+    the full grid), B1's first kernel, its kernel part alone (on a
+    compacted rhs: no compaction, no expansion) and the compaction and
+    expansion alone.  Returns (kernel ms, plain ms, bound ms, bound by)."""
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+
+    colours = sor_kernel._compress_planar(rhs)
+    runs = {
+        "plain": (lambda: sor_kernel.inner_sweeps_compressed_plain(
+            rhs, SOR_SWEEPS, prm), 3),
+        "kernel": (lambda: sor_kernel.inner_sweeps_compressed(
+            rhs, SOR_SWEEPS, prm), 50),
+        "first kernel": (lambda: sor_kernel.inner_sweeps_compressed_simple(
+            rhs, SOR_SWEEPS, prm), 20),
+        "kernel part": (lambda: sor_kernel.compressed_colour_sweeps(
+            colours, SOR_SWEEPS, prm), 50),
+        "sor_sweeps": (lambda: sor_kernel.whole_grid_sweeps(
+            rhs, SOR_SWEEPS, prm), 50),
+        "compaction + expansion": (lambda: sor_kernel._expand_planar(
+            sor_kernel._compress_planar(rhs)), 50),
+        "sor_sweeps_simple": (lambda: sor_kernel.whole_grid_sweeps_simple(
+            rhs, SOR_SWEEPS, prm), 20)}
+    order = ["plain", "kernel", "first kernel", "kernel part", "sor_sweeps",
+             "compaction + expansion", "sor_sweeps_simple", "sor_sweeps",
+             "kernel part", "kernel", "plain"]
+    ms = {}
+    for name in order:
+        fn, reps = runs[name]
+        ms.setdefault(name, []).append(cuda_ms(torch, fn, reps))
+    print(f"[time] sor_compressed at {prm.shape} ({SOR_SWEEPS} sweeps, tile "
+          f"{'x'.join(map(str, sor_kernel.whole_grid_tile(prm.shape)))}), "
+          f"ms per call: " + ", ".join(
+              f"{name} {' / '.join(f'{t:.4f}' for t in ts)}"
+              for name, ts in ms.items()))
+    mean = {name: sum(ts) / len(ts) for name, ts in ms.items()}
+    # Device time of the kernel part and of B1, the same tile on the full
+    # grid: what the compacted loads and stores change.
+    g = [graph_ms(torch, runs[name][0])
+         for name in ("kernel part", "sor_sweeps", "sor_sweeps",
+                      "kernel part")]
+    print(f"[time] sor_compressed kernel part / sor_sweeps: "
+          f"{mean['kernel part'] / mean['sor_sweeps']:.3f} per call; device "
+          f"time in a CUDA graph: kernel part {g[0] * 1e3:.3f} / "
+          f"{g[3] * 1e3:.3f} us, sor_sweeps {g[1] * 1e3:.3f} / "
+          f"{g[2] * 1e3:.3f} us; kernel / first kernel: "
+          f"{mean['kernel'] / mean['first kernel']:.3f}")
+    return (mean["kernel"], mean["plain"], *bounds["sor_compressed"])
 
 
 def reset_launches() -> None:
@@ -984,8 +1103,10 @@ def phase_mg_path() -> dict:
 
 def solve_on_card(torch, tag, prm, first_kernel: bool = False, **kw):
     """solver.solve on the card with the launch counts from 0; returns the
-    state, its stats and the counts.  first_kernel: with PREFER_TILED off
-    and sor_sweeps_simple, which counts no launch, in sor_sweeps' place."""
+    state, its stats, the counts and the seconds on the host's clock around
+    the call (to a synchronize; the time step's first use included).
+    first_kernel: with PREFER_TILED off and sor_sweeps_simple, which counts
+    no launch, in sor_sweeps' place."""
     from navierstokes_parallel_tpu_torch import solver
     from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
 
@@ -1001,10 +1122,10 @@ def solve_on_card(torch, tag, prm, first_kernel: bool = False, **kw):
     finally:
         sor_kernel.PREFER_TILED, sor_kernel.whole_grid_sweeps = saved
     torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     launches = read_launches()
-    print(f"[{tag}] {stats} in {time.perf_counter() - t0:.3f} s; launches "
-          f"{launches}")
-    return state, stats, launches
+    print(f"[{tag}] {stats} in {seconds:.3f} s; launches {launches}")
+    return state, stats, launches, seconds
 
 
 def check_same_fields(a, b, what: str) -> None:
@@ -1050,11 +1171,11 @@ def phase_tiled_path(torch) -> dict:
     check_only(launches, ("sor_tiled", "momentum"), "the tiled path")
 
     with barred(sor_kernel, plain, "the tiled solve"):
-        tiled, tstats, tl = solve_on_card(torch, "tiled", prm,
-                                          max_steps=TILED_STEPS)
-    first, fstats, fl = solve_on_card(torch, "tiled/sor_sweeps_simple", prm,
-                                      first_kernel=True,
-                                      max_steps=TILED_STEPS)
+        tiled, tstats, tl, _ = solve_on_card(torch, "tiled", prm,
+                                             max_steps=TILED_STEPS)
+    first, fstats, fl, _ = solve_on_card(torch, "tiled/sor_sweeps_simple",
+                                         prm, first_kernel=True,
+                                         max_steps=TILED_STEPS)
     check(tstats == fstats,
           "the tiled and first-kernel solves' stats differ")
     check(tl["sor_tiled"] == passes and fl["sor"] == 0,
@@ -1080,10 +1201,12 @@ def phase_compressed_path(torch) -> dict:
               f"configs/1.in routes to {sor_kernel.route(prm)}")
         with barred(sor_kernel, ("inner_sweeps_plain",
                                  "inner_sweeps_compressed_plain",
+                                 "inner_sweeps_compressed_simple",
                                  "whole_grid_sweeps",
                                  "whole_grid_sweeps_simple"),
                     "the compressed path"):
-            state, stats, launches = solve_on_card(torch, "compressed", prm)
+            state, stats, launches, seconds = solve_on_card(
+                torch, "compressed", prm)
     finally:
         sor_kernel.USE_COMPRESSED = False
     uc, vc = solver.center_values(state, prm)
@@ -1098,9 +1221,13 @@ def phase_compressed_path(torch) -> dict:
           f"compressed kernel calls {launches['sor_compressed']}, expected "
           f"{passes}")
     check_only(launches, ("sor_compressed", "momentum"), "the compressed path")
-    whole, wstats, _ = solve_on_card(torch, "compressed/sor_sweeps", prm)
-    first, fstats, _ = solve_on_card(torch, "compressed/sor_sweeps_simple",
-                                     prm, first_kernel=True)
+    whole, wstats, _, w_seconds = solve_on_card(torch, "compressed/sor_sweeps",
+                                                prm)
+    first, fstats, _, _ = solve_on_card(torch, "compressed/sor_sweeps_simple",
+                                        prm, first_kernel=True)
+    print(f"[compressed] solve {seconds:.6f} s on sor_compressed_sweeps "
+          f"({launches['sor_compressed']} calls), {w_seconds:.6f} s on "
+          f"sor_sweeps (host clock around solver.solve)")
     check(stats == wstats == fstats,
           "the compressed, whole-grid and first-kernel solves differ")
     check_same_fields(state, whole, "compressed vs sor_sweeps")
@@ -1164,8 +1291,8 @@ def phase_sharded_path(torch) -> dict:
           f" s; extended-block kernel calls {ext_calls}")
     check(ext_calls == TILED_STEPS * per_step,
           "solve_sharded's kernel calls differ from the chunks")
-    tiled, tstats, _ = solve_on_card(torch, "sharded/tiled", prm,
-                                     max_steps=TILED_STEPS)
+    tiled, tstats, _, _ = solve_on_card(torch, "sharded/tiled", prm,
+                                        max_steps=TILED_STEPS)
     check(sstats[:3] == tstats[:3],
           "the sharded and tiled solves' counts differ")
     errs = {name: contract_err(getattr(state, name).cpu().numpy(),

@@ -1,7 +1,8 @@
 // The temporal-blocked tile shared by the whole-grid sweep kernel (B1) and
 // the multigrid smoother's route for large levels (B3), both in sor.cu, the
-// tiled sweep kernel (B4, sor_tiled.cu) and the extended-block sweep kernel
-// (B6, sor_ext.cu).
+// tiled sweep kernel (B4, sor_tiled.cu), the extended-block sweep kernel
+// (B6, sor_ext.cu) and, over colour-compacted arrays in device memory, the
+// compressed sweep kernel (B5, sor_compressed.cu).
 //
 // A block sweeps one tile of the array it is given: it loads delta for its
 // TI x TJ centre and a halo of `halo` cells on each side into dynamic shared
@@ -45,6 +46,10 @@
 //   - The main paths' tiles each have a kernel compiled for their shape
 //     (kHotShapes below); any other tile runs the same body with its shape
 //     read at run time.
+//   - The arrays in device memory are full grids (B1, B3, B4, B6) or, for
+//     B5, the grid's red and black cells in two half-width arrays
+//     (TileChunk); a template parameter picks the load and store stages,
+//     and each layout has its own kernel for every row of kHotShapes.
 // The arithmetic is nsp_sor.cuh's rb_update, in the same order and
 // rounding; self_coef is formed with the same operations.
 //
@@ -77,6 +82,13 @@ struct TileDomain {
 
 // One chunk: ns <= halo / 2 sweeps of every tile, src -> dst (both of the
 // domain's shape).  zero_src: delta = 0 on entry, src is not read.
+// In the colour-compacted layout (B5) the domain is a whole grid (offset 0,
+// cols even, written everywhere) held as two rows x cols / 2 arrays per
+// field: src, dst and rhs hold its red cells, src1, dst1 and rhs1 its black
+// ones, red[i][k] = d[i][2k + (i & 1)], black[i][k] = d[i][2k + 1 - (i & 1)]
+// (the JAX package's _compress_colors).  Since a tile's first column is
+// even, the pair of cells (a, 2k), (a, 2k + 1) that a thread owns is
+// red[a][k] and black[a][k], whatever the row's parity.
 struct TileChunk {
   const float* src;
   float* dst;
@@ -87,6 +99,9 @@ struct TileChunk {
   int ns;      // sweeps of this chunk
   int zero_src;
   float one_minus_omega, coef, dx2_inv, dy2_inv;
+  const float* src1 = nullptr;  // the black arrays of the compacted layout
+  float* dst1 = nullptr;
+  const float* rhs1 = nullptr;
 };
 
 // At most this many threads per block of a tile whose shape is read at run
@@ -203,7 +218,7 @@ struct Block {
 // Half-sweep h (of colour P) over the box of cells that can still reach
 // the centre: own is the colour-P array, oth the other; rhs_p the thread's
 // rhs of colour P per row (M > 0).
-template <int M, int P, bool kMasked>
+template <int M, int P, bool kMasked, bool kCompact>
 __device__ __forceinline__ void half_sweep(const TileChunk& t, const Block& k,
                                            float* own, const float* oth,
                                            const float (&rhs_p)[M > 0 ? M : 1],
@@ -240,6 +255,11 @@ __device__ __forceinline__ void half_sweep(const TileChunk& t, const Block& k,
     float rv;
     if constexpr (M > 0) {
       rv = rhs_p[m];
+    } else if constexpr (kCompact) {
+      const int a = k.a0 + r, kk = (k.b0 >> 1) + k.k, half = t.dom.cols >> 1;
+      rv = (a >= 0 && a < t.dom.rows && kk >= 0 && kk < half)
+               ? (P ? t.rhs1 : t.rhs)[static_cast<size_t>(a) * half + kk]
+               : 0.0f;
     } else {
       const int a = k.a0 + r, b = k.b0 + c;
       rv = (a >= 0 && a < t.dom.rows && b >= 0 && b < t.dom.cols)
@@ -256,15 +276,15 @@ __device__ __forceinline__ void half_sweep(const TileChunk& t, const Block& k,
   }
 }
 
-template <int M, bool kMasked>
+template <int M, bool kMasked, bool kCompact>
 __device__ __forceinline__ void sweeps(const TileChunk& t, const Block& k,
                                        float* col0, float* col1,
                                        const float (&rhs0)[M > 0 ? M : 1],
                                        const float (&rhs1)[M > 0 ? M : 1]) {
   for (int h = 0; h < 2 * t.ns; h += 2) {
-    half_sweep<M, 0, kMasked>(t, k, col0, col1, rhs0, h);
+    half_sweep<M, 0, kMasked, kCompact>(t, k, col0, col1, rhs0, h);
     __syncthreads();
-    half_sweep<M, 1, kMasked>(t, k, col1, col0, rhs1, h + 1);
+    half_sweep<M, 1, kMasked, kCompact>(t, k, col1, col0, rhs1, h + 1);
     // No barrier after the last: each thread writes back its own cells.
     if (h + 2 < 2 * t.ns) __syncthreads();
   }
@@ -277,8 +297,10 @@ namespace {
 // One chunk; block (blockIdx.x, blockIdx.y) takes the tile of columns
 // blockIdx.x * tj and rows blockIdx.y * ti; blockDim = (pc, rs).  HOT >= 0:
 // the tile kHotShapes[HOT], its shape known at compile time (M its rows per
-// thread); HOT < 0: the shape comes with the chunk.
-template <int M, int HOT>
+// thread); HOT < 0: the shape comes with the chunk.  kCompact: the arrays
+// in device memory are colour-compacted (TileChunk); only the loads and
+// the stores differ.
+template <int M, int HOT, bool kCompact>
 __global__ void __launch_bounds__(
     HOT >= 0 ? hot_pairs(HOT >= 0 ? HOT : 0) *
                    kHotShapes[HOT >= 0 ? HOT : 0].rs
@@ -314,26 +336,48 @@ __global__ void __launch_bounds__(
 
   // Load delta into the colour arrays and rhs into registers.
   float rhs0[M > 0 ? M : 1], rhs1[M > 0 ? M : 1];
-  const bool vec_src = vec_ok(t.src, t.dom.cols, k.b0);
-  const bool vec_rhs = vec_ok(t.rhs, t.dom.cols, k.b0);
+  if constexpr (kCompact) {
+    // Pair k is red[a][kk] and black[a][kk]: one coalesced 4-byte load per
+    // colour, no select.
+    const int half = t.dom.cols >> 1, kk = b >> 1;
 #pragma unroll
-  for (int m = 0; m < count; ++m) {
-    const int r = k.ty + k.rs * m;
-    if (r >= k.er) continue;
-    float d0 = 0.0f, d1 = 0.0f;
-    if (!t.zero_src) {
-      load_pair(t.src, t.dom.rows, t.dom.cols, k.a0 + r, b, vec_src, d0, d1);
+    for (int m = 0; m < count; ++m) {
+      const int r = k.ty + k.rs * m;
+      if (r >= k.er) continue;
+      const int a = k.a0 + r;
+      const bool in = a >= 0 && a < t.dom.rows && kk >= 0 && kk < half;
+      const size_t o = static_cast<size_t>(a) * half + kk;
+      const int f = r * k.pc + k.k;
+      col0[f] = in && !t.zero_src ? t.src[o] : 0.0f;
+      col1[f] = in && !t.zero_src ? t.src1[o] : 0.0f;
+      if constexpr (M > 0) {
+        rhs0[m] = in ? t.rhs[o] : 0.0f;
+        rhs1[m] = in ? t.rhs1[o] : 0.0f;
+      }
     }
-    if constexpr (M > 0) {
-      float x0, x1;
-      load_pair(t.rhs, t.dom.rows, t.dom.cols, k.a0 + r, b, vec_rhs, x0,
-                x1);
-      rhs0[m] = k.q ? x1 : x0;
-      rhs1[m] = k.q ? x0 : x1;
+  } else {
+    const bool vec_src = vec_ok(t.src, t.dom.cols, k.b0);
+    const bool vec_rhs = vec_ok(t.rhs, t.dom.cols, k.b0);
+#pragma unroll
+    for (int m = 0; m < count; ++m) {
+      const int r = k.ty + k.rs * m;
+      if (r >= k.er) continue;
+      float d0 = 0.0f, d1 = 0.0f;
+      if (!t.zero_src) {
+        load_pair(t.src, t.dom.rows, t.dom.cols, k.a0 + r, b, vec_src, d0,
+                  d1);
+      }
+      if constexpr (M > 0) {
+        float x0, x1;
+        load_pair(t.rhs, t.dom.rows, t.dom.cols, k.a0 + r, b, vec_rhs, x0,
+                  x1);
+        rhs0[m] = k.q ? x1 : x0;
+        rhs1[m] = k.q ? x0 : x1;
+      }
+      const int f = r * k.pc + k.k;
+      col0[f] = k.q ? d1 : d0;
+      col1[f] = k.q ? d0 : d1;
     }
-    const int f = r * k.pc + k.k;
-    col0[f] = k.q ? d1 : d0;
-    col1[f] = k.q ? d0 : d1;
   }
   __syncthreads();
 
@@ -344,9 +388,9 @@ __global__ void __launch_bounds__(
                       k.j0 + lo >= 2 &&
                       k.j0 + lo + t.tj - 1 + 2 * span0 <= t.dom.nj - 3;
   if (inside) {
-    sweeps<M, false>(t, k, col0, col1, rhs0, rhs1);
+    sweeps<M, false, kCompact>(t, k, col0, col1, rhs0, rhs1);
   } else {
-    sweeps<M, true>(t, k, col0, col1, rhs0, rhs1);
+    sweeps<M, true, kCompact>(t, k, col0, col1, rhs0, rhs1);
   }
 
   // Write back this thread's cells of the centre that lie in the window.
@@ -362,6 +406,17 @@ __global__ void __launch_bounds__(
     const int a = k.a0 + r;
     if (a < t.dom.w_lo_i || a >= t.dom.w_hi_i) continue;
     const int f = r * k.pc + k.k;
+    if constexpr (kCompact) {
+      // The window is the whole grid and cols is even: both cells of the
+      // pair or neither lie in it.
+      if (in0 && in1) {
+        const size_t o =
+            static_cast<size_t>(a) * (t.dom.cols >> 1) + (b >> 1);
+        t.dst[o] = col0[f];
+        t.dst1[o] = col1[f];
+      }
+      continue;
+    }
     const float v0 = k.q ? col1[f] : col0[f];
     const float v1 = k.q ? col0[f] : col1[f];
     float* row = t.dst + static_cast<size_t>(a) * t.dom.cols;
@@ -374,32 +429,45 @@ __global__ void __launch_bounds__(
   }
 }
 
-template <int... I>
+// Every row of kHotShapes is compiled for the layout.
+template <bool kCompact, int... I>
 const void* hot_kernel(int i, std::integer_sequence<int, I...>) {
-  const void* const fns[] = {
-      reinterpret_cast<const void*>(tile_chunk<kHotShapes[I].m, I>)...};
+  const void* const fns[] = {reinterpret_cast<const void*>(
+      tile_chunk<kHotShapes[I].m, I, kCompact>)...};
   return fns[i];
 }
 
 // Dynamic shared memory a kernel may use without asking for more.
 constexpr size_t kDefaultSharedBytes = 48 * 1024;
 
-// The kernel for a tile of geometry g, allowed g.smem of shared memory.
+// The kernel for a tile of geometry g in the layout, allowed g.smem of
+// shared memory.
+template <bool kCompact = false>
 cudaError_t tile_kernel(const TileGeometry& g, const void** fn) {
-  *fn = g.hot >= 0
-            ? hot_kernel(g.hot, std::make_integer_sequence<int, kHotCount>{})
-        : g.m > 0 ? reinterpret_cast<const void*>(tile_chunk<kRegRows, -1>)
-                  : reinterpret_cast<const void*>(tile_chunk<0, -1>);
+  *fn = g.hot >= 0 ? hot_kernel<kCompact>(
+                         g.hot, std::make_integer_sequence<int, kHotCount>{})
+        : g.m > 0
+            ? reinterpret_cast<const void*>(tile_chunk<kRegRows, -1, kCompact>)
+            : reinterpret_cast<const void*>(tile_chunk<0, -1, kCompact>);
   if (g.smem <= kDefaultSharedBytes) return cudaSuccess;
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(g.smem));
 }
 
 // Launches one chunk; cudaErrorInvalidValue for a geometry the tile does
-// not take (odd tj or halo, ns beyond halo / 2).
+// not take (odd tj or halo, ns beyond halo / 2; compacted: a domain that is
+// not a whole grid of even width).
+template <bool kCompact = false>
 cudaError_t launch_tile_chunk(const TileChunk& t, cudaStream_t s) {
   if (t.ti < 1 || t.tj < 2 || (t.tj & 1) || t.halo < 0 || (t.halo & 1) ||
       t.ns < 0 || 2 * t.ns > t.halo) {
+    return cudaErrorInvalidValue;
+  }
+  if (kCompact &&
+      ((t.dom.cols & 1) || t.dom.off_i || t.dom.off_j ||
+       t.dom.rows != t.dom.ni || t.dom.cols != t.dom.nj || t.dom.w_lo_i ||
+       t.dom.w_lo_j || t.dom.w_hi_i != t.dom.rows ||
+       t.dom.w_hi_j != t.dom.cols)) {
     return cudaErrorInvalidValue;
   }
   const TileGeometry g = tile_geometry(t.ti, t.tj, t.halo);
@@ -407,7 +475,7 @@ cudaError_t launch_tile_chunk(const TileChunk& t, cudaStream_t s) {
     return cudaErrorInvalidValue;
   }
   const void* fn = nullptr;
-  cudaError_t err = tile_kernel(g, &fn);
+  cudaError_t err = tile_kernel<kCompact>(g, &fn);
   if (err != cudaSuccess) return err;
   const dim3 grid((t.dom.cols + t.tj - 1) / t.tj,
                   (t.dom.rows + t.ti - 1) / t.ti);
@@ -418,50 +486,67 @@ cudaError_t launch_tile_chunk(const TileChunk& t, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// n_sweeps sweeps of the whole ni x nj grid from delta = 0 in chunks of
+// n_sweeps sweeps of a whole grid from delta = 0 in chunks of
 // sweeps_per_chunk (a short last one; none: one chunk of no sweeps, which
-// writes zeros): d and scratch take turns as a chunk's output and input,
-// scratch first, so the result is in scratch when the number of chunks is
-// odd, else in d.  Every chunk writes every cell of its output, so neither
-// buffer needs initialising.  The loop of B1 and B4 (sor_tiled.cu).
+// writes zeros), t's geometry and constants: t.dst and t.src (and, in the
+// compacted layout, t.dst1 and t.src1) take turns as a chunk's output and
+// input, t.dst first, so the result is in the first t.dst when the number
+// of chunks is odd, else in the first t.src.  Every chunk writes every cell
+// of its output, so neither buffer needs initialising.  The loop of B1, B4
+// (tile_sweeps_from_zero) and B5 (sor_compressed.cu).
+template <bool kCompact = false>
+cudaError_t tile_chunks_from_zero(TileChunk t, int n_sweeps,
+                                  int sweeps_per_chunk, cudaStream_t s) {
+  if (sweeps_per_chunk < 1 || n_sweeps < 0) return cudaErrorInvalidValue;
+  t.halo = 2 * sweeps_per_chunk;
+  t.zero_src = 1;
+  int done = 0;
+  do {
+    t.ns = n_sweeps - done < sweeps_per_chunk ? n_sweeps - done
+                                              : sweeps_per_chunk;
+    const cudaError_t err = launch_tile_chunk<kCompact>(t, s);
+    if (err != cudaSuccess) return err;
+    done += t.ns;
+    float* next_dst = const_cast<float*>(t.src);
+    t.src = t.dst;
+    t.dst = next_dst;
+    float* next_dst1 = const_cast<float*>(t.src1);
+    t.src1 = t.dst1;
+    t.dst1 = next_dst1;
+    t.zero_src = 0;
+  } while (done < n_sweeps);
+  return cudaGetLastError();
+}
+
+// tile_chunks_from_zero on the whole ni x nj grid: d and scratch take
+// turns, scratch first, so the result is in scratch when the number of
+// chunks is odd, else in d.  The loop of B1 and B4 (sor_tiled.cu).
 cudaError_t tile_sweeps_from_zero(float* d, float* scratch, const float* rhs,
                                   int ni, int nj, int n_sweeps, int tile_rows,
                                   int tile_cols, int sweeps_per_chunk,
                                   float one_minus_omega, float coef,
                                   float dx2_inv, float dy2_inv,
                                   cudaStream_t s) {
-  if (sweeps_per_chunk < 1 || n_sweeps < 0) return cudaErrorInvalidValue;
-  TileChunk t{d,         scratch,   rhs,
-              {ni, nj, 0, 0, ni, nj, 0, ni, 0, nj},
-              tile_rows, tile_cols, 2 * sweeps_per_chunk,
-              0,         1,         one_minus_omega,
-              coef,      dx2_inv,   dy2_inv};
-  int done = 0;
-  do {
-    t.ns = n_sweeps - done < sweeps_per_chunk ? n_sweeps - done
-                                              : sweeps_per_chunk;
-    const cudaError_t err = launch_tile_chunk(t, s);
-    if (err != cudaSuccess) return err;
-    done += t.ns;
-    float* next_dst = const_cast<float*>(t.src);
-    t.src = t.dst;
-    t.dst = next_dst;
-    t.zero_src = 0;
-  } while (done < n_sweeps);
-  return cudaGetLastError();
+  const TileChunk t{d,         scratch,   rhs,
+                    {ni, nj, 0, 0, ni, nj, 0, ni, 0, nj},
+                    tile_rows, tile_cols, 0,
+                    0,         1,         one_minus_omega,
+                    coef,      dx2_inv,   dy2_inv};
+  return tile_chunks_from_zero(t, n_sweeps, sweeps_per_chunk, s);
 }
 
-// The geometry of a tile and the blocks of it one SM holds: out[0..6] =
-// shared rows, shared columns, rows per thread (0: rhs not in registers),
-// threads per block, shared bytes, resident blocks per SM, registers per
-// thread.
+// The geometry of a tile in the layout and the blocks of it one SM holds:
+// out[0..6] = shared rows, shared columns, rows per thread (0: rhs not in
+// registers), threads per block, shared bytes, resident blocks per SM,
+// registers per thread.
+template <bool kCompact = false>
 cudaError_t tile_report(int ti, int tj, int halo, int* out) {
   if (ti < 1 || tj < 2 || (tj & 1) || halo < 0 || (halo & 1)) {
     return cudaErrorInvalidValue;
   }
   const TileGeometry g = tile_geometry(ti, tj, halo);
   const void* fn = nullptr;
-  cudaError_t err = tile_kernel(g, &fn);
+  cudaError_t err = tile_kernel<kCompact>(g, &fn);
   if (err != cudaSuccess) return err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,

@@ -8,30 +8,40 @@
 // wrapper compacts rhs and expands the result with PyTorch operations, as
 // the JAX package does both in XLA outside its kernel.
 //
-// Index algebra (b = i & 1, the row parity):
+// Index algebra (b = i & 1, the row parity; JAX sor_kernel.py:751-757):
 //   red[i, k]   = d[i, 2k + b]       black[i, k] = d[i, 2k + 1 - b]
 //   red W/E neighbours  = black[i -/+ 1, k]
 //   red N = black[i, k + b],   red S = black[i, k + b - 1]
 //   black N = red[i, k + 1 - b], black S = red[i, k - b]
-// The update is nsp_sor.cuh's expression with the Pallas kernel's order of
-// the y neighbours, (W + E) * dx2_inv + (N + S) * dy2_inv + d * self_coef;
-// IEEE addition commutes, so it equals nsp_sor_sweeps_simple (sor.cu) bit
+//
+// What bounds it on an H100: as B1 at 258^2, the operations of 64 sweeps
+// (0.7 us at 67 TFLOP/s), far below what a launch costs.  The first version
+// (nsp_sor_compressed_sweeps_simple below, kept as the yardstick on no
+// path) made one launch per half-sweep, 128 for 64 sweeps, ~0.4-0.6 ms at
+// 258^2 against B1's 0.07 ms: halving the threads of a launch does not
+// lift the launch rate, which bound it.  The current version runs B1's
+// temporal-blocked tile (nsp_sor_tile.cuh), whose shared memory already
+// holds delta compacted by colour, over the compacted arrays in device
+// memory: one launch per chunk of 8 sweeps, the tile picked by the
+// wrapper's whole_grid_tile rule, ping-pong between two pairs of arrays.
+// A tile's first column is even, so the pair of cells a thread owns is
+// red[a][k] and black[a][k] on every row: the load stage reads one float
+// per colour per pair (coalesced 4-byte loads, no colour select) and the
+// store stage writes them back the same way.  Everything between is B1's
+// tile, so every cell takes nsp_sor.cuh's update on the same neighbour
+// values, and the result equals B1 and nsp_sor_sweeps_simple (sor.cu) bit
 // for bit.
 //
-// What bounds it on an H100: as B1, memory traffic and the launch rate.  It
-// makes one launch per half-sweep, looped in C, like B1, but every thread
-// of a launch updates a cell of the launch's colour: there is no colour
-// test and no idle half of the threads, and a half-sweep reads and writes
-// contiguous half-width rows.  The TPU gained nothing from it (its vector
-// registers are 128 lanes wide either way, sor_kernel.py:867-872).  Nor
-// does the card: halving the threads per launch does not lift the launch
-// rate, the bound at 258^2, and 64 sweeps there took 0.57 ms against B1's
-// 0.41 ms on an H100 (700 W).  A compacted layout would pay inside a kernel
-// that sweeps many times per launch, as the tiled one (sor_tiled.cu) does.
+// On an H100 80GB HBM3 at a 700 W power limit (chip_smoke.py), 64 sweeps
+// at 258^2: the kernel's 8 launches take 56.5-58.0 us of device time
+// against B1's 59.9-61.5 us (the compacted loads need no select), and a
+// call with the wrapper's compaction and expansion 0.094-0.102 ms against
+// the first version's 0.44-0.48 ms.
 
 #include <cuda_runtime.h>
 
 #include "nsp_round.cuh"
+#include "nsp_sor_tile.cuh"
 
 namespace {
 
@@ -70,16 +80,55 @@ __global__ void compressed_half_sweep(float* __restrict__ tgt,
 
 }  // namespace
 
-// n_sweeps red-black sweeps, in place on red and black (ni x nj/2 each,
-// row-major f32, 0 on entry) with rhs_red / rhs_black the compacted rhs.
+// n_sweeps red-black sweeps from delta = 0 on the compacted arrays (each
+// ni x nj/2, row-major f32, contents ignored) in chunks of
+// sweeps_per_chunk, tiles of tile_rows x tile_cols cells of the full grid:
+// (red, black) and (scratch_red, scratch_black) take turns as a chunk's
+// output and input, the scratch pair first, so the result is in the scratch
+// pair when the number of chunks is odd, else in (red, black); n_sweeps = 0
+// runs one chunk of no sweeps, which writes zeros.  Returns
+// cudaGetLastError() after the launches.
+extern "C" int nsp_sor_compressed_sweeps(
+    float* red, float* black, float* scratch_red, float* scratch_black,
+    const float* rhs_red, const float* rhs_black, int ni, int nj,
+    int n_sweeps, int tile_rows, int tile_cols, int sweeps_per_chunk,
+    float one_minus_omega, float coef, float dx2_inv, float dy2_inv,
+    int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nsp::TileChunk t{red,       scratch_red, rhs_red,
+                   {ni, nj, 0, 0, ni, nj, 0, ni, 0, nj},
+                   tile_rows, tile_cols,   0,
+                   0,         1,           one_minus_omega,
+                   coef,      dx2_inv,     dy2_inv};
+  t.src1 = black;
+  t.dst1 = scratch_black;
+  t.rhs1 = rhs_black;
+  return static_cast<int>(nsp::tile_chunks_from_zero<true>(
+      t, n_sweeps, sweeps_per_chunk, static_cast<cudaStream_t>(stream)));
+}
+
+// nsp_sor_tile_report (sor_tiled.cu) of the compacted layout's kernel.
+extern "C" int nsp_sor_compressed_tile_report(int tile_rows, int tile_cols,
+                                              int halo, int* out,
+                                              int device) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      nsp::tile_report<true>(tile_rows, tile_cols, halo, out));
+}
+
+// The first version, on no path: n_sweeps red-black sweeps, in place on red
+// and black (ni x nj/2 each, row-major f32, 0 on entry) with rhs_red /
+// rhs_black the compacted rhs, one launch per half-sweep.  The update is
+// nsp_sor.cuh's expression with the Pallas kernel's order of the y
+// neighbours, (W + E) * dx2_inv + (N + S) * dy2_inv + d * self_coef; IEEE
+// addition commutes, so it equals the other sweep kernels bit for bit.
 // Returns cudaGetLastError() after the launches.
-extern "C" int nsp_sor_compressed_sweeps(float* red, float* black,
-                                         const float* rhs_red,
-                                         const float* rhs_black, int ni,
-                                         int nj, int n_sweeps,
-                                         float one_minus_omega, float coef,
-                                         float dx2_inv, float dy2_inv,
-                                         int device, void* stream) {
+extern "C" int nsp_sor_compressed_sweeps_simple(
+    float* red, float* black, const float* rhs_red, const float* rhs_black,
+    int ni, int nj, int n_sweeps, float one_minus_omega, float coef,
+    float dx2_inv, float dy2_inv, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (nj % 2) return static_cast<int>(cudaErrorInvalidValue);

@@ -64,14 +64,26 @@ SIGNATURES = {
                            _I, _F, _F, _F, _F, _I, _P),
     # tile_rows, tile_cols, halo, out (int[7]), device
     "nsp_sor_tile_report": (_I, _I, _I, _P, _I),
+    # red, black, scratch_red, scratch_black, rhs_red, rhs_black, ni, nj,
+    # n_sweeps, tile_rows, tile_cols, sweeps_per_chunk, one_minus_omega,
+    # coef, dx2_inv, dy2_inv, device, stream
+    "nsp_sor_compressed_sweeps": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _F, _F, _F, _F, _I, _P),
+    # tile_rows, tile_cols, halo, out (int[7]), device
+    "nsp_sor_compressed_tile_report": (_I, _I, _I, _P, _I),
     # red, black, rhs_red, rhs_black, ni, nj, n_sweeps, one_minus_omega,
     # coef, dx2_inv, dy2_inv, device, stream
-    "nsp_sor_compressed_sweeps": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
-                                  _I, _P),
+    "nsp_sor_compressed_sweeps_simple": (_P, _P, _P, _P, _I, _I, _I, _F, _F,
+                                         _F, _F, _I, _P),
+    # dt_p, gamma_p (device pointers or null), dt_v, gamma_v, u, v, F, G,
+    # rhs, ni, nj, i_max, j_max, inv_dx, inv_dy, inv_re, inv_dx2, inv_dy2,
+    # g_x, g_y, device, stream
+    "nsp_momentum_rhs": (_P, _P, _F, _F, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _F, _F, _F, _F, _F, _F, _F, _I, _P),
     # scalars(dt, gamma), u, v, F, G, rhs, ni, nj, i_max, j_max, inv_dx,
     # inv_dy, inv_re, inv_dx2, inv_dy2, g_x, g_y, device, stream
-    "nsp_momentum_rhs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
-                         _F, _F, _F, _F, _I, _P),
+    "nsp_momentum_rhs_simple": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                _F, _F, _F, _F, _F, _F, _I, _P),
 }
 
 _lib = None  # the loaded library, once built

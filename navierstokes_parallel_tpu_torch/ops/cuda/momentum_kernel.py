@@ -3,11 +3,14 @@
 Counterpart of ``navierstokes_parallel_tpu/ops/pallas/momentum_kernel.py``
 (``_make_kernel`` through ``momentum_rhs``): the eight donor-cell/diffusive
 stencils on the guarded loop domains, the wall values F = u / G = v, and
-rhs = div(F, G)/dt on the interior.  The kernel is ``csrc/momentum.cu``;
-its source note says what bounds it on the card.
+rhs = div(F, G)/dt on the interior.  The kernel is ``csrc/momentum.cu``, one
+fused launch per call; its source note says what bounds it on the card.
 
 ``momentum_rhs`` dispatches on the tensors' device: CPU tensors go to
 ``momentum_rhs_plain``; CUDA tensors launch the kernel or raise.
+``momentum_rhs_simple`` is the first kernel (two launches: F and G, then
+rhs), on no path: the yardstick the fused kernel is held against on the
+card.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 from ...config import Params
 from . import _build
 
-# Kernel launches through momentum_rhs (one per call: F/G, then rhs).
+# Kernel launches through momentum_rhs (one per call).
 LAUNCHES = 0
 
 
@@ -36,6 +39,19 @@ def _scalars(dt, gamma, device) -> torch.Tensor:
     parts = [torch.as_tensor(x, device=device).to(torch.float32).reshape(())
              for x in (dt, gamma)]
     return torch.stack(parts)
+
+
+def _scalar_arg(x, device):
+    """(pointer, value, tensor to keep alive) of dt or gamma for the fused
+    kernel: a 0-d f32 tensor on `device` goes by its pointer, as it is (no
+    launch, no host round trip); another CUDA tensor by the pointer of its
+    f32 copy on `device`; a Python number or a CPU tensor by value, rounded
+    to f32 where it meets the kernel's float argument."""
+    if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+        if x.device != device or x.dtype != torch.float32 or x.dim() != 0:
+            x = x.to(device=device, dtype=torch.float32).reshape(())
+        return x.data_ptr(), 0.0, x
+    return None, float(x), None
 
 
 def momentum_rhs_plain(u, v, dt, gamma, params: Params):
@@ -123,8 +139,9 @@ def check_inputs(u: torch.Tensor, v: torch.Tensor, params: Params) -> None:
 
 
 def momentum_rhs(u, v, dt, gamma, params: Params):
-    """(F, G, rhs): the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors.  dt and gamma are Python floats or 0-d tensors."""
+    """(F, G, rhs): the plain version for CPU tensors, the fused CUDA kernel
+    (one launch) for CUDA tensors.  dt and gamma are Python floats or 0-d
+    tensors.  On the card F, G and rhs are views of one allocation."""
     global LAUNCHES
     if u.device.type == "cpu" and v.device.type == "cpu":
         return momentum_rhs_plain(u, v, dt, gamma, params)
@@ -132,15 +149,39 @@ def momentum_rhs(u, v, dt, gamma, params: Params):
         raise ValueError(f"no momentum kernel for device {u.device}")
     check_inputs(u, v, params)
     lib = _build.load()
+    # The copies _scalar_arg may make stay referenced until the launch.
+    dt_p, dt_v, _dt = _scalar_arg(dt, u.device)
+    gamma_p, gamma_v, _gamma = _scalar_arg(gamma, u.device)
+    ni, nj = params.shape
+    out = torch.empty((3, ni, nj), dtype=torch.float32, device=u.device)
+    F, G, rhs = out.unbind(0)
+    status = lib.nsp_momentum_rhs(
+        dt_p, gamma_p, dt_v, gamma_v, u.data_ptr(), v.data_ptr(),
+        F.data_ptr(), G.data_ptr(), rhs.data_ptr(), ni, nj, params.i_max,
+        params.j_max, *kernel_constants(params),
+        *_build.device_and_stream(u))
+    _build.check_status(status, "nsp_momentum_rhs")
+    LAUNCHES += 1
+    return F, G, rhs
+
+
+def momentum_rhs_simple(u, v, dt, gamma, params: Params):
+    """momentum_rhs by its first kernel, two launches (F and G, then rhs
+    from F and G in device memory): the yardstick the fused kernel is held
+    against on the card, on no path.  CUDA tensors only."""
+    if u.device.type != "cuda":
+        raise ValueError(f"momentum_rhs_simple runs on a CUDA tensor only, "
+                         f"got {u.device}")
+    check_inputs(u, v, params)
+    lib = _build.load()
     scal = _scalars(dt, gamma, u.device)
     F, G, rhs = (torch.empty_like(u) for _ in range(3))
     ni, nj = params.shape
-    status = lib.nsp_momentum_rhs(
+    status = lib.nsp_momentum_rhs_simple(
         scal.data_ptr(), u.data_ptr(), v.data_ptr(), F.data_ptr(),
         G.data_ptr(), rhs.data_ptr(), ni, nj, params.i_max, params.j_max,
         *kernel_constants(params), *_build.device_and_stream(u))
-    _build.check_status(status, "nsp_momentum_rhs")
-    LAUNCHES += 1
+    _build.check_status(status, "nsp_momentum_rhs_simple")
     return F, G, rhs
 
 

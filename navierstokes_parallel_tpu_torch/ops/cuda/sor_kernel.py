@@ -14,7 +14,10 @@ Counterpart of ``navierstokes_parallel_tpu/ops/pallas/sor_kernel.py``:
     in shared memory (``csrc/sor_tiled.cu``), the tile's rows the caller's;
   * ``inner_sweeps_compressed`` (``_make_compressed_kernel`` through
     ``inner_sweeps_compressed``): the same sweeps on the red and the black
-    cells compacted into two half-width arrays (``csrc/sor_compressed.cu``);
+    cells compacted into two half-width arrays, the compaction and the
+    expansion one PyTorch gather each, the sweeps
+    (``compressed_colour_sweeps``) one launch of B1's tile per chunk over
+    the compacted arrays (``csrc/sor_compressed.cu``);
   * ``inner_sweeps`` routes between those three as the JAX package's
     ``inner_sweeps`` does: the tiled kernel where the grid exceeds the JAX
     whole-grid budget, else the compressed one when ``USE_COMPRESSED`` is
@@ -42,14 +45,17 @@ goes to its ``*_plain`` twin; a CUDA tensor launches the kernel or raises.
 
 ``whole_grid_sweeps_simple`` and ``warm_sweeps_simple`` are the first
 kernels of ``whole_grid_sweeps`` and ``warm_sweeps`` (one launch per
-half-sweep on the grid in device memory, ``csrc/sor.cu``).  No path calls
-them: they share nothing with the tile but the cell update, so the smoke
-test and the GPU tests hold every other sweep kernel against them.
+half-sweep on the grid in device memory, ``csrc/sor.cu``), and
+``inner_sweeps_compressed_simple`` the first of ``inner_sweeps_compressed``
+(one launch per half-sweep on the compacted arrays).  No path calls them:
+they share nothing with the tile but the cell update, so the smoke test and
+the GPU tests hold every other sweep kernel against them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -58,9 +64,10 @@ from . import _build
 
 # Kernel launches, one per call of a wrapper that launches (each call runs
 # all its launches in C): whole_grid_sweeps counts in LAUNCHES,
-# inner_sweeps_tiled in TILED_LAUNCHES, inner_sweeps_compressed in
-# COMPRESSED_LAUNCHES, warm_sweeps in WARM_LAUNCHES, coarse_cycle in
-# CYCLE_LAUNCHES and ext_sweeps in EXT_LAUNCHES.
+# inner_sweeps_tiled in TILED_LAUNCHES, compressed_colour_sweeps (the
+# kernel of inner_sweeps_compressed) in COMPRESSED_LAUNCHES, warm_sweeps in
+# WARM_LAUNCHES, coarse_cycle in CYCLE_LAUNCHES and ext_sweeps in
+# EXT_LAUNCHES.
 LAUNCHES = 0
 TILED_LAUNCHES = 0
 COMPRESSED_LAUNCHES = 0
@@ -344,16 +351,20 @@ def tile_updates_per_cell(tile_rows: int, tile_cols: int, ns: int) -> float:
     return boxes / 2 / ns / (tile_rows * tile_cols)
 
 
-def tile_report(tile_rows: int, tile_cols: int, halo: int) -> dict:
+def tile_report(tile_rows: int, tile_cols: int, halo: int,
+                compact: bool = False) -> dict:
     """The tile's layout on the current card (CUDA only): shared rows and
     columns, rows per thread (0: rhs read from device memory at each
     update), threads per block, shared bytes, resident blocks per SM and
-    registers per thread, as the kernel library reports them."""
+    registers per thread, as the kernel library reports them; compact: of
+    the kernel that reads and writes colour-compacted arrays (B5)."""
     out = (ctypes.c_int * 7)()
-    status = _build.load().nsp_sor_tile_report(
+    name = ("nsp_sor_compressed_tile_report" if compact
+            else "nsp_sor_tile_report")
+    status = getattr(_build.load(), name)(
         int(tile_rows), int(tile_cols), int(halo), ctypes.addressof(out),
         torch.cuda.current_device())
-    _build.check_status(status, "nsp_sor_tile_report")
+    _build.check_status(status, name)
     keys = ("rows", "cols", "rows_per_thread", "threads", "shared_bytes",
             "blocks_per_sm", "registers")
     return dict(zip(keys, out))
@@ -457,24 +468,43 @@ def inner_sweeps_tiled(rhs_neg: torch.Tensor, n_sweeps: int, params: Params,
 #   red N = black[i, k + b],   red S = black[i, k + b - 1]
 #   black N = red[i, k + 1 - b], black S = red[i, k - b]
 
-def _row_odd(ni: int, device) -> torch.Tensor:
-    return ((torch.arange(ni, device=device) & 1) == 1).view(ni, 1)
+@functools.lru_cache(maxsize=16)
+def _colour_index(ni: int, nj: int, device: torch.device):
+    """(fwd, inv) of a padded (ni, nj even) grid on `device`, cached (read
+    only): fwd (2, ni, nj // 2) holds the flat grid index of red[i, k] and
+    of black[i, k], 2k + (c ^ b) in row i for colour c; inv (ni, nj) the
+    flat index of each grid cell in the (2, ni, nj // 2) pair of arrays."""
+    njc = nj // 2
+    ii = torch.arange(ni, device=device).view(1, ni, 1)
+    kk = torch.arange(njc, device=device).view(1, 1, njc)
+    cc = torch.arange(2, device=device).view(2, 1, 1)
+    fwd = ii * nj + 2 * kk + (cc ^ (ii & 1))
+    jj = torch.arange(nj, device=device).view(1, nj)
+    ii = ii.view(ni, 1)
+    inv = ((ii + jj) & 1) * (ni * njc) + ii * njc + jj // 2
+    return fwd, inv
+
+
+def _compress_planar(full: torch.Tensor) -> torch.Tensor:
+    """full (ni, nj even) -> (2, ni, nj // 2): its red and its black cells,
+    one gather."""
+    return torch.take(full, _colour_index(*full.shape, full.device)[0])
+
+
+def _expand_planar(colours: torch.Tensor) -> torch.Tensor:
+    """(2, ni, nj // 2) red and black cells -> the (ni, nj) grid, one
+    gather."""
+    _, ni, njc = colours.shape
+    return torch.take(colours, _colour_index(ni, 2 * njc, colours.device)[1])
 
 
 def _compress_colors(full: torch.Tensor):
     """full (ni, nj even) -> (red, black), each (ni, nj // 2)."""
-    even_j, odd_j = full[:, 0::2], full[:, 1::2]
-    row_odd = _row_odd(full.shape[0], full.device)
-    return (torch.where(row_odd, odd_j, even_j),
-            torch.where(row_odd, even_j, odd_j))
+    return tuple(_compress_planar(full).unbind(0))
 
 
 def _decompress_colors(red: torch.Tensor, black: torch.Tensor) -> torch.Tensor:
-    ni, njc = red.shape
-    row_odd = _row_odd(ni, red.device)
-    even_j = torch.where(row_odd, black, red)
-    odd_j = torch.where(row_odd, red, black)
-    return torch.stack([even_j, odd_j], dim=-1).reshape(ni, 2 * njc)
+    return _expand_planar(torch.stack([red, black]))
 
 
 def inner_sweeps_compressed_plain(rhs_neg: torch.Tensor, n_sweeps: int,
@@ -523,28 +553,73 @@ def inner_sweeps_compressed(rhs_neg: torch.Tensor, n_sweeps: int,
                             params: Params) -> torch.Tensor:
     """n_sweeps f32 red-black sweeps on A delta = rhs_neg from delta = 0 on
     the colour-compacted arrays: the plain version for a CPU tensor, the
-    CUDA kernel for a CUDA one.  The padded width must be even."""
-    global COMPRESSED_LAUNCHES
+    CUDA kernel (compressed_colour_sweeps between the compaction and the
+    expansion) for a CUDA one.  The padded width must be even."""
     if params.shape[1] % 2:
         raise ValueError(f"the compressed SOR kernel takes an even padded "
                          f"width, got {params.shape[1]}")
     if not _cuda_tensor(rhs_neg):
         return inner_sweeps_compressed_plain(rhs_neg, n_sweeps, params)
     check_inputs(rhs_neg, n_sweeps, params)
-    lib = _build.load()
+    # Compaction and expansion stay outside the kernel, as in the JAX
+    # package: one gather each.
+    return _expand_planar(compressed_colour_sweeps(_compress_planar(rhs_neg),
+                                                   n_sweeps, params))
+
+
+def compressed_colour_sweeps(rhs_colours: torch.Tensor, n_sweeps: int,
+                             params: Params) -> torch.Tensor:
+    """The kernel of inner_sweeps_compressed, CUDA only: n_sweeps sweeps from
+    delta = 0 on the colour-compacted arrays, the (2, ni, nj / 2) f32 red
+    and black cells of rhs (_compress_planar) in, those of the result out.
+    One launch of whole_grid_tile's tile per chunk of sweeps (one for
+    n_sweeps = 0), two pairs of arrays taking turns; every cell of the
+    result comes from the kernel."""
+    global COMPRESSED_LAUNCHES
+    _require_cuda(rhs_colours, "compressed_colour_sweeps")
     ni, nj = params.shape
-    # Compaction stays outside the kernel, as in the JAX package.
-    rhs_r, rhs_b = _compress_colors(rhs_neg)
-    red = torch.zeros((ni, nj // 2), dtype=torch.float32,
-                      device=rhs_neg.device)
-    black = torch.zeros_like(red)
-    status = lib.nsp_sor_compressed_sweeps(
-        red.data_ptr(), black.data_ptr(), rhs_r.data_ptr(), rhs_b.data_ptr(),
-        ni, nj, int(n_sweeps), *sweep_constants(params),
-        *_build.device_and_stream(rhs_neg))
+    shape = (2, ni, nj // 2)
+    if (rhs_colours.dtype != torch.float32 or not rhs_colours.is_contiguous()
+            or tuple(rhs_colours.shape) != shape):
+        raise ValueError(f"compressed_colour_sweeps takes a contiguous f32 "
+                         f"{shape} array, got {rhs_colours.dtype} "
+                         f"{tuple(rhs_colours.shape)}")
+    rows, cols, K = whole_grid_tile(params.shape)
+    bufs = torch.empty((2, *shape), dtype=torch.float32,
+                       device=rhs_colours.device)
+    first, other = bufs.unbind(0)
+    status = _build.load().nsp_sor_compressed_sweeps(
+        first[0].data_ptr(), first[1].data_ptr(), other[0].data_ptr(),
+        other[1].data_ptr(), rhs_colours[0].data_ptr(),
+        rhs_colours[1].data_ptr(), ni, nj, int(n_sweeps), rows, cols, K,
+        *sweep_constants(params), *_build.device_and_stream(rhs_colours))
     _build.check_status(status, "nsp_sor_compressed_sweeps")
     COMPRESSED_LAUNCHES += 1
-    return _decompress_colors(red, black)
+    n_chunks = max(1, -(-int(n_sweeps) // K))
+    return other if n_chunks % 2 else first
+
+
+def inner_sweeps_compressed_simple(rhs_neg: torch.Tensor, n_sweeps: int,
+                                   params: Params) -> torch.Tensor:
+    """inner_sweeps_compressed by its first kernel, one launch per
+    half-sweep on the compacted arrays: the yardstick the compressed
+    kernel is held against on the card, on no path.  CUDA tensors only."""
+    _require_cuda(rhs_neg, "inner_sweeps_compressed_simple")
+    if params.shape[1] % 2:
+        raise ValueError(f"the compressed SOR kernel takes an even padded "
+                         f"width, got {params.shape[1]}")
+    check_inputs(rhs_neg, n_sweeps, params)
+    ni, nj = params.shape
+    rhs = _compress_planar(rhs_neg)
+    # The kernel never writes the ghost cells, which must stay 0.
+    d = torch.zeros((2, ni, nj // 2), dtype=torch.float32,
+                    device=rhs_neg.device)
+    status = _build.load().nsp_sor_compressed_sweeps_simple(
+        d[0].data_ptr(), d[1].data_ptr(), rhs[0].data_ptr(),
+        rhs[1].data_ptr(), ni, nj, int(n_sweeps), *sweep_constants(params),
+        *_build.device_and_stream(rhs_neg))
+    _build.check_status(status, "nsp_sor_compressed_sweeps_simple")
+    return _expand_planar(d)
 
 
 # --- the multigrid smoother ------------------------------------------------------

@@ -342,6 +342,49 @@ def test_compressed_kernel_matches_plain_and_whole_grid(cuda, shape, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 7, 64])
+@pytest.mark.parametrize("shape", [(256, 256), (96, 62), (62, 60), (97, 62)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_compressed_tile_equals_twin_and_first_kernels(cuda, shape, n,
+                                                       monkeypatch):
+    """B5 on the temporal tile over the compacted arrays, bit for bit
+    against its plain twin, the first whole-grid kernel and its own first
+    kernel (one launch per half-sweep on the compacted arrays), at 258^2,
+    98 x 64, 64 x 62 and an odd row count (99 x 64), from buffers the
+    kernel must fill itself: n = 0 is one chunk of no sweeps, 7 a short
+    one, 64 eight."""
+    prm = _params(*shape)
+    rhs = _rhs(prm, seed=n).to(cuda)
+    _poison_empty(monkeypatch)
+    before = sor_kernel.COMPRESSED_LAUNCHES
+    got = sor_kernel.inner_sweeps_compressed(rhs, n, prm)
+    assert sor_kernel.COMPRESSED_LAUNCHES == before + 1
+    assert torch.equal(got, sor_kernel.inner_sweeps_compressed_plain(
+        rhs, n, prm))
+    assert torch.equal(got, sor_kernel.whole_grid_sweeps_simple(rhs, n, prm))
+    assert torch.equal(got, sor_kernel.inner_sweeps_compressed_simple(
+        rhs, n, prm))
+    ring = torch.ones(prm.shape, dtype=torch.bool, device=cuda)
+    ring[1:-1, 1:-1] = False
+    assert not got[ring].any()
+
+
+@pytest.mark.gpu
+def test_compressed_tile_has_a_kernel_compiled_for_it(cuda):
+    """The compacted layout has a kernel compiled for every tile
+    whole_grid_tile can pick (rhs in registers, no run-time shape), with
+    the full layout's geometry."""
+    for rows, cols, k in sor_kernel.WHOLE_GRID_TILES:
+        report = sor_kernel.tile_report(rows, cols, 2 * k, compact=True)
+        full = sor_kernel.tile_report(rows, cols, 2 * k)
+        assert report["rows_per_thread"] > 0
+        assert report["registers"] <= 80, report
+        for key in ("rows", "cols", "rows_per_thread", "threads",
+                    "shared_bytes"):
+            assert report[key] == full[key]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["budget", "forced_off", "compressed",
                                   "compressed_odd", "forced_on"])
 def test_inner_sweeps_routes_on_the_card(cuda, case, monkeypatch):
@@ -443,6 +486,13 @@ def test_simple_kernels_take_cuda_tensors_only():
         sor_kernel.whole_grid_sweeps_simple(_rhs(prm), 2, prm)
     with pytest.raises(ValueError, match="CUDA tensor only"):
         sor_kernel.warm_sweeps_simple(_rhs(prm), _rhs(prm), 2, 1.0, 4.0, 4.0)
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        sor_kernel.inner_sweeps_compressed_simple(_rhs(prm), 2, prm)
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        sor_kernel.compressed_colour_sweeps(
+            sor_kernel._compress_planar(_rhs(prm)), 2, prm)
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        momentum_kernel.momentum_rhs_simple(*_uv(prm), 0.1, 0.2, prm)
 
 
 def _levels(i_max, j_max):
@@ -598,6 +648,33 @@ def test_momentum_kernel_matches_plain(cuda, shape):
     assert momentum_kernel.LAUNCHES == before + 1
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) / float(w.abs().max()) <= KERNEL_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scalars", ["tensors", "floats"])
+@pytest.mark.parametrize("shape", [(256, 256), (2048, 2048), (97, 61),
+                                   (5, 7)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_fused_momentum_equals_plain_and_first_kernel(cuda, shape, scalars,
+                                                      monkeypatch):
+    """The fused B2 kernel, one launch, bit for bit against its plain twin
+    and the first kernel (two launches) at 258^2, 2050^2, 99 x 63 and a
+    grid smaller than one tile, random dt and gamma as 0-d device tensors
+    or Python floats, into buffers that start as NaN."""
+    prm = _params(*shape)
+    u, v = (x.to(cuda) for x in _uv(prm, seed=shape[1]))
+    rng = np.random.default_rng(shape[0])
+    dt, gamma = (float(x) for x in rng.uniform(1e-4, 1e-2, 2))
+    if scalars == "tensors":
+        dt, gamma = (torch.tensor(x, device=cuda) for x in (dt, gamma))
+    _poison_empty(monkeypatch)
+    before = momentum_kernel.LAUNCHES
+    got = momentum_kernel.momentum_rhs(u, v, dt, gamma, prm)
+    assert momentum_kernel.LAUNCHES == before + 1
+    for want in (momentum_kernel.momentum_rhs_plain(u, v, dt, gamma, prm),
+                 momentum_kernel.momentum_rhs_simple(u, v, dt, gamma, prm)):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.gpu

@@ -328,8 +328,16 @@ def test_compiled_tile_shapes_cover_the_routes():
     """Each tile the wrappers pick on a main path has a kernel compiled for
     its shape, each such shape fits a block (rows per thread cover the
     haloed tile, at most 1024 threads) and delta of its haloed tile fits
-    the shared memory of one block."""
+    the shared memory of one block.  The compressed route runs
+    whole_grid_tile's tiles in the colour-compacted layout, which is
+    compiled for every row of the table too."""
     shapes = _compiled_tile_shapes()
+    csrc = os.path.join(ROOT, "navierstokes_parallel_tpu_torch", "csrc")
+    tile_src = open(os.path.join(csrc, "nsp_sor_tile.cuh")).read()
+    assert "tile_chunk<kHotShapes[I].m, I, kCompact>)...}" in tile_src
+    compressed_src = open(os.path.join(csrc, "sor_compressed.cu")).read()
+    assert "tile_chunks_from_zero<true>(" in compressed_src
+    assert "tile_report<true>(" in compressed_src
     assert len(shapes) >= 3
     for ti, tj, halo, rs, m, min_blocks in shapes:
         assert tj % 2 == 0 and halo % 2 == 0 and rs % 2 == 0

@@ -169,6 +169,43 @@ def test_momentum_rhs_cpu_dispatches_to_plain():
     assert momentum_kernel.LAUNCHES == before  # no kernel launched
 
 
+@pytest.mark.parametrize("scalars", ["floats", "tensors", "f64_tensors"])
+def test_momentum_rhs_cpu_dispatch_takes_floats_and_tensors(scalars):
+    """dt and gamma as Python floats, 0-d f32 tensors (what the time step
+    passes) or 0-d f64 tensors: the CPU dispatch equals the plain twin on
+    the floats and the JAX kernel in interpret mode within TOL."""
+    prm, ref = _params(14, 10)
+    u, v, _ = _fields((14, 10), seed=11)
+    dt, gamma = 0.004, 0.45
+    args = {"floats": (dt, gamma),
+            "tensors": (torch.tensor(dt), torch.tensor(gamma)),
+            "f64_tensors": (torch.tensor(dt, dtype=torch.float64),
+                            torch.tensor(gamma, dtype=torch.float64))}
+    got = momentum_kernel.momentum_rhs(torch.from_numpy(u),
+                                       torch.from_numpy(v), *args[scalars],
+                                       prm)
+    want = momentum_kernel.momentum_rhs_plain(torch.from_numpy(u),
+                                              torch.from_numpy(v), dt, gamma,
+                                              prm)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert torch.equal(g, w)
+    kern = jmk.momentum_rhs(jnp.asarray(u), jnp.asarray(v), dt, gamma, ref)
+    _close(got[0], kern[0])
+    _close(got[1], kern[1])
+    _close(got[2], kern[2], scale=float(jnp.max(jnp.abs(kern[2]))))
+
+
+@pytest.mark.parametrize("x", [0.25, torch.tensor(0.25),
+                               torch.tensor(0.25, dtype=torch.float64)],
+                         ids=["float", "f32_tensor", "f64_tensor"])
+def test_scalar_args_of_the_fused_kernel(x):
+    """A Python number or a CPU tensor reaches the kernel by value (f32
+    where it meets the kernel's float argument), with no device pointer."""
+    assert momentum_kernel._scalar_arg(x, torch.device("cpu")) == (None, 0.25,
+                                                                   None)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_project_velocities(shape):
     prm, ref = _params(*shape)

@@ -130,6 +130,30 @@ def test_colour_compaction_matches_jax():
                        torch.from_numpy(full))
 
 
+@pytest.mark.parametrize("shape", [(10, 12), (9, 16), (7, 64)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_compacted_pair_index_algebra(shape):
+    """What the compressed kernel's load and store stages assume of
+    _compress_colors (the JAX package's, checked against it): a tile whose
+    first column b0 is even finds the pair of cells (a, b0 + 2k), (a, b0 +
+    2k + 1) at [a][b0 / 2 + k] of the red array (the cell of even i + j)
+    and of the black array, on even and odd rows alike."""
+    ni, nj = shape
+    full = np.random.default_rng(nj).standard_normal(shape).astype(np.float32)
+    red, black = sor_kernel._compress_colors(torch.from_numpy(full))
+    jred, jblack = jsk._compress_colors(jnp.asarray(full))
+    np.testing.assert_array_equal(red.numpy(), np.asarray(jred))
+    np.testing.assert_array_equal(black.numpy(), np.asarray(jblack))
+    for b0 in range(0, nj, 2):
+        for a in range(ni):
+            for k in range((nj - b0) // 2):
+                j = b0 + 2 * k
+                red_j = j if (a + j) % 2 == 0 else j + 1
+                black_j = j + 1 if red_j == j else j
+                assert red[a, b0 // 2 + k] == full[a, red_j]
+                assert black[a, b0 // 2 + k] == full[a, black_j]
+
+
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
 def test_route_boundary_matches_jax_fits_in_vmem(path):
     prm = Params.from_file(path)

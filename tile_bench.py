@@ -24,9 +24,13 @@
     python3 tile_bench.py --cycle   # also one V-cycle at 2048^2 with the
                                    # coarse cycle entered at 130^2 (as the
                                    # port does) and at 66^2
+    python3 tile_bench.py --preset momentum --momentum
+                                   # also the fused momentum kernel B2 at
+                                   # 258^2 and 2050^2 with its tile as it
+                                   # is and with other tiles
 
-Builds sor_tiled.cu, sor_ext.cu and sor.cu of the given source directory
-into a private library under build/tile_bench/ (nvcc for sm_90a with
+Builds sor_tiled.cu, sor_ext.cu, sor.cu and momentum.cu of the given
+source directory into a private library under build/tile_bench/ (nvcc for sm_90a with
 ``-Xptxas -v``, whose register and spill lines it prints), then times with
 CUDA events, on configs/4.in's grid:
 
@@ -46,7 +50,12 @@ CUDA events, on configs/4.in's grid:
   * with --cycle: one V-cycle of ops/mg.py at 2050^2 through the port's
     own wrappers and library, the coarse cycle entered where
     sor_kernel.coarse_cycle_depth says (130^2) and one level further down
-    (66^2; the smoother then takes 130^2), in two turns.
+    (66^2; the smoother then takes 130^2), in two turns;
+  * with --momentum: B2 (nsp_momentum_rhs) at configs/1.in's 258^2 and
+    configs/4.in's 2050^2, dt and gamma as device scalars: device time per
+    call of 20 calls in a CUDA graph (two turns, its first kernel
+    nsp_momentum_rhs_simple between them) and call time with CUDA events,
+    and whether F, G and rhs equal the first kernel's bit for bit.
 
 A preset applies text edits to the sources, each variant in a copy under
 build/tile_bench/ (never in place), and times each copy the same way,
@@ -76,7 +85,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "tile_bench"
-UNITS = ("sor.cu", "sor_tiled.cu", "sor_ext.cu")
+UNITS = ("sor.cu", "sor_tiled.cu", "sor_ext.cu", "momentum.cu")
 # {preset: {variant: [(file, old text, new text), ...]}}.  "ablate": of the
 # first tile (no_mask also drops self_coef, nsp_sor.cuh); the others: of the
 # current tile's main-path kernel (nsp_sor_tile.cuh).
@@ -115,35 +124,38 @@ def _with_more_rows(edits=()):
                                 *(_row(**r) for r in _MORE_ROWS)]))]
 
 
-_LOAD_OLD = """    float d0 = 0.0f, d1 = 0.0f;
-    if (!t.zero_src) {
-      load_pair(t.src, t.dom.rows, t.dom.cols, k.a0 + r, b, vec_src, d0, d1);
-    }
+_LOAD_OLD = """      float d0 = 0.0f, d1 = 0.0f;
+      if (!t.zero_src) {
+        load_pair(t.src, t.dom.rows, t.dom.cols, k.a0 + r, b, vec_src, d0,
+                  d1);
+      }
 """
-_LOAD_CP_ASYNC = """    {
-      const int a = k.a0 + r;
-      const bool row_in = !t.zero_src && a >= 0 && a < t.dom.rows;
-      const float* g = t.src + static_cast<size_t>(row_in ? a : 0) * t.dom.cols;
-      const int f0 = r * k.pc + k.k;
-      const bool in0 = row_in && b >= 0 && b < t.dom.cols;
-      const bool in1 = row_in && b + 1 >= 0 && b + 1 < t.dom.cols;
-      const unsigned s0 = static_cast<unsigned>(
-          __cvta_generic_to_shared((k.q ? col1 : col0) + f0));
-      const unsigned s1 = static_cast<unsigned>(
-          __cvta_generic_to_shared((k.q ? col0 : col1) + f0));
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s0),
-                   "l"(g + (in0 ? b : 0)), "r"(in0 ? 4 : 0));
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s1),
-                   "l"(g + (in1 ? b + 1 : 0)), "r"(in1 ? 4 : 0));
-    }
+_LOAD_CP_ASYNC = """      {
+        const int a = k.a0 + r;
+        const bool row_in = !t.zero_src && a >= 0 && a < t.dom.rows;
+        const float* g = t.src + static_cast<size_t>(row_in ? a : 0) * t.dom.cols;
+        const int f0 = r * k.pc + k.k;
+        const bool in0 = row_in && b >= 0 && b < t.dom.cols;
+        const bool in1 = row_in && b + 1 >= 0 && b + 1 < t.dom.cols;
+        const unsigned s0 = static_cast<unsigned>(
+            __cvta_generic_to_shared((k.q ? col1 : col0) + f0));
+        const unsigned s1 = static_cast<unsigned>(
+            __cvta_generic_to_shared((k.q ? col0 : col1) + f0));
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s0),
+                     "l"(g + (in0 ? b : 0)), "r"(in0 ? 4 : 0));
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s1),
+                     "l"(g + (in1 ? b + 1 : 0)), "r"(in1 ? 4 : 0));
+      }
 """
-_STORE_OLD = """    const int f = r * k.pc + k.k;
-    col0[f] = k.q ? d1 : d0;
-    col1[f] = k.q ? d0 : d1;
+_STORE_OLD = """      const int f = r * k.pc + k.k;
+      col0[f] = k.q ? d1 : d0;
+      col1[f] = k.q ? d0 : d1;
+    }
   }
   __syncthreads();
 """
-_STORE_CP_ASYNC = """  }
+_STORE_CP_ASYNC = """    }
+  }
   asm volatile("cp.async.wait_all;" ::);
   __syncthreads();
 """
@@ -188,6 +200,28 @@ PRESETS = {
             _row(ti=64, tj=64, halo=4, rs=12, m=6, min_blocks=2)]))],
     },
 }
+# The fused momentum kernel's tile (B2): kTileI x kTileJ output cells, a
+# block of kTileJ / 2 x kThreadsI threads, two columns per thread.
+_MOMENTUM = "momentum.cu"
+_MOMENTUM_TILE = """constexpr int kTileI = 16;     // output rows (i, x) of a block
+constexpr int kTileJ = 64;     // output columns (j, y, contiguous)
+constexpr int kThreadsJ = 32;  // blockDim.x
+constexpr int kThreadsI = 8;   // blockDim.y
+"""
+
+
+def _momentum_tile(ti: int, tj: int, threads_i: int):
+    return [(_MOMENTUM, _MOMENTUM_TILE,
+             f"constexpr int kTileI = {ti};\nconstexpr int kTileJ = {tj};\n"
+             f"constexpr int kThreadsJ = {tj // 2};\n"
+             f"constexpr int kThreadsI = {threads_i};\n")]
+
+
+PRESETS["momentum"] = {
+    f"momentum_{ti}x{tj}_{ti // ti_threads}_rows": _momentum_tile(
+        ti, tj, ti_threads)
+    for ti, tj, ti_threads in ((8, 64, 8), (16, 64, 16), (32, 64, 8),
+                               (32, 64, 16), (8, 128, 4), (16, 128, 4))}
 PRESETS["ablate"] = {
     "no_sweep": [("nsp_sor_tile.cuh", "for (int h = 0; h < 2 * ns; ++h) {",
                   "for (int h = 0; h < 0; ++h) {")],
@@ -218,6 +252,10 @@ SIGNATURES = {
                              _F, _I, _P),
     "nsp_sor_ext_sweeps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _F, _F, _F, _F, _I, _P),
+    "nsp_momentum_rhs": (_P, _P, _F, _F, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _F, _F, _F, _F, _F, _F, _F, _I, _P),
+    "nsp_momentum_rhs_simple": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                _F, _F, _F, _F, _F, _F, _I, _P),
 }
 
 
@@ -264,7 +302,8 @@ def build_all(srcs: dict) -> dict:
         for line in out.splitlines():
             if "Compiling entry function" in line:
                 fn = line.split("'")[1] if "'" in line else line
-            elif fn and ("chunk" in fn or "tile" in fn) and (
+            elif fn and ("chunk" in fn or "tile" in fn
+                         or "momentum" in fn) and (
                     "registers" in line or "spill" in line):
                 print(f"[ptxas] {name} {fn[:60]}: {line.strip()}")
     loaded = {}
@@ -384,6 +423,56 @@ def time_b3(torch, lib, tiles, n: int = 2048, n_sweeps: int = 2) -> dict:
     return out
 
 
+def time_momentum(torch, lib) -> dict:
+    """B2 (nsp_momentum_rhs) at configs/1.in's and configs/4.in's grids:
+    us of device time per call in a CUDA graph (mean of two turns, the first
+    kernel nsp_momentum_rhs_simple between them), ms per call with CUDA
+    events, and whether F, G and rhs equal the first kernel's bit for
+    bit."""
+    from chip_smoke import graph_ms
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops.cuda import momentum_kernel
+
+    out = {}
+    for cfg in ("1.in", "4.in"):
+        prm = Params.from_file(str(ROOT / "configs" / cfg))
+        ni, nj = prm.shape
+        rng = np.random.default_rng(ni)
+        u, v = (torch.from_numpy(rng.standard_normal(prm.shape).astype(
+            np.float32)).cuda() for _ in range(2))
+        dt = torch.tensor(1e-3, device="cuda")
+        gamma = torch.tensor(0.5, device="cuda")
+        scal = torch.stack([dt, gamma])
+        got, want = (torch.empty((3, ni, nj), device="cuda")
+                     for _ in range(2))
+        args = (ni, nj, prm.i_max, prm.j_max,
+                *momentum_kernel.kernel_constants(prm), 0)
+
+        # The stream is read at each call: a CUDA graph captures on its own.
+        def fused():
+            st = lib.nsp_momentum_rhs(
+                dt.data_ptr(), gamma.data_ptr(), 0.0, 0.0, u.data_ptr(),
+                v.data_ptr(), *(x.data_ptr() for x in got), *args,
+                torch.cuda.current_stream().cuda_stream)
+            assert st == 0, st
+
+        def simple():
+            st = lib.nsp_momentum_rhs_simple(
+                scal.data_ptr(), u.data_ptr(), v.data_ptr(),
+                *(x.data_ptr() for x in want), *args,
+                torch.cuda.current_stream().cuda_stream)
+            assert st == 0, st
+
+        key = f"b2_{ni}"
+        first = graph_ms(torch, fused)
+        out[f"{key}_simple_graph_us"] = graph_ms(torch, simple) * 1e3
+        out[f"{key}_graph_us"] = (first + graph_ms(torch, fused)) * 1e3 / 2
+        out[f"{key}_call_ms"] = cuda_ms(torch, fused, 100)
+        torch.cuda.synchronize()
+        out[f"{key}_equals_simple"] = bool(torch.equal(got, want))
+    return out
+
+
 def time_cycle(torch) -> dict:
     """ms per V-cycle (ops/mg.py::v_cycle from delta = 0) at configs/4.in's
     2048^2, the coarse cycle entered at sor_kernel.coarse_cycle_depth and
@@ -438,6 +527,9 @@ def main(argv=None) -> int:
                     help="the N^2 interior grids of --b1")
     ap.add_argument("--b3", default="", metavar="RxC,...",
                     help="also time B3 with these tiles")
+    ap.add_argument("--momentum", action="store_true",
+                    help="also time the fused momentum kernel at 258^2 and "
+                         "2050^2")
     ap.add_argument("--cycle", action="store_true",
                     help="also time one V-cycle at 2048^2 with the coarse "
                          "cycle entered at 130^2 and at 66^2")
@@ -522,8 +614,11 @@ def main(argv=None) -> int:
                                [int(n) for n in args.grids.split(",")]))
         if args.b3:
             row.update(time_b3(torch, lib, args.b3.split(",")))
+        if args.momentum:
+            row.update(time_momentum(torch, lib))
         print(f"[time] {name}: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in row.items() if k.endswith("_ms")))
+            f"{k} {v:.4f}" for k, v in row.items()
+            if k.endswith(("_ms", "_us"))))
         print(json.dumps(row))
         with open(OUT / "tile_bench.jsonl", "a") as fh:
             fh.write(json.dumps(row) + "\n")
