@@ -5,7 +5,8 @@
 
     python3 chip_smoke.py --profile   # also a torch.profiler split of one
                                       # 2048^2 outer pass: mg, SOR, sharded,
-                                      # and one 256^2 outer pass of SOR
+                                      # sharded mg, and one 256^2 outer pass
+                                      # of SOR
 
 Builds the hand-written CUDA kernels from csrc/, holds each against its
 plain PyTorch version (and each SOR sweep kernel against the first
@@ -45,6 +46,18 @@ recorded answer:
     with every other SOR kernel and every plain sweep function barred; then
     the same steps through ``solve_sharded`` against ``solver.solve`` on the
     tiled route;
+  * the other pressure methods through ``cli.main`` (METHOD_PATHS), each
+    held to its JAX record: configs/1.in with an f64 state on the direct
+    solve (no kernel at all) and with ``--method jacobi`` (omega clamped
+    to 0.8, the warning printed; momentum_rhs only), configs/4.in with
+    ``--method fft`` (momentum_rhs once per step and once for the warm-up,
+    the transforms cuFFT's, no sweep kernel; one DCT solve at 2048^2 and
+    at an odd size held against the CPU's), and on the sharded backend over
+    a 1x1 mesh configs/4.in with ``--method mg`` (the V-cycle's smoother on
+    every sharded level is sor_ext_sweeps, B6's second caller, and the
+    replicated coarse solve one mg_coarse_cycle) and ``--method fft``,
+    configs/1.in with ``--method cg``, ``--method rb_sor_sync`` and an f64
+    state;
 
 then runs small converging cavities (SOR and mg) on the GPU and on the CPU
 and compares them.  Before the paths, the "decomposition" check cuts whole
@@ -120,6 +133,61 @@ RES_NORM_RTOL = 2e-3
 # last_res_norm=1.075e+02.  The sharded path is held to the same numbers.
 SHARDED_ARGV = ["--backend", "sharded", "--mesh", "1x1", "--max-steps",
                 str(TILED_STEPS), "--stats"]
+# The JAX package's answers on the paths of the other pressure methods,
+# each recorded on the CPU with
+#   JAX_PLATFORMS=cpu python -m navierstokes_parallel_tpu configs/<config> \
+#       <JAX arguments> --stats
+# (the port's run adds --backend jnp to the f64 run: the port's auto
+# backend would take the refined kernel route on the card, where the JAX
+# CLI on the CPU takes rb_sor, the direct solve).  Each printed:
+#   direct f64, --dtype float64: U-CENTER -0.003054, V-CENTER 0.000017,
+#     steps=3 sor_iterations=60000 sor_failures=3 last_res_norm=2.646e-04;
+#   jacobi, --method jacobi: -0.003056, 0.000018, steps=3
+#     sor_iterations=60000 sor_failures=3 last_res_norm=2.200e-01;
+#   fft, configs/4.in --method fft: -0.002993, 0.000003, steps=168
+#     sor_iterations=336 sor_failures=0 last_res_norm=5.866e-08 (direct
+#     solves);
+#   sharded mg, configs/4.in --backend sharded --mesh 1x1 --method mg:
+#     -0.002993, 0.000003, steps=168 sor_iterations=665 sor_failures=0
+#     last_res_norm=1.123e-04 (V-cycles of the sharded hierarchy, not the
+#     single-device 673);
+#   sharded fft, the same with --method fft: -0.002993, 0.000003,
+#     steps=168 sor_iterations=336 sor_failures=0 last_res_norm=2.854e-07;
+#   sharded cg, configs/1.in --backend sharded --mesh 1x1 --method cg:
+#     -0.003054, 0.000017, steps=3 sor_iterations=13248 sor_failures=0
+#     last_res_norm=1.421e-04 (CG steps);
+#   sharded rb_sor_sync, ... --method rb_sor_sync --max-steps 1 (rc 3):
+#     -0.001621, 0.000008, steps=1 sor_iterations=20000 sor_failures=1
+#     last_res_norm=2.105e-03;
+#   sharded f64, ... --dtype float64 --max-steps 1 (rc 3): -0.001621,
+#     0.000008, steps=1 sor_iterations=20000 sor_failures=1
+#     last_res_norm=2.112e-03.
+# tag: (config, the port's CLI arguments, U-CENTER, V-CENTER, stats, rc)
+SHARDED_1X1 = ["--backend", "sharded", "--mesh", "1x1"]
+METHOD_PATHS = {
+    "direct f64": ("1.in", ["--backend", "jnp", "--dtype", "float64"],
+                   -0.003054, 0.000017, (3, 60000, 3), 0),
+    "jacobi": ("1.in", ["--method", "jacobi"], -0.003056, 0.000018,
+               (3, 60000, 3), 0),
+    "fft": ("4.in", ["--method", "fft"], -0.002993, 0.000003, (168, 336, 0),
+            0),
+    "sharded mg": ("4.in", [*SHARDED_1X1, "--method", "mg"], -0.002993,
+                   0.000003, (168, 665, 0), 0),
+    "sharded fft": ("4.in", [*SHARDED_1X1, "--method", "fft"], -0.002993,
+                    0.000003, (168, 336, 0), 0),
+    "sharded cg": ("1.in", [*SHARDED_1X1, "--method", "cg"], -0.003054,
+                   0.000017, (3, 13248, 0), 0),
+    "sharded rb_sor_sync": ("1.in", [*SHARDED_1X1, "--method", "rb_sor_sync",
+                                     "--max-steps", "1"], -0.001621,
+                            0.000008, (1, 20000, 1), 3),
+    "sharded f64": ("1.in", [*SHARDED_1X1, "--dtype", "float64",
+                             "--max-steps", "1"], -0.001621, 0.000008,
+                    (1, 20000, 1), 3),
+}
+# One DCT solve on the card (cuFFT) against the CPU's (pocketfft): max
+# |difference| over max|p|.
+DCT_RTOL = 1e-5
+DCT_SIZES = ((2048, 2048), (999, 757))
 # The reference comparator's contract: 1e-4, absolute where |x| <= 1,
 # relative above (tests/conftest.py::assert_close_reference_contract).
 CONTRACT = 1e-4
@@ -139,11 +207,17 @@ TILE_SIZES = (64, 256)
 # warm).  A 1x1 block of configs/4.in (the sharded path on one card: ext
 # 2080^2, H = 16), the four blocks of a 2x2 cut of the same grid, a padded
 # 99 x 63 interior over 2x4, and the multigrid use (a warm start from a
-# non-zero delta with its ghost ring, omega = 1, H = 2 ns) over 2x2.
+# non-zero delta with its ghost ring, omega = 1, H = 2 ns) over 2x2 and as
+# the sharded mg path gives it on one card: configs/4.in's finest level
+# (ext 2056^2) and its coarsest smoothed one (8^2, ext 16^2), each with
+# that level's constants.
 EXT_CASES = [("configs/4.in 1x1", (2048, 2048), (1, 1), (1, 8), False),
              ("2048^2 2x2", (2048, 2048), (2, 2), (1, 8), False),
              ("99x63 2x4", (99, 63), (2, 4), (1, 8), False),
-             ("mg 130^2 2x2", (130, 130), (2, 2), (MG_SWEEPS,), True)]
+             ("mg 130^2 2x2", (130, 130), (2, 2), (MG_SWEEPS,), True),
+             ("sharded mg 2048^2 1x1", (2048, 2048), (1, 1), (MG_SWEEPS,),
+              True),
+             ("sharded mg 8^2 1x1", (8, 8), (1, 1), (MG_SWEEPS,), True)]
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
 # memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
@@ -403,6 +477,20 @@ def mg_levels():
     return levels, sor_kernel.coarse_cycle_depth(levels)
 
 
+def sharded_mg_levels():
+    """The sharded multigrid levels of configs/4.in on a 1x1 mesh (2048^2
+    down to the 4^2 level that is solved replicated), and the levels of
+    that replicated solve (one: 4^2, padded 6 x 6), as
+    mg._coarse_solve_replicated builds them."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops import mg
+
+    prm = Params.from_file(str(ROOT / "configs" / "4.in"))
+    levels = mg.build_levels_sharded(prm, prm.i_max, prm.j_max)
+    last = levels[-1]
+    return levels, mg._coarsen(*last.g_dims, last.dx2_inv, last.dy2_inv, 8)
+
+
 def compare_warm(torch, rng) -> float:
     """sor_warm_sweeps at the four levels the mg path gives it (2050^2,
     1026^2, 514^2, 258^2), at levels smaller than a few tiles (130^2, 66^2,
@@ -461,16 +549,16 @@ def cycle_on_simple(p, rhs, levels):
 
 def compare_coarse_cycle(torch, rng) -> float:
     """mg_coarse_cycle on the tail of configs/4.in's hierarchy (from the
-    depth the mg path enters it, and one level further down) against its
-    plain twin coarse_cycle_plain and against the same recursion on
-    sor_warm_sweeps_simple, from a random p and rhs (ghost rings not 0):
-    error 0.0.  Returns the max abs error."""
+    depth the mg path enters it, and one level further down) and on the
+    one-level 6 x 6 tail of the sharded mg path's replicated coarse solve,
+    against its plain twin coarse_cycle_plain and against the same
+    recursion on sor_warm_sweeps_simple, from a random p and rhs (ghost
+    rings not 0): error 0.0.  Returns the max abs error."""
     from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
 
     levels, depth = mg_levels()
     worst = 0.0
-    for d in (depth, depth + 1):
-        tail = levels[d:]
+    for tail in (levels[depth:], levels[depth + 1:], sharded_mg_levels()[1]):
         size = (tail[0].shape[0] - 2, tail[0].shape[1] - 2)
         p, rhs = (random_grid(torch, rng, size, ring=True) for _ in range(2))
         got = sor_kernel.coarse_cycle(p, rhs, tail)
@@ -491,13 +579,19 @@ def compare_coarse_cycle(torch, rng) -> float:
 def ext_setup(tag: str, size, mesh, warm: bool):
     """(ext_sweeps' last argument, li, lj, K, the blocks' global origins)
     of an EXT_CASES cut: configs/4.in's Params, another grid's, or (warm)
-    a multigrid level's constants with omega = 1 and K = its sweeps."""
+    a multigrid level's constants with omega = 1 and K = its sweeps: the
+    sharded mg path's own level of that size, else made-up ones."""
     from navierstokes_parallel_tpu_torch.config import Params
     from navierstokes_parallel_tpu_torch.parallel import deep_halo, topology
 
     li, lj = topology.local_block_dims(mesh, *size)
     origins = [(ax * li, ay * lj) for ax in range(mesh[0])
                for ay in range(mesh[1])]
+    if tag.startswith("sharded mg"):
+        level = next(lvl for lvl in sharded_mg_levels()[0]
+                     if lvl.g_dims == size)
+        return ((*level.g_dims, 1.0, level.dx2_inv, level.dy2_inv), li, lj,
+                MG_SWEEPS, origins)
     if warm:
         return ((*size, 1.0, 0.9 * size[0] ** 2, 1.3 * size[1] ** 2), li, lj,
                 MG_SWEEPS, origins)
@@ -996,10 +1090,11 @@ def check_only(launches: dict, kernels, where: str) -> None:
 
 
 def run_cli(tag: str, argv: list, u_want: float, v_want: float,
-            stats_want: dict, rc_want: int = 0):
+            stats_want: dict, rc_want: int = 0, stderr_needle: str = ""):
     """One CLI run, its answer held to a JAX record; returns its stats line
     as a dict and the kernels' launch counts in that run.  A run stopped by
-    --max-steps before T exits with rc_want = 3."""
+    --max-steps before T exits with rc_want = 3; stderr_needle must appear
+    on its standard error."""
     from navierstokes_parallel_tpu_torch import cli
 
     out, err = io.StringIO(), io.StringIO()
@@ -1010,6 +1105,8 @@ def run_cli(tag: str, argv: list, u_want: float, v_want: float,
     print(f"[{tag}] stdout:", out.getvalue().strip().replace("\n", " | "))
     print(f"[{tag}] stderr:", err.getvalue().strip().replace("\n", " | "))
     check(rc == rc_want, f"cli.main returned {rc}, expected {rc_want}")
+    check(stderr_needle in err.getvalue(),
+          f"{stderr_needle!r} is not on standard error")
     lines = out.getvalue().splitlines()
     uc = float(lines[0].split()[1])
     vc = float(lines[1].split()[1])
@@ -1308,6 +1405,86 @@ def phase_sharded_path(torch) -> dict:
     return launches
 
 
+def method_launches(tag: str, cycles: int) -> dict:
+    """The kernel launches a METHOD_PATHS run must make (every other count
+    0): B2 once per step and once for the warm-up where the state is f32 on
+    one device; on the sharded mg path, for each V-cycle and the warm-up's
+    one, two sor_ext_sweeps calls on every sharded level above the coarsest
+    and one mg_coarse_cycle for the replicated coarse solve."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops import mg
+
+    config, _, _, _, (steps, _, _), _ = METHOD_PATHS[tag]
+    if tag in ("jacobi", "fft"):
+        return {"momentum": steps + 1}
+    if tag == "sharded mg":
+        prm = Params.from_file(str(ROOT / "configs" / config))
+        levels = mg.build_levels_sharded(prm, prm.i_max, prm.j_max)
+        return {"sor_ext": (cycles + 1) * 2 * (len(levels) - 1),
+                "mg_coarse_cycle": cycles + 1}
+    return {}
+
+
+def phase_methods(torch) -> dict:
+    """Every METHOD_PATHS run through the CLI, held to its JAX record, with
+    the plain twins of the kernels (and every sweep route the path must not
+    take) barred, and its kernel launches held to method_launches; on the
+    fft path also one DCT solve on the card against the CPU's.  Returns the
+    launch counts summed over the runs."""
+    from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
+                                                          sor_kernel)
+
+    plain = ("inner_sweeps_plain", "inner_sweeps_tiled_plain",
+             "inner_sweeps_compressed_plain", "warm_sweeps_plain",
+             "coarse_cycle_plain", "ext_sweeps_plain",
+             "whole_grid_sweeps_simple", "warm_sweeps_simple",
+             "inner_sweeps_compressed_simple")
+    routes = ("whole_grid_sweeps", "inner_sweeps_tiled",
+              "inner_sweeps_compressed")
+    total, seconds = None, {}
+    for tag, (config, argv, u, v, stats_want, rc) in METHOD_PATHS.items():
+        where = f"the {tag} path"
+        with barred(sor_kernel, plain + routes, where), \
+                barred(momentum_kernel, ("momentum_rhs_plain",
+                                         "momentum_rhs_simple"), where):
+            stats, launches = run_cli(
+                tag, [str(ROOT / "configs" / config), *argv, "--stats"], u, v,
+                dict(zip(("steps", "sor_iterations", "sor_failures"),
+                         stats_want)), rc_want=rc,
+                stderr_needle="clamping to 0.8" if tag == "jacobi" else "")
+        want = method_launches(tag, int(stats["sor_iterations"]))
+        got = {k: n for k, n in launches.items() if n}
+        print(f"[{tag}] kernel launches {got}, expected {want}")
+        check(got == want, f"{where}'s kernel launches differ")
+        seconds[tag] = stats["solve_seconds"]
+        total = launches if total is None else {
+            k: total[k] + launches[k] for k in total}
+    compare_dct(torch)
+    print("[methods] solve seconds: " + ", ".join(
+        f"{tag} {t:.6f}" for tag, t in seconds.items()))
+    return total
+
+
+def compare_dct(torch) -> None:
+    """One DCT pressure solve (ops/fft.py, cuFFT on the card) against the
+    same solve on the CPU (pocketfft) at the fft path's 2048^2 and at an
+    odd size: max |difference| within DCT_RTOL of max|p|."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops import fft
+
+    rng = np.random.default_rng(6)
+    for i_max, j_max in DCT_SIZES:
+        prm = Params(i_max=i_max, j_max=j_max, a=1.0, b=0.7)
+        r = rng.standard_normal((i_max, j_max))
+        r = torch.from_numpy((r - r.mean()).astype(np.float32))
+        cpu = fft.poisson_solve_dct(r, prm)
+        card = fft.poisson_solve_dct(r.cuda(), prm).cpu()
+        err = float((card - cpu).abs().max() / cpu.abs().max())
+        print(f"[fft] poisson_solve_dct at {i_max}x{j_max}: card vs CPU max "
+              f"|difference| {err:.3e} of max|p| (tol {DCT_RTOL:.0e})")
+        check(err <= DCT_RTOL, f"the DCT solve differs at {i_max}x{j_max}")
+
+
 def device_kernels(prof):
     """The profile's device-side events (kernels and copies)."""
     from torch.autograd import DeviceType
@@ -1416,7 +1593,8 @@ def phase_profile(torch, trace_prefix) -> None:
     mg (f64 defect, one V-cycle, f64 defect and norm, one host sync), for
     the SOR route (the same around K = 64 sweeps of the tiled kernel) and
     for the sharded backend on one rank (the same around 8 chunks of a deep
-    exchange and 8 sweeps of the extended-block kernel), and one of the SOR
+    exchange and 8 sweeps of the extended-block kernel) and for its mg (one
+    V-cycle of the sharded hierarchy), and one of the SOR
     route at configs/1.in's 256^2 (K = 64 sweeps of the whole-grid kernel),
     each through profile_pass."""
     from navierstokes_parallel_tpu_torch.config import Params
@@ -1446,6 +1624,7 @@ def phase_profile(torch, trace_prefix) -> None:
     with distributed.process_group("cuda") as device:
         mesh = topology.make_grid_mesh(shape=(1, 1), device=device)
         deep = deep_halo.make_deep_inner(prm, li, lj, mesh)
+        sharded_mg = mg.make_sharded_inner(prm, li, lj, mesh)
         # (name, grid, what the inner stage is, the inner stage, one outer
         # pass)
         cases = [("mg", "2048^2",
@@ -1463,6 +1642,14 @@ def phase_profile(torch, trace_prefix) -> None:
                   lambda: deep(rhs, K),
                   lambda: sharded._sharded_pressure_solve(
                       p0, rhs, one_pass, "rb_sor", li, lj, None, mesh)),
+                 ("sharded_mg", "2048^2",
+                  f"one V-cycle of the sharded hierarchy on "
+                  f"{len(mg.build_levels_sharded(prm, li, lj))} levels "
+                  f"(1x1 mesh)",
+                  lambda: sharded_mg(rhs, 1),
+                  lambda: sharded._sharded_pressure_solve(
+                      p0, rhs, prm.replace(max_it=1), "mg", li, lj, None,
+                      mesh)),
                  ("pallas_sor_256", "256^2",
                   f"{prm1.sor_refine_every} sweeps on the "
                   f"{sor_kernel.route(prm1)} route",
@@ -1514,12 +1701,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one 2048^2 outer pass of mg, of "
-                         "the SOR route and of the sharded backend, and "
-                         "one 256^2 outer pass of the SOR route")
+                         "the SOR route, of the sharded backend and of its "
+                         "mg, and one 256^2 outer pass of the SOR route")
     ap.add_argument("--trace", default=None, metavar="PREFIX",
                     help="with --profile, write the chrome traces to "
                          "PREFIX.mg.json, PREFIX.pallas_sor.json, "
-                         "PREFIX.sharded.json and "
+                         "PREFIX.sharded.json, PREFIX.sharded_mg.json and "
                          "PREFIX.pallas_sor_256.json")
     args = ap.parse_args(argv)
     import torch
@@ -1545,7 +1732,8 @@ def main(argv=None) -> int:
                  timed_phase("mg path", phase_mg_path),
                  timed_phase("tiled path", phase_tiled_path, torch),
                  timed_phase("compressed path", phase_compressed_path, torch),
-                 timed_phase("sharded path", phase_sharded_path, torch)]
+                 timed_phase("sharded path", phase_sharded_path, torch),
+                 timed_phase("other methods", phase_methods, torch)]
         timed_phase("cpu-gpu", phase_cpu_gpu, torch)
         # After the paths: once the profiler has run in a process, every
         # later launch costs the host more.

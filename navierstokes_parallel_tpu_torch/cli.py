@@ -70,10 +70,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="pressure solver; rb_sor and pallas_sor both run "
                          "the f64-refined red-black SOR (on the sharded "
                          "backend with the deep-halo inner), mg geometric "
-                         "multigrid V-cycles and cg conjugate gradients in "
-                         "the same refinement (rb_sor_sync is rb_sor off the "
-                         "sharded backend; jacobi, fft and the sharded "
-                         "rb_sor_sync, mg and cg are not ported yet)")
+                         "multigrid V-cycles, cg conjugate gradients and fft "
+                         "direct DCT solves in the same refinement, jacobi "
+                         "damped Jacobi sweeps (omega clamped to 0.8); "
+                         "rb_sor_sync exchanges halos before every "
+                         "half-sweep on the sharded backend and is rb_sor "
+                         "off it.  A float64 state (or rb_sor / jacobi on "
+                         "the jnp backend) takes the direct solve in its "
+                         "dtype")
     ap.add_argument("--mesh", default=None, metavar="PxQ",
                     help="process mesh of the sharded backend, e.g. 2x2; "
                          "P * Q must equal the number of ranks (default: "

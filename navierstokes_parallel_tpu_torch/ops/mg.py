@@ -1,7 +1,7 @@
-"""Geometric multigrid pressure solver (method="mg"), single device.
+"""Geometric multigrid pressure solver (method="mg").
 
-PyTorch counterpart of the single-chip half of
-``navierstokes_parallel_tpu/ops/mg.py``: a cell-centered V(2,2)-cycle on the
+PyTorch counterpart of ``navierstokes_parallel_tpu/ops/mg.py``: a
+cell-centered V(2,2)-cycle on the
 homogeneous-Neumann 5-point Laplacian, used as the inner stage of the same
 f64 refinement outer as SOR (ops/sor.py), where one V-cycle on the f32
 correction replaces K red-black sweeps and ``iterations`` counts V-cycles.
@@ -26,15 +26,26 @@ for a 2048^2 grid).  For a CUDA tensor one kernel launch runs the rest of
 the cycle from there (sor_kernel.coarse_cycle), with the same bits as the
 functions below; for a CPU tensor the recursion goes on to the coarsest
 level.  The levels above it are still bound by the host's launch rate.
+
+The sharded multigrid (the end of this module) runs the same cycle on each
+rank's block of a process mesh: restriction and prolongation stay local,
+the smoother is the deep-halo one (one 2n-deep exchange, then n sweeps of
+the extended block through ``sor_kernel.ext_sweeps``: kernel B6 on the
+card, as for the sharded SOR inner), the level residual exchanges one-cell
+halos, and the coarsest sharded level is all-gathered and finished by
+``v_cycle`` on every rank.  ``make_sharded_cg_inner`` is the sharded
+conjugate gradient on the same level operator.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Params
 from .cuda import sor_kernel
@@ -48,9 +59,14 @@ class _Level(NamedTuple):
 
 def build_levels(params: Params, min_cells: int = 8) -> List[_Level]:
     """Coarsen by 2 in both directions while both stay even and >= min."""
-    ni, nj = params.i_max, params.j_max
-    dx2_inv = 1.0 / (params.dx * params.dx)
-    dy2_inv = 1.0 / (params.dy * params.dy)
+    return _coarsen(params.i_max, params.j_max, 1.0 / (params.dx * params.dx),
+                    1.0 / (params.dy * params.dy), min_cells)
+
+
+def _coarsen(ni: int, nj: int, dx2_inv: float, dy2_inv: float,
+             min_cells: int) -> List[_Level]:
+    """The levels of an ni x nj interior: halve both while both stay even
+    and at least min_cells after halving."""
     levels = [_Level((ni + 2, nj + 2), dx2_inv, dy2_inv)]
     while (ni % 2 == 0 and nj % 2 == 0 and ni // 2 >= min_cells
            and nj // 2 >= min_cells):
@@ -199,3 +215,249 @@ def inner_v_cycle(rhs_neg: torch.Tensor, n_cycles: int,
     for _ in range(int(n_cycles)):
         d = v_cycle(d, rhs, levels)
     return d
+
+
+# ---------------------------------------------------------------------------
+# Sharded multigrid (parallel/sharded.py).  Coarsening by 2 keeps the block
+# decomposition aligned: restriction and prolongation act on each rank's
+# local interior with no communication; the smoother and the level residual
+# exchange halos, and the refinement outer all-reduces the defect norm.
+# Masks and self coefficients come from global indices (the block's origin
+# on the mesh), so the physical-boundary Neumann folding and the
+# checkerboard stay globally consistent.
+# ---------------------------------------------------------------------------
+
+class _ShardedLevel(NamedTuple):
+    shape: Tuple[int, int]    # local padded (li + 2, lj + 2)
+    g_dims: Tuple[int, int]   # global interior (i_max, j_max) of the level
+    dx2_inv: float
+    dy2_inv: float
+
+
+def build_levels_sharded(params: Params, li: int, lj: int,
+                         min_local: int = 4) -> List[_ShardedLevel]:
+    """Per-rank level list; coarsen while the LOCAL block stays even and at
+    least min_local cells wide after halving (the global dims halve with
+    it, rounding down)."""
+    return [_ShardedLevel(lvl.shape, (params.i_max >> k, params.j_max >> k),
+                          lvl.dx2_inv, lvl.dy2_inv)
+            for k, lvl in enumerate(_coarsen(
+                li, lj, 1.0 / (params.dx * params.dx),
+                1.0 / (params.dy * params.dy), min_local))]
+
+
+def _level_masks(level: _ShardedLevel, mesh):
+    """(red, black, self_coef) of a level's local padded block, from its
+    global indices, built once per level and place on the mesh (the cache
+    keeps no process group)."""
+    return _level_masks_at(level, dataclasses.replace(mesh, group=None,
+                                                      axis_groups={}))
+
+
+@functools.lru_cache(maxsize=None)
+def _level_masks_at(level: _ShardedLevel, mesh):
+    from ..parallel import halo
+
+    (ni_l, nj_l), (i_max_l, j_max_l) = level.shape, level.g_dims
+    gi, gj = halo.padded_global_indices(level.shape, mesh)
+    ii = torch.arange(ni_l, device=mesh.device).view(-1, 1)
+    jj = torch.arange(nj_l, device=mesh.device).view(1, -1)
+    interior = ((gi >= 1) & (gi <= i_max_l) & (gj >= 1) & (gj <= j_max_l)
+                & (ii >= 1) & (ii <= ni_l - 2) & (jj >= 1) & (jj <= nj_l - 2))
+    par = (gi + gj) % 2
+    f32 = torch.float32
+    self_coef = (((gi == 1).to(f32) + (gi == i_max_l).to(f32)) * level.dx2_inv
+                 + ((gj == 1).to(f32) + (gj == j_max_l).to(f32))
+                 * level.dy2_inv)
+    return interior & (par == 0), interior & (par == 1), self_coef
+
+
+@functools.lru_cache(maxsize=None)
+def _ext_interior(ext_shape, H: int, origin, g_dims, device: torch.device):
+    """The global-interior mask of a level's extended block, built once per
+    level (the smoother runs twice per level and V-cycle)."""
+    return sor_kernel.ext_masks(ext_shape, H, origin, g_dims[0], g_dims[1],
+                                1.0, 1.0, device=device)[0]
+
+
+def _smooth_sharded_deep(p, rhs, level, n_sweeps: int, omega: float, mesh):
+    """The communication-avoiding smoother (parallel/deep_halo.py applied to
+    a warm start): ONE 2n-deep halo exchange of p and rhs, then n red-black
+    sweeps on the extended block, ``sor_kernel.ext_sweeps`` with the
+    level's constants (kernel B6 on the card).  Ring cells of the extended
+    block replicate the neighbours' cells and update in lockstep with them,
+    so the central (li, lj) core gets exactly what exchanging before every
+    half-sweep gives."""
+    from ..parallel import deep_halo
+
+    shape, g_dims, dx2_inv, dy2_inv = level
+    li, lj = shape[0] - 2, shape[1] - 2
+    H = 2 * n_sweeps
+    origin = mesh.origin(li, lj)
+    consts = (*g_dims, omega, dx2_inv, dy2_inv)
+    interior = _ext_interior((li + 2 * H, lj + 2 * H), H, origin, g_dims,
+                             p.device)
+
+    def clean_extend(local_int):
+        return torch.where(interior, deep_halo.extend_block(
+            local_int.to(torch.float32), H, mesh), 0.0)
+
+    out = sor_kernel.ext_sweeps(clean_extend(p[1:-1, 1:-1]),
+                                clean_extend(rhs[1:-1, 1:-1]), n_sweeps,
+                                origin, H, consts)
+    p = p.clone()
+    p[1:-1, 1:-1] = out[H:H + li, H:H + lj]
+    return p
+
+
+def _smooth_sharded(p, rhs, level, n_sweeps: int, mesh, omega: float = 1.0):
+    """Red-black sweeps on a local block: the deep-halo smoother when the
+    2n-deep halo fits the neighbour block (one exchange for all n sweeps),
+    else a one-cell exchange before each half-sweep (physical-edge halos
+    need no refresh: the self coefficient folds the Neumann BC, and what
+    the rolls bring in there is masked out)."""
+    from ..parallel import halo
+
+    if 2 * n_sweeps <= min(level.shape[0] - 2, level.shape[1] - 2):
+        return _smooth_sharded_deep(p, rhs, level, n_sweeps, omega, mesh)
+    red, black, self_coef = _level_masks(level, mesh)
+    coef = omega / (2.0 * (level.dx2_inv + level.dy2_inv))
+
+    def half(p, mask):
+        p = halo.exchange_halo(p, mesh)
+        nb = _neighbor_sum(p, level, self_coef)
+        return torch.where(mask, (1.0 - omega) * p + coef * (nb - rhs), p)
+
+    for _ in range(int(n_sweeps)):
+        p = half(half(p, red), black)
+    return p
+
+
+def _lap_sharded(p, level, mesh):
+    from ..parallel import halo
+
+    self_coef = _level_masks(level, mesh)[2]
+    p = halo.exchange_halo(p, mesh)
+    return (_neighbor_sum(p, level, self_coef)
+            - 2.0 * (level.dx2_inv + level.dy2_inv) * p)
+
+
+def _all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """JAX's tiled ``all_gather(x, axis, axis=dim)``: every rank's x along
+    the mesh axis, concatenated along dim in the axis' order."""
+    group, size = mesh.axis_group(axis)
+    if size == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _coarse_solve_replicated(p, rhs, level, nu1: int, nu2: int,
+                             coarse_sweeps: int, mesh):
+    """The coarsest sharded level's solve: all-gather the (small) level over
+    "x", then "y", onto every rank, finish the V-cycle on the replicated
+    global array with ``v_cycle`` (down to the <= 8^2 level), and cut the
+    local block back out.  On the card ``v_cycle`` takes its kernels, the
+    smoother and the coarse cycle, whose bits equal their plain twins'
+    (the JAX package runs its jnp smoother here)."""
+    shape, g_dims, dx2_inv, dy2_inv = level
+    li, lj = shape[0] - 2, shape[1] - 2
+    gi_n, gj_n = g_dims
+
+    def gather_global(arr):
+        tile = arr[1:-1, 1:-1]
+        if gi_n > li:
+            tile = _all_gather(tile, mesh, "x", 0)
+        if gj_n > lj:
+            tile = _all_gather(tile, mesh, "y", 1)
+        out = torch.zeros((gi_n + 2, gj_n + 2), dtype=arr.dtype,
+                          device=arr.device)
+        out[1:-1, 1:-1] = tile
+        return out
+
+    glevels = _coarsen(gi_n, gj_n, dx2_inv, dy2_inv, 8)
+    e_g = v_cycle(gather_global(p), gather_global(rhs), glevels, nu1=nu1,
+                  nu2=nu2, coarse_sweeps=coarse_sweeps)
+    ox, oy = mesh.origin(li, lj)
+    return e_g[ox:ox + li + 2, oy:oy + lj + 2].contiguous()
+
+
+def v_cycle_sharded(p, rhs, levels, mesh, depth: int = 0, nu1: int = 2,
+                    nu2: int = 2, coarse_sweeps: int = 32):
+    """One V(nu1, nu2) cycle on this rank's blocks of the sharded levels."""
+    lvl = levels[depth]
+    if depth == len(levels) - 1:
+        return _coarse_solve_replicated(p, rhs, lvl, nu1, nu2, coarse_sweeps,
+                                        mesh)
+    p = _smooth_sharded(p, rhs, lvl, nu1, mesh)
+    r = rhs - _lap_sharded(p, lvl, mesh)
+    coarse_shape = levels[depth + 1].shape
+    r_c = _restrict(r, coarse_shape)
+    e_c = torch.zeros(coarse_shape, dtype=p.dtype, device=p.device)
+    e_c = v_cycle_sharded(e_c, r_c, levels, mesh, depth + 1, nu1, nu2,
+                          coarse_sweeps)
+    p = p + _prolong(e_c, lvl.shape)
+    return _smooth_sharded(p, rhs, lvl, nu2, mesh)
+
+
+def make_sharded_inner(params: Params, li: int, lj: int, mesh):
+    """inner_fn(rhs_neg_local_padded, n_cycles) -> delta for the refinement
+    loop: n V-cycles of the sharded hierarchy from delta = 0."""
+    levels = build_levels_sharded(params, li, lj)
+
+    def inner(rhs_neg: torch.Tensor, n_cycles: int) -> torch.Tensor:
+        rhs = rhs_neg.to(torch.float32)
+        d = torch.zeros(levels[0].shape, dtype=torch.float32,
+                        device=rhs.device)
+        for _ in range(int(n_cycles)):
+            d = v_cycle_sharded(d, rhs, levels, mesh)
+        return d
+
+    return inner
+
+
+def make_sharded_cg_inner(params: Params, li: int, lj: int, mesh):
+    """inner_fn for the refinement loop: n conjugate-gradient steps on
+    B x = -b (B = -A, positive semi-definite for the Neumann Laplacian)
+    over local padded blocks: the halo-exchanged level Laplacian
+    (``_lap_sharded``), all-reduced dot products.  Every CG vector is
+    masked to the true local interior, so pad cells and the halo ring
+    contribute neither to the operator nor to the inner products; padded
+    grids run.  Every scalar stays a 0-d device tensor."""
+    level = build_levels_sharded(params, li, lj)[0]
+    red, black, _ = _level_masks(level, mesh)
+    valid = red | black
+
+    def mask(x):
+        return torch.where(valid, x, torch.zeros((), dtype=x.dtype,
+                                                 device=x.device))
+
+    def B(x):
+        return mask(-_lap_sharded(x, level, mesh))
+
+    def dot(a, c):
+        s = torch.sum(a * c)
+        dist.all_reduce(s, op=dist.ReduceOp.SUM, group=mesh.group)
+        return s
+
+    def inner(rhs_neg: torch.Tensor, n_iters: int) -> torch.Tensor:
+        b = mask(rhs_neg.to(torch.float32))
+        x = torch.zeros(level.shape, dtype=torch.float32, device=b.device)
+        r = -b
+        d = r
+        rs = dot(r, r)
+        zero = torch.zeros_like(rs)
+        for _ in range(int(n_iters)):
+            Bd = B(d)
+            denom = dot(d, Bd)
+            alpha = torch.where(denom > 0, rs / denom, zero)
+            x = x + alpha * d
+            r = r - alpha * Bd
+            rs_new = dot(r, r)
+            beta = torch.where(rs > 0, rs_new / rs, zero)
+            d = r + beta * d
+            rs = rs_new
+        return x
+
+    return inner

@@ -2,15 +2,28 @@
 through ``torch.distributed``.
 
 Counterpart of ``navierstokes_parallel_tpu/parallel/sharded.py`` for the
-cavity (problems 1-2) with the Euler step and the deep-halo SOR pressure
-solve.  The staggered grid's interior is block-sharded over a (px, py)
+cavity (problems 1-2) with the Euler step and every pressure method of
+the JAX sharded backend.  The staggered grid's interior is block-sharded over a (px, py)
 process mesh (parallel/topology.py); every rank advances its (li+2, lj+2)
 padded block with the single-device stencils, exchanges one-cell halo
 strips with its neighbours (parallel/halo.py) and combines reductions with
 ``dist.all_reduce`` on 0-d device tensors (the JAX package's ``pmax`` /
-``psum``).  The pressure solve is the f64 refinement of ops/sor.py with
-the sharded hooks and the deep-halo inner (parallel/deep_halo.py), whose
-sweeps are kernel B6 on the card.
+``psum``).  The pressure solve is ops/sor.py's with the sharded hooks
+(the exchange-and-Neumann ghost fill, the all-reduced L2 norm, the block's
+parity and pad mask), as JAX's ``_sharded_pressure_solve`` dispatches it:
+
+  * rb_sor / pallas_sor on an f32 state with the refinement on: the f64
+    refinement around the deep-halo inner (parallel/deep_halo.py), whose
+    sweeps are kernel B6 on the card;
+  * mg: the same outer around the sharded V-cycle (ops/mg.py), whose
+    smoother is kernel B6 too (divisible grids);
+  * fft: around the pencil-decomposed DCT solve (ops/fft.py; divisible
+    grids whose pencils tile);
+  * cg: around the sharded conjugate gradient (ops/mg.py);
+  * rb_sor_sync, jacobi, an f64 state, the refinement off or blocks
+    thinner than 2 cells: ``sor.solve_pressure`` with the hooks, i.e. the
+    plain inner or the direct solve with an exchange before every
+    half-sweep.
 
 The JAX package runs the whole ``while t < T`` on the device inside
 ``shard_map``; PyTorch runs eagerly, so the loop is on the host: one
@@ -28,10 +41,9 @@ states: a JAX ``State`` goes in unchanged (its arrays through numpy), the
 blocks are cut with the JAX package's ``_scatter_blocks`` layout and put
 back with ``_gather_blocks`` after an all-gather, on every rank.
 
-Not ported here (ROADMAP A10): the sharded mg, cg, fft and
-exchange-per-half-sweep (``rb_sor_sync``) solves, AB2, the thermal and
-free-surface steppers, obstacle domains and ``ShardedStepper``; each
-raises ``NotImplementedError`` naming its item.
+Not ported here (ROADMAP A10 items 5-9): AB2, the thermal and free-surface
+steppers, obstacle domains and ``ShardedStepper``; each raises
+``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -44,21 +56,14 @@ import torch.distributed as dist
 
 from ..config import Params
 from ..grid import State
-from ..ops import boundary, sor
+from ..ops import boundary, fft, mg, sor
 from ..ops import stencils as st
 from ..solver import SolveStats
 from . import deep_halo, halo
 from .topology import Mesh, local_block_dims, make_grid_mesh
 
-# Pressure methods of the JAX sharded backend not ported yet, with the
-# ROADMAP item that ports each.
-NOT_PORTED = {
-    "mg": "ROADMAP A10 (the sharded multigrid smoother on B6)",
-    "cg": "ROADMAP A10 (sharded cg)",
-    "fft": "ROADMAP A10 (sharded fft)",
-    "rb_sor_sync": "ROADMAP A10 (rb_sor_sync)",
-    "jacobi": "ROADMAP A5 (jacobi)",
-}
+# The pressure methods of the sharded backend.
+METHODS = ("rb_sor", "pallas_sor", "rb_sor_sync", "jacobi", "mg", "cg", "fft")
 
 
 def _all_reduce(x: torch.Tensor, op, mesh: Mesh) -> torch.Tensor:
@@ -206,16 +211,19 @@ def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
     return u, v, p, dt, result
 
 
+def _deep_route(params: Params, li: int, lj: int) -> bool:
+    """Whether rb_sor / pallas_sor take the deep-halo inner: an f32 state,
+    the refinement on, blocks of at least 2 x 2 cells."""
+    return (params.dtype == "float32" and params.sor_refine_every > 0
+            and min(li, lj) >= 2)
+
+
 def _sharded_pressure_solve(p, rhs, params: Params, pressure_method: str,
                             li: int, lj: int, valid, mesh: Mesh):
-    """The deep-halo SOR pressure solve on local padded blocks: the f64
-    refinement with the exchange-and-Neumann ghost fill (masked on padded
-    grids), the all-reduced L2 norm, the block's parity and pad mask, and
-    one deep exchange per K sweeps."""
-    if pressure_method not in ("rb_sor", "pallas_sor"):
-        raise NotImplementedError(
-            f"sharded pressure method {pressure_method!r} is not ported: "
-            f"{NOT_PORTED.get(pressure_method, 'ROADMAP A10')}")
+    """The pressure solve on local padded blocks with the sharded hooks:
+    the exchange-and-Neumann ghost fill (masked on padded grids), the
+    all-reduced L2 norm, the block's parity and pad mask; the inner stage
+    by method, as JAX's ``_sharded_pressure_solve`` picks it."""
     ox, oy = mesh.origin(li, lj)
     n_cells = params.i_max * params.j_max
     if valid is None:
@@ -228,17 +236,43 @@ def _sharded_pressure_solve(p, rhs, params: Params, pressure_method: str,
         return torch.sqrt(_all_reduce(torch.sum(arr * arr), dist.ReduceOp.SUM,
                                       mesh) / n_cells)
 
-    return sor._solve_pressure_refined(
-        p, rhs, params.replace(sor_refine_every=max(1, params.sor_refine_every)),
-        ghost_fn=ghost_fn, l2_fn=l2_fn, parity=(ox + oy) % 2,
-        inner_fn=deep_halo.make_deep_inner(params, li, lj, mesh),
-        valid_mask=valid)
+    hooks = dict(ghost_fn=ghost_fn, l2_fn=l2_fn, parity=(ox + oy) % 2)
+    refined = params.replace(sor_refine_every=max(1, params.sor_refine_every))
+    if pressure_method == "mg":
+        # One V-cycle per outer pass (as JAX's sharded mg); divisible grids.
+        return sor._solve_pressure_refined(
+            p, rhs, params.replace(sor_refine_every=1),
+            inner_fn=mg.make_sharded_inner(params, li, lj, mesh), **hooks)
+    if pressure_method == "fft":
+        # One pencil-decomposed direct solve per outer pass.
+        return sor._solve_pressure_refined(
+            p, rhs, params.replace(sor_refine_every=1),
+            inner_fn=fft.make_sharded_inner(params, li, lj, mesh), **hooks)
+    if pressure_method == "cg":
+        return sor._solve_pressure_refined(
+            p, rhs, refined,
+            inner_fn=mg.make_sharded_cg_inner(params, li, lj, mesh),
+            valid_mask=valid, **hooks)
+    if pressure_method in ("rb_sor", "pallas_sor") and _deep_route(
+            params, li, lj):
+        # One 2K-deep exchange per K sweeps.
+        return sor._solve_pressure_refined(
+            p, rhs, refined,
+            inner_fn=deep_halo.make_deep_inner(params, li, lj, mesh),
+            valid_mask=valid, **hooks)
+    # The exchange before every half-sweep: rb_sor_sync forces it; it is
+    # also the f64, refinement-off and thin-block route, and jacobi's.
+    method = "rb_sor" if pressure_method == "rb_sor_sync" else pressure_method
+    return sor.solve_pressure(p, rhs, params, method=method,
+                              valid_mask=valid, **hooks)
 
 
 def _check_method(params: Params, mesh: Mesh, pressure_method: str,
                   time_order: int = 1):
-    """Refuse what the port's sharded backend does not run; returns
-    (px, py, li, lj)."""
+    """Refuse what the port's sharded backend does not run, and what the
+    JAX package's refuses; returns (px, py, li, lj)."""
+    if pressure_method not in METHODS:
+        raise ValueError(f"unknown pressure solver method {pressure_method!r}")
     if time_order != 1:
         raise NotImplementedError(
             "time_order=2 (AB2) on the sharded backend is not ported: "
@@ -252,26 +286,29 @@ def _check_method(params: Params, mesh: Mesh, pressure_method: str,
         raise NotImplementedError(
             "obstacle domains on the sharded backend are not ported: "
             "ROADMAP A10 (obstacles)")
-    if pressure_method in NOT_PORTED:
-        raise NotImplementedError(
-            f"sharded pressure method {pressure_method!r} is not ported: "
-            f"{NOT_PORTED[pressure_method]}")
-    if pressure_method not in ("rb_sor", "pallas_sor"):
-        raise ValueError(f"unknown pressure solver method {pressure_method!r}")
     if params.outer_precision == "compensated":
         raise NotImplementedError(
             "outer_precision='compensated' is not ported (the H100 has "
             "native FP64): ROADMAP A9")
     px, py = mesh.shape
     li, lj = local_block_dims((px, py), params.i_max, params.j_max)
-    if params.dtype != "float32" or params.sor_refine_every < 1 or \
-            min(li, lj) < 2:
-        raise NotImplementedError(
-            f"the sharded deep-halo SOR takes a float32 state, "
-            f"sor_refine_every >= 1 and blocks of >= 2 x 2 cells (got "
-            f"{params.dtype}, {params.sor_refine_every}, {li} x {lj}); the "
-            f"exchange-per-half-sweep solve the JAX package runs otherwise "
-            f"is not ported: ROADMAP A10 (rb_sor_sync)")
+    padded = (px * li != params.i_max) or (py * lj != params.j_max)
+    if pressure_method in ("mg", "fft") and padded:
+        raise ValueError(
+            f"sharded {pressure_method} requires an evenly-divisible grid; "
+            f"{params.i_max}x{params.j_max} over a {px}x{py} mesh pads to "
+            f"{px * li}x{py * lj} — use pressure_method='rb_sor'")
+    if pressure_method == "fft" and (li % py != 0 or lj % px != 0):
+        raise ValueError(
+            f"sharded fft pencils must tile: blocks {li}x{lj} on a "
+            f"{px}x{py} mesh need li % py == 0 and lj % px == 0")
+    if pressure_method == "fft":
+        fft.check_precision(params)
+    if pressure_method == "pallas_sor" and not _deep_route(params, li, lj):
+        raise ValueError(
+            "sharded pallas_sor needs the mixed-precision refinement "
+            "(float32 state and sor_refine_every > 0) and blocks of at "
+            "least 2 x 2 cells")
     return px, py, li, lj
 
 

@@ -7,11 +7,19 @@ group, one shard per rank: rank k sits at (k // py, k % py), the row-major
 order of JAX's ``np.asarray(devices).reshape(px, py)``, so the blocks of
 ``sharded._scatter_blocks`` / ``_gather_blocks`` land on the same mesh
 positions in both packages.
+
+JAX's collectives over one mesh axis (``lax.all_to_all(..., "y")``,
+``lax.all_gather(..., "x")``) act within one row or column of the mesh;
+``make_grid_mesh`` builds those process groups once (every rank creates
+every group, in the same order) and ``Mesh.axis_group`` hands out this
+rank's.  A group rank is the rank's position along the axis, since
+``dist.new_group`` orders its members by global rank; the combined
+("x", "y") axis is the whole group, where the rank is ax * py + ay.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import torch
@@ -67,13 +75,16 @@ def local_block_dims(mesh_shape: Tuple[int, int], i_max: int,
 @dataclass(frozen=True)
 class Mesh:
     """This rank's place in a (px, py) mesh over the default process group:
-    ``shape`` (px, py), ``coords`` (ax, ay), the ``group`` and the
-    ``device`` the rank computes on."""
+    ``shape`` (px, py), ``coords`` (ax, ay), the ``group``, the ``device``
+    the rank computes on, and ``axis_groups``: this rank's groups along
+    "x" (its column: the ranks of equal ay) and "y" (its row), None for a
+    group of one rank."""
 
     shape: Tuple[int, int]
     coords: Tuple[int, int]
     device: torch.device
     group: object
+    axis_groups: dict = field(default_factory=dict, compare=False)
 
     def neighbour(self, axis: str, step: int) -> Optional[int]:
         """Rank of the shard `step` positions away along `axis`, or None
@@ -88,6 +99,36 @@ class Mesh:
     def origin(self, li: int, lj: int) -> Tuple[int, int]:
         """Global interior origin (ox, oy) of this rank's (li, lj) block."""
         return self.coords[0] * li, self.coords[1] * lj
+
+    def axis_group(self, axis: str):
+        """(group, size) of the collectives along `axis`: "x", "y", or "xy"
+        for the whole mesh."""
+        if axis == "xy":
+            return self.group, self.shape[0] * self.shape[1]
+        return self.axis_groups.get(axis), self.shape[MESH_AXES.index(axis)]
+
+
+def _axis_groups(px: int, py: int, rank: int) -> dict:
+    """This rank's "x" and "y" groups of a (px, py) mesh over the default
+    group.  Every rank calls ``dist.new_group`` for every row and column
+    group of more than one rank and fewer than all, in the same order; an
+    axis that spans the mesh is the default group, one of extent 1 has no
+    group."""
+    world = px * py
+    mine = {}
+    for axis, extent, groups in (
+            ("y", py, [[ax * py + ay for ay in range(py)]
+                       for ax in range(px)]),
+            ("x", px, [[ax * py + ay for ax in range(px)]
+                       for ay in range(py)])):
+        if extent == 1:
+            continue
+        for ranks in groups:
+            group = (dist.group.WORLD if extent == world
+                     else dist.new_group(ranks=ranks))
+            if rank in ranks:
+                mine[axis] = group
+    return mine
 
 
 def make_grid_mesh(n_devices: Optional[int] = None, i_max: int = 0,
@@ -110,4 +151,5 @@ def make_grid_mesh(n_devices: Optional[int] = None, i_max: int = 0,
     rank = dist.get_rank()
     device = (distributed.default_device() if device is None
               else torch.device(device))
-    return Mesh((px, py), (rank // py, rank % py), device, dist.group.WORLD)
+    return Mesh((px, py), (rank // py, rank % py), device, dist.group.WORLD,
+                _axis_groups(px, py, rank))

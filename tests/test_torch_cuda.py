@@ -947,3 +947,64 @@ def test_sharded_solve_on_card_matches_cpu(cuda):
         g = getattr(gs, name).cpu().numpy()
         c = getattr(cs, name).numpy()
         assert np.max(np.abs(g - c)) <= 1e-4 * max(1.0, np.max(np.abs(c)))
+
+
+# --- the other pressure methods on the card ------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(256, 256), (99, 63)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_dct_solve_on_the_card_matches_cpu(cuda, shape):
+    """poisson_solve_dct through cuFFT against pocketfft on the CPU, within
+    1e-5 of max|p| (two f32 FFT libraries)."""
+    from navierstokes_parallel_tpu_torch.ops import fft
+
+    prm = _params(*shape)
+    r = _rhs(prm, seed=3)[1:-1, 1:-1]
+    r = r - r.mean()
+    cpu = fft.poisson_solve_dct(r, prm)
+    card = fft.poisson_solve_dct(r.to(cuda), prm).cpu()
+    assert float((card - cpu).abs().max()) <= 1e-5 * float(cpu.abs().max())
+
+
+@pytest.mark.gpu
+def test_sharded_mg_smoother_launches_the_ext_kernel(cuda):
+    """The sharded multigrid's deep-halo smoother on a 1x1 mesh (no
+    message): kernel B6 on the card, bit for bit its plain twin on the
+    CPU."""
+    from navierstokes_parallel_tpu_torch.ops import mg
+    from navierstokes_parallel_tpu_torch.parallel import topology
+
+    prm = _params(64, 48)
+    level = mg.build_levels_sharded(prm, 64, 48)[1]
+    rng = np.random.default_rng(5)
+    p, rhs = (torch.from_numpy(rng.standard_normal(level[0]).astype(
+        np.float32)) for _ in range(2))
+    runs = {}
+    for device in ("cpu", cuda):
+        mesh = topology.Mesh((1, 1), (0, 0), torch.device(device), None)
+        before = sor_kernel.EXT_LAUNCHES
+        runs[str(device)] = mg._smooth_sharded(p.to(device), rhs.to(device),
+                                               level, 2, mesh).cpu()
+        launched = sor_kernel.EXT_LAUNCHES - before
+        assert launched == (0 if device == "cpu" else 1)
+    assert torch.equal(runs["cpu"], runs["cuda"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method,dtype", [("rb_sor", "float64"),
+                                          ("jacobi", "float32"),
+                                          ("fft", "float32")])
+def test_other_methods_gpu_match_cpu(cuda, method, dtype):
+    """A small converging cavity on the card and on the CPU: equal counts,
+    fields within the reference contract (1e-4)."""
+    prm = Params(problem=1, i_max=32, j_max=32, T=0.05, Re=100.0, tau=0.5,
+                 omega=1.7, epsilon=1e-4, max_it=5000, dtype=dtype)
+    runs = [solver.solve(prm, device=d, pressure_method=method)
+            for d in (cuda, "cpu")]
+    (sg, tg), (sc, tc) = runs
+    assert tg[:3] == tc[:3] and tg.sor_failures == 0
+    for name in ("u", "v", "p"):
+        a = getattr(sg, name).cpu().double()
+        b = getattr(sc, name).double()
+        assert float((a - b).abs().max()) <= 1e-4

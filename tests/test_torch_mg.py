@@ -539,3 +539,113 @@ def test_cli_rejects_negative_max_steps(tmp_path, capsys):
     rc, out, err = _run_cli(cli.main, [path, "--device", "cpu",
                                        "--max-steps", "-1"], capsys)
     assert rc == 1 and not out and "max-steps" in err[0]
+
+
+# --- the sharded multigrid and cg pieces, one rank ----------------------------
+#
+# A one-rank gloo group against the JAX pieces inside a one-device
+# shard_map (the four-rank solves are in tests/test_torch_sharded.py).
+
+SHARDED_TOL = 1e-6  # relative to max|p|: the smoother's and V-cycle's
+CG_TOL = 1e-5       # ten f32 CG steps, dot products summed in other orders
+
+
+@pytest.fixture
+def one_rank():
+    from navierstokes_parallel_tpu_torch.parallel import topology
+    from navierstokes_parallel_tpu_torch.utils import distributed
+
+    with distributed.process_group("cpu"):
+        yield topology.make_grid_mesh(shape=(1, 1), device="cpu")
+
+
+def _one_device(fn, *arrays):
+    """fn on a one-device ("x", "y") shard_map, numpy in and out."""
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+
+    try:
+        shard_map = jax.shard_map
+    except AttributeError:  # pragma: no cover
+        from jax.experimental.shard_map import shard_map
+    mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("x", "y"))
+    spec = P("x", "y")
+    mapped = jax.jit(shard_map(fn, mesh=mesh, in_specs=(spec,) * len(arrays),
+                               out_specs=spec, check_vma=False))
+    return np.asarray(mapped(*(jnp.asarray(a) for a in arrays)))
+
+
+def _assert_rel(got, want, tol):
+    scale = float(np.max(np.abs(want)))
+    assert scale > 0
+    np.testing.assert_allclose(np.asarray(got) / scale, want / scale, rtol=0,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("blocks", [(64, 64), (32, 24), (12, 10), (6, 6),
+                                    (17, 16)], ids=lambda b: f"{b[0]}x{b[1]}")
+def test_build_levels_sharded_matches_jax(blocks):
+    prm, ref = _params(blocks[0] * 2, blocks[1] * 4)
+    got = mg.build_levels_sharded(prm, *blocks)
+    want = jmg.build_levels_sharded(ref, *blocks)
+    assert [tuple(map(tuple, lv[:2])) + lv[2:] for lv in got] == \
+        [tuple(map(tuple, lv[:2])) + tuple(lv[2:]) for lv in want]
+
+
+@pytest.mark.parametrize("n", [2, 6], ids=["deep", "exchange_per_half"])
+def test_smooth_sharded_matches_jax(one_rank, n):
+    """The deep-halo smoother (2n <= min(li, lj): one exchange, the extended
+    block's sweeps through sor_kernel.ext_sweeps) and the exchange before
+    every half-sweep (2n > min(li, lj))."""
+    prm, ref = _params(12, 10)
+    level = mg.build_levels_sharded(prm, 12, 10)[0]
+    assert (2 * n <= 10) == (n == 2)
+    rng = np.random.default_rng(n)
+    p = rng.standard_normal(prm.shape).astype(np.float32)
+    rhs = _interior_field(prm.shape, rng)
+    got = mg._smooth_sharded(torch.from_numpy(p), torch.from_numpy(rhs),
+                             level, n, one_rank)
+    want = _one_device(lambda a, b: jmg._smooth_sharded(a, b, level, n), p,
+                       rhs)
+    _assert_rel(got.numpy(), want, SHARDED_TOL)
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (32, 24)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_v_cycle_sharded_matches_jax(one_rank, shape):
+    """One sharded V-cycle: deep-halo smoothing on the levels down to the
+    local floor of 4 cells, then the replicated coarse solve."""
+    prm, ref = _params(*shape)
+    levels = mg.build_levels_sharded(prm, *shape)
+    assert len(levels) >= 2
+    rng = np.random.default_rng(7)
+    rhs = _interior_field(prm.shape, rng, scale=1.0 / prm.dx ** 2,
+                          zero_mean=True)
+    p0 = np.zeros(prm.shape, np.float32)
+    got = mg.v_cycle_sharded(torch.from_numpy(p0), torch.from_numpy(rhs),
+                             levels, one_rank)
+    jlevels = jmg.build_levels_sharded(ref, *shape)
+    want = _one_device(lambda a, b: jmg.v_cycle_sharded(a, b, jlevels), p0,
+                       rhs)
+    _assert_rel(got.numpy(), want, SHARDED_TOL)
+
+
+@pytest.mark.parametrize("inner", ["mg", "cg", "fft"])
+def test_sharded_inners_match_jax(one_rank, inner, monkeypatch):
+    """The sharded backend's inner stages, one call each as an outer pass
+    makes it: one V-cycle, ten CG steps, one pencil DCT solve."""
+    from navierstokes_parallel_tpu.ops import fft as jfft
+    from navierstokes_parallel_tpu_torch.ops import fft
+
+    monkeypatch.setattr(jfft, "PREFER_RFFT", True)
+    prm, ref = _params(32, 24)
+    n = {"mg": 1, "cg": 10, "fft": 1}[inner]
+    rhs = _interior_field(prm.shape, np.random.default_rng(8), zero_mean=True)
+    make = {"mg": (mg.make_sharded_inner, jmg.make_sharded_inner),
+            "cg": (mg.make_sharded_cg_inner, jmg.make_sharded_cg_inner),
+            "fft": (fft.make_sharded_inner, jfft.make_sharded_inner)}[inner]
+    got = make[0](prm, 32, 24, one_rank)(torch.from_numpy(rhs), n)
+    want = _one_device(
+        lambda b: make[1](ref, 32, 24)(b, jnp.asarray(n, jnp.int32)), rhs)
+    _assert_rel(got.numpy()[1:-1, 1:-1], want[1:-1, 1:-1],
+                CG_TOL if inner == "cg" else SHARDED_TOL)

@@ -75,11 +75,11 @@ def test_port_imports_and_steps_without_jax():
 
 
 def test_no_jax_import_in_sources():
-    """Neither the port nor chip_smoke.py nor tile_bench.py imports jax or
-    the JAX package."""
+    """Neither the port nor chip_smoke.py, tile_bench.py or
+    direct_bench.py imports jax or the JAX package."""
     pkg = os.path.join(ROOT, "navierstokes_parallel_tpu_torch")
-    paths = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "tile_bench.py")]
+    paths = [os.path.join(ROOT, name) for name in (
+        "chip_smoke.py", "tile_bench.py", "direct_bench.py")]
     for dirpath, _, files in os.walk(pkg):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     banned = ("import jax", "from jax", "import navierstokes_parallel_tpu\n",

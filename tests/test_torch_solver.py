@@ -172,13 +172,19 @@ def test_cli_refine_every_and_dtype(tmp_path, capsys):
                                capsys)
     assert rc == jrc == 0
     assert err[0].split()[:3] == jerr[0].split()[:3]
-    rc, _, err = _run_cli(cli.main, [path, "--device", "cpu", "--dtype",
-                                     "float64"], capsys)
-    assert rc == 1 and "ROADMAP" in "".join(err)
+    # An f64 state runs the direct solve, as the JAX CLI does.
+    rc, out, err = _run_cli(cli.main, [path, "--device", "cpu", "--dtype",
+                                       "float64", "--stats"], capsys)
+    jrc, jout, jerr = _run_cli(jcli.main, [path, "--dtype", "float64",
+                                           "--stats"], capsys)
+    assert rc == jrc == 0
+    assert err[0].split()[:3] == jerr[0].split()[:3]
+    assert_close_reference_contract([float(x.split()[1]) for x in out],
+                                    [float(x.split()[1]) for x in jout])
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--device", "cpu", "--method", "jacobi"], "not ported"),
+    (["--device", "cpu", "--backend", "gspmd"], "not ported"),
     (["--device", "cpu", "--refine-every", "0"], "refine-every"),
     (["--device", "cuda"], "CUDA"),
 ])
