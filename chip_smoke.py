@@ -59,6 +59,15 @@ recorded answer:
     configs/1.in with ``--method cg``, ``--method rb_sor_sync`` and an f64
     state;
 
+  * the reference protocol (the "protocol" phase): the CLI's host loop
+    with frames, the final output, checkpoints and the history CSV with
+    the physics monitors, on configs/1.in (also stopped after 2 steps and
+    resumed: the straight run's files and state bit for bit),
+    configs/4.in --method mg, configs/4.in --max-steps 2 with frames and
+    the sharded 1x1 path in two pieces, each with the record and the
+    kernel launches of the same run without files, the solve seconds of
+    both printed; it also times one 2048^2 frame and one checkpoint;
+
 then runs small converging cavities (SOR and mg) on the GPU and on the CPU
 and compares them.  Before the paths, the "decomposition" check cuts whole
 grids into the blocks of 1x1, 2x2 and 2x4 meshes, sweeps each block's
@@ -82,6 +91,7 @@ import argparse
 import contextlib
 import io
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -124,6 +134,19 @@ JAX_TILED_STATS = {"steps": 2, "sor_iterations": 40000, "sor_failures": 2}
 # Its last residual norm, printed to 4 digits; held to 2e-3 relative.
 JAX_TILED_RES_NORM = 1.075e2
 RES_NORM_RTOL = 2e-3
+# The JAX package's answer on configs/1.in stopped after 2 steps, recorded
+# with
+#   JAX_PLATFORMS=cpu python -m navierstokes_parallel_tpu configs/1.in \
+#       --max-steps 2 --stats
+# which printed U-CENTER: -0.002439, V-CENTER: 0.000013 and steps=2
+# sor_iterations=40000 sor_failures=2 last_res_norm=1.036e-03 (rc 3).
+JAX_1IN_2STEPS_U = -0.002439
+JAX_1IN_2STEPS_V = 0.000013
+# The protocol phase's files (build/ is git-ignored; removed at its end) and
+# the --history-file header of --history-physics.
+PROTOCOL_DIR = ROOT / "build" / "protocol"
+PROTOCOL_COLUMNS = ("step,t,dt,sor_iterations,res_norm,kinetic_energy,"
+                    "enstrophy,max_divergence,psi_min")
 # The JAX package's sharded backend on configs/4.in over a one-device mesh
 # (the deep-halo SOR inner), stopped after 2 steps, recorded with
 #   JAX_PLATFORMS=cpu python -m navierstokes_parallel_tpu configs/4.in \
@@ -1089,12 +1112,18 @@ def check_only(launches: dict, kernels, where: str) -> None:
             check(launches[name] == 0, f"{where} launched the {name} kernel")
 
 
+# The solve seconds of each run_cli run, by tag (the protocol phase prints
+# its runs' beside those of the same runs without the protocol's files).
+SOLVE_SECONDS = {}
+
+
 def run_cli(tag: str, argv: list, u_want: float, v_want: float,
             stats_want: dict, rc_want: int = 0, stderr_needle: str = ""):
     """One CLI run, its answer held to a JAX record; returns its stats line
     as a dict and the kernels' launch counts in that run.  A run stopped by
     --max-steps before T exits with rc_want = 3; stderr_needle must appear
-    on its standard error."""
+    on its standard error.  u_want = None: a run with no JAX record of its
+    centre values (they are printed, and its fields held otherwise)."""
     from navierstokes_parallel_tpu_torch import cli
 
     out, err = io.StringIO(), io.StringIO()
@@ -1117,12 +1146,16 @@ def run_cli(tag: str, argv: list, u_want: float, v_want: float,
     for key, want in stats_want.items():
         check(int(stats[key]) == want,
               f"{key}={stats[key]}, JAX recorded {want}")
-    du, dv = contract_err(uc, u_want), contract_err(vc, v_want)
-    print(f"[{tag}] U-CENTER {uc:.6f} vs JAX {u_want:.6f} (err {du:.2e})"
-          f", V-CENTER {vc:.6f} vs JAX {v_want:.6f} (err {dv:.2e}), "
-          f"contract {CONTRACT:.0e}")
-    check(max(du, dv) <= CONTRACT, "centre values outside the contract")
+    if u_want is not None:
+        du, dv = contract_err(uc, u_want), contract_err(vc, v_want)
+        print(f"[{tag}] U-CENTER {uc:.6f} vs JAX {u_want:.6f} (err "
+              f"{du:.2e}), V-CENTER {vc:.6f} vs JAX {v_want:.6f} (err "
+              f"{dv:.2e}), contract {CONTRACT:.0e}")
+        check(max(du, dv) <= CONTRACT, "centre values outside the contract")
+    else:
+        print(f"[{tag}] U-CENTER {uc:.6f}, V-CENTER {vc:.6f} (no JAX record)")
     stats["solve_seconds"] = float(err.getvalue().splitlines()[-1])
+    SOLVE_SECONDS[tag] = stats["solve_seconds"]
     print(f"[{tag}] solve seconds {stats['solve_seconds']}; "
           f"launches {launches}")
     return stats, launches
@@ -1485,6 +1518,247 @@ def compare_dct(torch) -> None:
         check(err <= DCT_RTOL, f"the DCT solve differs at {i_max}x{j_max}")
 
 
+def sum_launches(runs) -> dict:
+    return {k: sum(run[k] for run in runs) for k in runs[0]}
+
+
+def history_rows(path) -> np.ndarray:
+    """The rows of a --history-file CSV (its header checked)."""
+    with open(path) as fh:
+        check(fh.readline().strip() == PROTOCOL_COLUMNS,
+              f"{path} has another header")
+    rows = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+    check(np.all(np.isfinite(rows)), f"{path} holds a non-finite value")
+    return rows
+
+
+def same_bytes(a: Path, b: Path) -> bool:
+    return a.read_bytes() == b.read_bytes()
+
+
+def frame_matches_state(torch, ck: Path, frame_prefix: Path, prm) -> bool:
+    """The frame's three files are the bytes the writer gives the state of
+    checkpoint `ck` (its fields on the card)."""
+    from navierstokes_parallel_tpu_torch.utils import io as nsio
+    from navierstokes_parallel_tpu_torch.utils.checkpoint import \
+        load_checkpoint
+
+    state = load_checkpoint(str(ck), prm, "cuda")
+    out = ck.with_suffix("")
+    nsio.output(state.u, state.v, state.p, float(state.t), prm.a, prm.b,
+                str(out), verbose=False)
+    return all(same_bytes(Path(f"{out}_{s}.txt"),
+                          Path(f"{frame_prefix}_{s}.txt")) for s in "uvp")
+
+
+def same_checkpoints(a: Path, b: Path) -> bool:
+    with np.load(a) as x, np.load(b) as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            np.array_equal(x[k], y[k]) for k in x.files)
+
+
+def protocol_files(tag: str, frames: bool = True, physics: bool = True,
+                   every: int = 1) -> list:
+    """The CLI's protocol flags, every file under PROTOCOL_DIR/<tag>*."""
+    d = PROTOCOL_DIR
+    argv = ["--checkpoint-every", str(every), "--checkpoint-path",
+            str(d / f"{tag}.npz")] if every else []
+    if frames:
+        argv += ["--output-dir", str(d / tag)]
+    if physics:
+        argv += ["--history-file", str(d / f"{tag}.csv"),
+                 "--history-physics"]
+    return argv
+
+
+def phase_protocol(torch, paths: dict) -> dict:
+    """The reference protocol through the CLI's host loop (frames, final
+    output, checkpoint/resume, history with the physics monitors) on every
+    kernel path, each run held to the JAX record of the same run without
+    the files, with the same kernel launches (`paths`: the launch counts of
+    those runs, by phase); returns the launch counts summed over its
+    runs."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops import mg
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+    from navierstokes_parallel_tpu_torch.utils import io as nsio
+    from navierstokes_parallel_tpu_torch.utils.checkpoint import (
+        load_checkpoint, save_checkpoint)
+
+    def save_compressed(path, state):
+        np.savez_compressed(path, **{k: getattr(state, k).cpu().numpy()
+                                     for k in ("u", "v", "p", "t")},
+                            n=np.int32(state.n))
+
+    d = PROTOCOL_DIR
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    c1, c4 = str(ROOT / "configs" / "1.in"), str(ROOT / "configs" / "4.in")
+    prm1, prm4 = Params.from_file(c1), Params.from_file(c4)
+    runs = []
+    try:
+        # configs/1.in with every file: the main path's record and launches.
+        stats, launches = run_cli(
+            "protocol 1.in", [c1, *protocol_files("p1"),
+                              "--final-output-prefix", str(d / "final1"),
+                              "--stats"],
+            JAX_U_CENTER, JAX_V_CENTER, JAX_STATS)
+        runs.append(launches)
+        check(launches == paths["main"], f"the launches {launches} differ "
+              f"from the main path's {paths['main']}")
+        frames = sorted(f.name for f in (d / "p1").iterdir())
+        check(frames == [f"{k}_{s}.txt" for k in range(3) for s in "puv"],
+              f"frames {frames}")
+        rows = history_rows(d / "p1.csv")
+        print(f"[protocol] configs/1.in: frames {frames}; history rows "
+              f"(step, sor_iterations) {rows[:, [0, 3]].astype(int).tolist()}"
+              f", psi_min {rows[:, 8].tolist()}")
+        check(rows[:, 0].tolist() == [1, 2, 3] and
+              int(rows[:, 3].sum()) == JAX_STATS["sor_iterations"],
+              "the history rows differ from the steps")
+        check(frame_matches_state(torch, d / "p1.npz", d / "final1", prm1),
+              "the final output is not the final state")
+
+        # Stopped after 2 steps, then resumed: the straight run's frames,
+        # history and final state, bit for bit.
+        stats, la = run_cli(
+            "protocol 1.in --max-steps 2",
+            [c1, *protocol_files("p2"), "--max-steps", "2", "--stats"],
+            JAX_1IN_2STEPS_U, JAX_1IN_2STEPS_V,
+            {"steps": 2, "sor_iterations": 40000, "sor_failures": 2},
+            rc_want=3)
+        check(frame_matches_state(torch, d / "p2.npz", d / "p1" / "2", prm1),
+              "the straight run's last frame is not the state after 2 steps")
+        stats, lb = run_cli(
+            "protocol 1.in --resume",
+            [c1, "--resume", str(d / "p2.npz"), "--output-dir", str(d / "p2"),
+             "--history-file", str(d / "p2.csv"), "--history-physics",
+             "--checkpoint-every", "1", "--checkpoint-path",
+             str(d / "p3.npz"), "--stats"],
+            JAX_U_CENTER, JAX_V_CENTER,
+            {"steps": 1, "sor_iterations": 20000, "sor_failures": 1})
+        runs += [la, lb]
+        passes = -(-prm1.max_it // prm1.sor_refine_every)
+        check((la["sor"], lb["sor"]) == (2 * passes + 1, passes + 1),
+              f"sor_sweeps calls {la['sor']} + {lb['sor']}")
+        same = {"frames": all(same_bytes(d / "p1" / f, d / "p2" / f)
+                              for f in frames),
+                "history": same_bytes(d / "p1.csv", d / "p2.csv"),
+                "state": same_checkpoints(d / "p1.npz", d / "p3.npz")}
+        print(f"[protocol] configs/1.in in two pieces vs straight, bit for "
+              f"bit: {same}")
+        check(all(same.values()), "the resumed run differs")
+
+        # configs/4.in --method mg with the monitors: PR 6's launches.
+        with barred(sor_kernel, ("warm_sweeps_plain", "coarse_cycle_plain",
+                                 "warm_sweeps_simple"), "the protocol's mg"):
+            stats, launches = run_cli(
+                "protocol mg", [c4, "--method", "mg",
+                                *protocol_files("mg", frames=False, every=0),
+                                "--stats"],
+                JAX_MG_U_CENTER, JAX_MG_V_CENTER, JAX_MG_STATS)
+        runs.append(launches)
+        rows = history_rows(d / "mg.csv")
+        print(f"[protocol] mg: {len(rows)} history rows, "
+              f"{int(rows[:, 3].sum())} V-cycles; last row {rows[-1].tolist()}")
+        check(len(rows) == JAX_MG_STATS["steps"] and int(rows[:, 3].sum())
+              == JAX_MG_STATS["sor_iterations"], "the mg history differs")
+        check(launches == paths["mg"], f"the launches {launches} differ "
+              f"from the mg path's {paths['mg']}")
+
+        # configs/4.in --max-steps 2 with frames: B4, PR 3's record.
+        plain = ("inner_sweeps_plain", "inner_sweeps_tiled_plain",
+                 "whole_grid_sweeps", "whole_grid_sweeps_simple")
+        with barred(sor_kernel, plain, "the protocol's tiled path"):
+            stats, launches = run_cli(
+                "protocol tiled", [c4, "--max-steps", str(TILED_STEPS),
+                                   "--output-dir", str(d / "tiled"),
+                                   "--stats"],
+                JAX_TILED_U_CENTER, JAX_TILED_V_CENTER, JAX_TILED_STATS,
+                rc_want=3)
+        runs.append(launches)
+        check(launches == paths["tiled"], f"the launches {launches} differ "
+              f"from the tiled path's {paths['tiled']}")
+        check(len(list((d / "tiled").iterdir())) == 3 * TILED_STEPS,
+              "the tiled run's frames")
+
+        # The sharded backend on one rank: 1 step with a checkpoint, then
+        # resumed for a second: PR 4's record, the straight run's bits.
+        tag = "protocol sharded"
+        stats, ls = run_cli(
+            f"{tag} straight", [c4, *SHARDED_ARGV, "--checkpoint-every", "2",
+                                "--checkpoint-path", str(d / "s2.npz")],
+            JAX_TILED_U_CENTER, JAX_TILED_V_CENTER, JAX_TILED_STATS,
+            rc_want=3)
+        one = {"steps": 1, "sor_iterations": 20000, "sor_failures": 1}
+        stats, la = run_cli(
+            f"{tag} --max-steps 1", [c4, *SHARDED_1X1, "--max-steps", "1",
+                                     "--checkpoint-every", "1",
+                                     "--checkpoint-path", str(d / "s1.npz"),
+                                     "--stats"], None, None, one, rc_want=3)
+        stats, lb = run_cli(
+            f"{tag} --resume", [c4, *SHARDED_1X1, "--max-steps", "1",
+                                "--resume", str(d / "s1.npz"),
+                                "--checkpoint-every", "1",
+                                "--checkpoint-path", str(d / "s3.npz"),
+                                "--stats"],
+            JAX_TILED_U_CENTER, JAX_TILED_V_CENTER, one, rc_want=3)
+        runs += [ls, la, lb]
+        res = float(stats["last_res_norm"])
+        check(abs(res - JAX_TILED_RES_NORM)
+              <= RES_NORM_RTOL * JAX_TILED_RES_NORM,
+              f"last_res_norm {res:.4e} differs from the JAX record")
+        per_step = (paths["sharded"]["sor_ext"] - 1) // TILED_STEPS
+        print(f"[protocol] sharded extended-block kernel calls {la['sor_ext']}"
+              f" + {lb['sor_ext']} in the two pieces ({per_step} per step + "
+              f"1 warm-up each), {ls['sor_ext']} straight")
+        check(ls == paths["sharded"] and la == lb and
+              la["sor_ext"] == per_step + 1, "the sharded launches differ")
+        same = same_checkpoints(d / "s2.npz", d / "s3.npz")
+        print(f"[protocol] sharded in two pieces vs straight, bit for bit: "
+              f"{same}")
+        check(same, "the resumed sharded run differs")
+
+        # One 2048^2 frame: the fields of the state after 2 steps from the
+        # card to the host, formatted and written, on the host's clock.
+        state = load_checkpoint(str(d / "s2.npz"), prm4, "cuda")
+        frame_s = []
+        for k in range(2):
+            t0 = time.perf_counter()
+            nsio.output(state.u, state.v, state.p, float(state.t), prm4.a,
+                        prm4.b, str(d / f"frame2048_{k}"), verbose=False)
+            frame_s.append(time.perf_counter() - t0)
+        mb = sum((d / f"frame2048_0_{s}.txt").stat().st_size
+                 for s in "uvp") / 1e6
+        print(f"[protocol] one 2048^2 frame ({mb:.1f} MB in 3 files): "
+              f"{frame_s[0]:.6f} s, {frame_s[1]:.6f} s")
+        # One checkpoint of it as the port writes it (np.savez) and as the
+        # JAX package does (np.savez_compressed), fields from the card.
+        for name, save in (("save_checkpoint", save_checkpoint),
+                           ("np.savez_compressed", save_compressed)):
+            t0 = time.perf_counter()
+            save(str(d / f"{name}.npz"), state)
+            print(f"[protocol] one 2048^2 checkpoint by {name}: "
+                  f"{time.perf_counter() - t0:.6f} s, "
+                  f"{(d / f'{name}.npz').stat().st_size / 1e6:.1f} MB")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    for with_files, without in (
+            ("protocol 1.in", "main"), ("protocol mg", "mg"),
+            ("protocol tiled", "tiled"),
+            ("protocol sharded straight", "sharded")):
+        print(f"[protocol] solve seconds {SOLVE_SECONDS[with_files]:.6f} "
+              f"({with_files}) beside {SOLVE_SECONDS[without]:.6f} "
+              f"(the same run without its files, '{without}')")
+    print(f"[protocol] solve seconds in two pieces: configs/1.in "
+          f"{SOLVE_SECONDS['protocol 1.in --max-steps 2']:.6f} + "
+          f"{SOLVE_SECONDS['protocol 1.in --resume']:.6f}; sharded "
+          f"{SOLVE_SECONDS['protocol sharded --max-steps 1']:.6f} + "
+          f"{SOLVE_SECONDS['protocol sharded --resume']:.6f}")
+    return sum_launches(runs)
+
+
 def device_kernels(prof):
     """The profile's device-side events (kernels and copies)."""
     from torch.autograd import DeviceType
@@ -1728,12 +2002,17 @@ def main(argv=None) -> int:
         errs = timed_phase("compare", phase_compare, torch)
         timed_phase("decomposition", phase_decomposition, torch)
         times = timed_phase("time", phase_time, torch)
-        paths = [timed_phase("main path", phase_main_path),
-                 timed_phase("mg path", phase_mg_path),
-                 timed_phase("tiled path", phase_tiled_path, torch),
-                 timed_phase("compressed path", phase_compressed_path, torch),
-                 timed_phase("sharded path", phase_sharded_path, torch),
-                 timed_phase("other methods", phase_methods, torch)]
+        paths = {"main": timed_phase("main path", phase_main_path),
+                 "mg": timed_phase("mg path", phase_mg_path),
+                 "tiled": timed_phase("tiled path", phase_tiled_path, torch),
+                 "compressed": timed_phase("compressed path",
+                                           phase_compressed_path, torch),
+                 "sharded": timed_phase("sharded path", phase_sharded_path,
+                                        torch),
+                 "methods": timed_phase("other methods", phase_methods,
+                                        torch)}
+        paths["protocol"] = timed_phase("protocol", phase_protocol, torch,
+                                        dict(paths))
         timed_phase("cpu-gpu", phase_cpu_gpu, torch)
         # After the paths: once the profiler has run in a process, every
         # later launch costs the host more.
@@ -1744,7 +2023,7 @@ def main(argv=None) -> int:
         print(f"FAIL: {e}")
         return 1
 
-    launches = {key: sum(path[key] for path in paths) for key in paths[0]}
+    launches = sum_launches(list(paths.values()))
     tpu = "navierstokes_parallel_tpu/ops/pallas/"
     sources = {"sor": ("sor_sweeps", "sor_tiled.cu",
                        f"{tpu}sor_kernel.py:67"),

@@ -11,36 +11,75 @@ the reference executables (src/serial/main.c:31-158):
     a single "%.6f" float — solver seconds (main.c:153's protocol)
 
 The kernels are built and launched once before the timer starts, as the JAX
-CLI compiles before it starts its timer.  ``--max-steps N`` stops after N
-steps and exits with code 3 while t < T remains, as the JAX CLI does.
+CLI compiles before it starts its timer.
+
+The reference protocol's files, as the JAX CLI writes them (the reference
+comments its own n_print output out, main.c:138-143):
+
+  * ``--output-dir D`` writes ``D/<k>_{u,v,p}.txt`` (utils/io.py, the
+    reference's text grids) before every step whose absolute step number
+    n is a multiple of n_print, k = n / n_print; a worker thread formats
+    and writes them while the next steps run, and a writer error is raised
+    at the next frame or at the end;
+  * ``--final-output-prefix P`` writes ``P_{u,v,p}.txt`` of the final state;
+  * ``--checkpoint-every N --checkpoint-path F`` saves the state to F
+    (utils/checkpoint.py, the JAX package's .npz) after every N-th step,
+    and ``--resume F`` starts from it: frame numbers follow the absolute
+    step count, and the history CSV is appended to (its columns must be
+    this run's);
+  * ``--history-file H`` writes one CSV row per step (step, t, dt,
+    sor_iterations, res_norm), ``--history-physics`` adds the monitors of
+    utils/diagnostics.py; ``--log-every N`` prints a row on stderr;
+  * ``--max-steps N`` stops after N steps and exits with code 3 while
+    t < T remains;
+  * ``--debug-nans`` checks the state after every step and stops at the
+    first step that leaves a NaN or Inf (utils/checks.py; JAX faults at
+    the first NaN-producing operation instead).
+
+Every run is the host loop (``run_host_loop``): ``solver.run_steps``
+over ``solver.Stepper`` on one device, which is ``solver.solve``'s loop
+(same kernels, same bits), or over ``parallel/sharded.py::ShardedStepper``,
+with the files these flags ask for written between the steps.
 
 ``--backend sharded`` runs the sharded solver (parallel/sharded.py) over a
 ``torch.distributed`` group, one rank per shard of a ``--mesh PxQ`` mesh
 (P * Q must equal the number of ranks): a one-rank group by itself, or the
-ranks ``torchrun`` starts.  Only rank 0 prints; the timer brackets the
-solve between a barrier and a synchronize.  ``jnp`` and ``pallas`` are the
-single-device route, as in the JAX CLI; ``gspmd`` is not ported.  The JAX
-CLI's other options (AB2, obstacles, output frames, checkpoints, history)
-are not ported yet (ROADMAP A4).  Unlike the JAX CLI, a tile size of 0 is
-refused rather than ignored.
+ranks ``torchrun`` starts.  Every rank runs the host loop and gathers the
+state at the same steps; only rank 0 prints and writes files, and after
+each step's writes every rank learns whether one failed, so a write error
+on rank 0 ends every rank with exit code 1 instead of leaving them waiting
+in the next gather.  The timer brackets the solve between a barrier and a
+synchronize; the final gather follows it.  ``jnp`` and
+``pallas`` are the single-device route, as in the JAX CLI; ``gspmd`` is
+not ported.  The JAX CLI's flags of later slices are parsed with their
+JAX choices and refused, naming their ROADMAP item, whenever they ask for
+more than the default: ``--time-order 2`` (A6), ``--obstacle`` (A7),
+``--free-wall freeslip`` (A8) and ``--outer compensated`` (A9).  Unlike
+the JAX CLI, a tile size of 0 is refused rather than ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.distributed as dist
 
 from .config import Params
-from .grid import allocate_state, resolve_device
+from .grid import State, allocate_state, resolve_device
 from .ops.cuda import sor_kernel
 from .ops.sor import default_method
-from .solver import center_values, solve, warm_up
+from .solver import SolveStats, Stepper, center_values, run_steps, warm_up
 from .utils import distributed
-from .utils.checks import validate_state
+from .utils import io as nsio
+from .utils.checkpoint import load_checkpoint, save_checkpoint
+from .utils.checks import NonFiniteStateError, check_step, validate_state
+from .utils.diagnostics import monitor_values, physics_monitors
 from .utils.timing import device_fence, mlups
 
 
@@ -78,6 +117,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "off it.  A float64 state (or rb_sor / jacobi on "
                          "the jnp backend) takes the direct solve in its "
                          "dtype")
+    ap.add_argument("--time-order", type=int, choices=[1, 2], default=1,
+                    help="momentum time integrator: 1 = the reference's "
+                         "explicit Euler; 2 (Adams-Bashforth 2) is not "
+                         "ported (ROADMAP A6)")
     ap.add_argument("--mesh", default=None, metavar="PxQ",
                     help="process mesh of the sharded backend, e.g. 2x2; "
                          "P * Q must equal the number of ranks (default: "
@@ -87,33 +130,116 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--refine-every", type=int, default=None,
                     help="f64 re-baseline / convergence-check interval K of "
                          "the SOR solve (default 64)")
+    ap.add_argument("--outer", choices=["float64", "compensated"],
+                    default=None,
+                    help="refinement-outer precision: float64 (the default; "
+                         "native on the GPU); compensated is not ported "
+                         "(ROADMAP A9)")
+    ap.add_argument("--obstacle", action="append", default=None,
+                    metavar="I0:I1:J0:J1",
+                    help="an interior cell rectangle made solid; obstacle "
+                         "domains are not ported (ROADMAP A7)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; there is no silent "
                          "fallback to the CPU)")
+    ap.add_argument("--output-dir", default=None,
+                    help="write <n>_{u,v,p}.txt frames every n_print steps")
+    ap.add_argument("--final-output-prefix", default=None,
+                    help="write one final <prefix>_{u,v,p}.txt")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="save a checkpoint every N steps (0 = off)")
+    ap.add_argument("--checkpoint-path", default="checkpoint.npz")
+    ap.add_argument("--resume", default=None,
+                    help="resume from a checkpoint file (of either package)")
     ap.add_argument("--stats", action="store_true",
                     help="print SOR iteration / convergence stats to stderr")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="check the state after every step and stop with "
+                         "an error naming the first step that leaves a NaN "
+                         "or Inf (PyTorch has no counterpart of "
+                         "jax_debug_nans, which faults at the first "
+                         "NaN-producing operation)")
+    ap.add_argument("--history-file", default=None,
+                    help="write per-step diagnostics CSV (step,t,dt,"
+                         "sor_iterations,res_norm)")
+    ap.add_argument("--history-physics", action="store_true",
+                    help="append physics monitor columns (kinetic_energy,"
+                         "enstrophy,max_divergence,psi_min — "
+                         "utils/diagnostics.py) to the --history-file CSV")
+    ap.add_argument("--log-every", type=int, default=0,
+                    help="print per-step diagnostics to stderr every N steps")
+    ap.add_argument("--free-wall", choices=["noslip", "freeslip"],
+                    default="noslip",
+                    help="problem-6 container-wall condition; free surfaces "
+                         "are not ported (ROADMAP A8)")
     ap.add_argument("--max-steps", type=int, default=0,
                     help="stop after N steps (exit code 3 if t < T remains; "
-                         "0, the default, runs to T)")
+                         "with --checkpoint-every and --resume, a run in "
+                         "pieces)")
     return ap
+
+
+def _unported(args) -> str:
+    """The message refusing a flag of a later slice, or ''."""
+    if args.time_order != 1:
+        return "--time-order 2 (Adams-Bashforth 2) is not ported: ROADMAP A6"
+    if args.obstacle:
+        return "--obstacle (flag-field domains) is not ported: ROADMAP A7"
+    if args.free_wall != "noslip":
+        return ("--free-wall freeslip (free surfaces, problem 6) is not "
+                "ported: ROADMAP A8")
+    if args.outer == "compensated":
+        return ("--outer compensated is not ported (the H100 has native "
+                "FP64): ROADMAP A9")
+    return ""
+
+
+def _history_columns(args) -> str:
+    """The --history-file CSV header of this run's flags (the header
+    written, and the one a resumed run must find)."""
+    cols = "step,t,dt,sor_iterations,res_norm"
+    if args.history_physics:
+        cols += ",kinetic_energy,enstrophy,max_divergence,psi_min"
+    return cols
+
+
+def _check_args(args) -> str:
+    """The message refusing these arguments before any work, or ''."""
+    for flag in ("max_steps", "checkpoint_every", "log_every"):
+        if getattr(args, flag) < 0:
+            return (f"--{flag.replace('_', '-')} must be >= 0, got "
+                    f"{getattr(args, flag)}")
+    if args.refine_every is not None and args.refine_every < 1:
+        return f"--refine-every must be >= 1, got {args.refine_every}"
+    if args.history_physics and not args.history_file:
+        return "--history-physics requires --history-file"
+    if args.resume and args.history_file and \
+            os.path.exists(args.history_file) and \
+            os.path.getsize(args.history_file) > 0:
+        # A resumed run appends: rows under another header would be ragged.
+        with open(args.history_file) as fh:
+            have = fh.readline().strip()
+        want = _history_columns(args)
+        if have != want:
+            return (f"--history-file {args.history_file!r} has columns "
+                    f"[{have}] but this run would append [{want}] — pass "
+                    f"the same --history-physics setting as the original "
+                    f"run, or use a fresh --history-file")
+    return _unported(args)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    problem = _check_args(args)
+    if problem:
+        print(f"error: {problem}", file=sys.stderr)
+        return 1
     overrides = {}
     if args.dtype:
         overrides["dtype"] = args.dtype
     if args.refine_every is not None:
-        if args.refine_every < 1:
-            print(f"error: --refine-every must be >= 1, got "
-                  f"{args.refine_every}", file=sys.stderr)
-            return 1
         overrides["sor_refine_every"] = args.refine_every
-    if args.max_steps < 0:
-        print(f"error: --max-steps must be >= 0, got {args.max_steps}",
-              file=sys.stderr)
-        return 1
     if args.tile_size is not None:
         try:
             sor_kernel.set_default_tile(args.tile_size)
@@ -147,6 +273,17 @@ def main(argv=None) -> int:
               f"{args.backend!r}", file=sys.stderr)
         return 1
 
+    state = None
+    if args.resume:
+        # The sharded backend scatters the state from the host.
+        where = "cpu" if args.backend == "sharded" else device
+        try:
+            state = load_checkpoint(args.resume, params, where)
+        except (OSError, ValueError, KeyError, NotImplementedError) as e:
+            print(f"error: cannot resume from {args.resume!r}: {e}",
+                  file=sys.stderr)
+            return 1
+
     pressure_method = args.method
     if pressure_method == "rb_sor_sync" and args.backend != "sharded":
         pressure_method = "rb_sor"  # sync vs deep only differs across shards
@@ -156,50 +293,199 @@ def main(argv=None) -> int:
         pressure_method = default_method(params, device)
     if args.backend == "sharded":
         return _main_sharded(args, params, device, mesh_shape,
-                             pressure_method)
+                             pressure_method, state)
     try:
         warm_up(params, device, pressure_method)
     except NotImplementedError as e:  # an unported route, found at once
         print(f"error: {e}", file=sys.stderr)
         return 1
-    state = allocate_state(params, device)
+    if state is None:
+        state = allocate_state(params, device)
 
+    stepper = Stepper(params, state, pressure_method)
     start = time.perf_counter()
-    state, stats = solve(params, state, pressure_method=pressure_method,
-                         max_steps=args.max_steps)
+    try:
+        stats = run_host_loop(params, stepper, args)
+    except (NonFiniteStateError, OSError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    state = stepper.state()
     device_fence(state)
     elapsed = time.perf_counter() - start
     return _report(args, params, state, stats, elapsed)
 
 
 def _main_sharded(args, params: Params, device, mesh_shape,
-                  pressure_method: str) -> int:
+                  pressure_method: str, state) -> int:
     """The sharded backend inside a process group; rank 0 reports."""
     from .parallel import sharded
     from .parallel.topology import make_grid_mesh
 
     with distributed.process_group(device) as rank_device:
+        rank0 = dist.get_rank() == 0
         try:
             mesh = make_grid_mesh(i_max=params.i_max, j_max=params.j_max,
                                   shape=mesh_shape, device=rank_device)
             sharded.warm_up(params, mesh, pressure_method)
         except (NotImplementedError, ValueError) as e:
-            if dist.get_rank() == 0:
+            if rank0:
                 print(f"error: {e}", file=sys.stderr)
             return 1
-        local = sharded.scatter_state(params, None, mesh)
+        stepper = sharded.ShardedStepper(params, state, mesh,
+                                         pressure_method)
         dist.barrier()
         start = time.perf_counter()
-        local, stats = sharded.run_local(params, local, mesh,
-                                         pressure_method=pressure_method,
-                                         max_steps=args.max_steps)
+        try:
+            stats = run_host_loop(params, stepper, args, writer=rank0)
+        except (NonFiniteStateError, OSError) as e:
+            if rank0:
+                print(f"error: {e}", file=sys.stderr)
+            return 1
         if rank_device.type == "cuda":
             torch.cuda.synchronize(rank_device)
         elapsed = time.perf_counter() - start
-        state = sharded.gather_state(params, local, mesh)
-        if dist.get_rank() != 0:
+        state = stepper.state()
+        if not rank0:
             return _exit_code(args, params, state)
         return _report(args, params, state, stats, elapsed)
+
+
+class _FrameWriter:
+    """The host loop's frames, written in order by one worker thread: the
+    fields are copied to the host when the frame is taken, and formatting
+    and disk I/O overlap the next steps.  A writer error is raised at the
+    next frame, or by ``close``."""
+
+    def __init__(self, params: Params):
+        self._params = params
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._pending = []
+
+    def _drain(self, block: bool) -> None:
+        pending = []
+        for fut in self._pending:
+            if block or fut.done():
+                fut.result()  # raises the writer's exception
+            else:
+                pending.append(fut)
+        self._pending = pending
+
+    def submit(self, state: State, prefix: str) -> None:
+        # A copy even of a CPU tensor: the worker reads it after the next
+        # steps have begun.
+        u, v, p = (x.detach().to("cpu", copy=True).numpy()
+                   for x in state[:3])
+        self._drain(block=False)
+        self._pending.append(self._pool.submit(
+            nsio.output, u, v, p, float(state.t), self._params.a,
+            self._params.b, prefix, verbose=False))
+
+    def close(self) -> None:
+        """Wait for every frame; raises a writer error."""
+        self._drain(block=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *_):
+        self._pool.shutdown()
+        return False
+
+
+def _open_history(args):
+    """The history CSV, appended to by a resumed run that finds one, else
+    written anew under its header."""
+    if args.resume and os.path.exists(args.history_file) and \
+            os.path.getsize(args.history_file) > 0:
+        return open(args.history_file, "a")
+    fh = open(args.history_file, "w")
+    fh.write(_history_columns(args) + "\n")
+    return fh
+
+
+def run_host_loop(params: Params, stepper, args, writer: bool = True
+                  ) -> SolveStats:
+    """Step to t >= T (or --max-steps) with ``solver.run_steps``, with the
+    frames, checkpoints, history rows, log lines and NaN checks that `args`
+    asks for (the JAX CLI's ``_run_host_loop``).  `stepper` is a
+    ``solver.Stepper`` or a ``sharded.ShardedStepper``; on the sharded
+    backend every rank runs this loop and gathers the state at the same
+    steps (``stepper.state()``, at most once before a step and once after
+    it), and only the `writer` rank writes and prints.  A write error is
+    held until the end of the step, where every rank learns of it
+    (``stepper.any_rank``) and raises.  Returns the solve's stats; the
+    final state stays in `stepper`."""
+    n_print = max(params.n_print, 1)
+    files = bool(args.output_dir or args.history_file or args.checkpoint_every)
+    failed = []  # the writer's OSError, raised on every rank by agree()
+
+    def write(fn) -> None:
+        if writer and not failed:
+            try:
+                fn()
+            except OSError as e:
+                failed.append(e)
+
+    def agree() -> None:
+        if files and stepper.any_rank(bool(failed)):
+            raise failed[0] if failed else OSError(
+                "a file write failed on rank 0")
+
+    with contextlib.ExitStack() as stack:
+        hist = frames = None
+
+        def open_files() -> None:
+            nonlocal hist, frames
+            if args.history_file:
+                hist = stack.enter_context(_open_history(args))
+            if args.output_dir:
+                frames = stack.enter_context(_FrameWriter(params))
+
+        write(open_files)
+        agree()
+
+        def before() -> None:
+            # Frames follow the absolute step count (state.n), so a resumed
+            # run continues the numbering.
+            n_abs = stepper.n
+            if args.output_dir and n_abs % n_print == 0:
+                st = stepper.state()
+                write(lambda: frames.submit(st, os.path.join(
+                    args.output_dir, str(n_abs // n_print))))
+
+        def after(diag, steps: int) -> None:
+            checkpoint = bool(args.checkpoint_every
+                              and steps % args.checkpoint_every == 0)
+            post = None
+            if args.history_physics or args.debug_nans or checkpoint:
+                post = stepper.state()
+            if args.debug_nans:
+                check_step(post, stepper.n)
+            if args.history_file:
+                row = (f"{stepper.n},{stepper.t:.8f},{float(diag.dt):.8f},"
+                       f"{diag.sor_iterations},{diag.sor_res_norm:.6e}")
+                if args.history_physics and writer:
+                    ke, ens, div, psi = monitor_values(
+                        physics_monitors(post.u, post.v, params))
+                    row += f",{ke:.8e},{ens:.8e},{div:.6e},{psi:.8e}"
+                write(lambda: hist.write(row + "\n"))
+            if writer and args.log_every and steps % args.log_every == 0:
+                print(f"step={steps} t={stepper.t:.5f} "
+                      f"dt={float(diag.dt):.5f} "
+                      f"sor_iters={diag.sor_iterations} "
+                      f"res={diag.sor_res_norm:.3e}", file=sys.stderr)
+            if checkpoint:
+                write(lambda: save_checkpoint(args.checkpoint_path, post))
+            agree()
+
+        stats = run_steps(stepper, params, max_steps=args.max_steps,
+                          before=before, after=after)
+        if frames is not None:
+            write(frames.close)
+        if hist is not None:
+            write(hist.close)
+        agree()
+    return stats
 
 
 def parse_mesh_arg(spec):
@@ -223,11 +509,16 @@ def _exit_code(args, params: Params, state) -> int:
 
 
 def _report(args, params: Params, state, stats, elapsed: float) -> int:
-    """Check the state, print the protocol's lines; returns the exit code."""
+    """Check the state, print the protocol's lines and write the final
+    output; returns the exit code."""
     validate_state(state, where="end of integration")
     uc, vc = center_values(state, params)
     print(f"U-CENTER: {uc:.6f}")
     print(f"V-CENTER: {vc:.6f}")
+
+    if args.final_output_prefix:
+        nsio.output(state.u, state.v, state.p, float(state.t), params.a,
+                    params.b, args.final_output_prefix)
 
     if args.stats:
         print(

@@ -68,6 +68,14 @@ def state_from_numpy(u, v, p, t=0.0, n=0, *, device,
                  n=int(n))
 
 
+def host_array(x) -> np.ndarray:
+    """A tensor (on any device) or an array-like (a JAX array, a number) as
+    a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def interior(x: torch.Tensor) -> torch.Tensor:
     """The (i_max, j_max) interior view of a padded field."""
     return x[1:-1, 1:-1]

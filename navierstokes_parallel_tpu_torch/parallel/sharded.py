@@ -41,9 +41,13 @@ states: a JAX ``State`` goes in unchanged (its arrays through numpy), the
 blocks are cut with the JAX package's ``_scatter_blocks`` layout and put
 back with ``_gather_blocks`` after an all-gather, on every rank.
 
-Not ported here (ROADMAP A10 items 5-9): AB2, the thermal and free-surface
-steppers, obstacle domains and ``ShardedStepper``; each raises
-``NotImplementedError`` naming its item.
+``ShardedStepper`` holds each rank's blocks for the CLI's host loop and
+advances them one step per ``step()``; its ``state()`` is ``gather_state``,
+a collective that every rank calls at the same steps.
+
+Not ported here (ROADMAP A10 items 5-8): AB2, the thermal and free-surface
+steppers and obstacle domains; each raises ``NotImplementedError`` naming
+its item.
 """
 
 from __future__ import annotations
@@ -55,10 +59,10 @@ import torch
 import torch.distributed as dist
 
 from ..config import Params
-from ..grid import State
+from ..grid import State, host_array
 from ..ops import boundary, fft, mg, sor
 from ..ops import stencils as st
-from ..solver import SolveStats
+from ..solver import SolveStats, StepDiagnostics, run_steps
 from . import deep_halo, halo
 from .topology import Mesh, local_block_dims, make_grid_mesh
 
@@ -357,13 +361,6 @@ def _gather_blocks(blocks, px: int, py: int, li: int, lj: int,
     return out[: shape[0], : shape[1]]
 
 
-def _host(x) -> np.ndarray:
-    """A torch tensor (any device) or an array-like as a numpy array."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
-
-
 def scatter_state(params: Params, state, mesh: Mesh) -> State:
     """This rank's padded blocks of a reference-layout state (a port or a
     JAX ``State``; None for the zero state) as a ``State`` of local blocks
@@ -377,7 +374,7 @@ def scatter_state(params: Params, state, mesh: Mesh) -> State:
         if arr is None:
             return torch.zeros((li + 2, lj + 2), dtype=dtype,
                                device=mesh.device)
-        blocks = _scatter_blocks(_host(arr), px, py, li, lj)
+        blocks = _scatter_blocks(host_array(arr), px, py, li, lj)
         mine = blocks[ax * (li + 2):(ax + 1) * (li + 2),
                       ay * (lj + 2):(ay + 1) * (lj + 2)]
         return torch.tensor(mine, dtype=dtype, device=mesh.device)
@@ -386,9 +383,9 @@ def scatter_state(params: Params, state, mesh: Mesh) -> State:
         return State(u=block(None), v=block(None), p=block(None),
                      t=torch.zeros((), dtype=dtype, device=mesh.device), n=0)
     return State(u=block(state.u), v=block(state.v), p=block(state.p),
-                 t=torch.tensor(float(_host(state.t)), dtype=dtype,
+                 t=torch.tensor(float(host_array(state.t)), dtype=dtype,
                                 device=mesh.device),
-                 n=int(_host(state.n)))
+                 n=int(host_array(state.n)))
 
 
 def gather_state(params: Params, local: State, mesh: Mesh) -> State:
@@ -410,29 +407,61 @@ def gather_state(params: Params, local: State, mesh: Mesh) -> State:
                  t=local.t, n=local.n)
 
 
-def run_local(params: Params, local: State, mesh: Mesh, *,
-              pressure_method: str = "rb_sor", max_steps: int = 0
-              ) -> Tuple[State, SolveStats]:
-    """``while t < T`` (or `max_steps` steps when > 0) on this rank's
-    blocks; returns the local blocks and the solve's stats, equal on every
-    rank."""
-    _check_method(params, mesh, pressure_method)
-    u, v, p, t, n = local
-    # T in the state's dtype, as solver.solve compares it.
-    T = torch.full((), params.T, dtype=t.dtype, device=t.device)
-    steps = iters = failures = 0
-    last = 0.0
-    while not 0 < max_steps <= steps and bool(t < T):
-        u, v, p, dt, result = _sharded_step(u, v, p, t, params,
-                                            pressure_method, mesh)
-        t = t + dt
-        steps += 1
-        iters += result.iterations
-        failures += 0 if result.converged else 1
-        last = result.res_norm
-    return (State(u=u, v=v, p=p, t=t, n=n + steps),
-            SolveStats(steps=steps, total_sor_iterations=iters,
-                       sor_failures=failures, last_res_norm=last))
+def _step_local(local: State, params: Params, pressure_method: str,
+                mesh: Mesh) -> Tuple[State, StepDiagnostics]:
+    """One time step of this rank's blocks."""
+    u, v, p, dt, result = _sharded_step(local.u, local.v, local.p, local.t,
+                                        params, pressure_method, mesh)
+    return (State(u=u, v=v, p=p, t=local.t + dt, n=local.n + 1),
+            StepDiagnostics(dt=dt, sor_iterations=result.iterations,
+                            sor_res_norm=result.res_norm,
+                            sor_converged=result.converged))
+
+
+class ShardedStepper:
+    """Host-loop adapter for the sharded backend (JAX
+    ``parallel/sharded.py::ShardedStepper``): holds this rank's padded
+    blocks of a reference-layout `state` (None: the zero state) and
+    advances them one step per ``step()``.  ``state()`` gathers the
+    reference-layout state on every rank; it is collective, so every rank
+    calls it at the same steps."""
+
+    def __init__(self, params: Params, state=None,
+                 mesh: Optional[Mesh] = None,
+                 pressure_method: str = "rb_sor"):
+        if mesh is None:
+            mesh = make_grid_mesh(i_max=params.i_max, j_max=params.j_max)
+        _check_method(params, mesh, pressure_method)
+        self.params = params
+        self.mesh = mesh
+        self.pressure_method = pressure_method
+        self._local = scatter_state(params, state, mesh)
+
+    def warm(self) -> None:
+        """Build the kernels and take first-use costs (``warm_up``)."""
+        warm_up(self.params, self.mesh, self.pressure_method)
+
+    @property
+    def t(self) -> float:
+        return float(self._local.t)
+
+    @property
+    def n(self) -> int:
+        return self._local.n
+
+    def step(self) -> StepDiagnostics:
+        self._local, diag = _step_local(self._local, self.params,
+                                        self.pressure_method, self.mesh)
+        return diag
+
+    def state(self) -> State:
+        return gather_state(self.params, self._local, self.mesh)
+
+    def any_rank(self, flag: bool) -> bool:
+        """Whether `flag` is set on any rank (collective: an all-reduce
+        that every rank calls at the same point)."""
+        x = torch.tensor(int(flag), device=self.mesh.device)
+        return bool(_all_reduce(x, dist.ReduceOp.MAX, self.mesh))
 
 
 def warm_up(params: Params, mesh: Mesh, pressure_method: str = "rb_sor"
@@ -440,11 +469,10 @@ def warm_up(params: Params, mesh: Mesh, pressure_method: str = "rb_sor"
     """One throw-away step with a single sweep from the zero state, so a
     timed solve excludes the kernel build and first-use costs (the JAX CLI
     compiles before its timer starts); an unported route raises here."""
-    local = scatter_state(params, None, mesh)
-    local, _ = run_local(params.replace(max_it=1), local, mesh,
-                         pressure_method=pressure_method, max_steps=1)
-    if local.u.device.type == "cuda":
-        torch.cuda.synchronize(local.u.device)
+    ShardedStepper(params.replace(max_it=1), None, mesh,
+                   pressure_method).step()
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
 
 
 def solve_sharded(params: Params, state=None, mesh: Optional[Mesh] = None, *,
@@ -457,8 +485,6 @@ def solve_sharded(params: Params, state=None, mesh: Optional[Mesh] = None, *,
     if mesh is None:
         mesh = make_grid_mesh(i_max=params.i_max, j_max=params.j_max)
     _check_method(params, mesh, pressure_method, time_order)
-    local = scatter_state(params, state, mesh)
-    local, stats = run_local(params, local, mesh,
-                             pressure_method=pressure_method,
-                             max_steps=max_steps)
-    return gather_state(params, local, mesh), stats
+    stepper = ShardedStepper(params, state, mesh, pressure_method)
+    stats = run_steps(stepper, params, max_steps=max_steps)
+    return stepper.state(), stats

@@ -9,14 +9,16 @@ cavity problems (1 and 2).  One time step (reference main.c:86-146):
 On an f32 CUDA state F, G and the RHS come from the hand-written momentum
 kernel, the SOR sweeps from the SOR kernel and the multigrid smoothing from
 the warm-start kernel; elsewhere the plain PyTorch formulations run.
-``solve`` is a host loop ``while t < T``: PyTorch runs eagerly, so the JAX
-package's on-device ``lax.while_loop`` becomes one scalar read of ``t`` per
-step.
+``solve`` is a host loop ``while t < T`` (``run_steps`` over a ``Stepper``):
+PyTorch runs eagerly, so the JAX package's on-device ``lax.while_loop``
+becomes one scalar read of ``t`` per step.  The CLI runs the same loop with
+its frames, checkpoints and history rows between the steps, so it takes
+``solve``'s steps, kernels and bits.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -82,20 +84,76 @@ def solve(params: Params, state: Optional[State] = None, *,
         if device is None:
             raise ValueError("solve needs a state or a device")
         state = allocate_state(params, device)
+    stepper = Stepper(params, state, pressure_method)
+    stats = run_steps(stepper, params, max_steps=max_steps)
+    return stepper.state(), stats
+
+
+def run_steps(stepper, params: Params, *, max_steps: int = 0,
+              before: Optional[Callable[[], None]] = None,
+              after: Optional[Callable[[StepDiagnostics, int], None]] = None
+              ) -> SolveStats:
+    """Advance `stepper` (a ``Stepper`` or a ``sharded.ShardedStepper``) to
+    t >= T, or `max_steps` steps when it is > 0, reading t once per step.
+    ``before()`` runs before each step and ``after(diag, steps)`` after it
+    (the CLI's frames, history rows and checkpoints).  Returns the stats of
+    the steps taken."""
     # Compare against T in the state's dtype, as the JAX while_loop does: in
     # f32, float(f32(T)) can differ from the Python T by one ulp, which would
     # change the step count.
-    T = torch.full((), params.T, dtype=state.t.dtype, device=state.t.device)
+    T = float(torch.tensor(params.T, dtype=params.torch_dtype))
     steps = iters = failures = 0
     last = 0.0
-    while not 0 < max_steps <= steps and bool(state.t < T):
-        state, diag = step(state, params, pressure_method=pressure_method)
+    while not 0 < max_steps <= steps and stepper.t < T:
+        if before is not None:
+            before()
+        diag = stepper.step()
         steps += 1
         iters += diag.sor_iterations
         failures += 0 if diag.sor_converged else 1
         last = diag.sor_res_norm
-    return state, SolveStats(steps=steps, total_sor_iterations=iters,
-                             sor_failures=failures, last_res_norm=last)
+        if after is not None:
+            after(diag, steps)
+    return SolveStats(steps=steps, total_sor_iterations=iters,
+                      sor_failures=failures, last_res_norm=last)
+
+
+class Stepper:
+    """Host-loop adapter for one device (the JAX CLI's
+    ``_SingleChipStepper``; the sharded one is
+    ``parallel/sharded.py::ShardedStepper``): each ``step()`` is one
+    ``solver.step`` of the held state."""
+
+    def __init__(self, params: Params, state: State,
+                 pressure_method: str = "rb_sor"):
+        self.params = params
+        self.pressure_method = pressure_method
+        self._state = state
+
+    def warm(self) -> None:
+        """Build the kernels and take PyTorch's first-use costs before a
+        timed loop (``warm_up``)."""
+        warm_up(self.params, self._state.u.device, self.pressure_method)
+
+    @property
+    def t(self) -> float:
+        return float(self._state.t)
+
+    @property
+    def n(self) -> int:
+        return self._state.n
+
+    def step(self) -> StepDiagnostics:
+        self._state, diag = step(self._state, self.params,
+                                 pressure_method=self.pressure_method)
+        return diag
+
+    def state(self) -> State:
+        return self._state
+
+    def any_rank(self, flag: bool) -> bool:
+        """Whether `flag` is set on any rank: one device has one rank."""
+        return flag
 
 
 def warm_up(params: Params, device, pressure_method: str = "rb_sor") -> None:

@@ -4,9 +4,12 @@ A subprocess blocks every ``jax`` import with a ``sys.meta_path`` finder
 that raises, imports every module of the port, runs one CPU time step
 with each ported pressure method (SOR, multigrid, CG), the plain twins
 of the tiled and colour-compressed SOR kernels and of the multigrid
-coarse cycle, and one step of the
+coarse cycle, one step of the
 sharded backend on a one-rank process group (parallel/, including the
-extended-block twin, and utils/distributed.py).
+extended-block twin, and utils/distributed.py), and one step of the CLI's
+host loop that writes a frame, a checkpoint and a history row with the
+physics monitors (utils/io.py and its native writer, utils/checkpoint.py,
+utils/diagnostics.py).
 """
 
 import os
@@ -61,15 +64,35 @@ SCRIPT = textwrap.dedent("""
     for name in ("parallel.topology", "parallel.halo", "parallel.deep_halo",
                  "parallel.sharded", "utils.distributed"):
         assert "navierstokes_parallel_tpu_torch." + name in sys.modules, name
+    import contextlib, io, os
+    from navierstokes_parallel_tpu_torch import cli
+    out = sys.argv[1]
+    prm.replace(T=0.5).to_file(os.path.join(out, "p.in"))
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main([os.path.join(out, "p.in"), "--device", "cpu",
+                       "--max-steps", "1", "--output-dir", out,
+                       "--checkpoint-every", "1", "--checkpoint-path",
+                       os.path.join(out, "ck.npz"), "--history-file",
+                       os.path.join(out, "h.csv"), "--history-physics"])
+    assert rc == 3 and printed.getvalue().startswith("U-CENTER"), rc
+    assert sorted(f for f in os.listdir(out) if f != "p.in") == [
+        "0_p.txt", "0_u.txt", "0_v.txt", "ck.npz", "h.csv"]
+    with open(os.path.join(out, "h.csv")) as fh:
+        assert len(fh.read().splitlines()) == 2
+    for name in ("utils.io", "utils.checkpoint", "utils.diagnostics",
+                 "models.cavity"):
+        assert "navierstokes_parallel_tpu_torch." + name in sys.modules, name
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
     print("OK", diag.sor_iterations)
 """)
 
 
-def test_port_imports_and_steps_without_jax():
+def test_port_imports_and_steps_without_jax(tmp_path):
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK")
 
@@ -95,5 +118,7 @@ def test_no_jax_import_in_sources():
     scanned = {os.path.relpath(p, pkg) for p in paths}
     for name in ("topology", "halo", "deep_halo", "sharded"):
         assert os.path.join("parallel", f"{name}.py") in scanned, name
-    assert os.path.join("utils", "distributed.py") in scanned
+    for name in ("distributed", "io", "checkpoint", "diagnostics"):
+        assert os.path.join("utils", f"{name}.py") in scanned, name
+    assert os.path.join("models", "cavity.py") in scanned
     assert len(paths) > 10 and not offenders, offenders

@@ -5,7 +5,8 @@
     the JAX package's ``solve_sharded`` on a one-device mesh, at 24^2,
     Re=100, max_it=2000: equal steps, sweeps and failures, fields within
     the reference contract (1e-4); the same from a JAX state; the CLI's
-    ``--backend sharded --mesh 1x1`` against the JAX CLI's.
+    ``--backend sharded --mesh 1x1`` against the JAX CLI's, and its host
+    loop with every protocol file against the single-device CLI's.
   * Four ranks: one ``torch.multiprocessing.spawn`` of four gloo ranks on
     loopback runs the halo exchange (and the Neumann and masked ghost
     fills) on a 2x2 mesh, the deep-halo inner on 2x2 and 1x4 meshes, full
@@ -13,10 +14,15 @@
     of every other pressure method (METHOD_CASES: mg, cg, the pencil fft
     and rb_sor_sync on 2x2 and 1x4, cg on a padded grid, jacobi, and
     rb_sor's direct solve for an f64 state, with the refinement off, and
-    on blocks one cell thin).  Against the JAX package on the same mesh
+    on blocks one cell thin), and the CLI's host loop over a padded 11^2
+    grid on 2x2 with every protocol file, straight and in two pieces
+    (--max-steps, --resume), and with a file that rank 0 cannot write
+    (every rank exits 1).  Against the JAX package on the same mesh
     shapes (8 virtual CPU devices): the halo fills exactly, the inner's
     cores within 5e-6 of max|delta| (XLA's FMA contraction), the solves
-    with equal counts and u/v/p and the centre values within 1e-4.
+    with equal counts and u/v/p and the centre values within 1e-4; the
+    host loop's files against the single-device CLI's (contract), the
+    pieces against the straight run byte for byte.
   * Every branch of the JAX sharded backend the port does not run raises
     ``NotImplementedError`` naming its ROADMAP item, and the port refuses
     with ``ValueError`` what the JAX backend refuses.
@@ -64,6 +70,66 @@ METHOD_CASES = [
     # (the direct solve in f32), and blocks one cell thin (li = 1).
     ("refine_off_2x2", "rb_sor", (2, 2), 16, 16, {"sor_refine_every": 0}),
     ("thin_4x1", "rb_sor", (4, 1), 4, 16, {"T": 0.2})]
+
+
+# The host loop's runs on four ranks and on one: (file tag, extra CLI
+# arguments): the straight run, then the same run stopped after 2 steps
+# (rc 3) and resumed from its checkpoint.
+HOST_LOOP_SIZE, HOST_LOOP_T = 11, 0.3
+HOST_LOOP_RUNS = [("straight", []), ("pieces", ["--max-steps", "2"]),
+                  ("pieces", ["--resume", "{outdir}/pieces.npz"])]
+
+
+def _host_loop_argv(outdir, tag, extra=()):
+    """The protocol's flags, writing under `outdir` with names tagged
+    `tag`, and `extra` ("{outdir}" in it stands for `outdir`)."""
+    return [a.format(outdir=outdir) for a in (
+        "--output-dir", f"{{outdir}}/{tag}", "--history-file",
+        f"{{outdir}}/{tag}.csv", "--history-physics", "--checkpoint-every",
+        "1", "--checkpoint-path", f"{{outdir}}/{tag}.npz",
+        "--final-output-prefix", f"{{outdir}}/{tag}_final", *extra)]
+
+
+def _write_error_flags(outdir):
+    """Protocol flags whose file cannot be written: a frame directory that
+    is a file (the frame writer's error, raised a step later), a history
+    file and a checkpoint under that file."""
+    blocker = os.path.join(outdir, "hostloop.in")
+    return [["--output-dir", blocker],
+            ["--history-file", os.path.join(blocker, "h.csv")],
+            ["--checkpoint-every", "1", "--checkpoint-path",
+             os.path.join(blocker, "c.npz")]]
+
+
+def _assert_same_protocol_files(dir_a, tag_a, dir_b, tag_b, exact=False):
+    """Two runs' frames, final output and history: byte for byte when
+    `exact`, else frames within the contract (the JAX comparator), steps
+    and iterations equal, t and dt within 1e-6 and the monitors within
+    tests/test_torch_protocol.py's tolerances."""
+    from navierstokes_parallel_tpu.utils import io as jio
+
+    frames = sorted(os.listdir(os.path.join(dir_a, tag_a)))
+    assert frames and frames == sorted(os.listdir(os.path.join(dir_b, tag_b)))
+    pairs = [(os.path.join(dir_a, tag_a, f), os.path.join(dir_b, tag_b, f))
+             for f in frames]
+    pairs += [(os.path.join(dir_a, f"{tag_a}_final_{s}.txt"),
+               os.path.join(dir_b, f"{tag_b}_final_{s}.txt")) for s in "uvp"]
+    pairs.append((os.path.join(dir_a, f"{tag_a}.csv"),
+                  os.path.join(dir_b, f"{tag_b}.csv")))
+    for a, b in pairs:
+        if exact:
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                assert fa.read() == fb.read(), a
+        elif not a.endswith(".csv"):
+            assert jio.compare_outputs_with_tolerance(a, b), a
+    rows_a, rows_b = (np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+                      for path in pairs[-1])
+    assert rows_a.shape == rows_b.shape and len(rows_a) == len(frames) // 3
+    np.testing.assert_array_equal(rows_a[:, [0, 3]], rows_b[:, [0, 3]])
+    np.testing.assert_allclose(rows_a[:, 1:3], rows_b[:, 1:3], rtol=1e-6)
+    np.testing.assert_allclose(rows_a[:, [5, 6, 8]], rows_b[:, [5, 6, 8]],
+                               rtol=1e-5)
+    np.testing.assert_allclose(rows_a[:, 7], rows_b[:, 7], atol=1e-5)
 
 
 def _fields(**kw):
@@ -170,6 +236,23 @@ def _gloo_worker(rank, port, outdir):
                 out[f"{tag}_{name}"] = getattr(state, name).numpy()
             out[f"{tag}_stats"] = np.asarray(
                 [stats.steps, stats.total_sor_iterations, stats.sor_failures])
+        # The CLI's host loop on 2x2 over an odd grid (11^2, padded to
+        # 12^2): straight, then in two pieces (--max-steps, --resume); every
+        # rank gathers at the same steps, rank 0 writes every file.
+        out["hostloop_rcs"] = np.asarray([
+            cli.main([os.path.join(outdir, "hostloop.in"), "--device", "cpu",
+                      "--backend", "sharded", "--mesh", "2x2",
+                      *_host_loop_argv(outdir, tag, extra)])
+            for tag, extra in HOST_LOOP_RUNS])
+        # Writes that fail on rank 0 alone, the only rank that writes: each
+        # must end every rank with rc 1, none left waiting in a collective.
+        every = [None] * WORLD
+        dist.all_gather_object(every, [
+            cli.main([os.path.join(outdir, "hostloop.in"), "--device", "cpu",
+                      "--backend", "sharded", "--mesh", "2x2",
+                      "--max-steps", "2", *flags])
+            for flags in _write_error_flags(outdir)])
+        out["write_error_rcs"] = np.asarray(every)
         if rank == 0:
             np.savez(os.path.join(outdir, "gloo.npz"), **out)
     finally:
@@ -184,8 +267,11 @@ def _free_port() -> int:
 
 @pytest.fixture(scope="module")
 def gloo4(tmp_path_factory):
-    """The four-rank run's results (rank 0's npz)."""
+    """The four-rank run's results (rank 0's npz, and the host loop's files
+    under "outdir")."""
     outdir = str(tmp_path_factory.mktemp("gloo4"))
+    _write_param_file(os.path.join(outdir, "hostloop.in"),
+                      n=HOST_LOOP_SIZE, T=HOST_LOOP_T)
     ctx = mp.start_processes(_gloo_worker, args=(_free_port(), outdir),
                              nprocs=WORLD, join=False, start_method="spawn")
     deadline = time.monotonic() + WORKER_TIMEOUT_S
@@ -204,7 +290,7 @@ def gloo4(tmp_path_factory):
                 proc.kill()
             proc.join()
     with np.load(os.path.join(outdir, "gloo.npz")) as data:
-        return dict(data)
+        return {**data, "outdir": outdir}
 
 
 def _jax_mesh(shape):
@@ -455,12 +541,16 @@ def test_refined_solver_refuses_unported_hooks(hook, needle):
 
 # --- the CLI ------------------------------------------------------------------
 
-def _param_file(tmp_path, n=24, T=0.05, problem=1):
-    path = tmp_path / "p.in"
-    path.write_text("\n".join(map(str, [problem, 1, n, n, 1.0, 1.0, T, 100.0,
-                                        0.0, 0.0, 0.5, 1.7, 1e-4, 2000,
-                                        1])) + "\n")
+def _write_param_file(path, n=24, T=0.05, problem=1):
+    with open(path, "w") as fh:
+        fh.write("\n".join(map(str, [problem, 1, n, n, 1.0, 1.0, T, 100.0,
+                                     0.0, 0.0, 0.5, 1.7, 1e-4, 2000, 1]))
+                 + "\n")
     return str(path)
+
+
+def _param_file(tmp_path, n=24, T=0.05, problem=1):
+    return _write_param_file(tmp_path / "p.in", n, T, problem)
 
 
 def _run(main, argv, capsys):
@@ -536,6 +626,53 @@ def test_cli_sharded_methods_match_jax_cli(tmp_path, capsys, argv,
                      [float(x.split()[1]) for x in jout.splitlines()])
     assert err.splitlines()[0].split()[:3] == \
         jerr.splitlines()[0].split()[:3]
+
+
+def test_gloo_host_loop_matches_single_device(gloo4, tmp_path):
+    """The host loop on four ranks over a padded grid writes the frames,
+    final output and history of the single-device host loop (within the
+    contract), and a run in two pieces writes the straight run's, byte for
+    byte (the gather and the scatter of a resume carry every bit a block's
+    step reads)."""
+    outdir = gloo4["outdir"]
+    assert list(gloo4["hostloop_rcs"]) == [0, 3, 0]
+    cfg = os.path.join(outdir, "hostloop.in")
+    assert cli.main([cfg, "--device", "cpu",
+                     *_host_loop_argv(str(tmp_path), "single")]) == 0
+    _assert_same_protocol_files(outdir, "straight", str(tmp_path), "single")
+    _assert_same_protocol_files(outdir, "pieces", outdir, "straight",
+                                exact=True)
+
+
+def test_gloo_write_error_ends_every_rank(gloo4):
+    """A write that fails on rank 0 (the frame directory is a file, the
+    history file or the checkpoint lies under one) ends all four ranks with
+    rc 1: every rank learns of the error before the next gather."""
+    assert gloo4["write_error_rcs"].tolist() == \
+        [[1] * len(_write_error_flags(""))] * WORLD
+
+
+def test_one_rank_host_loop(one_rank, tmp_path, capsys):
+    """--backend sharded --mesh 1x1 with every protocol file: the
+    single-device run's files within the contract; stopped after 2 steps
+    and resumed, the straight run's byte for byte."""
+    cfg = _write_param_file(tmp_path / "h.in", n=HOST_LOOP_SIZE,
+                            T=HOST_LOOP_T)
+    where = str(tmp_path)
+    rcs = [cli.main([cfg, "--device", "cpu", "--backend", "sharded",
+                     "--mesh", "1x1", *_host_loop_argv(where, tag, extra)])
+           for tag, extra in HOST_LOOP_RUNS]
+    assert rcs == [0, 3, 0] and dist.is_initialized()
+    assert cli.main([cfg, "--device", "cpu",
+                     *_host_loop_argv(where, "single")]) == 0
+    _assert_same_protocol_files(where, "straight", where, "single")
+    _assert_same_protocol_files(where, "pieces", where, "straight",
+                                exact=True)
+    stepper = sharded.ShardedStepper(_params(i_max=11, j_max=11), None,
+                                     one_rank, "pallas_sor")
+    diag = stepper.step()
+    assert stepper.n == 1 and stepper.t == float(diag.dt) > 0
+    assert stepper.state().u.shape == (13, 13)
 
 
 def test_params_from_jax_fields():
