@@ -207,6 +207,94 @@ METHOD_PATHS = {
                              "--max-steps", "1"], -0.001621, 0.000008,
                     (1, 20000, 1), 3),
 }
+# Problem 3, the plane channel of configs/channel.in (128 x 64, a = 2,
+# Re = 10, tau = 0.5, f32 state, K = 64), stopped after CHANNEL_STEPS
+# steps, by Euler (kernels B1 and B2) and by Adams-Bashforth 2 (B1 alone:
+# the AB2 step takes the plain F/G, as JAX's does), on one card and on the
+# sharded backend over a 1x1 mesh (B6); and the same channel at the full
+# width of CHANNEL_WIDE (channel.in with lines 3-4 set to 2048 and 1024,
+# written under build/ at run time), stopped after 2 steps, both of which
+# run into max_it.  The JAX package's records, each taken on the CPU with
+#   JAX_PLATFORMS=cpu python -m navierstokes_parallel_tpu <config> --stats \
+#       --max-steps <steps> <arguments>
+# printed:
+#   configs/channel.in, 50 steps: U-CENTER 0.728982, V-CENTER 0.000000,
+#     steps=50 sor_iterations=250304 sor_failures=0 last_res_norm=2.731e-04;
+#   ... --time-order 2: 0.729175, 0.000000, 50 250304 0, 2.684e-04;
+#   ... --time-order 2 --backend sharded --mesh 1x1: 0.729175, 0.000000,
+#     50 250176 0, 2.698e-04 (the sharded backend's own count: its
+#     reductions and stencils round otherwise, two K-quanta fewer);
+#   the 2048 x 1024 channel, 2 steps: 0.081013, -0.000003, 2 40000 2,
+#     3.036e+06;
+#   ... --time-order 2: 0.081008, -0.000003, 2 40000 2, 3.037e+06.
+# And
+#   JAX_PLATFORMS=cpu python tests/jax_records.py channel 50
+# printed the same counts, the profile errors of u after 50 steps (outflow
+# column, mid column; models/channel.py::profile_errors) and each step's
+# outer passes (JAX_CHANNEL_PASSES).
+#
+# The single-device channel's 50-step counts are held step by step.  At
+# some steps the residual of the pass that decides to stop lies within 1 %
+# of the threshold, where the rounding of one step can move the decision
+# by one pass either way: the card's sums and means add in another order
+# than the CPU's (with every torch.sum and torch.mean taken on the host,
+# the card gives JAX's 250304 by both integrators, and with the plain F/G
+# in place of B2 the CPU run's fields bit for bit;
+# scripts/torch_channel_witness.py).  A step may differ from
+# JAX_CHANNEL_PASSES by one pass only where the card's residual at the
+# deciding pass lies within NEAR_THRESHOLD of the threshold
+# (channel_gate); every other step must be equal, and the CLI's total must
+# equal the stepped run's.  phase_channel prints every step that moved
+# with its margin.
+NEAR_THRESHOLD = 1e-2
+JAX_CHANNEL_PASSES = {
+    "channel": (185, 118, 102, 100, 97, 95, 93, 91, 89, 87, 85, 84, 83, 81,
+                80, 79, 78, 78, 77, 76, 75, 75, 74, 74, 73, 72, 72, 71, 71,
+                70, 70, 70, 69, 69, 68, 68, 67, 67, 67, 66, 66, 66, 65, 65,
+                65, 64, 64, 64, 63, 63),
+    "channel ab2": (185, 118, 113, 102, 100, 87, 92, 88, 88, 86, 85, 84, 82,
+                    81, 80, 79, 78, 78, 77, 76, 75, 75, 74, 73, 73, 72, 72,
+                    71, 71, 70, 70, 69, 69, 69, 68, 68, 67, 67, 67, 66, 66,
+                    66, 65, 65, 65, 64, 64, 64, 64, 63)}
+# tag: (config, the port's CLI arguments, U-CENTER, V-CENTER, stats, rc,
+# time order, JAX's profile errors or None)
+CHANNEL_STEPS = 50
+CHANNEL_WIDE = (2048, 1024)
+CHANNEL_WIDE_CONFIG = ROOT / "build" / "channel_2048x1024.in"
+CHANNEL_STEPS_ARGV = ["--max-steps", str(CHANNEL_STEPS)]
+CHANNEL_PATHS = {
+    "channel": ("configs/channel.in", CHANNEL_STEPS_ARGV, 0.728982, 0.0,
+                (50, 250304, 0), 3, 1,
+                (0.35494035482406616, 0.3339797854423523)),
+    "channel ab2": ("configs/channel.in", [*CHANNEL_STEPS_ARGV,
+                                           "--time-order", "2"],
+                    0.729175, 0.0, (50, 250304, 0), 3, 2,
+                    (0.35383927822113037, 0.33303970098495483)),
+    "channel sharded ab2": ("configs/channel.in", [
+        *CHANNEL_STEPS_ARGV, *SHARDED_1X1, "--time-order", "2"], 0.729175,
+        0.0, (50, 250176, 0), 3, 2, None),
+    "channel 2048x1024": (CHANNEL_WIDE_CONFIG, ["--max-steps", "2"],
+                          0.081013, -0.000003, (2, 40000, 2), 3, 1, None),
+    "channel 2048x1024 ab2": (CHANNEL_WIDE_CONFIG, [
+        "--max-steps", "2", "--time-order", "2"], 0.081008, -0.000003,
+        (2, 40000, 2), 3, 2, None),
+}
+# The Taylor-Green vortex in the free-slip box (problem 4) at 1024^2
+# (models/taylorgreen.py::taylor_green(1024): Re = 50, eps = 1e-6, f32),
+# 3 steps of solver.solve_ab2 with the multigrid pressure solve (kernels
+# B3 and the coarse cycle; no B2 under AB2).  The JAX record, taken on the
+# CPU with
+#   JAX_PLATFORMS=cpu python tests/jax_records.py taylor-green 1024 3
+# printed steps=3 sor_iterations=15 per_step=[7, 4, 4] sor_failures=0
+# centre=0.001534,-0.001534 and errors {'u': 1.0520008630887645e-07, 'v':
+# 1.0520008630887645e-07, 'p': 2.5512697132856754e-05}; the port's errors
+# are held to at most JAX's times (1 + TG_ERRORS_RTOL).
+TG_N, TG_STEPS = 1024, 3
+JAX_TG_STATS = (3, 15, 0)
+JAX_TG_CENTRE = (0.001534, -0.001534)
+JAX_TG_ERRORS = {"u": 1.0520008630887645e-07, "v": 1.0520008630887645e-07,
+                 "p": 2.5512697132856754e-05}
+TG_ERRORS_RTOL = 1e-3
 # One DCT solve on the card (cuFFT) against the CPU's (pocketfft): max
 # |difference| over max|p|.
 DCT_RTOL = 1e-5
@@ -228,13 +316,16 @@ MG_FINE_DX2_INV = 2048.0 ** 2
 TILE_SIZES = (64, 256)
 # The extended-block kernel's cases: (tag, interior, mesh, sweeps per call,
 # warm).  A 1x1 block of configs/4.in (the sharded path on one card: ext
-# 2080^2, H = 16), the four blocks of a 2x2 cut of the same grid, a padded
+# 2080^2, H = 16) and of configs/channel.in (the sharded channel: ext
+# 160 x 96, H = 16, its constants), the four blocks of a 2x2 cut of
+# configs/4.in's grid, a padded
 # 99 x 63 interior over 2x4, and the multigrid use (a warm start from a
 # non-zero delta with its ghost ring, omega = 1, H = 2 ns) over 2x2 and as
 # the sharded mg path gives it on one card: configs/4.in's finest level
 # (ext 2056^2) and its coarsest smoothed one (8^2, ext 16^2), each with
 # that level's constants.
 EXT_CASES = [("configs/4.in 1x1", (2048, 2048), (1, 1), (1, 8), False),
+             ("configs/channel.in 1x1", (128, 64), (1, 1), (1, 8), False),
              ("2048^2 2x2", (2048, 2048), (2, 2), (1, 8), False),
              ("99x63 2x4", (99, 63), (2, 4), (1, 8), False),
              ("mg 130^2 2x2", (130, 130), (2, 2), (MG_SWEEPS,), True),
@@ -378,10 +469,12 @@ def phase_compare(torch) -> dict:
     errs = {"sor": compare_whole_grid(torch, rng), "momentum": 0.0,
             "sor_tiled": 0.0, "sor_compressed": 0.0}
     # The fused momentum kernel at the main path's 258^2, the mg path's
-    # 2050^2 and at 99 x 63, against its twin and its first kernel
-    # (momentum_rhs_simple: two launches), dt and gamma as the time step
-    # passes them (0-d f32 tensors on the card).
-    for i_max, j_max in ((256, 256), (2048, 2048), (97, 61)):
+    # 2050^2, at 99 x 63 and at the channel's 130 x 66 and 2050 x 1026,
+    # against its twin and its first kernel (momentum_rhs_simple: two
+    # launches), dt and gamma as the time step passes them (0-d f32 tensors
+    # on the card).
+    for i_max, j_max in ((256, 256), (2048, 2048), (97, 61), (128, 64),
+                         CHANNEL_WIDE):
         prm = Params(i_max=i_max, j_max=j_max, a=1.0, b=0.7, Re=1000.0,
                      g_x=0.1, g_y=-0.2, omega=1.7)
         shape = prm.shape
@@ -457,8 +550,9 @@ def phase_compare(torch) -> dict:
 
 def compare_whole_grid(torch, rng) -> float:
     """sor_sweeps (the temporal tile) against its plain twin and against
-    its first kernel sor_sweeps_simple, at the SOR paths' 258^2 and 2050^2
-    and at 99 x 63 and 98 x 64, for no sweep, one, a short chunk, the
+    its first kernel sor_sweeps_simple, at the SOR paths' 258^2 and 2050^2,
+    at 99 x 63 and 98 x 64 and at the channel's 130 x 66 and 2050 x 1026,
+    for no sweep, one, a short chunk, the
     path's 64 and one outer pass of the benchmark's K = 2048: error 0.0
     (the plain twin is left out where it would take minutes).  Returns the
     max abs error."""
@@ -466,7 +560,8 @@ def compare_whole_grid(torch, rng) -> float:
     from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
 
     worst = 0.0
-    for i_max, j_max in ((256, 256), (2048, 2048), (97, 61), (96, 62)):
+    for i_max, j_max in ((256, 256), (2048, 2048), (97, 61), (96, 62),
+                         (128, 64), CHANNEL_WIDE):
         prm = Params(i_max=i_max, j_max=j_max, a=1.0, b=0.7, Re=1000.0,
                      omega=1.7)
         rhs = random_grid(torch, rng, (i_max, j_max), ring=False)
@@ -601,7 +696,8 @@ def compare_coarse_cycle(torch, rng) -> float:
 
 def ext_setup(tag: str, size, mesh, warm: bool):
     """(ext_sweeps' last argument, li, lj, K, the blocks' global origins)
-    of an EXT_CASES cut: configs/4.in's Params, another grid's, or (warm)
+    of an EXT_CASES cut: the Params of the config file its tag names,
+    another grid's, or (warm)
     a multigrid level's constants with omega = 1 and K = its sweeps: the
     sharded mg path's own level of that size, else made-up ones."""
     from navierstokes_parallel_tpu_torch.config import Params
@@ -618,8 +714,10 @@ def ext_setup(tag: str, size, mesh, warm: bool):
     if warm:
         return ((*size, 1.0, 0.9 * size[0] ** 2, 1.3 * size[1] ** 2), li, lj,
                 MG_SWEEPS, origins)
-    if tag.startswith("configs/4.in"):
-        prm = Params.from_file(str(ROOT / "configs" / "4.in"))
+    if tag.startswith("configs/"):
+        prm = Params.from_file(str(ROOT / tag.split()[0]))
+        check(prm.shape == (size[0] + 2, size[1] + 2),
+              f"{tag}: the case's size is not its config's")
     else:
         prm = Params(i_max=size[0], j_max=size[1], a=1.0, b=0.7, Re=1000.0,
                      omega=1.7)
@@ -1518,6 +1616,239 @@ def compare_dct(torch) -> None:
         check(err <= DCT_RTOL, f"the DCT solve differs at {i_max}x{j_max}")
 
 
+def channel_launches(tag: str, prm, iterations: int) -> dict:
+    """The kernel launches a CHANNEL_PATHS run must make (every other count
+    0).  On one card one sor_sweeps call per outer pass of K sweeps (max_it
+    // K + 1 passes in a step that runs into max_it) and one for the CLI's
+    warm-up; B2 once per step and once for the warm-up under Euler, never
+    under AB2.  On the 1x1 mesh one sor_ext_sweeps call per chunk of the
+    deep-halo depth, K / depth per pass, and one for the warm-up."""
+    from navierstokes_parallel_tpu_torch.parallel import deep_halo
+
+    _, argv, _, _, (steps, _, failures), _, order, _ = CHANNEL_PATHS[tag]
+    K = prm.sor_refine_every
+    passes = (iterations - failures * prm.max_it) // K \
+        + failures * -(-prm.max_it // K)
+    if "sharded" in argv:
+        depth = deep_halo.comm_depth(prm, prm.i_max, prm.j_max)
+        check(K % depth == 0 and failures == 0,
+              f"{tag}: the chunk count needs K a multiple of {depth}")
+        return {"sor_ext": passes * (K // depth) + 1}
+    want = {"sor": passes + 1}
+    if order == 1:
+        want["momentum"] = steps + 1
+    return want
+
+
+def stepped_channel(torch, prm, order: int, device: str = "cuda",
+                    hooks=None):
+    """CHANNEL_STEPS steps of the channel on `device`, one solver.Stepper
+    step at a time, each pressure solve's residual norms read through its
+    l2 hook (`hooks`, when given, replace the refined solve's others):
+    returns the final state, the per-step outer passes and, per step, the
+    relative margins (norm - threshold) / threshold of its last pass and
+    of the pass before it."""
+    from navierstokes_parallel_tpu_torch import solver
+    from navierstokes_parallel_tpu_torch.ops import sor
+
+    norms = []
+    refined = sor._solve_pressure_refined
+
+    def recorded(p, rhs, params, **kw):
+        kw.update(hooks or {})
+        l2_fn = kw.get("l2_fn") or sor._default_l2(params)
+
+        def l2(arr):
+            norm = l2_fn(arr)
+            norms.append(float(norm))
+            return norm
+        return refined(p, rhs, params, **{**kw, "l2_fn": l2})
+
+    stepper = solver.Stepper(prm, solver.allocate_state(prm, device),
+                             sor.default_method(prm, device), order)
+    passes, margins = [], []
+    sor._solve_pressure_refined = recorded
+    try:
+        for _ in range(CHANNEL_STEPS):
+            norms.clear()
+            diag = stepper.step()
+            # The first norm is ||p0||, which sets the threshold.
+            threshold = prm.epsilon * (norms[0] + sor.NORM_OFFSET)
+            passes.append(diag.sor_iterations // prm.sor_refine_every)
+            margins.append([(x - threshold) / threshold
+                            for x in (norms[-1], norms[-2] if len(norms) > 2
+                                      else float("inf"))])
+    finally:
+        sor._solve_pressure_refined = refined
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return stepper.state(), passes, margins
+
+
+def channel_gate(passes, margins, jax_passes):
+    """The per-step gate of a stepped channel run: for every step whose
+    passes differ from JAX's, (step, passes, JAX's, the margin of the
+    deciding pass, within the gate).  A step passes the gate if it moved
+    by one pass with the card's residual at the deciding pass within
+    NEAR_THRESHOLD of the threshold."""
+    rows = []
+    for k, (mine, theirs) in enumerate(zip(passes, jax_passes)):
+        if mine == theirs:
+            continue
+        # Fewer passes: the card's last pass stopped where JAX's went on;
+        # more: the card's pass before went on where JAX stopped.
+        margin = margins[k][0 if mine < theirs else 1]
+        rows.append((k, mine, theirs, margin, abs(mine - theirs) == 1 and
+                     abs(margin) <= NEAR_THRESHOLD))
+    return rows
+
+
+def phase_channel(torch) -> dict:
+    """The channel (CHANNEL_PATHS) through the CLI, each run held to its
+    JAX record and its kernel launches to channel_launches, the plain twins
+    and every sweep route the path must not take barred; the 50-step Euler
+    and AB2 runs again step by step (stepped_channel): their passes held to
+    JAX's per step (NEAR_THRESHOLD), the CLI's total to theirs, the profile
+    errors to JAX's within the contract; then the Taylor-Green box at
+    1024^2 under mg through solve_ab2 (phase_taylor_green).  Returns the
+    launch counts summed over the CLI runs and the Taylor-Green run."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.models import channel
+    from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
+                                                          sor_kernel)
+
+    base = Params.from_file(str(ROOT / "configs" / "channel.in"))
+    # Why ops/stencils.py::div: CUDA divides by a host scalar as a multiply
+    # by its reciprocal, so F/G's "/ Re" would round otherwise than the
+    # CPU's (and XLA's) true division.
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        1 << 20).astype(np.float32)).cuda()
+    moved = int((x / base.Re != x / torch.full((), base.Re,
+                                                device="cuda")).sum())
+    print(f"[channel] x / {base.Re} by a host scalar and by a 0-d device "
+          f"tensor differ in {moved} of {x.numel()} elements")
+    wide = base.replace(i_max=CHANNEL_WIDE[0], j_max=CHANNEL_WIDE[1])
+    CHANNEL_WIDE_CONFIG.parent.mkdir(parents=True, exist_ok=True)
+    wide.to_file(str(CHANNEL_WIDE_CONFIG))
+    for prm in (base, wide):
+        tile = sor_kernel.whole_grid_tile(prm.shape)
+        print(f"[channel] {prm.shape}: route {sor_kernel.route(prm)}, "
+              f"tile {tile}")
+        check(sor_kernel.route(prm) == "whole" and
+              tile in sor_kernel.WHOLE_GRID_TILES,
+              f"{prm.shape} does not take B1 on a compiled tile")
+    plain = ("inner_sweeps_plain", "inner_sweeps_tiled_plain",
+             "inner_sweeps_compressed_plain", "warm_sweeps_plain",
+             "coarse_cycle_plain", "ext_sweeps_plain",
+             "whole_grid_sweeps_simple", "warm_sweeps_simple",
+             "inner_sweeps_compressed_simple")
+    total, seconds, cli_iterations = None, {}, {}
+    for tag, (config, argv, u, v, stats_want, rc, order,
+              _) in CHANNEL_PATHS.items():
+        where = f"the {tag} path"
+        routes = ("inner_sweeps_tiled", "inner_sweeps_compressed")
+        if "sharded" in argv:
+            routes += ("whole_grid_sweeps",)
+        prm = wide if config == CHANNEL_WIDE_CONFIG else base
+        keys = ("steps", "sor_iterations", "sor_failures")
+        want = dict(zip(keys, stats_want))
+        if tag in JAX_CHANNEL_PASSES:  # held step by step below
+            del want["sor_iterations"]
+        with barred(sor_kernel, plain + routes, where), \
+                barred(momentum_kernel, ("momentum_rhs_plain",
+                                         "momentum_rhs_simple"), where):
+            stats, launches = run_cli(
+                tag, [str(ROOT / config), *argv, "--stats"], u, v, want,
+                rc_want=rc)
+        cli_iterations[tag] = int(stats["sor_iterations"])
+        want = channel_launches(tag, prm, cli_iterations[tag])
+        got = {k: n for k, n in launches.items() if n}
+        print(f"[{tag}] kernel launches {got}, expected {want}")
+        check(got == want, f"{where}'s kernel launches differ")
+        seconds[tag] = stats["solve_seconds"]
+        total = launches if total is None else {
+            k: total[k] + launches[k] for k in total}
+    print("[channel] solve seconds: " + ", ".join(
+        f"{tag} {t:.6f}" for tag, t in seconds.items()))
+
+    for tag, jax_passes in JAX_CHANNEL_PASSES.items():
+        _, _, _, _, stats_want, _, order, jax_errors = CHANNEL_PATHS[tag]
+        t0 = time.perf_counter()
+        state, passes, margins = stepped_channel(torch, base, order)
+        iterations = sum(passes) * base.sor_refine_every
+        print(f"[{tag}] stepped: {iterations} sweeps in "
+              f"{time.perf_counter() - t0:.3f} s (JAX {stats_want[1]}, the "
+              f"CLI {cli_iterations[tag]})")
+        check(iterations == cli_iterations[tag],
+              f"{tag}: the CLI's and the stepped run's counts differ")
+        for k, mine, theirs, margin, ok in channel_gate(passes, margins,
+                                                        jax_passes):
+            print(f"[{tag}] step {k}: {mine} passes, JAX {theirs}; the "
+                  f"card's residual at the deciding pass {margin:+.3e} of "
+                  f"the threshold (allowed within {NEAR_THRESHOLD:.0e})")
+            check(ok, f"{tag}: step {k} moved away from its threshold")
+        errors = channel.profile_errors(state.u, base)
+        diff = max(abs(a - b) for a, b in zip(errors, jax_errors))
+        print(f"[{tag}] profile errors {errors} vs JAX {jax_errors}: max "
+              f"difference {diff:.3e} (contract {CONTRACT:.0e})")
+        check(diff <= CONTRACT, f"{tag}: profile errors differ from JAX's")
+    tg = phase_taylor_green(torch)
+    return {k: total[k] + tg[k] for k in total}
+
+
+def phase_taylor_green(torch) -> dict:
+    """TG_STEPS steps of solver.solve_ab2 on the 1024^2 Taylor-Green box
+    under mg, after its warm-up: the JAX record (counts, centre values
+    within the contract, errors against the exact solution at most JAX's
+    times 1 + TG_ERRORS_RTOL), with the smoother and coarse-cycle launches
+    of its V-cycles and no other kernel (no B2 under AB2); the plain twins
+    barred.  Returns the launch counts."""
+    from navierstokes_parallel_tpu_torch import solver
+    from navierstokes_parallel_tpu_torch.models import taylorgreen
+    from navierstokes_parallel_tpu_torch.ops import mg
+    from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
+                                                          sor_kernel)
+
+    prm, state = taylorgreen.taylor_green(n=TG_N, device="cuda")
+    levels = mg.build_levels(prm)
+    depth = sor_kernel.coarse_cycle_depth(levels)
+    check(0 < depth < len(levels), "the coarse cycle is not on the TG path")
+    where = "the Taylor-Green path"
+    with barred(sor_kernel, ("warm_sweeps_plain", "coarse_cycle_plain",
+                             "warm_sweeps_simple"), where), \
+            barred(momentum_kernel, ("momentum_rhs_plain",
+                                     "momentum_rhs_simple"), where):
+        solver.warm_up(prm, "cuda", "mg", time_order=2)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state, stats = solver.solve_ab2(prm, state, pressure_method="mg",
+                                        max_steps=TG_STEPS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    errors = taylorgreen.errors(state, prm)
+    uc, vc = solver.center_values(state, prm)
+    cycles = stats.total_sor_iterations
+    want = {"sor_warm": cycles * 2 * depth, "mg_coarse_cycle": cycles}
+    got = {k: n for k, n in launches.items() if n}
+    print(f"[taylor-green] {TG_N}^2 mg solve_ab2: {tuple(stats[:3])} vs JAX "
+          f"{JAX_TG_STATS} in {seconds:.6f} s; centre {uc:.6f} {vc:.6f} vs "
+          f"JAX {JAX_TG_CENTRE}; errors {errors} vs JAX {JAX_TG_ERRORS}; "
+          f"launches {got}, expected {want}")
+    check(tuple(stats[:3]) == JAX_TG_STATS,
+          "Taylor-Green counts differ from the JAX record")
+    check(max(contract_err(uc, JAX_TG_CENTRE[0]),
+              contract_err(vc, JAX_TG_CENTRE[1])) <= CONTRACT,
+          "Taylor-Green centre values outside the contract")
+    for key, jax_err in JAX_TG_ERRORS.items():
+        check(errors[key] <= jax_err * (1 + TG_ERRORS_RTOL),
+              f"Taylor-Green {key} error {errors[key]:.6e} exceeds JAX's "
+              f"{jax_err:.6e}")
+    check(got == want, f"{where}'s kernel launches differ")
+    return launches
+
+
 def sum_launches(runs) -> dict:
     return {k: sum(run[k] for run in runs) for k in runs[0]}
 
@@ -2013,6 +2344,8 @@ def main(argv=None) -> int:
                                         torch)}
         paths["protocol"] = timed_phase("protocol", phase_protocol, torch,
                                         dict(paths))
+        paths["channel"] = timed_phase("channel and taylor-green",
+                                       phase_channel, torch)
         timed_phase("cpu-gpu", phase_cpu_gpu, torch)
         # After the paths: once the profiler has run in a process, every
         # later launch costs the host more.

@@ -7,14 +7,16 @@ solver, cli), and its Pallas TPU kernels become hand-written CUDA kernels
 under ops/cuda/ (sources in csrc/), each with a plain PyTorch twin that the
 CPU runs.  This package imports torch and numpy, never jax.
 
-The port covers the lid-driven cavity (problems 1-2, f32 state) with the
-f64-refined red-black SOR, multigrid and CG pressure solves; ROADMAP.md
-lists what is still to port.
+The port covers the lid-driven cavity (problems 1-2), the plane channel
+(3) and the free-slip Taylor-Green box (4), by explicit Euler or
+Adams-Bashforth 2, with every pressure method of the JAX package, on one
+device and on the sharded backend; ROADMAP.md lists what is still to port.
 """
 
 from .config import Params
 from .grid import State, allocate_state, interior, state_from_numpy
-from .solver import SolveStats, StepDiagnostics, center_values, solve, step
+from .solver import (AB2State, SolveStats, StepDiagnostics, ab2_init,
+                     center_values, solve, solve_ab2, step, step_ab2)
 
 __version__ = "0.1.0"
 
@@ -24,9 +26,13 @@ __all__ = [
     "allocate_state",
     "interior",
     "state_from_numpy",
+    "AB2State",
     "SolveStats",
     "StepDiagnostics",
+    "ab2_init",
     "center_values",
     "solve",
+    "solve_ab2",
     "step",
+    "step_ab2",
 ]

@@ -53,9 +53,15 @@ synchronize; the final gather follows it.  ``jnp`` and
 ``pallas`` are the single-device route, as in the JAX CLI; ``gspmd`` is
 not ported.  The JAX CLI's flags of later slices are parsed with their
 JAX choices and refused, naming their ROADMAP item, whenever they ask for
-more than the default: ``--time-order 2`` (A6), ``--obstacle`` (A7),
-``--free-wall freeslip`` (A8) and ``--outer compensated`` (A9).  Unlike
-the JAX CLI, a tile size of 0 is refused rather than ignored.
+more than the default: ``--obstacle`` (A7), ``--free-wall freeslip`` (A8)
+and ``--outer compensated`` (A9).  Unlike the JAX CLI, a tile size of 0 is
+refused rather than ignored.
+
+``--time-order 2`` steps with Adams-Bashforth 2 (``solver.step_ab2``) on
+both backends, as the JAX CLI does: it warns on standard error when tau >
+0.5 (beyond AB2's stability bound on the viscous dt limit) and refuses
+problem 6.  A checkpoint holds the state only, so a resumed AB2 run starts
+again from the Euler bootstrap and is not bit-equal to the straight run.
 """
 
 from __future__ import annotations
@@ -86,7 +92,7 @@ from .utils.timing import device_fence, mlups
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="navierstokes_parallel_tpu_torch",
-        description="Incompressible Navier-Stokes cavity solver "
+        description="Incompressible Navier-Stokes solver "
                     "(PyTorch + CUDA)",
     )
     ap.add_argument("param_file", nargs="?", default="parameters.txt",
@@ -119,8 +125,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "dtype")
     ap.add_argument("--time-order", type=int, choices=[1, 2], default=1,
                     help="momentum time integrator: 1 = the reference's "
-                         "explicit Euler; 2 (Adams-Bashforth 2) is not "
-                         "ported (ROADMAP A6)")
+                         "explicit Euler (default), 2 = variable-step "
+                         "Adams-Bashforth 2 (solver.step_ab2; stable for "
+                         "tau <= 0.5; not for problem 6).  A resumed run "
+                         "re-bootstraps with one Euler step (checkpoints "
+                         "carry the state, not the AB2 tendency)")
     ap.add_argument("--mesh", default=None, metavar="PxQ",
                     help="process mesh of the sharded backend, e.g. 2x2; "
                          "P * Q must equal the number of ranks (default: "
@@ -181,8 +190,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> str:
     """The message refusing a flag of a later slice, or ''."""
-    if args.time_order != 1:
-        return "--time-order 2 (Adams-Bashforth 2) is not ported: ROADMAP A6"
     if args.obstacle:
         return "--obstacle (flag-field domains) is not ported: ROADMAP A7"
     if args.free_wall != "noslip":
@@ -291,18 +298,33 @@ def main(argv=None) -> int:
         pressure_method = "pallas_sor"
     elif args.backend == "auto" and pressure_method == "rb_sor":
         pressure_method = default_method(params, device)
+    if args.time_order == 2:
+        if params.problem == 6:
+            # As the JAX CLI: the free-surface reflagging changes the fluid
+            # domain between steps, so a carried tendency is ill-defined.
+            print("error: --time-order 2 does not apply to problem 6 "
+                  "(free surfaces reflag the fluid domain every step; an "
+                  "Adams-Bashforth tendency carried across a reflag is "
+                  "ill-defined)", file=sys.stderr)
+            return 1
+        if params.tau > 0.5:
+            # AB2's real-axis stability interval is half of Euler's.
+            print(f"warning: --time-order 2 with tau={params.tau} > 0.5 "
+                  "exceeds the AB2 stability bound on the viscous dt "
+                  "limit; expect blow-up (use tau <= 0.5)",
+                  file=sys.stderr)
     if args.backend == "sharded":
         return _main_sharded(args, params, device, mesh_shape,
                              pressure_method, state)
     try:
-        warm_up(params, device, pressure_method)
+        warm_up(params, device, pressure_method, args.time_order)
     except NotImplementedError as e:  # an unported route, found at once
         print(f"error: {e}", file=sys.stderr)
         return 1
     if state is None:
         state = allocate_state(params, device)
 
-    stepper = Stepper(params, state, pressure_method)
+    stepper = Stepper(params, state, pressure_method, args.time_order)
     start = time.perf_counter()
     try:
         stats = run_host_loop(params, stepper, args)
@@ -326,13 +348,13 @@ def _main_sharded(args, params: Params, device, mesh_shape,
         try:
             mesh = make_grid_mesh(i_max=params.i_max, j_max=params.j_max,
                                   shape=mesh_shape, device=rank_device)
-            sharded.warm_up(params, mesh, pressure_method)
+            sharded.warm_up(params, mesh, pressure_method, args.time_order)
         except (NotImplementedError, ValueError) as e:
             if rank0:
                 print(f"error: {e}", file=sys.stderr)
             return 1
         stepper = sharded.ShardedStepper(params, state, mesh,
-                                         pressure_method)
+                                         pressure_method, args.time_order)
         dist.barrier()
         start = time.perf_counter()
         try:

@@ -68,6 +68,26 @@ def state_from_numpy(u, v, p, t=0.0, n=0, *, device,
                  n=int(n))
 
 
+def ab2_state_from_numpy(ab2, *, device, dtype=torch.float32):
+    """``solver.AB2State`` from host arrays: `ab2` has the fields of the
+    JAX package's ``AB2State`` (``s``, a state with u, v, p, t and n;
+    ``ru``, ``rv`` and ``dt_prev``), e.g. a JAX carry passed through numpy,
+    so that both packages can step on from the same Adams-Bashforth 2
+    carry."""
+    from .solver import AB2State  # the solver imports this module
+
+    s = ab2.s
+    state = state_from_numpy(*(np.asarray(x) for x in (s.u, s.v, s.p)),
+                             t=np.asarray(s.t), n=int(np.asarray(s.n)),
+                             device=device, dtype=dtype)
+
+    def field(x):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=state.u.device)
+
+    return AB2State(s=state, ru=field(ab2.ru), rv=field(ab2.rv),
+                    dt_prev=field(ab2.dt_prev).reshape(()))
+
+
 def host_array(x) -> np.ndarray:
     """A tensor (on any device) or an array-like (a JAX array, a number) as
     a numpy array."""

@@ -1,9 +1,11 @@
-"""Velocity boundary conditions of the cavity problems (1 and 2).
+"""Velocity boundary conditions: the cavity (problems 1 and 2), the plane
+channel (problem 3) and the free-slip box (problem 4).
 
 PyTorch counterpart of ``navierstokes_parallel_tpu/ops/boundary.py``, with
 the serial reference semantics (src/serial/boundaries.c:3-39): the wall-
 normal velocity is set on the wall edge, the tangential one is reflected
-through the wall by ghost-cell averaging.
+through the wall by ghost-cell averaging (no-slip), copied (free-slip) or
+zero-gradient (outflow).
 
 The writes are IN PLACE on ``u`` and ``v`` (no copy of either field per
 wall); the functions also return the two tensors for symmetry with the JAX
@@ -13,9 +15,13 @@ module.  Callers that must keep their input pass clones (solver.step does).
 from __future__ import annotations
 
 import enum
+import functools
 from typing import Tuple
 
+import numpy as np
 import torch
+
+from . import stencils as st
 
 
 class Side(enum.Enum):
@@ -56,6 +62,28 @@ def set_noslip(u: torch.Tensor, v: torch.Tensor,
     return set_inflow(u, v, side, 0.0, 0.0)
 
 
+def set_freeslip(u: torch.Tensor, v: torch.Tensor,
+                 side: Side) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Free-slip wall (Griebel et al. sect. 3.3), in place: zero normal
+    velocity on the wall edge, and the tangential ghost copies the first
+    interior node (zero normal gradient) instead of negating it."""
+    if side is Side.TOP:
+        v[1:-1, -2] = 0.0
+        u[1:-1, -1] = u[1:-1, -2]
+    elif side is Side.BOTTOM:
+        v[1:-1, 0] = 0.0
+        u[1:-1, 0] = u[1:-1, 1]
+    elif side is Side.LEFT:
+        u[0, 1:-1] = 0.0
+        v[0, 1:-1] = v[1, 1:-1]
+    elif side is Side.RIGHT:
+        u[-2, 1:-1] = 0.0
+        v[-1, 1:-1] = v[-2, 1:-1]
+    else:  # pragma: no cover
+        raise ValueError(f"unknown side {side}")
+    return u, v
+
+
 def apply_cavity_bcs(u, v, lid_u) -> Tuple[torch.Tensor, torch.Tensor]:
     """No-slip left/right/bottom walls + moving lid on top, in place.
 
@@ -79,3 +107,78 @@ def lid_velocity(problem: int, f: float, t: torch.Tensor):
         return torch.sin(f * t)
     raise ValueError(f"unknown problem type {problem}")
 
+
+
+def apply_freeslip_box(u: torch.Tensor,
+                       v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Free-slip walls on all four sides (problem 4, the Taylor-Green box),
+    in place, in the JAX package's side order; here the writes commute."""
+    set_freeslip(u, v, Side.LEFT)
+    set_freeslip(u, v, Side.RIGHT)
+    set_freeslip(u, v, Side.BOTTOM)
+    set_freeslip(u, v, Side.TOP)
+    return u, v
+
+
+def set_outflow(u: torch.Tensor, v: torch.Tensor,
+                side: Side) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero-gradient outflow (Griebel et al. sect. 3.3), in place: the
+    wall-normal edge velocity copies its upstream interior neighbour and the
+    tangential ghost copies the first interior node."""
+    if side is Side.RIGHT:
+        u[-2, 1:-1] = u[-3, 1:-1]
+        v[-1, 1:-1] = v[-2, 1:-1]
+    elif side is Side.LEFT:
+        u[0, 1:-1] = u[1, 1:-1]
+        v[0, 1:-1] = v[1, 1:-1]
+    elif side is Side.TOP:
+        v[1:-1, -2] = v[1:-1, -3]
+        u[1:-1, -1] = u[1:-1, -2]
+    elif side is Side.BOTTOM:
+        v[1:-1, 0] = v[1:-1, 1]
+        u[1:-1, 0] = u[1:-1, 1]
+    else:  # pragma: no cover
+        raise ValueError(f"unknown side {side}")
+    return u, v
+
+
+def poiseuille_profile(params, u_max: float = 1.0) -> np.ndarray:
+    """Parabolic channel inflow u(y) = 4 u_max y (b - y) / b^2 at the u-node
+    heights y_j = (j - 1/2) dy, j = 1..j_max, in float64 (the JAX package
+    forms it in float64 and rounds it to the state's dtype once)."""
+    j = np.arange(1, params.j_max + 1)
+    y = (j - 0.5) * params.dy
+    return 4.0 * u_max * y * (params.b - y) / (params.b * params.b)
+
+
+@functools.lru_cache(maxsize=8)
+def _inflow(params, dtype: torch.dtype, device: torch.device):
+    """The inflow profile as a tensor of the state's dtype on its device,
+    made once per configuration."""
+    return torch.from_numpy(poiseuille_profile(params)).to(dtype=dtype,
+                                                            device=device)
+
+
+def apply_channel_bcs(u: torch.Tensor, v: torch.Tensor,
+                      params) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plane-channel BCs (problem 3), in place: parabolic inflow on the
+    left, zero-gradient outflow on the right, then a uniform correction of
+    the outflow edge that pins its flux to the inflow flux (the Poisson rhs
+    is compatible only if they balance), then no-slip bottom and top walls,
+    whose ghost writes read the corrected outflow edge.  The side order is
+    the JAX package's; every read sees what its ``.at[]`` chain sees there.
+
+    q_in and q_out are sums in the state's dtype: PyTorch and XLA add in
+    different orders, so the correction agrees with JAX's to rounding, not
+    bit for bit."""
+    if params.obstacles:
+        raise NotImplementedError(
+            "the obstacle-aware channel inflow is not ported yet: ROADMAP A7")
+    set_inflow(u, v, Side.LEFT, _inflow(params, u.dtype, u.device), 0.0)
+    set_outflow(u, v, Side.RIGHT)
+    q_in = torch.sum(u[0, 1:-1])
+    q_out = torch.sum(u[-2, 1:-1])
+    u[-2, 1:-1] += st.div(q_in - q_out, params.j_max)
+    set_noslip(u, v, Side.BOTTOM)
+    set_noslip(u, v, Side.TOP)
+    return u, v

@@ -27,11 +27,11 @@ def compute_fg(u: torch.Tensor, v: torch.Tensor, dt, gamma,
     dx, dy, Re = params.dx, params.dy, params.Re
     i_max, j_max = params.i_max, params.j_max
 
-    diff_u = (st.d2_dx2(u, dx) + st.d2_dy2(u, dy)) / Re
+    diff_u = st.div(st.d2_dx2(u, dx) + st.d2_dy2(u, dy), Re)
     conv_u = st.du2_dx(u, v, dx, gamma) + st.duv_dy(u, v, dy, gamma)
     f_int = st.shifted(u, 0, 0) + dt * (diff_u - conv_u + params.g_x)
 
-    diff_v = (st.d2_dx2(v, dx) + st.d2_dy2(v, dy)) / Re
+    diff_v = st.div(st.d2_dx2(v, dx) + st.d2_dy2(v, dy), Re)
     conv_v = st.duv_dx(u, v, dx, gamma) + st.dv2_dy(u, v, dy, gamma)
     g_int = st.shifted(v, 0, 0) + dt * (diff_v - conv_v + params.g_y)
 
@@ -50,9 +50,8 @@ def compute_rhs(F: torch.Tensor, G: torch.Tensor, dt,
                 params: Params) -> torch.Tensor:
     """Poisson RHS = div(F, G)/dt on the interior (reference main.c:116-120)."""
     dx, dy = params.dx, params.dy
-    div = (st.shifted(F, 0, 0) - st.shifted(F, -1, 0)) / dx + (
-        st.shifted(G, 0, 0) - st.shifted(G, 0, -1)
-    ) / dy
+    div = (st.div(st.shifted(F, 0, 0) - st.shifted(F, -1, 0), dx)
+           + st.div(st.shifted(G, 0, 0) - st.shifted(G, 0, -1), dy))
     rhs = torch.zeros_like(F)
     rhs[1:-1, 1:-1] = div / dt
     return rhs
@@ -90,7 +89,7 @@ def adaptive_dt_gamma(u, v, params: Params):
     def const(x):
         # Device tensors, not Python scalars: CUDA divides by a host scalar
         # as a multiply by its reciprocal, which rounds differently.
-        return torch.full((), x, dtype=u.dtype, device=u.device)
+        return st.scalar(x, u.dtype, u.device)
 
     dx_t, dy_t = const(dx), const(dy)
     visc = const(Re / 2.0 / (1.0 / (dx * dx) + 1.0 / (dy * dy)))

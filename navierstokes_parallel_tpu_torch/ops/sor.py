@@ -44,6 +44,11 @@ plain inner: the JAX package runs them in jnp.
 The refinement loop runs on the host: each outer pass reads one scalar (the
 residual norm) back to decide whether to go on, i.e. one device sync per K
 sweeps.
+
+Problem 3 (the channel) has an outflow, so its rhs is compatible with the
+Neumann problem only to the rounding of the flux balance: every method
+removes the constant mode from the rhs once and, in the refinement, from
+every defect (the ``mean_fn`` hook, all-reduced on a shard).
 """
 
 from __future__ import annotations
@@ -222,18 +227,30 @@ def solve_pressure(p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
                    method: str = "rb_sor", **hooks) -> SORResult:
     """Iterate until L2(res) <= eps*(||p0|| + 1.5) or max_it sweeps.
 
-    `hooks` (ghost_fn, l2_fn, parity, valid_mask) adapt the solve to a
-    shard's padded block (parallel/sharded.py); only rb_sor and jacobi take
-    them, as in the JAX package."""
+    `hooks` (ghost_fn, l2_fn, parity, valid_mask, mean_fn) adapt the solve
+    to a shard's padded block (parallel/sharded.py); only rb_sor and jacobi
+    take them, as in the JAX package.  Problem 3 deflates the rhs once by
+    `mean_fn` (default: the interior mean) and, in the refinement, every
+    defect."""
     if method not in METHODS:
         raise ValueError(f"unknown pressure solver method {method!r}")
+    # Popped, so that the other hooks forward to the inner stages as they
+    # are; the refined solve takes it (the direct solve has no defect to
+    # deflate).
+    mean_fn = hooks.pop("mean_fn", None) or torch.mean
     if params.obstacles:
         raise NotImplementedError(
             "obstacle domains (masked solvers) are not ported yet: ROADMAP A7")
     if params.problem == 3:
-        raise NotImplementedError(
-            "problem 3 (constant-mode deflation) is not ported yet: "
-            "ROADMAP A6")
+        # The outflow problem's flux balance (boundary.apply_channel_bcs)
+        # holds only to rounding, which leaves a constant (Neumann null
+        # space) mode in the rhs that no iteration removes: project it out
+        # once here, and from every defect of the refinement.  A sharded
+        # caller passes the all-reduced mean: a per-block mean would change
+        # the problem.
+        interior = rhs[1:-1, 1:-1]
+        rhs = rhs.clone()
+        rhs[1:-1, 1:-1] = interior - mean_fn(interior)
     if params.outer_precision == "compensated":
         raise NotImplementedError(
             "outer_precision='compensated' is not ported (the H100 has "
@@ -255,14 +272,15 @@ def solve_pressure(p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
         return _solve_pressure_refined(
             p, rhs, params.replace(
                 sor_refine_every=max(1, params.mg_cycles_per_outer)),
-            inner_fn=lambda r, n: mg.inner_v_cycle(r, n, params))
+            inner_fn=lambda r, n: mg.inner_v_cycle(r, n, params),
+            mean_fn=mean_fn)
     if method == "cg":
         # K = sor_refine_every CG steps per outer pass (a restart each);
         # iterations count CG steps.
         return _solve_pressure_refined(
             p, rhs, params.replace(
                 sor_refine_every=max(1, params.sor_refine_every)),
-            inner_fn=_cg_inner(params))
+            inner_fn=_cg_inner(params), mean_fn=mean_fn)
     if method == "fft":
         # K = fft_solves_per_outer direct solves per f64 defect check (the
         # inner re-evaluates the defect in f32 between them); iterations
@@ -271,7 +289,8 @@ def solve_pressure(p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
         return _solve_pressure_refined(
             p, rhs, params.replace(
                 sor_refine_every=max(1, params.fft_solves_per_outer)),
-            inner_fn=lambda r, n: fft.inner_direct(r, n, params))
+            inner_fn=lambda r, n: fft.inner_direct(r, n, params),
+            mean_fn=mean_fn)
     if method == "pallas_sor":
         if params.sor_inner_dtype != "float32":
             raise NotImplementedError(
@@ -280,14 +299,15 @@ def solve_pressure(p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
                 f"port\"; the kernels sweep in float32")
         return _solve_pressure_refined(
             p, rhs, params.replace(
-                sor_refine_every=max(1, params.sor_refine_every)))
+                sor_refine_every=max(1, params.sor_refine_every)),
+            mean_fn=mean_fn)
     if p.dtype == torch.float32 and params.sor_refine_every > 0:
         inner_fn = None  # rb_sor on the whole grid: the kernel route
         if hooks or method == "jacobi":
             inner_fn = _plain_inner(p.shape, params, method, p.device,
                                     **hooks)
         return _solve_pressure_refined(p, rhs, params, inner_fn=inner_fn,
-                                       **hooks)
+                                       mean_fn=mean_fn, **hooks)
     return _solve_pressure_direct(p, rhs, params, method=method, **hooks)
 
 
@@ -419,7 +439,7 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
                             l2_fn: Optional[Callable] = None, parity: int = 0,
                             inner_fn: Optional[Inner] = None,
                             valid_mask: Optional[torch.Tensor] = None,
-                            mean_fn: Optional[Callable] = None,
+                            mean_fn: Callable = torch.mean,
                             residual_fn: Optional[Callable] = None
                             ) -> SORResult:
     """Mixed-precision iterative refinement around an f32 inner stage.
@@ -436,19 +456,16 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
     shards), `valid_mask` zeroes the pad cells of a padded block in the
     defect and the norms, and `parity` is the block's colour offset
     (ox + oy) % 2, which the default inner (the whole grid, parity 0)
-    cannot take: a shard brings its own `inner_fn`.  The JAX package's
-    other two hooks are not ported and raise: `mean_fn` (the constant-mode
-    deflation of problem 3) and `residual_fn` (the masked defect of
-    obstacle domains).
+    cannot take: a shard brings its own `inner_fn`.  On problem 3 every
+    defect loses its constant mode, `mean_fn` of it (the interior mean; the
+    all-reduced one on a shard), and is masked again, so that a padded
+    block's pad cells stay 0.  The JAX package's last hook, `residual_fn`
+    (the masked defect of obstacle domains), is not ported and raises.
     """
-    if mean_fn is not None:
-        raise NotImplementedError(
-            "the refinement's mean_fn hook (problem 3's constant-mode "
-            "deflation) is not ported yet: ROADMAP A6")
     if residual_fn is not None:
         raise NotImplementedError(
             "the refinement's residual_fn hook (the masked defect of "
-            "obstacle domains) is not ported yet: ROADMAP A7, A10 "
+            "obstacle domains) is not ported yet: ROADMAP A7, A10 item 8 "
             "(obstacles)")
     if inner_fn is None:
         if parity % 2:
@@ -471,7 +488,13 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
     threshold = float(params.epsilon * (norm_p0 + NORM_OFFSET))
 
     def defect():
-        return masked(residual(ghost_fn(p64), rhs_int64, dx2_inv, dy2_inv))
+        r = masked(residual(ghost_fn(p64), rhs_int64, dx2_inv, dy2_inv))
+        if params.problem == 3:
+            # Exact at the outer's precision; its rounding shrinks with the
+            # defect (a deflation of the f32 rhs alone leaves a floor above
+            # the threshold on the channel's first step).
+            r = masked(r - mean_fn(r))
+        return r
 
     rhs_full = torch.zeros(p.shape, dtype=f32, device=p.device)
     r64 = defect()

@@ -4,11 +4,33 @@ PyTorch counterpart of ``navierstokes_parallel_tpu/ops/stencils.py``
 (reference src/serial/integration.c:7-71).  Every function takes padded
 (i_max+2, j_max+2) tensors and returns the (i_max, j_max) interior values;
 the operation order follows the JAX module so that both round alike.
+
+Every division by a Python number goes through ``div``: CUDA turns a
+division by a host scalar into a multiply by its reciprocal, which rounds
+differently from the true division that the CPU and XLA do.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+
+@functools.lru_cache(maxsize=64)
+def scalar(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """`value` as a 0-d tensor of `dtype` on `device`, made once per
+    (value, dtype, device) and shared, so never written in place."""
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+def div(x: torch.Tensor, d) -> torch.Tensor:
+    """x / d, a true division on every device: a Python number `d` goes to
+    a CUDA tensor's device as a 0-d tensor of its dtype (on the CPU it
+    stays a number, which PyTorch divides by exactly)."""
+    if x.device.type == "cuda" and not isinstance(d, torch.Tensor):
+        d = scalar(d, x.dtype, x.device)
+    return x / d
 
 
 def shifted(x, di: int, dj: int):
@@ -32,7 +54,7 @@ def du2_dx(u, v, dx, gamma):
     avg_w = 0.5 * (uw + uc)
     upw_e = torch.abs(avg_e) * 0.5 * (uc - ue)
     upw_w = torch.abs(avg_w) * 0.5 * (uw - uc)
-    return (avg_e * avg_e - avg_w * avg_w) / dx + gamma / dx * (upw_e - upw_w)
+    return div(avg_e * avg_e - avg_w * avg_w, dx) + div(gamma, dx) * (upw_e - upw_w)
 
 
 def duv_dy(u, v, dy, gamma):
@@ -46,7 +68,7 @@ def duv_dy(u, v, dy, gamma):
     flux_s = v_s * 0.5 * (us + uc)
     upw_n = torch.abs(v_n) * 0.5 * (uc - un)
     upw_s = torch.abs(v_s) * 0.5 * (us - uc)
-    return (flux_n - flux_s) / dy + gamma / dy * (upw_n - upw_s)
+    return div(flux_n - flux_s, dy) + div(gamma, dy) * (upw_n - upw_s)
 
 
 def dv2_dy(u, v, dy, gamma):
@@ -56,7 +78,8 @@ def dv2_dy(u, v, dy, gamma):
     avg_s = 0.5 * (vs + vc)
     upw_n = torch.abs(avg_n) * 0.5 * (vc - vn)
     upw_s = torch.abs(avg_s) * 0.5 * (vs - vc)
-    return (avg_n * avg_n - avg_s * avg_s) / dy + gamma / dy * (upw_n - upw_s)
+    return (div(avg_n * avg_n - avg_s * avg_s, dy)
+            + div(gamma, dy) * (upw_n - upw_s))
 
 
 def duv_dx(u, v, dx, gamma):
@@ -70,7 +93,7 @@ def duv_dx(u, v, dx, gamma):
     flux_w = u_w * 0.5 * (vw + vc)
     upw_e = torch.abs(u_e) * 0.5 * (vc - ve)
     upw_w = torch.abs(u_w) * 0.5 * (vw - vc)
-    return (flux_e - flux_w) / dx + gamma / dx * (upw_e - upw_w)
+    return div(flux_e - flux_w, dx) + div(gamma, dx) * (upw_e - upw_w)
 
 
 # ---------------------------------------------------------------------------
@@ -79,12 +102,14 @@ def duv_dx(u, v, dx, gamma):
 
 def d2_dx2(x, dx):
     """Central second derivative along x of any staggered field."""
-    return (shifted(x, 1, 0) - 2.0 * shifted(x, 0, 0) + shifted(x, -1, 0)) / (dx * dx)
+    return div(shifted(x, 1, 0) - 2.0 * shifted(x, 0, 0) + shifted(x, -1, 0),
+               dx * dx)
 
 
 def d2_dy2(x, dy):
     """Central second derivative along y of any staggered field."""
-    return (shifted(x, 0, 1) - 2.0 * shifted(x, 0, 0) + shifted(x, 0, -1)) / (dy * dy)
+    return div(shifted(x, 0, 1) - 2.0 * shifted(x, 0, 0) + shifted(x, 0, -1),
+               dy * dy)
 
 
 def d2u_dx2(u, dx):
@@ -109,12 +134,12 @@ def d2v_dy2(v, dy):
 
 def dp_dx(p, dx):
     """Forward difference (p[i+1,j] - p[i,j]) / dx at interior points."""
-    return (shifted(p, 1, 0) - shifted(p, 0, 0)) / dx
+    return div(shifted(p, 1, 0) - shifted(p, 0, 0), dx)
 
 
 def dp_dy(p, dy):
     """Forward difference (p[i,j+1] - p[i,j]) / dy at interior points."""
-    return (shifted(p, 0, 1) - shifted(p, 0, 0)) / dy
+    return div(shifted(p, 0, 1) - shifted(p, 0, 0), dy)
 
 
 # ---------------------------------------------------------------------------
@@ -123,7 +148,8 @@ def dp_dy(p, dy):
 
 def l2_norm(interior_vals, i_max: int, j_max: int):
     """sqrt(sum(m^2) / (i_max * j_max)) over the interior (integration.c:115)."""
-    return torch.sqrt(torch.sum(interior_vals * interior_vals) / (i_max * j_max))
+    return torch.sqrt(div(torch.sum(interior_vals * interior_vals),
+                          i_max * j_max))
 
 
 def max_interior(x):

@@ -2,7 +2,8 @@
 through ``torch.distributed``.
 
 Counterpart of ``navierstokes_parallel_tpu/parallel/sharded.py`` for the
-cavity (problems 1-2) with the Euler step and every pressure method of
+cavity (problems 1-2), the plane channel (3) and the free-slip box (4),
+with the Euler and the Adams-Bashforth 2 step and every pressure method of
 the JAX sharded backend.  The staggered grid's interior is block-sharded over a (px, py)
 process mesh (parallel/topology.py); every rank advances its (li+2, lj+2)
 padded block with the single-device stencils, exchanges one-cell halo
@@ -45,14 +46,14 @@ back with ``_gather_blocks`` after an all-gather, on every rank.
 advances them one step per ``step()``; its ``state()`` is ``gather_state``,
 a collective that every rank calls at the same steps.
 
-Not ported here (ROADMAP A10 items 5-8): AB2, the thermal and free-surface
+Not ported here (ROADMAP A10 items 6-8): the thermal and free-surface
 steppers and obstacle domains; each raises ``NotImplementedError`` naming
 its item.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,12 +63,21 @@ from ..config import Params
 from ..grid import State, host_array
 from ..ops import boundary, fft, mg, sor
 from ..ops import stencils as st
-from ..solver import SolveStats, StepDiagnostics, run_steps
+from ..solver import SolveStats, StepDiagnostics, ab2_extrapolate, run_steps
 from . import deep_halo, halo
 from .topology import Mesh, local_block_dims, make_grid_mesh
 
 # The pressure methods of the sharded backend.
 METHODS = ("rb_sor", "pallas_sor", "rb_sor_sync", "jacobi", "mg", "cg", "fft")
+
+
+class AB2Carry(NamedTuple):
+    """A rank's Adams-Bashforth 2 carry: the previous step's tendency
+    blocks and dt (0 marks the bootstrap)."""
+
+    ru: torch.Tensor
+    rv: torch.Tensor
+    dt_prev: torch.Tensor
 
 
 def _all_reduce(x: torch.Tensor, op, mesh: Mesh) -> torch.Tensor:
@@ -126,6 +136,81 @@ def _apply_bcs_sharded(u, v, lid_u, params: Params, mesh: Mesh):
     return u, v
 
 
+def _apply_freeslip_bcs_sharded(u, v, params: Params, mesh: Mesh):
+    """Free-slip box BCs (problem 4, ops/boundary.py::apply_freeslip_box)
+    on padded local blocks: the cavity's construction with the tangential
+    ghost copied instead of negated, and no lid.  Returns new blocks."""
+    I, J = params.i_max, params.j_max
+    u = halo.exchange_halo(u, mesh)
+    v = halo.exchange_halo(v, mesh)
+    gi, gj = halo.padded_global_indices(u.shape, mesh)
+    in_j = (gj >= 1) & (gj <= J)
+    in_i = (gi >= 1) & (gi <= I)
+    zero = torch.zeros((), dtype=u.dtype, device=u.device)
+    # LEFT / RIGHT: zero normal edge, zero-gradient tangential ghost.
+    u = torch.where((gi == 0) & in_j, zero, u)
+    v = torch.where((gi == 0) & in_j, torch.roll(v, -1, 0), v)
+    u = torch.where((gi == I) & in_j, zero, u)
+    v = torch.where((gi == I + 1) & in_j, torch.roll(v, 1, 0), v)
+    # BOTTOM / TOP.
+    v = torch.where(in_i & (gj == 0), zero, v)
+    u = torch.where(in_i & (gj == 0), torch.roll(u, -1, 1), u)
+    v = torch.where(in_i & (gj == J), zero, v)
+    u = torch.where(in_i & (gj == J + 1), torch.roll(u, 1, 1), u)
+    return u, v
+
+
+def _apply_channel_bcs_sharded(u, v, params: Params, mesh: Mesh):
+    """Plane-channel BCs (problem 3, ops/boundary.py::apply_channel_bcs) on
+    padded local blocks: parabolic inflow on the left, zero-gradient
+    outflow on the right with the global flux balance, no-slip walls, in
+    the cavity's global-index-masked construction.  q_in and q_out are
+    all-reduced sums over OWNED positions only: a halo copy carries its
+    owner's global index, so a plain index mask would count every cell
+    that lies in a neighbour's halo twice.  Returns new blocks."""
+    if params.obstacles:
+        raise NotImplementedError(
+            "obstacle domains on the sharded backend are not ported: "
+            "ROADMAP A10 item 8 (after A7)")
+    I, J = params.i_max, params.j_max
+    u = halo.exchange_halo(u, mesh)
+    v = halo.exchange_halo(v, mesh)
+    gi, gj = halo.padded_global_indices(u.shape, mesh)
+    in_j = (gj >= 1) & (gj <= J)
+    in_i = (gi >= 1) & (gi <= I)
+    zero = torch.zeros((), dtype=u.dtype, device=u.device)
+
+    # LEFT inflow at y_j = (gj - 1/2) dy, formed in the state's dtype as
+    # the JAX sharded backend forms it; v's ghost reflected to 0.
+    y = (gj.to(u.dtype) - 0.5) * st.scalar(params.dy, u.dtype, u.device)
+    profile = st.div(4.0 * y * (params.b - y), params.b * params.b)
+    u = torch.where((gi == 0) & in_j, profile, u)
+    v = torch.where((gi == 0) & in_j, -torch.roll(v, -1, 0), v)
+    # RIGHT outflow: the u edge copies its upstream neighbour, the v ghost
+    # is zero-gradient (the previous local row always holds gi - 1).
+    u = torch.where((gi == I) & in_j, torch.roll(u, 1, 0), u)
+    v = torch.where((gi == I + 1) & in_j, torch.roll(v, 1, 0), v)
+    # Global flux balance over owned positions.  gi == 0 lies only on
+    # x-shard 0's ring (never replicated); gi == I may lie in the next
+    # x-shard's halo under padding.
+    ni, nj = u.shape
+    pos_i = torch.arange(ni, device=u.device).view(-1, 1)
+    pos_j = torch.arange(nj, device=u.device).view(1, -1)
+    own_j = (pos_j >= 1) & (pos_j <= nj - 2)
+    own_i = (pos_i >= 1) & (pos_i <= ni - 2)
+    q_in = _all_reduce(torch.sum(torch.where((gi == 0) & in_j & own_j, u,
+                                             zero)), dist.ReduceOp.SUM, mesh)
+    q_out = _all_reduce(torch.sum(torch.where(
+        (gi == I) & in_j & own_i & own_j, u, zero)), dist.ReduceOp.SUM, mesh)
+    u = torch.where((gi == I) & in_j, u + st.div(q_in - q_out, J), u)
+    # BOTTOM / TOP no-slip walls.
+    v = torch.where(in_i & (gj == 0), zero, v)
+    u = torch.where(in_i & (gj == 0), -torch.roll(u, -1, 1), u)
+    v = torch.where(in_i & (gj == J), zero, v)
+    u = torch.where(in_i & (gj == J + 1), -torch.roll(u, 1, 1), u)
+    return u, v
+
+
 def _local_fg(u, v, dt, gamma, params: Params, gi, gj, mesh: Mesh):
     """Tentative velocities on a local block (integration.c:73-96), masked
     by the global F/G domains, with F = u / G = v on the walls."""
@@ -133,11 +218,11 @@ def _local_fg(u, v, dt, gamma, params: Params, gi, gj, mesh: Mesh):
     u_int = st.shifted(u, 0, 0)
     v_int = st.shifted(v, 0, 0)
 
-    diff_u = (st.d2_dx2(u, dx) + st.d2_dy2(u, dy)) / Re
+    diff_u = st.div(st.d2_dx2(u, dx) + st.d2_dy2(u, dy), Re)
     conv_u = st.du2_dx(u, v, dx, gamma) + st.duv_dy(u, v, dy, gamma)
     f_all = u_int + dt * (diff_u - conv_u + params.g_x)
 
-    diff_v = (st.d2_dx2(v, dx) + st.d2_dy2(v, dy)) / Re
+    diff_v = st.div(st.d2_dx2(v, dx) + st.d2_dy2(v, dy), Re)
     conv_v = st.duv_dx(u, v, dx, gamma) + st.dv2_dy(u, v, dy, gamma)
     g_all = v_int + dt * (diff_v - conv_v + params.g_y)
 
@@ -161,9 +246,11 @@ def _local_fg(u, v, dt, gamma, params: Params, gi, gj, mesh: Mesh):
 
 
 def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
-                  mesh: Mesh):
-    """One Euler time step on local padded blocks (reference main.c:86-146);
-    returns (u, v, p, dt, SORResult) with new blocks."""
+                  mesh: Mesh, ab2=None):
+    """One time step on local padded blocks (reference main.c:86-146);
+    returns (u, v, p, dt, SORResult, carry) with new blocks.  `ab2` is the
+    ``AB2Carry`` of these blocks, or None for the Euler step; `carry` is
+    the next one (None for Euler)."""
     li, lj = u.shape[0] - 2, u.shape[1] - 2
     valid, gi, gj = _valid_mask_or_none(params, li, lj, mesh)
     zero = torch.zeros((), dtype=u.dtype, device=u.device)
@@ -174,7 +261,7 @@ def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
     def const(x):
         # Device tensors, not Python scalars: CUDA divides by a host scalar
         # as a multiply by its reciprocal, which rounds differently.
-        return torch.full((), x, dtype=u.dtype, device=u.device)
+        return st.scalar(x, u.dtype, u.device)
 
     # Adaptive dt from the signed global maxima, seeded with 0 (the
     # reference's u[0][0] seed is always 0 for the cavity); pad cells are
@@ -193,9 +280,22 @@ def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
     else:
         gamma = torch.maximum(u_max * dt / dx_t, v_max * dt / dy_t)
 
-    lid = boundary.lid_velocity(params.problem, params.f, t)
-    u, v = _apply_bcs_sharded(u, v, lid, params, mesh)
+    if params.problem == 3:
+        u, v = _apply_channel_bcs_sharded(u, v, params, mesh)
+    elif params.problem == 4:
+        u, v = _apply_freeslip_bcs_sharded(u, v, params, mesh)
+    else:
+        lid = boundary.lid_velocity(params.problem, params.f, t)
+        u, v = _apply_bcs_sharded(u, v, lid, params, mesh)
     F, G = _local_fg(u, v, dt, gamma, params, gi, gj, mesh)
+    carry = None
+    if ab2 is not None:
+        # solver.step_ab2's extrapolation on the whole padded block.  Its
+        # halos need no exchange: the west/south F/G halo edges are the
+        # owners' values and the u/v halos are fresh from the BC pass, so a
+        # carried ru/rv halo copy always equals its owner's.
+        F, G, ru, rv = ab2_extrapolate(F, G, u, v, dt, ab2)
+        carry = AB2Carry(ru, rv, dt)
     rhs = torch.zeros_like(p)
     rhs[1:-1, 1:-1] = mask_pad(
         ((F[1:-1, 1:-1] - F[:-2, 1:-1]) / dx_t
@@ -212,7 +312,7 @@ def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
                                 u_new, u[1:-1, 1:-1])
     v[1:-1, 1:-1] = torch.where((gj <= params.j_max - 1) & (gi <= params.i_max),
                                 v_new, v[1:-1, 1:-1])
-    return u, v, p, dt, result
+    return u, v, p, dt, result, carry
 
 
 def _deep_route(params: Params, li: int, lj: int) -> bool:
@@ -237,10 +337,18 @@ def _sharded_pressure_solve(p, rhs, params: Params, pressure_method: str,
         ghost_fn = halo.make_masked_ghost_fn(params.i_max, params.j_max, mesh)
 
     def l2_fn(arr):
-        return torch.sqrt(_all_reduce(torch.sum(arr * arr), dist.ReduceOp.SUM,
-                                      mesh) / n_cells)
+        return torch.sqrt(st.div(_all_reduce(torch.sum(arr * arr),
+                                             dist.ReduceOp.SUM, mesh),
+                                 n_cells))
 
-    hooks = dict(ghost_fn=ghost_fn, l2_fn=l2_fn, parity=(ox + oy) % 2)
+    def mean_fn(arr):
+        # The global interior mean of problem 3's deflation: `arr` is an
+        # interior-shaped local array whose pad cells are 0.
+        return st.div(_all_reduce(torch.sum(arr), dist.ReduceOp.SUM, mesh),
+                      n_cells)
+
+    hooks = dict(ghost_fn=ghost_fn, l2_fn=l2_fn, parity=(ox + oy) % 2,
+                 mean_fn=mean_fn)
     refined = params.replace(sor_refine_every=max(1, params.sor_refine_every))
     if pressure_method == "mg":
         # One V-cycle per outer pass (as JAX's sharded mg); divisible grids.
@@ -277,19 +385,18 @@ def _check_method(params: Params, mesh: Mesh, pressure_method: str,
     JAX package's refuses; returns (px, py, li, lj)."""
     if pressure_method not in METHODS:
         raise ValueError(f"unknown pressure solver method {pressure_method!r}")
-    if time_order != 1:
-        raise NotImplementedError(
-            "time_order=2 (AB2) on the sharded backend is not ported: "
-            "ROADMAP A10 (AB2)")
-    if params.problem not in (1, 2):
+    if time_order not in (1, 2):
+        raise ValueError(f"time_order must be 1 or 2, got {time_order}")
+    if params.problem not in (1, 2, 3, 4):
+        item = {5: 6, 6: 7}.get(params.problem, "6-7")
         raise NotImplementedError(
             f"problem {params.problem} on the sharded backend is not ported: "
-            f"ROADMAP A10 (the port's sharded step runs the cavity, problems "
-            f"1 and 2)")
+            f"ROADMAP A10 item {item} (after A8; the port's sharded step runs "
+            f"problems 1-4)")
     if params.obstacles:
         raise NotImplementedError(
             "obstacle domains on the sharded backend are not ported: "
-            "ROADMAP A10 (obstacles)")
+            "ROADMAP A10 item 8 (after A7)")
     if params.outer_precision == "compensated":
         raise NotImplementedError(
             "outer_precision='compensated' is not ported (the H100 has "
@@ -408,38 +515,49 @@ def gather_state(params: Params, local: State, mesh: Mesh) -> State:
 
 
 def _step_local(local: State, params: Params, pressure_method: str,
-                mesh: Mesh) -> Tuple[State, StepDiagnostics]:
-    """One time step of this rank's blocks."""
-    u, v, p, dt, result = _sharded_step(local.u, local.v, local.p, local.t,
-                                        params, pressure_method, mesh)
+                mesh: Mesh, ab2=None):
+    """One time step of this rank's blocks: (state, diagnostics, the next
+    AB2 carry or None)."""
+    u, v, p, dt, result, carry = _sharded_step(
+        local.u, local.v, local.p, local.t, params, pressure_method, mesh,
+        ab2)
     return (State(u=u, v=v, p=p, t=local.t + dt, n=local.n + 1),
             StepDiagnostics(dt=dt, sor_iterations=result.iterations,
                             sor_res_norm=result.res_norm,
-                            sor_converged=result.converged))
+                            sor_converged=result.converged), carry)
 
 
 class ShardedStepper:
     """Host-loop adapter for the sharded backend (JAX
     ``parallel/sharded.py::ShardedStepper``): holds this rank's padded
     blocks of a reference-layout `state` (None: the zero state) and
-    advances them one step per ``step()``.  ``state()`` gathers the
-    reference-layout state on every rank; it is collective, so every rank
-    calls it at the same steps."""
+    advances them one step per ``step()``, with `time_order` 2 by the
+    Adams-Bashforth 2 step from the Euler bootstrap (also from a resumed
+    state: a checkpoint holds the state, not the tendency).  ``state()``
+    gathers the reference-layout state on every rank; it is collective, so
+    every rank calls it at the same steps."""
 
     def __init__(self, params: Params, state=None,
                  mesh: Optional[Mesh] = None,
-                 pressure_method: str = "rb_sor"):
+                 pressure_method: str = "rb_sor", time_order: int = 1):
         if mesh is None:
             mesh = make_grid_mesh(i_max=params.i_max, j_max=params.j_max)
-        _check_method(params, mesh, pressure_method)
+        _check_method(params, mesh, pressure_method, time_order)
         self.params = params
         self.mesh = mesh
         self.pressure_method = pressure_method
+        self.time_order = time_order
         self._local = scatter_state(params, state, mesh)
+        self._ab2 = None
+        if time_order == 2:
+            self._ab2 = AB2Carry(torch.zeros_like(self._local.u),
+                                 torch.zeros_like(self._local.v),
+                                 torch.zeros_like(self._local.t))
 
     def warm(self) -> None:
         """Build the kernels and take first-use costs (``warm_up``)."""
-        warm_up(self.params, self.mesh, self.pressure_method)
+        warm_up(self.params, self.mesh, self.pressure_method,
+                self.time_order)
 
     @property
     def t(self) -> float:
@@ -450,8 +568,9 @@ class ShardedStepper:
         return self._local.n
 
     def step(self) -> StepDiagnostics:
-        self._local, diag = _step_local(self._local, self.params,
-                                        self.pressure_method, self.mesh)
+        self._local, diag, self._ab2 = _step_local(
+            self._local, self.params, self.pressure_method, self.mesh,
+            self._ab2)
         return diag
 
     def state(self) -> State:
@@ -464,13 +583,14 @@ class ShardedStepper:
         return bool(_all_reduce(x, dist.ReduceOp.MAX, self.mesh))
 
 
-def warm_up(params: Params, mesh: Mesh, pressure_method: str = "rb_sor"
-            ) -> None:
-    """One throw-away step with a single sweep from the zero state, so a
-    timed solve excludes the kernel build and first-use costs (the JAX CLI
-    compiles before its timer starts); an unported route raises here."""
+def warm_up(params: Params, mesh: Mesh, pressure_method: str = "rb_sor",
+            time_order: int = 1) -> None:
+    """One throw-away step of `time_order`'s route with a single sweep from
+    the zero state, so a timed solve excludes the kernel build and
+    first-use costs (the JAX CLI compiles before its timer starts); an
+    unported route raises here."""
     ShardedStepper(params.replace(max_it=1), None, mesh,
-                   pressure_method).step()
+                   pressure_method, time_order).step()
     if mesh.device.type == "cuda":
         torch.cuda.synchronize(mesh.device)
 
@@ -481,10 +601,9 @@ def solve_sharded(params: Params, state=None, mesh: Optional[Mesh] = None, *,
     """Sharded counterpart of ``solver.solve`` over the initialised process
     group: scatter -> solve on the local blocks -> gather, returning a
     reference-layout state (ghost ring included) on every rank.  `mesh`
-    defaults to the pad-optimal mesh over the group."""
-    if mesh is None:
-        mesh = make_grid_mesh(i_max=params.i_max, j_max=params.j_max)
-    _check_method(params, mesh, pressure_method, time_order)
-    stepper = ShardedStepper(params, state, mesh, pressure_method)
+    defaults to the pad-optimal mesh over the group; `time_order` 2 steps
+    with Adams-Bashforth 2 from the Euler bootstrap."""
+    stepper = ShardedStepper(params, state, mesh, pressure_method,
+                             time_order)
     stats = run_steps(stepper, params, max_steps=max_steps)
     return stepper.state(), stats

@@ -1,19 +1,23 @@
 """Time integration: step, solve and the observable.
 
 PyTorch counterpart of ``navierstokes_parallel_tpu/solver.py`` for the
-cavity problems (1 and 2).  One time step (reference main.c:86-146):
+cavity (problems 1 and 2), the plane channel (3) and the free-slip
+Taylor-Green box (4).  One time step (reference main.c:86-146):
 
     adaptive CFL dt  ->  velocity BCs  ->  tentative F/G  ->  Poisson RHS
-    ->  pressure solve (SOR, multigrid or CG)  ->  velocity projection
+    ->  pressure solve (SOR, multigrid, CG or DCT)  ->  velocity projection
 
 On an f32 CUDA state F, G and the RHS come from the hand-written momentum
 kernel, the SOR sweeps from the SOR kernel and the multigrid smoothing from
 the warm-start kernel; elsewhere the plain PyTorch formulations run.
-``solve`` is a host loop ``while t < T`` (``run_steps`` over a ``Stepper``):
-PyTorch runs eagerly, so the JAX package's on-device ``lax.while_loop``
-becomes one scalar read of ``t`` per step.  The CLI runs the same loop with
-its frames, checkpoints and history rows between the steps, so it takes
-``solve``'s steps, kernels and bits.
+``step_ab2`` is the second-order (Adams-Bashforth 2) step: it needs the
+explicit tendency, which the fused momentum kernel does not give, so it
+takes the plain F/G and RHS on every device, as the JAX package does.
+``solve`` and ``solve_ab2`` are a host loop ``while t < T`` (``run_steps``
+over a ``Stepper``): PyTorch runs eagerly, so the JAX package's on-device
+``lax.while_loop`` becomes one scalar read of ``t`` per step.  The CLI runs
+the same loop with its frames, checkpoints and history rows between the
+steps, so it takes ``solve``'s steps, kernels and bits.
 """
 
 from __future__ import annotations
@@ -43,25 +47,47 @@ class SolveStats(NamedTuple):
     last_res_norm: float
 
 
+def _apply_bcs(u, v, t, params: Params) -> None:
+    """The velocity BCs of the problem, in place on u and v."""
+    if params.problem == 3:
+        boundary.apply_channel_bcs(u, v, params)
+    elif params.problem == 4:
+        boundary.apply_freeslip_box(u, v)
+    else:
+        boundary.apply_cavity_bcs(
+            u, v, boundary.lid_velocity(params.problem, params.f, t))
+
+
+def _check_problem(params: Params) -> None:
+    if params.problem not in (1, 2, 3, 4):
+        raise NotImplementedError(
+            f"problem {params.problem} is not ported yet: ROADMAP A8 (the "
+            f"port runs problems 1-4: the cavity, the channel and the "
+            f"free-slip box)")
+
+
 def step(state: State, params: Params, *,
          pressure_method: str = "rb_sor") -> Tuple[State, StepDiagnostics]:
     """One time step (reference main.c:86-146).  Does not modify `state`:
     u and v are cloned once, then updated in place (BCs, projection)."""
-    if params.problem not in (1, 2):
-        raise NotImplementedError(
-            f"problem {params.problem} is not ported yet: ROADMAP A6-A8 "
-            f"(the port runs the cavity problems 1 and 2)")
+    _check_problem(params)
     u, v, p, t, n = state
     u, v = u.clone(), v.clone()
 
     dt, gamma = momentum.adaptive_dt_gamma(u, v, params)
-    lid = boundary.lid_velocity(params.problem, params.f, t)
-    boundary.apply_cavity_bcs(u, v, lid)
+    _apply_bcs(u, v, t, params)
     if momentum_kernel.usable(params, u.device):
         F, G, rhs = momentum_kernel.momentum_rhs(u, v, dt, gamma, params)
     else:
         F, G = momentum.compute_fg(u, v, dt, gamma, params)
         rhs = momentum.compute_rhs(F, G, dt, params)
+    return _advance(u, v, p, t, n, F, G, rhs, dt, params, pressure_method)
+
+
+def _advance(u, v, p, t, n, F, G, rhs, dt, params: Params,
+             pressure_method: str) -> Tuple[State, StepDiagnostics]:
+    """The pressure solve and the projection (in place on u and v), the
+    tail of `step` and `step_ab2`."""
     result = sor.solve_pressure(p, rhs, params, method=pressure_method)
     momentum.project_velocities(u, v, F, G, result.p, dt, params)
 
@@ -75,18 +101,89 @@ def step(state: State, params: Params, *,
     return new_state, diag
 
 
+class AB2State(NamedTuple):
+    """The Adams-Bashforth 2 carry: the state, the previous step's explicit
+    tendency (dU/dt on F's layout, dV/dt on G's) and the previous dt
+    (0-d; 0 marks the bootstrap: the first step is explicit Euler)."""
+
+    s: State
+    ru: torch.Tensor
+    rv: torch.Tensor
+    dt_prev: torch.Tensor
+
+
+def ab2_init(state: State) -> AB2State:
+    """The bootstrap carry of `state`: zero tendencies, dt_prev = 0."""
+    return AB2State(s=state, ru=torch.zeros_like(state.u),
+                    rv=torch.zeros_like(state.v),
+                    dt_prev=torch.zeros_like(state.t))
+
+
+def ab2_extrapolate(F, G, u, v, dt, carry):
+    """(F, G, ru, rv): the Euler tentative velocities F, G extrapolated
+    through the previous step's tendency, in the JAX package's order of
+    operations, and this step's tendencies ru = (F - u)/dt, rv = (G - v)/dt
+    (their ghost rows hold values no later read touches).  `carry` has
+    ``ru``, ``rv`` and ``dt_prev`` of the previous step (an ``AB2State``,
+    or the sharded backend's blocks)."""
+    ru = (F - u) / dt
+    rv = (G - v) / dt
+    w = torch.where(carry.dt_prev > 0, dt / (2.0 * carry.dt_prev),
+                    torch.zeros_like(dt))
+    return (F + (dt * w) * (ru - carry.ru), G + (dt * w) * (rv - carry.rv),
+            ru, rv)
+
+
+def step_ab2(ab2: AB2State, params: Params, *,
+             pressure_method: str = "rb_sor"
+             ) -> Tuple[AB2State, StepDiagnostics]:
+    """One variable-step Adams-Bashforth 2 time step (the JAX package's
+    ``step_ab2``): the explicit tendency R = (F - u)/dt is extrapolated
+    through the previous step,
+
+        F = u + dt [(1 + w) R_n - w R_{n-1}],   w = dt / (2 dt_{n-1}),
+
+    w = 0 on the bootstrap step (plain Euler); the projection is Euler's.
+    AB2 is stable on the viscous dt limit only for tau <= 0.5.  F, G and
+    the RHS are the plain formulations on every device (the fused kernel
+    has no tendency output).  Does not modify `ab2`."""
+    _check_problem(params)
+    u, v, p, t, n = ab2.s
+    u, v = u.clone(), v.clone()
+
+    dt, gamma = momentum.adaptive_dt_gamma(u, v, params)
+    _apply_bcs(u, v, t, params)
+    F, G, ru, rv = ab2_extrapolate(
+        *momentum.compute_fg(u, v, dt, gamma, params), u, v, dt, ab2)
+    rhs = momentum.compute_rhs(F, G, dt, params)
+    state, diag = _advance(u, v, p, t, n, F, G, rhs, dt, params,
+                           pressure_method)
+    return AB2State(s=state, ru=ru, rv=rv, dt_prev=dt), diag
+
+
 def solve(params: Params, state: Optional[State] = None, *,
-          device=None, pressure_method: str = "rb_sor", max_steps: int = 0
-          ) -> Tuple[State, SolveStats]:
+          device=None, pressure_method: str = "rb_sor", max_steps: int = 0,
+          time_order: int = 1) -> Tuple[State, SolveStats]:
     """Integrate from `state` (or zeros on `device`) to t >= T, or stop
-    after `max_steps` steps when it is > 0."""
+    after `max_steps` steps when it is > 0; `time_order` 2 steps with
+    ``step_ab2`` from the Euler bootstrap."""
     if state is None:
         if device is None:
             raise ValueError("solve needs a state or a device")
         state = allocate_state(params, device)
-    stepper = Stepper(params, state, pressure_method)
+    stepper = Stepper(params, state, pressure_method, time_order)
     stats = run_steps(stepper, params, max_steps=max_steps)
     return stepper.state(), stats
+
+
+def solve_ab2(params: Params, state: Optional[State] = None, *,
+              device=None, pressure_method: str = "rb_sor",
+              max_steps: int = 0) -> Tuple[State, SolveStats]:
+    """``solve`` with second-order time stepping (the JAX package's
+    ``solve_ab2``, which has no `max_steps`)."""
+    return solve(params, state, device=device,
+                 pressure_method=pressure_method, max_steps=max_steps,
+                 time_order=2)
 
 
 def run_steps(stepper, params: Params, *, max_steps: int = 0,
@@ -120,50 +217,61 @@ def run_steps(stepper, params: Params, *, max_steps: int = 0,
 
 class Stepper:
     """Host-loop adapter for one device (the JAX CLI's
-    ``_SingleChipStepper``; the sharded one is
-    ``parallel/sharded.py::ShardedStepper``): each ``step()`` is one
-    ``solver.step`` of the held state."""
+    ``_SingleChipStepper``, and with `time_order` 2 its ``_AB2Stepper``;
+    the sharded one is ``parallel/sharded.py::ShardedStepper``): each
+    ``step()`` is one ``solver.step`` or ``step_ab2`` of the held state.
+    An AB2 stepper starts from the Euler bootstrap, also from a resumed
+    state: a checkpoint holds the state, not the tendency."""
 
     def __init__(self, params: Params, state: State,
-                 pressure_method: str = "rb_sor"):
+                 pressure_method: str = "rb_sor", time_order: int = 1):
+        if time_order not in (1, 2):
+            raise ValueError(f"time_order must be 1 or 2, got {time_order}")
         self.params = params
         self.pressure_method = pressure_method
-        self._state = state
+        self.time_order = time_order
+        self._state = state if time_order == 1 else ab2_init(state)
 
     def warm(self) -> None:
         """Build the kernels and take PyTorch's first-use costs before a
         timed loop (``warm_up``)."""
-        warm_up(self.params, self._state.u.device, self.pressure_method)
+        warm_up(self.params, self.state().u.device, self.pressure_method,
+                self.time_order)
 
     @property
     def t(self) -> float:
-        return float(self._state.t)
+        return float(self.state().t)
 
     @property
     def n(self) -> int:
-        return self._state.n
+        return self.state().n
 
     def step(self) -> StepDiagnostics:
-        self._state, diag = step(self._state, self.params,
-                                 pressure_method=self.pressure_method)
+        fn = step if self.time_order == 1 else step_ab2
+        self._state, diag = fn(self._state, self.params,
+                               pressure_method=self.pressure_method)
         return diag
 
     def state(self) -> State:
-        return self._state
+        return self._state if self.time_order == 1 else self._state.s
 
     def any_rank(self, flag: bool) -> bool:
         """Whether `flag` is set on any rank: one device has one rank."""
         return flag
 
 
-def warm_up(params: Params, device, pressure_method: str = "rb_sor") -> None:
-    """Run one throw-away step (a single sweep) from a zero state, so a
-    timed solve excludes the kernel build and PyTorch's first-use loading of
-    its own CUDA kernels (the JAX CLI compiles before it starts its timer).
-    An unported route raises here, before any timing."""
-    state, _ = step(allocate_state(params, device), params.replace(max_it=1),
-                    pressure_method=pressure_method)
-    device_fence(state)
+def warm_up(params: Params, device, pressure_method: str = "rb_sor",
+            time_order: int = 1) -> None:
+    """Run one throw-away step (a single sweep) from a zero state, the
+    route of `time_order`, so a timed solve excludes the kernel build and
+    PyTorch's first-use loading of its own CUDA kernels (the JAX CLI
+    compiles before it starts its timer).  An unported route raises here,
+    before any timing."""
+    stepper = Stepper(params.replace(max_it=1),
+                      allocate_state(params, device), pressure_method,
+                      time_order)
+    stepper.step()
+    device_fence(stepper.state())
 
 
 def center_values(state: State, params: Params) -> Tuple[float, float]:

@@ -1008,3 +1008,64 @@ def test_other_methods_gpu_match_cpu(cuda, method, dtype):
         a = getattr(sg, name).cpu().double()
         b = getattr(sc, name).double()
         assert float((a - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_plain_momentum_on_the_card_equals_the_cpu(cuda):
+    """compute_fg and compute_rhs (the AB2 step's F, G and rhs, and the
+    sharded backend's) on the card equal the CPU's bit for bit, Re = 10 and
+    a width whose dx is no power of two: every division by a Python number
+    is a true division (ops/stencils.py::div), not CUDA's multiply by the
+    reciprocal."""
+    from navierstokes_parallel_tpu_torch.ops import momentum
+
+    prm = Params(i_max=36, j_max=20, a=2.1, b=0.9, Re=10.0, g_x=0.1,
+                 omega=1.7)
+    u, v = _uv(prm, seed=7)
+    dt, gamma = torch.tensor(0.0021), torch.tensor(0.37)
+    want = momentum.compute_fg(u, v, dt, gamma, prm)
+    got = momentum.compute_fg(u.to(cuda), v.to(cuda), dt.to(cuda),
+                              gamma.to(cuda), prm)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    rhs = momentum.compute_rhs(*want, dt, prm)
+    assert torch.equal(momentum.compute_rhs(got[0], got[1], dt.to(cuda),
+                                            prm).cpu(), rhs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("problem,order", [(3, 1), (3, 2), (4, 2)])
+def test_channel_and_taylor_green_on_the_card_match_cpu(cuda, problem,
+                                                        order):
+    """The channel (Euler: B1 and B2; AB2: B1, no B2) and the Taylor-Green
+    box under AB2 with mg (B3 and the coarse cycle) on the card against the
+    CPU: equal counts, fields within the 1e-4 contract."""
+    from navierstokes_parallel_tpu_torch.models import channel, taylorgreen
+
+    if problem == 3:
+        prm = channel.plane_channel(nx=48, ny=24, T=0.05, dtype="float32")
+        states = {d: solver.allocate_state(prm, d) for d in (cuda, "cpu")}
+        method = "pallas_sor"
+    else:
+        # 256^2: the smoother runs on the finest level, the coarse cycle
+        # from 130^2 down.
+        prm, _ = taylorgreen.taylor_green(n=256, device="cpu")
+        states = {d: taylorgreen.taylor_green(n=256, device=d)[1]
+                  for d in (cuda, "cpu")}
+        method = "mg"
+    sor_kernel.LAUNCHES = sor_kernel.WARM_LAUNCHES = 0
+    sor_kernel.CYCLE_LAUNCHES = momentum_kernel.LAUNCHES = 0
+    gs, gstats = solver.solve(prm, states[cuda], pressure_method=method,
+                              time_order=order, max_steps=3)
+    if problem == 3:
+        assert sor_kernel.LAUNCHES > 0
+    else:
+        assert sor_kernel.WARM_LAUNCHES > 0 and sor_kernel.CYCLE_LAUNCHES > 0
+    assert momentum_kernel.LAUNCHES == (gstats.steps if order == 1 else 0)
+    cs, cstats = solver.solve(prm, states["cpu"], pressure_method=method,
+                              time_order=order, max_steps=3)
+    assert gstats[:3] == cstats[:3] and gstats.sor_failures == 0
+    for name in ("u", "v", "p"):
+        g = getattr(gs, name).cpu().numpy()
+        c = getattr(cs, name).numpy()
+        assert np.max(np.abs(g - c)) <= 1e-4 * max(1.0, np.max(np.abs(c)))

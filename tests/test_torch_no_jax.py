@@ -2,7 +2,9 @@
 
 A subprocess blocks every ``jax`` import with a ``sys.meta_path`` finder
 that raises, imports every module of the port, runs one CPU time step
-with each ported pressure method (SOR, multigrid, CG), the plain twins
+with each ported pressure method (SOR, multigrid, CG), two Adams-Bashforth
+2 steps of a small channel and an Euler step of the Taylor-Green box
+(models/channel.py, models/taylorgreen.py), the plain twins
 of the tiled and colour-compressed SOR kernels and of the multigrid
 coarse cycle, one step of the
 sharded backend on a one-rank process group (parallel/, including the
@@ -40,6 +42,19 @@ SCRIPT = textwrap.dedent("""
     for method in ("mg", "cg"):  # ops/mg.py: the V-cycle and CG's Laplacian
         _, d = step(allocate_state(prm, "cpu"), prm, pressure_method=method)
         assert d.sor_iterations > 0 and d.sor_converged, (method, d)
+    # An AB2 step on a small channel (its BCs and deflation) and on the
+    # Taylor-Green box (models/).
+    from navierstokes_parallel_tpu_torch import solver
+    from navierstokes_parallel_tpu_torch.models import channel, taylorgreen
+    chan = channel.plane_channel(nx=12, ny=6, T=0.05)
+    ab2 = solver.ab2_init(allocate_state(chan, "cpu"))
+    for _ in range(2):
+        ab2, d = solver.step_ab2(ab2, chan)
+        assert d.sor_converged and float(ab2.dt_prev) > 0, d
+    assert max(channel.profile_errors(ab2.s.u, chan)) < 1.0
+    tg, tg_state = taylorgreen.taylor_green(n=8, device="cpu")
+    tg_state, d = step(tg_state, tg)
+    assert d.sor_converged and taylorgreen.errors(tg_state, tg)["u"] < 0.1
     import torch
     from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel as sk
     rhs = torch.zeros(prm.shape)
@@ -98,11 +113,12 @@ def test_port_imports_and_steps_without_jax(tmp_path):
 
 
 def test_no_jax_import_in_sources():
-    """Neither the port nor chip_smoke.py, tile_bench.py or
-    direct_bench.py imports jax or the JAX package."""
+    """Neither the port nor chip_smoke.py, tile_bench.py, direct_bench.py
+    or scripts/torch_channel_witness.py imports jax or the JAX package."""
     pkg = os.path.join(ROOT, "navierstokes_parallel_tpu_torch")
     paths = [os.path.join(ROOT, name) for name in (
-        "chip_smoke.py", "tile_bench.py", "direct_bench.py")]
+        "chip_smoke.py", "tile_bench.py", "direct_bench.py",
+        os.path.join("scripts", "torch_channel_witness.py"))]
     for dirpath, _, files in os.walk(pkg):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     banned = ("import jax", "from jax", "import navierstokes_parallel_tpu\n",
@@ -120,5 +136,6 @@ def test_no_jax_import_in_sources():
         assert os.path.join("parallel", f"{name}.py") in scanned, name
     for name in ("distributed", "io", "checkpoint", "diagnostics"):
         assert os.path.join("utils", f"{name}.py") in scanned, name
-    assert os.path.join("models", "cavity.py") in scanned
+    for name in ("cavity", "channel", "taylorgreen"):
+        assert os.path.join("models", f"{name}.py") in scanned, name
     assert len(paths) > 10 and not offenders, offenders

@@ -46,6 +46,7 @@ import torch.multiprocessing as mp
 
 from navierstokes_parallel_tpu_torch import cli, solver
 from navierstokes_parallel_tpu_torch.config import Params
+from navierstokes_parallel_tpu_torch.grid import State
 from navierstokes_parallel_tpu_torch.parallel import (deep_halo, halo,
                                                       sharded, topology)
 from navierstokes_parallel_tpu_torch.utils import distributed
@@ -70,6 +71,17 @@ METHOD_CASES = [
     # (the direct solve in f32), and blocks one cell thin (li = 1).
     ("refine_off_2x2", "rb_sor", (2, 2), 16, 16, {"sor_refine_every": 0}),
     ("thin_4x1", "rb_sor", (4, 1), 4, 16, {"T": 0.2})]
+# (tag, pressure method, mesh, problem, i_max, j_max, time order) of the
+# four-rank solves of the plane channel (problem 3, from rest) and the
+# free-slip Taylor-Green box (problem 4, from its exact t = 0 fields), by
+# Euler and by Adams-Bashforth 2; one channel is padded on both axes.
+PHYSICS_CASES = [
+    ("channel_2x2", "rb_sor", (2, 2), 3, 24, 12, 1),
+    ("channel_ab2_1x4", "rb_sor", (1, 4), 3, 24, 12, 2),
+    ("channel_ab2_17x9_padded_2x2", "rb_sor", (2, 2), 3, 17, 9, 2),
+    ("channel_mg_ab2_2x2", "mg", (2, 2), 3, 32, 16, 2),
+    ("freeslip_2x2", "rb_sor", (2, 2), 4, 16, 16, 1),
+    ("freeslip_ab2_1x4", "rb_sor", (1, 4), 4, 16, 16, 2)]
 
 
 # The host loop's runs on four ranks and on one: (file tag, extra CLI
@@ -141,6 +153,21 @@ def _fields(**kw):
 
 def _params(**kw):
     return Params(**_fields(**kw))
+
+
+def _physics(problem, i_max, j_max):
+    """The fields of a PHYSICS_CASES configuration, and its start: None
+    (rest) for the channel, the exact t = 0 arrays for Taylor-Green."""
+    from navierstokes_parallel_tpu_torch.models import taylorgreen
+
+    if problem == 3:
+        return _fields(problem=3, i_max=i_max, j_max=j_max, a=2.0, Re=10.0,
+                       T=0.03, max_it=20000), None
+    kw = dict(problem=4, i_max=i_max, j_max=j_max, Re=50.0, T=0.05,
+              epsilon=1e-6, max_it=20000)
+    u, v, _ = taylorgreen.exact_fields(_params(**kw), 0.0)
+    return _fields(**kw), tuple(x.astype(np.float32)
+                                for x in (u, v, np.zeros_like(u)))
 
 
 def _jax_params(**kw):
@@ -232,6 +259,19 @@ def _gloo_worker(rank, port, outdir):
                 state, stats = sharded.solve_sharded(
                     _params(i_max=n_i, j_max=n_j, **kw), mesh=mesh,
                     pressure_method=method)
+            for name in ("u", "v", "p"):
+                out[f"{tag}_{name}"] = getattr(state, name).numpy()
+            out[f"{tag}_stats"] = np.asarray(
+                [stats.steps, stats.total_sor_iterations, stats.sor_failures])
+        for tag, method, shape, problem, n_i, n_j, order in PHYSICS_CASES:
+            fields, start = _physics(problem, n_i, n_j)
+            if start is not None:
+                start = State(*(torch.from_numpy(x) for x in start),
+                              t=torch.zeros(()), n=0)
+            state, stats = sharded.solve_sharded(
+                Params(**fields), start,
+                topology.make_grid_mesh(shape=shape, device="cpu"),
+                pressure_method=method, time_order=order)
             for name in ("u", "v", "p"):
                 out[f"{tag}_{name}"] = getattr(state, name).numpy()
             out[f"{tag}_stats"] = np.asarray(
@@ -400,6 +440,34 @@ def test_gloo_methods_match_jax(gloo4, case, monkeypatch):
                      [jstate.u[ci, cj], jstate.v[ci, cj]])
 
 
+@pytest.mark.parametrize("case", PHYSICS_CASES, ids=lambda c: c[0])
+def test_gloo_channel_and_freeslip_match_jax(gloo4, case):
+    """The channel's BCs (the flux balance all-reduced over owned cells),
+    the free-slip box's and the AB2 carry on four gloo ranks against the
+    JAX sharded backend on the same mesh: equal counts, fields within the
+    contract."""
+    import jax.numpy as jnp
+
+    from navierstokes_parallel_tpu.grid import State as JaxState
+    from navierstokes_parallel_tpu.parallel import sharded as jsh
+
+    tag, method, shape, problem, n_i, n_j, order = case
+    fields, start = _physics(problem, n_i, n_j)
+    if start is not None:
+        start = JaxState(*(jnp.asarray(x) for x in start),
+                         t=jnp.zeros((), jnp.float32),
+                         n=jnp.zeros((), jnp.int32))
+    jstate, jstats = jsh.solve_sharded(
+        _jax_params(**fields), start, _jax_mesh(shape),
+        pressure_method=method, time_order=order)
+    stats = list(gloo4[f"{tag}_stats"])
+    assert stats == [int(jstats.steps), int(jstats.total_sor_iterations),
+                     int(jstats.sor_failures)]
+    assert stats[0] > 1 and stats[2] == 0
+    for name in ("u", "v", "p"):
+        _assert_contract(gloo4[f"{tag}_{name}"], getattr(jstate, name))
+
+
 # --- one rank -----------------------------------------------------------------------
 
 @pytest.fixture
@@ -468,13 +536,13 @@ def test_mesh_neighbours_and_origin():
 
 
 @pytest.mark.parametrize("case,needle", [
-    ("time_order_2", "AB2"), ("obstacles", "obstacles"),
-    ("problem_3", "problem 3"), ("problem_4", "problem 4"),
+    ("time_order_2_problem_5", "A10 item 6"), ("obstacles", "A10 item 8"),
+    ("problem_5", "problem 5"), ("problem_6", "A10 item 7"),
     ("compensated", "A9")])
 def test_unported_sharded_branches_raise(one_rank, case, needle):
     kw, method, order = {}, "rb_sor", 1
-    if case == "time_order_2":
-        order = 2
+    if case == "time_order_2_problem_5":
+        kw, order = {"problem": 5}, 2
     elif case == "obstacles":
         kw = {"obstacles": ((8, 8, 12, 12),)}
     elif case.startswith("problem_"):
@@ -528,15 +596,20 @@ def test_refined_solver_hooks_refuse_a_parity_without_inner():
         sor._solve_pressure_refined(z, z, prm, parity=1)
 
 
-@pytest.mark.parametrize("hook,needle", [("mean_fn", "A6"),
+@pytest.mark.parametrize("hook,needle", [("mean_fn", "A7"),
                                          ("residual_fn", "obstacles")])
 def test_refined_solver_refuses_unported_hooks(hook, needle):
+    """residual_fn (obstacle domains) is refused, also beside the ported
+    mean_fn, as a sharded obstacle channel would pass both."""
     from navierstokes_parallel_tpu_torch.ops import sor
 
     prm = _params(i_max=8, j_max=8)
     z = torch.zeros(prm.shape)
+    hooks = {"residual_fn": torch.mean}
+    if hook == "mean_fn":
+        hooks["mean_fn"] = torch.mean
     with pytest.raises(NotImplementedError, match=needle):
-        sor._solve_pressure_refined(z, z, prm, **{hook: torch.mean})
+        sor._solve_pressure_refined(z, z, prm, **hooks)
 
 
 # --- the CLI ------------------------------------------------------------------
@@ -598,9 +671,9 @@ def test_cli_backends_and_max_steps(tmp_path, capsys):
     (["--backend", "sharded", "--method", "mg"], "A10"),
 ])
 def test_cli_sharded_errors(tmp_path, capsys, argv, needle):
-    # The sharded mg runs; on problem 3 (not ported on the sharded backend)
+    # The sharded mg runs; on problem 5 (not ported on the sharded backend)
     # it is refused, naming its ROADMAP item.
-    path = _param_file(tmp_path, problem=3 if needle == "A10" else 1)
+    path = _param_file(tmp_path, problem=5 if needle == "A10" else 1)
     rc, out, err = _run(cli.main, [path, "--device", "cpu", *argv], capsys)
     assert rc == 1 and needle in err and out == ""
     assert not dist.is_initialized()
@@ -608,15 +681,19 @@ def test_cli_sharded_errors(tmp_path, capsys, argv, needle):
 
 @pytest.mark.parametrize("argv", [
     ["--method", "mg"], ["--method", "fft"], ["--method", "cg"],
-    ["--method", "rb_sor_sync"], ["--dtype", "float64"]],
-    ids=["mg", "fft", "cg", "rb_sor_sync", "float64"])
+    ["--method", "rb_sor_sync"], ["--dtype", "float64"],
+    ["--time-order", "2"], ["channel", "--time-order", "2"]],
+    ids=["mg", "fft", "cg", "rb_sor_sync", "float64", "ab2", "channel_ab2"])
 def test_cli_sharded_methods_match_jax_cli(tmp_path, capsys, argv,
                                            monkeypatch):
     from navierstokes_parallel_tpu import cli as jcli
     from navierstokes_parallel_tpu.ops import fft as jfft
 
     monkeypatch.setattr(jfft, "PREFER_RFFT", True)
-    path = _param_file(tmp_path, n=16)
+    problem = 1
+    if argv[0] == "channel":  # problem 3 in the same 16^2 box
+        problem, argv = 3, argv[1:]
+    path = _param_file(tmp_path, n=16, problem=problem)
     common = ["--backend", "sharded", "--mesh", "1x1", "--stats", *argv]
     rc, out, err = _run(cli.main, [path, "--device", "cpu", *common], capsys)
     assert not dist.is_initialized()

@@ -112,7 +112,7 @@ def test_unported_problem_raises():
     prm, _ = _params("16x16")
     state = allocate_state(prm, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solver.step(state, prm.replace(problem=4))
+        solver.step(state, prm.replace(problem=5))
 
 
 def test_validate_state_and_timing():
@@ -203,7 +203,8 @@ def test_cli_bad_or_unported_param_file(tmp_path, capsys):
     bad.write_text("nonsense\n")
     rc, _, err = _run_cli(cli.main, [str(bad), "--device", "cpu"], capsys)
     assert rc == 1 and "error" in err[0]
-    chan = os.path.join(os.path.dirname(__file__), "..", "configs",
-                        "channel.in")
-    rc, _, err = _run_cli(cli.main, [chan, "--device", "cpu"], capsys)
+    # Natural convection (problem 5) is not ported yet (ROADMAP A8).
+    conv = os.path.join(os.path.dirname(__file__), "..", "configs",
+                        "convection.in")
+    rc, _, err = _run_cli(cli.main, [conv, "--device", "cpu"], capsys)
     assert rc == 1 and "not ported" in err[0]

@@ -136,14 +136,14 @@ def test_unported_methods_raise(method):
             sor.solve_pressure(z, z, case, method=method)
 
 
-@pytest.mark.parametrize("case", ["compensated", "problem3"])
+@pytest.mark.parametrize("case", ["compensated", "obstacles"])
 def test_unported_routes_raise(case):
     prm, _ = _params(8, 8)
     z = torch.zeros(prm.shape)
     if case == "compensated":
         prm = prm.replace(outer_precision="compensated")
     else:
-        prm = prm.replace(problem=3)
+        prm = prm.replace(obstacles=((2, 4, 2, 4),))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sor.solve_pressure(z, z, prm, method="rb_sor")
 
