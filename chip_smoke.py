@@ -68,6 +68,20 @@ recorded answer:
     kernel launches of the same run without files, the solve seconds of
     both printed; it also times one 2048^2 frame and one checkpoint;
 
+  * the obstacle domains (the "obstacles" phase): the Schäfer-Turek
+    cylinder at 440 x 82 (immersed-boundary BCs and cut-cell pressure) by
+    masked mg (Euler and AB2) and masked rb_sor, the square cylinder at
+    160 x 64 by mg and the backward-facing step at 128 x 32 by rb_sor
+    (Euler and AB2), each stepped as tests/jax_obstacle_records.json
+    records it, and ``... configs/channel.in --obstacle 17:24:27:34
+    --max-steps 20 --stats`` through ``cli.main``: every step's passes
+    held to JAX's (a step may move by one pass only within 1 % of its
+    threshold), the failures, the force and probe records and the centre
+    values within the contract, and no kernel launched (every route and
+    plain sweep twin barred: the masked solvers are plain PyTorch, as the
+    JAX package's are jnp); its seconds are printed, and, last, one
+    profiled outer pass of each masked solve counts its launches;
+
 then runs small converging cavities (SOR and mg) on the GPU and on the CPU
 and compares them.  Before the paths, the "decomposition" check cuts whole
 grids into the blocks of 1x1, 2x2 and 2x4 meshes, sweeps each block's
@@ -1849,6 +1863,250 @@ def phase_taylor_green(torch) -> dict:
     return launches
 
 
+# The obstacle runs (A7), each held to the JAX package's CPU record taken by
+#   JAX_PLATFORMS=cpu python tests/jax_records.py obstacles \
+#       tests/jax_obstacle_records.json
+# which also holds each run's definition (model, arguments, method, time
+# order, steps, record function): the Schäfer-Turek cylinder at 440 x 82
+# (sharp) by mg (Euler and AB2) and rb_sor, 3 steps each, the square
+# cylinder at 160 x 64 by mg, 5 steps, the backward-facing step at
+# 128 x 32 by rb_sor (Euler and AB2), 3 steps each, and the CLI on
+# configs/channel.in --obstacle 17:24:27:34 --max-steps 20.  No kernel
+# stands behind an obstacle path: every kernel and plain sweep twin is
+# barred, and every launch count must stay 0.
+OBSTACLE_RECORDS = ROOT / "tests" / "jax_obstacle_records.json"
+# Every kernel wrapper and plain twin an obstacle path must not reach.
+SWEEP_ROUTES = ("inner_sweeps", "inner_sweeps_plain", "inner_sweeps_tiled",
+                "inner_sweeps_tiled_plain", "inner_sweeps_compressed",
+                "inner_sweeps_compressed_plain", "whole_grid_sweeps",
+                "whole_grid_sweeps_simple", "warm_sweeps",
+                "warm_sweeps_plain", "warm_sweeps_simple", "coarse_cycle",
+                "coarse_cycle_plain", "ext_sweeps", "ext_sweeps_plain",
+                "inner_sweeps_compressed_simple")
+MOMENTUM_ROUTES = ("momentum_rhs", "momentum_rhs_plain",
+                   "momentum_rhs_simple")
+
+
+@contextlib.contextmanager
+def masked_norms():
+    """Record the residual norms of every masked solve in the block: yields
+    a list that gains, per solve, the list of its norms (||p0|| on the
+    fluid cells, then one per outer pass)."""
+    from navierstokes_parallel_tpu_torch.ops import masked
+
+    solves = []
+    l2, solve = masked._l2_fluid, masked.solve_pressure_masked
+
+    def recorded_l2(r, w):
+        norm = l2(r, w)
+        solves[-1].append(float(norm))
+        return norm
+
+    def recorded_solve(*args, **kw):
+        solves.append([])
+        return solve(*args, **kw)
+
+    masked._l2_fluid = recorded_l2
+    masked.solve_pressure_masked = recorded_solve
+    try:
+        yield solves
+    finally:
+        masked._l2_fluid, masked.solve_pressure_masked = l2, solve
+
+
+@contextlib.contextmanager
+def no_kernel(where: str):
+    """Bar every kernel route and plain sweep twin, and count launches."""
+    from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
+                                                          sor_kernel)
+
+    with barred(sor_kernel, SWEEP_ROUTES, where), \
+            barred(momentum_kernel, MOMENTUM_ROUTES, where):
+        reset_launches()
+        yield
+        launches = read_launches()
+        print(f"[{where}] kernel launches {launches}")
+        check(not any(launches.values()), f"{where} launched a kernel")
+
+
+def passes_and_margins(solves, prm, K: int):
+    """Per masked solve: its outer passes and the relative margins (norm -
+    threshold) / threshold of its last pass and of the pass before."""
+    passes, margins = [], []
+    for norms in solves:
+        threshold = prm.epsilon * (norms[0] + 1.5)
+        passes.append(len(norms) - 1)
+        margins.append([(x - threshold) / threshold for x in (
+            norms[-1], norms[-2] if len(norms) > 2 else float("inf"))])
+    return passes, margins
+
+
+def gate_passes(tag, passes, margins, jax_iterations, K: int) -> None:
+    """Every step's passes held to JAX's (channel_gate)."""
+    jax_passes = [-(-n // K) for n in jax_iterations]
+    check(len(passes) == len(jax_passes),
+          f"{tag}: {len(passes)} solves, JAX {len(jax_passes)}")
+    for k, mine, theirs, margin, ok in channel_gate(passes, margins,
+                                                    jax_passes):
+        print(f"[{tag}] step {k}: {mine} passes, JAX {theirs}; the "
+              f"card's residual at the deciding pass {margin:+.3e} of the "
+              f"threshold (allowed within {NEAR_THRESHOLD:.0e})")
+        check(ok, f"{tag}: step {k} moved away from its threshold")
+
+
+def obstacle_setup(run: dict, device: str):
+    """(params, initial state, record function or None) of a recorded run,
+    built as tests/jax_records.py::obstacle_setup builds it."""
+    from navierstokes_parallel_tpu_torch.grid import allocate_state
+    from navierstokes_parallel_tpu_torch.models import karman
+    from navierstokes_parallel_tpu_torch.models import step as step_model
+
+    if run["model"] == "backward_facing_step":
+        prm = step_model.backward_facing_step(**run["kwargs"])
+        return prm, allocate_state(prm, device), None
+    prm = getattr(karman, run["model"])(**run["kwargs"])
+    fn = {"force": karman.force_record_fn,
+          "surface_force": karman.surface_force_record_fn}[run["record"]]
+    return (prm, karman.initial_state(prm, perturb=0.3, device=device),
+            fn(prm, 5, *karman.probe_node(prm)))
+
+
+def phase_obstacles(torch) -> dict:
+    """The obstacle runs of OBSTACLE_RECORDS on the card, each stepped
+    through solver.Stepper as recorded: passes per step through the gate,
+    failures equal, the per-step records and the final centre values and
+    max |u|, |v| within the contract, no kernel launched; then the CLI run
+    (its record, its per-step passes through the gate, no launch).
+    Returns the (zero) launch counts."""
+    from navierstokes_parallel_tpu_torch import solver
+
+    records = json.loads(OBSTACLE_RECORDS.read_text())
+    for tag, run in records["runs"].items():
+        prm, state, record_fn = obstacle_setup(run, "cuda")
+        K = (prm.sor_refine_every if run["method"] == "rb_sor"
+             else prm.mg_cycles_per_outer)
+        stepper = solver.Stepper(prm, state, run["method"], run["time_order"])
+        recs, iterations, failures = {}, 0, 0
+        with no_kernel(tag), masked_norms() as solves:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(run["steps"]):
+                diag = stepper.step()
+                iterations += diag.sor_iterations
+                failures += 0 if diag.sor_converged else 1
+                for key, val in (record_fn(stepper.state()) if record_fn
+                                 else {}).items():
+                    recs.setdefault(key, []).append(float(val))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        SOLVE_SECONDS[tag] = seconds
+        jax_iterations = run["iterations"]
+        print(f"[{tag}] {prm.shape}, {run['method']}, order "
+              f"{run['time_order']}: {run['steps']} steps, {iterations} "
+              f"iterations (JAX {sum(jax_iterations)}), {failures} "
+              f"failures, {seconds:.3f} s")
+        passes, margins = passes_and_margins(solves, prm, K)
+        gate_passes(tag, passes, margins, jax_iterations, K)
+        check(failures == run["converged"].count(False),
+              f"{tag}: {failures} failures, JAX "
+              f"{run['converged'].count(False)}")
+        base = stepper.state()
+        got = {"centre": solver.center_values(base, prm),
+               "max_abs": [float(base.u.abs().max()),
+                           float(base.v.abs().max())]}
+        errs = {key: contract_err(got[key], run[key]) for key in got}
+        errs.update({key: contract_err(recs[key], want)
+                     for key, want in run["records"].items()})
+        check(sorted(recs) == sorted(run["records"]),
+              f"{tag}: records {sorted(recs)}, JAX {sorted(run['records'])}")
+        print(f"[{tag}] centre {got['centre']} vs JAX {run['centre']}; "
+              f"errors against JAX {errs} (contract {CONTRACT:.0e})")
+        check(max(errs.values()) <= CONTRACT,
+              f"{tag}: outside the contract")
+
+    cli_run = records["cli"]
+    want = {k: int(cli_run["stats"][k]) for k in ("steps", "sor_failures")}
+    uc, vc = (float(line.split()[1]) for line in cli_run["stdout"])
+    prm = obstacle_cli_params()
+    with no_kernel("obstacle cli"), masked_norms() as solves:
+        stats, _ = run_cli("obstacle cli", [
+            str(ROOT / cli_run["argv"][0]), *cli_run["argv"][1:]], uc, vc,
+            want, rc_want=cli_run["rc"])
+    # The first solve is the CLI's warm-up step (max_it = 1).
+    passes, margins = passes_and_margins(solves[1:], prm,
+                                         prm.sor_refine_every)
+    print(f"[obstacle cli] {stats['sor_iterations']} sweeps, JAX "
+          f"{cli_run['stats']['sor_iterations']}")
+    check(sum(min(n * prm.sor_refine_every, prm.max_it) for n in passes)
+          == int(stats["sor_iterations"]),
+          "obstacle cli: the passes and the sweeps disagree")
+    gate_passes("obstacle cli", passes, margins, cli_run["iterations"],
+                prm.sor_refine_every)
+    print("[obstacles] solve seconds: " + ", ".join(
+        f"{tag} {SOLVE_SECONDS[tag]:.6f}" for tag in
+        [*records["runs"], "obstacle cli"]))
+    return {k: 0 for k in read_launches()}
+
+
+def obstacle_cli_params():
+    from navierstokes_parallel_tpu_torch.config import Params
+
+    records = json.loads(OBSTACLE_RECORDS.read_text())
+    argv = records["cli"]["argv"]
+    spec = argv[argv.index("--obstacle") + 1]
+    return Params.from_file(str(ROOT / argv[0]), obstacles=(
+        tuple(int(x) for x in spec.split(":")),))
+
+
+def phase_obstacle_profile(torch) -> None:
+    """One outer pass of each masked solve at the Schäfer-Turek 440 x 82
+    (sharp) from p = 0 on a seeded rhs: rb_sor (K = 64 masked red-black
+    sweeps, f64 defect and norm, one host sync) and mg (one masked V-cycle
+    on its 2 levels), CUDA-event time and the kernel launches under the
+    profiler; last, as the profiler slows every later launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from navierstokes_parallel_tpu_torch.models import karman
+    from navierstokes_parallel_tpu_torch.ops import masked
+
+    prm = karman.schafer_turek(n_per_d=20)
+    rng = np.random.default_rng(5)
+    fluid = masked._weights(prm).fluid
+    inner = np.where(fluid, rng.standard_normal(fluid.shape), 0.0)
+    rhs = np.zeros(prm.shape, np.float32)
+    rhs[1:-1, 1:-1] = inner
+    rhs = torch.from_numpy(rhs).cuda()
+    p0 = torch.zeros_like(rhs)
+    for method, K in (("rb_sor", prm.sor_refine_every),
+                      ("mg", prm.mg_cycles_per_outer)):
+        one_pass = prm.replace(max_it=K)
+
+        def outer_pass():
+            return masked.solve_pressure_masked(p0, rhs, one_pass, method)
+
+        ms = cuda_ms(torch, outer_pass, 5)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            outer_pass()
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            outer_pass()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        n_launches = sum(e.count for e in kernels)
+        busy_ms = sum(device_us(e) for e in kernels) / 1e3
+        check(n_launches > 0, "the profiler saw no device kernel")
+        print(f"[obstacle profile] masked {method} at {prm.shape}, one "
+              f"outer pass ({K} {'sweeps' if method == 'rb_sor' else 'V-cycle'}"
+              f"): {ms:.4f} ms (CUDA events, mean of 5), {n_launches} "
+              f"launches under the profiler, {busy_ms:.4f} ms of device "
+              f"time (busy {busy_ms / ms:.3f})")
+        for e in sorted(kernels, key=lambda e: e.count, reverse=True)[:6]:
+            print(f"[obstacle profile]   {e.count:6d} x {device_us(e) / 1e3:9.4f}"
+                  f" ms  {e.key[:80]}")
+
+
 def sum_launches(runs) -> dict:
     return {k: sum(run[k] for run in runs) for k in runs[0]}
 
@@ -2346,10 +2604,12 @@ def main(argv=None) -> int:
                                         dict(paths))
         paths["channel"] = timed_phase("channel and taylor-green",
                                        phase_channel, torch)
+        paths["obstacles"] = timed_phase("obstacles", phase_obstacles, torch)
         timed_phase("cpu-gpu", phase_cpu_gpu, torch)
         # After the paths: once the profiler has run in a process, every
         # later launch costs the host more.
         timed_phase("cycle", phase_cycle, torch)
+        timed_phase("obstacle profile", phase_obstacle_profile, torch)
         if args.profile:
             phase_profile(torch, args.trace)
     except PhaseFailed as e:

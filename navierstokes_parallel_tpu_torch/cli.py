@@ -53,9 +53,15 @@ synchronize; the final gather follows it.  ``jnp`` and
 ``pallas`` are the single-device route, as in the JAX CLI; ``gspmd`` is
 not ported.  The JAX CLI's flags of later slices are parsed with their
 JAX choices and refused, naming their ROADMAP item, whenever they ask for
-more than the default: ``--obstacle`` (A7), ``--free-wall freeslip`` (A8)
-and ``--outer compensated`` (A9).  Unlike the JAX CLI, a tile size of 0 is
-refused rather than ignored.
+more than the default: ``--free-wall freeslip`` (A8) and ``--outer
+compensated`` (A9).  Unlike the JAX CLI, a tile size of 0 is refused rather
+than ignored.
+
+``--obstacle I0:I1:J0:J1`` (repeatable) makes an interior cell rectangle
+solid, 1-based and inclusive, as the JAX CLI parses it: a flag-field domain
+(ops/obstacles.py) whose pressure solve is the masked rb_sor or mg
+(ops/masked.py; the default method is rb_sor on every device).  Obstacles
+on the sharded backend are refused (ROADMAP A10 item 8).
 
 ``--time-order 2`` steps with Adams-Bashforth 2 (``solver.step_ab2``) on
 both backends, as the JAX CLI does: it warns on standard error when tau >
@@ -146,8 +152,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "(ROADMAP A9)")
     ap.add_argument("--obstacle", action="append", default=None,
                     metavar="I0:I1:J0:J1",
-                    help="an interior cell rectangle made solid; obstacle "
-                         "domains are not ported (ROADMAP A7)")
+                    help="an interior cell rectangle made solid (1-based, "
+                         "inclusive; repeatable): a flag-field obstacle "
+                         "domain, solved by the masked rb_sor or mg")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; there is no silent "
                          "fallback to the CPU)")
@@ -190,8 +197,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> str:
     """The message refusing a flag of a later slice, or ''."""
-    if args.obstacle:
-        return "--obstacle (flag-field domains) is not ported: ROADMAP A7"
     if args.free_wall != "noslip":
         return ("--free-wall freeslip (free surfaces, problem 6) is not "
                 "ported: ROADMAP A8")
@@ -247,6 +252,17 @@ def main(argv=None) -> int:
         overrides["dtype"] = args.dtype
     if args.refine_every is not None:
         overrides["sor_refine_every"] = args.refine_every
+    if args.obstacle:
+        rects = []
+        for spec in args.obstacle:
+            parts = spec.split(":")
+            if len(parts) != 4 or not all(
+                    p.lstrip("-").isdigit() for p in parts):
+                print(f"error: --obstacle expects I0:I1:J0:J1 (got "
+                      f"{spec!r})", file=sys.stderr)
+                return 1
+            rects.append(tuple(int(p) for p in parts))
+        overrides["obstacles"] = tuple(rects)
     if args.tile_size is not None:
         try:
             sor_kernel.set_default_tile(args.tile_size)

@@ -153,10 +153,22 @@ def poiseuille_profile(params, u_max: float = 1.0) -> np.ndarray:
 
 @functools.lru_cache(maxsize=8)
 def _inflow(params, dtype: torch.dtype, device: torch.device):
-    """The inflow profile as a tensor of the state's dtype on its device,
-    made once per configuration."""
-    return torch.from_numpy(poiseuille_profile(params)).to(dtype=dtype,
-                                                            device=device)
+    """(the inflow profile as a tensor of the state's dtype on its device,
+    the outflow column's fluid rows as a bool tensor or None, their count),
+    made once per configuration.  With obstacles the profile is a parabola
+    per contiguous fluid span of the inflow column
+    (ops/obstacles.py::inflow_profile), and the flux balance runs over the
+    fluid rows of the outflow column only (obstacle faces there stay
+    no-slip)."""
+    if not params.obstacles:
+        return (torch.from_numpy(poiseuille_profile(params)).to(
+            dtype=dtype, device=device), None, params.j_max)
+    from . import obstacles
+
+    out_fluid = obstacles.masks(params).fluid[-2, 1:-1]
+    return (torch.from_numpy(obstacles.inflow_profile(params)).to(
+        dtype=dtype, device=device), torch.from_numpy(out_fluid).to(device),
+        max(1, int(out_fluid.sum())))
 
 
 def apply_channel_bcs(u: torch.Tensor, v: torch.Tensor,
@@ -170,15 +182,19 @@ def apply_channel_bcs(u: torch.Tensor, v: torch.Tensor,
 
     q_in and q_out are sums in the state's dtype: PyTorch and XLA add in
     different orders, so the correction agrees with JAX's to rounding, not
-    bit for bit."""
-    if params.obstacles:
-        raise NotImplementedError(
-            "the obstacle-aware channel inflow is not ported yet: ROADMAP A7")
-    set_inflow(u, v, Side.LEFT, _inflow(params, u.dtype, u.device), 0.0)
+    bit for bit.  With obstacles the inflow and the balance follow the
+    fluid spans and rows (``_inflow``)."""
+    profile, out_fluid, n_out = _inflow(params, u.dtype, u.device)
+    set_inflow(u, v, Side.LEFT, profile, 0.0)
     set_outflow(u, v, Side.RIGHT)
     q_in = torch.sum(u[0, 1:-1])
-    q_out = torch.sum(u[-2, 1:-1])
-    u[-2, 1:-1] += st.div(q_in - q_out, params.j_max)
+    if out_fluid is None:
+        u[-2, 1:-1] += st.div(q_in - torch.sum(u[-2, 1:-1]), n_out)
+    else:
+        zero = torch.zeros((), dtype=u.dtype, device=u.device)
+        q_out = torch.sum(torch.where(out_fluid, u[-2, 1:-1], zero))
+        u[-2, 1:-1] += torch.where(out_fluid, st.div(q_in - q_out, n_out),
+                                   zero)
     set_noslip(u, v, Side.BOTTOM)
     set_noslip(u, v, Side.TOP)
     return u, v

@@ -186,6 +186,10 @@ def momentum_rhs_simple(u, v, dt, gamma, params: Params):
 
 
 def usable(params: Params, device) -> bool:
-    """Whether the kernel applies: an f32 state on a CUDA device, as the
-    JAX package takes its Pallas kernel for f32 on the TPU."""
-    return torch.device(device).type == "cuda" and params.dtype == "float32"
+    """Whether the kernel applies: an f32 state on a CUDA device without
+    obstacles, as the JAX package takes its Pallas kernel for f32 on the
+    TPU.  An obstacle step pins F/G on the obstacle faces before the rhs
+    (ops/obstacles.py::pin_fg), which a kernel that forms rhs from its own
+    F/G cannot do."""
+    return (torch.device(device).type == "cuda"
+            and params.dtype == "float32" and not params.obstacles)

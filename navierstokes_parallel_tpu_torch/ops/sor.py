@@ -219,7 +219,11 @@ def _default_l2(params: Params):
 
 def default_method(params: Params, device) -> str:
     """The JAX package's auto choice: the kernel route on the accelerator
-    (CUDA here), rb_sor elsewhere — both run the same refinement here."""
+    (CUDA here), rb_sor elsewhere — both run the same refinement here.
+    Obstacle domains take the masked rb_sor (ops/masked.py) on every
+    device: the kernels carry no fluid masks."""
+    if params.obstacles:
+        return "rb_sor"
     return "pallas_sor" if torch.device(device).type == "cuda" else "rb_sor"
 
 
@@ -231,7 +235,9 @@ def solve_pressure(p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
     to a shard's padded block (parallel/sharded.py); only rb_sor and jacobi
     take them, as in the JAX package.  Problem 3 deflates the rhs once by
     `mean_fn` (default: the interior mean) and, in the refinement, every
-    defect."""
+    defect.  Obstacle domains go to the masked solve (ops/masked.py; rb_sor
+    and mg only) before that deflation: it deflates its defects alone, over
+    the fluid cells."""
     if method not in METHODS:
         raise ValueError(f"unknown pressure solver method {method!r}")
     # Popped, so that the other hooks forward to the inner stages as they
@@ -239,8 +245,12 @@ def solve_pressure(p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
     # deflate).
     mean_fn = hooks.pop("mean_fn", None) or torch.mean
     if params.obstacles:
-        raise NotImplementedError(
-            "obstacle domains (masked solvers) are not ported yet: ROADMAP A7")
+        if hooks:
+            raise ValueError("obstacle domains are single-chip/gspmd only "
+                             "(the shard_map halo machinery is unmasked)")
+        from . import masked  # it imports this module
+
+        return masked.solve_pressure_masked(p, rhs, params, method=method)
     if params.problem == 3:
         # The outflow problem's flux balance (boundary.apply_channel_bcs)
         # holds only to rounding, which leaves a constant (Neumann null
@@ -460,13 +470,14 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
     defect loses its constant mode, `mean_fn` of it (the interior mean; the
     all-reduced one on a shard), and is masked again, so that a padded
     block's pad cells stay 0.  The JAX package's last hook, `residual_fn`
-    (the masked defect of obstacle domains), is not ported and raises.
+    (the masked defect of the sharded backend's obstacle domains; one
+    device takes ops/masked.py instead), is not ported and raises.
     """
     if residual_fn is not None:
         raise NotImplementedError(
             "the refinement's residual_fn hook (the masked defect of "
-            "obstacle domains) is not ported yet: ROADMAP A7, A10 item 8 "
-            "(obstacles)")
+            "sharded obstacle domains) is not ported yet: ROADMAP A10 item "
+            "8")
     if inner_fn is None:
         if parity % 2:
             raise ValueError(

@@ -73,7 +73,7 @@ def make_deep_inner(params: Params, li: int, lj: int, mesh: Mesh):
     if params.obstacles:
         raise NotImplementedError(
             "obstacle domains on the sharded deep-halo inner "
-            "(_ext_sweeps_masked) are not ported: ROADMAP A10")
+            "(_ext_sweeps_masked) are not ported: ROADMAP A10 item 8")
     K = comm_depth(params, li, lj)
     H = 2 * K
     origin = mesh.origin(li, lj)

@@ -171,7 +171,7 @@ def _apply_channel_bcs_sharded(u, v, params: Params, mesh: Mesh):
     if params.obstacles:
         raise NotImplementedError(
             "obstacle domains on the sharded backend are not ported: "
-            "ROADMAP A10 item 8 (after A7)")
+            "ROADMAP A10 item 8")
     I, J = params.i_max, params.j_max
     u = halo.exchange_halo(u, mesh)
     v = halo.exchange_halo(v, mesh)
@@ -396,7 +396,7 @@ def _check_method(params: Params, mesh: Mesh, pressure_method: str,
     if params.obstacles:
         raise NotImplementedError(
             "obstacle domains on the sharded backend are not ported: "
-            "ROADMAP A10 item 8 (after A7)")
+            "ROADMAP A10 item 8")
     if params.outer_precision == "compensated":
         raise NotImplementedError(
             "outer_precision='compensated' is not ported (the H100 has "

@@ -2,14 +2,18 @@
 
 PyTorch counterpart of ``navierstokes_parallel_tpu/solver.py`` for the
 cavity (problems 1 and 2), the plane channel (3) and the free-slip
-Taylor-Green box (4).  One time step (reference main.c:86-146):
+Taylor-Green box (4), each with or without flag-field obstacles
+(ops/obstacles.py).  One time step (reference main.c:86-146):
 
     adaptive CFL dt  ->  velocity BCs  ->  tentative F/G  ->  Poisson RHS
     ->  pressure solve (SOR, multigrid, CG or DCT)  ->  velocity projection
 
 On an f32 CUDA state F, G and the RHS come from the hand-written momentum
 kernel, the SOR sweeps from the SOR kernel and the multigrid smoothing from
-the warm-start kernel; elsewhere the plain PyTorch formulations run.
+the warm-start kernel; elsewhere the plain PyTorch formulations run.  An
+obstacle step takes none of the kernels on any device, as in the JAX
+package: the plain F/G pinned on the obstacle faces, the masked pressure
+solve (ops/masked.py), and the obstacle BCs again after the projection.
 ``step_ab2`` is the second-order (Adams-Bashforth 2) step: it needs the
 explicit tendency, which the fused momentum kernel does not give, so it
 takes the plain F/G and RHS on every device, as the JAX package does.
@@ -28,7 +32,7 @@ import torch
 
 from .config import Params
 from .grid import State, allocate_state
-from .ops import boundary, momentum, sor
+from .ops import boundary, momentum, obstacles, sor
 from .ops.cuda import momentum_kernel
 from .utils.timing import device_fence
 
@@ -48,7 +52,8 @@ class SolveStats(NamedTuple):
 
 
 def _apply_bcs(u, v, t, params: Params) -> None:
-    """The velocity BCs of the problem, in place on u and v."""
+    """The velocity BCs of the problem, then those of its obstacles, in
+    place on u and v."""
     if params.problem == 3:
         boundary.apply_channel_bcs(u, v, params)
     elif params.problem == 4:
@@ -56,6 +61,18 @@ def _apply_bcs(u, v, t, params: Params) -> None:
     else:
         boundary.apply_cavity_bcs(
             u, v, boundary.lid_velocity(params.problem, params.f, t))
+    if params.obstacles:
+        obstacles.apply_obstacle_bcs(u, v, params)
+
+
+def _rhs(F, G, u, v, dt, params: Params):
+    """(F, G, rhs) from the plain F/G: with obstacles F = u and G = v on the
+    obstacle faces BEFORE the divergence, and no equation on solid cells
+    (aperture-weighted under the cut-cell closure: ops/obstacles.py)."""
+    if not params.obstacles:
+        return F, G, momentum.compute_rhs(F, G, dt, params)
+    F, G = obstacles.pin_fg(F, G, u, v, params)
+    return F, G, obstacles.poisson_rhs(F, G, dt, params)
 
 
 def _check_problem(params: Params) -> None:
@@ -79,8 +96,8 @@ def step(state: State, params: Params, *,
     if momentum_kernel.usable(params, u.device):
         F, G, rhs = momentum_kernel.momentum_rhs(u, v, dt, gamma, params)
     else:
-        F, G = momentum.compute_fg(u, v, dt, gamma, params)
-        rhs = momentum.compute_rhs(F, G, dt, params)
+        F, G, rhs = _rhs(*momentum.compute_fg(u, v, dt, gamma, params), u, v,
+                         dt, params)
     return _advance(u, v, p, t, n, F, G, rhs, dt, params, pressure_method)
 
 
@@ -90,6 +107,10 @@ def _advance(u, v, p, t, n, F, G, rhs, dt, params: Params,
     tail of `step` and `step_ab2`."""
     result = sor.solve_pressure(p, rhs, params, method=pressure_method)
     momentum.project_velocities(u, v, F, G, result.p, dt, params)
+    if params.obstacles:
+        # The projection sweeps the obstacle faces too (not the outer
+        # walls): restore their no-slip values.
+        obstacles.apply_obstacle_bcs(u, v, params)
 
     new_state = State(u=u, v=v, p=result.p, t=t + dt, n=n + 1)
     diag = StepDiagnostics(
@@ -155,7 +176,7 @@ def step_ab2(ab2: AB2State, params: Params, *,
     _apply_bcs(u, v, t, params)
     F, G, ru, rv = ab2_extrapolate(
         *momentum.compute_fg(u, v, dt, gamma, params), u, v, dt, ab2)
-    rhs = momentum.compute_rhs(F, G, dt, params)
+    F, G, rhs = _rhs(F, G, u, v, dt, params)
     state, diag = _advance(u, v, p, t, n, F, G, rhs, dt, params,
                            pressure_method)
     return AB2State(s=state, ru=ru, rv=rv, dt_prev=dt), diag

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..grid import State
+from ..ops.stencils import div
 
 
 class NonFiniteStateError(RuntimeError):
@@ -49,10 +50,10 @@ def divergence_norm(u: torch.Tensor, v: torch.Tensor, params) -> float:
 
     The projection step drives this to ~0 (incompressibility); its residual
     is bounded by the pressure solve's stopping tolerance times dt."""
-    div = ((u[1:-1, 1:-1] - u[:-2, 1:-1]) / params.dx
-           + (v[1:-1, 1:-1] - v[1:-1, :-2]) / params.dy)
-    return float(torch.sqrt(torch.sum(div * div)
-                            / (params.i_max * params.j_max)))
+    d = (div(u[1:-1, 1:-1] - u[:-2, 1:-1], params.dx)
+         + div(v[1:-1, 1:-1] - v[1:-1, :-2], params.dy))
+    return float(torch.sqrt(div(torch.sum(d * d),
+                                params.i_max * params.j_max)))
 
 
 def cfl_report(u: torch.Tensor, v: torch.Tensor, params) -> dict:

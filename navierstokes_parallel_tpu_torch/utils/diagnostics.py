@@ -15,7 +15,8 @@ exactly centred.
 
 Everything here runs as PyTorch ops on the fields' device; the monitors
 return 0-d tensors, which ``monitor_values`` brings to the host in one
-transfer.
+transfer.  Every division by a Python number goes through
+``ops/stencils.py::div``, so the card divides as the CPU does.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from ..config import Params
+from ..ops.stencils import div
 
 # Ghia et al. (1982) Table III: primary-vortex stream function (psi at the
 # vortex centre) and the centre's (x, y) location, per Re.
@@ -60,8 +62,8 @@ def vorticity(u: torch.Tensor, v: torch.Tensor,
     corners (wall-ring corners read one ghost value each, which carry the
     reflected tangential velocities of the boundary conditions)."""
     ni, nj = params.i_max, params.j_max
-    dvdx = (v[1: ni + 2, : nj + 1] - v[: ni + 1, : nj + 1]) / params.dx
-    dudy = (u[: ni + 1, 1: nj + 2] - u[: ni + 1, : nj + 1]) / params.dy
+    dvdx = div(v[1: ni + 2, : nj + 1] - v[: ni + 1, : nj + 1], params.dx)
+    dudy = div(u[: ni + 1, 1: nj + 2] - u[: ni + 1, : nj + 1], params.dy)
     return dvdx - dudy
 
 
@@ -98,9 +100,11 @@ def physics_monitors(u: torch.Tensor, v: torch.Tensor,
     om = vorticity(u, v, params)[1:-1, 1:-1]
     ens = 0.5 * torch.sum(om * om) * dxdy
 
-    div = ((u[1: ni + 1, 1: nj + 1] - u[0: ni, 1: nj + 1]) / params.dx
-           + (v[1: ni + 1, 1: nj + 1] - v[1: ni + 1, 0: nj]) / params.dy)
-    max_div = torch.max(torch.abs(div))
+    divergence = (div(u[1: ni + 1, 1: nj + 1] - u[0: ni, 1: nj + 1],
+                      params.dx)
+                  + div(v[1: ni + 1, 1: nj + 1] - v[1: ni + 1, 0: nj],
+                        params.dy))
+    max_div = torch.max(torch.abs(divergence))
 
     psi_min = torch.min(stream_function(u, params))
     return Monitors(kinetic_energy=ke, enstrophy=ens,

@@ -4,6 +4,8 @@ Taylor-Green AB2 run's counts and errors.  Run on the CPU:
 
     JAX_PLATFORMS=cpu python tests/jax_records.py channel 50
     JAX_PLATFORMS=cpu python tests/jax_records.py taylor-green 1024 3
+    JAX_PLATFORMS=cpu python tests/jax_records.py obstacles \
+        tests/jax_obstacle_records.json
 
 ``channel N``: configs/channel.in, N steps from rest by the CLI's method
 on the CPU (rb_sor), Euler and AB2: counts, centre values,
@@ -12,8 +14,15 @@ outer passes (sweeps / K).  ``taylor-green n
 N``: ``models/taylorgreen.py::taylor_green(n)``, N steps of ``step_ab2``
 with the multigrid pressure solve (the port's ``solve_ab2(...,
 max_steps=N)``): counts, per-step V-cycles, centre values, ``errors`` and
-``kinetic_energy``.  A script, not a test module: it imports JAX, which
-the port never does.
+``kinetic_energy``.  ``obstacles PATH``: the obstacle runs of
+``OBSTACLE_RUNS`` (full grids, cut to a few steps), each from its model's
+initial state by ``make_step_fn`` or ``make_ab2_step_fn``: per step the
+iterations, convergence and the records of the run's record function,
+then the centre values and max |u|, |v| of the final state; and the JAX
+CLI on ``OBSTACLE_CLI``'s argv (its standard output and stats line); all
+written to PATH as JSON with each run's definition, which chip_smoke.py
+reads to run the same steps on the card.  A script, not a test module: it
+imports JAX, which the port never does.
 """
 
 import os
@@ -31,7 +40,33 @@ from navierstokes_parallel_tpu import solver  # noqa: E402
 from navierstokes_parallel_tpu.config import Params  # noqa: E402
 from navierstokes_parallel_tpu.grid import allocate_state  # noqa: E402
 from navierstokes_parallel_tpu.models import channel  # noqa: E402
+from navierstokes_parallel_tpu.models import karman  # noqa: E402
+from navierstokes_parallel_tpu.models import step as step_model  # noqa: E402
 from navierstokes_parallel_tpu.models import taylorgreen  # noqa: E402
+
+# name: (model, its keyword arguments, pressure method, time order, steps,
+# record function).  The Schäfer-Turek 2D-2 cylinder at 20 cells per
+# diameter (440 x 82, sharp: immersed-boundary velocity BCs and the cut-cell
+# pressure operator) from initial_state(perturb=0.3); the confined square
+# cylinder at 8 (160 x 64, staircase) likewise; the backward-facing step of
+# artifacts/bfs_re150_128x32.png (Re = 150, 128 x 32) from rest.
+OBSTACLE_RUNS = {
+    "schafer_turek mg": ("schafer_turek", {"n_per_d": 20}, "mg", 1, 3,
+                         "surface_force"),
+    "schafer_turek mg ab2": ("schafer_turek", {"n_per_d": 20}, "mg", 2, 3,
+                             "surface_force"),
+    "schafer_turek rb_sor": ("schafer_turek", {"n_per_d": 20}, "rb_sor", 1,
+                             3, "surface_force"),
+    "square_cylinder mg": ("square_cylinder", {"n_per_d": 8}, "mg", 1, 5,
+                           "force"),
+    "step rb_sor": ("backward_facing_step", {"Re": 150.0, "nx": 128,
+                                             "ny": 32}, "rb_sor", 1, 3, None),
+    "step rb_sor ab2": ("backward_facing_step", {"Re": 150.0, "nx": 128,
+                                                 "ny": 32}, "rb_sor", 2, 3,
+                        None),
+}
+OBSTACLE_CLI = ["configs/channel.in", "--obstacle", "17:24:27:34",
+                "--max-steps", "20", "--stats"]
 
 
 def _steps(fn, carry, n):
@@ -76,11 +111,86 @@ def record_taylor_green(n: int, n_steps: int) -> None:
           f"{taylorgreen.kinetic_energy(state, prm)!r}")
 
 
+def obstacle_setup(model: str, kwargs: dict, record: str):
+    """(params, initial state, record function or None) of a run."""
+    if model == "backward_facing_step":
+        prm = step_model.backward_facing_step(**kwargs)
+        return prm, allocate_state(prm), None
+    prm = getattr(karman, model)(**kwargs)
+    probe = karman.probe_node(prm)
+    fn = {"force": karman.force_record_fn,
+          "surface_force": karman.surface_force_record_fn}[record]
+    return prm, karman.initial_state(prm, perturb=0.3), fn(prm, 5, *probe)
+
+
+def record_obstacles(path: str) -> None:
+    import contextlib
+    import io
+    import json
+
+    from navierstokes_parallel_tpu import cli
+
+    out = {"runs": {}, "cli": {}}
+    for name, (model, kwargs, method, order, n_steps,
+               record) in OBSTACLE_RUNS.items():
+        prm, state, record_fn = obstacle_setup(model, kwargs, record)
+        if order == 1:
+            fn, carry = solver.make_step_fn(prm, method), state
+        else:
+            fn = solver.make_ab2_step_fn(prm, method)
+            carry = solver.ab2_init(state)
+        rec = jax.jit(record_fn) if record_fn else None
+        iters, converged, records = [], [], {}
+        for _ in range(n_steps):
+            carry, diag = fn(carry)
+            iters.append(int(diag.sor_iterations))
+            converged.append(bool(diag.sor_converged))
+            base = carry if order == 1 else carry.s
+            for key, val in (rec(base) if rec else {}).items():
+                records.setdefault(key, []).append(float(val))
+        base = carry if order == 1 else carry.s
+        uc, vc = (float(x) for x in solver.center_values(base, prm))
+        out["runs"][name] = {
+            "model": model, "kwargs": kwargs, "method": method,
+            "time_order": order, "steps": n_steps, "record": record,
+            "iterations": iters, "converged": converged, "records": records,
+            "centre": [uc, vc],
+            "max_abs": [float(np.max(np.abs(np.asarray(base.u)))),
+                        float(np.max(np.abs(np.asarray(base.v))))]}
+        print(name, prm.shape, iters, converged, [uc, vc], flush=True)
+    printed, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(printed), contextlib.redirect_stderr(err):
+        rc = cli.main([os.path.join(ROOT, OBSTACLE_CLI[0]),
+                       *OBSTACLE_CLI[1:]])
+    stats = next(line for line in err.getvalue().splitlines()
+                 if line.startswith("steps="))
+    # The CLI's steps one by one (its host loop steps make_step_fn of the
+    # CLI's method, rb_sor on the CPU): the iterations per step.
+    prm = Params.from_file(os.path.join(ROOT, OBSTACLE_CLI[0]),
+                           obstacles=((17, 24, 27, 34),))
+    fn, carry = solver.make_step_fn(prm, "rb_sor"), allocate_state(prm)
+    iters = []
+    for _ in range(int(OBSTACLE_CLI[OBSTACLE_CLI.index("--max-steps") + 1])):
+        carry, diag = fn(carry)
+        iters.append(int(diag.sor_iterations))
+    out["cli"] = {"argv": OBSTACLE_CLI, "rc": rc,
+                  "stdout": printed.getvalue().splitlines(),
+                  "stats": dict(tok.split("=") for tok in stats.split()),
+                  "iterations": iters}
+    print("cli", out["cli"])
+    with open(path, "w") as fh:
+        json.dump(out, fh, indent=1)
+        fh.write("\n")
+
+
 if __name__ == "__main__":
     what, *args = sys.argv[1:]
     if what == "channel":
         record_channel(int(args[0]))
     elif what == "taylor-green":
         record_taylor_green(int(args[0]), int(args[1]))
+    elif what == "obstacles":
+        record_obstacles(args[0])
     else:
-        sys.exit(f"unknown record {what!r}: channel or taylor-green")
+        sys.exit(f"unknown record {what!r}: channel, taylor-green or "
+                 f"obstacles")

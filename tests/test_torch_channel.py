@@ -146,9 +146,22 @@ def test_channel_bcs(shape):
                                atol=FLUX_TOL)
     # The outflow flux equals the inflow flux after the correction.
     assert abs(float(got[0][-2, 1:-1].sum() - got[0][0, 1:-1].sum())) < 1e-5
-    with pytest.raises(NotImplementedError, match="A7"):
-        boundary.apply_channel_bcs(*got, prm.replace(
-            obstacles=((4, 6, 4, 6),)))
+    # With an obstacle (A7): the per-span inflow and the balance over the
+    # outflow column's fluid rows, as JAX's obstacle arm gives them.
+    rects = ((4, 6, 4, 6), (prm.i_max - 2, prm.i_max, 1, 3))
+    got = boundary.apply_channel_bcs(torch.from_numpy(u.copy()),
+                                     torch.from_numpy(v.copy()),
+                                     prm.replace(obstacles=rects))
+    want = [np.asarray(x) for x in jbc.apply_channel_bcs(
+        jnp.asarray(u), jnp.asarray(v), ref.replace(obstacles=rects))]
+    _assert_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0].numpy()[~edge], want[0][~edge])
+    np.testing.assert_allclose(got[0].numpy()[edge], want[0][edge], rtol=0,
+                               atol=FLUX_TOL)
+    fluid = torch.ones(prm.j_max, dtype=torch.bool)
+    fluid[:3] = False  # the second obstacle's rows of the outflow column
+    assert abs(float(got[0][-2, 1:-1][fluid].sum()
+                     - got[0][0, 1:-1].sum())) < 1e-5
 
 
 # --- the deflation ----------------------------------------------------------------

@@ -1069,3 +1069,61 @@ def test_channel_and_taylor_green_on_the_card_match_cpu(cuda, problem,
         g = getattr(gs, name).cpu().numpy()
         c = getattr(cs, name).numpy()
         assert np.max(np.abs(g - c)) <= 1e-4 * max(1.0, np.max(np.abs(c)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [1, 2])
+def test_obstacle_step_on_the_card_launches_no_kernel(cuda, order):
+    """An obstacle step on the card takes the plain F/G pinned on the
+    obstacle faces and the masked solve: no B2 launch (the fused kernel
+    forms rhs before pin_fg) and no sweep kernel, by Euler and AB2; the
+    fields within the 1e-4 contract of the CPU's."""
+    from navierstokes_parallel_tpu_torch.models import step as step_model
+
+    prm = step_model.backward_facing_step(nx=32, ny=8, T=0.3)
+    assert not momentum_kernel.usable(prm, cuda)
+    states = {}
+    for device in (cuda, "cpu"):
+        sor_kernel.LAUNCHES = sor_kernel.WARM_LAUNCHES = 0
+        sor_kernel.TILED_LAUNCHES = sor_kernel.COMPRESSED_LAUNCHES = 0
+        sor_kernel.EXT_LAUNCHES = sor_kernel.CYCLE_LAUNCHES = 0
+        momentum_kernel.LAUNCHES = 0
+        states[device], stats = solver.solve(
+            prm, device=device, pressure_method="mg", time_order=order,
+            max_steps=3)
+        assert stats.steps == 3 and stats.sor_failures == 0
+        assert momentum_kernel.LAUNCHES == 0
+        assert sor_kernel.LAUNCHES == sor_kernel.WARM_LAUNCHES == 0
+        assert sor_kernel.TILED_LAUNCHES == sor_kernel.CYCLE_LAUNCHES == 0
+        assert sor_kernel.COMPRESSED_LAUNCHES == sor_kernel.EXT_LAUNCHES == 0
+    for name in ("u", "v", "p"):
+        g = getattr(states[cuda], name).cpu().numpy()
+        c = getattr(states["cpu"], name).numpy()
+        assert np.max(np.abs(g - c)) <= 1e-4 * max(1.0, np.max(np.abs(c)))
+
+
+@pytest.mark.gpu
+def test_diagnostics_on_the_card_equal_the_cpu(cuda):
+    """vorticity, the max_divergence monitor and divergence_norm on the
+    card equal the CPU's bit for bit, on a grid whose dx, dy and cell
+    count are no powers of two: every division by a Python number is a
+    true division (ops/stencils.py::div), not CUDA's multiply by the
+    reciprocal.  divergence_norm's sum is order-free here: each field has
+    one nonzero edge, so two cells carry the divergence.  (The other
+    monitors sum in the card's order.)"""
+    from navierstokes_parallel_tpu_torch.utils import checks, diagnostics
+
+    prm = Params(i_max=36, j_max=20, a=2.1, b=0.9, Re=10.0)
+    u, v = _uv(prm, seed=11)
+    got = diagnostics.vorticity(u.to(cuda), v.to(cuda), prm)
+    assert torch.equal(got.cpu(), diagnostics.vorticity(u, v, prm))
+    got = diagnostics.physics_monitors(u.to(cuda), v.to(cuda), prm)
+    want = diagnostics.physics_monitors(u, v, prm)
+    assert torch.equal(got.max_divergence.cpu(), want.max_divergence)
+    rng = np.random.default_rng(12)
+    for k in range(40):
+        u, v = torch.zeros(prm.shape), torch.zeros(prm.shape)
+        i, j = rng.integers(1, prm.i_max), rng.integers(1, prm.j_max)
+        (u if k % 2 else v)[i, j] = float(rng.standard_normal())
+        assert checks.divergence_norm(u.to(cuda), v.to(cuda), prm) == \
+            checks.divergence_norm(u, v, prm), (k, i, j)

@@ -4,7 +4,10 @@ A subprocess blocks every ``jax`` import with a ``sys.meta_path`` finder
 that raises, imports every module of the port, runs one CPU time step
 with each ported pressure method (SOR, multigrid, CG), two Adams-Bashforth
 2 steps of a small channel and an Euler step of the Taylor-Green box
-(models/channel.py, models/taylorgreen.py), the plain twins
+(models/channel.py, models/taylorgreen.py), a step of the
+backward-facing step by each masked solver and a short shedding trace of
+the sharp Schäfer-Turek cylinder (ops/obstacles.py, ops/masked.py,
+models/step.py, models/karman.py), the plain twins
 of the tiled and colour-compressed SOR kernels and of the multigrid
 coarse cycle, one step of the
 sharded backend on a one-rank process group (parallel/, including the
@@ -55,6 +58,17 @@ SCRIPT = textwrap.dedent("""
     tg, tg_state = taylorgreen.taylor_green(n=8, device="cpu")
     tg_state, d = step(tg_state, tg)
     assert d.sor_converged and taylorgreen.errors(tg_state, tg)["u"] < 0.1
+    from navierstokes_parallel_tpu_torch.models import karman, step as bfs
+    chan = bfs.backward_facing_step(nx=16, ny=8, T=0.1)
+    for method in ("rb_sor", "mg"):
+        _, d = solver.step(allocate_state(chan, "cpu"), chan,
+                           pressure_method=method)
+        assert d.sor_converged, (method, d)
+    st = karman.schafer_turek(n_per_d=10, T=0.05, max_it=2)
+    trace = karman.shedding_signal(
+        st, device="cpu", method="mg", chunk=2,
+        record_fn=karman.surface_force_record_fn(st, 5))
+    assert trace.stats.steps == 2 and "fsx" in trace.rec
     import torch
     from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel as sk
     rhs = torch.zeros(prm.shape)
@@ -113,12 +127,14 @@ def test_port_imports_and_steps_without_jax(tmp_path):
 
 
 def test_no_jax_import_in_sources():
-    """Neither the port nor chip_smoke.py, tile_bench.py, direct_bench.py
-    or scripts/torch_channel_witness.py imports jax or the JAX package."""
+    """Neither the port nor chip_smoke.py, tile_bench.py, direct_bench.py,
+    scripts/torch_channel_witness.py or scripts/torch_karman_witness.py
+    imports jax or the JAX package."""
     pkg = os.path.join(ROOT, "navierstokes_parallel_tpu_torch")
     paths = [os.path.join(ROOT, name) for name in (
         "chip_smoke.py", "tile_bench.py", "direct_bench.py",
-        os.path.join("scripts", "torch_channel_witness.py"))]
+        os.path.join("scripts", "torch_channel_witness.py"),
+        os.path.join("scripts", "torch_karman_witness.py"))]
     for dirpath, _, files in os.walk(pkg):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     banned = ("import jax", "from jax", "import navierstokes_parallel_tpu\n",
@@ -136,6 +152,8 @@ def test_no_jax_import_in_sources():
         assert os.path.join("parallel", f"{name}.py") in scanned, name
     for name in ("distributed", "io", "checkpoint", "diagnostics"):
         assert os.path.join("utils", f"{name}.py") in scanned, name
-    for name in ("cavity", "channel", "taylorgreen"):
+    for name in ("cavity", "channel", "taylorgreen", "step", "karman"):
         assert os.path.join("models", f"{name}.py") in scanned, name
+    for name in ("obstacles", "masked"):
+        assert os.path.join("ops", f"{name}.py") in scanned, name
     assert len(paths) > 10 and not offenders, offenders

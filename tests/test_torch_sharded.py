@@ -596,11 +596,12 @@ def test_refined_solver_hooks_refuse_a_parity_without_inner():
         sor._solve_pressure_refined(z, z, prm, parity=1)
 
 
-@pytest.mark.parametrize("hook,needle", [("mean_fn", "A7"),
-                                         ("residual_fn", "obstacles")])
+@pytest.mark.parametrize("hook,needle", [("mean_fn", "A10 item 8"),
+                                         ("residual_fn", "A10 item 8")])
 def test_refined_solver_refuses_unported_hooks(hook, needle):
-    """residual_fn (obstacle domains) is refused, also beside the ported
-    mean_fn, as a sharded obstacle channel would pass both."""
+    """residual_fn (the masked defect of sharded obstacle domains) is
+    refused, also beside the ported mean_fn, as a sharded obstacle channel
+    would pass both."""
     from navierstokes_parallel_tpu_torch.ops import sor
 
     prm = _params(i_max=8, j_max=8)

@@ -138,14 +138,22 @@ def test_unported_methods_raise(method):
 
 @pytest.mark.parametrize("case", ["compensated", "obstacles"])
 def test_unported_routes_raise(case):
-    prm, _ = _params(8, 8)
+    """The compensated outer is unported (A9).  Obstacle domains are ported
+    (A7) for rb_sor and mg only: cg is refused with JAX's ValueError."""
+    prm, ref = _params(8, 8)
     z = torch.zeros(prm.shape)
     if case == "compensated":
         prm = prm.replace(outer_precision="compensated")
-    else:
-        prm = prm.replace(obstacles=((2, 4, 2, 4),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sor.solve_pressure(z, z, prm, method="rb_sor")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sor.solve_pressure(z, z, prm, method="rb_sor")
+        return
+    rects = ((2, 4, 2, 4),)
+    with pytest.raises(ValueError, match="does not support obstacle") as got:
+        sor.solve_pressure(z, z, prm.replace(obstacles=rects), method="cg")
+    with pytest.raises(ValueError) as want:
+        jsor.solve_pressure(jnp.zeros(ref.shape), jnp.zeros(ref.shape),
+                            ref.replace(obstacles=rects), method="cg")
+    assert str(got.value) == str(want.value)
 
 
 def test_pallas_sor_refuses_bf16_inner():
