@@ -82,6 +82,25 @@ recorded answer:
     JAX package's are jnp); its seconds are printed, and, last, one
     profiled outer pass of each masked solve counts its launches;
 
+  * obstacle domains on the sharded backend (the "sharded obstacles"
+    phase, a one-rank NCCL group): the backward-facing step at 128 x 32
+    (3 steps by Euler and AB2) and one Schäfer-Turek 440 x 82 step by
+    rb_sor through ``sharded.ShardedStepper``, and ``... configs/
+    channel.in --obstacle 17:24:27:34 --backend sharded --mesh 1x1
+    --max-steps 5 --stats`` through ``cli.main``: every step's passes
+    held to the JAX sharded backend's record (tests/
+    jax_thermal_records.json) and to the one-device record, the
+    masked deep-halo inner launching no kernel (every route and plain
+    twin barred);
+
+  * natural convection (the "convection" phase): ``... configs/
+    convection.in --max-steps 300 --stats`` through ``cli.main`` by the
+    default pallas_sor (sor_sweeps once per outer pass, no momentum_rhs),
+    with ``--method mg`` (mg_coarse_cycle once per V-cycle) and with
+    ``--time-order 2``, every plain twin barred, each step's passes held
+    to the JAX CLI's; the run stopped at step 150 and resumed, bit for
+    bit with the straight run; the 32^2 heated block (masked, no kernel);
+
 then runs small converging cavities (SOR and mg) on the GPU and on the CPU
 and compares them.  Before the paths, the "decomposition" check cuts whole
 grids into the blocks of 1x1, 2x2 and 2x4 meshes, sweeps each block's
@@ -275,6 +294,7 @@ JAX_CHANNEL_PASSES = {
 CHANNEL_STEPS = 50
 CHANNEL_WIDE = (2048, 1024)
 CHANNEL_WIDE_CONFIG = ROOT / "build" / "channel_2048x1024.in"
+CONVECTION_CONFIG = ROOT / "configs" / "convection.in"
 CHANNEL_STEPS_ARGV = ["--max-steps", str(CHANNEL_STEPS)]
 CHANNEL_PATHS = {
     "channel": ("configs/channel.in", CHANNEL_STEPS_ARGV, 0.728982, 0.0,
@@ -565,8 +585,9 @@ def phase_compare(torch) -> dict:
 def compare_whole_grid(torch, rng) -> float:
     """sor_sweeps (the temporal tile) against its plain twin and against
     its first kernel sor_sweeps_simple, at the SOR paths' 258^2 and 2050^2,
-    at 99 x 63 and 98 x 64 and at the channel's 130 x 66 and 2050 x 1026,
-    for no sweep, one, a short chunk, the
+    at 99 x 63 and 98 x 64, at the channel's 130 x 66 and 2050 x 1026 and
+    at configs/convection.in's 66^2 (its own constants), for no sweep, one,
+    a short chunk, the
     path's 64 and one outer pass of the benchmark's K = 2048: error 0.0
     (the plain twin is left out where it would take minutes).  Returns the
     max abs error."""
@@ -574,11 +595,13 @@ def compare_whole_grid(torch, rng) -> float:
     from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
 
     worst = 0.0
-    for i_max, j_max in ((256, 256), (2048, 2048), (97, 61), (96, 62),
-                         (128, 64), CHANNEL_WIDE):
-        prm = Params(i_max=i_max, j_max=j_max, a=1.0, b=0.7, Re=1000.0,
-                     omega=1.7)
-        rhs = random_grid(torch, rng, (i_max, j_max), ring=False)
+    grids = [Params(i_max=i_max, j_max=j_max, a=1.0, b=0.7, Re=1000.0,
+                    omega=1.7)
+             for i_max, j_max in ((256, 256), (2048, 2048), (97, 61),
+                                  (96, 62), (128, 64), CHANNEL_WIDE)]
+    grids.append(Params.from_file(str(CONVECTION_CONFIG)))
+    for prm in grids:
+        rhs = random_grid(torch, rng, (prm.i_max, prm.j_max), ring=False)
         tile = "x".join(map(str, sor_kernel.whole_grid_tile(prm.shape)))
         for n in (0, 1, 7, SOR_SWEEPS, BENCH_REFINE_EVERY):
             got = sor_kernel.whole_grid_sweeps(rhs, n, prm)
@@ -598,14 +621,14 @@ def compare_whole_grid(torch, rng) -> float:
     return worst
 
 
-def mg_levels():
-    """The multigrid levels of configs/4.in and the depth from which the
-    coarse cycle takes them."""
+def mg_levels(config=ROOT / "configs" / "4.in"):
+    """The multigrid levels of `config` (configs/4.in) and the depth from
+    which the coarse cycle takes them."""
     from navierstokes_parallel_tpu_torch.config import Params
     from navierstokes_parallel_tpu_torch.ops import mg
     from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
 
-    levels = mg.build_levels(Params.from_file(str(ROOT / "configs" / "4.in")))
+    levels = mg.build_levels(Params.from_file(str(config)))
     return levels, sor_kernel.coarse_cycle_depth(levels)
 
 
@@ -681,16 +704,20 @@ def cycle_on_simple(p, rhs, levels):
 
 def compare_coarse_cycle(torch, rng) -> float:
     """mg_coarse_cycle on the tail of configs/4.in's hierarchy (from the
-    depth the mg path enters it, and one level further down) and on the
-    one-level 6 x 6 tail of the sharded mg path's replicated coarse solve,
+    depth the mg path enters it, and one level further down), on the
+    one-level 6 x 6 tail of the sharded mg path's replicated coarse solve
+    and on configs/convection.in's whole hierarchy from 66^2 (the depth
+    its mg path enters it at: every level),
     against its plain twin coarse_cycle_plain and against the same
     recursion on sor_warm_sweeps_simple, from a random p and rhs (ghost
     rings not 0): error 0.0.  Returns the max abs error."""
     from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
 
     levels, depth = mg_levels()
+    hot, hot_depth = mg_levels(CONVECTION_CONFIG)
     worst = 0.0
-    for tail in (levels[depth:], levels[depth + 1:], sharded_mg_levels()[1]):
+    for tail in (levels[depth:], levels[depth + 1:], sharded_mg_levels()[1],
+                 hot[hot_depth:]):
         size = (tail[0].shape[0] - 2, tail[0].shape[1] - 2)
         p, rhs = (random_grid(torch, rng, size, ring=True) for _ in range(2))
         got = sor_kernel.coarse_cycle(p, rhs, tail)
@@ -2107,6 +2134,259 @@ def phase_obstacle_profile(torch) -> None:
                   f" ms  {e.key[:80]}")
 
 
+THERMAL_RECORDS = ROOT / "tests" / "jax_thermal_records.json"
+CONVECTION_DIR = ROOT / "build" / "convection"
+# Every plain sweep twin a kernel path must not fall back to.
+PLAIN_SWEEPS = ("inner_sweeps_plain", "inner_sweeps_tiled_plain",
+                "inner_sweeps_compressed_plain", "warm_sweeps_plain",
+                "coarse_cycle_plain", "ext_sweeps_plain",
+                "whole_grid_sweeps_simple", "warm_sweeps_simple",
+                "inner_sweeps_compressed_simple")
+
+
+@contextlib.contextmanager
+def refined_norms():
+    """Record the residual norms of every refined solve
+    (ops/sor.py::_solve_pressure_refined: the single-device SOR, mg and the
+    sharded backend's solves) in the block: yields a list that gains, per
+    solve, the list of its norms (||p0||, then one per outer pass)."""
+    from navierstokes_parallel_tpu_torch.ops import sor
+
+    solves = []
+    refined = sor._solve_pressure_refined
+
+    def recorded(p, rhs, params, **kw):
+        l2_fn = kw.get("l2_fn") or sor._default_l2(params)
+        norms = []
+        solves.append(norms)
+
+        def l2(arr):
+            norm = l2_fn(arr)
+            norms.append(float(norm))
+            return norm
+        return refined(p, rhs, params, **{**kw, "l2_fn": l2})
+
+    sor._solve_pressure_refined = recorded
+    try:
+        yield solves
+    finally:
+        sor._solve_pressure_refined = refined
+
+
+def phase_sharded_obstacles(torch) -> dict:
+    """Obstacle domains on the sharded backend over a one-rank NCCL group
+    (1x1 mesh), every kernel route and plain sweep twin barred: the runs
+    of tests/jax_thermal_records.json's "sharded_obstacles" (the
+    backward-facing step at 128 x 32, 3 steps by Euler and AB2, and one
+    Schäfer-Turek 440 x 82 step by rb_sor, the immersed-boundary and
+    aperture path) stepped through sharded.ShardedStepper, then ``...
+    configs/channel.in --obstacle 17:24:27:34 --backend sharded --mesh 1x1
+    --max-steps 5 --stats`` through cli.main.  Every step's passes go
+    through the gate against the JAX sharded record (one CPU device) and,
+    where tests/jax_obstacle_records.json records the run on one
+    device, against that record's steps too;
+    failures equal, centre values and max |u|, |v| within the contract,
+    no kernel launched.  Returns the (zero) launch counts."""
+    from navierstokes_parallel_tpu_torch import solver
+    from navierstokes_parallel_tpu_torch.parallel import sharded, topology
+    from navierstokes_parallel_tpu_torch.utils import distributed
+
+    records = json.loads(THERMAL_RECORDS.read_text())["sharded_obstacles"]
+    single = json.loads(OBSTACLE_RECORDS.read_text())
+    # The same runs recorded on one device: (record, steps it shares).
+    on_one = {"sharded step": single["runs"]["step rb_sor"],
+              "sharded step ab2": single["runs"]["step rb_sor ab2"],
+              "sharded schafer_turek": single["runs"]["schafer_turek rb_sor"],
+              "cli": single["cli"]}
+    seconds = {}
+    with distributed.process_group("cuda") as device:
+        mesh = topology.make_grid_mesh(shape=(1, 1), device=device)
+        for tag, run in records.items():
+            if tag == "cli":
+                continue
+            prm, state, _ = obstacle_setup(
+                {**run, "record": "surface_force"}, "cuda")
+            stepper = sharded.ShardedStepper(prm, state, mesh, "rb_sor",
+                                             run["time_order"])
+            failures = 0
+            with no_kernel(tag), refined_norms() as solves:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(run["steps"]):
+                    failures += 0 if stepper.step().sor_converged else 1
+                torch.cuda.synchronize()
+                seconds[tag] = time.perf_counter() - t0
+            passes, margins = passes_and_margins(solves, prm,
+                                                 prm.sor_refine_every)
+            print(f"[{tag}] {prm.shape}, order {run['time_order']}: "
+                  f"{run['steps']} steps, passes {passes}, {failures} "
+                  f"failures, {seconds[tag]:.3f} s")
+            gate_passes(tag, passes, margins, run["iterations"],
+                        prm.sor_refine_every)
+            shared = on_one[tag]["iterations"][:run["steps"]]
+            gate_passes(f"{tag} vs one device", passes, margins, shared,
+                        prm.sor_refine_every)
+            check(failures == run["converged"].count(False),
+                  f"{tag}: {failures} failures, JAX "
+                  f"{run['converged'].count(False)}")
+            base = stepper.state()
+            got = {"centre": list(solver.center_values(base, prm)),
+                   "max_abs": [float(base.u.abs().max()),
+                               float(base.v.abs().max())]}
+            errs = {key: contract_err(got[key], run[key]) for key in got}
+            if on_one[tag]["steps"] == run["steps"]:
+                errs.update({f"{key} (one device)": contract_err(
+                    got[key], on_one[tag][key]) for key in got})
+            print(f"[{tag}] {got}; errors against JAX {errs} (contract "
+                  f"{CONTRACT:.0e})")
+            check(max(errs.values()) <= CONTRACT,
+                  f"{tag}: outside the contract")
+    cli_run = records["cli"]
+    want = {k: int(cli_run["stats"][k]) for k in ("steps", "sor_failures")}
+    uc, vc = (float(line.split()[1]) for line in cli_run["stdout"])
+    prm = obstacle_cli_params()
+    with no_kernel("sharded obstacle cli"), refined_norms() as solves:
+        stats, _ = run_cli("sharded obstacle cli", [
+            str(ROOT / cli_run["argv"][0]), *cli_run["argv"][1:]], uc, vc,
+            want, rc_want=cli_run["rc"])
+    # The first solve is the CLI's warm-up step (max_it = 1).
+    passes, margins = passes_and_margins(solves[1:], prm,
+                                         prm.sor_refine_every)
+    print(f"[sharded obstacle cli] {stats['sor_iterations']} sweeps, JAX "
+          f"{cli_run['stats']['sor_iterations']}")
+    gate_passes("sharded obstacle cli", passes, margins,
+                cli_run["iterations"], prm.sor_refine_every)
+    gate_passes("sharded obstacle cli vs one device", passes, margins,
+                on_one["cli"]["iterations"][:len(passes)],
+                prm.sor_refine_every)
+    seconds["cli"] = SOLVE_SECONDS["sharded obstacle cli"]
+    print("[sharded obstacles] seconds: " + ", ".join(
+        f"{tag} {t:.6f}" for tag, t in seconds.items()))
+    return {k: 0 for k in read_launches()}
+
+
+def phase_convection(torch) -> dict:
+    """Natural convection (problem 5) on the card, each run held to the JAX
+    record in tests/jax_thermal_records.json ("thermal"):
+    ``configs/convection.in --max-steps 300 --stats`` through cli.main by
+    the CLI's default pallas_sor (B1 once per outer pass and once for the
+    warm-up, the 32x32 tile at 66^2, no B2: the thermal step takes the
+    plain F/G), with --method mg (the coarse cycle takes every level from
+    66^2: one launch per V-cycle and one for the warm-up, no B3) and with
+    --time-order 2, every plain twin barred; every step's passes through
+    the gate (norms read through the refinement's l2 hook), failures and
+    centre values as JAX's.  Then the 32^2 heated block stepped through
+    convection.ThermalStepper (the masked solve, no kernel), and the
+    Euler run stopped after 150 steps and resumed from its checkpoint: the
+    state at step 300 bit for bit the straight run's, T included.
+    Returns the launch counts summed over the CLI runs."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.models import convection
+    from navierstokes_parallel_tpu_torch.ops import mg
+    from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
+                                                          sor_kernel)
+
+    records = json.loads(THERMAL_RECORDS.read_text())["thermal"]
+    config = CONVECTION_CONFIG
+    prm = Params.from_file(str(config))
+    tile = sor_kernel.whole_grid_tile(prm.shape)
+    depth = sor_kernel.coarse_cycle_depth(mg.build_levels(prm))
+    print(f"[convection] {prm.shape}: route {sor_kernel.route(prm)}, tile "
+          f"{tile}; mg coarse cycle entered at depth {depth}")
+    check(sor_kernel.route(prm) == "whole" and
+          tile in sor_kernel.WHOLE_GRID_TILES and depth == 0,
+          "configs/convection.in does not take B1 on a compiled tile and "
+          "the coarse cycle on every level")
+    shutil.rmtree(CONVECTION_DIR, ignore_errors=True)
+    CONVECTION_DIR.mkdir(parents=True)
+    straight = CONVECTION_DIR / "straight.npz"
+    total = None
+    for tag, run in records.items():
+        if not tag.startswith("convection"):
+            continue
+        argv = [str(ROOT / run["argv"][0]), *run["argv"][1:]]
+        mg_run = "mg" in run["argv"]
+        kernel = "mg_coarse_cycle" if mg_run else "sor"
+        if tag == "convection":
+            argv += ["--checkpoint-every", run["argv"][2],
+                     "--checkpoint-path", str(straight)]
+        want = {k: int(run["stats"][k]) for k in ("steps", "sor_failures")}
+        uc, vc = (float(line.split()[1]) for line in run["stdout"])
+        with barred(sor_kernel, PLAIN_SWEEPS, f"the {tag} path"), \
+                barred(momentum_kernel, MOMENTUM_ROUTES, f"the {tag} path"), \
+                refined_norms() as solves:
+            stats, launches = run_cli(tag, argv, uc, vc, want,
+                                      rc_want=run["rc"])
+        K = prm.mg_cycles_per_outer if mg_run else prm.sor_refine_every
+        passes, margins = passes_and_margins(solves[1:], prm, K)
+        gate_passes(tag, passes, margins, run["iterations"], K)
+        print(f"[{tag}] {stats['sor_iterations']} iterations, JAX "
+              f"{run['stats']['sor_iterations']}; launches {launches}")
+        check(launches[kernel] == sum(passes) + 1,
+              f"{tag}: {launches[kernel]} {kernel} launches, expected "
+              f"{sum(passes)} passes + 1 warm-up")
+        check(launches["momentum"] == 0, f"{tag} launched B2")
+        check_only(launches, (kernel,), f"the {tag} path")
+        total = launches if total is None else {
+            k: total[k] + launches[k] for k in total}
+
+    # The run in two pieces: the straight run's checkpoint at step 300.
+    steps = records["convection"]["argv"][2]
+    half = str(int(steps) // 2)
+    piece_a, piece_b = (CONVECTION_DIR / f"piece{k}.npz" for k in "ab")
+    for tag, extra in (("convection piece 1", [
+            "--max-steps", half, "--checkpoint-every", half,
+            "--checkpoint-path", str(piece_a)]), ("convection piece 2", [
+            "--resume", str(piece_a), "--max-steps", half,
+            "--checkpoint-every", half, "--checkpoint-path",
+            str(piece_b)])):
+        run_cli(tag, [str(config), "--stats", *extra], None, None, {},
+                rc_want=3)
+    same = same_checkpoints(straight, piece_b)
+    with np.load(straight) as ck:
+        keys = sorted(ck.files)
+    print(f"[convection] resumed at step {half}: the state at step {steps} "
+          f"equals the straight run's bit for bit: {same} (keys {keys})")
+    check(same and "T" in keys, "the resumed run differs from the straight")
+
+    # The heated block: the masked solve, no kernel.
+    block = records["heated block"]
+    bprm, bcfg = convection.heated_block_setup(**block["kwargs"])
+    stepper = convection.ThermalStepper(
+        bprm, bcfg, convection.allocate_thermal(bprm, bcfg, "cuda"),
+        "rb_sor")
+    failures = 0
+    with no_kernel("heated block"), masked_norms() as solves:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(block["steps"]):
+            failures += 0 if stepper.step().sor_converged else 1
+        torch.cuda.synchronize()
+        SOLVE_SECONDS["heated block"] = time.perf_counter() - t0
+    passes, margins = passes_and_margins(solves, bprm,
+                                         bprm.sor_refine_every)
+    gate_passes("heated block", passes, margins, block["iterations"],
+                bprm.sor_refine_every)
+    check(failures == block["failures"], "heated block: failures differ")
+    ts = stepper.state()
+    got = {"max_abs": [float(ts.u.abs().max()), float(ts.v.abs().max())],
+           "max_T": float(ts.T[1:-1, 1:-1].max()),
+           "block_flux": convection.block_heat_flux(ts.T, bprm,
+                                                    bcfg.t_obstacle)}
+    errs = {key: contract_err(got[key], block[key]) for key in got}
+    errs["block_flux"] = abs(got["block_flux"] - block["block_flux"]) / abs(
+        block["block_flux"])
+    print(f"[heated block] {bprm.shape}: {block['steps']} steps in "
+          f"{SOLVE_SECONDS['heated block']:.3f} s, {got}; errors against "
+          f"JAX {errs} (contract {CONTRACT:.0e}, the flux relative)")
+    check(max(errs.values()) <= CONTRACT, "heated block: outside the contract")
+    shutil.rmtree(CONVECTION_DIR, ignore_errors=True)
+    print("[convection] solve seconds: " + ", ".join(
+        f"{tag} {SOLVE_SECONDS[tag]:.6f}" for tag in SOLVE_SECONDS
+        if "convection" in tag or tag == "heated block"))
+    return total
+
+
 def sum_launches(runs) -> dict:
     return {k: sum(run[k] for run in runs) for k in runs[0]}
 
@@ -2605,6 +2885,10 @@ def main(argv=None) -> int:
         paths["channel"] = timed_phase("channel and taylor-green",
                                        phase_channel, torch)
         paths["obstacles"] = timed_phase("obstacles", phase_obstacles, torch)
+        paths["sharded obstacles"] = timed_phase(
+            "sharded obstacles", phase_sharded_obstacles, torch)
+        paths["convection"] = timed_phase("convection", phase_convection,
+                                          torch)
         timed_phase("cpu-gpu", phase_cpu_gpu, torch)
         # After the paths: once the profiler has run in a process, every
         # later launch costs the host more.

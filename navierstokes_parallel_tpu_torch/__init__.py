@@ -8,9 +8,11 @@ under ops/cuda/ (sources in csrc/), each with a plain PyTorch twin that the
 CPU runs.  This package imports torch and numpy, never jax.
 
 The port covers the lid-driven cavity (problems 1-2), the plane channel
-(3) and the free-slip Taylor-Green box (4), by explicit Euler or
-Adams-Bashforth 2, with every pressure method of the JAX package, on one
-device and on the sharded backend; ROADMAP.md lists what is still to port.
+(3) and the free-slip Taylor-Green box (4), with or without flag-field
+obstacles, by explicit Euler or Adams-Bashforth 2, with every pressure
+method of the JAX package, on one device and on the sharded backend; and
+natural convection (5, models/convection.py) on one device.  ROADMAP.md
+lists what is still to port.
 """
 
 from .config import Params

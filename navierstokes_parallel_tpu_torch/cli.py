@@ -60,14 +60,24 @@ than ignored.
 ``--obstacle I0:I1:J0:J1`` (repeatable) makes an interior cell rectangle
 solid, 1-based and inclusive, as the JAX CLI parses it: a flag-field domain
 (ops/obstacles.py) whose pressure solve is the masked rb_sor or mg
-(ops/masked.py; the default method is rb_sor on every device).  Obstacles
-on the sharded backend are refused (ROADMAP A10 item 8).
+(ops/masked.py; the default method is rb_sor on every device), and on the
+sharded backend the masked deep-halo rb_sor (parallel/sharded.py; any
+other method is the JAX backend's ValueError).
 
-``--time-order 2`` steps with Adams-Bashforth 2 (``solver.step_ab2``) on
-both backends, as the JAX CLI does: it warns on standard error when tau >
-0.5 (beyond AB2's stability bound on the viscous dt limit) and refuses
-problem 6.  A checkpoint holds the state only, so a resumed AB2 run starts
-again from the Euler bootstrap and is not bit-equal to the straight run.
+Problem 5 (natural convection, models/convection.py; ``configs/
+convection.in``) starts from the conduction state (``allocate_thermal``)
+and runs the same host loop over a ``ThermalStepper``; its frames add
+``<k>_temp.txt`` and its checkpoints the temperature T (a problem-5 run
+refuses an isothermal checkpoint).  On the sharded backend it is refused
+(ROADMAP A10 item 6).
+
+``--time-order 2`` steps with Adams-Bashforth 2 (``solver.step_ab2``, and
+``convection.thermal_step_ab2`` on problem 5) on both backends, as the JAX
+CLI does: it warns on standard error when tau > 0.5 (beyond AB2's
+stability bound on the viscous dt limit) and refuses problem 6, and
+problem 5 on the sharded backend.  A checkpoint holds the state only, so a
+resumed AB2 run starts again from the Euler bootstrap and is not bit-equal
+to the straight run.
 """
 
 from __future__ import annotations
@@ -84,6 +94,7 @@ import torch.distributed as dist
 
 from .config import Params
 from .grid import State, allocate_state, resolve_device
+from .models import convection
 from .ops.cuda import sor_kernel
 from .ops.sor import default_method
 from .solver import SolveStats, Stepper, center_values, run_steps, warm_up
@@ -323,6 +334,11 @@ def main(argv=None) -> int:
                   "Adams-Bashforth tendency carried across a reflag is "
                   "ill-defined)", file=sys.stderr)
             return 1
+        if params.problem == 5 and args.backend == "sharded":
+            print("error: --time-order 2 for problem 5 runs single-chip "
+                  "(the multi-chip thermal steppers integrate first-order; "
+                  "drop --backend or --time-order)", file=sys.stderr)
+            return 1
         if params.tau > 0.5:
             # AB2's real-axis stability interval is half of Euler's.
             print(f"warning: --time-order 2 with tau={params.tau} > 0.5 "
@@ -332,15 +348,25 @@ def main(argv=None) -> int:
     if args.backend == "sharded":
         return _main_sharded(args, params, device, mesh_shape,
                              pressure_method, state)
+    cfg = (convection.config_from_params(params) if params.problem == 5
+           else None)
     try:
-        warm_up(params, device, pressure_method, args.time_order)
+        if cfg is None:
+            warm_up(params, device, pressure_method, args.time_order)
+        else:
+            convection.warm_up(params, cfg, device, pressure_method,
+                               args.time_order)
     except NotImplementedError as e:  # an unported route, found at once
         print(f"error: {e}", file=sys.stderr)
         return 1
-    if state is None:
-        state = allocate_state(params, device)
-
-    stepper = Stepper(params, state, pressure_method, args.time_order)
+    if cfg is None:
+        stepper = Stepper(params, state or allocate_state(params, device),
+                          pressure_method, args.time_order)
+    else:
+        stepper = convection.ThermalStepper(
+            params, cfg, state or convection.allocate_thermal(params, cfg,
+                                                              device),
+            pressure_method, args.time_order)
     start = time.perf_counter()
     try:
         stats = run_host_loop(params, stepper, args)
@@ -413,10 +439,12 @@ class _FrameWriter:
         # steps have begun.
         u, v, p = (x.detach().to("cpu", copy=True).numpy()
                    for x in state[:3])
+        temp = (state.T.detach().to("cpu", copy=True).numpy()
+                if hasattr(state, "T") else None)
         self._drain(block=False)
         self._pending.append(self._pool.submit(
             nsio.output, u, v, p, float(state.t), self._params.a,
-            self._params.b, prefix, verbose=False))
+            self._params.b, prefix, verbose=False, temperature=temp))
 
     def close(self) -> None:
         """Wait for every frame; raises a writer error."""
@@ -556,7 +584,8 @@ def _report(args, params: Params, state, stats, elapsed: float) -> int:
 
     if args.final_output_prefix:
         nsio.output(state.u, state.v, state.p, float(state.t), params.a,
-                    params.b, args.final_output_prefix)
+                    params.b, args.final_output_prefix,
+                    temperature=getattr(state, "T", None))
 
     if args.stats:
         print(

@@ -80,11 +80,12 @@ _TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 class Params:
     """All solver parameters, field for field those of the JAX ``Params``.
 
-    Fields past ``n_print`` are not part of the ``.in`` format.  The port
-    reads ``dtype``, ``gamma_fixed`` and ``sor_refine_every``; the others
-    belong to solvers and models not yet ported (ROADMAP A5-A10) and are
-    kept, validated as in JAX, so that a JAX configuration carries across
-    unchanged.
+    Fields past ``n_print`` are not part of the ``.in`` format.  Every
+    field is kept and validated as in JAX, so that a JAX configuration
+    carries across unchanged; those of the modules still to port
+    (``particles_per_cell`` and the problem-6 liquid box: ROADMAP A8's
+    free surfaces; ``outer_precision="compensated"``: A9) are refused
+    where they would be used.
     """
 
     problem: int = 1

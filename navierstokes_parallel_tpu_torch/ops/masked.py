@@ -105,9 +105,11 @@ class _DeviceWeights(NamedTuple):
     black: torch.Tensor
 
 
-def _on_device(w: _Weights, dtype, device) -> _DeviceWeights:
+def _on_device(w: _Weights, dtype, device,
+               parity: int = 0) -> _DeviceWeights:
     """`w` in `dtype` on `device`, with its colour masks (the checkerboard
-    of the 0-based interior indices, i.e. of the 1-based global ones)."""
+    of the 0-based interior indices, i.e. of the 1-based global ones; a
+    shard's block passes its origin's `parity`)."""
     def arr(a):
         return torch.from_numpy(a).to(device=device, dtype=dtype)
 
@@ -115,8 +117,8 @@ def _on_device(w: _Weights, dtype, device) -> _DeviceWeights:
     return _DeviceWeights(
         w_e=arr(w.w_e), w_w=arr(w.w_w), w_n=arr(w.w_n), w_s=arr(w.w_s),
         diag=arr(w.diag), fluid=fluid, n_fluid=w.n_fluid,
-        red=_checkerboard(w.fluid.shape, 0, device=device) & fluid,
-        black=_checkerboard(w.fluid.shape, 1, device=device) & fluid)
+        red=_checkerboard(w.fluid.shape, 0, parity, device=device) & fluid,
+        black=_checkerboard(w.fluid.shape, 1, parity, device=device) & fluid)
 
 
 @functools.lru_cache(maxsize=32)
@@ -160,7 +162,15 @@ def _smooth_masked(p, rhs_int, w: _DeviceWeights, n_sweeps: int, omega):
     multigrid smoother); the relaxation constants are JAX's (1 - omega) and
     omega / diag, formed once here.  The colours are w's fluid cells of
     each parity (JAX's ``_color_masks``)."""
-    one_minus_omega, omega_over_diag = 1.0 - omega, omega / w.diag
+    return relaxed_sweeps(p, rhs_int, w, n_sweeps, 1.0 - omega,
+                          omega / w.diag)
+
+
+def relaxed_sweeps(p, rhs_int, w: _DeviceWeights, n_sweeps: int,
+                   one_minus_omega, omega_over_diag):
+    """``_smooth_masked`` with the relaxation constants given, for a caller
+    that forms them once per solve (the sharded deep-halo inner); in place
+    on p, returns p."""
     for _ in range(n_sweeps):
         for colour in (w.red, w.black):
             p = _masked_half_sweep(p, rhs_int, colour, one_minus_omega,

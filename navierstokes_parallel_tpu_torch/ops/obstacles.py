@@ -752,3 +752,4 @@ def inflow_profile(params: Params) -> np.ndarray:
         prof[j:k] = 4.0 * y * (span - y) / (span * span)
         j = k
     return prof
+

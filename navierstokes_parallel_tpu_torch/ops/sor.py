@@ -469,15 +469,18 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
     cannot take: a shard brings its own `inner_fn`.  On problem 3 every
     defect loses its constant mode, `mean_fn` of it (the interior mean; the
     all-reduced one on a shard), and is masked again, so that a padded
-    block's pad cells stay 0.  The JAX package's last hook, `residual_fn`
-    (the masked defect of the sharded backend's obstacle domains; one
-    device takes ops/masked.py instead), is not ported and raises.
+    block's pad cells stay 0.  `residual_fn(p64, rhs_int64)`, when given,
+    takes the place of the ghost fill and the Laplacian's defect: it returns
+    the interior defect of another operator (the masked one of the sharded
+    backend's obstacle domains, parallel/sharded.py; one device takes
+    ops/masked.py instead).  The compensated outer, which JAX runs with
+    every hook but `residual_fn`, is not ported (ROADMAP A9) and raises.
     """
-    if residual_fn is not None:
+    if params.outer_precision == "compensated":
         raise NotImplementedError(
-            "the refinement's residual_fn hook (the masked defect of "
-            "sharded obstacle domains) is not ported yet: ROADMAP A10 item "
-            "8")
+            "outer_precision='compensated' (the two-float refinement outer "
+            "and its mean_fn hook; JAX refuses residual_fn there) is not "
+            "ported (the H100 has native FP64): ROADMAP A9")
     if inner_fn is None:
         if parity % 2:
             raise ValueError(
@@ -499,7 +502,10 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
     threshold = float(params.epsilon * (norm_p0 + NORM_OFFSET))
 
     def defect():
-        r = masked(residual(ghost_fn(p64), rhs_int64, dx2_inv, dy2_inv))
+        if residual_fn is None:
+            r = masked(residual(ghost_fn(p64), rhs_int64, dx2_inv, dy2_inv))
+        else:
+            r = masked(residual_fn(p64, rhs_int64))
         if params.problem == 3:
             # Exact at the outer's precision; its rounding shrinks with the
             # defect (a deflation of the f32 rhs alone leaves a floor above

@@ -46,13 +46,27 @@ back with ``_gather_blocks`` after an all-gather, on every rank.
 advances them one step per ``step()``; its ``state()`` is ``gather_state``,
 a collective that every rank calls at the same steps.
 
-Not ported here (ROADMAP A10 items 6-8): the thermal and free-surface
-steppers and obstacle domains; each raises ``NotImplementedError`` naming
-its item.
+Flag-field obstacle domains (``Params.obstacles``) run as in the JAX
+package: the obstacle BCs after the domain BCs and after the projection
+(halo seams re-pulled before and after), F and G pinned on the obstacle
+faces, the aperture-weighted divergence under the cut-cell closure,
+and the refinement around the masked deep-halo inner
+(parallel/deep_halo.py) with the masked f64 defect as its ``residual_fn``;
+rb_sor and pallas_sor only, on an f32 state with the refinement on.  No
+kernel runs there, as no Pallas kernel does in the JAX package.  A
+rank's masks, weights and geometry constants are the single-device ones
+(ops/obstacles.py, ops/masked.py) cut at the rank's origin, which is a
+host integer here (JAX, whose axis index is traced, forms them from
+global-index predicates instead); each is built once per configuration
+and block.
+
+Not ported here (ROADMAP A10 items 6-7): the thermal and free-surface
+steppers; each raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -61,7 +75,7 @@ import torch.distributed as dist
 
 from ..config import Params
 from ..grid import State, host_array
-from ..ops import boundary, fft, mg, sor
+from ..ops import boundary, fft, masked, mg, obstacles, sor
 from ..ops import stencils as st
 from ..solver import SolveStats, StepDiagnostics, ab2_extrapolate, run_steps
 from . import deep_halo, halo
@@ -167,11 +181,10 @@ def _apply_channel_bcs_sharded(u, v, params: Params, mesh: Mesh):
     the cavity's global-index-masked construction.  q_in and q_out are
     all-reduced sums over OWNED positions only: a halo copy carries its
     owner's global index, so a plain index mask would count every cell
-    that lies in a neighbour's halo twice.  Returns new blocks."""
-    if params.obstacles:
-        raise NotImplementedError(
-            "obstacle domains on the sharded backend are not ported: "
-            "ROADMAP A10 item 8")
+    that lies in a neighbour's halo twice.  With obstacles the inflow is
+    the per-span profile table (ops/obstacles.py::inflow_profile) gathered
+    by global row, and the balance runs over the fluid rows of the outflow
+    column only.  Returns new blocks."""
     I, J = params.i_max, params.j_max
     u = halo.exchange_halo(u, mesh)
     v = halo.exchange_halo(v, mesh)
@@ -182,8 +195,11 @@ def _apply_channel_bcs_sharded(u, v, params: Params, mesh: Mesh):
 
     # LEFT inflow at y_j = (gj - 1/2) dy, formed in the state's dtype as
     # the JAX sharded backend forms it; v's ghost reflected to 0.
-    y = (gj.to(u.dtype) - 0.5) * st.scalar(params.dy, u.dtype, u.device)
-    profile = st.div(4.0 * y * (params.b - y), params.b * params.b)
+    if params.obstacles:
+        profile = _inflow_table(params, u.dtype, u.device)[gj.clamp(0, J + 1)]
+    else:
+        y = (gj.to(u.dtype) - 0.5) * st.scalar(params.dy, u.dtype, u.device)
+        profile = st.div(4.0 * y * (params.b - y), params.b * params.b)
     u = torch.where((gi == 0) & in_j, profile, u)
     v = torch.where((gi == 0) & in_j, -torch.roll(v, -1, 0), v)
     # RIGHT outflow: the u edge copies its upstream neighbour, the v ghost
@@ -198,17 +214,154 @@ def _apply_channel_bcs_sharded(u, v, params: Params, mesh: Mesh):
     pos_j = torch.arange(nj, device=u.device).view(1, -1)
     own_j = (pos_j >= 1) & (pos_j <= nj - 2)
     own_i = (pos_i >= 1) & (pos_i <= ni - 2)
+    out_edge = (gi == I) & in_j
+    n_out = J
+    if params.obstacles:
+        # Solid faces of the outflow column stay no-slip: no correction.
+        out_edge = out_edge & _obstacle_block(params, mesh, ni - 2,
+                                              nj - 2).fluid
+        n_out = max(1, int(obstacles.masks(params).fluid[-2, 1:-1].sum()))
     q_in = _all_reduce(torch.sum(torch.where((gi == 0) & in_j & own_j, u,
                                              zero)), dist.ReduceOp.SUM, mesh)
-    q_out = _all_reduce(torch.sum(torch.where(
-        (gi == I) & in_j & own_i & own_j, u, zero)), dist.ReduceOp.SUM, mesh)
-    u = torch.where((gi == I) & in_j, u + st.div(q_in - q_out, J), u)
+    q_out = _all_reduce(torch.sum(torch.where(out_edge & own_i & own_j, u,
+                                              zero)), dist.ReduceOp.SUM, mesh)
+    u = torch.where(out_edge, u + st.div(q_in - q_out, n_out), u)
     # BOTTOM / TOP no-slip walls.
     v = torch.where(in_i & (gj == 0), zero, v)
     u = torch.where(in_i & (gj == 0), -torch.roll(u, -1, 1), u)
     v = torch.where(in_i & (gj == J), zero, v)
     u = torch.where(in_i & (gj == J + 1), -torch.roll(u, 1, 1), u)
     return u, v
+
+
+@functools.lru_cache(maxsize=8)
+def _inflow_table(params: Params, dtype: torch.dtype, device: torch.device):
+    """The obstacle-aware inflow profile by global padded row (0 on the
+    ghost rows), in `dtype` on `device`."""
+    tab = np.zeros(params.j_max + 2)
+    tab[1:-1] = obstacles.inflow_profile(params)
+    return torch.from_numpy(tab).to(dtype=dtype, device=device)
+
+
+class _ObstacleBlock(NamedTuple):
+    """A rank's obstacle geometry: ops/obstacles.py::masks cut to its padded
+    block, and the ring cells that have an owner."""
+
+    u_solid: torch.Tensor
+    u_refl_n: torch.Tensor
+    u_refl_s: torch.Tensor
+    v_solid: torch.Tensor
+    v_refl_e: torch.Tensor
+    v_refl_w: torch.Tensor
+    fluid: torch.Tensor       # (li + 2, lj + 2)
+    has_owner: torch.Tensor   # (li + 2, lj + 2)
+
+
+@functools.lru_cache(maxsize=32)
+def _block_geometry(params: Params, mesh_shape, coords, li: int, lj: int,
+                    device: torch.device) -> _ObstacleBlock:
+    px, py = mesh_shape
+    ox, oy = coords[0] * li, coords[1] * lj
+    m = obstacles.masks(params)
+
+    def cut(arr_np):
+        return torch.from_numpy(np.ascontiguousarray(_global_block_slice(
+            arr_np, mesh_shape, coords, li, lj))).to(device)
+
+    gi = torch.arange(li + 2, device=device).view(-1, 1) + ox
+    gj = torch.arange(lj + 2, device=device).view(1, -1) + oy
+    has_owner = ((gi >= 1) & (gi <= px * li) & (gj >= 1) & (gj <= py * lj))
+    return _ObstacleBlock(
+        u_solid=cut(m.u_solid), u_refl_n=cut(m.u_refl_n),
+        u_refl_s=cut(m.u_refl_s), v_solid=cut(m.v_solid),
+        v_refl_e=cut(m.v_refl_e), v_refl_w=cut(m.v_refl_w),
+        fluid=cut(m.fluid), has_owner=has_owner)
+
+
+def _obstacle_block(params: Params, mesh: Mesh, li: int,
+                    lj: int) -> _ObstacleBlock:
+    """This rank's ``_ObstacleBlock``, built once per configuration."""
+    return _block_geometry(params, mesh.shape, mesh.coords, li, lj,
+                           mesh.device)
+
+
+def _global_block_slice(arr_np: np.ndarray, mesh_shape, coords, li: int,
+                        lj: int) -> np.ndarray:
+    """This rank's padded (li+2, lj+2) block of a global padded-layout
+    (i_max+2, j_max+2) numpy constant, zero on the high side beyond it (the
+    divisibility pad): global index g lands at block position g - origin,
+    so the slice starts at the rank's origin."""
+    px, py = mesh_shape
+    full = np.zeros((px * li + 2, py * lj + 2), arr_np.dtype)
+    full[:arr_np.shape[0], :arr_np.shape[1]] = arr_np
+    ox, oy = coords[0] * li, coords[1] * lj
+    return full[ox:ox + li + 2, oy:oy + lj + 2]
+
+
+@functools.lru_cache(maxsize=32)
+def _constant_blocks(params: Params, which: str, mesh_shape, coords,
+                     li: int, lj: int, dtype: torch.dtype,
+                     device: torch.device):
+    """The rank's blocks of the geometry's static values, rounded to
+    `dtype` once: the immersed-boundary weights ("ib",
+    ops/obstacles.py::ib_weights, in IBWeights' order) or the cut-cell
+    face fractions ("apertures": au, av)."""
+    arrays = (obstacles.ib_weights(params) if which == "ib"
+              else obstacles.apertures(params)[:2])
+    return tuple(torch.from_numpy(np.ascontiguousarray(_global_block_slice(
+        a, mesh_shape, coords, li, lj))).to(dtype=dtype, device=device)
+        for a in arrays)
+
+
+def _blocks_of(params: Params, which: str, mesh: Mesh, shape, dtype):
+    return _constant_blocks(params, which, mesh.shape, mesh.coords,
+                            shape[0] - 2, shape[1] - 2, dtype, mesh.device)
+
+
+def _exchange_seams_only(arr: torch.Tensor, mesh: Mesh,
+                         has_owner: torch.Tensor) -> torch.Tensor:
+    """Re-pull the halo ring from its owners where an owner exists; ring
+    cells on the physical boundary keep the BC values just written (a plain
+    exchange would zero them: a mesh-edge shard receives zeros)."""
+    return torch.where(has_owner, halo.exchange_halo(arr, mesh), arr)
+
+
+def _apply_obstacle_bcs_sharded(u, v, params: Params, mesh: Mesh):
+    """The obstacle BCs of ops/obstacles.py::apply_obstacle_bcs on padded
+    local blocks (ops/obstacles.py::masks cut to each): the mirror values,
+    or with ``params.obstacle_surfaces`` the ghost-fluid sum of products
+    over the rank's blocks of the weights.  A reflection whose edge lies on
+    the last interior row or column of a block reads its fluid neighbour
+    from the halo ring, which the projection leaves stale: the seams are
+    re-pulled from their owners first, and again afterwards so that every
+    ring copy of a written edge equals its owner's.  Returns new blocks."""
+    li, lj = u.shape[0] - 2, u.shape[1] - 2
+    geo = _obstacle_block(params, mesh, li, lj)
+    u = _exchange_seams_only(u, mesh, geo.has_owner)
+    v = _exchange_seams_only(v, mesh, geo.has_owner)
+    if params.obstacle_surfaces:
+        # The weights are zero off their (disjoint) edge categories, so
+        # only the u_solid / v_solid gate is needed.
+        w = obstacles.IBWeights(*_blocks_of(params, "ib", mesh, u.shape,
+                                            u.dtype))
+        u_bc = (w.u_wn * torch.roll(u, -1, 1) + w.u_ws * torch.roll(u, 1, 1)
+                + w.u_we * torch.roll(u, -1, 0)
+                + w.u_ww * torch.roll(u, 1, 0))
+        v_bc = (w.v_we * torch.roll(v, -1, 0) + w.v_ww * torch.roll(v, 1, 0)
+                + w.v_wn * torch.roll(v, -1, 1)
+                + w.v_ws * torch.roll(v, 1, 1))
+    else:
+        zero = torch.zeros((), dtype=u.dtype, device=u.device)
+        u_bc = torch.where(geo.u_refl_n, -torch.roll(u, -1, 1),
+                           torch.where(geo.u_refl_s, -torch.roll(u, 1, 1),
+                                       zero))
+        v_bc = torch.where(geo.v_refl_e, -torch.roll(v, -1, 0),
+                           torch.where(geo.v_refl_w, -torch.roll(v, 1, 0),
+                                       zero))
+    u = torch.where(geo.u_solid, u_bc, u)
+    v = torch.where(geo.v_solid, v_bc, v)
+    return (_exchange_seams_only(u, mesh, geo.has_owner),
+            _exchange_seams_only(v, mesh, geo.has_owner))
 
 
 def _local_fg(u, v, dt, gamma, params: Params, gi, gj, mesh: Mesh):
@@ -287,6 +440,10 @@ def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
     else:
         lid = boundary.lid_velocity(params.problem, params.f, t)
         u, v = _apply_bcs_sharded(u, v, lid, params, mesh)
+    geo = None
+    if params.obstacles:
+        geo = _obstacle_block(params, mesh, li, lj)
+        u, v = _apply_obstacle_bcs_sharded(u, v, params, mesh)
     F, G = _local_fg(u, v, dt, gamma, params, gi, gj, mesh)
     carry = None
     if ab2 is not None:
@@ -296,10 +453,26 @@ def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
         # carried ru/rv halo copy always equals its owner's.
         F, G, ru, rv = ab2_extrapolate(F, G, u, v, dt, ab2)
         carry = AB2Carry(ru, rv, dt)
+    Fa, Ga = F, G
+    if geo is not None:
+        # F = u, G = v on the obstacle faces after the extrapolation
+        # (ops/obstacles.py::pin_fg); halo positions carry their owner's
+        # global index, so the pin keeps the halos consistent.
+        F = torch.where(geo.u_solid, u, F)
+        G = torch.where(geo.v_solid, v, G)
+        Fa, Ga = F, G
+        if obstacles.aperture_active(params):
+            # The cut-cell divergence: the face fractions scale the rhs
+            # only; the projection needs the tentative velocities.
+            au, av = _blocks_of(params, "apertures", mesh, F.shape, F.dtype)
+            Fa, Ga = F * au, G * av
+    rhs_int = mask_pad(
+        ((Fa[1:-1, 1:-1] - Fa[:-2, 1:-1]) / dx_t
+         + (Ga[1:-1, 1:-1] - Ga[1:-1, :-2]) / dy_t) / dt)
+    if geo is not None:
+        rhs_int = torch.where(geo.fluid[1:-1, 1:-1], rhs_int, zero)
     rhs = torch.zeros_like(p)
-    rhs[1:-1, 1:-1] = mask_pad(
-        ((F[1:-1, 1:-1] - F[:-2, 1:-1]) / dx_t
-         + (G[1:-1, 1:-1] - G[1:-1, :-2]) / dy_t) / dt)
+    rhs[1:-1, 1:-1] = rhs_int
 
     result = _sharded_pressure_solve(p, rhs, params, pressure_method, li, lj,
                                      valid, mesh)
@@ -312,7 +485,44 @@ def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
                                 u_new, u[1:-1, 1:-1])
     v[1:-1, 1:-1] = torch.where((gj <= params.j_max - 1) & (gi <= params.i_max),
                                 v_new, v[1:-1, 1:-1])
+    if geo is not None:
+        # The projection sweeps the obstacle faces too: restore them.
+        u, v = _apply_obstacle_bcs_sharded(u, v, params, mesh)
     return u, v, p, dt, result, carry
+
+
+@functools.lru_cache(maxsize=32)
+def _residual_weights(params: Params, mesh_shape, coords, li: int, lj: int,
+                      device: torch.device) -> masked._DeviceWeights:
+    """ops/masked.py's f64 weights of the masked operator (with the cut-cell
+    face fractions under the aperture closure) cut to the rank's interior,
+    zero on the pad."""
+    w = masked._weights(params)
+
+    def cut(arr_np):
+        full = np.zeros(params.shape, arr_np.dtype)
+        full[1:-1, 1:-1] = arr_np
+        return np.ascontiguousarray(_global_block_slice(
+            full, mesh_shape, coords, li, lj)[1:-1, 1:-1])
+
+    block = masked._Weights(*(cut(a) for a in w[:6]),
+                            n_fluid=int(cut(w.fluid).sum()))
+    parity = (coords[0] * li + coords[1] * lj) % 2
+    return masked._on_device(block, torch.float64, device, parity)
+
+
+def _masked_residual_fn(params: Params, li: int, lj: int, mesh: Mesh):
+    """``residual_fn(p64, rhs_int64)`` of the refinement: the f64 defect of
+    the masked operator (ops/masked.py::masked_residual) on the rank's
+    exchanged block, 0 on solid cells."""
+    w = _residual_weights(params, mesh.shape, mesh.coords, li, lj,
+                          mesh.device)
+
+    def residual_fn(p64: torch.Tensor, rhs_int64: torch.Tensor):
+        return masked.masked_residual(halo.exchange_halo(p64, mesh),
+                                      rhs_int64, w)
+
+    return residual_fn
 
 
 def _deep_route(params: Params, li: int, lj: int) -> bool:
@@ -329,7 +539,8 @@ def _sharded_pressure_solve(p, rhs, params: Params, pressure_method: str,
     all-reduced L2 norm, the block's parity and pad mask; the inner stage
     by method, as JAX's ``_sharded_pressure_solve`` picks it."""
     ox, oy = mesh.origin(li, lj)
-    n_cells = params.i_max * params.j_max
+    # Obstacle domains: the L2 norm over the fluid cells (ops/masked.py).
+    n_cells = obstacles.n_fluid_cells(params)
     if valid is None:
         def ghost_fn(q):
             return halo.neumann_or_exchange(q, mesh)
@@ -350,6 +561,15 @@ def _sharded_pressure_solve(p, rhs, params: Params, pressure_method: str,
     hooks = dict(ghost_fn=ghost_fn, l2_fn=l2_fn, parity=(ox + oy) % 2,
                  mean_fn=mean_fn)
     refined = params.replace(sor_refine_every=max(1, params.sor_refine_every))
+    if params.obstacles:
+        # The masked deep-halo inner, and the masked f64 defect through the
+        # residual_fn hook; _check_method admits rb_sor and pallas_sor.
+        fluid = _obstacle_block(params, mesh, li, lj).fluid[1:-1, 1:-1]
+        return sor._solve_pressure_refined(
+            p, rhs, refined,
+            inner_fn=deep_halo.make_deep_inner(params, li, lj, mesh),
+            valid_mask=fluid if valid is None else valid & fluid,
+            residual_fn=_masked_residual_fn(params, li, lj, mesh), **hooks)
     if pressure_method == "mg":
         # One V-cycle per outer pass (as JAX's sharded mg); divisible grids.
         return sor._solve_pressure_refined(
@@ -391,12 +611,19 @@ def _check_method(params: Params, mesh: Mesh, pressure_method: str,
         item = {5: 6, 6: 7}.get(params.problem, "6-7")
         raise NotImplementedError(
             f"problem {params.problem} on the sharded backend is not ported: "
-            f"ROADMAP A10 item {item} (after A8; the port's sharded step runs "
+            f"ROADMAP A10 item {item} (the port's sharded step runs "
             f"problems 1-4)")
     if params.obstacles:
-        raise NotImplementedError(
-            "obstacle domains on the sharded backend are not ported: "
-            "ROADMAP A10 item 8")
+        if pressure_method not in ("rb_sor", "pallas_sor"):
+            raise ValueError(
+                f"sharded obstacle domains run the masked deep-halo rb_sor "
+                f"inner only (got {pressure_method!r}) — masked mg runs on "
+                f"one device (drop --backend sharded); the port has no "
+                f"gspmd backend")
+        if params.dtype != "float32" or params.sor_refine_every < 1:
+            raise ValueError(
+                "sharded obstacle domains require the f32 state with the "
+                "mixed-precision refinement (sor_refine_every >= 1)")
     if params.outer_precision == "compensated":
         raise NotImplementedError(
             "outer_precision='compensated' is not ported (the H100 has "

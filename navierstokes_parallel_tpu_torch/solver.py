@@ -3,7 +3,8 @@
 PyTorch counterpart of ``navierstokes_parallel_tpu/solver.py`` for the
 cavity (problems 1 and 2), the plane channel (3) and the free-slip
 Taylor-Green box (4), each with or without flag-field obstacles
-(ops/obstacles.py).  One time step (reference main.c:86-146):
+(ops/obstacles.py); natural convection (problem 5) steps with
+models/convection.py, which reuses this module's rhs and tail.  One time step (reference main.c:86-146):
 
     adaptive CFL dt  ->  velocity BCs  ->  tentative F/G  ->  Poisson RHS
     ->  pressure solve (SOR, multigrid, CG or DCT)  ->  velocity projection
@@ -76,11 +77,15 @@ def _rhs(F, G, u, v, dt, params: Params):
 
 
 def _check_problem(params: Params) -> None:
+    if params.problem == 5:
+        # As the JAX package's step, whose boundary.lid_velocity refuses
+        # it: natural convection steps with models/convection.py.
+        raise ValueError(f"unknown problem type {params.problem}")
     if params.problem not in (1, 2, 3, 4):
         raise NotImplementedError(
-            f"problem {params.problem} is not ported yet: ROADMAP A8 (the "
-            f"port runs problems 1-4: the cavity, the channel and the "
-            f"free-slip box)")
+            f"problem {params.problem} (free surfaces) is not ported yet: "
+            f"ROADMAP A8 (the port's solver.step runs problems 1-4, and "
+            f"models/convection.py problem 5)")
 
 
 def step(state: State, params: Params, *,

@@ -21,9 +21,15 @@ class NonFiniteStateError(RuntimeError):
     pass
 
 
+def _fields(state) -> tuple:
+    """The checked fields: u, v, p, and T of a thermal state."""
+    return ("u", "v", "p") + (("T",) if hasattr(state, "T") else ())
+
+
 def validate_state(state: State, where: str = "") -> State:
-    """Host-side guard: raise if u, v or p contains NaN/Inf."""
-    for name in ("u", "v", "p"):
+    """Host-side guard: raise if u, v, p (or a thermal state's T) contains
+    NaN/Inf."""
+    for name in _fields(state):
         finite = torch.isfinite(getattr(state, name))
         if not bool(finite.all()):
             bad = int((~finite).sum())
@@ -36,10 +42,10 @@ def validate_state(state: State, where: str = "") -> State:
 
 
 def check_step(state: State, step: int) -> State:
-    """Raise NonFiniteStateError naming `step` if u, v or p holds a NaN or
-    Inf (one host read for the three fields)."""
+    """Raise NonFiniteStateError naming `step` if u, v, p (or T) holds a
+    NaN or Inf (one host read for the fields)."""
     finite = torch.stack([torch.isfinite(getattr(state, name)).all()
-                          for name in ("u", "v", "p")])
+                          for name in _fields(state)])
     if not bool(finite.all()):
         validate_state(state, where=f"step {step}")
     return state

@@ -118,10 +118,12 @@ def _write_grid(path: str, arr: np.ndarray, t: float, a: float, b: float,
 
 
 def output(u, v, p, t: float, a: float, b: float, prefix: str,
-           verbose: bool = True) -> None:
+           verbose: bool = True, temperature=None) -> None:
     """Write ``<prefix>_{u,v,p}.txt`` (reference io.c:61-120) from padded
-    fields (tensors on any device, or arrays).  The three files are written
-    concurrently: ctypes releases the GIL, so the formatters overlap."""
+    fields (tensors on any device, or arrays).  The files are written
+    concurrently: ctypes releases the GIL, so the formatters overlap.
+    `temperature` (problem 5) adds a cell-centred ``<prefix>_temp.txt`` in
+    p's grid format."""
     u, v, p = host_array(u), host_array(v), host_array(p)
     i_max = p.shape[0] - 2
     j_max = p.shape[1] - 2
@@ -135,6 +137,9 @@ def output(u, v, p, t: float, a: float, b: float, prefix: str,
         (f"{prefix}_v.txt", v, i_max + 2, j_max + 1),
         (f"{prefix}_p.txt", p, i_max + 2, j_max + 2),
     )
+    if temperature is not None:
+        jobs += ((f"{prefix}_temp.txt", host_array(temperature), i_max + 2,
+                  j_max + 2),)
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         futs = [pool.submit(_write_grid, path, arr, t, a, b, nc, nr)
                 for path, arr, nc, nr in jobs]

@@ -14,7 +14,19 @@ outer passes (sweeps / K).  ``taylor-green n
 N``: ``models/taylorgreen.py::taylor_green(n)``, N steps of ``step_ab2``
 with the multigrid pressure solve (the port's ``solve_ab2(...,
 max_steps=N)``): counts, per-step V-cycles, centre values, ``errors`` and
-``kinetic_energy``.  ``obstacles PATH``: the obstacle runs of
+``kinetic_energy``.  ``thermal PATH``: the problem-5 runs of chip_smoke.py's "convection"
+phase (THERMAL_CLI through the JAX CLI: stdout, stats line and each step's
+iterations; the heated block of THERMAL_BLOCK stepped by
+``thermal_step``) and the witness run of
+scripts/torch_convection_witness.py (configs/convection.in whole: stats,
+centre values and the hot- and cold-wall Nusselt numbers).
+``sharded-obstacles PATH``: the runs of chip_smoke.py's "sharded
+obstacles" phase on the JAX sharded backend over a one-device CPU mesh
+(SHARDED_OBSTACLE_RUNS stepped by ``ShardedStepper``: per step the
+iterations and convergence, then the centre values and max |u|, |v|; and
+the JAX CLI on SHARDED_OBSTACLE_CLI with each step's iterations).  Both
+write their section of PATH (tests/jax_thermal_records.json), keeping the
+other.  ``obstacles PATH``: the obstacle runs of
 ``OBSTACLE_RUNS`` (full grids, cut to a few steps), each from its model's
 initial state by ``make_step_fn`` or ``make_ab2_step_fn``: per step the
 iterations, convergence and the records of the run's record function,
@@ -67,6 +79,29 @@ OBSTACLE_RUNS = {
 }
 OBSTACLE_CLI = ["configs/channel.in", "--obstacle", "17:24:27:34",
                 "--max-steps", "20", "--stats"]
+
+# The problem-5 CLI runs (tag: extra arguments after configs/convection.in),
+# the heated block (heated_block_setup's keyword arguments and steps), and
+# the witness's whole run.
+THERMAL_CONFIG = "configs/convection.in"
+THERMAL_STEPS = 300
+THERMAL_CLI = {"convection": [], "convection mg": ["--method", "mg"],
+               "convection ab2": ["--time-order", "2"]}
+THERMAL_BLOCK = ({"Ra": 1e4, "n": 32}, 20)
+
+# The sharded obstacle runs: (model, its keyword arguments, time order,
+# steps); the backward-facing step and the Schäfer-Turek circle as
+# OBSTACLE_RUNS records them on one device, cut to the steps named.
+SHARDED_OBSTACLE_RUNS = {
+    "sharded step": ("backward_facing_step",
+                     {"Re": 150.0, "nx": 128, "ny": 32}, 1, 3),
+    "sharded step ab2": ("backward_facing_step",
+                         {"Re": 150.0, "nx": 128, "ny": 32}, 2, 3),
+    "sharded schafer_turek": ("schafer_turek", {"n_per_d": 20}, 1, 1),
+}
+SHARDED_OBSTACLE_CLI = ["configs/channel.in", "--obstacle", "17:24:27:34",
+                        "--backend", "sharded", "--mesh", "1x1",
+                        "--max-steps", "5", "--stats"]
 
 
 def _steps(fn, carry, n):
@@ -183,6 +218,131 @@ def record_obstacles(path: str) -> None:
         fh.write("\n")
 
 
+def _cli_record(argv) -> dict:
+    """The JAX CLI on `argv` (paths relative to the checkout): rc, standard
+    output lines and the stats line as a dict."""
+    import contextlib
+    import io
+
+    from navierstokes_parallel_tpu import cli
+
+    printed, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(printed), contextlib.redirect_stderr(err):
+        rc = cli.main([os.path.join(ROOT, argv[0]), *argv[1:]])
+    stats = next(line for line in err.getvalue().splitlines()
+                 if line.startswith("steps="))
+    return {"argv": argv, "rc": rc,
+            "stdout": [line for line in printed.getvalue().splitlines()
+                       if line.startswith(("U-CENTER", "V-CENTER"))],
+            "stats": dict(tok.split("=") for tok in stats.split())}
+
+
+def _update(path: str, section: str, value) -> None:
+    import json
+
+    out = {}
+    if os.path.exists(path):
+        with open(path) as fh:
+            out = json.load(fh)
+    out[section] = value
+    with open(path, "w") as fh:
+        json.dump(out, fh, indent=1)
+        fh.write("\n")
+
+
+def record_thermal(path: str) -> None:
+    from navierstokes_parallel_tpu.models import convection
+
+    prm = Params.from_file(os.path.join(ROOT, THERMAL_CONFIG))
+    cfg = convection.config_from_params(prm)
+    runs = {}
+    for tag, extra in THERMAL_CLI.items():
+        argv = [THERMAL_CONFIG, "--max-steps", str(THERMAL_STEPS), "--stats",
+                *extra]
+        rec = _cli_record(argv)
+        # The CLI's steps one by one (the host loop's step of the CLI's
+        # method on the CPU: rb_sor, or mg).
+        method = "mg" if "mg" in extra else "rb_sor"
+        state = convection.allocate_thermal(prm, cfg)
+        if "--time-order" in extra:
+            fn = convection.make_thermal_step_ab2_fn(prm, cfg, method)
+            carry = convection.thermal_ab2_init(state)
+        else:
+            fn, carry = convection.make_thermal_step_fn(prm, cfg, method), \
+                state
+        carry, _, _, rec["iterations"] = _steps(fn, carry, THERMAL_STEPS)
+        ts = carry.ts if "--time-order" in extra else carry
+        rec["nusselt"] = [convection.nusselt_hot_wall(ts.T, prm),
+                          convection.nusselt_cold_wall(ts.T, prm)]
+        runs[tag] = rec
+        print(tag, rec, flush=True)
+    kwargs, n_steps = THERMAL_BLOCK
+    bprm, bcfg = convection.heated_block_setup(**kwargs)
+    fn = convection.make_thermal_step_fn(bprm, bcfg, "rb_sor")
+    carry, _, failures, iters = _steps(
+        fn, convection.allocate_thermal(bprm, bcfg), n_steps)
+    uc, vc = (float(x) for x in solver.center_values(carry, bprm))
+    runs["heated block"] = {
+        "kwargs": kwargs, "steps": n_steps, "iterations": iters,
+        "failures": failures, "centre": [uc, vc],
+        "max_abs": [float(np.max(np.abs(np.asarray(carry.u)))),
+                    float(np.max(np.abs(np.asarray(carry.v))))],
+        "max_T": float(np.max(np.asarray(carry.T)[1:-1, 1:-1])),
+        "block_flux": convection.block_heat_flux(carry.T, bprm,
+                                                 bcfg.t_obstacle)}
+    print("heated block", runs["heated block"], flush=True)
+    # The witness: the whole run by the CLI's method on the CPU.
+    ts, stats = convection.thermal_solve(prm, cfg, pressure_method="rb_sor")
+    uc, vc = (float(x) for x in solver.center_values(ts, prm))
+    runs["witness"] = {
+        "argv": [THERMAL_CONFIG], "method": "rb_sor",
+        "steps": int(stats.steps),
+        "sor_iterations": int(stats.total_sor_iterations),
+        "sor_failures": int(stats.sor_failures), "centre": [uc, vc],
+        "nusselt_hot": convection.nusselt_hot_wall(ts.T, prm),
+        "nusselt_cold": convection.nusselt_cold_wall(ts.T, prm)}
+    print("witness", runs["witness"], flush=True)
+    _update(path, "thermal", runs)
+
+
+def record_sharded_obstacles(path: str) -> None:
+    from navierstokes_parallel_tpu.parallel import sharded
+    from navierstokes_parallel_tpu.parallel.topology import make_grid_mesh
+
+    mesh = make_grid_mesh(1)
+    runs = {}
+    for name, (model, kwargs, order, n_steps) in \
+            SHARDED_OBSTACLE_RUNS.items():
+        prm, state, _ = obstacle_setup(model, kwargs, "surface_force")
+        stepper = sharded.ShardedStepper(prm, state, mesh, "rb_sor", order)
+        iters, converged = [], []
+        for _ in range(n_steps):
+            diag = stepper.step()
+            iters.append(int(diag.sor_iterations))
+            converged.append(bool(diag.sor_converged))
+        base = stepper.state()
+        uc, vc = (float(x) for x in solver.center_values(base, prm))
+        runs[name] = {
+            "model": model, "kwargs": kwargs, "method": "rb_sor",
+            "time_order": order, "steps": n_steps, "iterations": iters,
+            "converged": converged, "centre": [uc, vc],
+            "max_abs": [float(np.max(np.abs(np.asarray(base.u)))),
+                        float(np.max(np.abs(np.asarray(base.v))))]}
+        print(name, prm.shape, runs[name], flush=True)
+    rec = _cli_record(SHARDED_OBSTACLE_CLI)
+    prm = Params.from_file(os.path.join(ROOT, SHARDED_OBSTACLE_CLI[0]),
+                           obstacles=((17, 24, 27, 34),))
+    stepper = sharded.ShardedStepper(prm, allocate_state(prm), mesh,
+                                     "rb_sor")
+    rec["iterations"] = [
+        int(stepper.step().sor_iterations) for _ in range(int(
+            SHARDED_OBSTACLE_CLI[SHARDED_OBSTACLE_CLI.index("--max-steps")
+                                 + 1]))]
+    runs["cli"] = rec
+    print("cli", rec, flush=True)
+    _update(path, "sharded_obstacles", runs)
+
+
 if __name__ == "__main__":
     what, *args = sys.argv[1:]
     if what == "channel":
@@ -191,6 +351,10 @@ if __name__ == "__main__":
         record_taylor_green(int(args[0]), int(args[1]))
     elif what == "obstacles":
         record_obstacles(args[0])
+    elif what == "thermal":
+        record_thermal(args[0])
+    elif what == "sharded-obstacles":
+        record_sharded_obstacles(args[0])
     else:
-        sys.exit(f"unknown record {what!r}: channel, taylor-green or "
-                 f"obstacles")
+        sys.exit(f"unknown record {what!r}: channel, taylor-green, "
+                 f"obstacles, thermal or sharded-obstacles")

@@ -1127,3 +1127,59 @@ def test_diagnostics_on_the_card_equal_the_cpu(cuda):
         (u if k % 2 else v)[i, j] = float(rng.standard_normal())
         assert checks.divergence_norm(u.to(cuda), v.to(cuda), prm) == \
             checks.divergence_norm(u, v, prm), (k, i, j)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["pallas_sor", "mg"])
+def test_thermal_steps_on_the_card_take_no_momentum_kernel(cuda, method):
+    """A thermal step on the card takes the plain F/G (the buoyancy is
+    added after them, so B2, which forms rhs first, never runs) and the
+    pressure kernels of its method: B1 once per outer pass, or the coarse
+    cycle once per V-cycle at 34^2; by Euler and AB2, the fields within the
+    1e-4 contract of the CPU's."""
+    from navierstokes_parallel_tpu_torch.models import convection
+
+    prm, cfg = convection.convection_setup(1e4, n=32)
+    prm = prm.replace(T=0.5)
+    for order in (1, 2):
+        states = {}
+        for device in (cuda, "cpu"):
+            sor_kernel.LAUNCHES = sor_kernel.CYCLE_LAUNCHES = 0
+            momentum_kernel.LAUNCHES = 0
+            states[device], stats = convection.thermal_solve(
+                prm, cfg, device=device, pressure_method=method,
+                time_order=order, max_steps=4)
+            assert stats.steps == 4 and stats.sor_failures == 0
+            assert momentum_kernel.LAUNCHES == 0
+            launched = (sor_kernel.LAUNCHES if method == "pallas_sor"
+                        else sor_kernel.CYCLE_LAUNCHES)
+            assert (launched > 0) == (device == cuda)
+        for name in ("u", "v", "p", "T"):
+            g = getattr(states[cuda], name).cpu().numpy()
+            c = getattr(states["cpu"], name).numpy()
+            assert np.max(np.abs(g - c)) <= 1e-4 * max(1.0,
+                                                       np.max(np.abs(c)))
+
+
+@pytest.mark.gpu
+def test_sharded_obstacle_step_on_the_card_launches_no_kernel(cuda):
+    """The sharded obstacle path on a one-rank NCCL group runs the masked
+    deep-halo sweeps (no B6, no other kernel); 3 steps of the
+    backward-facing step equal the card's one-device masked solve in
+    counts and within the contract in u and v."""
+    from navierstokes_parallel_tpu_torch.models import step as step_model
+    from navierstokes_parallel_tpu_torch.parallel import sharded, topology
+    from navierstokes_parallel_tpu_torch.utils import distributed
+
+    prm = step_model.backward_facing_step(nx=32, ny=8, T=0.3)
+    sor_kernel.EXT_LAUNCHES = momentum_kernel.LAUNCHES = 0
+    with distributed.process_group(cuda) as device:
+        mesh = topology.make_grid_mesh(shape=(1, 1), device=device)
+        state, stats = sharded.solve_sharded(prm, mesh=mesh, max_steps=3)
+    assert sor_kernel.EXT_LAUNCHES == momentum_kernel.LAUNCHES == 0
+    single, sstats = solver.solve(prm, device=cuda, max_steps=3)
+    assert stats[:3] == sstats[:3] and stats.sor_failures == 0
+    for name in ("u", "v"):
+        g = getattr(state, name).cpu().numpy()
+        c = getattr(single, name).cpu().numpy()
+        assert np.max(np.abs(g - c)) <= 1e-4 * max(1.0, np.max(np.abs(c)))

@@ -7,11 +7,14 @@ with each ported pressure method (SOR, multigrid, CG), two Adams-Bashforth
 (models/channel.py, models/taylorgreen.py), a step of the
 backward-facing step by each masked solver and a short shedding trace of
 the sharp Schäfer-Turek cylinder (ops/obstacles.py, ops/masked.py,
-models/step.py, models/karman.py), the plain twins
+models/step.py, models/karman.py), a step of the heated-block convection
+by Euler and by Adams-Bashforth 2 (ops/energy.py, models/convection.py),
+the plain twins
 of the tiled and colour-compressed SOR kernels and of the multigrid
 coarse cycle, one step of the
-sharded backend on a one-rank process group (parallel/, including the
-extended-block twin, and utils/distributed.py), and one step of the CLI's
+sharded backend on a one-rank process group, with and without an
+obstacle (parallel/, including the extended-block twin and the masked
+sweeps, and utils/distributed.py), and one step of the CLI's
 host loop that writes a frame, a checkpoint and a history row with the
 physics monitors (utils/io.py and its native writer, utils/checkpoint.py,
 utils/diagnostics.py).
@@ -69,6 +72,14 @@ SCRIPT = textwrap.dedent("""
         st, device="cpu", method="mg", chunk=2,
         record_fn=karman.surface_force_record_fn(st, 5))
     assert trace.stats.steps == 2 and "fsx" in trace.rec
+    from navierstokes_parallel_tpu_torch.models import convection
+    hb, hb_cfg = convection.heated_block_setup(Ra=1e4, n=12)
+    for order in (1, 2):
+        _, d = convection.thermal_solve(hb.replace(T=1.0), hb_cfg,
+                                        device="cpu",
+                                        pressure_method="rb_sor",
+                                        max_steps=2, time_order=order)
+        assert d.steps == 2 and d.sor_failures == 0, (order, d)
     import torch
     from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel as sk
     rhs = torch.zeros(prm.shape)
@@ -89,7 +100,9 @@ SCRIPT = textwrap.dedent("""
     from navierstokes_parallel_tpu_torch.utils import distributed
     with distributed.process_group("cpu"):
         sh_state, sh_stats = sharded.solve_sharded(prm, max_steps=1)
+        _, ob_stats = sharded.solve_sharded(chan, max_steps=1)
     assert sh_stats.steps == 1 and sh_stats.total_sor_iterations > 0
+    assert ob_stats.steps == 1 and ob_stats.sor_failures == 0
     for name in ("parallel.topology", "parallel.halo", "parallel.deep_halo",
                  "parallel.sharded", "utils.distributed"):
         assert "navierstokes_parallel_tpu_torch." + name in sys.modules, name
@@ -128,13 +141,14 @@ def test_port_imports_and_steps_without_jax(tmp_path):
 
 def test_no_jax_import_in_sources():
     """Neither the port nor chip_smoke.py, tile_bench.py, direct_bench.py,
-    scripts/torch_channel_witness.py or scripts/torch_karman_witness.py
-    imports jax or the JAX package."""
+    scripts/torch_channel_witness.py, scripts/torch_karman_witness.py or
+    scripts/torch_convection_witness.py imports jax or the JAX package."""
     pkg = os.path.join(ROOT, "navierstokes_parallel_tpu_torch")
     paths = [os.path.join(ROOT, name) for name in (
         "chip_smoke.py", "tile_bench.py", "direct_bench.py",
         os.path.join("scripts", "torch_channel_witness.py"),
-        os.path.join("scripts", "torch_karman_witness.py"))]
+        os.path.join("scripts", "torch_karman_witness.py"),
+        os.path.join("scripts", "torch_convection_witness.py"))]
     for dirpath, _, files in os.walk(pkg):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     banned = ("import jax", "from jax", "import navierstokes_parallel_tpu\n",
@@ -152,8 +166,9 @@ def test_no_jax_import_in_sources():
         assert os.path.join("parallel", f"{name}.py") in scanned, name
     for name in ("distributed", "io", "checkpoint", "diagnostics"):
         assert os.path.join("utils", f"{name}.py") in scanned, name
-    for name in ("cavity", "channel", "taylorgreen", "step", "karman"):
+    for name in ("cavity", "channel", "taylorgreen", "step", "karman",
+                 "convection"):
         assert os.path.join("models", f"{name}.py") in scanned, name
-    for name in ("obstacles", "masked"):
+    for name in ("obstacles", "masked", "energy"):
         assert os.path.join("ops", f"{name}.py") in scanned, name
     assert len(paths) > 10 and not offenders, offenders

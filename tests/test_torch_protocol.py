@@ -228,16 +228,17 @@ def test_checkpoints_resume_across_packages(tmp_path, capsys):
     assert f64.p.dtype == f64.t.dtype == torch.float64
 
 
-def _thermal_checkpoint(tmp_path, prm):
-    path = str(tmp_path / "thermal.npz")
+def _isothermal_checkpoint(tmp_path, prm):
+    path = str(tmp_path / "isothermal.npz")
     z = np.zeros(prm.shape, np.float32)
-    np.savez(path, u=z, v=z, p=z, T=z, t=np.float32(0.0), n=np.int32(0))
+    np.savez(path, u=z, v=z, p=z, t=np.float32(0.0), n=np.int32(0))
     return path
 
 
 @pytest.mark.parametrize("case,needle", [
     ("wrong_grid", "does not match config grid"),
-    ("thermal", "ROADMAP A8"),
+    # Problem 5 is ported: its run refuses an isothermal checkpoint.
+    ("thermal", "no temperature field"),
     ("columns", "has columns"),
     ("physics_alone", "--history-physics requires --history-file"),
     ("missing", "cannot resume"),
@@ -252,7 +253,10 @@ def test_refusals(case, needle, tmp_path, capsys):
                                str(tmp_path / "lid2.npz")], capsys)[0] == 3
         argv += ["--resume", str(tmp_path / "lid2.npz")]
     elif case == "thermal":
-        argv += ["--resume", _thermal_checkpoint(tmp_path, prm)]
+        conv = os.path.join(os.path.dirname(__file__), "..", "configs",
+                            "convection.in")
+        argv = [conv, "--device", "cpu", "--resume", _isothermal_checkpoint(
+            tmp_path, Params.from_file(conv))]
     elif case == "columns":
         hist = tmp_path / "h.csv"
         assert _run(cli.main, [*argv, "--max-steps", "1", "--history-file",
@@ -270,11 +274,13 @@ def test_refusals(case, needle, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,label", [
-    # AB2 runs problems 1-4; on problem 5 (natural convection) it is refused
-    # with the problem.
-    (["--time-order", "2"], "ROADMAP A8"),
-    # Obstacles run on one device (A7); the sharded backend refuses them.
-    (["--obstacle", "3:5:3:5", "--backend", "sharded"], "A10 item 8"),
+    # AB2 runs problems 1-5 on one device; problem 5 on the sharded backend
+    # is refused with the JAX CLI's message.
+    (["--time-order", "2", "--backend", "sharded"], "runs single-chip"),
+    # Obstacles run on one device (A7) and on the sharded backend (A10 item
+    # 8) by the masked rb_sor; another sharded method is JAX's ValueError.
+    (["--obstacle", "3:5:3:5", "--backend", "sharded", "--method", "mg"],
+     "masked deep-halo rb_sor"),
     (["--free-wall", "freeslip"], "ROADMAP A8"),
     (["--outer", "compensated"], "ROADMAP A9"),
 ], ids=["time_order", "obstacle", "free_wall", "outer"])

@@ -536,7 +536,7 @@ def test_mesh_neighbours_and_origin():
 
 
 @pytest.mark.parametrize("case,needle", [
-    ("time_order_2_problem_5", "A10 item 6"), ("obstacles", "A10 item 8"),
+    ("time_order_2_problem_5", "A10 item 6"), ("obstacles", None),
     ("problem_5", "problem 5"), ("problem_6", "A10 item 7"),
     ("compensated", "A9")])
 def test_unported_sharded_branches_raise(one_rank, case, needle):
@@ -544,7 +544,17 @@ def test_unported_sharded_branches_raise(one_rank, case, needle):
     if case == "time_order_2_problem_5":
         kw, order = {"problem": 5}, 2
     elif case == "obstacles":
-        kw = {"obstacles": ((8, 8, 12, 12),)}
+        # Ported (A10 item 8): two steps on one rank give the single-device
+        # masked solve's counts, and its u and v within the contract
+        # (tests/test_torch_sharded_obstacles.py holds it against JAX).
+        prm = _params(obstacles=((8, 10, 12, 14),))
+        state, stats = sharded.solve_sharded(prm, mesh=one_rank, max_steps=2)
+        single, sstats = solver.solve(prm, device="cpu", max_steps=2)
+        assert stats == sstats._replace(last_res_norm=stats.last_res_norm)
+        assert stats.steps == 2 and stats.sor_failures == 0
+        for name in ("u", "v"):
+            _assert_contract(getattr(state, name), getattr(single, name))
+        return
     elif case.startswith("problem_"):
         kw = {"problem": int(case[-1])}
     else:
@@ -596,21 +606,44 @@ def test_refined_solver_hooks_refuse_a_parity_without_inner():
         sor._solve_pressure_refined(z, z, prm, parity=1)
 
 
-@pytest.mark.parametrize("hook,needle", [("mean_fn", "A10 item 8"),
-                                         ("residual_fn", "A10 item 8")])
+@pytest.mark.parametrize("hook,needle", [("mean_fn", "A9"),
+                                         ("residual_fn", "A9")])
 def test_refined_solver_refuses_unported_hooks(hook, needle):
-    """residual_fn (the masked defect of sharded obstacle domains) is
-    refused, also beside the ported mean_fn, as a sharded obstacle channel
-    would pass both."""
-    from navierstokes_parallel_tpu_torch.ops import sor
+    """The hooks run on the f64 outer: residual_fn's defect replaces the
+    Laplacian's (with the masked operator and its inner, the refinement is
+    ops/masked.py's solve bit for bit), beside mean_fn on problem 3.  Only
+    the compensated outer (A9; JAX refuses residual_fn there) is refused."""
+    from navierstokes_parallel_tpu_torch.ops import masked, sor
 
-    prm = _params(i_max=8, j_max=8)
+    prm = _params(i_max=16, j_max=8, problem=3 if hook == "mean_fn" else 1,
+                  obstacles=((3, 6, 1, 4),))
     z = torch.zeros(prm.shape)
-    hooks = {"residual_fn": torch.mean}
-    if hook == "mean_fn":
-        hooks["mean_fn"] = torch.mean
+    w32 = masked.device_weights(prm, torch.float32, torch.device("cpu"))
+    w64 = masked.device_weights(prm, torch.float64, torch.device("cpu"))
+    # A compatible rhs: zero mean over the fluid cells, 0 on solid ones.
+    r = np.random.default_rng(7).standard_normal((16, 8))
+    r = np.where(w32.fluid.numpy(), r - r[w32.fluid.numpy()].mean(), 0.0)
+    rhs = torch.zeros(prm.shape)
+    rhs[1:-1, 1:-1] = torch.from_numpy(r.astype(np.float32))
+    omega = torch.tensor(prm.omega)
+
+    def fluid_mean(r):
+        return torch.sum(r) / w64.n_fluid
+
+    hooks = dict(
+        inner_fn=lambda rf, n: masked._smooth_masked(
+            torch.zeros(prm.shape), rf[1:-1, 1:-1], w32, n, omega),
+        l2_fn=lambda r: masked._l2_fluid(r, w64), valid_mask=w64.fluid,
+        residual_fn=lambda q, r: masked.masked_residual(q, r, w64),
+        mean_fn=fluid_mean)
+    got = sor._solve_pressure_refined(z, rhs, prm, **hooks)
+    want = masked.solve_pressure_masked(z, rhs, prm)
+    assert got.iterations == want.iterations > 0 and got.converged
+    assert torch.equal(got.p[1:-1, 1:-1], want.p[1:-1, 1:-1])
     with pytest.raises(NotImplementedError, match=needle):
-        sor._solve_pressure_refined(z, z, prm, **hooks)
+        sor._solve_pressure_refined(
+            z, rhs, prm.replace(outer_precision="compensated"),
+            **{hook: hooks[hook]})
 
 
 # --- the CLI ------------------------------------------------------------------

@@ -109,10 +109,14 @@ def test_solve_needs_state_or_device():
 
 
 def test_unported_problem_raises():
+    # Problem 5 steps with models/convection.py; solver.step raises the JAX
+    # step's ValueError for it, and problem 6 is not ported (ROADMAP A8).
     prm, _ = _params("16x16")
     state = allocate_state(prm, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown problem type 5"):
         solver.step(state, prm.replace(problem=5))
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        solver.step(state, prm.replace(problem=6))
 
 
 def test_validate_state_and_timing():
@@ -203,8 +207,10 @@ def test_cli_bad_or_unported_param_file(tmp_path, capsys):
     bad.write_text("nonsense\n")
     rc, _, err = _run_cli(cli.main, [str(bad), "--device", "cpu"], capsys)
     assert rc == 1 and "error" in err[0]
-    # Natural convection (problem 5) is not ported yet (ROADMAP A8).
+    # Natural convection (problem 5) runs on one device; on the sharded
+    # backend it is not ported yet (ROADMAP A10 item 6).
     conv = os.path.join(os.path.dirname(__file__), "..", "configs",
                         "convection.in")
-    rc, _, err = _run_cli(cli.main, [conv, "--device", "cpu"], capsys)
-    assert rc == 1 and "not ported" in err[0]
+    rc, _, err = _run_cli(cli.main, [conv, "--device", "cpu", "--backend",
+                                     "sharded"], capsys)
+    assert rc == 1 and "not ported" in err[0] and "A10 item 6" in err[0]
