@@ -101,6 +101,29 @@ recorded answer:
     to the JAX CLI's; the run stopped at step 150 and resumed, bit for
     bit with the straight run; the 32^2 heated block (masked, no kernel);
 
+  * natural convection on the sharded backend (the "sharded convection"
+    phase, a one-rank NCCL group): ``... configs/convection.in --backend
+    sharded --mesh 1x1 --max-steps 300 --stats`` by pallas_sor
+    (sor_ext_sweeps once per chunk of 8 sweeps) and by mg (sor_ext_sweeps
+    as the smoother, mg_coarse_cycle once per V-cycle), every other route
+    and plain twin barred, each step's passes held to the JAX sharded
+    backend's record (tests/jax_sharded_thermal_records.json);
+
+  * free surfaces (the "free surface" phase): the dam break of
+    ``configs/dambreak.in --free-wall freeslip`` cut to 60 steps through
+    ``cli.main`` on one device and by ``--backend sharded --mesh 1x1``,
+    every kernel route and plain sweep twin barred (no launch: the step
+    is plain PyTorch, as it is jnp in the JAX package), each step's passes
+    held to the JAX record (tests/jax_free_records.json), the fluid volume
+    within 1e-10 of JAX's, and the run stopped halfway and resumed from
+    its checkpoint bit for bit with the straight run;
+
+  * marker particles (the "particles" phase): configs/1.in with a 16^2
+    lattice of particles and a streakline source through
+    ``particles.trace_particles`` by pallas_sor (sor_sweeps and
+    momentum_rhs, the main path's counts and record), and its first step
+    on the card and on the CPU, the positions within 1e-5;
+
 then runs small converging cavities (SOR and mg) on the GPU and on the CPU
 and compares them.  Before the paths, the "decomposition" check cuts whole
 grids into the blocks of 1x1, 2x2 and 2x4 meshes, sweeps each block's
@@ -360,6 +383,7 @@ TILE_SIZES = (64, 256)
 # that level's constants.
 EXT_CASES = [("configs/4.in 1x1", (2048, 2048), (1, 1), (1, 8), False),
              ("configs/channel.in 1x1", (128, 64), (1, 1), (1, 8), False),
+             ("configs/convection.in 1x1", (64, 64), (1, 1), (1, 8), False),
              ("2048^2 2x2", (2048, 2048), (2, 2), (1, 8), False),
              ("99x63 2x4", (99, 63), (2, 4), (1, 8), False),
              ("mg 130^2 2x2", (130, 130), (2, 2), (MG_SWEEPS,), True),
@@ -1915,14 +1939,16 @@ MOMENTUM_ROUTES = ("momentum_rhs", "momentum_rhs_plain",
 
 
 @contextlib.contextmanager
-def masked_norms():
-    """Record the residual norms of every masked solve in the block: yields
-    a list that gains, per solve, the list of its norms (||p0|| on the
-    fluid cells, then one per outer pass)."""
+def masked_norms(module=None, name: str = "solve_pressure_masked"):
+    """Record the residual norms of every masked solve in the block (the
+    solve `module.name`, ops/masked.py's by default, whose norms are
+    ops/masked.py's _l2_fluid): yields a list that gains, per solve, the
+    list of its norms (||p0|| on the fluid cells, then one per pass)."""
     from navierstokes_parallel_tpu_torch.ops import masked
 
+    module = masked if module is None else module
     solves = []
-    l2, solve = masked._l2_fluid, masked.solve_pressure_masked
+    l2, solve = masked._l2_fluid, getattr(module, name)
 
     def recorded_l2(r, w):
         norm = l2(r, w)
@@ -1934,11 +1960,12 @@ def masked_norms():
         return solve(*args, **kw)
 
     masked._l2_fluid = recorded_l2
-    masked.solve_pressure_masked = recorded_solve
+    setattr(module, name, recorded_solve)
     try:
         yield solves
     finally:
-        masked._l2_fluid, masked.solve_pressure_masked = l2, solve
+        masked._l2_fluid = l2
+        setattr(module, name, solve)
 
 
 @contextlib.contextmanager
@@ -2132,6 +2159,55 @@ def phase_obstacle_profile(torch) -> None:
         for e in sorted(kernels, key=lambda e: e.count, reverse=True)[:6]:
             print(f"[obstacle profile]   {e.count:6d} x {device_us(e) / 1e3:9.4f}"
                   f" ms  {e.key[:80]}")
+    profile_free_pass(torch)
+
+
+def profile_free_pass(torch) -> None:
+    """One outer pass (K = 64 masked red-black sweeps, the f64 SUMMAC
+    refresh, defect and norm, one host sync) of the free-surface pressure
+    solve on configs/dambreak.in's 160 x 96 at its initial geometry, on a
+    seeded rhs: CUDA-event time, kernel launches and device time under the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.models import freesurface as FS
+    from navierstokes_parallel_tpu_torch.ops import surface
+
+    prm = Params.from_file(str(ROOT / "configs" / "dambreak.in"))
+    fs = FS.initial_free_state(prm, "cuda")
+    flags = surface.cell_flags(fs.pset.x, fs.pset.y, fs.pset.active, prm)
+    rng = np.random.default_rng(6)
+    rhs = np.zeros(prm.shape, np.float32)
+    rhs[1:-1, 1:-1] = rng.standard_normal((prm.i_max, prm.j_max))
+    rhs = torch.from_numpy(rhs).cuda()
+    p0 = torch.zeros_like(rhs)
+    one_pass = prm.replace(max_it=prm.sor_refine_every, epsilon=0.0)
+
+    def outer_pass():
+        return surface.solve_pressure_free(p0, rhs, flags, one_pass,
+                                           interpolated=True)
+
+    ms = cuda_ms(torch, outer_pass, 5)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        outer_pass()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        outer_pass()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    n_launches = sum(e.count for e in kernels)
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3
+    check(n_launches > 0, "the profiler saw no device kernel")
+    print(f"[free-surface profile] SUMMAC solve at {prm.shape}, "
+          f"{int(flags.bulk.sum())} bulk cells, one outer pass "
+          f"({prm.sor_refine_every} sweeps): {ms:.4f} ms (CUDA events, "
+          f"mean of 5), {n_launches} launches under the profiler, "
+          f"{busy_ms:.4f} ms of device time (busy {busy_ms / ms:.3f})")
+    for e in sorted(kernels, key=lambda e: e.count, reverse=True)[:6]:
+        print(f"[free-surface profile]   {e.count:6d} x "
+              f"{device_us(e) / 1e3:9.4f} ms  {e.key[:80]}")
 
 
 THERMAL_RECORDS = ROOT / "tests" / "jax_thermal_records.json"
@@ -2385,6 +2461,253 @@ def phase_convection(torch) -> dict:
         f"{tag} {SOLVE_SECONDS[tag]:.6f}" for tag in SOLVE_SECONDS
         if "convection" in tag or tag == "heated block"))
     return total
+
+
+SHARDED_THERMAL_RECORDS = ROOT / "tests" / "jax_sharded_thermal_records.json"
+# The port's two SOR methods take one route (the deep-halo inner), so the
+# pallas_sor run is held to JAX's rb_sor record.
+SHARDED_CONVECTION_RUNS = {"pallas_sor": "rb_sor", "mg": "mg"}
+
+
+def phase_sharded_convection(torch) -> dict:
+    """configs/convection.in on the sharded backend over a one-rank NCCL
+    group (1x1 mesh) through cli.main, SHARDED_CONVECTION_RUNS: by
+    pallas_sor every chunk of K = 8 sweeps one sor_ext_sweeps call (8 per
+    outer pass of 64, and one for the warm-up's single sweep); by mg, per
+    V-cycle and for the warm-up's one, two sor_ext_sweeps calls on every
+    sharded level above the coarsest and one mg_coarse_cycle.  Every other
+    route and plain twin barred; every step's passes through the gate
+    against the JAX sharded record (tests/jax_sharded_thermal_records.json,
+    300 steps on one CPU device), failures and centre values as JAX's.
+    Returns the launch counts summed over the runs."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops import mg
+    from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
+                                                          sor_kernel)
+    from navierstokes_parallel_tpu_torch.parallel import deep_halo
+
+    records = json.loads(SHARDED_THERMAL_RECORDS.read_text())[
+        "sharded_thermal"]
+    prm = Params.from_file(str(CONVECTION_CONFIG))
+    K = deep_halo.comm_depth(prm, prm.i_max, prm.j_max)
+    levels = mg.build_levels_sharded(prm, prm.i_max, prm.j_max)
+    routes = ("whole_grid_sweeps", "inner_sweeps_tiled",
+              "inner_sweeps_compressed", "warm_sweeps")
+    total = None
+    for method, recorded in SHARDED_CONVECTION_RUNS.items():
+        run = records[recorded]
+        tag = f"sharded convection {method}"
+        argv = [str(CONVECTION_CONFIG), "--backend", "sharded", "--mesh",
+                "1x1", "--method", method, "--max-steps", str(run["steps"]),
+                "--stats"]
+        want = {k: int(run["stats"][k]) for k in ("steps", "sor_failures")}
+        uc, vc = (float(line.split()[1]) for line in run["stdout"])
+        with barred(sor_kernel, PLAIN_SWEEPS + routes, f"the {tag} path"), \
+                barred(momentum_kernel, MOMENTUM_ROUTES, f"the {tag} path"), \
+                refined_norms() as solves:
+            stats, launches = run_cli(tag, argv, uc, vc, want,
+                                      rc_want=run["rc"])
+        R = 1 if method == "mg" else prm.sor_refine_every
+        passes, margins = passes_and_margins(solves[1:], prm, R)
+        gate_passes(tag, passes, margins, run["iterations"], R)
+        if method == "mg":
+            cycles = sum(passes) + 1
+            expect = {"sor_ext": cycles * 2 * (len(levels) - 1),
+                      "mg_coarse_cycle": cycles}
+        else:
+            expect = {"sor_ext": sum(passes) * -(-R // K) + 1}
+        got = {k: n for k, n in launches.items() if n}
+        print(f"[{tag}] {stats['sor_iterations']} iterations, JAX "
+              f"{run['stats']['sor_iterations']}; kernel launches {got}, "
+              f"expected {expect}")
+        check(got == expect, f"the {tag} path's kernel launches differ")
+        total = launches if total is None else {
+            k: total[k] + launches[k] for k in total}
+    print("[sharded convection] solve seconds: " + ", ".join(
+        f"{tag} {SOLVE_SECONDS[tag]:.6f}" for tag in SOLVE_SECONDS
+        if tag.startswith("sharded convection")))
+    return total
+
+
+FREE_RECORDS = ROOT / "tests" / "jax_free_records.json"
+FREE_DIR = ROOT / "build" / "free"
+
+
+def free_readings(path: Path, prm) -> dict:
+    """The fluid volume, front position and column height of a problem-6
+    checkpoint, on the card."""
+    from navierstokes_parallel_tpu_torch.models import freesurface as FS
+    from navierstokes_parallel_tpu_torch.utils.checkpoint import (
+        load_checkpoint)
+
+    fs = load_checkpoint(str(path), prm, "cuda")
+    return {"fluid_volume": FS.fluid_volume(fs, prm),
+            "front_position": FS.front_position(fs),
+            "column_height": FS.column_height(fs)}
+
+
+def phase_free_surface(torch) -> dict:
+    """The dam break of configs/dambreak.in (160 x 96, ppc 3: about 18,400
+    particles, free-slip walls) through cli.main, cut to the JAX record's
+    first N steps (tests/jax_free_records.json, "cut"), on one device and
+    by --backend sharded --mesh 1x1 (a one-rank NCCL group: the
+    partitioned sweeps and their all-reduce), every kernel route and plain
+    sweep twin barred and every launch count 0.  Each run: steps and
+    failures as JAX's, every step's passes through the gate (masked_norms
+    on ops/surface.py's solve), the centre values within the
+    contract, and from its checkpoint the fluid volume within 1e-10
+    relative of JAX's at that step, front position and column height
+    within the contract.  Then the one-device run stopped after N / 2
+    steps and resumed from its checkpoint: the state and the particles at
+    step N bit for bit the straight run's.  Returns the (zero) launch
+    counts."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops import surface
+
+    rec = json.loads(FREE_RECORDS.read_text())["free"]
+    steps = rec["cut"]
+    config = str(ROOT / rec["argv"][0])
+    prm = Params.from_file(config)
+    per_step = rec["per_step"]
+    uc, vc = (float(line.split()[1]) for line in rec["cut_cli"]["stdout"])
+    want = {"steps": steps, "sor_failures": per_step["converged"][
+        :steps].count(False)}
+    shutil.rmtree(FREE_DIR, ignore_errors=True)
+    FREE_DIR.mkdir(parents=True)
+    base = [config, *rec["argv"][1:], "--max-steps", str(steps)]
+    readings = {}
+    for tag, extra in (("free surface", []), ("free surface sharded", [
+            "--backend", "sharded", "--mesh", "1x1"])):
+        ck = FREE_DIR / f"{tag.replace(' ', '_')}.npz"
+        with no_kernel(tag), masked_norms(
+                surface, "solve_pressure_free") as solves:
+            stats, _ = run_cli(tag, [*base, *extra, "--checkpoint-every",
+                                     str(steps), "--checkpoint-path",
+                                     str(ck)], uc, vc, want, rc_want=3)
+        # The first solve is the CLI's warm-up step (max_it = 1).
+        passes, margins = passes_and_margins(solves[1:], prm,
+                                             prm.sor_refine_every)
+        gate_passes(tag, passes, margins, per_step["iterations"][:steps],
+                    prm.sor_refine_every)
+        print(f"[{tag}] {stats['sor_iterations']} sweeps, JAX "
+              f"{sum(per_step['iterations'][:steps])}")
+        got = readings[tag] = free_readings(ck, prm)
+        jax = {key: per_step[key][steps - 1] for key in got}
+        vol_err = abs(got["fluid_volume"] - jax["fluid_volume"]) / \
+            jax["fluid_volume"]
+        errs = {key: contract_err(got[key], jax[key])
+                for key in ("front_position", "column_height")}
+        print(f"[{tag}] at step {steps}: {got}; JAX {jax}; volume rel err "
+              f"{vol_err:.2e} (tol 1e-10), errors {errs} (contract "
+              f"{CONTRACT:.0e})")
+        check(vol_err <= 1e-10, f"{tag}: fluid volume differs from JAX's")
+        check(max(errs.values()) <= CONTRACT,
+              f"{tag}: front or column outside the contract")
+    half = str(steps // 2)
+    piece_a, piece_b = (FREE_DIR / f"piece{k}.npz" for k in "ab")
+    with no_kernel("free surface pieces"):
+        for tag, extra in (("free surface piece 1", [
+                "--checkpoint-every", half, "--checkpoint-path",
+                str(piece_a)]), ("free surface piece 2", [
+                "--resume", str(piece_a), "--checkpoint-every", half,
+                "--checkpoint-path", str(piece_b)])):
+            run_cli(tag, [config, *rec["argv"][1:], "--max-steps", half,
+                          *extra], None, None, {}, rc_want=3)
+    straight = FREE_DIR / "free_surface.npz"
+    same = same_checkpoints(straight, piece_b)
+    with np.load(straight) as ck:
+        keys = sorted(ck.files)
+    print(f"[free surface] resumed at step {half}: the state and particles "
+          f"at step {steps} equal the straight run's bit for bit: {same} "
+          f"(keys {keys})")
+    check(same and "px" in keys, "the resumed run differs from the straight")
+    shutil.rmtree(FREE_DIR, ignore_errors=True)
+    print("[free surface] solve seconds: " + ", ".join(
+        f"{tag} {SOLVE_SECONDS[tag]:.6f}" for tag in SOLVE_SECONDS
+        if tag.startswith("free surface")))
+    return {k: 0 for k in read_launches()}
+
+
+PARTICLE_LATTICE = 16
+# The card-against-CPU comparison's steps: one of configs/1.in's three
+# (the CPU takes ~33 s a step there).
+PARTICLE_CPU_STEPS = 1
+
+
+def particle_run(prm, device: str, max_steps: int = 0):
+    """configs/1.in with particles on `device`: a PARTICLE_LATTICE^2 seed
+    lattice with room for a two-point streakline source injected every
+    step, by pallas_sor (the CLI's default on the card; rb_sor's plain
+    twin on the CPU), to T or `max_steps` steps.  Returns (state, stats,
+    set, seconds)."""
+    import torch
+
+    from navierstokes_parallel_tpu_torch import particles
+
+    n = PARTICLE_LATTICE * PARTICLE_LATTICE
+    seeds = particles.grid_of_particles(prm, PARTICLE_LATTICE,
+                                        PARTICLE_LATTICE, capacity=n + 8,
+                                        device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, stats, pset, _ = particles.trace_particles(
+        prm, seeds, pressure_method="pallas_sor",
+        inject_points=[[0.5, 0.95], [0.05, 0.5]], inject_every=1,
+        max_steps=max_steps)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return state, stats, pset, time.perf_counter() - t0
+
+
+def phase_particles(torch) -> dict:
+    """Marker particles on the main path: configs/1.in with particles
+    through particles.trace_particles (solver.Stepper's steps, then the
+    advection) by pallas_sor, the plain twins barred: the configs/1.in
+    record (JAX_STATS, the centre values), sor_sweeps once per outer pass
+    and momentum_rhs once per step (no warm-up inside the count); then the
+    run's first PARTICLE_CPU_STEPS steps on the card and on the CPU: the
+    particle positions within 1e-5, the active masks equal.  Returns the
+    launch counts of the card's whole run."""
+    from navierstokes_parallel_tpu_torch import solver
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
+                                                          sor_kernel)
+
+    prm = Params.from_file(str(ROOT / "configs" / "1.in"))
+    solver.warm_up(prm, "cuda", "pallas_sor")
+    with barred(sor_kernel, PLAIN_SWEEPS, "the particles path"), \
+            barred(momentum_kernel, ("momentum_rhs_plain",
+                                     "momentum_rhs_simple"),
+                   "the particles path"):
+        reset_launches()
+        state, stats, pset, seconds = particle_run(prm, "cuda")
+        launches = read_launches()
+    uc, vc = solver.center_values(state, prm)
+    print(f"[particles] {stats} in {seconds:.3f} s; centre {uc:.6f} / "
+          f"{vc:.6f}; {int(pset.active.sum())} of {pset.x.numel()} "
+          f"particles active; launches {launches}")
+    check(dict(zip(("steps", "sor_iterations", "sor_failures"), stats[:3]))
+          == JAX_STATS, "the particles run's stats differ from JAX's")
+    check(max(contract_err(uc, JAX_U_CENTER), contract_err(
+        vc, JAX_V_CENTER)) <= CONTRACT, "centre values outside the contract")
+    calls = JAX_STATS["steps"] * -(-prm.max_it // prm.sor_refine_every)
+    check(launches["sor"] == calls and
+          launches["momentum"] == JAX_STATS["steps"],
+          f"the particles path launched {launches}, expected {calls} "
+          f"sor_sweeps and {JAX_STATS['steps']} momentum_rhs calls")
+    check_only(launches, ("sor", "momentum"), "the particles path")
+    _, gstats, gpset, _ = particle_run(prm, "cuda", PARTICLE_CPU_STEPS)
+    _, cstats, cpset, cseconds = particle_run(prm, "cpu", PARTICLE_CPU_STEPS)
+    err = max(float((gpset.x.cpu() - cpset.x).abs().max()),
+              float((gpset.y.cpu() - cpset.y).abs().max()))
+    same_active = torch.equal(gpset.active.cpu(), cpset.active)
+    print(f"[particles] {PARTICLE_CPU_STEPS} step(s) on the card {gstats} "
+          f"and on the CPU {cstats} in {cseconds:.3f} s; positions max abs "
+          f"err {err:.3e} (tol 1e-5), active masks equal {same_active}")
+    check(cstats[:3] == gstats[:3] and err <= 1e-5 and same_active,
+          "the card's particles differ from the CPU's")
+    return launches
 
 
 def sum_launches(runs) -> dict:
@@ -2889,6 +3212,11 @@ def main(argv=None) -> int:
             "sharded obstacles", phase_sharded_obstacles, torch)
         paths["convection"] = timed_phase("convection", phase_convection,
                                           torch)
+        paths["sharded convection"] = timed_phase(
+            "sharded convection", phase_sharded_convection, torch)
+        paths["free surface"] = timed_phase("free surface",
+                                            phase_free_surface, torch)
+        paths["particles"] = timed_phase("particles", phase_particles, torch)
         timed_phase("cpu-gpu", phase_cpu_gpu, torch)
         # After the paths: once the profiler has run in a process, every
         # later launch costs the host more.

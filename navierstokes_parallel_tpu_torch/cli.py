@@ -51,11 +51,9 @@ on rank 0 ends every rank with exit code 1 instead of leaving them waiting
 in the next gather.  The timer brackets the solve between a barrier and a
 synchronize; the final gather follows it.  ``jnp`` and
 ``pallas`` are the single-device route, as in the JAX CLI; ``gspmd`` is
-not ported.  The JAX CLI's flags of later slices are parsed with their
-JAX choices and refused, naming their ROADMAP item, whenever they ask for
-more than the default: ``--free-wall freeslip`` (A8) and ``--outer
-compensated`` (A9).  Unlike the JAX CLI, a tile size of 0 is refused rather
-than ignored.
+not ported.  The JAX CLI's ``--outer compensated`` is parsed and refused,
+naming its ROADMAP item (A9).  Unlike the JAX CLI, a tile size of 0 is
+refused rather than ignored.
 
 ``--obstacle I0:I1:J0:J1`` (repeatable) makes an interior cell rectangle
 solid, 1-based and inclusive, as the JAX CLI parses it: a flag-field domain
@@ -68,8 +66,19 @@ Problem 5 (natural convection, models/convection.py; ``configs/
 convection.in``) starts from the conduction state (``allocate_thermal``)
 and runs the same host loop over a ``ThermalStepper``; its frames add
 ``<k>_temp.txt`` and its checkpoints the temperature T (a problem-5 run
-refuses an isothermal checkpoint).  On the sharded backend it is refused
-(ROADMAP A10 item 6).
+refuses an isothermal checkpoint).  On the sharded backend it steps with
+``parallel/sharded_thermal.py::ThermalShardedStepper`` by any sharded
+method.
+
+Problem 6 (free surfaces, models/freesurface.py; ``configs/dambreak.in``)
+starts from the liquid box of the parameter file's lines 16-19 and runs the
+host loop over a ``FreeStepper`` with ``--free-wall`` (noslip or freeslip)
+as its container walls; its checkpoints carry the marker particles (a
+problem-6 run refuses a checkpoint without them).  Its pressure solve is
+the free-surface operator, so ``--method`` and ``--backend pallas`` are
+ignored with the JAX CLI's warnings.  On the sharded backend every rank
+holds the state and the pressure sweeps are partitioned
+(``parallel/sharded_free.py``).
 
 ``--time-order 2`` steps with Adams-Bashforth 2 (``solver.step_ab2``, and
 ``convection.thermal_step_ab2`` on problem 5) on both backends, as the JAX
@@ -94,7 +103,7 @@ import torch.distributed as dist
 
 from .config import Params
 from .grid import State, allocate_state, resolve_device
-from .models import convection
+from .models import convection, freesurface
 from .ops.cuda import sor_kernel
 from .ops.sor import default_method
 from .solver import SolveStats, Stepper, center_values, run_steps, warm_up
@@ -197,8 +206,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print per-step diagnostics to stderr every N steps")
     ap.add_argument("--free-wall", choices=["noslip", "freeslip"],
                     default="noslip",
-                    help="problem-6 container-wall condition; free surfaces "
-                         "are not ported (ROADMAP A8)")
+                    help="problem-6 container-wall condition (freeslip is "
+                         "the usual dam-break setting)")
     ap.add_argument("--max-steps", type=int, default=0,
                     help="stop after N steps (exit code 3 if t < T remains; "
                          "with --checkpoint-every and --resume, a run in "
@@ -208,9 +217,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> str:
     """The message refusing a flag of a later slice, or ''."""
-    if args.free_wall != "noslip":
-        return ("--free-wall freeslip (free surfaces, problem 6) is not "
-                "ported: ROADMAP A8")
     if args.outer == "compensated":
         return ("--outer compensated is not ported (the H100 has native "
                 "FP64): ROADMAP A9")
@@ -348,6 +354,20 @@ def main(argv=None) -> int:
     if args.backend == "sharded":
         return _main_sharded(args, params, device, mesh_shape,
                              pressure_method, state)
+    if params.problem == 6:
+        # The free-surface operator is the problem's own (JAX CLI).
+        if args.method != "rb_sor":
+            print(f"warning: problem 6 uses the free-surface traced pressure "
+                  f"operator; --method {args.method!r} is ignored",
+                  file=sys.stderr)
+        if args.backend == "pallas":
+            print("warning: problem 6 runs the plain free-surface path; "
+                  "--backend pallas is ignored", file=sys.stderr)
+        stepper = freesurface.FreeStepper(
+            params, state or freesurface.initial_free_state(params, device),
+            wall=args.free_wall)
+        stepper.warm()
+        return _run_timed(args, params, stepper)
     cfg = (convection.config_from_params(params) if params.problem == 5
            else None)
     try:
@@ -367,6 +387,11 @@ def main(argv=None) -> int:
             params, cfg, state or convection.allocate_thermal(params, cfg,
                                                               device),
             pressure_method, args.time_order)
+    return _run_timed(args, params, stepper)
+
+
+def _run_timed(args, params: Params, stepper) -> int:
+    """The one-device host loop under the timer, then the report."""
     start = time.perf_counter()
     try:
         stats = run_host_loop(params, stepper, args)
@@ -382,7 +407,6 @@ def main(argv=None) -> int:
 def _main_sharded(args, params: Params, device, mesh_shape,
                   pressure_method: str, state) -> int:
     """The sharded backend inside a process group; rank 0 reports."""
-    from .parallel import sharded
     from .parallel.topology import make_grid_mesh
 
     with distributed.process_group(device) as rank_device:
@@ -390,13 +414,12 @@ def _main_sharded(args, params: Params, device, mesh_shape,
         try:
             mesh = make_grid_mesh(i_max=params.i_max, j_max=params.j_max,
                                   shape=mesh_shape, device=rank_device)
-            sharded.warm_up(params, mesh, pressure_method, args.time_order)
+            stepper = _sharded_stepper(args, params, mesh, pressure_method,
+                                       state)
         except (NotImplementedError, ValueError) as e:
             if rank0:
                 print(f"error: {e}", file=sys.stderr)
             return 1
-        stepper = sharded.ShardedStepper(params, state, mesh,
-                                         pressure_method, args.time_order)
         dist.barrier()
         start = time.perf_counter()
         try:
@@ -412,6 +435,35 @@ def _main_sharded(args, params: Params, device, mesh_shape,
         if not rank0:
             return _exit_code(args, params, state)
         return _report(args, params, state, stats, elapsed)
+
+
+def _sharded_stepper(args, params: Params, mesh, pressure_method: str,
+                     state):
+    """The warmed stepper of the problem on the sharded backend: the
+    thermal stepper for problem 5, the free-surface stepper with the
+    partitioned sweeps for problem 6 (its state replicated on each rank),
+    else ``sharded.ShardedStepper``."""
+    from .parallel import sharded, sharded_free, sharded_thermal
+
+    if params.problem == 6:
+        fs = (freesurface.initial_free_state(params, mesh.device)
+              if state is None else freesurface.to_device(state, mesh.device))
+        stepper = sharded_free.make_free_stepper(params, fs, mesh,
+                                                 wall=args.free_wall)
+        stepper.warm()
+        return stepper
+    if params.problem == 5:
+        # Every --method choice is a sharded method, so the JAX CLI's
+        # fallback to rb_sor for an unsupported one never applies here.
+        cfg = convection.config_from_params(params)
+        sharded_thermal.warm_up(params, cfg, mesh, pressure_method)
+        return sharded_thermal.ThermalShardedStepper(
+            params, cfg, state if state is not None
+            else convection.allocate_thermal(params, cfg, mesh.device),
+            mesh, pressure_method)
+    sharded.warm_up(params, mesh, pressure_method, args.time_order)
+    return sharded.ShardedStepper(params, state, mesh, pressure_method,
+                                  args.time_order)
 
 
 class _FrameWriter:

@@ -21,7 +21,8 @@ the coarse cycle under ``mg``; the masked solve with obstacles).  The JAX
 package's on-device loops are host loops here, as in solver.py:
 ``thermal_solve`` reads t once per step, ``solve_convection`` one rate
 per chunk.  The JAX module's GSPMD functions are not ported (``gspmd.py``
-is left out of the port); ``solve_convection`` refuses a `mesh`.
+is left out of the port); ``solve_convection`` refuses a `mesh`.  The
+sharded backend steps problem 5 with parallel/sharded_thermal.py.
 """
 
 from __future__ import annotations
@@ -71,6 +72,19 @@ class ThermalState(NamedTuple):
     T: torch.Tensor
     t: torch.Tensor
     n: int
+
+
+def thermal_state_from_numpy(u, v, p, T, t=0.0, n=0, *, device,
+                             dtype=torch.float32) -> ThermalState:
+    """A ``ThermalState`` from host arrays (e.g. a JAX state through
+    numpy), in `dtype` on `device`."""
+    from ..grid import state_from_numpy
+
+    base = state_from_numpy(u, v, p, t, n, device=device, dtype=dtype)
+    return ThermalState(u=base.u, v=base.v, p=base.p,
+                        T=torch.tensor(np.asarray(T), dtype=dtype,
+                                       device=base.u.device),
+                        t=base.t, n=base.n)
 
 
 def convection_setup(Ra: float, Pr: float = 0.71, n: int = 64,
@@ -435,8 +449,9 @@ def solve_convection(params: Params, cfg: ThermalConfig,
     if mesh is not None:
         raise NotImplementedError(
             "solve_convection(mesh=...) runs the GSPMD recipe, which is not "
-            "ported (ROADMAP \"Left out of the port\": gspmd.py); the "
-            "sharded thermal stepper is ROADMAP A10 item 6")
+            "ported (ROADMAP \"Left out of the port\": gspmd.py); step "
+            "problem 5 on the sharded backend with "
+            "parallel/sharded_thermal.py::solve_sharded_thermal")
     if state is None:
         if device is None:
             raise ValueError("solve_convection needs a state or a device")

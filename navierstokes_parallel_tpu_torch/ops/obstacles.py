@@ -152,6 +152,14 @@ def _tensors(arrays, device, dtype=None):
 
 
 @functools.lru_cache(maxsize=32)
+def device_fluid_mask(params: Params, device: torch.device) -> torch.Tensor:
+    """``fluid_mask(params)`` as a bool tensor on `device`, made once; no
+    geometry check (the particles and the free-surface flags read it, as
+    the JAX package's do)."""
+    return torch.from_numpy(fluid_mask(params)).to(device)
+
+
+@functools.lru_cache(maxsize=32)
 def device_masks(params: Params, device: torch.device) -> ObstacleMasks:
     """``masks(params)`` as bool tensors on `device`, made once."""
     return _tensors(masks(params), device)

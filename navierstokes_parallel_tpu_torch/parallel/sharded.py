@@ -60,8 +60,9 @@ host integer here (JAX, whose axis index is traced, forms them from
 global-index predicates instead); each is built once per configuration
 and block.
 
-Not ported here (ROADMAP A10 items 6-7): the thermal and free-surface
-steppers; each raises ``NotImplementedError`` naming its item.
+Natural convection (problem 5) steps with parallel/sharded_thermal.py and
+free surfaces (problem 6) with parallel/sharded_free.py, which build on
+this module's helpers; ``ShardedStepper`` refuses both, naming its twin.
 """
 
 from __future__ import annotations
@@ -398,6 +399,70 @@ def _local_fg(u, v, dt, gamma, params: Params, gi, gj, mesh: Mesh):
     return F, G
 
 
+def _sharded_dt_gamma(u, v, params: Params, valid, mesh: Mesh,
+                      limit: Optional[float] = None):
+    """The adaptive dt and the donor-cell weight from the signed global
+    maxima of the local blocks, seeded with 0 (the reference's u[0][0]
+    seed, which is 0 for every closed box here); pad cells are excluded.
+    `limit` (a host float) joins the viscous bound in the min: the energy
+    equation's explicit-diffusion bound of problem 5."""
+    zero = torch.zeros((), dtype=u.dtype, device=u.device)
+
+    def global_max(x):
+        if valid is not None:
+            x = torch.where(valid, x, zero)
+        return torch.maximum(zero, _all_reduce(torch.max(x),
+                                               dist.ReduceOp.MAX, mesh))
+
+    def const(x):
+        # Device tensors, not Python scalars: CUDA divides by a host scalar
+        # as a multiply by its reciprocal, which rounds differently.
+        return st.scalar(x, u.dtype, u.device)
+
+    u_max = global_max(u[1:-1, 1:-1])
+    v_max = global_max(v[1:-1, 1:-1])
+    dx, dy = params.dx, params.dy
+    dx_t, dy_t = const(dx), const(dy)
+    visc = params.Re / 2.0 / (1.0 / (dx * dx) + 1.0 / (dy * dy))
+    bound = const(visc if limit is None else min(visc, limit))
+    dt = params.tau * torch.minimum(
+        bound, torch.minimum(dx_t / torch.abs(u_max), dy_t / torch.abs(v_max)))
+    if params.gamma_fixed is not None:
+        gamma = const(params.gamma_fixed)
+    else:
+        gamma = torch.maximum(u_max * dt / dx_t, v_max * dt / dy_t)
+    return dt, gamma
+
+
+def _local_rhs(F, G, dt, params: Params, valid, fluid=None):
+    """The padded block's Poisson rhs div(F, G)/dt, zero on pad cells (and
+    off `fluid` when given)."""
+    dx_t = st.scalar(params.dx, F.dtype, F.device)
+    dy_t = st.scalar(params.dy, F.dtype, F.device)
+    rhs_int = ((F[1:-1, 1:-1] - F[:-2, 1:-1]) / dx_t
+               + (G[1:-1, 1:-1] - G[1:-1, :-2]) / dy_t) / dt
+    zero = torch.zeros((), dtype=F.dtype, device=F.device)
+    for mask in (valid, fluid):
+        if mask is not None:
+            rhs_int = torch.where(mask, rhs_int, zero)
+    rhs = torch.zeros_like(F)
+    rhs[1:-1, 1:-1] = rhs_int
+    return rhs
+
+
+def _project(u, v, F, G, p, dt, params: Params, gi, gj) -> None:
+    """The projection (main.c:131-136), in place on the blocks u and v,
+    masked by the global update domains."""
+    dx_t = st.scalar(params.dx, u.dtype, u.device)
+    dy_t = st.scalar(params.dy, u.dtype, u.device)
+    u_new = F[1:-1, 1:-1] - dt * (p[2:, 1:-1] - p[1:-1, 1:-1]) / dx_t
+    v_new = G[1:-1, 1:-1] - dt * (p[1:-1, 2:] - p[1:-1, 1:-1]) / dy_t
+    u[1:-1, 1:-1] = torch.where((gi <= params.i_max - 1) & (gj <= params.j_max),
+                                u_new, u[1:-1, 1:-1])
+    v[1:-1, 1:-1] = torch.where((gj <= params.j_max - 1) & (gi <= params.i_max),
+                                v_new, v[1:-1, 1:-1])
+
+
 def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
                   mesh: Mesh, ab2=None):
     """One time step on local padded blocks (reference main.c:86-146);
@@ -406,32 +471,7 @@ def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
     the next one (None for Euler)."""
     li, lj = u.shape[0] - 2, u.shape[1] - 2
     valid, gi, gj = _valid_mask_or_none(params, li, lj, mesh)
-    zero = torch.zeros((), dtype=u.dtype, device=u.device)
-
-    def mask_pad(arr_int):
-        return arr_int if valid is None else torch.where(valid, arr_int, zero)
-
-    def const(x):
-        # Device tensors, not Python scalars: CUDA divides by a host scalar
-        # as a multiply by its reciprocal, which rounds differently.
-        return st.scalar(x, u.dtype, u.device)
-
-    # Adaptive dt from the signed global maxima, seeded with 0 (the
-    # reference's u[0][0] seed is always 0 for the cavity); pad cells are
-    # excluded.
-    u_max = torch.maximum(zero, _all_reduce(torch.max(mask_pad(u[1:-1, 1:-1])),
-                                            dist.ReduceOp.MAX, mesh))
-    v_max = torch.maximum(zero, _all_reduce(torch.max(mask_pad(v[1:-1, 1:-1])),
-                                            dist.ReduceOp.MAX, mesh))
-    dx, dy = params.dx, params.dy
-    dx_t, dy_t = const(dx), const(dy)
-    visc = const(params.Re / 2.0 / (1.0 / (dx * dx) + 1.0 / (dy * dy)))
-    dt = params.tau * torch.minimum(
-        visc, torch.minimum(dx_t / torch.abs(u_max), dy_t / torch.abs(v_max)))
-    if params.gamma_fixed is not None:
-        gamma = const(params.gamma_fixed)
-    else:
-        gamma = torch.maximum(u_max * dt / dx_t, v_max * dt / dy_t)
+    dt, gamma = _sharded_dt_gamma(u, v, params, valid, mesh)
 
     if params.problem == 3:
         u, v = _apply_channel_bcs_sharded(u, v, params, mesh)
@@ -466,25 +506,12 @@ def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
             # only; the projection needs the tentative velocities.
             au, av = _blocks_of(params, "apertures", mesh, F.shape, F.dtype)
             Fa, Ga = F * au, G * av
-    rhs_int = mask_pad(
-        ((Fa[1:-1, 1:-1] - Fa[:-2, 1:-1]) / dx_t
-         + (Ga[1:-1, 1:-1] - Ga[1:-1, :-2]) / dy_t) / dt)
-    if geo is not None:
-        rhs_int = torch.where(geo.fluid[1:-1, 1:-1], rhs_int, zero)
-    rhs = torch.zeros_like(p)
-    rhs[1:-1, 1:-1] = rhs_int
-
+    rhs = _local_rhs(Fa, Ga, dt, params, valid,
+                     None if geo is None else geo.fluid[1:-1, 1:-1])
     result = _sharded_pressure_solve(p, rhs, params, pressure_method, li, lj,
                                      valid, mesh)
     p = result.p
-
-    # Projection (main.c:131-136), masked by the global update domains.
-    u_new = F[1:-1, 1:-1] - dt * (p[2:, 1:-1] - p[1:-1, 1:-1]) / dx_t
-    v_new = G[1:-1, 1:-1] - dt * (p[1:-1, 2:] - p[1:-1, 1:-1]) / dy_t
-    u[1:-1, 1:-1] = torch.where((gi <= params.i_max - 1) & (gj <= params.j_max),
-                                u_new, u[1:-1, 1:-1])
-    v[1:-1, 1:-1] = torch.where((gj <= params.j_max - 1) & (gi <= params.i_max),
-                                v_new, v[1:-1, 1:-1])
+    _project(u, v, F, G, p, dt, params, gi, gj)
     if geo is not None:
         # The projection sweeps the obstacle faces too: restore them.
         u, v = _apply_obstacle_bcs_sharded(u, v, params, mesh)
@@ -607,12 +634,6 @@ def _check_method(params: Params, mesh: Mesh, pressure_method: str,
         raise ValueError(f"unknown pressure solver method {pressure_method!r}")
     if time_order not in (1, 2):
         raise ValueError(f"time_order must be 1 or 2, got {time_order}")
-    if params.problem not in (1, 2, 3, 4):
-        item = {5: 6, 6: 7}.get(params.problem, "6-7")
-        raise NotImplementedError(
-            f"problem {params.problem} on the sharded backend is not ported: "
-            f"ROADMAP A10 item {item} (the port's sharded step runs "
-            f"problems 1-4)")
     if params.obstacles:
         if pressure_method not in ("rb_sor", "pallas_sor"):
             raise ValueError(
@@ -648,6 +669,25 @@ def _check_method(params: Params, mesh: Mesh, pressure_method: str,
             "(float32 state and sor_refine_every > 0) and blocks of at "
             "least 2 x 2 cells")
     return px, py, li, lj
+
+
+def _check_isothermal(params: Params, time_order: int) -> None:
+    """Refuse the problems whose sharded step lives in another module: the
+    JAX backend's isothermal step would run them as an oscillating lid."""
+    if params.problem == 5 and time_order == 2:
+        raise ValueError(
+            "problem 5 with time_order 2 runs on one device (the sharded "
+            "thermal stepper integrates first-order, as the JAX package's "
+            "multi-chip thermal steppers do)")
+    if params.problem == 5:
+        raise ValueError(
+            "problem 5 steps on the sharded backend with "
+            "parallel/sharded_thermal.py (ThermalShardedStepper, "
+            "solve_sharded_thermal)")
+    if params.problem == 6:
+        raise ValueError(
+            "problem 6 steps on the sharded backend with "
+            "parallel/sharded_free.py (solve_free_sharded)")
 
 
 # ---------------------------------------------------------------------------
@@ -695,23 +735,44 @@ def _gather_blocks(blocks, px: int, py: int, li: int, lj: int,
     return out[: shape[0], : shape[1]]
 
 
+def scatter_field(params: Params, arr, mesh: Mesh) -> torch.Tensor:
+    """This rank's padded block of a reference-layout field (a tensor on
+    any device or an array; None for zeros) on the mesh's device, in the
+    configuration's dtype."""
+    px, py = mesh.shape
+    li, lj = local_block_dims((px, py), params.i_max, params.j_max)
+    dtype = params.torch_dtype
+    if arr is None:
+        return torch.zeros((li + 2, lj + 2), dtype=dtype, device=mesh.device)
+    ax, ay = mesh.coords
+    blocks = _scatter_blocks(host_array(arr), px, py, li, lj)
+    mine = blocks[ax * (li + 2):(ax + 1) * (li + 2),
+                  ay * (lj + 2):(ay + 1) * (lj + 2)]
+    return torch.tensor(mine, dtype=dtype, device=mesh.device)
+
+
+def gather_field(params: Params, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The reference-layout field of every rank's block `x`, on every rank
+    (an all-gather, then `_gather_blocks`), on the mesh's device."""
+    px, py = mesh.shape
+    li, lj = local_block_dims((px, py), params.i_max, params.j_max)
+    parts = [torch.empty_like(x) for _ in range(px * py)]
+    dist.all_gather(parts, x.contiguous(), group=mesh.group)
+    rows = [torch.cat(parts[ax * py:(ax + 1) * py], dim=1)
+            for ax in range(px)]
+    blocks = torch.cat(rows, dim=0).cpu().numpy()
+    out = _gather_blocks(blocks, px, py, li, lj, params.shape)
+    return torch.tensor(out, device=mesh.device)
+
+
 def scatter_state(params: Params, state, mesh: Mesh) -> State:
     """This rank's padded blocks of a reference-layout state (a port or a
     JAX ``State``; None for the zero state) as a ``State`` of local blocks
     on the mesh's device, in the configuration's dtype."""
-    px, py = mesh.shape
-    li, lj = local_block_dims((px, py), params.i_max, params.j_max)
-    ax, ay = mesh.coords
     dtype = params.torch_dtype
 
     def block(arr):
-        if arr is None:
-            return torch.zeros((li + 2, lj + 2), dtype=dtype,
-                               device=mesh.device)
-        blocks = _scatter_blocks(host_array(arr), px, py, li, lj)
-        mine = blocks[ax * (li + 2):(ax + 1) * (li + 2),
-                      ay * (lj + 2):(ay + 1) * (lj + 2)]
-        return torch.tensor(mine, dtype=dtype, device=mesh.device)
+        return scatter_field(params, arr, mesh)
 
     if state is None:
         return State(u=block(None), v=block(None), p=block(None),
@@ -725,20 +786,9 @@ def scatter_state(params: Params, state, mesh: Mesh) -> State:
 def gather_state(params: Params, local: State, mesh: Mesh) -> State:
     """The reference-layout state of every rank's blocks, on every rank
     (an all-gather, then `_gather_blocks`), on the mesh's device."""
-    px, py = mesh.shape
-    li, lj = local_block_dims((px, py), params.i_max, params.j_max)
-
-    def field(x):
-        parts = [torch.empty_like(x) for _ in range(px * py)]
-        dist.all_gather(parts, x.contiguous(), group=mesh.group)
-        rows = [torch.cat(parts[ax * py:(ax + 1) * py], dim=1)
-                for ax in range(px)]
-        blocks = torch.cat(rows, dim=0).cpu().numpy()
-        out = _gather_blocks(blocks, px, py, li, lj, params.shape)
-        return torch.tensor(out, device=mesh.device)
-
-    return State(u=field(local.u), v=field(local.v), p=field(local.p),
-                 t=local.t, n=local.n)
+    return State(u=gather_field(params, local.u, mesh),
+                 v=gather_field(params, local.v, mesh),
+                 p=gather_field(params, local.p, mesh), t=local.t, n=local.n)
 
 
 def _step_local(local: State, params: Params, pressure_method: str,
@@ -767,6 +817,7 @@ class ShardedStepper:
     def __init__(self, params: Params, state=None,
                  mesh: Optional[Mesh] = None,
                  pressure_method: str = "rb_sor", time_order: int = 1):
+        _check_isothermal(params, time_order)
         if mesh is None:
             mesh = make_grid_mesh(i_max=params.i_max, j_max=params.j_max)
         _check_method(params, mesh, pressure_method, time_order)

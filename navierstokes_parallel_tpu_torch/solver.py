@@ -4,7 +4,8 @@ PyTorch counterpart of ``navierstokes_parallel_tpu/solver.py`` for the
 cavity (problems 1 and 2), the plane channel (3) and the free-slip
 Taylor-Green box (4), each with or without flag-field obstacles
 (ops/obstacles.py); natural convection (problem 5) steps with
-models/convection.py, which reuses this module's rhs and tail.  One time step (reference main.c:86-146):
+models/convection.py, which reuses this module's rhs and tail, and free
+surfaces (problem 6) with models/freesurface.py.  One time step (reference main.c:86-146):
 
     adaptive CFL dt  ->  velocity BCs  ->  tentative F/G  ->  Poisson RHS
     ->  pressure solve (SOR, multigrid, CG or DCT)  ->  velocity projection
@@ -77,15 +78,11 @@ def _rhs(F, G, u, v, dt, params: Params):
 
 
 def _check_problem(params: Params) -> None:
-    if params.problem == 5:
-        # As the JAX package's step, whose boundary.lid_velocity refuses
-        # it: natural convection steps with models/convection.py.
-        raise ValueError(f"unknown problem type {params.problem}")
     if params.problem not in (1, 2, 3, 4):
-        raise NotImplementedError(
-            f"problem {params.problem} (free surfaces) is not ported yet: "
-            f"ROADMAP A8 (the port's solver.step runs problems 1-4, and "
-            f"models/convection.py problem 5)")
+        # As the JAX package's step, whose boundary.lid_velocity refuses
+        # them: natural convection steps with models/convection.py, free
+        # surfaces with models/freesurface.py.
+        raise ValueError(f"unknown problem type {params.problem}")
 
 
 def step(state: State, params: Params, *,

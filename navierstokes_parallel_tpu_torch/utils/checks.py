@@ -22,7 +22,9 @@ class NonFiniteStateError(RuntimeError):
 
 
 def _fields(state) -> tuple:
-    """The checked fields: u, v, p, and T of a thermal state."""
+    """The checked fields: u, v, p, and T of a thermal state (a
+    free-surface view's grid fields are u, v, p; its particles are not
+    checked, as in the JAX package)."""
     return ("u", "v", "p") + (("T",) if hasattr(state, "T") else ())
 
 

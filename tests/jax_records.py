@@ -33,8 +33,25 @@ iterations, convergence and the records of the run's record function,
 then the centre values and max |u|, |v| of the final state; and the JAX
 CLI on ``OBSTACLE_CLI``'s argv (its standard output and stats line); all
 written to PATH as JSON with each run's definition, which chip_smoke.py
-reads to run the same steps on the card.  A script, not a test module: it
+reads to run the same steps on the card.  ``sharded-thermal PATH``:
+configs/convection.in on the JAX sharded thermal backend over a one-device
+CPU mesh, SHARDED_THERMAL_STEPS steps by rb_sor and by mg (the JAX CLI's
+record with --backend sharded --mesh 1x1, and each step's iterations and
+convergence from ``ThermalShardedStepper``), written to PATH
+(tests/jax_sharded_thermal_records.json).  ``free PATH``: FREE_CLI, the
+dam break of configs/dambreak.in with free-slip walls to T = 2.0, through
+the JAX CLI (standard output and stats line) and stepped by
+``make_free_step_fn`` as its host loop steps: per step t, dt, the
+iterations, convergence, the centre values, ``fluid_volume``,
+``front_position`` and ``column_height``; and the first FREE_CUT steps of
+it through the CLI with --max-steps (chip_smoke.py's cut), written to
+PATH (tests/jax_free_records.json).  A script, not a test module: it
 imports JAX, which the port never does.
+
+    JAX_PLATFORMS=cpu python tests/jax_records.py sharded-thermal \
+        tests/jax_sharded_thermal_records.json
+    JAX_PLATFORMS=cpu python tests/jax_records.py free \
+        tests/jax_free_records.json
 """
 
 import os
@@ -102,6 +119,15 @@ SHARDED_OBSTACLE_RUNS = {
 SHARDED_OBSTACLE_CLI = ["configs/channel.in", "--obstacle", "17:24:27:34",
                         "--backend", "sharded", "--mesh", "1x1",
                         "--max-steps", "5", "--stats"]
+
+
+# The sharded thermal runs: configs/convection.in, by each method.
+SHARDED_THERMAL_STEPS = 300
+SHARDED_THERMAL_METHODS = ("rb_sor", "mg")
+
+# The dam break: the whole run, and the cut of chip_smoke.py's phase.
+FREE_CLI = ["configs/dambreak.in", "--free-wall", "freeslip", "--stats"]
+FREE_CUT = 60
 
 
 def _steps(fn, carry, n):
@@ -343,6 +369,69 @@ def record_sharded_obstacles(path: str) -> None:
     _update(path, "sharded_obstacles", runs)
 
 
+def record_sharded_thermal(path: str) -> None:
+    from navierstokes_parallel_tpu.models import convection
+    from navierstokes_parallel_tpu.parallel import sharded_thermal
+    from navierstokes_parallel_tpu.parallel.topology import make_grid_mesh
+
+    mesh = make_grid_mesh(1)
+    prm = Params.from_file(os.path.join(ROOT, THERMAL_CONFIG))
+    cfg = convection.config_from_params(prm)
+    runs = {}
+    for method in SHARDED_THERMAL_METHODS:
+        rec = _cli_record([THERMAL_CONFIG, "--backend", "sharded", "--mesh",
+                           "1x1", "--method", method, "--max-steps",
+                           str(SHARDED_THERMAL_STEPS), "--stats"])
+        stepper = sharded_thermal.ThermalShardedStepper(
+            prm, cfg, convection.allocate_thermal(prm, cfg), mesh, method)
+        iters, converged = [], []
+        for _ in range(SHARDED_THERMAL_STEPS):
+            diag = stepper.step()
+            iters.append(int(diag.sor_iterations))
+            converged.append(bool(diag.sor_converged))
+        rec.update(method=method, steps=SHARDED_THERMAL_STEPS,
+                   iterations=iters, converged=converged)
+        runs[method] = rec
+        print(method, rec["stats"], rec["stdout"], flush=True)
+    _update(path, "sharded_thermal", runs)
+
+
+def record_free(path: str) -> None:
+    from navierstokes_parallel_tpu.models import freesurface as FS
+
+    whole = _cli_record(FREE_CLI)
+    cut = _cli_record([*FREE_CLI, "--max-steps", str(FREE_CUT)])
+    prm = Params.from_file(os.path.join(ROOT, FREE_CLI[0]))
+    fs = FS.initial_free_state(prm)
+    fn = FS.make_free_step_fn(prm, "freeslip")
+    per_step = {key: [] for key in (
+        "t", "dt", "iterations", "converged", "centre", "fluid_volume",
+        "front_position", "column_height")}
+    T = float(np.asarray(prm.T, prm.jnp_dtype))
+    while float(fs.state.t) < T:
+        fs, diag = fn(fs)
+        per_step["t"].append(float(fs.state.t))
+        per_step["dt"].append(float(diag.dt))
+        per_step["iterations"].append(int(diag.sor_iterations))
+        per_step["converged"].append(bool(diag.sor_converged))
+        per_step["centre"].append(
+            [float(x) for x in solver.center_values(fs.state, prm)])
+        per_step["fluid_volume"].append(FS.fluid_volume(fs, prm))
+        per_step["front_position"].append(FS.front_position(fs))
+        per_step["column_height"].append(FS.column_height(fs))
+    init = FS.initial_free_state(prm)
+    out = {"argv": FREE_CLI, "cut": FREE_CUT, "whole": whole,
+           "cut_cli": cut, "initial": {
+               "fluid_volume": FS.fluid_volume(init, prm),
+               "front_position": FS.front_position(init),
+               "column_height": FS.column_height(init),
+               "particles": int(np.sum(np.asarray(init.pset.active)))},
+           "per_step": per_step}
+    print("whole", whole, "cut", cut, "steps", len(per_step["t"]),
+          flush=True)
+    _update(path, "free", out)
+
+
 if __name__ == "__main__":
     what, *args = sys.argv[1:]
     if what == "channel":
@@ -355,6 +444,11 @@ if __name__ == "__main__":
         record_thermal(args[0])
     elif what == "sharded-obstacles":
         record_sharded_obstacles(args[0])
+    elif what == "sharded-thermal":
+        record_sharded_thermal(args[0])
+    elif what == "free":
+        record_free(args[0])
     else:
         sys.exit(f"unknown record {what!r}: channel, taylor-green, "
-                 f"obstacles, thermal or sharded-obstacles")
+                 f"obstacles, thermal, sharded-obstacles, sharded-thermal "
+                 f"or free")

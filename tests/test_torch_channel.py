@@ -300,12 +300,13 @@ def test_first_step_ab2_is_euler(problem):
 
 def test_unported_problems_raise():
     # Problem 5 steps with models/convection.py (solver.step and step_ab2
-    # raise the JAX steps' ValueError); problem 6 is not ported (A8).
+    # raise the JAX steps' ValueError), problem 6 with models/freesurface.py
+    # (the same ValueError).
     prm, _ = _channel()
     state = solver.allocate_state(prm, "cpu")
     for problem, error, needle in (
             (5, ValueError, "unknown problem type 5"),
-            (6, NotImplementedError, "ROADMAP A8")):
+            (6, ValueError, "unknown problem type 6")):
         for fn, arg in ((solver.step, state),
                         (solver.step_ab2, solver.ab2_init(state))):
             with pytest.raises(error, match=needle):

@@ -1183,3 +1183,63 @@ def test_sharded_obstacle_step_on_the_card_launches_no_kernel(cuda):
         g = getattr(state, name).cpu().numpy()
         c = getattr(single, name).cpu().numpy()
         assert np.max(np.abs(g - c)) <= 1e-4 * max(1.0, np.max(np.abs(c)))
+
+
+@pytest.mark.gpu
+def test_free_surface_on_the_card_launches_no_kernel(cuda):
+    """Three dam-break steps (n = 15: dx = 1/15, no power of two) on the
+    card and on the CPU: the flag field and the particles' cells equal
+    (the binning divides through ops/stencils.py::div), no kernel
+    launched, equal sweeps, fields and positions within the contract."""
+    from navierstokes_parallel_tpu_torch.models import freesurface as FS
+    from navierstokes_parallel_tpu_torch.ops import surface
+
+    runs = {}
+    for device in (cuda, "cpu"):
+        prm, fs = FS.dam_break(n=15, T=0.25, dtype="float32", device=device)
+        sor_kernel.LAUNCHES = sor_kernel.WARM_LAUNCHES = 0
+        sor_kernel.TILED_LAUNCHES = sor_kernel.COMPRESSED_LAUNCHES = 0
+        sor_kernel.EXT_LAUNCHES = sor_kernel.CYCLE_LAUNCHES = 0
+        momentum_kernel.LAUNCHES = 0
+        out, stats = FS.solve_free(prm, fs, wall="freeslip", max_steps=3)
+        assert momentum_kernel.LAUNCHES == 0
+        assert sor_kernel.LAUNCHES == sor_kernel.WARM_LAUNCHES == 0
+        assert sor_kernel.TILED_LAUNCHES == sor_kernel.CYCLE_LAUNCHES == 0
+        assert sor_kernel.COMPRESSED_LAUNCHES == sor_kernel.EXT_LAUNCHES == 0
+        flags = surface.cell_flags(out.pset.x, out.pset.y, out.pset.active,
+                                   prm)
+        runs[device] = (out, stats, flags)
+    (g, gs, gf), (c, cs, cf) = runs[cuda], runs["cpu"]
+    assert gs[:3] == cs[:3] and gs.steps == 3
+    for name in ("fluid", "surface", "bulk"):
+        assert torch.equal(getattr(gf, name).cpu(), getattr(cf, name))
+    assert torch.equal(g.pset.active.cpu(), c.pset.active)
+    for a, b in ((g.state.u, c.state.u), (g.state.v, c.state.v),
+                 (g.state.p, c.state.p), (g.pset.x, c.pset.x),
+                 (g.pset.y, c.pset.y)):
+        b = b.numpy()
+        assert np.max(np.abs(a.cpu().numpy() - b)) <= 1e-4 * max(
+            1.0, np.max(np.abs(b)))
+
+
+@pytest.mark.gpu
+def test_particle_interpolation_on_the_card_equals_the_cpu(cuda):
+    """interp_uv and advect on a 36 x 20 grid (a = 2.1, b = 0.9): the card
+    equals the CPU bit for bit, every x / dx a true division."""
+    from navierstokes_parallel_tpu_torch import particles as P
+
+    prm = Params(i_max=36, j_max=20, a=2.1, b=0.9, dtype="float64")
+    rng = np.random.default_rng(8)
+    u = torch.from_numpy(rng.standard_normal(prm.shape))
+    v = torch.from_numpy(rng.standard_normal(prm.shape))
+    pts = np.stack([rng.uniform(0.01, 2.09, 500),
+                    rng.uniform(0.01, 0.89, 500)], -1)
+    outs = {}
+    for device in (cuda, "cpu"):
+        pset = P.init_particles(pts, dtype=torch.float64, device=device)
+        up, vp = P.interp_uv(pset.x, pset.y, u.to(device), v.to(device), prm)
+        moved = P.advect(pset, u.to(device), v.to(device), 0.01, prm)
+        outs[device] = [t.cpu() for t in (up, vp, moved.x, moved.y,
+                                          moved.active)]
+    for a, b in zip(outs[cuda], outs["cpu"]):
+        assert torch.equal(a, b)

@@ -9,12 +9,14 @@ backward-facing step by each masked solver and a short shedding trace of
 the sharp Schäfer-Turek cylinder (ops/obstacles.py, ops/masked.py,
 models/step.py, models/karman.py), a step of the heated-block convection
 by Euler and by Adams-Bashforth 2 (ops/energy.py, models/convection.py),
-the plain twins
+a free-surface step of a small dam break and a particle trace
+(particles.py, ops/surface.py, models/freesurface.py), the plain twins
 of the tiled and colour-compressed SOR kernels and of the multigrid
 coarse cycle, one step of the
 sharded backend on a one-rank process group, with and without an
-obstacle (parallel/, including the extended-block twin and the masked
-sweeps, and utils/distributed.py), and one step of the CLI's
+obstacle, of the sharded convection and of the sharded free surface
+(parallel/, including the extended-block twin and the masked sweeps,
+and utils/distributed.py), and one step of the CLI's
 host loop that writes a frame, a checkpoint and a history row with the
 physics monitors (utils/io.py and its native writer, utils/checkpoint.py,
 utils/diagnostics.py).
@@ -80,6 +82,16 @@ SCRIPT = textwrap.dedent("""
                                         pressure_method="rb_sor",
                                         max_steps=2, time_order=order)
         assert d.steps == 2 and d.sor_failures == 0, (order, d)
+    from navierstokes_parallel_tpu_torch import particles
+    from navierstokes_parallel_tpu_torch.models import freesurface
+    dam, fs = freesurface.dam_break(n=4, device="cpu")
+    fs, d = freesurface.free_step(fs, dam, wall="freeslip")
+    assert d.sor_converged and fs.state.n == 1, d
+    assert freesurface.fluid_volume(fs, dam) > 0
+    *_, hist = particles.trace_particles(
+        prm, particles.grid_of_particles(prm, 2, 2, device="cpu"),
+        max_steps=1)
+    assert hist.shape == (2, 4, 3)
     import torch
     from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel as sk
     rhs = torch.zeros(prm.shape)
@@ -96,15 +108,23 @@ SCRIPT = textwrap.dedent("""
         rhs.new_zeros(levels[1].shape), torch.ones(levels[1].shape),
         levels[1:]))
     assert sk.coarse_cycle_depth(levels) == 0 and sk.CYCLE_LAUNCHES == 0
-    from navierstokes_parallel_tpu_torch.parallel import sharded
+    from navierstokes_parallel_tpu_torch.parallel import (
+        sharded, sharded_free, sharded_thermal)
     from navierstokes_parallel_tpu_torch.utils import distributed
+    dvd, dvd_cfg = convection.convection_setup(Ra=1e4, n=8)
     with distributed.process_group("cpu"):
         sh_state, sh_stats = sharded.solve_sharded(prm, max_steps=1)
         _, ob_stats = sharded.solve_sharded(chan, max_steps=1)
+        _, th_stats = sharded_thermal.solve_sharded_thermal(
+            dvd, dvd_cfg, max_steps=1)
+        _, fr_stats = sharded_free.solve_free_sharded(dam, fs, max_steps=1)
     assert sh_stats.steps == 1 and sh_stats.total_sor_iterations > 0
     assert ob_stats.steps == 1 and ob_stats.sor_failures == 0
+    assert th_stats.steps == 1 and th_stats.sor_failures == 0
+    assert fr_stats.steps == 1 and fr_stats.sor_failures == 0
     for name in ("parallel.topology", "parallel.halo", "parallel.deep_halo",
-                 "parallel.sharded", "utils.distributed"):
+                 "parallel.sharded", "parallel.sharded_thermal",
+                 "parallel.sharded_free", "utils.distributed"):
         assert "navierstokes_parallel_tpu_torch." + name in sys.modules, name
     import contextlib, io, os
     from navierstokes_parallel_tpu_torch import cli
@@ -140,15 +160,16 @@ def test_port_imports_and_steps_without_jax(tmp_path):
 
 
 def test_no_jax_import_in_sources():
-    """Neither the port nor chip_smoke.py, tile_bench.py, direct_bench.py,
-    scripts/torch_channel_witness.py, scripts/torch_karman_witness.py or
-    scripts/torch_convection_witness.py imports jax or the JAX package."""
+    """Neither the port nor chip_smoke.py, tile_bench.py, direct_bench.py
+    or the witness scripts (scripts/torch_*_witness.py) imports jax or the
+    JAX package."""
     pkg = os.path.join(ROOT, "navierstokes_parallel_tpu_torch")
     paths = [os.path.join(ROOT, name) for name in (
         "chip_smoke.py", "tile_bench.py", "direct_bench.py",
         os.path.join("scripts", "torch_channel_witness.py"),
         os.path.join("scripts", "torch_karman_witness.py"),
-        os.path.join("scripts", "torch_convection_witness.py"))]
+        os.path.join("scripts", "torch_convection_witness.py"),
+        os.path.join("scripts", "torch_dambreak_witness.py"))]
     for dirpath, _, files in os.walk(pkg):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     banned = ("import jax", "from jax", "import navierstokes_parallel_tpu\n",
@@ -162,13 +183,15 @@ def test_no_jax_import_in_sources():
                         line.strip() + "\n" in banned:
                     offenders.append(f"{path}: {line.strip()}")
     scanned = {os.path.relpath(p, pkg) for p in paths}
-    for name in ("topology", "halo", "deep_halo", "sharded"):
+    for name in ("topology", "halo", "deep_halo", "sharded",
+                 "sharded_thermal", "sharded_free"):
         assert os.path.join("parallel", f"{name}.py") in scanned, name
     for name in ("distributed", "io", "checkpoint", "diagnostics"):
         assert os.path.join("utils", f"{name}.py") in scanned, name
     for name in ("cavity", "channel", "taylorgreen", "step", "karman",
-                 "convection"):
+                 "convection", "freesurface"):
         assert os.path.join("models", f"{name}.py") in scanned, name
-    for name in ("obstacles", "masked", "energy"):
+    for name in ("obstacles", "masked", "energy", "surface"):
         assert os.path.join("ops", f"{name}.py") in scanned, name
+    assert "particles.py" in scanned
     assert len(paths) > 10 and not offenders, offenders

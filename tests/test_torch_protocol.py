@@ -281,11 +281,22 @@ def test_refusals(case, needle, tmp_path, capsys):
     # 8) by the masked rb_sor; another sharded method is JAX's ValueError.
     (["--obstacle", "3:5:3:5", "--backend", "sharded", "--method", "mg"],
      "masked deep-halo rb_sor"),
-    (["--free-wall", "freeslip"], "ROADMAP A8"),
+    # Free surfaces run (A8): the flag drives configs/dambreak.in's walls;
+    # its label is the JAX CLI's stats line of the same run.
+    (["--free-wall", "freeslip"], None),
     (["--outer", "compensated"], "ROADMAP A9"),
 ], ids=["time_order", "obstacle", "free_wall", "outer"])
 def test_later_slice_flags_refused(argv, label, tmp_path, capsys):
     path, _ = _config(tmp_path)
+    if "--free-wall" in argv:
+        dam = [os.path.join(os.path.dirname(__file__), "..", "configs",
+                            "dambreak.in"), *argv, "--max-steps", "2",
+               "--stats"]
+        rc, out, err = _run(cli.main, [*dam, "--device", "cpu"], capsys)
+        jrc, jout, jerr = _run(jcli.main, dam, capsys)
+        assert rc == jrc == 3 and out == jout
+        assert err.split()[:3] == jerr.split()[:3]
+        return
     if "--time-order" in argv:
         path = os.path.join(os.path.dirname(__file__), "..", "configs",
                             "convection.in")

@@ -536,14 +536,53 @@ def test_mesh_neighbours_and_origin():
 
 
 @pytest.mark.parametrize("case,needle", [
-    ("time_order_2_problem_5", "A10 item 6"), ("obstacles", None),
-    ("problem_5", "problem 5"), ("problem_6", "A10 item 7"),
+    ("time_order_2_problem_5", "first-order"), ("obstacles", None),
+    ("problem_5", "sharded_thermal"), ("problem_6", "sharded_free"),
     ("compensated", "A9")])
 def test_unported_sharded_branches_raise(one_rank, case, needle):
     kw, method, order = {}, "rb_sor", 1
     if case == "time_order_2_problem_5":
-        kw, order = {"problem": 5}, 2
-    elif case == "obstacles":
+        # JAX's refusal: the multi-chip thermal steppers are first-order.
+        with pytest.raises(ValueError, match=needle):
+            sharded.solve_sharded(_params(problem=5), mesh=one_rank,
+                                  time_order=2)
+        return
+    if case.startswith("problem_"):
+        # Ported (A10 items 6 and 7): the isothermal stepper names the
+        # module that steps the problem, and two steps of it on one rank
+        # give the single-device counts and fields (the contract).
+        with pytest.raises(ValueError, match=needle):
+            sharded.solve_sharded(_params(problem=int(case[-1])),
+                                  mesh=one_rank)
+        if case == "problem_5":
+            from navierstokes_parallel_tpu_torch.models import convection
+            from navierstokes_parallel_tpu_torch.parallel import \
+                sharded_thermal
+
+            prm = _params(problem=5, Ra=5000.0, Pr=0.71, max_it=5000)
+            cfg = convection.config_from_params(prm)
+            state, stats = sharded_thermal.solve_sharded_thermal(
+                prm, cfg, mesh=one_rank, max_steps=2)
+            single, sstats = convection.thermal_solve(
+                prm, cfg, device="cpu", pressure_method="rb_sor",
+                max_steps=2)
+            fields = ("u", "v", "p", "T")
+        else:
+            from navierstokes_parallel_tpu_torch.models import freesurface
+            from navierstokes_parallel_tpu_torch.parallel import sharded_free
+
+            prm, fs = freesurface.dam_break(n=8, device="cpu")
+            state, stats = sharded_free.solve_free_sharded(
+                prm, fs, one_rank, max_steps=2)
+            single, sstats = freesurface.solve_free(prm, fs, max_steps=2)
+            state, single = state.state, single.state
+            fields = ("u", "v", "p")
+        assert stats == sstats._replace(last_res_norm=stats.last_res_norm)
+        assert stats.steps == 2
+        for name in fields:
+            _assert_contract(getattr(state, name), getattr(single, name))
+        return
+    if case == "obstacles":
         # Ported (A10 item 8): two steps on one rank give the single-device
         # masked solve's counts, and its u and v within the contract
         # (tests/test_torch_sharded_obstacles.py holds it against JAX).
@@ -555,8 +594,6 @@ def test_unported_sharded_branches_raise(one_rank, case, needle):
         for name in ("u", "v"):
             _assert_contract(getattr(state, name), getattr(single, name))
         return
-    elif case.startswith("problem_"):
-        kw = {"problem": int(case[-1])}
     else:
         kw = {"outer_precision": "compensated"}
     with pytest.raises(NotImplementedError, match=needle):
@@ -705,11 +742,26 @@ def test_cli_backends_and_max_steps(tmp_path, capsys):
     (["--backend", "sharded", "--method", "mg"], "A10"),
 ])
 def test_cli_sharded_errors(tmp_path, capsys, argv, needle):
-    # The sharded mg runs; on problem 5 (not ported on the sharded backend)
-    # it is refused, naming its ROADMAP item.
+    # The sharded mg runs, on problem 5 too since ROADMAP A10 item 6 (the
+    # "A10" case, which refused it before): two steps give the JAX sharded
+    # CLI's counts and centre values.
     path = _param_file(tmp_path, problem=5 if needle == "A10" else 1)
-    rc, out, err = _run(cli.main, [path, "--device", "cpu", *argv], capsys)
-    assert rc == 1 and needle in err and out == ""
+    if needle == "A10":
+        from navierstokes_parallel_tpu import cli as jcli
+
+        cut = [*argv, "--mesh", "1x1", "--max-steps", "2", "--stats"]
+        rc, out, err = _run(cli.main, [path, "--device", "cpu", *cut],
+                            capsys)
+        jrc, jout, jerr = _run(jcli.main, [path, *cut], capsys)
+        assert rc == jrc == 3 and len(out.splitlines()) == 2
+        assert err.split()[:3] == jerr.split()[:3]
+        _assert_contract([float(x.split()[1]) for x in out.splitlines()],
+                         [float(x.split()[1]) for x in jout.splitlines()])
+        assert err.startswith("steps=2 ")
+    else:
+        rc, out, err = _run(cli.main, [path, "--device", "cpu", *argv],
+                            capsys)
+        assert rc == 1 and needle in err and out == ""
     assert not dist.is_initialized()
 
 

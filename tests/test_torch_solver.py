@@ -109,13 +109,14 @@ def test_solve_needs_state_or_device():
 
 
 def test_unported_problem_raises():
-    # Problem 5 steps with models/convection.py; solver.step raises the JAX
-    # step's ValueError for it, and problem 6 is not ported (ROADMAP A8).
+    # Problem 5 steps with models/convection.py and problem 6 with
+    # models/freesurface.py; solver.step raises the JAX step's ValueError
+    # for both.
     prm, _ = _params("16x16")
     state = allocate_state(prm, "cpu")
     with pytest.raises(ValueError, match="unknown problem type 5"):
         solver.step(state, prm.replace(problem=5))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(ValueError, match="unknown problem type 6"):
         solver.step(state, prm.replace(problem=6))
 
 
@@ -207,10 +208,11 @@ def test_cli_bad_or_unported_param_file(tmp_path, capsys):
     bad.write_text("nonsense\n")
     rc, _, err = _run_cli(cli.main, [str(bad), "--device", "cpu"], capsys)
     assert rc == 1 and "error" in err[0]
-    # Natural convection (problem 5) runs on one device; on the sharded
-    # backend it is not ported yet (ROADMAP A10 item 6).
+    # Natural convection (problem 5) runs on the sharded backend too
+    # (parallel/sharded_thermal.py): one step of configs/convection.in.
     conv = os.path.join(os.path.dirname(__file__), "..", "configs",
                         "convection.in")
-    rc, _, err = _run_cli(cli.main, [conv, "--device", "cpu", "--backend",
-                                     "sharded"], capsys)
-    assert rc == 1 and "not ported" in err[0] and "A10 item 6" in err[0]
+    rc, out, err = _run_cli(cli.main, [conv, "--device", "cpu", "--backend",
+                                       "sharded", "--max-steps", "1",
+                                       "--stats"], capsys)
+    assert rc == 3 and err[0].startswith("steps=1 ") and len(out) == 2
