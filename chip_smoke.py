@@ -124,6 +124,35 @@ recorded answer:
     momentum_rhs, the main path's counts and record), and its first step
     on the card and on the CPU, the positions within 1e-5;
 
+  * gradients (the "gradients" phase, diff.py): 3 differentiable steps of
+    configs/1.in's 256^2 cavity in f64 to epsilon 1e-9 by mg from a
+    seeded symmetry-broken start, d(loss)/d(lid_scale) and a directional
+    derivative w.r.t. the initial u held to JAX's record
+    (tests/jax_a9_records.json) and to central differences of the card's
+    own forward; sor_warm_sweeps and mg_coarse_cycle counted in the
+    forward pass, the recomputed forward and the adjoint solves apart
+    (the plain twins barred); remat and no remat equal bit for bit, their
+    peak device memory at 3 and 12 steps; the seconds of a gradient
+    beside a forward; the same gradient by pallas_sor (sor_sweeps in both
+    passes); d(Nu_hot)/d(t_left) on configs/convection.in's 64^2 and a
+    masked-adjoint derivative on the 128 x 32 backward-facing step (no
+    kernel), each against its JAX record;
+
+  * the compensated outer (the "compensated" phase, ops/compensated.py):
+    the error-free transformations exact on 2^20 pairs on the card, the
+    compensated defect at 2050^2 within its error bound, and configs/1.in
+    with --outer compensated through ``cli.main`` at K = 64 and 2048 and
+    on the sharded 1x1 mesh by rb_sor and mg, each against the JAX CLI's
+    record with its kernels' launches;
+
+  * ensembles (the "ensemble" phase, ``solver.solve_ensemble``): 8 seeded
+    members of configs/1.in's 256^2 cavity (max_it cut to 2000) by rb_sor
+    (batched: the momentum and the SOR sweep kernels take every member in
+    one launch) and fft (batched; the momentum kernel) and mg (member by
+    member), each member's counts against JAX's ensemble record and its
+    solo run on the card, the batch's seconds (after a warm-up of the
+    batched route) and launches beside the solo runs';
+
 then runs small converging cavities (SOR and mg) on the GPU and on the CPU
 and compares them.  Before the paths, the "decomposition" check cuts whole
 grids into the blocks of 1x1, 2x2 and 2x4 meshes, sweeps each block's
@@ -131,7 +160,9 @@ extended block with sor_ext_sweeps and holds the assembled cores against
 the whole-grid kernels bit for bit (the deep-halo exactness argument,
 parallel/deep_halo.py).  The "cycle" phase times one V-cycle at 2048^2 and
 counts its kernel launches under the profiler, as it is and as it was with
-the first smoother kernel on every level.  Each path runs with the launch
+the first smoother kernel on every level; after it the "ensemble profile"
+counts the launches of one batched outer pass of the 8 members beside one
+solo pass on the SOR kernel.  Each path runs with the launch
 counts set to 0 just before it and read just after; the JSON record's
 ``launches`` sums a kernel's counts over the paths.  Each phase prints its
 seconds.  Any failed phase prints ``FAIL: ...`` and exits 1 before the last
@@ -360,6 +391,11 @@ DCT_SIZES = ((2048, 2048), (999, 757))
 # relative above (tests/conftest.py::assert_close_reference_contract).
 CONTRACT = 1e-4
 SOR_SWEEPS = 64  # the main path's K: one kernel call = 64 sweeps
+# The members of the ensemble phase (tests/jax_a9_records.json "ensemble").
+ENSEMBLE_MEMBERS = 8
+# The kernels each method's batched ensemble step launches on the card.
+ENSEMBLE_KERNELS = {"rb_sor": ("momentum", "sor"), "fft": ("momentum",),
+                    "mg": ("momentum", "sor_warm", "mg_coarse_cycle")}
 # The refinement interval of the benchmark's SOR arm; the main path runs a
 # second time with it.
 BENCH_REFINE_EVERY = 2048
@@ -603,6 +639,62 @@ def phase_compare(torch) -> dict:
                                    f"n={n}, tile={tile}")
         errs[key] = max(errs[key], err)
     errs["sor_ext"] = compare_ext(torch, rng)
+    for key, err in compare_batched(torch, rng).items():
+        errs[key] = max(errs[key], err)
+    return errs
+
+
+def compare_batched(torch, rng) -> dict:
+    """The kernels the batched ensemble step launches with a member axis,
+    at the ensemble phase's shape (8 members of 258^2): the whole-grid
+    sweeps (B1) for n = 0, 1, 7 and 64 and the fused momentum kernel (B2)
+    with a dt and a gamma per member, each against its plain twin on the
+    member axis and against each member's own launch: error 0.0.  Returns
+    the max abs error per kernel."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
+                                                          sor_kernel)
+
+    members = ENSEMBLE_MEMBERS
+    prm = Params(i_max=256, j_max=256, a=1.0, b=0.7, Re=1000.0, g_x=0.1,
+                 g_y=-0.2, omega=1.7)
+    errs = {"sor": 0.0, "momentum": 0.0}
+    rhs = torch.stack([random_grid(torch, rng, (256, 256), ring=False)
+                       for _ in range(members)])
+    for n in (0, 1, 7, SOR_SWEEPS):
+        got = sor_kernel.whole_grid_sweeps(rhs, n, prm)
+        err = float((got - sor_kernel.inner_sweeps_plain(rhs, n, prm))
+                    .abs().max())
+        solo = all(torch.equal(got[k], sor_kernel.whole_grid_sweeps(
+            rhs[k].contiguous(), n, prm)) for k in range(members))
+        print(f"[compare] sor {members} x {prm.shape} n={n} (one launch per "
+              f"chunk for the batch): max abs err {err:.3e} vs the plain "
+              f"twin (expected 0), equals each member's launch {solo}")
+        check(err == 0.0 and solo, f"batched sor kernel disagrees, n={n}")
+        errs["sor"] = max(errs["sor"], err)
+    u, v = (torch.from_numpy(rng.standard_normal((members, *prm.shape))
+                             .astype(np.float32)).cuda() for _ in range(2))
+    dt = torch.from_numpy(rng.uniform(0.002, 0.005, members)
+                          .astype(np.float32)).cuda()
+    gamma = torch.from_numpy(rng.uniform(0.5, 0.9, members)
+                             .astype(np.float32)).cuda()
+    got = momentum_kernel.momentum_rhs(u, v, dt, gamma, prm)
+    want = momentum_kernel.momentum_rhs_plain(u, v, dt, gamma, prm)
+    solos = [momentum_kernel.momentum_rhs(u[k].contiguous(),
+                                          v[k].contiguous(), dt[k], gamma[k],
+                                          prm) for k in range(members)]
+    torch.cuda.synchronize()
+    for i, name in enumerate(("F", "G", "rhs")):
+        err = float((got[i] - want[i]).abs().max())
+        solo = all(torch.equal(got[i][k], solos[k][i])
+                   for k in range(members))
+        print(f"[compare] momentum {name} {members} x {prm.shape} (one "
+              f"launch, a dt and a gamma per member): max abs err "
+              f"{err:.3e} vs the plain twin (expected 0), equals each "
+              f"member's launch {solo}")
+        check(err == 0.0 and solo,
+              f"batched momentum kernel disagrees on {name}")
+        errs["momentum"] = max(errs["momentum"], err)
     return errs
 
 
@@ -2162,6 +2254,49 @@ def phase_obstacle_profile(torch) -> None:
     profile_free_pass(torch)
 
 
+def profile_ensemble_pass(torch) -> None:
+    """One outer pass (K = 64 sweeps, the f64 defect and norm) of the
+    ensemble phase's pressure solve: the batched solve of its 8 members
+    (sor.solve_pressure_batch: the SOR kernel over every member in one
+    launch per chunk) beside one member's solo solve on the same kernel
+    route, on seeded compatible rhs at 256^2: CUDA-event time, kernel
+    launches and device time under the profiler (what batching saves in
+    launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops import sor
+
+    prm = Params.from_file(str(ROOT / "configs" / "1.in"))
+    one_pass = prm.replace(max_it=prm.sor_refine_every)
+    rng = np.random.default_rng(6)
+    rhs = np.zeros((8, *prm.shape), np.float32)
+    rhs[:, 1:-1, 1:-1] = rng.standard_normal((8, prm.i_max, prm.j_max))
+    rhs[:, 1:-1, 1:-1] -= rhs[:, 1:-1, 1:-1].mean(axis=(1, 2), keepdims=True)
+    rhs = torch.from_numpy(rhs).cuda()
+    p0 = torch.zeros_like(rhs)
+    for tag, members, outer_pass in (
+            ("batched, 8 members", 8, lambda: sor.solve_pressure_batch(
+                p0, rhs, one_pass, method="rb_sor")),
+            ("solo, 1 member", 1, lambda: sor.solve_pressure(
+                p0[0], rhs[0], one_pass, method="rb_sor"))):
+        ms = cuda_ms(torch, outer_pass, 5)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            outer_pass()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        n_launches = sum(e.count for e in kernels)
+        busy_ms = sum(device_us(e) for e in kernels) / 1e3
+        check(n_launches > 0, "the profiler saw no device kernel")
+        print(f"[ensemble profile] rb_sor {tag} at {prm.shape}, one outer "
+              f"pass ({one_pass.max_it} sweeps): {ms:.4f} ms (CUDA events, "
+              f"mean of 5; {ms / members:.4f} ms a member), {n_launches} "
+              f"launches under the profiler ({n_launches / members:.1f} a "
+              f"member), {busy_ms:.4f} ms of device time (busy "
+              f"{busy_ms / ms:.3f})")
+
+
 def profile_free_pass(torch) -> None:
     """One outer pass (K = 64 masked red-black sweeps, the f64 SUMMAC
     refresh, defect and norm, one host sync) of the free-surface pressure
@@ -2710,6 +2845,498 @@ def phase_particles(torch) -> dict:
     return launches
 
 
+A9_RECORDS = ROOT / "tests" / "jax_a9_records.json"
+# The differentiable path's relative bounds: against JAX's record (the
+# same f64 arithmetic and converged solves), and against central
+# differences of the card's own forward (tests/test_diff.py's bounds).
+GRAD_JAX_REL = 1e-6
+GRAD_FD_REL = {"lid": 1e-5, "dir": 1e-4}
+# Steps of the remat memory readings (the record's run is 3 steps).
+REMAT_STEPS = (3, 12)
+
+
+def perturbation(shape, seed: int, scale: float, rng=None) -> np.ndarray:
+    """tests/jax_records.py's perturbation: scale * standard normal of
+    default_rng(seed) (or of `rng`) on the interior of a padded field."""
+    rng = np.random.default_rng(seed) if rng is None else rng
+    out = np.zeros(shape)
+    out[1:-1, 1:-1] = scale * rng.standard_normal((shape[0] - 2,
+                                                   shape[1] - 2))
+    return out
+
+
+def fence(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def launch_delta(a: dict, b: dict) -> dict:
+    return {k: a[k] - b[k] for k in a}
+
+
+def rel_err(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-300)
+
+
+def cavity_gradient_setup(torch, rec: dict, device: str):
+    """The record's cavity: Params, the perturbed start and the direction
+    (tests/jax_records.py DIFF_CAVITY), on `device`."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.grid import allocate_state
+
+    prm = Params.from_file(str(ROOT / rec["config"]), dtype=rec["dtype"],
+                           epsilon=rec["epsilon"])
+    base = allocate_state(prm, device)
+    base = base._replace(u=base.u + torch.tensor(perturbation(
+        prm.shape, rec["bump_seed"], rec["bump"]), device=device))
+    direction = torch.tensor(perturbation(prm.shape, rec["direction_seed"],
+                                          1.0), device=device)
+    return prm, base, direction
+
+
+def cavity_loss(torch, prm, base, rec, lid_scale, u0, steps=None,
+                method=None, remat=True):
+    from navierstokes_parallel_tpu_torch import diff
+
+    c = diff.default_controls(prm, base.u.device)._replace(
+        lid_scale=lid_scale)
+    final, _ = diff.solve_n_steps(prm, base._replace(u=u0),
+                                  steps or rec["steps"], controls=c,
+                                  pressure_method=method or rec["method"],
+                                  remat=remat)
+    return (final.u[1:-1, 1:-1] ** 2).sum() + (final.v[1:-1, 1:-1] ** 2).sum()
+
+
+def gradient_run(torch, prm, base, rec, device, **kw):
+    """One loss and its backward pass on `device`: (loss, d/d lid_scale,
+    d/d u0, forward launches, backward launches, forward s, backward s)."""
+    lid = torch.tensor(1.0, dtype=base.u.dtype, device=device,
+                       requires_grad=True)
+    u0 = base.u.clone().requires_grad_(True)
+    fence(torch, device)
+    reset_launches()
+    t0 = time.perf_counter()
+    loss = cavity_loss(torch, prm, base, rec, lid, u0, **kw)
+    fence(torch, device)
+    t1 = time.perf_counter()
+    fwd = read_launches()
+    reset_launches()
+    loss.backward()
+    fence(torch, device)
+    t2 = time.perf_counter()
+    return (float(loss.detach()), lid.grad, u0.grad, fwd, read_launches(),
+            t1 - t0, t2 - t1)
+
+
+def phase_gradients(torch, device: str = "cuda") -> dict:
+    """The differentiable path (diff.py) at configs/1.in's 256^2 grid, f64
+    to epsilon 1e-9, by mg (tests/jax_a9_records.json "diff" "cavity"):
+    the loss, d/d(lid_scale) and the directional derivative w.r.t. the
+    initial u against JAX's record (GRAD_JAX_REL) and against central
+    differences of the card's own forward (GRAD_FD_REL); the smoother and
+    coarse-cycle launches of the forward pass, of the backward pass with
+    remat (the recomputed forward and the adjoint solves) and without it
+    (the adjoint solves alone), printed apart, the plain twins barred;
+    the gradient with and without remat equal; a recomputed step equal to
+    the first bit for bit; peak device memory with and without remat at
+    REMAT_STEPS steps; the seconds of one gradient beside one forward; the
+    same gradient by pallas_sor (the SOR sweep kernel in both passes);
+    then d(Nu_hot)/d(t_left) on configs/convection.in's 64^2 ("thermal")
+    and a masked-adjoint directional derivative on the backward-facing
+    step at 128 x 32 ("masked", no kernel), each against its JAX record.
+    Returns the launch counts of the mg gradient with remat."""
+    from navierstokes_parallel_tpu_torch import diff
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+
+    with open(A9_RECORDS) as fh:
+        records = json.load(fh)["diff"]
+    rec = records["cavity"]
+    prm, base, direction = cavity_gradient_setup(torch, rec, device)
+    print(f"[gradients] configs/1.in {prm.i_max}x{prm.j_max} {rec['dtype']} "
+          f"eps {rec['epsilon']:g}, {rec['steps']} steps by {rec['method']}"
+          f" from u + {rec['bump']} N(0,1) (seed {rec['bump_seed']})")
+    with barred(sor_kernel, PLAIN_SWEEPS, "the gradients path"):
+        gradient_run(torch, prm, base, rec, device, steps=1)  # first use
+        loss, g_lid_t, g_u, fwd, bwd, fwd_s, bwd_s = gradient_run(
+            torch, prm, base, rec, device)
+        _, g_lid0, g_u0, fwd0, adj, _, _ = gradient_run(
+            torch, prm, base, rec, device, remat=False)
+    recompute = launch_delta(bwd, adj)
+    g_lid, g_dir = float(g_lid_t), float(torch.sum(g_u * direction))
+    print(f"[gradients] loss {loss!r} (JAX {rec['loss']!r}); d/d lid_scale "
+          f"{g_lid!r} (JAX {rec['grad_lid']!r}, rel "
+          f"{rel_err(g_lid, rec['grad_lid']):.2e}); directional {g_dir!r} "
+          f"(JAX {rec['directional']!r}, rel "
+          f"{rel_err(g_dir, rec['directional']):.2e}); bound {GRAD_JAX_REL:g}")
+    print(f"[gradients] launches: forward {fwd}; backward with remat {bwd} "
+          f"= recomputed forward {recompute} + adjoint solves {adj}")
+    print(f"[gradients] one forward + backward with remat: {fwd_s:.3f} + "
+          f"{bwd_s:.3f} s")
+    check(rel_err(loss, rec["loss"]) <= GRAD_JAX_REL,
+          "the loss differs from JAX's record")
+    check(rel_err(g_lid, rec["grad_lid"]) <= GRAD_JAX_REL and
+          rel_err(g_dir, rec["directional"]) <= GRAD_JAX_REL,
+          "the gradients differ from JAX's record")
+    same = torch.equal(g_lid0, g_lid_t) and torch.equal(g_u0, g_u)
+    print(f"[gradients] with and without remat: equal bit for bit {same}")
+    check(same, "remat changed the gradient")
+    for name, counts in (("forward", fwd), ("adjoint", adj),
+                         ("recompute", recompute)):
+        check_only(counts, ("sor_warm", "mg_coarse_cycle"),
+                   f"the gradients path's {name} solves")
+    check(recompute == fwd, "the recomputed forward launched other kernels "
+          "than the forward")
+    a, _ = diff.diff_step(base, prm, pressure_method=rec["method"])
+    b, _ = diff.diff_step(base, prm, pressure_method=rec["method"])
+    check_same_fields(a, b, "gradients: two forwards of one step")
+
+    h, hd = rec["h_lid"], rec["h_dir"]
+    one = torch.tensor(1.0, dtype=base.u.dtype, device=device)
+    with torch.no_grad():
+        fd_lid = (float(cavity_loss(torch, prm, base, rec, one + h, base.u))
+                  - float(cavity_loss(torch, prm, base, rec, one - h,
+                                      base.u))) / (2 * h)
+        fd_dir = (float(cavity_loss(torch, prm, base, rec, one,
+                                    base.u + hd * direction))
+                  - float(cavity_loss(torch, prm, base, rec, one,
+                                      base.u - hd * direction))) / (2 * hd)
+        fence(torch, device)
+        t0 = time.perf_counter()
+        cavity_loss(torch, prm, base, rec, one, base.u)
+        fence(torch, device)
+        plain_s = time.perf_counter() - t0
+    print(f"[gradients] central differences of the card's forward: lid "
+          f"{fd_lid!r} (rel {rel_err(g_lid, fd_lid):.2e}, bound "
+          f"{GRAD_FD_REL['lid']:g}; JAX's own {rec['fd_lid']!r}), "
+          f"directional {fd_dir!r} (rel {rel_err(g_dir, fd_dir):.2e}, bound "
+          f"{GRAD_FD_REL['dir']:g}; JAX's own {rec['fd_dir']!r})")
+    print(f"[gradients] seconds: one forward without autograd {plain_s:.3f};"
+          f" one gradient (forward {fwd_s:.3f} + backward {bwd_s:.3f}) "
+          f"{fwd_s + bwd_s:.3f}, {(fwd_s + bwd_s) / plain_s:.2f}x")
+    check(rel_err(g_lid, fd_lid) <= GRAD_FD_REL["lid"] and
+          rel_err(g_dir, fd_dir) <= GRAD_FD_REL["dir"],
+          "the gradients differ from the card's central differences")
+
+    if device == "cuda":
+        peaks = {}
+        for steps in REMAT_STEPS:
+            for remat in (True, False):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                start = torch.cuda.memory_allocated()
+                gradient_run(torch, prm, base, rec, device, steps=steps,
+                             remat=remat)
+                peaks[steps, remat] = (torch.cuda.max_memory_allocated()
+                                       - start)
+                print(f"[gradients] {steps} steps, remat {remat}: peak device "
+                      f"memory {peaks[steps, remat] / 2**20:.1f} MiB over "
+                      f"the {start / 2**20:.1f} MiB held before")
+        lo, hi = REMAT_STEPS
+        print(f"[gradients] peak growth {lo} -> {hi} steps: remat "
+              f"{peaks[hi, True] / peaks[lo, True]:.2f}x, without "
+              f"{peaks[hi, False] / peaks[lo, False]:.2f}x")
+        check(peaks[hi, True] < peaks[hi, False],
+              "remat did not lower the peak memory")
+
+    with barred(sor_kernel, PLAIN_SWEEPS, "the pallas_sor gradient"):
+        _, p_lid, p_u, pfwd, pbwd, pfwd_s, pbwd_s = gradient_run(
+            torch, prm, base, rec, device, method="pallas_sor")
+    p_lid = float(p_lid)
+    print(f"[gradients] by pallas_sor: d/d lid_scale {p_lid!r} (rel to mg "
+          f"{rel_err(p_lid, g_lid):.2e}: its solves stop at max_it "
+          f"{prm.max_it}, short of eps {prm.epsilon:g}); launches forward "
+          f"{pfwd}, backward {pbwd}; {pfwd_s:.3f} + {pbwd_s:.3f} s")
+    check(np.isfinite(p_lid) and bool(torch.isfinite(p_u).all()),
+          "the pallas_sor gradient is not finite")
+    check_only(pfwd, ("sor",), "the pallas_sor gradient's forward")
+    check_only(pbwd, ("sor",), "the pallas_sor gradient's backward")
+
+    thermal_gradient(torch, records["thermal"], device)
+    masked_gradient(torch, records["masked"], device)
+    return sum_launches([fwd, bwd, fwd0, adj, pfwd, pbwd])
+
+
+def thermal_gradient(torch, rec: dict, device: str) -> None:
+    """d(Nu_hot)/d(t_left) through diff.solve_thermal_n_steps against the
+    JAX record (tests/jax_records.py DIFF_THERMAL)."""
+    from navierstokes_parallel_tpu_torch import diff
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.models import convection
+
+    prm = Params.from_file(str(ROOT / rec["config"]), dtype=rec["dtype"],
+                           epsilon=rec["epsilon"])
+    cfg = convection.config_from_params(prm)
+    ts = convection.allocate_thermal(prm, cfg, device)
+    rng = np.random.default_rng(rec["bump_seed"])
+    bumps = [torch.tensor(perturbation(prm.shape, 0, rec["bump"], rng),
+                          device=device) for _ in range(2)]
+    ts = ts._replace(u=ts.u + bumps[0], v=ts.v + bumps[1])
+    t_left = torch.tensor(rec["t_left"], dtype=ts.T.dtype, device=device,
+                          requires_grad=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    final, _ = diff.solve_thermal_n_steps(prm, ts, rec["steps"],
+                                          cfg._replace(t_left=t_left),
+                                          pressure_method=rec["method"])
+    nu = torch.mean(-2.0 * (final.T[1, 1:-1] - t_left) * prm.i_max)
+    nu.backward()
+    fence(torch, device)
+    seconds = time.perf_counter() - t0
+    got_nu, got_g = float(nu.detach()), float(t_left.grad)
+    print(f"[gradients] thermal {rec['config']} {prm.i_max}^2 "
+          f"{rec['steps']} steps by {rec['method']}: Nu_hot {got_nu!r} (JAX "
+          f"{rec['nu_hot']!r}), d/d t_left {got_g!r} (JAX "
+          f"{rec['grad_t_left']!r}, rel "
+          f"{rel_err(got_g, rec['grad_t_left']):.2e}) in {seconds:.3f} s; "
+          f"launches {read_launches()}")
+    check(rel_err(got_nu, rec["nu_hot"]) <= GRAD_JAX_REL and
+          rel_err(got_g, rec["grad_t_left"]) <= GRAD_JAX_REL,
+          "the thermal gradient differs from JAX's record")
+
+
+def masked_gradient(torch, rec: dict, device: str) -> None:
+    """The masked adjoint: a directional derivative w.r.t. the initial u on
+    the backward-facing step against the JAX record (DIFF_MASKED); the
+    masked solves are plain PyTorch (no kernel launched)."""
+    from navierstokes_parallel_tpu_torch import diff
+    from navierstokes_parallel_tpu_torch.grid import allocate_state
+    from navierstokes_parallel_tpu_torch.models import step as bfs
+
+    prm = bfs.backward_facing_step(**rec["kwargs"], dtype=rec["dtype"],
+                                   epsilon=rec["epsilon"])
+    base = allocate_state(prm, device)
+    bump = torch.tensor(perturbation(prm.shape, rec["bump_seed"],
+                                     rec["bump"]), device=device)
+    base = base._replace(u=base.u + bump, v=base.v + bump)
+    direction = torch.tensor(perturbation(prm.shape, rec["direction_seed"],
+                                          1.0), device=device)
+    u0 = base.u.clone().requires_grad_(True)
+    reset_launches()
+    t0 = time.perf_counter()
+    final, _ = diff.solve_n_steps(prm, base._replace(u=u0), rec["steps"],
+                                  pressure_method=rec["method"])
+    loss = (final.u[1:-1, 1:-1] ** 2).sum() + (final.v[1:-1, 1:-1] ** 2).sum()
+    loss.backward()
+    fence(torch, device)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    got = float(torch.sum(u0.grad * direction))
+    print(f"[gradients] masked {prm.i_max}x{prm.j_max} backward-facing step "
+          f"{rec['steps']} steps by {rec['method']}: loss {float(loss)!r} "
+          f"(JAX {rec['loss']!r}), directional {got!r} (JAX "
+          f"{rec['directional']!r}, rel "
+          f"{rel_err(got, rec['directional']):.2e}) in {seconds:.3f} s; "
+          f"launches {launches}")
+    check(rel_err(float(loss), rec["loss"]) <= GRAD_JAX_REL and
+          rel_err(got, rec["directional"]) <= GRAD_JAX_REL,
+          "the masked gradient differs from JAX's record")
+    check_only(launches, (), "the masked gradient")
+
+
+# The compensated residual at configs/4.in's 2050^2 (tests/
+# test_compensated.py's field and error model at dx = 1/2048), and the
+# random pairs of the error-free transformations.
+COMPENSATED_N = 2048
+EFT_PAIRS = 1 << 20
+
+
+def phase_compensated(torch, device: str = "cuda") -> dict:
+    """The compensated outer (ops/compensated.py): the error-free
+    transformations on EFT_PAIRS random f32 pairs on the card, exact in
+    f64 and equal to the CPU's bit for bit; residual_df against the f64
+    defect at 2050^2 within tests/test_compensated.py's error bound (the
+    plain f32 defect 100x further off); then configs/1.in through the CLI
+    with --outer compensated at K = 64 and 2048, and on the sharded 1x1
+    mesh by rb_sor and by mg, each against the JAX CLI's record
+    (tests/jax_a9_records.json "compensated"): steps and failures exact,
+    sweeps within one K-quantum per step, centre values within the
+    contract, the path's kernels launched.  Returns the launch counts."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops import compensated as comp
+    from navierstokes_parallel_tpu_torch.ops import sor
+
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal(EFT_PAIRS).astype(np.float32)
+    b = (rng.standard_normal(EFT_PAIRS)
+         * 10.0 ** rng.integers(-6, 6, EFT_PAIRS)).astype(np.float32)
+    wide = a.astype(np.float64), b.astype(np.float64)
+    ta, tb = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+    for name, exact in (("two_sum", wide[0] + wide[1]),
+                        ("two_prod", wide[0] * wide[1])):
+        x, e = (y.cpu().numpy() for y in getattr(comp, name)(ta, tb))
+        cx, ce = (y.numpy() for y in getattr(comp, name)(
+            torch.from_numpy(a), torch.from_numpy(b)))
+        exact_ok = np.array_equal(x.astype(np.float64) + e, exact)
+        same = np.array_equal(x, cx) and np.array_equal(e, ce)
+        print(f"[compensated] {name} on {EFT_PAIRS} pairs: exact in f64 "
+              f"{exact_ok}; equal to the CPU's {same}")
+        check(exact_ok and same, f"{name} is not exact on the card")
+
+    n = COMPENSATED_N
+    dx = 1.0 / n
+    dx2 = np.float32(1.0 / (dx * dx))
+    x = (np.arange(n + 2) - 0.5) * dx
+    p64 = (np.sin(2 * np.pi * x)[:, None] * np.cos(2 * np.pi * x)[None, :]
+           * 3.0)
+    hi = np.float32(p64)
+    lo = np.float32(p64 - hi)
+    pair = torch.from_numpy(hi.astype(np.float64) + lo).to(device)
+    zeros = torch.zeros((n, n), dtype=torch.float64, device=device)
+    lap = sor.residual(pair, zeros, float(dx2), float(dx2))
+    rhs32 = (lap + 1e-4 * torch.from_numpy(rng.standard_normal(
+        (n, n))).to(device)).to(torch.float32)
+    r64 = sor.residual(pair, rhs32.to(torch.float64), float(dx2), float(dx2))
+    t_hi, t_lo = torch.from_numpy(hi).to(device), torch.from_numpy(lo).to(
+        device)
+    rdf = comp.residual_df(t_hi, t_lo, rhs32, dx2, dx2)
+    r32 = sor.residual(t_hi, rhs32, dx2, dx2)
+    err = float((rdf.to(torch.float64) - r64).abs().max())
+    err32 = float((r32.to(torch.float64) - r64).abs().max())
+    eps = float(np.finfo(np.float32).eps)
+    bound = (32 * eps ** 2 * float(np.abs(p64).max()) * float(dx2)
+             + 8 * eps * float(r64.abs().max()))
+    print(f"[compensated] residual_df at {n + 2}^2 against the f64 defect: "
+          f"max err {err:.3e} (bound {bound:.3e}); the plain f32 defect "
+          f"{err32:.3e} ({err32 / max(err, 1e-300):.0f}x)")
+    check(err <= bound and err32 > 100 * err,
+          "residual_df misses its error bound")
+
+    with open(A9_RECORDS) as fh:
+        records = json.load(fh)["compensated"]
+    runs = []
+    for tag, rec in records.items():
+        want = {k: int(rec["stats"][k]) for k in ("steps", "sor_failures")}
+        uc, vc = (float(line.split()[1]) for line in rec["stdout"])
+        stats, launches = run_cli(f"compensated {tag}",
+                                  [str(ROOT / rec["argv"][0]),
+                                   *rec["argv"][1:]], uc, vc, want)
+        prm = Params.from_file(str(ROOT / rec["argv"][0]))
+        if "--refine-every" in rec["argv"]:
+            quantum = int(rec["argv"][rec["argv"].index("--refine-every")
+                                      + 1])
+        else:
+            quantum = 1 if "mg" in rec["argv"] else prm.sor_refine_every
+        sweeps, jax_sweeps = (int(stats["sor_iterations"]),
+                              int(rec["stats"]["sor_iterations"]))
+        print(f"[compensated {tag}] sweeps {sweeps} vs JAX {jax_sweeps} "
+              f"(allowed {quantum} per step)")
+        check(abs(sweeps - jax_sweeps) <= quantum * want["steps"],
+              "the sweeps differ from JAX's by more than a K-quantum a step")
+        kernels = {("single", False): ("sor", "momentum"),
+                   ("single", True): ("sor_warm", "mg_coarse_cycle",
+                                      "momentum"),
+                   ("sharded", False): ("sor_ext",),
+                   ("sharded", True): ("sor_ext", "mg_coarse_cycle")}[
+            "sharded" if "sharded" in rec["argv"] else "single",
+            "mg" in rec["argv"]]
+        check_only(launches, kernels, f"the compensated {tag} run")
+        runs.append(launches)
+    return sum_launches(runs)
+
+
+def ensemble_members(torch, prm, rec: dict, device: str):
+    """tests/jax_records.py's ensemble_members on `device`."""
+    from navierstokes_parallel_tpu_torch.grid import allocate_state
+
+    rng = np.random.default_rng(rec["seed"])
+    members = []
+    for k in range(rec["members"]):
+        s = allocate_state(prm, device)
+        du = perturbation(prm.shape, 0, rec["scale"] * k, rng)
+        members.append(s._replace(u=s.u + torch.tensor(du, dtype=s.u.dtype,
+                                                       device=device)))
+    return members
+
+
+def phase_ensemble(torch, device: str = "cuda") -> dict:
+    """solver.solve_ensemble on the card (tests/jax_a9_records.json
+    "ensemble": 8 members of configs/1.in's 256^2 cavity, f32, max_it cut
+    to 2000): by rb_sor and fft (batched) and mg (member by member), each
+    member's steps, iterations and failures against JAX's ensemble record
+    and the member's solo solver.solve on the card, its fields within the
+    contract of the solo run's (rb_sor's: equal bit for bit, the batch
+    runs the solo route's kernels) and its centre
+    values of JAX's; the kernels each batched step must launch
+    (ENSEMBLE_KERNELS), and the seconds and launch counts of the batch,
+    after one warm-up step of the batched route, beside those of the 8
+    solo runs.  Returns the launch counts of the batched runs."""
+    from navierstokes_parallel_tpu_torch import solver
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops import sor
+
+    with open(A9_RECORDS) as fh:
+        rec = json.load(fh)["ensemble"]
+    prm = Params.from_file(str(ROOT / rec["config"]), dtype=rec["dtype"],
+                           max_it=rec["max_it"])
+    check(rec["members"] == ENSEMBLE_MEMBERS,
+          f"the ensemble record has {rec['members']} members, the batched "
+          f"kernels were compared at {ENSEMBLE_MEMBERS}")
+    members = ensemble_members(torch, prm, rec, device)
+    runs = []
+    i_c, j_c = prm.i_max // 2, prm.j_max // 2
+    for method, jax_run in rec["runs"].items():
+        route = ("batched" if method in sor.BATCHED_METHODS
+                 else "member by member")
+        solver.warm_up(prm, device, method)
+        # One step of every member (T below any dt), one sweep or cycle: the
+        # batched route's first use.
+        solver.solve_ensemble(prm.replace(max_it=1, T=1e-9),
+                              solver.stack_states(members),
+                              pressure_method=method)
+        fence(torch, device)
+        reset_launches()
+        t0 = time.perf_counter()
+        out, stats = solver.solve_ensemble(
+            prm, solver.stack_states(members), pressure_method=method)
+        fence(torch, device)
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        for name in ENSEMBLE_KERNELS[method]:
+            check(launches[name] > 0,
+                  f"the {method} ensemble launched no {name} kernel")
+        solo_s, solo_launches, worst = 0.0, [], 0.0
+        for k, member in enumerate(members):
+            reset_launches()
+            t0 = time.perf_counter()
+            state, sstats = solver.solve(prm, member, pressure_method=method)
+            fence(torch, device)
+            solo_s += time.perf_counter() - t0
+            solo_launches.append(read_launches())
+            check((int(stats.steps[k]), int(stats.total_sor_iterations[k]),
+                   int(stats.sor_failures[k])) == tuple(sstats[:3]),
+                  f"ensemble member {k} by {method} differs from its solo "
+                  f"run {sstats}")
+            worst = max([worst] + [contract_err(
+                getattr(out, name)[k].cpu().numpy(),
+                getattr(state, name).cpu().numpy())
+                for name in ("u", "v", "p")])
+        for key in ("steps", "iterations", "failures"):
+            got = getattr(stats, {"steps": "steps",
+                                  "iterations": "total_sor_iterations",
+                                  "failures": "sor_failures"}[key]).tolist()
+            check(got == jax_run[key], f"ensemble {method} {key} {got}, JAX "
+                                       f"recorded {jax_run[key]}")
+        centre = max(contract_err([float(out.u[k, i_c, j_c]),
+                                   float(out.v[k, i_c, j_c])], c)
+                     for k, c in enumerate(jax_run["centre"]))
+        solo = sum_launches(solo_launches)
+        print(f"[ensemble] {method} ({route}), {rec['members']} members: "
+              f"steps {stats.steps.tolist()}, iterations "
+              f"{stats.total_sor_iterations.tolist()}, failures "
+              f"{stats.sor_failures.tolist()} (JAX's and the solo runs'); "
+              f"fields vs solo max contract err {worst:.2e}, centre vs JAX "
+              f"{centre:.2e}")
+        print(f"[ensemble] {method}: batch {seconds:.3f} s, launches "
+              f"{launches}; {rec['members']} solo runs {solo_s:.3f} s, "
+              f"launches {solo}")
+        check(worst <= CONTRACT and centre <= CONTRACT,
+              f"the {method} ensemble's fields are outside the contract")
+        check(method != "rb_sor" or worst == 0.0,
+              "the batched rb_sor ensemble differs from its solo runs")
+        runs.append(launches)
+    return sum_launches(runs)
+
+
 def sum_launches(runs) -> dict:
     return {k: sum(run[k] for run in runs) for k in runs[0]}
 
@@ -3217,11 +3844,16 @@ def main(argv=None) -> int:
         paths["free surface"] = timed_phase("free surface",
                                             phase_free_surface, torch)
         paths["particles"] = timed_phase("particles", phase_particles, torch)
+        paths["gradients"] = timed_phase("gradients", phase_gradients, torch)
+        paths["compensated"] = timed_phase("compensated", phase_compensated,
+                                           torch)
+        paths["ensemble"] = timed_phase("ensemble", phase_ensemble, torch)
         timed_phase("cpu-gpu", phase_cpu_gpu, torch)
         # After the paths: once the profiler has run in a process, every
         # later launch costs the host more.
         timed_phase("cycle", phase_cycle, torch)
         timed_phase("obstacle profile", phase_obstacle_profile, torch)
+        timed_phase("ensemble profile", profile_ensemble_pass, torch)
         if args.profile:
             phase_profile(torch, args.trace)
     except PhaseFailed as e:

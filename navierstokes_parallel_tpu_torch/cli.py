@@ -51,8 +51,9 @@ on rank 0 ends every rank with exit code 1 instead of leaving them waiting
 in the next gather.  The timer brackets the solve between a barrier and a
 synchronize; the final gather follows it.  ``jnp`` and
 ``pallas`` are the single-device route, as in the JAX CLI; ``gspmd`` is
-not ported.  The JAX CLI's ``--outer compensated`` is parsed and refused,
-naming its ROADMAP item (A9).  Unlike the JAX CLI, a tile size of 0 is
+not ported.  ``--outer compensated`` runs the two-float refinement outer
+(ops/sor.py, ops/compensated.py) on one device and on the sharded
+backend, as in the JAX CLI.  Unlike the JAX CLI, a tile size of 0 is
 refused rather than ignored.
 
 ``--obstacle I0:I1:J0:J1`` (repeatable) makes an interior cell rectangle
@@ -168,8 +169,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--outer", choices=["float64", "compensated"],
                     default=None,
                     help="refinement-outer precision: float64 (the default; "
-                         "native on the GPU); compensated is not ported "
-                         "(ROADMAP A9)")
+                         "native on the GPU) or compensated (the two-float "
+                         "f32 outer, ops/compensated.py)")
     ap.add_argument("--obstacle", action="append", default=None,
                     metavar="I0:I1:J0:J1",
                     help="an interior cell rectangle made solid (1-based, "
@@ -215,14 +216,6 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _unported(args) -> str:
-    """The message refusing a flag of a later slice, or ''."""
-    if args.outer == "compensated":
-        return ("--outer compensated is not ported (the H100 has native "
-                "FP64): ROADMAP A9")
-    return ""
-
-
 def _history_columns(args) -> str:
     """The --history-file CSV header of this run's flags (the header
     written, and the one a resumed run must find)."""
@@ -254,7 +247,7 @@ def _check_args(args) -> str:
                     f"[{have}] but this run would append [{want}] — pass "
                     f"the same --history-physics setting as the original "
                     f"run, or use a fresh --history-file")
-    return _unported(args)
+    return ""
 
 
 def main(argv=None) -> int:
@@ -269,6 +262,8 @@ def main(argv=None) -> int:
         overrides["dtype"] = args.dtype
     if args.refine_every is not None:
         overrides["sor_refine_every"] = args.refine_every
+    if args.outer:
+        overrides["outer_precision"] = args.outer
     if args.obstacle:
         rects = []
         for spec in args.obstacle:

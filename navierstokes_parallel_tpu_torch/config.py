@@ -82,10 +82,10 @@ class Params:
 
     Fields past ``n_print`` are not part of the ``.in`` format.  Every
     field is kept and validated as in JAX, so that a JAX configuration
-    carries across unchanged; those of the modules still to port
-    (``particles_per_cell`` and the problem-6 liquid box: ROADMAP A8's
-    free surfaces; ``outer_precision="compensated"``: A9) are refused
-    where they would be used.
+    carries across unchanged; those of the TPU-only routes left out of
+    the port (ROADMAP "Left out of the port": ``fft_precision`` other
+    than "highest", ``sor_inner_dtype="bfloat16"`` on pallas_sor) are
+    refused where they would be used, and ``disable_pallas`` is ignored.
     """
 
     problem: int = 1

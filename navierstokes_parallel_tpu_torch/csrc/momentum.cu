@@ -181,7 +181,10 @@ __device__ __forceinline__ void tile_g(Tile& t, int i0, int j0, int gr,
 }
 
 // Block (blockIdx.x, blockIdx.y) writes the cells of rows blockIdx.y *
-// kTileI and columns blockIdx.x * kTileJ; blockDim = (kThreadsJ, kThreadsI).
+// kTileI and columns blockIdx.x * kTileJ of member blockIdx.z, whose fields
+// start blockIdx.z ni nj floats in and whose dt and gamma are dt_p[z] and
+// gamma_p[z] (a batch of independent grids: an ensemble's members; one grid
+// is member 0); blockDim = (kThreadsJ, kThreadsI).
 __global__ void __launch_bounds__(kThreads)
     momentum_fused(const float* __restrict__ dt_p,
                    const float* __restrict__ gamma_p, float dt_v,
@@ -190,6 +193,13 @@ __global__ void __launch_bounds__(kThreads)
                    float* __restrict__ G, float* __restrict__ rhs, Consts k) {
   using namespace nsp;
   __shared__ Tile t;
+  const int z = static_cast<int>(blockIdx.z);
+  const size_t member = static_cast<size_t>(z) * k.ni * k.nj;
+  u += member;
+  v += member;
+  F += member;
+  G += member;
+  rhs += member;
   const int tx = static_cast<int>(threadIdx.x);
   const int ty = static_cast<int>(threadIdx.y);
   const int tid = ty * kThreadsJ + tx;
@@ -208,8 +218,8 @@ __global__ void __launch_bounds__(kThreads)
     t.u[r][c] = a;
     t.v[r][c] = b;
   }
-  const float dt = dt_p ? *dt_p : dt_v;
-  const float gamma = gamma_p ? *gamma_p : gamma_v;
+  const float dt = dt_p ? dt_p[z] : dt_v;
+  const float gamma = gamma_p ? gamma_p[z] : gamma_v;
   const float g_dx = mul(gamma, k.inv_dx);
   const float g_dy = mul(gamma, k.inv_dy);
   __syncthreads();
@@ -327,21 +337,26 @@ __global__ void rhs_kernel(const float* __restrict__ scal,
 
 }  // namespace
 
-// F, G, rhs (each ni x nj, row-major f32) from u, v in one launch; dt and
-// gamma from dt_p / gamma_p on the device, or dt_v / gamma_v where the
-// pointer is null.  Returns cudaGetLastError() after the launch.
+// F, G, rhs (each batch x ni x nj, row-major f32) from u, v in one launch;
+// dt and gamma from dt_p / gamma_p on the device (batch floats each), or
+// dt_v / gamma_v where the pointer is null.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int nsp_momentum_rhs(const float* dt_p, const float* gamma_p,
                                 float dt_v, float gamma_v, const float* u,
                                 const float* v, float* F, float* G, float* rhs,
-                                int ni, int nj, int i_max, int j_max,
+                                int batch, int ni, int nj, int i_max, int j_max,
                                 float inv_dx, float inv_dy, float inv_re,
                                 float inv_dx2, float inv_dy2, float g_x,
                                 float g_y, int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch < 1 || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Consts k{ni, nj, i_max, j_max, inv_dx, inv_dy, inv_re,
                  inv_dx2, inv_dy2, g_x, g_y};
-  const dim3 grid((nj + kTileJ - 1) / kTileJ, (ni + kTileI - 1) / kTileI);
+  const dim3 grid((nj + kTileJ - 1) / kTileJ, (ni + kTileI - 1) / kTileI,
+                  batch);
   momentum_fused<<<grid, dim3(kThreadsJ, kThreadsI), 0,
                    static_cast<cudaStream_t>(stream)>>>(
       dt_p, gamma_p, dt_v, gamma_v, u, v, F, G, rhs, k);

@@ -89,6 +89,9 @@ struct TileDomain {
 // (the JAX package's _compress_colors).  Since a tile's first column is
 // even, the pair of cells (a, 2k), (a, 2k + 1) that a thread owns is
 // red[a][k] and black[a][k], whatever the row's parity.
+// A batch of independent grids of one shape (an ensemble's members) is one
+// launch: member z's arrays start member_stride floats after member z - 1's,
+// and the blocks of member z have blockIdx.z = z.
 struct TileChunk {
   const float* src;
   float* dst;
@@ -102,6 +105,8 @@ struct TileChunk {
   const float* src1 = nullptr;  // the black arrays of the compacted layout
   float* dst1 = nullptr;
   const float* rhs1 = nullptr;
+  int batch = 1;             // members, on blockIdx.z
+  size_t member_stride = 0;  // floats from one member's arrays to the next
 };
 
 // At most this many threads per block of a tile whose shape is read at run
@@ -312,6 +317,15 @@ __global__ void __launch_bounds__(
   constexpr bool kHot = HOT >= 0;
   constexpr HotShape kShape = kHotShapes[kHot ? HOT : 0];
   TileChunk t = chunk;
+  const size_t member = static_cast<size_t>(blockIdx.z) * t.member_stride;
+  t.src += member;
+  t.dst += member;
+  t.rhs += member;
+  if constexpr (kCompact) {
+    t.src1 += member;
+    t.dst1 += member;
+    t.rhs1 += member;
+  }
   if constexpr (kHot) {
     t.ti = kShape.ti;
     t.tj = kShape.tj;
@@ -455,12 +469,12 @@ cudaError_t tile_kernel(const TileGeometry& g, const void** fn) {
 }
 
 // Launches one chunk; cudaErrorInvalidValue for a geometry the tile does
-// not take (odd tj or halo, ns beyond halo / 2; compacted: a domain that is
-// not a whole grid of even width).
+// not take (odd tj or halo, ns beyond halo / 2, a batch outside [1, 65535];
+// compacted: a domain that is not a whole grid of even width).
 template <bool kCompact = false>
 cudaError_t launch_tile_chunk(const TileChunk& t, cudaStream_t s) {
   if (t.ti < 1 || t.tj < 2 || (t.tj & 1) || t.halo < 0 || (t.halo & 1) ||
-      t.ns < 0 || 2 * t.ns > t.halo) {
+      t.ns < 0 || 2 * t.ns > t.halo || t.batch < 1 || t.batch > 65535) {
     return cudaErrorInvalidValue;
   }
   if (kCompact &&
@@ -478,7 +492,7 @@ cudaError_t launch_tile_chunk(const TileChunk& t, cudaStream_t s) {
   cudaError_t err = tile_kernel<kCompact>(g, &fn);
   if (err != cudaSuccess) return err;
   const dim3 grid((t.dom.cols + t.tj - 1) / t.tj,
-                  (t.dom.rows + t.ti - 1) / t.ti);
+                  (t.dom.rows + t.ti - 1) / t.ti, t.batch);
   TileChunk arg = t;
   void* args[] = {&arg};
   err = cudaLaunchKernel(fn, grid, dim3(g.pc, g.rs), args, g.smem, s);
@@ -518,20 +532,24 @@ cudaError_t tile_chunks_from_zero(TileChunk t, int n_sweeps,
   return cudaGetLastError();
 }
 
-// tile_chunks_from_zero on the whole ni x nj grid: d and scratch take
-// turns, scratch first, so the result is in scratch when the number of
-// chunks is odd, else in d.  The loop of B1 and B4 (sor_tiled.cu).
+// tile_chunks_from_zero on `batch` whole ni x nj grids, stored one after
+// the other: d and scratch take turns, scratch first, so the result is in
+// scratch when the number of chunks is odd, else in d.  The loop of B1 and
+// B4 (sor_tiled.cu).
 cudaError_t tile_sweeps_from_zero(float* d, float* scratch, const float* rhs,
-                                  int ni, int nj, int n_sweeps, int tile_rows,
+                                  int batch, int ni, int nj, int n_sweeps,
+                                  int tile_rows,
                                   int tile_cols, int sweeps_per_chunk,
                                   float one_minus_omega, float coef,
                                   float dx2_inv, float dy2_inv,
                                   cudaStream_t s) {
-  const TileChunk t{d,         scratch,   rhs,
-                    {ni, nj, 0, 0, ni, nj, 0, ni, 0, nj},
-                    tile_rows, tile_cols, 0,
-                    0,         1,         one_minus_omega,
-                    coef,      dx2_inv,   dy2_inv};
+  TileChunk t{d,         scratch,   rhs,
+              {ni, nj, 0, 0, ni, nj, 0, ni, 0, nj},
+              tile_rows, tile_cols, 0,
+              0,         1,         one_minus_omega,
+              coef,      dx2_inv,   dy2_inv};
+  t.batch = batch;
+  t.member_stride = static_cast<size_t>(ni) * nj;
   return tile_chunks_from_zero(t, n_sweeps, sweeps_per_chunk, s);
 }
 

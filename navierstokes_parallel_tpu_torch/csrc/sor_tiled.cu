@@ -53,13 +53,15 @@
 #include "nsp_sor_tile.cuh"
 
 // n_sweeps red-black sweeps from d = 0 in chunks of sweeps_per_chunk, tiles
-// of tile_rows x tile_cols cells: d and scratch (ni x nj, row-major f32,
-// contents ignored) take turns as the chunk's output and input, scratch
-// first, so the result is in scratch when the number of chunks is odd, else
-// in d; n_sweeps = 0 runs one chunk of no sweeps, which writes zeros to
-// scratch.  Returns cudaGetLastError() after the launches.
+// of tile_rows x tile_cols cells, on `batch` independent grids (an
+// ensemble's members; 1 for one grid) in one launch per chunk: d, scratch
+// and rhs (batch x ni x nj, row-major f32; d and scratch's contents
+// ignored) take turns as the chunk's output and input, scratch first, so
+// the result is in scratch when the number of chunks is odd, else in d;
+// n_sweeps = 0 runs one chunk of no sweeps, which writes zeros to scratch.
+// Returns cudaGetLastError() after the launches.
 extern "C" int nsp_sor_tiled_sweeps(float* d, float* scratch, const float* rhs,
-                                    int ni, int nj, int n_sweeps,
+                                    int batch, int ni, int nj, int n_sweeps,
                                     int tile_rows, int tile_cols,
                                     int sweeps_per_chunk,
                                     float one_minus_omega, float coef,
@@ -68,7 +70,7 @@ extern "C" int nsp_sor_tiled_sweeps(float* d, float* scratch, const float* rhs,
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(nsp::tile_sweeps_from_zero(
-      d, scratch, rhs, ni, nj, n_sweeps, tile_rows, tile_cols,
+      d, scratch, rhs, batch, ni, nj, n_sweeps, tile_rows, tile_cols,
       sweeps_per_chunk, one_minus_omega, coef, dx2_inv, dy2_inv,
       static_cast<cudaStream_t>(stream)));
 }

@@ -113,7 +113,9 @@ def _apply_t_bcs(T, params: Params, cfg: ThermalConfig) -> torch.Tensor:
 
 def _apply_vel_bcs(u, v, cfg: ThermalConfig):
     """No-slip plates, sidewalls per cfg.sidewalls, in place; the cavity's
-    side order (sides before TOP)."""
+    side order (sides before TOP).  cfg's wall values may be floats or 0-d
+    tensors (the differentiable step, diff.py); free-slip sidewalls need a
+    lid_u that is the number 0."""
     if cfg.sidewalls == "freeslip":
         if not (isinstance(cfg.lid_u, (int, float)) and cfg.lid_u == 0.0):
             raise ValueError("lid_u requires sidewalls='noslip' "
@@ -125,8 +127,10 @@ def _apply_vel_bcs(u, v, cfg: ThermalConfig):
         return u, v
     if cfg.sidewalls != "noslip":
         raise ValueError(f"unknown sidewall mode {cfg.sidewalls!r}")
-    return boundary.apply_cavity_bcs(
-        u, v, torch.tensor(cfg.lid_u, dtype=u.dtype, device=u.device))
+    lid = cfg.lid_u
+    if not isinstance(lid, torch.Tensor):  # a tensor may carry a gradient
+        lid = torch.tensor(lid, dtype=u.dtype, device=u.device)
+    return boundary.apply_cavity_bcs(u, v, lid)
 
 
 def rayleigh_benard_setup(Ra: float, Pr: float = 0.71, n: int = 64,

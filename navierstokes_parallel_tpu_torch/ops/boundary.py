@@ -10,6 +10,9 @@ zero-gradient (outflow).
 The writes are IN PLACE on ``u`` and ``v`` (no copy of either field per
 wall); the functions also return the two tensors for symmetry with the JAX
 module.  Callers that must keep their input pass clones (solver.step does).
+Every index leads with ``...``: a batch of fields (a leading member axis,
+solver.solve_ensemble) takes the same writes, a wall value of one number
+per member shaped (B, 1).
 """
 
 from __future__ import annotations
@@ -37,20 +40,20 @@ def set_inflow(u: torch.Tensor, v: torch.Tensor, side: Side, u_fix,
     in place.  ``u_fix``/``v_fix`` are Python floats or 0-d tensors."""
     if side is Side.TOP:
         # wall at y = b: v on edge j_max, u reflected through ghost j_max+1
-        v[1:-1, -2] = v_fix
-        u[1:-1, -1] = 2.0 * u_fix - u[1:-1, -2]
+        v[..., 1:-1, -2] = v_fix
+        u[..., 1:-1, -1] = 2.0 * u_fix - u[..., 1:-1, -2]
     elif side is Side.BOTTOM:
         # wall at y = 0: v on edge 0, u reflected through ghost 0
-        v[1:-1, 0] = v_fix
-        u[1:-1, 0] = 2.0 * u_fix - u[1:-1, 1]
+        v[..., 1:-1, 0] = v_fix
+        u[..., 1:-1, 0] = 2.0 * u_fix - u[..., 1:-1, 1]
     elif side is Side.LEFT:
         # wall at x = 0: u on edge 0, v reflected through ghost 0
-        u[0, 1:-1] = u_fix
-        v[0, 1:-1] = 2.0 * v_fix - v[1, 1:-1]
+        u[..., 0, 1:-1] = u_fix
+        v[..., 0, 1:-1] = 2.0 * v_fix - v[..., 1, 1:-1]
     elif side is Side.RIGHT:
         # wall at x = a: u on edge i_max, v reflected through ghost i_max+1
-        u[-2, 1:-1] = u_fix
-        v[-1, 1:-1] = 2.0 * v_fix - v[-2, 1:-1]
+        u[..., -2, 1:-1] = u_fix
+        v[..., -1, 1:-1] = 2.0 * v_fix - v[..., -2, 1:-1]
     else:  # pragma: no cover
         raise ValueError(f"unknown side {side}")
     return u, v
@@ -68,17 +71,17 @@ def set_freeslip(u: torch.Tensor, v: torch.Tensor,
     velocity on the wall edge, and the tangential ghost copies the first
     interior node (zero normal gradient) instead of negating it."""
     if side is Side.TOP:
-        v[1:-1, -2] = 0.0
-        u[1:-1, -1] = u[1:-1, -2]
+        v[..., 1:-1, -2] = 0.0
+        u[..., 1:-1, -1] = u[..., 1:-1, -2]
     elif side is Side.BOTTOM:
-        v[1:-1, 0] = 0.0
-        u[1:-1, 0] = u[1:-1, 1]
+        v[..., 1:-1, 0] = 0.0
+        u[..., 1:-1, 0] = u[..., 1:-1, 1]
     elif side is Side.LEFT:
-        u[0, 1:-1] = 0.0
-        v[0, 1:-1] = v[1, 1:-1]
+        u[..., 0, 1:-1] = 0.0
+        v[..., 0, 1:-1] = v[..., 1, 1:-1]
     elif side is Side.RIGHT:
-        u[-2, 1:-1] = 0.0
-        v[-1, 1:-1] = v[-2, 1:-1]
+        u[..., -2, 1:-1] = 0.0
+        v[..., -1, 1:-1] = v[..., -2, 1:-1]
     else:  # pragma: no cover
         raise ValueError(f"unknown side {side}")
     return u, v
@@ -126,17 +129,17 @@ def set_outflow(u: torch.Tensor, v: torch.Tensor,
     wall-normal edge velocity copies its upstream interior neighbour and the
     tangential ghost copies the first interior node."""
     if side is Side.RIGHT:
-        u[-2, 1:-1] = u[-3, 1:-1]
-        v[-1, 1:-1] = v[-2, 1:-1]
+        u[..., -2, 1:-1] = u[..., -3, 1:-1]
+        v[..., -1, 1:-1] = v[..., -2, 1:-1]
     elif side is Side.LEFT:
-        u[0, 1:-1] = u[1, 1:-1]
-        v[0, 1:-1] = v[1, 1:-1]
+        u[..., 0, 1:-1] = u[..., 1, 1:-1]
+        v[..., 0, 1:-1] = v[..., 1, 1:-1]
     elif side is Side.TOP:
-        v[1:-1, -2] = v[1:-1, -3]
-        u[1:-1, -1] = u[1:-1, -2]
+        v[..., 1:-1, -2] = v[..., 1:-1, -3]
+        u[..., 1:-1, -1] = u[..., 1:-1, -2]
     elif side is Side.BOTTOM:
-        v[1:-1, 0] = v[1:-1, 1]
-        u[1:-1, 0] = u[1:-1, 1]
+        v[..., 1:-1, 0] = v[..., 1:-1, 1]
+        u[..., 1:-1, 0] = u[..., 1:-1, 1]
     else:  # pragma: no cover
         raise ValueError(f"unknown side {side}")
     return u, v
@@ -171,6 +174,13 @@ def _inflow(params, dtype: torch.dtype, device: torch.device):
         max(1, int(out_fluid.sum())))
 
 
+def _column_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of a wall column: the whole sum for one field, one per member
+    (kept as a trailing axis of 1) for a batch."""
+    return torch.sum(x) if x.dim() == 1 else torch.sum(x, dim=-1,
+                                                        keepdim=True)
+
+
 def apply_channel_bcs(u: torch.Tensor, v: torch.Tensor,
                       params) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plane-channel BCs (problem 3), in place: parabolic inflow on the
@@ -187,14 +197,15 @@ def apply_channel_bcs(u: torch.Tensor, v: torch.Tensor,
     profile, out_fluid, n_out = _inflow(params, u.dtype, u.device)
     set_inflow(u, v, Side.LEFT, profile, 0.0)
     set_outflow(u, v, Side.RIGHT)
-    q_in = torch.sum(u[0, 1:-1])
+    q_in = _column_sum(u[..., 0, 1:-1])
     if out_fluid is None:
-        u[-2, 1:-1] += st.div(q_in - torch.sum(u[-2, 1:-1]), n_out)
+        u[..., -2, 1:-1] += st.div(q_in - _column_sum(u[..., -2, 1:-1]),
+                                   n_out)
     else:
         zero = torch.zeros((), dtype=u.dtype, device=u.device)
-        q_out = torch.sum(torch.where(out_fluid, u[-2, 1:-1], zero))
-        u[-2, 1:-1] += torch.where(out_fluid, st.div(q_in - q_out, n_out),
-                                   zero)
+        q_out = _column_sum(torch.where(out_fluid, u[..., -2, 1:-1], zero))
+        u[..., -2, 1:-1] += torch.where(out_fluid,
+                                        st.div(q_in - q_out, n_out), zero)
     set_noslip(u, v, Side.BOTTOM)
     set_noslip(u, v, Side.TOP)
     return u, v

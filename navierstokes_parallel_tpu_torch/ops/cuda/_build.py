@@ -52,11 +52,11 @@ SIGNATURES = {
     # out, p0, rhs, shapes (int[2 n_levels], host), consts (float[5
     # n_levels], host), n_levels, nu1, nu2, coarse_sweeps, device, stream
     "nsp_mg_coarse_cycle": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # d, scratch, rhs, ni, nj, n_sweeps, tile_rows, tile_cols,
+    # d, scratch, rhs, batch, ni, nj, n_sweeps, tile_rows, tile_cols,
     # sweeps_per_chunk, one_minus_omega, coef, dx2_inv, dy2_inv, device,
     # stream
-    "nsp_sor_tiled_sweeps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
-                             _F, _I, _P),
+    "nsp_sor_tiled_sweeps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                             _F, _F, _I, _P),
     # out, d0, rhs, rows, cols, n_sweeps, ox, oy, H, i_max, j_max,
     # tile_rows, tile_cols, one_minus_omega, coef, dx2_inv, dy2_inv, device,
     # stream
@@ -76,10 +76,10 @@ SIGNATURES = {
     "nsp_sor_compressed_sweeps_simple": (_P, _P, _P, _P, _I, _I, _I, _F, _F,
                                          _F, _F, _I, _P),
     # dt_p, gamma_p (device pointers or null), dt_v, gamma_v, u, v, F, G,
-    # rhs, ni, nj, i_max, j_max, inv_dx, inv_dy, inv_re, inv_dx2, inv_dy2,
-    # g_x, g_y, device, stream
+    # rhs, batch, ni, nj, i_max, j_max, inv_dx, inv_dy, inv_re, inv_dx2,
+    # inv_dy2, g_x, g_y, device, stream
     "nsp_momentum_rhs": (_P, _P, _F, _F, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _F, _F, _F, _F, _F, _F, _F, _I, _P),
+                         _I, _F, _F, _F, _F, _F, _F, _F, _I, _P),
     # scalars(dt, gamma), u, v, F, G, rhs, ni, nj, i_max, j_max, inv_dx,
     # inv_dy, inv_re, inv_dx2, inv_dy2, g_x, g_y, device, stream
     "nsp_momentum_rhs_simple": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,

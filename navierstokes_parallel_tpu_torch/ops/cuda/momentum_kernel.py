@@ -41,15 +41,19 @@ def _scalars(dt, gamma, device) -> torch.Tensor:
     return torch.stack(parts)
 
 
-def _scalar_arg(x, device):
+def _scalar_arg(x, device, shape=()):
     """(pointer, value, tensor to keep alive) of dt or gamma for the fused
-    kernel: a 0-d f32 tensor on `device` goes by its pointer, as it is (no
-    launch, no host round trip); another CUDA tensor by the pointer of its
-    f32 copy on `device`; a Python number or a CPU tensor by value, rounded
+    kernel: an f32 tensor of `shape` (0-d, or one entry per member of a
+    batch) on `device` goes by its pointer, as it is (no launch, no host
+    round trip); another CUDA tensor by the pointer of its f32 copy of that
+    shape on `device`; a Python number or a CPU tensor by value, rounded
     to f32 where it meets the kernel's float argument."""
     if isinstance(x, torch.Tensor) and x.device.type == "cuda":
-        if x.device != device or x.dtype != torch.float32 or x.dim() != 0:
-            x = x.to(device=device, dtype=torch.float32).reshape(())
+        if (x.device != device or x.dtype != torch.float32
+                or tuple(x.shape) != shape or not x.is_contiguous()):
+            x = x.to(device=device, dtype=torch.float32)
+            x = (x.reshape(()) if shape == ()
+                 else x.reshape(-1).expand(shape)).contiguous()
         return x.data_ptr(), 0.0, x
     return None, float(x), None
 
@@ -61,11 +65,15 @@ def momentum_rhs_plain(u, v, dt, gamma, params: Params):
     inv_dx, inv_dy, inv_re, inv_dx2, inv_dy2, g_x, g_y = \
         kernel_constants(params)
     i_max, j_max = params.i_max, params.j_max
-    scal = _scalars(dt, gamma, u.device)
-    dt, gamma = scal[0], scal[1]
+    if u.dim() == 3:  # a member axis: each member's dt and gamma
+        dt, gamma = (torch.as_tensor(x, device=u.device).to(torch.float32)
+                     .reshape(-1, 1, 1) for x in (dt, gamma))
+    else:
+        scal = _scalars(dt, gamma, u.device)
+        dt, gamma = scal[0], scal[1]
     u = u.to(torch.float32)
     v = v.to(torch.float32)
-    ni, nj = u.shape
+    ni, nj = u.shape[-2:]
     roll = torch.roll
 
     ii = torch.arange(ni, device=u.device).view(ni, 1)
@@ -78,12 +86,12 @@ def momentum_rhs_plain(u, v, dt, gamma, params: Params):
     g_wall = ((jj == 0) | (jj == j_max)) & i_int
     interior = i_int & j_int
 
-    u_e, u_w = roll(u, -1, 0), roll(u, 1, 0)
-    u_n, u_s = roll(u, -1, 1), roll(u, 1, 1)
-    v_e, v_w = roll(v, -1, 0), roll(v, 1, 0)
-    v_n, v_s = roll(v, -1, 1), roll(v, 1, 1)
-    v_se = roll(v_e, 1, 1)   # v[i+1][j-1]
-    u_nw = roll(u_w, -1, 1)  # u[i-1][j+1]
+    u_e, u_w = roll(u, -1, -2), roll(u, 1, -2)
+    u_n, u_s = roll(u, -1, -1), roll(u, 1, -1)
+    v_e, v_w = roll(v, -1, -2), roll(v, 1, -2)
+    v_n, v_s = roll(v, -1, -1), roll(v, 1, -1)
+    v_se = roll(v_e, 1, -1)   # v[i+1][j-1]
+    u_nw = roll(u_w, -1, -1)  # u[i-1][j+1]
 
     # --- F (u-momentum), integration.c:73-83 -------------------------------
     ae = 0.5 * (u + u_e)
@@ -116,24 +124,32 @@ def momentum_rhs_plain(u, v, dt, gamma, params: Params):
     G = torch.where(g_compute, g_val, torch.where(g_wall, v, zero))
 
     # --- RHS = div(F, G) / dt (main.c:116-120) -----------------------------
-    F_w = roll(F, 1, 0)
-    G_s = roll(G, 1, 1)
+    F_w = roll(F, 1, -2)
+    G_s = roll(G, 1, -1)
     rhs = torch.where(interior,
                       ((F - F_w) * inv_dx + (G - G_s) * inv_dy) / dt, zero)
     return F, G, rhs
 
 
-def check_inputs(u: torch.Tensor, v: torch.Tensor, params: Params) -> None:
-    """Raise on anything the CUDA kernel does not take."""
+def check_inputs(u: torch.Tensor, v: torch.Tensor, params: Params,
+                 batched: bool = False) -> None:
+    """Raise on anything the CUDA kernel does not take; `batched`: a
+    leading member axis is taken too."""
     for name, x in (("u", u), ("v", v)):
         if x.dtype != torch.float32:
             raise TypeError(f"momentum kernel takes float32 {name}, got "
                             f"{x.dtype}")
-        if tuple(x.shape) != params.shape:
+        shape = tuple(x.shape)
+        if shape[-2:] != params.shape or not (
+                len(shape) == 2 or batched and len(shape) == 3
+                and shape[0] >= 1):
             raise ValueError(f"momentum kernel takes {name} of the padded "
-                             f"shape {params.shape}, got {tuple(x.shape)}")
+                             f"shape {params.shape}, got {shape}")
         if not x.is_contiguous():
             raise ValueError(f"momentum kernel takes a contiguous {name}")
+    if u.shape != v.shape:
+        raise ValueError(f"u of shape {tuple(u.shape)} but v of "
+                         f"{tuple(v.shape)}")
     if u.device != v.device:
         raise ValueError(f"u on {u.device} but v on {v.device}")
 
@@ -141,24 +157,29 @@ def check_inputs(u: torch.Tensor, v: torch.Tensor, params: Params) -> None:
 def momentum_rhs(u, v, dt, gamma, params: Params):
     """(F, G, rhs): the plain version for CPU tensors, the fused CUDA kernel
     (one launch) for CUDA tensors.  dt and gamma are Python floats or 0-d
-    tensors.  On the card F, G and rhs are views of one allocation."""
+    tensors.  On the card F, G and rhs are views of one allocation.  u and
+    v may carry a leading member axis (solver.solve_ensemble), dt and gamma
+    then one entry per member (or one for all): every member in the same
+    launch."""
     global LAUNCHES
     if u.device.type == "cpu" and v.device.type == "cpu":
         return momentum_rhs_plain(u, v, dt, gamma, params)
     if u.device.type != "cuda":
         raise ValueError(f"no momentum kernel for device {u.device}")
-    check_inputs(u, v, params)
+    check_inputs(u, v, params, batched=True)
+    batch = u.shape[0] if u.dim() == 3 else 1
+    shape = (batch,) if u.dim() == 3 else ()
     lib = _build.load()
     # The copies _scalar_arg may make stay referenced until the launch.
-    dt_p, dt_v, _dt = _scalar_arg(dt, u.device)
-    gamma_p, gamma_v, _gamma = _scalar_arg(gamma, u.device)
+    dt_p, dt_v, _dt = _scalar_arg(dt, u.device, shape)
+    gamma_p, gamma_v, _gamma = _scalar_arg(gamma, u.device, shape)
     ni, nj = params.shape
-    out = torch.empty((3, ni, nj), dtype=torch.float32, device=u.device)
+    out = torch.empty((3, *u.shape), dtype=torch.float32, device=u.device)
     F, G, rhs = out.unbind(0)
     status = lib.nsp_momentum_rhs(
         dt_p, gamma_p, dt_v, gamma_v, u.data_ptr(), v.data_ptr(),
-        F.data_ptr(), G.data_ptr(), rhs.data_ptr(), ni, nj, params.i_max,
-        params.j_max, *kernel_constants(params),
+        F.data_ptr(), G.data_ptr(), rhs.data_ptr(), batch, ni, nj,
+        params.i_max, params.j_max, *kernel_constants(params),
         *_build.device_and_stream(u))
     _build.check_status(status, "nsp_momentum_rhs")
     LAUNCHES += 1

@@ -149,8 +149,8 @@ def _half_sweep(d, rhs, mask, self_coef, constants):
     """One half-sweep of the cells in `mask`, neighbours by circular rolls
     of d (the wrap lands only where no updated cell reads it)."""
     one_minus_omega, coef, dx2_inv, dy2_inv = constants
-    nb = ((torch.roll(d, 1, 0) + torch.roll(d, -1, 0)) * dx2_inv
-          + (torch.roll(d, 1, 1) + torch.roll(d, -1, 1)) * dy2_inv
+    nb = ((torch.roll(d, 1, -2) + torch.roll(d, -1, -2)) * dx2_inv
+          + (torch.roll(d, 1, -1) + torch.roll(d, -1, -1)) * dy2_inv
           + d * self_coef)
     d_new = one_minus_omega * d + coef * (nb - rhs)
     return torch.where(mask, d_new, d)
@@ -162,8 +162,9 @@ def _sweeps_plain(d: torch.Tensor, rhs: torch.Tensor, n_sweeps: int,
     the f32 field d: rolls of the whole padded field (interior cells next
     to the ghost ring read the ring as given), masks, self coefficient, one
     Python loop iteration per sweep.  With omega = 1 the (1 - omega) * d
-    term is still computed, as the Pallas body does."""
-    ni, nj = d.shape
+    term is still computed, as the Pallas body does.  A leading member axis
+    sweeps each member's grid alone."""
+    ni, nj = d.shape[-2:]
     ii = torch.arange(ni, device=d.device).view(ni, 1)
     jj = torch.arange(nj, device=d.device).view(1, nj)
     red, black, self_coef = _masks(ii, jj, ni - 2, nj - 2, *constants[2:])
@@ -190,13 +191,18 @@ def warm_sweeps_plain(p: torch.Tensor, rhs: torch.Tensor, n_sweeps: int,
                          warm_constants(omega, dx2_inv, dy2_inv))
 
 
-def check_inputs(rhs_neg: torch.Tensor, n_sweeps: int, params: Params) -> None:
-    """Raise on anything the CUDA kernels of inner_sweeps do not take."""
+def check_inputs(rhs_neg: torch.Tensor, n_sweeps: int, params: Params,
+                 batched: bool = False) -> None:
+    """Raise on anything the CUDA kernels of inner_sweeps do not take;
+    `batched`: a leading member axis is taken too."""
     if rhs_neg.dtype != torch.float32:
         raise TypeError(f"SOR kernel takes float32, got {rhs_neg.dtype}")
-    if tuple(rhs_neg.shape) != params.shape:
-        raise ValueError(f"SOR kernel takes the padded shape {params.shape}, "
-                         f"got {tuple(rhs_neg.shape)}")
+    shape = tuple(rhs_neg.shape)
+    if shape[-2:] != params.shape or not (
+            len(shape) == 2 or batched and len(shape) == 3 and shape[0] >= 1):
+        raise ValueError(f"SOR kernel takes the padded shape {params.shape}"
+                         f"{' (with a member axis)' if batched else ''}, got "
+                         f"{shape}")
     if not rhs_neg.is_contiguous():
         raise ValueError("SOR kernel takes a contiguous rhs")
     if int(n_sweeps) < 0:
@@ -239,15 +245,18 @@ def _tile_sweeps_from_zero(rhs_neg: torch.Tensor, n_sweeps: int,
                            params: Params, rows: int, cols: int,
                            K: int) -> torch.Tensor:
     """n_sweeps sweeps from delta = 0 on the card in chunks of K, one launch
-    of the rows x cols tile per chunk (one for n_sweeps = 0)."""
+    of the rows x cols tile per chunk (one for n_sweeps = 0), over every
+    member of a leading member axis at once."""
     ni, nj = params.shape
+    batch = rhs_neg.shape[0] if rhs_neg.dim() == 3 else 1
     # Each chunk reads one buffer and writes every cell of the other, the
     # ghost ring's zeros included; the first reads none (delta = 0), so
     # neither buffer needs zeroing.
-    d = torch.empty((ni, nj), dtype=torch.float32, device=rhs_neg.device)
+    d = torch.empty(rhs_neg.shape, dtype=torch.float32,
+                    device=rhs_neg.device)
     scratch = torch.empty_like(d)
     status = _build.load().nsp_sor_tiled_sweeps(
-        d.data_ptr(), scratch.data_ptr(), rhs_neg.data_ptr(), ni, nj,
+        d.data_ptr(), scratch.data_ptr(), rhs_neg.data_ptr(), batch, ni, nj,
         int(n_sweeps), rows, cols, K, *sweep_constants(params),
         *_build.device_and_stream(rhs_neg))
     _build.check_status(status, "nsp_sor_tiled_sweeps")
@@ -260,11 +269,13 @@ def whole_grid_sweeps(rhs_neg: torch.Tensor, n_sweeps: int,
     """n_sweeps f32 red-black sweeps on A delta = rhs_neg from delta = 0,
     over the whole padded grid: the plain version for a CPU tensor, the
     CUDA kernel (one launch of whole_grid_tile's tile per chunk of sweeps,
-    one for n_sweeps = 0) for a CUDA one."""
+    one for n_sweeps = 0) for a CUDA one.  rhs_neg may carry a leading
+    member axis (solver.solve_ensemble): each member is swept alone, all in
+    the same launches."""
     global LAUNCHES
     if not _cuda_tensor(rhs_neg):
         return inner_sweeps_plain(rhs_neg, n_sweeps, params)
-    check_inputs(rhs_neg, n_sweeps, params)
+    check_inputs(rhs_neg, n_sweeps, params, batched=True)
     out = _tile_sweeps_from_zero(rhs_neg, n_sweeps, params,
                                  *whole_grid_tile(params.shape))
     LAUNCHES += 1
@@ -320,11 +331,16 @@ def inner_sweeps(rhs_neg: torch.Tensor, n_sweeps: int,
                  params: Params) -> torch.Tensor:
     """n_sweeps f32 red-black sweeps on A delta = rhs_neg from delta = 0,
     the refinement solver's inner stage, by the kernel `route` picks (its
-    plain twin for a CPU tensor)."""
+    plain twin for a CPU tensor).  A leading member axis goes to the
+    whole-grid and the tiled kernels as it is, to the compressed one member
+    by member."""
     which = route(params)
     if which == "tiled":
         return inner_sweeps_tiled(rhs_neg, n_sweeps, params)
     if which == "compressed":
+        if rhs_neg.dim() == 3:
+            return torch.stack([inner_sweeps_compressed(r, n_sweeps, params)
+                                for r in rhs_neg])
         return inner_sweeps_compressed(rhs_neg, n_sweeps, params)
     return whole_grid_sweeps(rhs_neg, n_sweeps, params)
 
@@ -407,7 +423,12 @@ def inner_sweeps_tiled_plain(rhs_neg: torch.Tensor, n_sweeps: int,
     each side (rows outside the grid are 0), sweeps in place with rolls
     within the strip, and its own rows come back.  Masks and self_coef come
     from the global indices.  Stale halo values travel one row per
-    half-sweep, so the returned rows equal the whole-grid sweeps."""
+    half-sweep, so the returned rows equal the whole-grid sweeps.  A
+    leading member axis is swept member by member."""
+    if rhs_neg.dim() == 3:
+        return torch.stack([
+            inner_sweeps_tiled_plain(r, n_sweeps, params, tile_rows,
+                                     sweeps_per_chunk) for r in rhs_neg])
     ni, nj = params.shape
     B, K = int(tile_rows or TILE_ROWS), int(sweeps_per_chunk)
     check_tile(B, K)
@@ -447,12 +468,13 @@ def inner_sweeps_tiled(rhs_neg: torch.Tensor, n_sweeps: int, params: Params,
     """n_sweeps f32 red-black sweeps on A delta = rhs_neg from delta = 0 in
     chunks of sweeps_per_chunk, tiles of tile_rows (default TILE_ROWS) x
     TILE_COLS cells: the plain version for a CPU tensor, the CUDA kernel
-    (one launch per chunk, one for n_sweeps = 0) for a CUDA one."""
+    (one launch per chunk, one for n_sweeps = 0) for a CUDA one, over every
+    member of a leading member axis at once."""
     global TILED_LAUNCHES
     B, K = int(tile_rows or TILE_ROWS), int(sweeps_per_chunk)
     if not _cuda_tensor(rhs_neg):
         return inner_sweeps_tiled_plain(rhs_neg, n_sweeps, params, B, K)
-    check_inputs(rhs_neg, n_sweeps, params)
+    check_inputs(rhs_neg, n_sweeps, params, batched=True)
     check_tile(B, K)
     out = _tile_sweeps_from_zero(rhs_neg, n_sweeps, params, B, TILE_COLS, K)
     TILED_LAUNCHES += 1

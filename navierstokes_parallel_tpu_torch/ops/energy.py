@@ -158,8 +158,9 @@ def apply_obstacle_temperature_bcs(T, params: Params,
     stencils.  `t_obstacle` None: an adiabatic block, the solid cell takes
     the mean of its fluid neighbours' T; a float: an isothermal block, it
     takes 2 t_obstacle minus that mean (the face average is t_obstacle),
-    and solid cells without a fluid neighbour hold t_obstacle.  Returns a
-    new tensor (T itself without obstacles)."""
+    and solid cells without a fluid neighbour hold t_obstacle (a float, or
+    a 0-d tensor of T's dtype that may carry a gradient).  Returns a new
+    tensor (T itself without obstacles)."""
     if not params.obstacles:
         return T
     flj, count, boundary_solid, deep_solid = _device_obstacle_tables(
@@ -172,14 +173,20 @@ def apply_obstacle_temperature_bcs(T, params: Params,
     if t_obstacle is None:
         return torch.where(boundary_solid, mean_nb, T)
     T = torch.where(boundary_solid, 2.0 * t_obstacle - mean_nb, T)
-    return torch.where(deep_solid, st.scalar(float(t_obstacle), T.dtype,
-                                             T.device), T)
+    if not isinstance(t_obstacle, torch.Tensor):
+        t_obstacle = st.scalar(float(t_obstacle), T.dtype, T.device)
+    return torch.where(deep_solid, t_obstacle, T)
 
 
-def thermal_dt_limit(params: Params, alpha: float) -> float:
+def thermal_dt_limit(params: Params, alpha):
     """The explicit-diffusion bound of the energy equation, dt <= 1/(2
     alpha) / (1/dx^2 + 1/dy^2), the thermal twin of the viscous limit of
-    ``momentum.adaptive_dt_gamma`` (main.c:89-92); a Python float, as in
-    the JAX module."""
+    ``momentum.adaptive_dt_gamma`` (main.c:89-92); a Python float for a
+    float `alpha`, as in the JAX module, and a 0-d tensor of `alpha`'s
+    dtype for a tensor (the differentiable path, diff.py), its divisions
+    true ones on every device."""
     dx, dy = params.dx, params.dy
-    return 1.0 / (2.0 * alpha) / (1.0 / (dx * dx) + 1.0 / (dy * dy))
+    d2 = 1.0 / (dx * dx) + 1.0 / (dy * dy)
+    if isinstance(alpha, torch.Tensor):
+        return div(torch.ones_like(alpha) / (2.0 * alpha), d2)
+    return 1.0 / (2.0 * alpha) / d2

@@ -106,10 +106,13 @@ def _idct2_irfft(X: torch.Tensor) -> torch.Tensor:
 
 
 def _solve_rfft(rhs_int: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
-    rhat = _dct2_rfft(_dct2_rfft(rhs_int).transpose(0, 1))
-    phat = rhat.transpose(0, 1) / lam
-    phat[0, 0] = 0.0  # singular constant mode -> zero mean
-    return _idct2_irfft(_idct2_irfft(phat.transpose(0, 1)).transpose(0, 1))
+    """The DCT solve over the last two axes (a leading batch axis of
+    independent problems is carried through)."""
+    rhat = _dct2_rfft(_dct2_rfft(rhs_int).transpose(-2, -1))
+    phat = rhat.transpose(-2, -1) / lam
+    phat[..., 0, 0] = 0.0  # singular constant mode -> zero mean
+    return _idct2_irfft(
+        _idct2_irfft(phat.transpose(-2, -1)).transpose(-2, -1))
 
 
 @functools.lru_cache(maxsize=32)
@@ -139,16 +142,17 @@ def inner_direct(rhs_neg_full: torch.Tensor, n_solves: int,
     """Refinement inner: `n_solves` chained direct solves of
     A delta = rhs_neg, the defect re-evaluated in f32 between solves (delta
     is small-scale, so the f32 residual has no cancellation floor).
-    n_solves = fft_solves_per_outer through the outer's K."""
+    n_solves = fft_solves_per_outer through the outer's K.  A batch of
+    fields (a leading member axis) solves each member."""
     from . import sor  # sor imports this module
 
     f32 = torch.float32
     device = rhs_neg_full.device
-    rhs_int = rhs_neg_full[1:-1, 1:-1].to(f32)
-    delta = torch.zeros(params.shape, dtype=f32, device=device)
+    rhs_int = rhs_neg_full[..., 1:-1, 1:-1].to(f32)
+    delta = torch.zeros(rhs_neg_full.shape, dtype=f32, device=device)
     if params.fft_solves_per_outer == 1:
         # One solve, no defect pass.
-        delta[1:-1, 1:-1] = poisson_solve_dct(rhs_int, params)
+        delta[..., 1:-1, 1:-1] = poisson_solve_dct(rhs_int, params)
         return delta
     dx2 = torch.tensor(1.0 / (params.dx * params.dx), dtype=f32, device=device)
     dy2 = torch.tensor(1.0 / (params.dy * params.dy), dtype=f32, device=device)
@@ -156,7 +160,7 @@ def inner_direct(rhs_neg_full: torch.Tensor, n_solves: int,
         # A delta - rhs with the Neumann ghost closure; solve the correction
         # system A e = -(A delta - rhs) and accumulate.
         res = sor.residual(sor.ghost_fill(delta.clone()), rhs_int, dx2, dy2)
-        delta[1:-1, 1:-1] += poisson_solve_dct(-res, params)
+        delta[..., 1:-1, 1:-1] += poisson_solve_dct(-res, params)
     return delta
 
 

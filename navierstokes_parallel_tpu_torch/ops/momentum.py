@@ -17,32 +17,39 @@ from . import stencils as st
 
 
 def compute_fg(u: torch.Tensor, v: torch.Tensor, dt, gamma,
-               params: Params) -> Tuple[torch.Tensor, torch.Tensor]:
+               params: Params, g_x=None,
+               g_y=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tentative velocities (reference integration.c:73-96).
 
     F lives at u-locations for i in [1, i_max-1], j in [1, j_max]; G at
     v-locations for i in [1, i_max], j in [1, j_max-1].  On the walls F = u
-    and G = v (Griebel et al. eq. 3.42); every other cell is 0.
+    and G = v (Griebel et al. eq. 3.42); every other cell is 0.  `g_x` and
+    `g_y` override the body force of `params` (0-d tensors that may carry
+    gradients: diff.py); None keeps the configuration's.  A batch of fields
+    (a leading member axis: solver.solve_ensemble) takes `dt` and `gamma`
+    shaped to broadcast against it.
     """
     dx, dy, Re = params.dx, params.dy, params.Re
     i_max, j_max = params.i_max, params.j_max
+    g_x = params.g_x if g_x is None else g_x
+    g_y = params.g_y if g_y is None else g_y
 
     diff_u = st.div(st.d2_dx2(u, dx) + st.d2_dy2(u, dy), Re)
     conv_u = st.du2_dx(u, v, dx, gamma) + st.duv_dy(u, v, dy, gamma)
-    f_int = st.shifted(u, 0, 0) + dt * (diff_u - conv_u + params.g_x)
+    f_int = st.shifted(u, 0, 0) + dt * (diff_u - conv_u + g_x)
 
     diff_v = st.div(st.d2_dx2(v, dx) + st.d2_dy2(v, dy), Re)
     conv_v = st.duv_dx(u, v, dx, gamma) + st.dv2_dy(u, v, dy, gamma)
-    g_int = st.shifted(v, 0, 0) + dt * (diff_v - conv_v + params.g_y)
+    g_int = st.shifted(v, 0, 0) + dt * (diff_v - conv_v + g_y)
 
     F = torch.zeros_like(u)
     G = torch.zeros_like(v)
-    F[1:i_max, 1:-1] = f_int[: i_max - 1, :]
-    G[1:-1, 1:j_max] = g_int[:, : j_max - 1]
-    F[0, 1:-1] = u[0, 1:-1]
-    F[i_max, 1:-1] = u[i_max, 1:-1]
-    G[1:-1, 0] = v[1:-1, 0]
-    G[1:-1, j_max] = v[1:-1, j_max]
+    F[..., 1:i_max, 1:-1] = f_int[..., : i_max - 1, :]
+    G[..., 1:-1, 1:j_max] = g_int[..., :, : j_max - 1]
+    F[..., 0, 1:-1] = u[..., 0, 1:-1]
+    F[..., i_max, 1:-1] = u[..., i_max, 1:-1]
+    G[..., 1:-1, 0] = v[..., 1:-1, 0]
+    G[..., 1:-1, j_max] = v[..., 1:-1, j_max]
     return F, G
 
 
@@ -53,7 +60,7 @@ def compute_rhs(F: torch.Tensor, G: torch.Tensor, dt,
     div = (st.div(st.shifted(F, 0, 0) - st.shifted(F, -1, 0), dx)
            + st.div(st.shifted(G, 0, 0) - st.shifted(G, 0, -1), dy))
     rhs = torch.zeros_like(F)
-    rhs[1:-1, 1:-1] = div / dt
+    rhs[..., 1:-1, 1:-1] = div / dt
     return rhs
 
 
@@ -68,8 +75,8 @@ def project_velocities(u, v, F, G, p, dt,
     i_max, j_max = params.i_max, params.j_max
     u_new = st.shifted(F, 0, 0) - dt * st.dp_dx(p, params.dx)
     v_new = st.shifted(G, 0, 0) - dt * st.dp_dy(p, params.dy)
-    u[1:i_max, 1:-1] = u_new[: i_max - 1, :]
-    v[1:-1, 1:j_max] = v_new[:, : j_max - 1]
+    u[..., 1:i_max, 1:-1] = u_new[..., : i_max - 1, :]
+    v[..., 1:-1, 1:j_max] = v_new[..., :, : j_max - 1]
     return u, v
 
 
@@ -79,7 +86,8 @@ def adaptive_dt_gamma(u, v, params: Params):
 
     dt = tau * min(Re/2/(1/dx^2+1/dy^2), dx/|u_max|, dy/|v_max|), with u_max,
     v_max the reference's *signed* interior maxima (io.c:122).  gamma =
-    max(u_max*dt/dx, v_max*dt/dy).  A zero max gives dt = +inf for its term,
+    max(u_max*dt/dx, v_max*dt/dy).  A batch of fields gives one dt and one
+    gamma per member (shape (B,)).  A zero max gives dt = +inf for its term,
     which drops out of the min, as C float semantics and JAX do.
     """
     dx, dy, Re, tau = params.dx, params.dy, params.Re, params.tau

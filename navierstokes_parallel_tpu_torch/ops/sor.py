@@ -35,15 +35,25 @@ before each half-sweep (``_plain_inner``).
 An f64 state, or ``sor_refine_every = 0``, takes the direct solve
 (``_solve_pressure_direct``): the reference algorithm in the state's dtype,
 the residual checked after every sweep.  JAX checks it inside one
-``while_loop``; here the sweeps run in chunks whose norms are read once per
-chunk, and a chunk in which the solve stops is run again from its start
-for exactly the sweeps it needs, so the count and the bits are those of a
-check after every sweep.  No kernel stands behind the direct solve or the
-plain inner: the JAX package runs them in jnp.
+``while_loop``; here the go-on flag stays on the device, a sweep after the
+stop leaves p as it is (``torch.where``), and the flag is read once per
+chunk of sweeps, so the count and the bits are those of a check after
+every sweep.  No kernel stands behind the direct solve or the plain inner:
+the JAX package runs them in jnp.
 
 The refinement loop runs on the host: each outer pass reads one scalar (the
 residual norm) back to decide whether to go on, i.e. one device sync per K
-sweeps.
+sweeps.  ``outer_precision="compensated"`` runs the JAX package's two-float
+outer instead (``_solve_pressure_refined_compensated``: an f32 pair master
+and a compensated f32 defect, ops/compensated.py) around the same inner
+stages; obstacle domains keep the masked f64 outer, as in the JAX package.
+
+``solve_pressure_batch`` solves a batch of independent problems (a leading
+member axis, solver.solve_ensemble) with per-member thresholds, counts and
+stops: rb_sor, jacobi and fft through the same refined outer and inner
+stages (rb_sor's f32 sweeps: every member in the same kernel launches) or
+the same direct solve, whose loops take a per-member mask; mg, cg and the
+compensated outer member by member.
 
 Problem 3 (the channel) has an outflow, so its rhs is compatible with the
 Neumann problem only to the rounding of the flux balance: every method
@@ -60,7 +70,7 @@ from typing import Callable, List, NamedTuple, Optional
 import torch
 
 from ..config import Params
-from . import fft, mg
+from . import compensated, fft, mg
 from .cuda import sor_kernel
 from .stencils import l2_norm
 
@@ -91,10 +101,10 @@ def ghost_fill(p: torch.Tensor) -> torch.Tensor:
     """Homogeneous Neumann ghost update, IN PLACE (the ghost ring of the
     refinement master is scratch): copy the adjacent interior strip.
     Reference integration.c:138-146; corners are never read."""
-    p[0, 1:-1] = p[1, 1:-1]
-    p[-1, 1:-1] = p[-2, 1:-1]
-    p[1:-1, 0] = p[1:-1, 1]
-    p[1:-1, -1] = p[1:-1, -2]
+    p[..., 0, 1:-1] = p[..., 1, 1:-1]
+    p[..., -1, 1:-1] = p[..., -2, 1:-1]
+    p[..., 1:-1, 0] = p[..., 1:-1, 1]
+    p[..., 1:-1, -1] = p[..., 1:-1, -2]
     return p
 
 
@@ -102,8 +112,10 @@ def residual(p: torch.Tensor, rhs_int: torch.Tensor, dx2_inv,
              dy2_inv) -> torch.Tensor:
     """Pointwise Poisson residual on the interior (integration.c:156-160)."""
     return (
-        (p[2:, 1:-1] - 2.0 * p[1:-1, 1:-1] + p[:-2, 1:-1]) * dx2_inv
-        + (p[1:-1, 2:] - 2.0 * p[1:-1, 1:-1] + p[1:-1, :-2]) * dy2_inv
+        (p[..., 2:, 1:-1] - 2.0 * p[..., 1:-1, 1:-1] + p[..., :-2, 1:-1])
+        * dx2_inv
+        + (p[..., 1:-1, 2:] - 2.0 * p[..., 1:-1, 1:-1] + p[..., 1:-1, :-2])
+        * dy2_inv
         - rhs_int
     )
 
@@ -122,9 +134,10 @@ def _relaxed(p, rhs_int, one_minus_omega, coef, dx2_inv,
     """The relaxed update of every interior cell of p (the stencil of both
     red-black and Jacobi sweeps); coef = omega / (2 (dx2_inv + dy2_inv)),
     as JAX's _half_sweep forms it (_relaxation, once per solve)."""
-    neighbors = ((p[2:, 1:-1] + p[:-2, 1:-1]) * dx2_inv
-                 + (p[1:-1, 2:] + p[1:-1, :-2]) * dy2_inv)
-    return one_minus_omega * p[1:-1, 1:-1] + coef * (neighbors - rhs_int)
+    neighbors = ((p[..., 2:, 1:-1] + p[..., :-2, 1:-1]) * dx2_inv
+                 + (p[..., 1:-1, 2:] + p[..., 1:-1, :-2]) * dy2_inv)
+    return (one_minus_omega * p[..., 1:-1, 1:-1]
+            + coef * (neighbors - rhs_int))
 
 
 def _half_sweep(p, rhs_int, mask, one_minus_omega, coef, dx2_inv,
@@ -132,7 +145,7 @@ def _half_sweep(p, rhs_int, mask, one_minus_omega, coef, dx2_inv,
     """One masked SOR half-sweep over the interior (one checkerboard
     colour), IN PLACE on p (the solve's own tensor); returns p."""
     p_new = _relaxed(p, rhs_int, one_minus_omega, coef, dx2_inv, dy2_inv)
-    p[1:-1, 1:-1] = torch.where(mask, p_new, p[1:-1, 1:-1])
+    p[..., 1:-1, 1:-1] = torch.where(mask, p_new, p[..., 1:-1, 1:-1])
     return p
 
 
@@ -174,8 +187,8 @@ def _make_iteration(method, rhs_int, omega, dx2_inv, dy2_inv, red_mask,
     elif method == "jacobi":
         def iteration(p):
             p = ghost_fn(p)
-            p[1:-1, 1:-1] = _relaxed(p, rhs_int, one_minus_omega, coef,
-                                     dx2_inv, dy2_inv)
+            p[..., 1:-1, 1:-1] = _relaxed(p, rhs_int, one_minus_omega, coef,
+                                          dx2_inv, dy2_inv)
             return p
     else:
         raise ValueError(f"unknown pressure solver method {method!r}")
@@ -251,27 +264,7 @@ def solve_pressure(p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
         from . import masked  # it imports this module
 
         return masked.solve_pressure_masked(p, rhs, params, method=method)
-    if params.problem == 3:
-        # The outflow problem's flux balance (boundary.apply_channel_bcs)
-        # holds only to rounding, which leaves a constant (Neumann null
-        # space) mode in the rhs that no iteration removes: project it out
-        # once here, and from every defect of the refinement.  A sharded
-        # caller passes the all-reduced mean: a per-block mean would change
-        # the problem.
-        interior = rhs[1:-1, 1:-1]
-        rhs = rhs.clone()
-        rhs[1:-1, 1:-1] = interior - mean_fn(interior)
-    if params.outer_precision == "compensated":
-        raise NotImplementedError(
-            "outer_precision='compensated' is not ported (the H100 has "
-            "native FP64): ROADMAP A9")
-    if method == "jacobi" and params.omega > 1.0:
-        # Damped Jacobi diverges for omega > 1 (spectral radius
-        # |1 - omega + omega*mu| with mu in (-1, 1)): clamp, and say so.
-        warnings.warn(
-            f"method='jacobi' diverges for omega={params.omega} > 1; "
-            "clamping to 0.8 (damped Jacobi)", stacklevel=2)
-        params = params.replace(omega=0.8)
+    rhs, params = _prepare(rhs, params, method, mean_fn)
     if hooks and method in ("mg", "cg", "fft", "pallas_sor"):
         raise ValueError(
             f"{method} via solve_pressure is single-device (got shard hooks); "
@@ -321,6 +314,138 @@ def solve_pressure(p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
     return _solve_pressure_direct(p, rhs, params, method=method, **hooks)
 
 
+class BatchResult(NamedTuple):
+    """``solve_pressure_batch``'s result: one entry per member."""
+
+    p: torch.Tensor           # (B, i_max + 2, j_max + 2)
+    iterations: torch.Tensor  # (B,) int64
+    res_norm: torch.Tensor    # (B,) in p's dtype
+    converged: torch.Tensor   # (B,) bool
+
+
+# The methods solve_pressure_batch runs on the whole batch at once.
+BATCHED_METHODS = ("rb_sor", "jacobi", "fft")
+
+
+def solve_pressure_batch(p: torch.Tensor, rhs: torch.Tensor, params: Params,
+                         *, method: str = "rb_sor",
+                         active=None) -> BatchResult:
+    """``solve_pressure`` of B independent problems stacked on a leading
+    axis (solver.solve_ensemble), each member with its own threshold,
+    count and stop, as the JAX package's vmapped solve: a member that has
+    converged keeps its pressure and its count while the others go on.
+
+    rb_sor, jacobi and fft run ``solve_pressure``'s outer and inner on the
+    whole batch (the `going` mask of ``_solve_pressure_refined`` and
+    ``_solve_pressure_direct``): rb_sor's f32 sweeps take the SOR kernel
+    route, every member in the same launches on the card (its plain twin
+    on the CPU), jacobi the plain inner, fft the DCT over the last two
+    axes; each outer pass reads one flag for the whole batch.  mg and cg,
+    and the compensated outer, solve member by member (``solve_pressure``
+    on each).  Obstacle domains are refused: solver.solve_ensemble steps
+    them member by member.  `active` (host bools, default all) names the
+    members to solve; the others keep p, with 0 iterations."""
+    if method not in METHODS:
+        raise ValueError(f"unknown pressure solver method {method!r}")
+    if params.obstacles:
+        raise ValueError("solve_pressure_batch takes no obstacle domain: "
+                         "solver.solve_ensemble steps those member by member")
+    n_members = p.shape[0]
+    active = [True] * n_members if active is None else list(active)
+    if (method not in BATCHED_METHODS
+            or params.outer_precision == "compensated"):
+        return _member_by_member(p, rhs, params, method, active)
+    going = torch.tensor(active, device=p.device)
+
+    def mean_fn(r):
+        return torch.mean(r, dim=(-2, -1), keepdim=True)
+
+    rhs, params = _prepare(rhs, params, method, mean_fn)
+    if method == "fft":
+        fft.check_precision(params)
+        return _solve_pressure_refined(
+            p, rhs, params.replace(
+                sor_refine_every=max(1, params.fft_solves_per_outer)),
+            inner_fn=lambda r, n: fft.inner_direct(r, n, params),
+            mean_fn=mean_fn, going=going)
+    if p.dtype == torch.float32 and params.sor_refine_every > 0:
+        inner_fn = None  # rb_sor: the kernel route
+        if method == "jacobi":
+            inner_fn = _plain_inner(p.shape[1:], params, method, p.device)
+        return _solve_pressure_refined(p, rhs, params, inner_fn=inner_fn,
+                                       mean_fn=mean_fn, going=going)
+    return _solve_pressure_direct(p, rhs, params, method=method, going=going)
+
+
+def _member_by_member(p, rhs, params: Params, method: str,
+                      active) -> BatchResult:
+    """``solve_pressure`` on each active member (the others keep p)."""
+    ps, iters, norms, conv = [], [], [], []
+    for k, flag in enumerate(active):
+        if flag:
+            r = solve_pressure(p[k], rhs[k], params, method=method)
+            ps.append(r.p)
+            iters.append(r.iterations)
+            norms.append(r.res_norm)
+            conv.append(r.converged)
+        else:
+            ps.append(p[k])
+            iters.append(0)
+            norms.append(0.0)
+            conv.append(True)
+    device = p.device
+    return BatchResult(
+        p=torch.stack(ps), iterations=torch.tensor(iters, device=device),
+        res_norm=torch.tensor(norms, dtype=p.dtype, device=device),
+        converged=torch.tensor(conv, device=device))
+
+
+def _members(going: Optional[torch.Tensor], device) -> torch.Tensor:
+    """A copy of the `going` mask of a batch, or the 0-d True of one
+    problem: the loops clear its entries in place."""
+    if going is None:
+        return torch.ones((), dtype=torch.bool, device=device)
+    return going.clone()
+
+
+def _finish(p_out: torch.Tensor, going: Optional[torch.Tensor],
+            iterations: torch.Tensor, res_norm: torch.Tensor,
+            threshold: torch.Tensor, dtype):
+    """The solve's result: a BatchResult for a batch (`going` given), else
+    the SORResult of the one problem, with host numbers.  Convergence is
+    read on the norm before its rounding to the state's dtype."""
+    converged = res_norm <= threshold
+    res_norm = res_norm.to(dtype)
+    if going is not None:
+        return BatchResult(p=p_out, iterations=iterations, res_norm=res_norm,
+                           converged=converged)
+    return SORResult(p=p_out, iterations=int(iterations),
+                     res_norm=float(res_norm), converged=bool(converged))
+
+
+def _prepare(rhs, params: Params, method: str, mean_fn: Callable):
+    """(rhs, params) as the unmasked solves take them: problem 3's rhs
+    without its constant mode, and jacobi's omega clamped.  The outflow
+    problem's flux balance (boundary.apply_channel_bcs) holds only to
+    rounding, which leaves a constant (Neumann null space) mode in the rhs
+    that no iteration removes: it goes once here, and from every defect of
+    the refinement.  A sharded caller passes the all-reduced mean (a
+    per-block mean would change the problem), a batch the per-member one.
+    Damped Jacobi diverges for omega > 1 (spectral radius |1 - omega +
+    omega*mu| with mu in (-1, 1)): it is clamped, with a warning on the
+    solve's caller."""
+    if params.problem == 3:
+        interior = rhs[..., 1:-1, 1:-1]
+        rhs = rhs.clone()
+        rhs[..., 1:-1, 1:-1] = interior - mean_fn(interior)
+    if method == "jacobi" and params.omega > 1.0:
+        warnings.warn(
+            f"method='jacobi' diverges for omega={params.omega} > 1; "
+            "clamping to 0.8 (damped Jacobi)", stacklevel=3)
+        params = params.replace(omega=0.8)
+    return rhs, params
+
+
 def _plain_inner(shape, params: Params, method: str, device, *,
                  ghost_fn: Callable = ghost_fill, parity: int = 0,
                  valid_mask: Optional[torch.Tensor] = None,
@@ -335,10 +460,10 @@ def _plain_inner(shape, params: Params, method: str, device, *,
                                valid_mask, device)
 
     def inner(rhs_full: torch.Tensor, n: int) -> torch.Tensor:
-        iteration = _make_iteration(method, rhs_full[1:-1, 1:-1], omega,
+        iteration = _make_iteration(method, rhs_full[..., 1:-1, 1:-1], omega,
                                     dx2_inv, dy2_inv, red, black,
                                     ghost_fn=ghost_fn)
-        delta = torch.zeros(shape, dtype=torch.float32, device=device)
+        delta = torch.zeros_like(rhs_full)  # f32, a batch's shape too
         for _ in range(int(n)):
             delta = iteration(delta)
         return delta
@@ -351,62 +476,55 @@ def _solve_pressure_direct(p: torch.Tensor, rhs: torch.Tensor,
                            ghost_fn: Callable = ghost_fill,
                            l2_fn: Optional[Callable] = None, parity: int = 0,
                            valid_mask: Optional[torch.Tensor] = None,
-                           chunk: Optional[int] = None) -> SORResult:
+                           chunk: Optional[int] = None,
+                           going: Optional[torch.Tensor] = None):
     """The solve in the state's dtype with the residual check after every
     sweep (exact serial semantics, integration.c:136-169).
 
-    The sweeps run in chunks of `chunk` (default DIRECT_CHUNK): each chunk
-    keeps a copy of p, stacks its sweeps' norms on the device and reads
-    them once.  Where the loop would stop inside the chunk (a norm no
-    longer above the threshold), p goes back to the copy and runs exactly
-    those sweeps again: every operation repeats the same bits, so the
-    result is the per-sweep loop's.  `valid_mask` (interior-shaped bool)
-    restricts updates, the residual and the norms to the true interior
-    cells of a padded shard (parallel/sharded.py)."""
+    A sweep updates p only while the problem is still going (the norm of
+    the last sweep above the threshold): ``torch.where`` keeps p and the
+    count once it stops, so the result is the per-sweep loop's.  The flag
+    stays on the device and is read once per `chunk` (default
+    DIRECT_CHUNK) sweeps.  `valid_mask` (interior-shaped bool) restricts
+    updates, the residual and the norms to the true interior cells of a
+    padded shard (parallel/sharded.py).  With `going` (bool, one per
+    member; solve_pressure_batch), p and rhs carry a leading member axis,
+    every member has its own threshold, count and stop, and the result is
+    a BatchResult; without it, one problem's SORResult."""
     dtype, device = p.dtype, p.device
     omega, dx2_inv, dy2_inv = _sweep_constants(params, dtype, device)
-    rhs_int = rhs[1:-1, 1:-1]
+    rhs_int = rhs[..., 1:-1, 1:-1]
     l2_fn = l2_fn or _default_l2(params)
-    red, black = _colour_masks((p.shape[0] - 2, p.shape[1] - 2), parity,
+    red, black = _colour_masks((p.shape[-2] - 2, p.shape[-1] - 2), parity,
                                valid_mask, device)
     masked = _masker(valid_mask)
     iteration = _make_iteration(method, rhs_int, omega, dx2_inv, dy2_inv,
                                 red, black, ghost_fn=ghost_fn)
 
-    p = p.clone()  # the sweeps work in place
-    norm_p0 = l2_fn(masked(p[1:-1, 1:-1]))
-    # In the state's dtype, as JAX compares; exact as a Python float.
-    threshold = float(params.epsilon * (norm_p0 + NORM_OFFSET))
-
-    def sweep(q):
-        q = iteration(q)
-        return q, l2_fn(masked(residual(q, rhs_int, dx2_inv, dy2_inv)))
-
+    p = p.clone()  # the sweeps work in place, on a copy of it
+    # In the state's dtype, as JAX compares.
+    threshold = params.epsilon * (l2_fn(masked(p[..., 1:-1, 1:-1]))
+                                  + NORM_OFFSET)
+    on = _members(going, device)
+    on3 = on.view(*on.shape, 1, 1)  # follows `on` in place
+    iterations = torch.zeros(on.shape, dtype=torch.int64, device=device)
+    res_norm = torch.full(on.shape, math.inf, dtype=dtype, device=device)
     chunk = chunk or DIRECT_CHUNK
-    it, res_norm = 0, math.inf
-    while it < params.max_it and res_norm > threshold:
-        n = min(chunk, params.max_it - it)
-        start = p.clone()
-        norms: List[torch.Tensor] = []
-        for _ in range(n):
-            p, norm = sweep(p)
-            norms.append(norm)
-        values = torch.stack(norms).tolist()  # the one read per chunk
-        # The per-sweep loop goes on while norm > threshold (a NaN stops
-        # it, as JAX's while_loop condition does).
-        stop = next((k for k, v in enumerate(values) if not v > threshold),
-                    n - 1)
-        if stop < n - 1:
-            p = start
-            for _ in range(stop + 1):
-                p = iteration(p)
-        it += stop + 1
-        res_norm = values[stop]
+    done = 0
+    while done < params.max_it and bool(on.any()):  # one read per chunk
+        for _ in range(min(chunk, params.max_it - done)):
+            p = torch.where(on3, iteration(p.clone()), p)
+            norm = l2_fn(masked(residual(p, rhs_int, dx2_inv, dy2_inv)))
+            res_norm = torch.where(on, norm, res_norm)
+            iterations += on
+            # Goes on while norm > threshold: a NaN stops it, as JAX's
+            # while_loop condition does.
+            on &= norm > threshold
+            done += 1
     # Final ghost/halo refresh: the last half-sweep leaves the ring one
     # update stale.
-    p = ghost_fn(p)
-    return SORResult(p=p, iterations=it, res_norm=res_norm,
-                     converged=res_norm <= threshold)
+    return _finish(ghost_fn(p), going, iterations, res_norm, threshold,
+                   dtype)
 
 
 def _cg_inner(params: Params) -> Inner:
@@ -450,8 +568,8 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
                             inner_fn: Optional[Inner] = None,
                             valid_mask: Optional[torch.Tensor] = None,
                             mean_fn: Callable = torch.mean,
-                            residual_fn: Optional[Callable] = None
-                            ) -> SORResult:
+                            residual_fn: Optional[Callable] = None,
+                            going: Optional[torch.Tensor] = None):
     """Mixed-precision iterative refinement around an f32 inner stage.
 
     Outer loop (f64, once per K inner steps): defect r = A p - RHS, L2
@@ -473,22 +591,32 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
     takes the place of the ghost fill and the Laplacian's defect: it returns
     the interior defect of another operator (the masked one of the sharded
     backend's obstacle domains, parallel/sharded.py; one device takes
-    ops/masked.py instead).  The compensated outer, which JAX runs with
-    every hook but `residual_fn`, is not ported (ROADMAP A9) and raises.
+    ops/masked.py instead).
+
+    With `going` (bool, one per member; solve_pressure_batch), p and rhs
+    carry a leading member axis: every member has its own f64 defect,
+    norm, threshold and count, every member still going has taken the
+    same sweeps, so one inner call serves them all, and a member stops by
+    keeping its master (``torch.where``) while the others go on; the
+    result is a BatchResult.  Without it the mask is one 0-d flag and the
+    result one problem's SORResult.  Either way each pass reads one flag.
+
+    ``params.outer_precision == "compensated"`` swaps the f64 outer for the
+    two-float f32 one (``_solve_pressure_refined_compensated``), with every
+    hook but `residual_fn`, which it refuses as the JAX package does; it
+    solves one problem (a batch goes member by member).
     """
     if params.outer_precision == "compensated":
-        raise NotImplementedError(
-            "outer_precision='compensated' (the two-float refinement outer "
-            "and its mean_fn hook; JAX refuses residual_fn there) is not "
-            "ported (the H100 has native FP64): ROADMAP A9")
-    if inner_fn is None:
-        if parity % 2:
+        if residual_fn is not None:
             raise ValueError(
-                "the SOR kernel route sweeps a whole grid (parity 0); a "
-                "block of parity 1 needs its own inner_fn")
-
-        def inner_fn(rhs_full, n):
-            return sor_kernel.inner_sweeps(rhs_full, n, params)
+                "residual_fn (masked sharded defect) is wired for the "
+                "float64 outer only — obstacle runs require x64")
+        if going is not None:
+            raise ValueError("the compensated outer solves one problem")
+        return _solve_pressure_refined_compensated(
+            p, rhs, params, ghost_fn=ghost_fn, l2_fn=l2_fn, parity=parity,
+            inner_fn=inner_fn, valid_mask=valid_mask, mean_fn=mean_fn)
+    inner_fn = _default_inner(params, parity, inner_fn)
     K = params.sor_refine_every
     f64, f32 = torch.float64, torch.float32
     dx2_inv = 1.0 / (params.dx * params.dx)
@@ -497,9 +625,9 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
     masked = _masker(valid_mask)
 
     p64 = p.to(f64, copy=True)  # the master; updated in place below
-    rhs_int64 = rhs[1:-1, 1:-1].to(f64)
-    norm_p0 = l2_fn(masked(p64[1:-1, 1:-1]))
-    threshold = float(params.epsilon * (norm_p0 + NORM_OFFSET))
+    rhs_int64 = rhs[..., 1:-1, 1:-1].to(f64)
+    threshold = params.epsilon * (l2_fn(masked(p64[..., 1:-1, 1:-1]))
+                                  + NORM_OFFSET)
 
     def defect():
         if residual_fn is None:
@@ -515,18 +643,123 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
 
     rhs_full = torch.zeros(p.shape, dtype=f32, device=p.device)
     r64 = defect()
+    on = _members(going, p.device)
+    on3 = on.view(*on.shape, 1, 1)  # follows `on` in place
+    iterations = torch.zeros(on.shape, dtype=torch.int64, device=p.device)
+    res_norm = torch.full(on.shape, math.inf, dtype=f64, device=p.device)
+    done = 0  # the sweeps of every problem still going
+    while done < params.max_it and bool(on.any()):  # the one sync per pass
+        n_inner = min(K, params.max_it - done)
+        # rhs_full's ghost ring stays 0; only its interior is rewritten.
+        rhs_full[..., 1:-1, 1:-1] = -r64.to(f32)
+        delta = inner_fn(rhs_full, n_inner)
+        interior = p64[..., 1:-1, 1:-1]
+        interior.copy_(torch.where(on3, interior + delta[..., 1:-1, 1:-1]
+                                   .to(f64), interior))
+        r64 = defect()
+        norm = l2_fn(r64)
+        res_norm = torch.where(on, norm, res_norm)
+        iterations += on * n_inner
+        done += n_inner
+        on &= norm > threshold
+    return _finish(ghost_fn(p64).to(p.dtype), going, iterations, res_norm,
+                   threshold, p.dtype)
+
+
+def _default_inner(params: Params, parity: int,
+                   inner_fn: Optional[Inner]) -> Inner:
+    """`inner_fn`, or when it is None the SOR kernel route over the whole
+    grid (parity 0 only: a block of parity 1 brings its own inner)."""
+    if inner_fn is not None:
+        return inner_fn
+    if parity % 2:
+        raise ValueError(
+            "the SOR kernel route sweeps a whole grid (parity 0); a "
+            "block of parity 1 needs its own inner_fn")
+
+    def inner(rhs_full, n):
+        return sor_kernel.inner_sweeps(rhs_full, n, params)
+
+    return inner
+
+
+def _solve_pressure_refined_compensated(
+        p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
+        ghost_fn: Callable = ghost_fill, l2_fn: Optional[Callable] = None,
+        parity: int = 0, inner_fn: Optional[Inner] = None,
+        valid_mask: Optional[torch.Tensor] = None,
+        mean_fn: Callable = torch.mean) -> SORResult:
+    """The two-float (compensated f32) refinement outer, with no f64 in the
+    loop: the JAX package's ``_solve_pressure_refined_compensated``.
+
+    The structure and the stopping rule are ``_solve_pressure_refined``'s;
+    the master pressure is an error-free f32 pair (hi, lo), updated by
+    ``df_add_f32``, and the defect is ``residual_df`` (ops/compensated.py).
+    `ghost_fn` is applied to hi and lo apart: it copies or exchanges, which
+    commutes with the hi + lo split, so the sharded hooks work unchanged.
+    The norm and the threshold are f32, so where a norm lands within the
+    f32 sum's rounding of the threshold the two outers can differ by one
+    pass (the JAX package's caveat).  A float64 state splits its p and rhs
+    into (hi, lo) words, and gets back the full value the pair carries."""
+    inner_fn = _default_inner(params, parity, inner_fn)
+    K = params.sor_refine_every
+    f32 = torch.float32
+    device = p.device
+    dx2_inv = torch.tensor(1.0 / (params.dx * params.dx), dtype=f32,
+                           device=device)
+    dy2_inv = torch.tensor(1.0 / (params.dy * params.dy), dtype=f32,
+                           device=device)
+    l2_fn = l2_fn or _default_l2(params)
+    masked = _masker(valid_mask)
+
+    # For a float64 state the low f32 words of p and rhs are significant:
+    # dropping them would certify convergence of a rounded problem.
+    wide = p.dtype.itemsize > 4
+    hi = p.to(f32, copy=True)  # the master pair; updated in place below
+    rhs_int = rhs[1:-1, 1:-1]
+    rhs_int32 = rhs_int.to(f32)
+    if wide:
+        lo = (p - hi.to(p.dtype)).to(f32)
+        rhs_lo32 = (rhs_int - rhs_int32.to(rhs.dtype)).to(f32)
+    else:
+        lo = torch.zeros_like(hi)
+        rhs_lo32 = None
+    norm_p0 = l2_fn(masked(hi[1:-1, 1:-1]))
+    # f32, as the JAX package forms it; exact as a Python float.
+    threshold = float(torch.tensor(params.epsilon, dtype=f32, device=device)
+                      * (norm_p0 + NORM_OFFSET))
+
+    def defect():
+        r = masked(compensated.residual_df(
+            ghost_fn(hi), ghost_fn(lo), rhs_int32, dx2_inv, dy2_inv,
+            rhs_lo=rhs_lo32))
+        if params.problem == 3:
+            # The constant-mode deflation of the f64 outer, here relative to
+            # the shrinking f32 defect.
+            r = masked(r - mean_fn(r))
+        return r
+
+    rhs_full = torch.zeros(p.shape, dtype=f32, device=device)
+    r32 = defect()
     it = 0
     res_norm = math.inf
     while it < params.max_it and res_norm > threshold:
         n_inner = min(K, params.max_it - it)
-        # rhs_full's ghost ring stays 0; only its interior is rewritten.
-        rhs_full[1:-1, 1:-1] = -r64.to(f32)
+        rhs_full[1:-1, 1:-1] = -r32
         delta = inner_fn(rhs_full, n_inner)
-        p64[1:-1, 1:-1] += delta[1:-1, 1:-1].to(f64)
-        r64 = defect()
-        res_norm = float(l2_fn(r64))  # the one sync per pass
+        h2, l2 = compensated.df_add_f32(hi[1:-1, 1:-1], lo[1:-1, 1:-1],
+                                 delta[1:-1, 1:-1])
+        hi[1:-1, 1:-1] = h2
+        lo[1:-1, 1:-1] = l2
+        r32 = defect()
+        res_norm = float(l2_fn(r32))  # the one sync per pass
         it += n_inner
-    p_out = ghost_fn(p64).to(p.dtype)
+    # (hi, lo) stays normalized, so hi alone is the correctly rounded f32
+    # master; a wider state gets the ~48-bit value of the pair.
+    if wide:
+        p_out = ghost_fn(hi.to(p.dtype) + lo.to(p.dtype))
+    else:
+        p_out = ghost_fn(hi).to(p.dtype)
     return SORResult(
         p=p_out,
         iterations=it,

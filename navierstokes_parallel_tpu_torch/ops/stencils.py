@@ -147,15 +147,23 @@ def dp_dy(p, dy):
 # ---------------------------------------------------------------------------
 
 def l2_norm(interior_vals, i_max: int, j_max: int):
-    """sqrt(sum(m^2) / (i_max * j_max)) over the interior (integration.c:115)."""
-    return torch.sqrt(div(torch.sum(interior_vals * interior_vals),
-                          i_max * j_max))
+    """sqrt(sum(m^2) / (i_max * j_max)) over the interior (integration.c:115);
+    one norm per member of a batch (a leading axis)."""
+    sq = interior_vals * interior_vals
+    total = torch.sum(sq) if sq.dim() <= 2 else torch.sum(sq, dim=(-2, -1))
+    return torch.sqrt(div(total, i_max * j_max))
 
 
 def max_interior(x):
     """Signed max over the interior, seeded with the ghost corner x[0, 0].
 
     Reproduces the reference's max_mat quirk (io.c:122-139): it is a *signed*
-    max (not abs) whose initial candidate is x[0][0].
+    max (not abs) whose initial candidate is x[0][0].  One field takes the
+    full reduction, whose gradient spreads evenly over ties as JAX's
+    reduce_max does (diff.py); a batch (a leading axis) gives one max per
+    member.
     """
-    return torch.maximum(x[0, 0], torch.max(x[1:-1, 1:-1]))
+    if x.dim() == 2:
+        return torch.maximum(x[0, 0], torch.max(x[1:-1, 1:-1]))
+    return torch.maximum(x[..., 0, 0],
+                         torch.amax(x[..., 1:-1, 1:-1], dim=(-2, -1)))

@@ -645,10 +645,6 @@ def _check_method(params: Params, mesh: Mesh, pressure_method: str,
             raise ValueError(
                 "sharded obstacle domains require the f32 state with the "
                 "mixed-precision refinement (sor_refine_every >= 1)")
-    if params.outer_precision == "compensated":
-        raise NotImplementedError(
-            "outer_precision='compensated' is not ported (the H100 has "
-            "native FP64): ROADMAP A9")
     px, py = mesh.shape
     li, lj = local_block_dims((px, py), params.i_max, params.j_max)
     padded = (px * li != params.i_max) or (py * lj != params.j_max)

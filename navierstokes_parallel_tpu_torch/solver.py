@@ -23,7 +23,10 @@ takes the plain F/G and RHS on every device, as the JAX package does.
 over a ``Stepper``): PyTorch runs eagerly, so the JAX package's on-device
 ``lax.while_loop`` becomes one scalar read of ``t`` per step.  The CLI runs
 the same loop with its frames, checkpoints and history rows between the
-steps, so it takes ``solve``'s steps, kernels and bits.
+steps, so it takes ``solve``'s steps, kernels and bits.  ``solve_ensemble``
+integrates a batch of independent states (``stack_states``: a leading
+member axis, the JAX package's ``vmap``) with one read of the members'
+flags a step.
 """
 
 from __future__ import annotations
@@ -295,6 +298,137 @@ def warm_up(params: Params, device, pressure_method: str = "rb_sor",
                       time_order)
     stepper.step()
     device_fence(stepper.state())
+
+
+def stack_states(states) -> State:
+    """Per-member States as one batched State (a leading member axis):
+    u, v, p (B, i_max + 2, j_max + 2), t (B,) and n (B,) int64."""
+    states = list(states)
+    return State(*(torch.stack([getattr(s, f) for s in states])
+                   for f in ("u", "v", "p", "t")),
+                 n=torch.tensor([int(s.n) for s in states],
+                                device=states[0].u.device))
+
+
+def _step_each_member(u, v, p, t, active, params: Params, method: str):
+    """``_ensemble_step`` member by member through ``step`` (obstacle
+    domains)."""
+    outs, diags = [], []
+    for k, flag in enumerate(active):
+        member = State(u[k], v[k], p[k], t[k], 0)
+        if flag:
+            member, diag = step(member, params, pressure_method=method)
+        else:
+            diag = StepDiagnostics(member.t, 0, 0.0, True)
+        outs.append(member)
+        diags.append(diag)
+
+    def stacked(name):
+        return torch.stack([getattr(s, name) for s in outs])
+
+    result = sor.BatchResult(
+        p=stacked("p"),
+        iterations=torch.tensor([d.sor_iterations for d in diags],
+                                device=u.device),
+        res_norm=torch.tensor([d.sor_res_norm for d in diags],
+                              dtype=p.dtype, device=u.device),
+        converged=torch.tensor([d.sor_converged for d in diags],
+                               device=u.device))
+    return stacked("u"), stacked("v"), stacked("t"), result
+
+
+def _ensemble_step(u, v, p, t, active, params: Params, method: str):
+    """One step of the members `active` (host bools) names: the new u, v,
+    t and the batch's ``sor.BatchResult`` (whose p is the new pressure).
+    Problems 1-4 take `step` on the whole batch (the BCs, F/G and rhs by
+    the fused momentum kernel on an f32 CUDA state, every member in one
+    launch, else by the plain formulation; ``sor.solve_pressure_batch``);
+    obstacle domains step member by member."""
+    if params.obstacles:
+        return _step_each_member(u, v, p, t, active, params, method)
+    u, v = u.clone(), v.clone()
+    dt, gamma = momentum.adaptive_dt_gamma(u, v, params)
+    dt3, gamma3 = dt.view(-1, 1, 1), gamma.view(-1, 1, 1)
+    if params.problem == 3:
+        boundary.apply_channel_bcs(u, v, params)
+    elif params.problem == 4:
+        boundary.apply_freeslip_box(u, v)
+    else:
+        lid = boundary.lid_velocity(params.problem, params.f, t)
+        boundary.apply_cavity_bcs(u, v, lid.view(-1, 1) if lid.dim() else lid)
+    if momentum_kernel.usable(params, u.device):
+        F, G, rhs = momentum_kernel.momentum_rhs(u, v, dt, gamma, params)
+    else:
+        F, G = momentum.compute_fg(u, v, dt3, gamma3, params)
+        rhs = momentum.compute_rhs(F, G, dt3, params)
+    result = sor.solve_pressure_batch(p, rhs, params, method=method,
+                                      active=active)
+    momentum.project_velocities(u, v, F, G, result.p, dt3, params)
+    return u, v, t + dt, result
+
+
+def solve_ensemble(params: Params, states: State, *,
+                   pressure_method: str = "rb_sor",
+                   mesh=None) -> Tuple[State, SolveStats]:
+    """Integrate a batch of independent initial states (``stack_states``)
+    to t >= T: the JAX package's ``solve_ensemble``, whose ``vmap`` becomes
+    a leading batch axis.  Each member keeps its own adaptive dt, step
+    count and pressure iterations; a member that has reached T holds its
+    state fixed (``torch.where``) while the others step, as JAX's batched
+    ``while_loop`` does, and the loop reads one flag vector per step for
+    the whole batch.  Returns the batched State and SolveStats whose fields
+    are per-member tensors.
+
+    The batched step is ``step`` on the member axis: on an f32 CUDA state
+    the fused momentum kernel and rb_sor's SOR sweep kernel take every
+    member in the same launches (the kernels carry a member axis; the JAX
+    package's vmap runs its jnp route instead, ``disable_pallas``), on the
+    CPU their plain twins.  rb_sor and jacobi (the refinement outer, or the
+    direct solve on an f64 state) and fft solve the whole batch at once;
+    mg, cg and the compensated outer solve member by member inside the
+    batched step, and obstacle domains step member by member.
+    ``pressure_method="pallas_sor"`` is JAX's ValueError; JAX's `mesh` (its
+    data-parallel ensemble over devices) is refused: ROADMAP A11."""
+    if pressure_method == "pallas_sor":
+        raise ValueError(
+            "solve_ensemble cannot batch the Pallas kernels; use rb_sor "
+            "(same algorithm, jnp formulation) or mg/cg/fft")
+    if mesh is not None:
+        raise NotImplementedError(
+            "solve_ensemble(mesh=...), the JAX package's data-parallel "
+            "ensemble over devices, is not ported: ROADMAP A11 (multi-card "
+            "variants)")
+    if pressure_method not in sor.METHODS:
+        raise ValueError(f"unknown pressure solver method "
+                         f"{pressure_method!r}")
+    _check_problem(params)
+    u, v, p, t = (x.clone() for x in states[:4])
+    n = torch.as_tensor(states.n, device=t.device).clone()
+    T = torch.tensor(params.T, dtype=t.dtype, device=t.device)
+    zero = torch.zeros(t.shape[0], dtype=torch.int64, device=t.device)
+    steps, iters, failures = zero.clone(), zero.clone(), zero.clone()
+    last = torch.zeros_like(t)
+    active = t < T  # in the state's dtype, as JAX compares
+    while True:
+        flags = active.tolist()  # the one read per step
+        if not any(flags):
+            break
+        u_new, v_new, t_new, res = _ensemble_step(u, v, p, t, flags, params,
+                                                  pressure_method)
+        a3 = active.view(-1, 1, 1)
+        u = torch.where(a3, u_new, u)
+        v = torch.where(a3, v_new, v)
+        p = torch.where(a3, res.p, p)
+        t = torch.where(active, t_new, t)
+        n += active
+        steps += active
+        iters += torch.where(active, res.iterations, 0)
+        failures += active & ~res.converged
+        last = torch.where(active, res.res_norm, last)
+        active = t < T
+    return State(u=u, v=v, p=p, t=t, n=n), SolveStats(
+        steps=steps, total_sor_iterations=iters, sor_failures=failures,
+        last_res_norm=last)
 
 
 def center_values(state: State, params: Params) -> Tuple[float, float]:

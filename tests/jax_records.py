@@ -52,6 +52,17 @@ imports JAX, which the port never does.
         tests/jax_sharded_thermal_records.json
     JAX_PLATFORMS=cpu python tests/jax_records.py free \
         tests/jax_free_records.json
+
+``diff``, ``compensated`` and ``ensemble`` write their sections of
+tests/jax_a9_records.json (A9_RECORDS; a path may follow): the gradients
+of DIFF_CAVITY, DIFF_THERMAL and DIFF_MASKED with JAX's own central
+differences of the cavity's, COMPENSATED_CLI through the JAX CLI, and the
+ENSEMBLE runs by each method (per member: steps, iterations, failures, t,
+centre values, max |u| of the interior), each with its definition:
+
+    JAX_PLATFORMS=cpu python tests/jax_records.py diff
+    JAX_PLATFORMS=cpu python tests/jax_records.py compensated
+    JAX_PLATFORMS=cpu python tests/jax_records.py ensemble
 """
 
 import os
@@ -128,6 +139,198 @@ SHARDED_THERMAL_METHODS = ("rb_sor", "mg")
 # The dam break: the whole run, and the cut of chip_smoke.py's phase.
 FREE_CLI = ["configs/dambreak.in", "--free-wall", "freeslip", "--stats"]
 FREE_CUT = 60
+
+
+# The runs of chip_smoke.py's "gradients", "compensated" and "ensemble"
+# phases, written by the diff, compensated and ensemble commands to one
+# file (each command its section); each record carries its definition,
+# from which chip_smoke.py rebuilds the same inputs.  A perturbation is
+# `bump` times a standard normal of numpy's default_rng(seed) on the
+# interior (zero on the ghost ring).
+A9_RECORDS = "tests/jax_a9_records.json"
+# configs/1.in's 256^2 cavity in f64 to epsilon 1e-9, 3 steps by mg from a
+# symmetry-broken start (u += bump); loss = sum u^2 + sum v^2 of the
+# interior; the gradient w.r.t. lid_scale and the directional derivative
+# w.r.t. the initial u along a direction of seed direction_seed, each with
+# JAX's own central differences (steps h_lid, h_dir).
+DIFF_CAVITY = {"config": "configs/1.in", "dtype": "float64",
+               "epsilon": 1e-9, "steps": 3, "method": "mg", "bump_seed": 42,
+               "bump": 0.05, "direction_seed": 7, "h_lid": 1e-5,
+               "h_dir": 1e-6}
+# configs/convection.in's 64^2 de Vahl Davis cavity in f64 to epsilon 1e-9,
+# 3 steps by mg from the conduction state with u and v perturbed (two
+# draws of one generator); the hot-wall Nusselt number of the final T and
+# its derivative w.r.t. t_left.
+DIFF_THERMAL = {"config": "configs/convection.in", "dtype": "float64",
+                "epsilon": 1e-9, "steps": 3, "method": "mg", "bump_seed": 3,
+                "bump": 0.02}
+# The backward-facing step of OBSTACLE_RUNS (Re 150, 128 x 32) in f64 to
+# epsilon 1e-9, 2 steps by the masked mg from rest with u and v perturbed
+# by one draw; loss and the directional derivative w.r.t. the initial u
+# (the masked adjoint).
+DIFF_MASKED = {"model": "backward_facing_step",
+               "kwargs": {"Re": 150.0, "nx": 128, "ny": 32},
+               "dtype": "float64", "epsilon": 1e-9, "steps": 2,
+               "method": "mg", "bump_seed": 11, "bump": 0.02,
+               "direction_seed": 13}
+# configs/1.in through the JAX CLI with the compensated outer.
+COMPENSATED_CLI = {
+    "k64": ["configs/1.in", "--outer", "compensated", "--stats"],
+    "k2048": ["configs/1.in", "--outer", "compensated", "--refine-every",
+              "2048", "--stats"],
+    "sharded rb_sor": ["configs/1.in", "--outer", "compensated",
+                       "--backend", "sharded", "--mesh", "1x1", "--stats"],
+    "sharded mg": ["configs/1.in", "--outer", "compensated", "--backend",
+                   "sharded", "--mesh", "1x1", "--method", "mg", "--stats"],
+}
+# members copies of configs/1.in's 256^2 cavity (f32, max_it cut to
+# 2000), member k's u perturbed by scale * k (member 0 at rest), by each
+# method through solve_ensemble.
+ENSEMBLE = {"config": "configs/1.in", "dtype": "float32", "max_it": 2000,
+            "members": 8, "seed": 5, "scale": 0.01,
+            "methods": ["rb_sor", "fft", "mg"]}
+
+
+def perturbation(shape, seed: int, scale: float, rng=None) -> np.ndarray:
+    """scale * standard normal of default_rng(seed) (or of `rng`) on the
+    interior of a padded (ni + 2, nj + 2) field."""
+    rng = np.random.default_rng(seed) if rng is None else rng
+    out = np.zeros(shape)
+    out[1:-1, 1:-1] = scale * rng.standard_normal((shape[0] - 2,
+                                                   shape[1] - 2))
+    return out
+
+
+def record_diff(path: str) -> None:
+    import time
+
+    import jax.numpy as jnp
+
+    from navierstokes_parallel_tpu import diff
+    from navierstokes_parallel_tpu.models import convection
+
+    out = {}
+    d = DIFF_CAVITY
+    prm = Params.from_file(os.path.join(ROOT, d["config"]),
+                           dtype=d["dtype"], epsilon=d["epsilon"])
+    base = allocate_state(prm)
+    base = base._replace(u=base.u + perturbation(prm.shape, d["bump_seed"],
+                                                 d["bump"]))
+    direction = jnp.asarray(perturbation(prm.shape, d["direction_seed"],
+                                         1.0))
+
+    def loss(lid_scale, u0):
+        c = diff.default_controls(prm)._replace(lid_scale=lid_scale)
+        final, _ = diff.solve_n_steps(prm, base._replace(u=u0), d["steps"],
+                                      controls=c,
+                                      pressure_method=d["method"])
+        return (jnp.sum(final.u[1:-1, 1:-1] ** 2)
+                + jnp.sum(final.v[1:-1, 1:-1] ** 2))
+
+    t0 = time.perf_counter()
+    one = jnp.asarray(1.0, jnp.float64)
+    g_lid, g_u = jax.grad(loss, argnums=(0, 1))(one, base.u)
+    seconds = time.perf_counter() - t0
+    h, hd = d["h_lid"], d["h_dir"]
+    out["cavity"] = {
+        **d, "loss": float(loss(one, base.u)), "grad_lid": float(g_lid),
+        "directional": float(jnp.sum(g_u * direction)),
+        "fd_lid": (float(loss(one + h, base.u))
+                   - float(loss(one - h, base.u))) / (2 * h),
+        "fd_dir": (float(loss(one, base.u + hd * direction))
+                   - float(loss(one, base.u - hd * direction))) / (2 * hd),
+        "jax_cpu_grad_seconds": seconds}
+    print("cavity", out["cavity"], flush=True)
+
+    d = DIFF_THERMAL
+    prm = Params.from_file(os.path.join(ROOT, d["config"]),
+                           dtype=d["dtype"], epsilon=d["epsilon"])
+    cfg = convection.config_from_params(prm)
+    ts = convection.allocate_thermal(prm, cfg)
+    rng = np.random.default_rng(d["bump_seed"])
+    ts = ts._replace(u=ts.u + perturbation(prm.shape, 0, d["bump"], rng),
+                     v=ts.v + perturbation(prm.shape, 0, d["bump"], rng))
+
+    def nusselt(t_left):
+        final, _ = diff.solve_thermal_n_steps(
+            prm, ts, d["steps"], cfg._replace(t_left=t_left),
+            pressure_method=d["method"])
+        return jnp.mean(-2.0 * (final.T[1, 1:-1] - t_left) * prm.i_max)
+
+    t_left = jnp.asarray(cfg.t_left, jnp.float64)
+    out["thermal"] = {**d, "t_left": float(cfg.t_left),
+                      "nu_hot": float(nusselt(t_left)),
+                      "grad_t_left": float(jax.grad(nusselt)(t_left))}
+    print("thermal", out["thermal"], flush=True)
+
+    d = DIFF_MASKED
+    prm = step_model.backward_facing_step(**d["kwargs"], dtype=d["dtype"],
+                                          epsilon=d["epsilon"])
+    base = allocate_state(prm)
+    bump = perturbation(prm.shape, d["bump_seed"], d["bump"])
+    base = base._replace(u=base.u + bump, v=base.v + bump)
+    direction = jnp.asarray(perturbation(prm.shape, d["direction_seed"],
+                                         1.0))
+
+    def masked_loss(u0):
+        final, _ = diff.solve_n_steps(prm, base._replace(u=u0), d["steps"],
+                                      pressure_method=d["method"])
+        return (jnp.sum(final.u[1:-1, 1:-1] ** 2)
+                + jnp.sum(final.v[1:-1, 1:-1] ** 2))
+
+    out["masked"] = {**d, "loss": float(masked_loss(base.u)),
+                     "directional": float(jnp.sum(
+                         jax.grad(masked_loss)(base.u) * direction))}
+    print("masked", out["masked"], flush=True)
+    _update(path, "diff", out)
+
+
+def record_compensated(path: str) -> None:
+    out = {}
+    for tag, argv in COMPENSATED_CLI.items():
+        out[tag] = _cli_record(argv)
+        print(tag, out[tag], flush=True)
+    _update(path, "compensated", out)
+
+
+def ensemble_members(prm, e: dict):
+    """The ensemble's initial states: member k's u perturbed by
+    scale * k * standard normal of one default_rng(seed), drawn in turn."""
+    rng = np.random.default_rng(e["seed"])
+    members = []
+    for k in range(e["members"]):
+        s = allocate_state(prm)
+        du = perturbation(prm.shape, 0, e["scale"] * k, rng)
+        members.append(s._replace(u=s.u + du.astype(prm.jnp_dtype)))
+    return members
+
+
+def record_ensemble(path: str) -> None:
+    import time
+
+    e = ENSEMBLE
+    prm = Params.from_file(os.path.join(ROOT, e["config"]),
+                           dtype=e["dtype"], max_it=e["max_it"])
+    out = {}
+    for method in e["methods"]:
+        t0 = time.perf_counter()
+        state, stats = solver.solve_ensemble(
+            prm, solver.stack_states(ensemble_members(prm, e)),
+            pressure_method=method)
+        i_c, j_c = prm.i_max // 2, prm.j_max // 2
+        out[method] = {
+            "steps": np.asarray(stats.steps).tolist(),
+            "iterations": np.asarray(stats.total_sor_iterations).tolist(),
+            "failures": np.asarray(stats.sor_failures).tolist(),
+            "t": np.asarray(state.t).tolist(),
+            "centre": [[float(state.u[k, i_c, j_c]),
+                        float(state.v[k, i_c, j_c])]
+                       for k in range(e["members"])],
+            "max_abs_u": np.abs(np.asarray(state.u)[:, 1:-1, 1:-1]).max(
+                axis=(1, 2)).tolist(),
+            "jax_cpu_seconds": time.perf_counter() - t0}
+        print(method, out[method], flush=True)
+    _update(path, "ensemble", {**e, "runs": out})
 
 
 def _steps(fn, carry, n):
@@ -448,7 +651,11 @@ if __name__ == "__main__":
         record_sharded_thermal(args[0])
     elif what == "free":
         record_free(args[0])
+    elif what in ("diff", "compensated", "ensemble"):
+        {"diff": record_diff, "compensated": record_compensated,
+         "ensemble": record_ensemble}[what](
+            args[0] if args else os.path.join(ROOT, A9_RECORDS))
     else:
         sys.exit(f"unknown record {what!r}: channel, taylor-green, "
-                 f"obstacles, thermal, sharded-obstacles, sharded-thermal "
-                 f"or free")
+                 f"obstacles, thermal, sharded-obstacles, sharded-thermal, "
+                 f"free, diff, compensated or ensemble")

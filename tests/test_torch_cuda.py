@@ -1243,3 +1243,201 @@ def test_particle_interpolation_on_the_card_equals_the_cpu(cuda):
                                           moved.active)]
     for a, b in zip(outs[cuda], outs["cpu"]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_gradient_on_the_card_equals_the_cpu(cuda):
+    """diff.solve_n_steps' gradients (a 24^2 cavity, f64, epsilon 1e-9,
+    2 steps by mg, symmetry broken) on the card against the CPU's: within
+    1e-6 relative (both solves converge to 1e-9); the smoother and coarse
+    cycle launch in the forward and in the backward pass; remat changes
+    no bit of the gradient, and a recomputed step repeats the first."""
+    from navierstokes_parallel_tpu_torch import diff
+
+    prm = Params(i_max=24, j_max=24, Re=100.0, tau=0.5, epsilon=1e-9,
+                 max_it=20000, dtype="float64")
+    bump = np.zeros(prm.shape)
+    bump[1:-1, 1:-1] = 0.05 * np.random.default_rng(4).standard_normal(
+        (24, 24))
+    grads = {}
+    for device in (cuda, "cpu"):
+        for remat in (True, False):
+            state = allocate_state(prm, device)
+            u0 = (state.u + torch.from_numpy(bump).to(device)
+                  ).requires_grad_(True)
+            lid = torch.tensor(1.0, dtype=torch.float64, device=device,
+                               requires_grad=True)
+            c = diff.default_controls(prm, device)._replace(lid_scale=lid)
+            sor_kernel.WARM_LAUNCHES = sor_kernel.CYCLE_LAUNCHES = 0
+            final, _ = diff.solve_n_steps(prm, state._replace(u=u0), 2,
+                                          controls=c, remat=remat)
+            fwd = (sor_kernel.WARM_LAUNCHES, sor_kernel.CYCLE_LAUNCHES)
+            ((final.u[1:-1, 1:-1] ** 2).sum()
+             + (final.v[1:-1, 1:-1] ** 2).sum()).backward()
+            bwd = (sor_kernel.WARM_LAUNCHES - fwd[0],
+                   sor_kernel.CYCLE_LAUNCHES - fwd[1])
+            if device == cuda:
+                assert fwd[1] > 0 and bwd[1] > 0, (fwd, bwd)
+            grads[device, remat] = (lid.grad.cpu(), u0.grad.cpu())
+    for device in (cuda, "cpu"):
+        assert all(torch.equal(a, b) for a, b in zip(grads[device, True],
+                                                     grads[device, False]))
+    got, want = grads[cuda, True], grads["cpu", True]
+    assert float(got[0]) == pytest.approx(float(want[0]), rel=1e-6)
+    scale = float(want[1].abs().max())
+    assert float((got[1] - want[1]).abs().max()) <= 1e-6 * scale
+    state = allocate_state(prm, cuda)
+    a, _ = diff.diff_step(state, prm)
+    b, _ = diff.diff_step(state, prm)
+    assert all(torch.equal(x, y) for x, y in zip(a[:4], b[:4]))
+
+
+@pytest.mark.gpu
+def test_compensated_arithmetic_on_the_card_is_exact(cuda):
+    """two_sum, two_prod and split on 2^16 random f32 pairs: exact in f64
+    on the card and equal to the CPU's bit for bit (each operation one
+    elementwise kernel, nothing fused)."""
+    from navierstokes_parallel_tpu_torch.ops import compensated as comp
+
+    rng = np.random.default_rng(12)
+    a = rng.standard_normal(1 << 16).astype(np.float32)
+    b = (rng.standard_normal(1 << 16)
+         * 10.0 ** rng.integers(-6, 6, 1 << 16)).astype(np.float32)
+    for name, exact in (("two_sum", a.astype(np.float64) + b),
+                        ("two_prod", a.astype(np.float64) * b)):
+        fn = getattr(comp, name)
+        x, e = (t.cpu().numpy() for t in fn(torch.from_numpy(a).to(cuda),
+                                            torch.from_numpy(b).to(cuda)))
+        np.testing.assert_array_equal(x.astype(np.float64) + e, exact)
+        cx, ce = (t.numpy() for t in fn(torch.from_numpy(a),
+                                        torch.from_numpy(b)))
+        assert np.array_equal(x, cx) and np.array_equal(e, ce)
+    hi, lo = (t.cpu().numpy() for t in comp.split(torch.from_numpy(a).to(
+        cuda)))
+    np.testing.assert_array_equal(hi.astype(np.float64) + lo,
+                                  a.astype(np.float64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["rb_sor", "fft", "mg"])
+def test_ensemble_on_the_card_matches_its_solo_runs(cuda, method):
+    """Three members of a 32^2 cavity: each member's counts equal its solo
+    solve's on the card and the CPU ensemble's; fields within 1e-5."""
+    prm = Params(i_max=32, j_max=32, T=0.05, Re=100.0, tau=0.5,
+                 epsilon=1e-4, max_it=2000)
+    rng = np.random.default_rng(5)
+    du = [0.01 * k * rng.standard_normal(prm.shape) for k in range(3)]
+    outs = {}
+    for device in (cuda, "cpu"):
+        members = []
+        for d in du:
+            s = allocate_state(prm, device)
+            members.append(s._replace(u=s.u + torch.tensor(
+                d, dtype=s.u.dtype, device=device)))
+        out, stats = solver.solve_ensemble(prm, solver.stack_states(members),
+                                           pressure_method=method)
+        outs[device] = (out, stats, members)
+    out, stats, members = outs[cuda]
+    cpu_out, cpu_stats, _ = outs["cpu"]
+    assert stats.total_sor_iterations.tolist() == \
+        cpu_stats.total_sor_iterations.tolist()
+    for k, member in enumerate(members):
+        _, solo = solver.solve(prm, member, pressure_method=method)
+        assert (int(stats.steps[k]), int(stats.total_sor_iterations[k]),
+                int(stats.sor_failures[k])) == tuple(solo[:3])
+    assert float((out.u.cpu() - cpu_out.u).abs().max()) < 1e-5
+
+
+def test_member_axis_is_taken_where_a_kernel_batches():
+    """A leading member axis passes the checks of the kernels that batch
+    (the tiled SOR sweeps, the fused momentum kernel) and no other."""
+    prm = _params(10, 6)
+    rhs = torch.stack([_rhs(prm, seed=k) for k in range(3)])
+    sor_kernel.check_inputs(rhs, 4, prm, batched=True)
+    with pytest.raises(ValueError):
+        sor_kernel.check_inputs(rhs, 4, prm)
+    with pytest.raises(ValueError):
+        sor_kernel.check_inputs(rhs[None], 4, prm, batched=True)
+    u, v = (torch.stack([x] * 3) for x in _uv(prm))
+    momentum_kernel.check_inputs(u, v, prm, batched=True)
+    with pytest.raises(ValueError):
+        momentum_kernel.check_inputs(u, v, prm)
+    with pytest.raises(ValueError):
+        momentum_kernel.check_inputs(u, v[:2], prm, batched=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 13, 64])
+@pytest.mark.parametrize("shape", [(32, 32), (97, 61)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_batched_sweeps_equal_each_members_launch(cuda, shape, n):
+    """Three members in one launch per chunk (whole-grid and tiled
+    routes) equal the plain twin on the member axis and each member's own
+    launch bit for bit."""
+    prm = _params(*shape)
+    rhs = torch.stack([_rhs(prm, seed=k) for k in range(3)]).to(cuda)
+    for call, counter in (
+            (sor_kernel.whole_grid_sweeps, "LAUNCHES"),
+            (lambda r, m, p: sor_kernel.inner_sweeps_tiled(r, m, p,
+                                                           tile_rows=16),
+             "TILED_LAUNCHES")):
+        before = getattr(sor_kernel, counter)
+        got = call(rhs, n, prm)
+        assert getattr(sor_kernel, counter) == before + 1
+        want = sor_kernel.inner_sweeps_plain(rhs, n, prm)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        for k in range(3):
+            assert torch.equal(got[k], call(rhs[k].contiguous(), n, prm))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(32, 32), (97, 61)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_batched_momentum_equals_each_members_launch(cuda, shape):
+    """Three members, each with its own dt and gamma, in one launch equal
+    the plain twin on the member axis and each member's own launch."""
+    prm = _params(*shape)
+    u, v = (torch.stack(x).to(cuda)
+            for x in zip(*(_uv(prm, seed=k) for k in range(3))))
+    dt = torch.tensor([0.004, 0.002, 0.003], device=cuda)
+    gamma = torch.tensor([0.7, 0.5, 0.9], device=cuda)
+    before = momentum_kernel.LAUNCHES
+    got = momentum_kernel.momentum_rhs(u, v, dt, gamma, prm)
+    assert momentum_kernel.LAUNCHES == before + 1
+    want = momentum_kernel.momentum_rhs_plain(u, v, dt, gamma, prm)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for k in range(3):
+        solo = momentum_kernel.momentum_rhs(u[k].contiguous(),
+                                            v[k].contiguous(), dt[k],
+                                            gamma[k], prm)
+        for g, s in zip(got, solo):
+            assert torch.equal(g[k], s)
+
+
+@pytest.mark.gpu
+def test_ensemble_on_the_card_launches_the_batched_kernels(cuda):
+    """An f32 rb_sor ensemble on the card steps every member through the
+    fused momentum kernel and the SOR sweep kernel, one launch per step
+    and per chunk for the whole batch, and each member equals its solo
+    run bit for bit."""
+    prm = Params(i_max=32, j_max=32, T=0.05, Re=100.0, tau=0.5,
+                 epsilon=1e-4, max_it=2000)
+    rng = np.random.default_rng(5)
+    members = []
+    for k in range(3):
+        s = allocate_state(prm, cuda)
+        members.append(s._replace(u=s.u + torch.tensor(
+            0.01 * k * rng.standard_normal(prm.shape), dtype=s.u.dtype,
+            device=cuda)))
+    sweeps, momentum = sor_kernel.LAUNCHES, momentum_kernel.LAUNCHES
+    out, stats = solver.solve_ensemble(prm, solver.stack_states(members))
+    steps = max(stats.steps.tolist())
+    assert momentum_kernel.LAUNCHES - momentum == steps
+    assert sor_kernel.LAUNCHES - sweeps >= steps
+    for k, member in enumerate(members):
+        state, _ = solver.solve(prm, member)
+        for name in ("u", "v", "p"):
+            assert torch.equal(getattr(out, name)[k], getattr(state, name))

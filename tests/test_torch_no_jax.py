@@ -19,7 +19,9 @@ obstacle, of the sharded convection and of the sharded free surface
 and utils/distributed.py), and one step of the CLI's
 host loop that writes a frame, a checkpoint and a history row with the
 physics monitors (utils/io.py and its native writer, utils/checkpoint.py,
-utils/diagnostics.py).
+utils/diagnostics.py), then a gradient through one differentiable step
+(diff.py), a step through the compensated outer (ops/compensated.py) and
+a two-member ensemble (solver.solve_ensemble).
 """
 
 import os
@@ -145,6 +147,24 @@ SCRIPT = textwrap.dedent("""
     for name in ("utils.io", "utils.checkpoint", "utils.diagnostics",
                  "models.cavity"):
         assert "navierstokes_parallel_tpu_torch." + name in sys.modules, name
+    # A9: one diff_step gradient, one compensated solve, a two-member
+    # ensemble.
+    from navierstokes_parallel_tpu_torch import diff
+    grad_prm = prm.replace(dtype="float64", epsilon=1e-9)
+    lid = torch.tensor(1.0, dtype=torch.float64, requires_grad=True)
+    new, _ = diff.diff_step(allocate_state(grad_prm, "cpu"), grad_prm,
+                            diff.default_controls(grad_prm, "cpu")._replace(
+                                lid_scale=lid))
+    (new.u[1:-1, 1:-1] ** 2).sum().backward()
+    assert float(lid.grad) > 0, lid.grad
+    comp = prm.replace(outer_precision="compensated")
+    _, d = step(allocate_state(comp, "cpu"), comp)
+    assert d.sor_converged and d.sor_iterations > 0, d
+    assert "navierstokes_parallel_tpu_torch.ops.compensated" in sys.modules
+    ens, ens_stats = solver.solve_ensemble(prm, solver.stack_states(
+        [allocate_state(prm, "cpu")] * 2))
+    assert ens.u.shape[0] == 2 and ens_stats.steps.tolist()[0] > 0
+    assert torch.equal(ens.u[0], ens.u[1])
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
     print("OK", diag.sor_iterations)
 """)
@@ -191,7 +211,7 @@ def test_no_jax_import_in_sources():
     for name in ("cavity", "channel", "taylorgreen", "step", "karman",
                  "convection", "freesurface"):
         assert os.path.join("models", f"{name}.py") in scanned, name
-    for name in ("obstacles", "masked", "energy", "surface"):
+    for name in ("obstacles", "masked", "energy", "surface", "compensated"):
         assert os.path.join("ops", f"{name}.py") in scanned, name
-    assert "particles.py" in scanned
+    assert "particles.py" in scanned and "diff.py" in scanned
     assert len(paths) > 10 and not offenders, offenders

@@ -284,10 +284,20 @@ def test_refusals(case, needle, tmp_path, capsys):
     # Free surfaces run (A8): the flag drives configs/dambreak.in's walls;
     # its label is the JAX CLI's stats line of the same run.
     (["--free-wall", "freeslip"], None),
-    (["--outer", "compensated"], "ROADMAP A9"),
+    # The compensated outer runs (A9): the JAX CLI's record of the run.
+    (["--outer", "compensated"], None),
 ], ids=["time_order", "obstacle", "free_wall", "outer"])
 def test_later_slice_flags_refused(argv, label, tmp_path, capsys):
     path, _ = _config(tmp_path)
+    if "--outer" in argv:
+        runs = [_run(main, [path, *argv, "--stats", *extra], capsys)
+                for main, extra in ((cli.main, ["--device", "cpu"]),
+                                    (jcli.main, []))]
+        (rc, out, err), (jrc, jout, jerr) = runs
+        assert rc == jrc == 0 and out == jout
+        # steps, sor_iterations, sor_failures
+        assert err.split()[:3] == jerr.split()[:3]
+        return
     if "--free-wall" in argv:
         dam = [os.path.join(os.path.dirname(__file__), "..", "configs",
                             "dambreak.in"), *argv, "--max-steps", "2",

@@ -70,7 +70,17 @@ METHOD_CASES = [
     # The two other routes to the exchange per half-sweep: refinement off
     # (the direct solve in f32), and blocks one cell thin (li = 1).
     ("refine_off_2x2", "rb_sor", (2, 2), 16, 16, {"sor_refine_every": 0}),
-    ("thin_4x1", "rb_sor", (4, 1), 4, 16, {"T": 0.2})]
+    ("thin_4x1", "rb_sor", (4, 1), 4, 16, {"T": 0.2}),
+    # The compensated outer (two-float master, the hooks on hi and lo):
+    # the deep-halo inner, the sharded mg, and the channel's deflation
+    # through the all-reduced mean_fn.
+    ("compensated_2x2", "rb_sor", (2, 2), 16, 16,
+     {"outer_precision": "compensated", "sor_refine_every": 8}),
+    ("compensated_mg_1x4", "mg", (1, 4), 16, 32,
+     {"outer_precision": "compensated"}),
+    ("compensated_channel_2x2", "rb_sor", (2, 2), 24, 12,
+     {"outer_precision": "compensated", "problem": 3, "a": 2.0,
+      "T": 0.2})]
 # (tag, pressure method, mesh, problem, i_max, j_max, time order) of the
 # four-rank solves of the plane channel (problem 3, from rest) and the
 # free-slip Taylor-Green box (problem 4, from its exact t = 0 fields), by
@@ -594,11 +604,29 @@ def test_unported_sharded_branches_raise(one_rank, case, needle):
         for name in ("u", "v"):
             _assert_contract(getattr(state, name), getattr(single, name))
         return
-    else:
-        kw = {"outer_precision": "compensated"}
-    with pytest.raises(NotImplementedError, match=needle):
-        sharded.solve_sharded(_params(**kw), mesh=one_rank,
-                              pressure_method=method, time_order=order)
+    # Ported (A9): the compensated outer on one rank gives the f64 outer's
+    # counts on the same sharded inner, and the single-device compensated
+    # solve's fields, by each outer-wrapped method (the sharded mg's
+    # levels stop at a block of 4, so its count is its own); on an
+    # obstacle domain the masked f64 defect hook (residual_fn) is refused
+    # with the JAX package's ValueError.
+    prm = _params(outer_precision="compensated", sor_refine_every=8)
+    for method in ("pallas_sor", "mg", "fft"):
+        state, stats = sharded.solve_sharded(prm, mesh=one_rank,
+                                             pressure_method=method)
+        _, f64_stats = sharded.solve_sharded(
+            prm.replace(outer_precision="float64"), mesh=one_rank,
+            pressure_method=method)
+        single, _ = solver.solve(prm, device="cpu", pressure_method=method)
+        assert stats[:3] == f64_stats[:3]
+        assert stats.steps > 1 and stats.sor_failures == 0
+        # (p is determined up to its constant mode, which the inners fix
+        # differently.)
+        for name in ("u", "v"):
+            _assert_contract(getattr(state, name), getattr(single, name))
+    with pytest.raises(ValueError, match="float64 outer only"):
+        sharded.solve_sharded(prm.replace(obstacles=((8, 10, 12, 14),)),
+                              mesh=one_rank, max_steps=1)
 
 
 @pytest.mark.parametrize("case", [
@@ -648,8 +676,11 @@ def test_refined_solver_hooks_refuse_a_parity_without_inner():
 def test_refined_solver_refuses_unported_hooks(hook, needle):
     """The hooks run on the f64 outer: residual_fn's defect replaces the
     Laplacian's (with the masked operator and its inner, the refinement is
-    ops/masked.py's solve bit for bit), beside mean_fn on problem 3.  Only
-    the compensated outer (A9; JAX refuses residual_fn there) is refused."""
+    ops/masked.py's solve bit for bit), beside mean_fn on problem 3.  The
+    compensated outer (A9) takes mean_fn (it deflates every f32 defect by
+    it, as the JAX package's does) and refuses residual_fn with the JAX
+    package's ValueError."""
+    from navierstokes_parallel_tpu.ops import sor as jsor
     from navierstokes_parallel_tpu_torch.ops import masked, sor
 
     prm = _params(i_max=16, j_max=8, problem=3 if hook == "mean_fn" else 1,
@@ -677,10 +708,34 @@ def test_refined_solver_refuses_unported_hooks(hook, needle):
     want = masked.solve_pressure_masked(z, rhs, prm)
     assert got.iterations == want.iterations > 0 and got.converged
     assert torch.equal(got.p[1:-1, 1:-1], want.p[1:-1, 1:-1])
-    with pytest.raises(NotImplementedError, match=needle):
-        sor._solve_pressure_refined(
-            z, rhs, prm.replace(outer_precision="compensated"),
-            **{hook: hooks[hook]})
+    comp = prm.replace(outer_precision="compensated", obstacles=())
+    if hook == "residual_fn":
+        with pytest.raises(ValueError) as err:
+            sor._solve_pressure_refined(z, rhs, comp, **hooks)
+        with pytest.raises(ValueError) as jerr:
+            jsor._solve_pressure_refined(
+                np.zeros(prm.shape, np.float32), rhs.numpy(),
+                _jax_params(i_max=16, j_max=8,
+                            outer_precision="compensated"),
+                method="rb_sor", residual_fn=lambda q, r: r)
+        assert str(err.value) == str(jerr.value)
+        return
+    # On the channel (problem 3) every compensated defect loses
+    # mean_fn(defect): a hook that adds nothing to the default mean gives
+    # the default solve bit for bit, and it is called once per defect.
+    calls = []
+
+    def counted_mean(r):
+        calls.append(r.shape)
+        return torch.mean(r)
+
+    plain = sor._solve_pressure_refined(z, rhs, comp)
+    hooked = sor._solve_pressure_refined(z, rhs, comp, mean_fn=counted_mean)
+    assert hooked.iterations == plain.iterations > 0 and hooked.converged
+    assert torch.equal(hooked.p, plain.p)
+    assert calls == [(16, 8)] * (1 + hooked.iterations // prm.sor_refine_every
+                                 + (hooked.iterations % prm.sor_refine_every
+                                    > 0))
 
 
 # --- the CLI ------------------------------------------------------------------

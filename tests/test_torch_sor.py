@@ -11,6 +11,7 @@ with equal iteration counts and convergence flags.
 """
 
 import dataclasses
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -121,31 +122,65 @@ def test_rb_sor_takes_the_refined_route():
     assert torch.equal(a.p, b.p)
 
 
+def _compensated_parity(method, **kw):
+    """A solve by `method` through the compensated outer against the JAX
+    package's compensated solve and the port's f64 outer: equal counts and
+    convergence, the contract on p."""
+    prm, ref = _params(12, 10, max_it=2000, sor_refine_every=16, **kw)
+    rhs = _rhs(12, 10, seed=9, zero_mean=True)
+    p0 = torch.zeros(prm.shape)
+    comp = prm.replace(outer_precision="compensated")
+    got = sor.solve_pressure(p0, torch.from_numpy(rhs), comp, method=method)
+    want = jsor.solve_pressure(jnp.zeros(ref.shape, jnp.float32),
+                               jnp.asarray(rhs),
+                               ref.replace(outer_precision="compensated"),
+                               method=method)
+    f64 = sor.solve_pressure(p0, torch.from_numpy(rhs), prm, method=method)
+    assert got.iterations == int(want.iterations) == f64.iterations > 0
+    assert got.converged == bool(want.converged)
+    assert_close_reference_contract(got.p.numpy(), np.asarray(want.p))
+    assert_close_reference_contract(got.p.numpy(), f64.p.numpy())
+    return got
+
+
 @pytest.mark.parametrize("method", ["fft", "jacobi"])
 def test_unported_methods_raise(method):
-    """What of each method is still unported raises, naming its item: the
-    compensated outer (A9) for both, and fft's MXU precisions ("Left out"
-    of the port)."""
+    """What of each method is still unported raises, naming its item:
+    fft's MXU precisions ("Left out" of the port).  The compensated outer
+    (A9) is ported: both methods through it give the JAX package's
+    compensated solve."""
     prm, _ = _params(8, 8)
     z = torch.zeros(prm.shape)
-    cases = [prm.replace(outer_precision="compensated")]
     if method == "fft":
-        cases.append(prm.replace(fft_precision="default"))
-    for case in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sor.solve_pressure(z, z, case, method=method)
+            sor.solve_pressure(z, z, prm.replace(fft_precision="default"),
+                               method=method)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # jacobi's omega clamp
+        _compensated_parity(method)
 
 
 @pytest.mark.parametrize("case", ["compensated", "obstacles"])
 def test_unported_routes_raise(case):
-    """The compensated outer is unported (A9).  Obstacle domains are ported
-    (A7) for rb_sor and mg only: cg is refused with JAX's ValueError."""
+    """The compensated outer (A9) gives the JAX package's compensated
+    solve on the kernel route, and an obstacle domain keeps the masked f64
+    outer under it, as the JAX package's masked solve has no compensated
+    arm.  Obstacle domains are ported (A7) for rb_sor and mg only: cg is
+    refused with JAX's ValueError."""
     prm, ref = _params(8, 8)
     z = torch.zeros(prm.shape)
     if case == "compensated":
-        prm = prm.replace(outer_precision="compensated")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sor.solve_pressure(z, z, prm, method="rb_sor")
+        for method in ("rb_sor", "pallas_sor"):
+            _compensated_parity(method)
+        rects = ((3, 5, 3, 5),)
+        prm, ref = _params(12, 10, max_it=2000, obstacles=rects)
+        rhs = torch.from_numpy(_rhs(12, 10, seed=4, zero_mean=True))
+        p0 = torch.zeros(prm.shape)
+        a = sor.solve_pressure(p0, rhs, prm, method="rb_sor")
+        b = sor.solve_pressure(
+            p0, rhs, prm.replace(outer_precision="compensated"),
+            method="rb_sor")
+        assert a.iterations == b.iterations > 0 and torch.equal(a.p, b.p)
         return
     rects = ((2, 4, 2, 4),)
     with pytest.raises(ValueError, match="does not support obstacle") as got:
