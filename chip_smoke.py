@@ -153,6 +153,19 @@ recorded answer:
     solo run on the card, the batch's seconds (after a warm-up of the
     batched route) and launches beside the solo runs';
 
+  * gradients on a mesh (the "mesh gradients" phase, a one-rank NCCL
+    group, ``diff.solve_n_steps(mesh=...)`` on the 1x1 mesh): the
+    gradients phase's cavity by mg against JAX's record and by pallas_sor
+    against the unmeshed pallas_sor gradient, sor_ext_sweeps (and
+    mg_coarse_cycle under mg) counted in the forward, the recompute and
+    the adjoint, the seconds and peak memory beside the unmeshed
+    gradient's; the thermal gradient on the mesh against its record;
+
+  * the data-parallel ensemble (the "mesh ensemble" phase,
+    ``solve_ensemble(mesh=...)`` on a one-device batch mesh): the
+    ensemble phase's 8 members by rb_sor equal to the unmeshed batch bit
+    for bit, sor_sweeps 96 and momentum_rhs 3 launches, its seconds;
+
 then runs small converging cavities (SOR and mg) on the GPU and on the CPU
 and compares them.  Before the paths, the "decomposition" check cuts whole
 grids into the blocks of 1x1, 2x2 and 2x4 meshes, sweeps each block's
@@ -2895,7 +2908,7 @@ def cavity_gradient_setup(torch, rec: dict, device: str):
 
 
 def cavity_loss(torch, prm, base, rec, lid_scale, u0, steps=None,
-                method=None, remat=True):
+                method=None, remat=True, mesh=None):
     from navierstokes_parallel_tpu_torch import diff
 
     c = diff.default_controls(prm, base.u.device)._replace(
@@ -2903,7 +2916,7 @@ def cavity_loss(torch, prm, base, rec, lid_scale, u0, steps=None,
     final, _ = diff.solve_n_steps(prm, base._replace(u=u0),
                                   steps or rec["steps"], controls=c,
                                   pressure_method=method or rec["method"],
-                                  remat=remat)
+                                  remat=remat, mesh=mesh)
     return (final.u[1:-1, 1:-1] ** 2).sum() + (final.v[1:-1, 1:-1] ** 2).sum()
 
 
@@ -3335,6 +3348,193 @@ def phase_ensemble(torch, device: str = "cuda") -> dict:
               "the batched rb_sor ensemble differs from its solo runs")
         runs.append(launches)
     return sum_launches(runs)
+
+
+# The launches of one mesh gradient's kernels in each pass, by method: the
+# sharded mg's smoother (B6) and its replicated tail (the coarse cycle),
+# and the deep-halo inner of pallas_sor (B6).
+MESH_GRAD_KERNELS = {"mg": ("sor_ext", "mg_coarse_cycle"),
+                     "pallas_sor": ("sor_ext",)}
+
+
+def peak_gradient(torch, prm, base, rec, **kw):
+    """A gradient_run with the peak device memory above what was held
+    before it: (gradient_run's tuple, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    out = gradient_run(torch, prm, base, rec, "cuda", **kw)
+    return out, torch.cuda.max_memory_allocated() - start
+
+
+def phase_mesh_gradients(torch) -> dict:
+    """Gradients on a mesh (diff.solve_n_steps(mesh=...)) over a one-rank
+    NCCL group on the 1x1 mesh, the plain sweep twins barred: the gradients
+    phase's 256^2 f64 cavity (3 steps, eps 1e-9) by mg, its loss and
+    gradients within GRAD_JAX_REL of JAX's record; by pallas_sor (the
+    deep-halo inner, kernel B6, under the f64 master), within GRAD_JAX_REL
+    of the unmeshed pallas_sor gradient of this call (both stop at max_it);
+    for each, the launches of the forward, of the backward with remat and
+    without it, whose difference is the recomputed forward
+    (MESH_GRAD_KERNELS in each, no other SOR kernel), and the seconds and
+    peak memory of the mesh gradient beside the unmeshed one's.  Then
+    d(Nu_hot)/d(t_left) on configs/convection.in's 64^2 on the mesh
+    against JAX's record.  Returns the launch counts of its runs."""
+    from navierstokes_parallel_tpu_torch import diff
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.models import convection
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+    from navierstokes_parallel_tpu_torch.parallel import topology
+    from navierstokes_parallel_tpu_torch.utils import distributed
+
+    with open(A9_RECORDS) as fh:
+        records = json.load(fh)["diff"]
+    rec = records["cavity"]
+    prm, base, direction = cavity_gradient_setup(torch, rec, "cuda")
+    runs = []
+    with distributed.process_group("cuda") as device, \
+            barred(sor_kernel, PLAIN_SWEEPS, "the mesh gradients"):
+        mesh = topology.make_grid_mesh(shape=(1, 1), device=device)
+        for method in ("mg", "pallas_sor"):
+            # First use of the routes.
+            gradient_run(torch, prm, base, rec, "cuda", steps=1,
+                         method=method, mesh=mesh)
+            gradient_run(torch, prm, base, rec, "cuda", steps=1,
+                         method=method)
+            (loss, g_lid, g_u, fwd, bwd, fwd_s, bwd_s), peak = \
+                peak_gradient(torch, prm, base, rec, method=method, mesh=mesh)
+            adj = gradient_run(torch, prm, base, rec, "cuda", method=method,
+                               mesh=mesh, remat=False)[4]
+            (one_loss, one_lid, one_u, *_, one_fwd_s, one_bwd_s), \
+                one_peak = peak_gradient(torch, prm, base, rec,
+                                         method=method)
+            recompute = launch_delta(bwd, adj)
+            g_lid, g_dir = float(g_lid), float(torch.sum(g_u * direction))
+            if method == "mg":
+                want = {"loss": rec["loss"], "lid": rec["grad_lid"],
+                        "directional": rec["directional"],
+                        "of": "JAX's record"}
+            else:
+                want = {"loss": one_loss, "lid": float(one_lid),
+                        "directional": float(torch.sum(one_u * direction)),
+                        "of": "the unmeshed pallas_sor gradient"}
+            errs = {"loss": rel_err(loss, want["loss"]),
+                    "lid": rel_err(g_lid, want["lid"]),
+                    "directional": rel_err(g_dir, want["directional"])}
+            print(f"[mesh gradients] {method} on the 1x1 mesh: loss "
+                  f"{loss!r}, d/d lid_scale {g_lid!r}, directional "
+                  f"{g_dir!r}; rel errors against {want['of']}: "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                  + f" (bound {GRAD_JAX_REL:g})")
+            print(f"[mesh gradients] {method} launches: forward {fwd}; "
+                  f"backward with remat {bwd} = recomputed forward "
+                  f"{recompute} + adjoint solves {adj}")
+            print(f"[mesh gradients] {method} seconds: mesh forward "
+                  f"{fwd_s:.3f} + backward {bwd_s:.3f} = "
+                  f"{fwd_s + bwd_s:.3f}; unmeshed {one_fwd_s:.3f} + "
+                  f"{one_bwd_s:.3f} = {one_fwd_s + one_bwd_s:.3f}; peak "
+                  f"device memory mesh {peak / 2**20:.1f} MiB, unmeshed "
+                  f"{one_peak / 2**20:.1f} MiB")
+            check(max(errs.values()) <= GRAD_JAX_REL,
+                  f"the {method} mesh gradient differs from {want['of']}")
+            for name, counts in (("forward", fwd), ("recompute", recompute),
+                                 ("adjoint", adj)):
+                check_only(counts, MESH_GRAD_KERNELS[method],
+                           f"the {method} mesh gradient's {name}")
+            runs += [fwd, bwd, adj]
+
+        trec = records["thermal"]
+        tprm = Params.from_file(str(ROOT / trec["config"]),
+                                dtype=trec["dtype"], epsilon=trec["epsilon"])
+        cfg = convection.config_from_params(tprm)
+        ts = convection.allocate_thermal(tprm, cfg, "cuda")
+        rng = np.random.default_rng(trec["bump_seed"])
+        bumps = [torch.tensor(perturbation(tprm.shape, 0, trec["bump"], rng),
+                              device="cuda") for _ in range(2)]
+        ts = ts._replace(u=ts.u + bumps[0], v=ts.v + bumps[1])
+        t_left = torch.tensor(trec["t_left"], dtype=ts.T.dtype,
+                              device="cuda", requires_grad=True)
+        reset_launches()
+        t0 = time.perf_counter()
+        final, _ = diff.solve_thermal_n_steps(
+            tprm, ts, trec["steps"], cfg._replace(t_left=t_left),
+            pressure_method=trec["method"], mesh=mesh)
+        nu = torch.mean(-2.0 * (final.T[1, 1:-1] - t_left) * tprm.i_max)
+        nu.backward()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        got_nu, got_g = float(nu.detach()), float(t_left.grad)
+        print(f"[mesh gradients] thermal {trec['config']} {tprm.i_max}^2 "
+              f"{trec['steps']} steps by {trec['method']} on the 1x1 mesh: "
+              f"Nu_hot {got_nu!r} (JAX {trec['nu_hot']!r}), d/d t_left "
+              f"{got_g!r} (JAX {trec['grad_t_left']!r}, rel "
+              f"{rel_err(got_g, trec['grad_t_left']):.2e}) in "
+              f"{seconds:.3f} s; launches {launches}")
+        check(rel_err(got_nu, trec["nu_hot"]) <= GRAD_JAX_REL and
+              rel_err(got_g, trec["grad_t_left"]) <= GRAD_JAX_REL,
+              "the thermal mesh gradient differs from JAX's record")
+        check_only(launches, MESH_GRAD_KERNELS["mg"],
+                   "the thermal mesh gradient")
+        runs.append(launches)
+    return sum_launches(runs)
+
+
+# The mesh ensemble's launches: 3 steps of 8 members, the batched SOR
+# sweep kernel (B1) once per refinement pass of 64 sweeps (max_it 2000:
+# 32 passes a step) and the fused momentum kernel (B2) once a step.
+MESH_ENSEMBLE_LAUNCHES = {"sor": 96, "momentum": 3}
+
+
+def phase_mesh_ensemble(torch) -> dict:
+    """The data-parallel ensemble (solve_ensemble(mesh=...)) on a
+    one-device batch mesh over a one-rank NCCL group: the ensemble phase's
+    8 members of configs/1.in (max_it 2000) by rb_sor, every field and
+    stat equal to the unmeshed batch's of this call bit for bit, the counts
+    JAX's record, B1 and B2 launched MESH_ENSEMBLE_LAUNCHES times, and the
+    seconds of both.  Returns the mesh run's launch counts."""
+    from navierstokes_parallel_tpu_torch import solver
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.parallel import topology
+    from navierstokes_parallel_tpu_torch.utils import distributed
+
+    with open(A9_RECORDS) as fh:
+        rec = json.load(fh)["ensemble"]
+    prm = Params.from_file(str(ROOT / rec["config"]), dtype=rec["dtype"],
+                           max_it=rec["max_it"])
+    batch = solver.stack_states(ensemble_members(torch, prm, rec, "cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, want_stats = solver.solve_ensemble(prm, batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    with distributed.process_group("cuda") as device:
+        mesh = topology.make_batch_mesh(device=device)
+        reset_launches()
+        t0 = time.perf_counter()
+        out, stats = solver.solve_ensemble(prm, batch, mesh=mesh)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    same = all(torch.equal(a, b) for a, b in zip((*out, *stats),
+                                                 (*want, *want_stats)))
+    jax_run = rec["runs"]["rb_sor"]
+    counts = [stats.steps.tolist(), stats.total_sor_iterations.tolist(),
+              stats.sor_failures.tolist()]
+    want_counts = [jax_run[k] for k in ("steps", "iterations", "failures")]
+    print(f"[mesh ensemble] rb_sor, {rec['members']} members on a "
+          f"{mesh.shape[0]}-device batch mesh: steps, iterations, failures "
+          f"{counts} (JAX's {want_counts}); "
+          f"equal to the unmeshed batch bit for bit {same}; {seconds:.3f} s "
+          f"(unmeshed {plain_s:.3f} s); launches {launches}")
+    check(same, "the mesh ensemble differs from the unmeshed batch")
+    check(counts == want_counts,
+          "the mesh ensemble's counts differ from JAX's record")
+    for name, n in MESH_ENSEMBLE_LAUNCHES.items():
+        check(launches[name] == n, f"the mesh ensemble launched {name} "
+                                   f"{launches[name]} times, not {n}")
+    check_only(launches, ("sor",), "the mesh ensemble")
+    return launches
 
 
 def sum_launches(runs) -> dict:
@@ -3848,6 +4048,10 @@ def main(argv=None) -> int:
         paths["compensated"] = timed_phase("compensated", phase_compensated,
                                            torch)
         paths["ensemble"] = timed_phase("ensemble", phase_ensemble, torch)
+        paths["mesh gradients"] = timed_phase(
+            "mesh gradients", phase_mesh_gradients, torch)
+        paths["mesh ensemble"] = timed_phase("mesh ensemble",
+                                             phase_mesh_ensemble, torch)
         timed_phase("cpu-gpu", phase_cpu_gpu, torch)
         # After the paths: once the profiler has run in a process, every
         # later launch costs the host more.

@@ -48,8 +48,19 @@ Contract and scope, as in the JAX package:
   lax.min.  The tests break the symmetry before comparing with finite
   differences.
 
-The JAX package's ``mesh`` (its GSPMD recipe; ``gspmd.py`` is left out of
-the port) is refused: ROADMAP A11.
+On a device mesh (``mesh``: a 2-D ``parallel.topology.Mesh`` over the
+process group, one rank per shard) the integration runs the sharded
+backend's step (parallel/sharded.py, sharded_thermal.py) under autograd:
+its halo exchanges, reductions and the global scatter and gather are
+Functions with their transposes (parallel/autograd.py), and the pressure
+solve is the sharded solve with the sharded implicit-function adjoint
+(``sharded._pressure_adjoint``).  The forward is ``ShardedStepper``'s
+arithmetic; the caller passes the global state and the controls on every
+rank and gets the global final state and dts back on every rank, so a loss
+written for one device runs unchanged (every rank computes it and calls
+backward).  The JAX package reaches the same contract with its GSPMD
+recipe (``gspmd.py``, not ported: ROADMAP A12); its refusal of a mesh with
+a trivial axis is kept.
 """
 
 from __future__ import annotations
@@ -58,7 +69,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from .config import Params
 from .grid import State, resolve_device
@@ -67,38 +78,12 @@ from .ops import stencils as st
 from .solver import _rhs
 
 
-def _refuse_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=...) runs the JAX package's GSPMD recipe, which is "
-            f"not ported: ROADMAP A11 (multi-card variants)")
-
-
 def _cfl(u, v, params: Params, limit):
-    """(dt, gamma) of the CFL rule with AD-safe velocity terms: tau min(
-    limit, dx / max(|u_max|, tiny), dy / max(|v_max|, tiny)).  At rest the
-    production form's dx/0 = inf drops out of the min forward, but its
-    backward would give 0 * inf = NaN; tiny = sqrt(finfo.tiny) keeps the
-    value (dx/tiny never wins the min) and the gradient exact wherever
-    |max| > tiny.  `limit` is a 0-d tensor; every division is by a device
-    tensor (CUDA divides by a host scalar as a reciprocal multiply)."""
-    dx, dy = params.dx, params.dy
-    u_max = st.max_interior(u)
-    v_max = st.max_interior(v)
-
-    def const(x):
-        return st.scalar(x, u.dtype, u.device)
-
-    tiny = const(torch.finfo(u.dtype).tiny ** 0.5)
-    dx_t, dy_t = const(dx), const(dy)
-    dt = params.tau * torch.minimum(
-        limit, torch.minimum(dx_t / torch.maximum(torch.abs(u_max), tiny),
-                             dy_t / torch.maximum(torch.abs(v_max), tiny)))
-    if params.gamma_fixed is not None:
-        gamma = const(params.gamma_fixed)
-    else:
-        gamma = torch.maximum(u_max * dt / dx_t, v_max * dt / dy_t)
-    return dt, gamma
+    """(dt, gamma) of the CFL rule with AD-safe velocity terms
+    (``momentum.cfl_dt_gamma``) from the fields' signed interior maxima
+    seeded with x[0, 0]; `limit` is a 0-d tensor."""
+    return momentum.cfl_dt_gamma(st.max_interior(u), st.max_interior(v),
+                                 params, limit)
 
 
 def _viscous_limit(params: Params) -> float:
@@ -336,22 +321,74 @@ def _scan(one, carry, n_steps: int, remat: bool, *extra):
     return carry, carry[0].new_zeros((0,))
 
 
+def _mesh_scan(params: Params, mesh, fields, t, n: int, step, n_steps: int,
+               remat: bool, extra):
+    """The n-step integration on `mesh`: the global `fields` (given on
+    every rank) scattered to this rank's blocks, t and the `extra` step
+    arguments replicated, ``step(*blocks, t, *extra) -> (*blocks, dt)``
+    through ``_scan`` (each step's collectives chained in order, its
+    remat replaying all of them: no early stop), the final blocks gathered.
+    Returns (global fields, t, n, dts), on every rank."""
+    from .parallel import autograd as mad
+
+    dtype = params.torch_dtype
+    k = len(fields)
+    with mad.ordered(mesh) as chain, set_checkpoint_early_stop(False):
+        blocks = [mad.scatter(x, params, mesh) for x in fields]
+        t = mad.replicate(torch.as_tensor(t, dtype=dtype), mesh, dtype)
+        extra = [mad.replicate(x, mesh, dtype) for x in extra]
+
+        def one(*args):
+            *blocks, t, token, _ = args[:k + 3]
+            with mad.ordered(mesh, token) as link:
+                *blocks, dt = step(*blocks, t, *args[k + 3:])
+            return (*blocks, t + dt, link.token, dt)
+
+        carry, dts = _scan(one, (*blocks, t, chain.token, n), n_steps, remat,
+                           *extra)
+        chain.token = carry[k + 1]
+        out = [mad.gather(x, params, mesh) for x in carry[:k]]
+        return out, mad.publish(carry[k], mesh), carry[-1], mad.publish(
+            dts, mesh)
+
+
 def solve_thermal_n_steps(params: Params, ts, n_steps: int, cfg, *,
                           pressure_method: str = "mg", remat: bool = True,
                           mesh=None):
     """n differentiable Boussinesq steps, the thermal counterpart of
     ``solve_n_steps``: cfg's numeric fields may be 0-d tensors that require
     grad (wall temperatures, the buoyancy coefficients, alpha, the lid
-    speed).  Returns (final ThermalState, dts)."""
+    speed).  With `mesh` the steps are the sharded backend's
+    (parallel/sharded_thermal.py), T sharded with u, v and p.  Returns
+    (final ThermalState, dts)."""
     from .models.convection import ThermalState
 
-    _refuse_mesh(mesh, "solve_thermal_n_steps")
     traced = _split_thermal_cfg(cfg)
     keys = tuple(traced)
 
+    def config(values):
+        return cfg._replace(**dict(zip(keys, values)))
+
+    if mesh is not None:
+        from .parallel import sharded, sharded_thermal
+
+        sharded_thermal._check_thermal(
+            sharded.check_gradient(params, mesh, pressure_method), cfg, mesh,
+            pressure_method)
+
+        def step(u, v, p, T, t, *values):
+            u, v, p, T, dt, _ = sharded_thermal._sharded_thermal_step(
+                u, v, p, T, params, config(values), pressure_method, mesh)
+            return u, v, p, T, dt
+
+        fields, t, n, dts = _mesh_scan(params, mesh, ts[:4], ts.t, int(ts.n),
+                                       step, n_steps, remat,
+                                       traced.values())
+        return ThermalState(*fields, t=t, n=n), dts
+
     def one(u, v, p, T, t, n, *values):
         s, dt = diff_thermal_step(ThermalState(u, v, p, T, t, n), params,
-                                  cfg._replace(**dict(zip(keys, values))),
+                                  config(values),
                                   pressure_method=pressure_method)
         return s.u, s.v, s.p, s.T, s.t, dt
 
@@ -366,8 +403,26 @@ def solve_n_steps(params: Params, state: State, n_steps: int, *,
     """n differentiable time steps; with `remat` each step is checkpointed,
     so the backward pass recomputes its activations (the forward pressure
     solve included) instead of keeping them: memory does not grow with
-    n_steps.  Returns (final_state, dts)."""
-    _refuse_mesh(mesh, "solve_n_steps")
+    n_steps.  With `mesh` (module docstring) the steps are the sharded
+    backend's on this rank's blocks.  Returns (final_state, dts)."""
+    if mesh is not None:
+        from .parallel import sharded
+
+        sharded._check_isothermal(params, 1)
+        sharded.check_gradient(params, mesh, pressure_method)
+        if controls is None:
+            controls = default_controls(params, mesh.device)
+
+        def step(u, v, p, t, *c):
+            u, v, p, dt, _, _ = sharded._sharded_step(
+                u, v, p, t, params, pressure_method, mesh,
+                controls=Controls(*c))
+            return u, v, p, dt
+
+        fields, t, n, dts = _mesh_scan(params, mesh, state[:3], state.t,
+                                       int(state.n), step, n_steps, remat,
+                                       controls)
+        return State(*fields, t=t, n=n), dts
     if controls is None:
         controls = default_controls(params, state.u.device, state.u.dtype)
 

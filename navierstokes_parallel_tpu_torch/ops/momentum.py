@@ -80,6 +80,32 @@ def project_velocities(u, v, F, G, p, dt,
     return u, v
 
 
+def cfl_dt_gamma(u_max, v_max, params: Params, limit: torch.Tensor):
+    """(dt, gamma) of the CFL rule from the signed maxima with AD-safe
+    velocity terms: tau min(limit, dx / max(|u_max|, tiny), dy /
+    max(|v_max|, tiny)).  At rest the production form's dx/0 = inf drops
+    out of the min forward, but its backward would give 0 * inf = NaN;
+    tiny = sqrt(finfo.tiny) keeps the value (dx/tiny never wins the min)
+    and the gradient exact wherever |max| > tiny.  `limit` is a 0-d tensor
+    (the viscous bound, with the energy equation's where it applies);
+    every division is by a device tensor.  The differentiable step
+    (diff.py) and the sharded backend's dt (parallel/sharded.py) share
+    it."""
+    def const(x):
+        return st.scalar(x, u_max.dtype, u_max.device)
+
+    tiny = const(torch.finfo(u_max.dtype).tiny ** 0.5)
+    dx_t, dy_t = const(params.dx), const(params.dy)
+    dt = params.tau * torch.minimum(
+        limit, torch.minimum(dx_t / torch.maximum(torch.abs(u_max), tiny),
+                             dy_t / torch.maximum(torch.abs(v_max), tiny)))
+    if params.gamma_fixed is not None:
+        gamma = const(params.gamma_fixed)
+    else:
+        gamma = torch.maximum(u_max * dt / dx_t, v_max * dt / dy_t)
+    return dt, gamma
+
+
 def adaptive_dt_gamma(u, v, params: Params):
     """CFL time step and donor-cell weight (reference main.c:89-92), as 0-d
     tensors on the state's device (no host round trip).

@@ -13,6 +13,10 @@ a row-major block is strided); receive buffers are fresh.
 Exchange order is y (axis 1) first, then x (axis 0) sending full rows
 *including* the freshly filled y-halo entries, so corner halo cells pick up
 the diagonal neighbour's value, as the donor-cell stencils need.
+
+A strip that requires grad (a differentiated step: diff.py's mesh path)
+is shifted by parallel/autograd.py's Function, whose backward sends the
+cotangents back; the exchange's slice writes are autograd's own.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from . import autograd
 from .topology import Mesh
 
 
@@ -29,6 +34,13 @@ def _shift_pair(up, down, mesh: Mesh, axis: str):
     next-lower one, in one batch.  Returns (from the lower neighbour, from
     the higher one), zeros where there is none; pass None for a direction
     not wanted (its result is None)."""
+    if autograd.tracked(up, down):
+        return autograd.shift_pair(up, down, mesh, axis)
+    return _post_pair(up, down, mesh, axis)
+
+
+def _post_pair(up, down, mesh: Mesh, axis: str):
+    """``_shift_pair``'s point-to-point operations."""
     lo, hi = mesh.neighbour(axis, -1), mesh.neighbour(axis, 1)
     ops = []
     from_lo = from_hi = None

@@ -63,6 +63,11 @@ and block.
 Natural convection (problem 5) steps with parallel/sharded_thermal.py and
 free surfaces (problem 6) with parallel/sharded_free.py, which build on
 this module's helpers; ``ShardedStepper`` refuses both, naming its twin.
+
+The step is differentiable: on blocks that require grad its collectives
+go through parallel/autograd.py and the pressure solve through the
+implicit-function adjoint (``_pressure_adjoint``), so ``diff.py``
+integrates on a mesh with the arithmetic of ``ShardedStepper``.
 """
 
 from __future__ import annotations
@@ -75,11 +80,12 @@ import torch
 import torch.distributed as dist
 
 from ..config import Params
+from ..diff import _embed
 from ..grid import State, host_array
-from ..ops import boundary, fft, masked, mg, obstacles, sor
+from ..ops import boundary, fft, masked, mg, momentum, obstacles, sor
 from ..ops import stencils as st
 from ..solver import SolveStats, StepDiagnostics, ab2_extrapolate, run_steps
-from . import deep_halo, halo
+from . import autograd, deep_halo, halo
 from .topology import Mesh, local_block_dims, make_grid_mesh
 
 # The pressure methods of the sharded backend.
@@ -96,7 +102,14 @@ class AB2Carry(NamedTuple):
 
 
 def _all_reduce(x: torch.Tensor, op, mesh: Mesh) -> torch.Tensor:
-    """`x` reduced over the mesh's ranks (in place; returned)."""
+    """`x` reduced over the mesh's ranks (in place; returned).  A sum that
+    requires grad is a new tensor with the all-reduce's transpose
+    (parallel/autograd.py); the maxima of the CFL rule have their own
+    (``_global_maxima``)."""
+    if autograd.tracked(x):
+        if op != dist.ReduceOp.SUM:
+            raise ValueError("only the all-reduce SUM is differentiable here")
+        return autograd.all_reduce_sum(x, mesh)
     dist.all_reduce(x, op=op, group=mesh.group)
     return x
 
@@ -365,20 +378,24 @@ def _apply_obstacle_bcs_sharded(u, v, params: Params, mesh: Mesh):
             _exchange_seams_only(v, mesh, geo.has_owner))
 
 
-def _local_fg(u, v, dt, gamma, params: Params, gi, gj, mesh: Mesh):
+def _local_fg(u, v, dt, gamma, params: Params, gi, gj, mesh: Mesh,
+              g_x=None, g_y=None):
     """Tentative velocities on a local block (integration.c:73-96), masked
-    by the global F/G domains, with F = u / G = v on the walls."""
+    by the global F/G domains, with F = u / G = v on the walls.  `g_x` /
+    `g_y` override the configuration's body force (diff.Controls)."""
     dx, dy, Re = params.dx, params.dy, params.Re
+    g_x = params.g_x if g_x is None else g_x
+    g_y = params.g_y if g_y is None else g_y
     u_int = st.shifted(u, 0, 0)
     v_int = st.shifted(v, 0, 0)
 
     diff_u = st.div(st.d2_dx2(u, dx) + st.d2_dy2(u, dy), Re)
     conv_u = st.du2_dx(u, v, dx, gamma) + st.duv_dy(u, v, dy, gamma)
-    f_all = u_int + dt * (diff_u - conv_u + params.g_x)
+    f_all = u_int + dt * (diff_u - conv_u + g_x)
 
     diff_v = st.div(st.d2_dx2(v, dx) + st.d2_dy2(v, dy), Re)
     conv_v = st.duv_dx(u, v, dx, gamma) + st.dv2_dy(u, v, dy, gamma)
-    g_all = v_int + dt * (diff_v - conv_v + params.g_y)
+    g_all = v_int + dt * (diff_v - conv_v + g_y)
 
     F = torch.zeros_like(u)
     G = torch.zeros_like(v)
@@ -399,39 +416,38 @@ def _local_fg(u, v, dt, gamma, params: Params, gi, gj, mesh: Mesh):
     return F, G
 
 
-def _sharded_dt_gamma(u, v, params: Params, valid, mesh: Mesh,
-                      limit: Optional[float] = None):
-    """The adaptive dt and the donor-cell weight from the signed global
-    maxima of the local blocks, seeded with 0 (the reference's u[0][0]
-    seed, which is 0 for every closed box here); pad cells are excluded.
-    `limit` (a host float) joins the viscous bound in the min: the energy
-    equation's explicit-diffusion bound of problem 5."""
-    zero = torch.zeros((), dtype=u.dtype, device=u.device)
-
-    def global_max(x):
-        if valid is not None:
-            x = torch.where(valid, x, zero)
-        return torch.maximum(zero, _all_reduce(torch.max(x),
-                                               dist.ReduceOp.MAX, mesh))
-
-    def const(x):
-        # Device tensors, not Python scalars: CUDA divides by a host scalar
-        # as a multiply by its reciprocal, which rounds differently.
-        return st.scalar(x, u.dtype, u.device)
-
-    u_max = global_max(u[1:-1, 1:-1])
-    v_max = global_max(v[1:-1, 1:-1])
-    dx, dy = params.dx, params.dy
-    dx_t, dy_t = const(dx), const(dy)
-    visc = params.Re / 2.0 / (1.0 / (dx * dx) + 1.0 / (dy * dy))
-    bound = const(visc if limit is None else min(visc, limit))
-    dt = params.tau * torch.minimum(
-        bound, torch.minimum(dx_t / torch.abs(u_max), dy_t / torch.abs(v_max)))
-    if params.gamma_fixed is not None:
-        gamma = const(params.gamma_fixed)
+def _global_maxima(u, v, valid, mesh: Mesh):
+    """(u_max, v_max): ``st.max_interior`` of the global fields from the
+    local blocks, the signed maxima over the true interior cells (pad cells
+    left out) seeded with the global corner x[0, 0] (rank (0, 0)'s; 0 on
+    every state a step leaves, whose exchange zeroes the corners), both in
+    one all-reduce; under autograd with the tie rule of ``torch.max``
+    (parallel/autograd.py)."""
+    if autograd.tracked(u, v):
+        m_u, c_u, m_v, c_v = autograd.global_maxima((u, v), valid, mesh)
     else:
-        gamma = torch.maximum(u_max * dt / dx_t, v_max * dt / dy_t)
-    return dt, gamma
+        m_u, c_u, m_v, c_v = autograd.maxima((u, v), valid, mesh).unbind()
+    return torch.maximum(c_u, m_u), torch.maximum(c_v, m_v)
+
+
+def _sharded_dt_gamma(u, v, params: Params, valid, mesh: Mesh, limit=None):
+    """The adaptive dt and the donor-cell weight from the global maxima of
+    the local blocks (``_global_maxima``) by the AD-safe CFL rule of the
+    differentiable step (``momentum.cfl_dt_gamma``).  `limit` joins the
+    viscous bound in the min: the energy equation's explicit-diffusion
+    bound of problem 5 (a host float, or a 0-d tensor when alpha carries a
+    gradient)."""
+    u_max, v_max = _global_maxima(u, v, valid, mesh)
+    dx, dy = params.dx, params.dy
+    visc = params.Re / 2.0 / (1.0 / (dx * dx) + 1.0 / (dy * dy))
+    # Device tensors, not Python scalars: CUDA divides by a host scalar as
+    # a multiply by its reciprocal, which rounds differently.
+    if isinstance(limit, torch.Tensor):
+        bound = torch.minimum(st.scalar(visc, u.dtype, u.device), limit)
+    else:
+        bound = st.scalar(visc if limit is None else min(visc, limit),
+                          u.dtype, u.device)
+    return momentum.cfl_dt_gamma(u_max, v_max, params, bound)
 
 
 def _local_rhs(F, G, dt, params: Params, valid, fluid=None):
@@ -464,11 +480,12 @@ def _project(u, v, F, G, p, dt, params: Params, gi, gj) -> None:
 
 
 def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
-                  mesh: Mesh, ab2=None):
+                  mesh: Mesh, ab2=None, controls=None):
     """One time step on local padded blocks (reference main.c:86-146);
     returns (u, v, p, dt, SORResult, carry) with new blocks.  `ab2` is the
     ``AB2Carry`` of these blocks, or None for the Euler step; `carry` is
-    the next one (None for Euler)."""
+    the next one (None for Euler).  `controls` (diff.Controls, replicated
+    0-d tensors) scales the lid and overrides the body force."""
     li, lj = u.shape[0] - 2, u.shape[1] - 2
     valid, gi, gj = _valid_mask_or_none(params, li, lj, mesh)
     dt, gamma = _sharded_dt_gamma(u, v, params, valid, mesh)
@@ -479,12 +496,15 @@ def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
         u, v = _apply_freeslip_bcs_sharded(u, v, params, mesh)
     else:
         lid = boundary.lid_velocity(params.problem, params.f, t)
+        if controls is not None:
+            lid = lid * controls.lid_scale
         u, v = _apply_bcs_sharded(u, v, lid, params, mesh)
     geo = None
     if params.obstacles:
         geo = _obstacle_block(params, mesh, li, lj)
         u, v = _apply_obstacle_bcs_sharded(u, v, params, mesh)
-    F, G = _local_fg(u, v, dt, gamma, params, gi, gj, mesh)
+    F, G = _local_fg(u, v, dt, gamma, params, gi, gj, mesh,
+                     *(() if controls is None else controls[1:]))
     carry = None
     if ab2 is not None:
         # solver.step_ab2's extrapolation on the whole padded block.  Its
@@ -508,9 +528,11 @@ def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
             Fa, Ga = F * au, G * av
     rhs = _local_rhs(Fa, Ga, dt, params, valid,
                      None if geo is None else geo.fluid[1:-1, 1:-1])
-    result = _sharded_pressure_solve(p, rhs, params, pressure_method, li, lj,
-                                     valid, mesh)
+    result = _pressure_solve(p, rhs, params, pressure_method, li, lj, valid,
+                             mesh)
     p = result.p
+    # The projection writes in place; F and G's stencils saved u and v.
+    u, v = u.clone(), v.clone()
     _project(u, v, F, G, p, dt, params, gi, gj)
     if geo is not None:
         # The projection sweeps the obstacle faces too: restore them.
@@ -552,11 +574,28 @@ def _masked_residual_fn(params: Params, li: int, lj: int, mesh: Mesh):
     return residual_fn
 
 
-def _deep_route(params: Params, li: int, lj: int) -> bool:
-    """Whether rb_sor / pallas_sor take the deep-halo inner: an f32 state,
-    the refinement on, blocks of at least 2 x 2 cells."""
-    return (params.dtype == "float32" and params.sor_refine_every > 0
-            and min(li, lj) >= 2)
+def _deep_route(params: Params, li: int, lj: int,
+                pressure_method: str = "rb_sor") -> bool:
+    """Whether rb_sor / pallas_sor take the deep-halo inner: blocks of at
+    least 2 x 2 cells, and for rb_sor an f32 state with the refinement on.
+    pallas_sor refines on every state, as on one device (f32 sweeps under
+    the f64 master): the steppers refuse it on an f64 state as the JAX
+    package's sharded backend does (``_check_method``), the mesh gradient
+    runs it (``check_gradient``)."""
+    if min(li, lj) < 2:
+        return False
+    return pressure_method == "pallas_sor" or (
+        params.dtype == "float32" and params.sor_refine_every > 0)
+
+
+def _ghost_fn(params: Params, valid, mesh: Mesh):
+    """The sharded ghost fill of the pressure: the exchange and the Neumann
+    closure, masked by global index on a padded grid."""
+    if valid is None:
+        def ghost_fn(q):
+            return halo.neumann_or_exchange(q, mesh)
+        return ghost_fn
+    return halo.make_masked_ghost_fn(params.i_max, params.j_max, mesh)
 
 
 def _sharded_pressure_solve(p, rhs, params: Params, pressure_method: str,
@@ -568,11 +607,7 @@ def _sharded_pressure_solve(p, rhs, params: Params, pressure_method: str,
     ox, oy = mesh.origin(li, lj)
     # Obstacle domains: the L2 norm over the fluid cells (ops/masked.py).
     n_cells = obstacles.n_fluid_cells(params)
-    if valid is None:
-        def ghost_fn(q):
-            return halo.neumann_or_exchange(q, mesh)
-    else:
-        ghost_fn = halo.make_masked_ghost_fn(params.i_max, params.j_max, mesh)
+    ghost_fn = _ghost_fn(params, valid, mesh)
 
     def l2_fn(arr):
         return torch.sqrt(st.div(_all_reduce(torch.sum(arr * arr),
@@ -613,7 +648,7 @@ def _sharded_pressure_solve(p, rhs, params: Params, pressure_method: str,
             inner_fn=mg.make_sharded_cg_inner(params, li, lj, mesh),
             valid_mask=valid, **hooks)
     if pressure_method in ("rb_sor", "pallas_sor") and _deep_route(
-            params, li, lj):
+            params, li, lj, pressure_method):
         # One 2K-deep exchange per K sweeps.
         return sor._solve_pressure_refined(
             p, rhs, refined,
@@ -624,6 +659,57 @@ def _sharded_pressure_solve(p, rhs, params: Params, pressure_method: str,
     method = "rb_sor" if pressure_method == "rb_sor_sync" else pressure_method
     return sor.solve_pressure(p, rhs, params, method=method,
                               valid_mask=valid, **hooks)
+
+
+def _pressure_solve(p, rhs, params: Params, pressure_method: str, li: int,
+                    lj: int, valid, mesh: Mesh):
+    """``_sharded_pressure_solve``; under autograd with its implicit-function
+    adjoint (parallel/autograd.py, ``_pressure_adjoint``)."""
+    if autograd.tracked(p, rhs):
+        return autograd.pressure_solve(p, rhs, params, pressure_method, li, lj,
+                                       valid, mesh)
+    return _sharded_pressure_solve(p, rhs, params, pressure_method, li, lj,
+                                   valid, mesh)
+
+
+def _pressure_adjoint(p_bar, params: Params, pressure_method: str, li: int,
+                      lj: int, valid, mesh: Mesh):
+    """(p0_bar, rhs_bar) of ``_sharded_pressure_solve`` for the output
+    cotangent `p_bar` on this rank's block: diff.py's ``_ift_bwd`` and
+    ``_ift_bwd_masked`` on blocks.  The solve's output is the ghost fill
+    of its interior, so the cotangent first goes through the fill's
+    transpose (seam halos back to their owners, physical ghosts onto their
+    interior neighbours; autograd's vector-Jacobian product of the fill).
+    The result is deflated by the all-reduced mean over the true interior
+    (the fluid cells of an obstacle domain), solved from zero by the same
+    sharded solve (A is symmetric), and deflated again.  Unmasked, the
+    converged solution does not depend on p0: p0_bar = 0.  The masked solve
+    keeps p0 on the solid cells, whose cotangents pass to p0_bar."""
+    with torch.enable_grad(), autograd.ordered(mesh):
+        x = torch.zeros_like(p_bar, requires_grad=True)
+        z = torch.autograd.grad(_ghost_fn(params, valid, mesh)(x), x,
+                                p_bar)[0][1:-1, 1:-1]
+    keep = valid
+    if params.obstacles:
+        fluid = _obstacle_block(params, mesh, li, lj).fluid[1:-1, 1:-1]
+        keep = fluid if valid is None else valid & fluid
+    n_cells = obstacles.n_fluid_cells(params)
+    zero = torch.zeros((), dtype=p_bar.dtype, device=p_bar.device)
+
+    def deflated(x):
+        if keep is not None:
+            x = torch.where(keep, x, zero)
+        x = x - st.div(_all_reduce(torch.sum(x), dist.ReduceOp.SUM, mesh),
+                       n_cells)
+        return x if keep is None else torch.where(keep, x, zero)
+
+    lam = _sharded_pressure_solve(torch.zeros_like(p_bar), _embed(deflated(z)),
+                                  params, pressure_method, li, lj, valid,
+                                  mesh).p
+    p0_bar = torch.zeros_like(p_bar)
+    if params.obstacles:
+        p0_bar[1:-1, 1:-1] = torch.where(fluid, zero, z)
+    return p0_bar, _embed(deflated(lam[1:-1, 1:-1]))
 
 
 def _check_method(params: Params, mesh: Mesh, pressure_method: str,
@@ -684,6 +770,38 @@ def _check_isothermal(params: Params, time_order: int) -> None:
         raise ValueError(
             "problem 6 steps on the sharded backend with "
             "parallel/sharded_free.py (solve_free_sharded)")
+
+
+def check_gradient(params: Params, mesh: Mesh,
+                   pressure_method: str) -> Params:
+    """Refuse what the mesh gradient (diff.py) does not run; returns the
+    configuration as ``_check_method`` checks its route.  The routes are the
+    steppers', and two more that one device runs: an f64 state on an
+    obstacle domain (the masked deep-halo inner in f32 under the f64
+    master) and by pallas_sor (the deep-halo inner, kernel B6 on the card).
+    Masked mg on a mesh is not ported (ROADMAP A12).  A mesh of more than
+    one device with a trivial axis is refused, as the JAX package's mesh
+    gradient refuses it."""
+    if len(mesh.shape) != 2:
+        raise ValueError(f"the mesh gradient needs a 2-D grid mesh; got "
+                         f"the axes {mesh.axes}")
+    px, py = mesh.shape
+    if px * py > 1 and min(px, py) == 1:
+        raise ValueError(
+            f"the mesh gradient rejects the {px}x{py} mesh, as the JAX "
+            f"package's does (its GSPMD partitioner gives wrong values when "
+            f"one mesh axis is trivial): use a 2D factorization or one "
+            f"device")
+    if params.obstacles and pressure_method == "mg":
+        raise ValueError(
+            "masked mg on a mesh is not ported (ROADMAP A12, the JAX "
+            "package's gspmd backend): the mesh gradient of an obstacle "
+            "domain runs rb_sor or pallas_sor")
+    if params.obstacles or pressure_method == "pallas_sor":
+        params = params.replace(
+            dtype="float32", sor_refine_every=max(1, params.sor_refine_every))
+    _check_method(params, mesh, pressure_method)
+    return params
 
 
 # ---------------------------------------------------------------------------

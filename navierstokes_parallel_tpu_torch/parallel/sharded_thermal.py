@@ -23,7 +23,9 @@ isothermal one (``sharded._sharded_pressure_solve``): the deep-halo inner
 under rb_sor / pallas_sor (kernel B6 on the card), the sharded V-cycle
 under mg (B6 as its smoother, the coarse cycle for the replicated tail),
 the pencil DCT, cg, and the exchange-per-half-sweep routes.  F and G are
-the plain ones, as in the JAX package.
+the plain ones, as in the JAX package.  The step is differentiable as the
+isothermal one (parallel/autograd.py): cfg's numeric fields may be 0-d
+tensors that carry a gradient (diff.solve_thermal_n_steps(mesh=...)).
 
 The JAX package runs ``while t < T`` inside ``shard_map``; here it is the
 host loop of ``solver.run_steps`` over ``ThermalShardedStepper``.  The JAX
@@ -46,9 +48,9 @@ from ..ops import stencils as st
 from ..solver import SolveStats, StepDiagnostics, run_steps
 from . import halo
 from .sharded import (_all_reduce, _apply_bcs_sharded, _check_method,
-                      _local_fg, _local_rhs, _project,
-                      _sharded_dt_gamma, _sharded_pressure_solve,
-                      _valid_mask_or_none, gather_field, scatter_field)
+                      _local_fg, _local_rhs, _pressure_solve, _project,
+                      _sharded_dt_gamma, _valid_mask_or_none, gather_field,
+                      scatter_field)
 from .topology import Mesh, make_grid_mesh
 
 
@@ -75,7 +77,7 @@ def _apply_thermal_vel_bcs_sharded(u, v, params: Params, cfg, mesh: Mesh):
     Rayleigh-Benard roll symmetry planes), in the sharded cavity's masked
     roll form and side order.  Returns new blocks."""
     if cfg.sidewalls != "freeslip":
-        lid = torch.tensor(cfg.lid_u, dtype=u.dtype, device=u.device)
+        lid = torch.as_tensor(cfg.lid_u, dtype=u.dtype, device=u.device)
         return _apply_bcs_sharded(u, v, lid, params, mesh)
     I, J = params.i_max, params.j_max
     u = halo.exchange_halo(u, mesh)
@@ -110,8 +112,8 @@ def _apply_t_bcs_sharded(T, params: Params, cfg, mesh: Mesh):
     gi, gj = halo.padded_global_indices(T.shape, mesh)
     in_j = (gj >= 1) & (gj <= J)
     in_i = (gi >= 1) & (gi <= I)
-    hot = torch.tensor(cfg.t_left, dtype=T.dtype, device=T.device)
-    cold = torch.tensor(cfg.t_right, dtype=T.dtype, device=T.device)
+    hot = torch.as_tensor(cfg.t_left, dtype=T.dtype, device=T.device)
+    cold = torch.as_tensor(cfg.t_right, dtype=T.dtype, device=T.device)
     corner = ((gi == 0) | (gi == I + 1)) & ((gj == 0) | (gj == J + 1))
     if cfg.heating == "below":
         # Conducting bottom / top plates, adiabatic sidewalls.
@@ -187,8 +189,10 @@ def _sharded_thermal_step(u, v, p, T, params: Params, cfg,
     F, G = _buoyant_fg_sharded(F, G, T_new, u, v, dt, params, cfg, gi, gj,
                                mesh)
     rhs = _local_rhs(F, G, dt, params, valid)
-    result = _sharded_pressure_solve(p, rhs, params, pressure_method, li, lj,
-                                     valid, mesh)
+    result = _pressure_solve(p, rhs, params, pressure_method, li, lj, valid,
+                             mesh)
+    # The projection writes in place; F and G's stencils saved u and v.
+    u, v = u.clone(), v.clone()
     _project(u, v, F, G, result.p, dt, params, gi, gj)
     return u, v, result.p, T_new, dt, result
 

@@ -15,6 +15,10 @@ every group, in the same order) and ``Mesh.axis_group`` hands out this
 rank's.  A group rank is the rank's position along the axis, since
 ``dist.new_group`` orders its members by global rank; the combined
 ("x", "y") axis is the whole group, where the rank is ax * py + ay.
+
+``make_batch_mesh`` lays the 1-D ("b",) mesh of the data-parallel ensemble
+(solver.solve_ensemble) over the same ranks: rank k holds the k-th
+contiguous slice of the members.
 """
 
 from __future__ import annotations
@@ -78,13 +82,15 @@ class Mesh:
     ``shape`` (px, py), ``coords`` (ax, ay), the ``group``, the ``device``
     the rank computes on, and ``axis_groups``: this rank's groups along
     "x" (its column: the ranks of equal ay) and "y" (its row), None for a
-    group of one rank."""
+    group of one rank.  A batch mesh (``make_batch_mesh``) has one axis,
+    ``axes`` ("b",): ``shape`` (n,) and ``coords`` (k,)."""
 
-    shape: Tuple[int, int]
-    coords: Tuple[int, int]
+    shape: Tuple[int, ...]
+    coords: Tuple[int, ...]
     device: torch.device
     group: object
     axis_groups: dict = field(default_factory=dict, compare=False)
+    axes: Tuple[str, ...] = MESH_AXES
 
     def neighbour(self, axis: str, step: int) -> Optional[int]:
         """Rank of the shard `step` positions away along `axis`, or None
@@ -153,3 +159,13 @@ def make_grid_mesh(n_devices: Optional[int] = None, i_max: int = 0,
               else torch.device(device))
     return Mesh((px, py), (rank // py, rank % py), device, dist.group.WORLD,
                 _axis_groups(px, py, rank))
+
+
+def make_batch_mesh(device=None) -> Mesh:
+    """The 1-D ("b",) mesh over the initialised default process group, one
+    rank per slice of an ensemble's members (the JAX package's
+    ``Mesh(devices, ("b",))``); `device` defaults to the group's."""
+    device = (distributed.default_device() if device is None
+              else torch.device(device))
+    return Mesh((dist.get_world_size(),), (dist.get_rank(),), device,
+                dist.group.WORLD, axes=("b",))

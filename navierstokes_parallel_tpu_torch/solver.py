@@ -387,17 +387,21 @@ def solve_ensemble(params: Params, states: State, *,
     direct solve on an f64 state) and fft solve the whole batch at once;
     mg, cg and the compensated outer solve member by member inside the
     batched step, and obstacle domains step member by member.
-    ``pressure_method="pallas_sor"`` is JAX's ValueError; JAX's `mesh` (its
-    data-parallel ensemble over devices) is refused: ROADMAP A11."""
+    ``pressure_method="pallas_sor"`` is JAX's ValueError.
+
+    `mesh` (``parallel.topology.make_batch_mesh()``, a 1-D mesh over the
+    process group) is the data-parallel ensemble: the batch, given on every
+    rank, is cut into contiguous slices of equal size, each rank solves its
+    own on its device by the batched route above with no communication,
+    and the fields and the per-member stats are all-gathered in member
+    order, on every rank.  JAX's refusals: a mesh of more than one axis,
+    and a batch that is not a multiple of the mesh."""
     if pressure_method == "pallas_sor":
         raise ValueError(
             "solve_ensemble cannot batch the Pallas kernels; use rb_sor "
             "(same algorithm, jnp formulation) or mg/cg/fft")
     if mesh is not None:
-        raise NotImplementedError(
-            "solve_ensemble(mesh=...), the JAX package's data-parallel "
-            "ensemble over devices, is not ported: ROADMAP A11 (multi-card "
-            "variants)")
+        return _solve_ensemble_on_mesh(params, states, pressure_method, mesh)
     if pressure_method not in sor.METHODS:
         raise ValueError(f"unknown pressure solver method "
                          f"{pressure_method!r}")
@@ -429,6 +433,36 @@ def solve_ensemble(params: Params, states: State, *,
     return State(u=u, v=v, p=p, t=t, n=n), SolveStats(
         steps=steps, total_sor_iterations=iters, sor_failures=failures,
         last_res_norm=last)
+
+
+def _solve_ensemble_on_mesh(params: Params, states: State,
+                            pressure_method: str, mesh):
+    """``solve_ensemble``'s data-parallel arm: this rank's slice of the
+    members solved unmeshed, then every slice all-gathered."""
+    import torch.distributed as dist
+
+    if len(mesh.axes) != 1:
+        raise ValueError(
+            f"ensemble mesh must be 1D (batch axis); got {mesh.axes}")
+    n_members, size = states.u.shape[0], mesh.shape[0]
+    if n_members % size != 0:
+        raise ValueError(
+            f"batch size {n_members} must be a multiple of the "
+            f"{size}-device ensemble mesh")
+    lo = mesh.coords[0] * (n_members // size)
+    hi = lo + n_members // size
+    n = torch.as_tensor(states.n)
+    mine = State(*(x[lo:hi].to(mesh.device) for x in states[:4]),
+                 n=n[lo:hi].to(mesh.device))
+    out, stats = solve_ensemble(params, mine, pressure_method=pressure_method)
+
+    def gathered(x):
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x.contiguous(), group=mesh.group)
+        return torch.cat(parts)
+
+    return State(*(gathered(x) for x in out)), SolveStats(
+        *(gathered(x) for x in stats))
 
 
 def center_values(state: State, params: Params) -> Tuple[float, float]:

@@ -366,14 +366,27 @@ def test_diff_thermal_step_forward_equals_thermal_step_and_jax():
 
 
 def test_mesh_is_refused_and_the_default_controls():
+    """A mesh with a trivial axis is JAX's ValueError, for the isothermal
+    and the thermal steps (the mesh gradients themselves:
+    tests/test_torch_diff_sharded.py)."""
+    import jax
+    from jax.sharding import Mesh as JaxMesh
+
+    from navierstokes_parallel_tpu_torch.parallel import topology
+
     prm = Params(**_kw(i_max=8, j_max=8, g_x=0.5))
     state = allocate_state(prm, "cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        diff.solve_n_steps(prm, state, 1, mesh=object())
+    mesh = topology.Mesh((1, 4), (0, 0), torch.device("cpu"), None)
+    jmesh = JaxMesh(np.asarray(jax.devices()[:4]).reshape(1, 4), ("x", "y"))
+    jprm = JaxParams(**_kw(i_max=8, j_max=8, g_x=0.5))
+    with pytest.raises(ValueError, match="mesh"):
+        jdiff.solve_n_steps(jprm, jax_allocate(jprm), 1, mesh=jmesh)
+    with pytest.raises(ValueError, match="1x4 mesh"):
+        diff.solve_n_steps(prm, state, 1, mesh=mesh)
     tprm, cfg = cv.convection_setup(1e4, n=8, dtype="float64")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="1x4 mesh"):
         diff.solve_thermal_n_steps(tprm, cv.allocate_thermal(tprm, cfg, "cpu"),
-                                   1, cfg, mesh=object())
+                                   1, cfg, mesh=mesh)
     c = diff.default_controls(prm, "cpu")
     want = jdiff.default_controls(JaxParams(**_kw(i_max=8, j_max=8,
                                                   g_x=0.5)))

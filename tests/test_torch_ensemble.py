@@ -12,14 +12,27 @@ plain twin, the direct solve, jacobi, the DCT, and mg / cg member by
 member), so the member equals its solo solve bit for bit, which also
 shows that the ``...``-indexed stencils, BCs and sweeps act on one field
 as they did.
+
+The data-parallel ensemble (``solve_ensemble(mesh=...)``): one
+``torch.multiprocessing.spawn`` of four gloo ranks on loopback solves 8
+members on a 1-D batch mesh of 4 (two members a rank), against the
+unmeshed batch (equal: each rank runs the batched route on its slice) and
+JAX's ensemble on a 4-device ("b",) mesh (counts equal, fields within the
+contract), computed in this process while the ranks run.  The spawned
+workers import this module, and with it jax, which they do not call.
 """
 
+import datetime
+import os
+import time
 import warnings
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from navierstokes_parallel_tpu import solver as jsolver
 from navierstokes_parallel_tpu.config import Params as JaxParams
@@ -29,6 +42,7 @@ from navierstokes_parallel_tpu_torch.config import Params
 from navierstokes_parallel_tpu_torch.grid import allocate_state
 from navierstokes_parallel_tpu_torch.ops import sor
 from navierstokes_parallel_tpu_torch.ops.cuda import momentum_kernel, sor_kernel
+from navierstokes_parallel_tpu_torch.parallel import topology
 
 from conftest import assert_close_reference_contract
 
@@ -114,23 +128,32 @@ def test_ensemble_members_actually_differ():
 
 
 def test_ensemble_refusals():
-    """pallas_sor is JAX's ValueError word for word; JAX's data-parallel
-    `mesh` is not ported (ROADMAP A11); problems 5 and 6 are refused as
-    by solver.step."""
+    """pallas_sor and the data-parallel mesh's two refusals (a mesh of two
+    axes, a batch that is not a multiple of the mesh) are JAX's
+    ValueErrors word for word; problems 5 and 6 are refused as by
+    solver.step.  The mesh refusals come before any collective, so no
+    process group is needed."""
+    import jax
+    from jax.sharding import Mesh
+
     prm, jprm = Params(**_fields()), JaxParams(**_fields())
-    port, jax_side = _members(prm, jprm, 2)
-    with pytest.raises(ValueError) as got:
-        solver.solve_ensemble(prm, solver.stack_states(port),
-                              pressure_method="pallas_sor")
-    with pytest.raises(ValueError) as want:
-        jsolver.solve_ensemble(jprm, jsolver.stack_states(jax_side),
-                               pressure_method="pallas_sor")
-    assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="A11"):
-        solver.solve_ensemble(prm, solver.stack_states(port), mesh=object())
+    port, jax_side = _members(prm, jprm, 3)
+    batch, jbatch = solver.stack_states(port), jsolver.stack_states(jax_side)
+    cpu = torch.device("cpu")
+    devices = np.asarray(jax.devices()[:4])
+    for kw, mesh, jmesh in (
+            ({"pressure_method": "pallas_sor"}, None, None),
+            ({}, topology.Mesh((2, 2), (0, 0), cpu, None),
+             Mesh(devices.reshape(2, 2), ("x", "y"))),
+            ({}, topology.Mesh((4,), (0,), cpu, None, axes=("b",)),
+             Mesh(devices, ("b",)))):
+        with pytest.raises(ValueError) as got:
+            solver.solve_ensemble(prm, batch, mesh=mesh, **kw)
+        with pytest.raises(ValueError) as want:
+            jsolver.solve_ensemble(jprm, jbatch, mesh=jmesh, **kw)
+        assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="unknown problem type 5"):
-        solver.solve_ensemble(prm.replace(problem=5),
-                              solver.stack_states(port))
+        solver.solve_ensemble(prm.replace(problem=5), batch)
 
 
 @pytest.mark.parametrize("problem", [2, 3, 4])
@@ -221,3 +244,78 @@ def test_solve_pressure_batch_refuses_obstacle_domains():
     z = torch.zeros((2, *prm.shape), dtype=torch.float64)
     with pytest.raises(ValueError, match="member by member"):
         sor.solve_pressure_batch(z, z, prm)
+
+
+# --- the data-parallel ensemble on four gloo ranks --------------------------
+
+WORLD = 4
+WORKER_TIMEOUT_S = 240
+MESH_MEMBERS = 8
+
+
+def _mesh_worker(rank, port, outdir):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=WORLD,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        prm = Params(**_fields())
+        members = []
+        for du in _perturbations(prm, MESH_MEMBERS):
+            s = allocate_state(prm, "cpu")
+            members.append(s._replace(u=s.u + torch.from_numpy(du)))
+        out, stats = solver.solve_ensemble(
+            prm, solver.stack_states(members),
+            mesh=topology.make_batch_mesh(device="cpu"))
+        if rank == 0:
+            np.savez(os.path.join(outdir, "ensemble.npz"),
+                     **{f: getattr(out, f).numpy() for f in out._fields},
+                     **{f: getattr(stats, f).numpy()
+                        for f in stats._fields})
+    finally:
+        dist.destroy_process_group()
+
+
+def test_data_parallel_ensemble_matches_batch_and_jax(tmp_path):
+    """8 members on a batch mesh of 4 gloo ranks: every field and stat
+    equals the unmeshed batch's (atol 1e-12, as JAX's test; 0 expected),
+    and JAX's data-parallel ensemble's counts and fields (contract)."""
+    import jax
+    from jax.sharding import Mesh
+
+    from test_torch_sharded import _free_port
+
+    ctx = mp.start_processes(_mesh_worker, args=(_free_port(), str(tmp_path)),
+                             nprocs=WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + WORKER_TIMEOUT_S
+    try:
+        prm, jprm = Params(**_fields()), JaxParams(**_fields())
+        port, jax_side = _members(prm, jprm, MESH_MEMBERS)
+        want, want_stats = solver.solve_ensemble(prm,
+                                                 solver.stack_states(port))
+        jout, jstats = jsolver.solve_ensemble(
+            jprm, jsolver.stack_states(jax_side),
+            mesh=Mesh(np.asarray(jax.devices()[:WORLD]), ("b",)))
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"gloo workers ran past {WORKER_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    with np.load(tmp_path / "ensemble.npz") as got:
+        got = dict(got)
+    for name in ("u", "v", "p", "t", "n"):
+        np.testing.assert_allclose(got[name], getattr(want, name).numpy(),
+                                   rtol=0, atol=1e-12, err_msg=name)
+    for name in want_stats._fields:
+        np.testing.assert_array_equal(got[name],
+                                      getattr(want_stats, name).numpy())
+    for name in ("steps", "total_sor_iterations", "sor_failures"):
+        assert got[name].tolist() == np.asarray(
+            getattr(jstats, name)).tolist()
+    for name in ("u", "v", "p"):
+        assert_close_reference_contract(got[name],
+                                        np.asarray(getattr(jout, name)))
