@@ -166,6 +166,23 @@ recorded answer:
     ensemble phase's 8 members by rb_sor equal to the unmeshed batch bit
     for bit, sor_sweeps 96 and momentum_rhs 3 launches, its seconds;
 
+  * the gspmd backend (the "gspmd" phase, a one-rank NCCL group,
+    parallel/gspmd.py on the 1x1 mesh): the runs of
+    tests/jax_gspmd_records.json "chip" (JAX's gspmd backend on one CPU
+    device): configs/1.in by rb_sor, jacobi, cg, mg and fft, configs/4.in
+    by mg (one device's V-cycles: its levels, not the sharded backend's),
+    configs/convection.in by mg (ThermalGspmdStepper), the dam break
+    (the sharded backend's replicated free-surface stepper, as
+    solve_free(mesh=...)) and the square cylinder by the masked mg, each
+    step's passes through the gate, failures, centre values and max |u|,
+    |v| within the contract; each run's sor_ext_sweeps, sor_warm_sweeps
+    and mg_coarse_cycle launches (mg: two B6 calls on each sharded level
+    above one device's coarse-cycle depth and one coarse cycle per
+    V-cycle) and its seconds; then the 32^2 heated block 20 steps through
+    ThermalGspmdStepper (its fields all-gathered on the card every step)
+    and through ThermalStepper, each JAX's passes, the two equal bit for
+    bit, both timed;
+
 then runs small converging cavities (SOR and mg) on the GPU and on the CPU
 and compares them.  Before the paths, the "decomposition" check cuts whole
 grids into the blocks of 1x1, 2x2 and 2x4 meshes, sweeps each block's
@@ -3537,6 +3554,197 @@ def phase_mesh_ensemble(torch) -> dict:
     return launches
 
 
+GSPMD_RECORDS = ROOT / "tests" / "jax_gspmd_records.json"
+# Every route a gspmd path must not take besides its own kernels.
+GSPMD_BARRED = PLAIN_SWEEPS + ("inner_sweeps", "inner_sweeps_tiled",
+                               "inner_sweeps_compressed", "whole_grid_sweeps",
+                               "warm_sweeps")
+
+
+def gspmd_kernels(prm, method: str):
+    """The kernels a gspmd run launches: B6 in rb_sor's deep-halo sweeps;
+    under mg B6 on each sharded level (those above one device's
+    coarse-cycle depth) and the coarse cycle for the gathered tail;
+    nothing for jacobi, cg, fft (cuFFT), the masked solves and the free
+    surface, which run plain PyTorch."""
+    from navierstokes_parallel_tpu_torch.ops import mg
+
+    if prm.obstacles or prm.problem == 6 or method not in ("rb_sor", "mg"):
+        return ()
+    if method == "rb_sor":
+        return ("sor_ext",)
+    if len(mg.build_levels_gspmd(prm, (1, 1), cuda=True)) > 1:
+        return ("sor_ext", "mg_coarse_cycle")
+    return ("mg_coarse_cycle",)
+
+
+def gspmd_run(run: dict, mesh):
+    """(params, the stepper, its K, the norms' context) of a recorded gspmd
+    run."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.models import convection
+    from navierstokes_parallel_tpu_torch.models import freesurface as FS
+    from navierstokes_parallel_tpu_torch.ops import surface
+    from navierstokes_parallel_tpu_torch.parallel import gspmd, sharded_free
+
+    method = run["method"]
+    if run["config"] == "square_cylinder":
+        prm, state, _ = obstacle_setup({"model": run["config"],
+                                        "kwargs": run["kwargs"],
+                                        "record": "force"}, "cpu")
+    else:
+        prm, state = Params.from_file(str(ROOT / run["config"])), None
+    if prm.problem == 5:
+        cfg = convection.config_from_params(prm)
+        stepper = convection.ThermalGspmdStepper(prm, cfg, None, mesh,
+                                                 method)
+    elif prm.problem == 6:
+        gspmd._check_mesh(mesh)
+        stepper = sharded_free.make_free_stepper(
+            prm, FS.initial_free_state(prm, mesh.device), mesh, wall=method)
+    else:
+        stepper = gspmd.GspmdStepper(prm, state, mesh, method)
+    K = {"mg": prm.mg_cycles_per_outer, "fft": prm.fft_solves_per_outer}.get(
+        method, prm.sor_refine_every)
+    norms = (masked_norms(surface, "solve_pressure_free")
+             if prm.problem == 6 else refined_norms())
+    return prm, stepper, max(1, K), norms
+
+
+def phase_gspmd(torch) -> dict:
+    """The gspmd backend (parallel/gspmd.py) over a one-rank NCCL group on
+    the 1x1 mesh: each run of GSPMD_RECORDS "chip" stepped as recorded
+    (module docstring), the plain sweep twins and every kernel route but
+    the run's own (``gspmd_kernels``) barred; every step's passes through
+    the gate against JAX's gspmd record, failures, centre values and
+    max |u|, |v| within the contract (the dam break: the fluid volume
+    within 1e-10 of JAX's).  mg's launches are held to two B6 calls on
+    each sharded level per V-cycle and one coarse cycle, no B3.  Prints
+    each run's seconds and launches; returns the launch counts summed
+    over the runs."""
+    from navierstokes_parallel_tpu_torch.models import freesurface as FS
+    from navierstokes_parallel_tpu_torch.ops import mg
+    from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
+                                                          sor_kernel)
+    from navierstokes_parallel_tpu_torch.parallel import topology
+    from navierstokes_parallel_tpu_torch.solver import center_values
+    from navierstokes_parallel_tpu_torch.utils import distributed
+
+    runs = json.loads(GSPMD_RECORDS.read_text())["chip"]
+    total = None
+    with distributed.process_group("cuda") as device:
+        mesh = topology.make_grid_mesh(shape=(1, 1), device=device)
+        for name, run in runs.items():
+            tag = f"gspmd {name}"
+            prm, stepper, K, norms = gspmd_run(run, mesh)
+            kernels = gspmd_kernels(prm, run["method"])
+            bar = GSPMD_BARRED + tuple(
+                route for route, kernel in (("ext_sweeps", "sor_ext"), (
+                    "coarse_cycle", "mg_coarse_cycle"))
+                if kernel not in kernels)
+            with barred(sor_kernel, bar, f"the {tag} path"), \
+                    barred(momentum_kernel, MOMENTUM_ROUTES,
+                           f"the {tag} path"):
+                stepper.warm()
+                with norms as solves:
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    iters, failures = [], 0
+                    for _ in range(run["steps"]):
+                        diag = stepper.step()
+                        iters.append(int(diag.sor_iterations))
+                        failures += 0 if diag.sor_converged else 1
+                    torch.cuda.synchronize(device)
+                    seconds = time.perf_counter() - t0
+                    launches = read_launches()
+            passes, margins = passes_and_margins(solves, prm, K)
+            gate_passes(tag, passes, margins, run["iterations"], K)
+            check(failures == run["converged"].count(False),
+                  f"{tag}: {failures} failures, JAX "
+                  f"{run['converged'].count(False)}")
+            state = stepper.state()
+            got = [*center_values(state, prm),
+                   float(torch.max(torch.abs(state.u))),
+                   float(torch.max(torch.abs(state.v)))]
+            err = contract_err(got, run["centre"] + run["max_abs"])
+            print(f"[{tag}] {run['steps']} steps, {sum(iters)} iterations "
+                  f"(JAX {sum(run['iterations'])}), {failures} failures; "
+                  f"centre and max |u|, |v| {got}, contract error "
+                  f"{err:.2e}; {seconds:.6f} s; launches sor_ext_sweeps "
+                  f"{launches['sor_ext']}, sor_warm_sweeps "
+                  f"{launches['sor_warm']}, mg_coarse_cycle "
+                  f"{launches['mg_coarse_cycle']}")
+            check(err <= CONTRACT, f"{tag}: outside the contract")
+            if prm.problem == 6:
+                vol = FS.fluid_volume(stepper.free_state(), prm)
+                rel = abs(vol - run["fluid_volume"]) / run["fluid_volume"]
+                print(f"[{tag}] fluid volume {vol} (JAX "
+                      f"{run['fluid_volume']}, rel err {rel:.2e})")
+                check(rel <= 1e-10, f"{tag}: fluid volume differs")
+            check_only(launches, kernels, tag)
+            check(launches["momentum"] == 0, f"{tag} launched momentum_rhs")
+            if "mg_coarse_cycle" in kernels:
+                levels = mg.build_levels_gspmd(prm, (1, 1), cuda=True)
+                cycles = sum(iters)
+                expect = {"sor_ext": cycles * 2 * (len(levels) - 1),
+                          "mg_coarse_cycle": cycles, "sor_warm": 0}
+                print(f"[{tag}] {len(levels) - 1} sharded levels of one "
+                      f"device's {len(mg.build_levels(prm))}; launches "
+                      f"expected {expect}")
+                check(all(launches[k] == n for k, n in expect.items()),
+                      f"{tag}: launches differ from {expect}")
+            total = launches if total is None else {
+                k: total[k] + launches[k] for k in total}
+        gspmd_heated_block(torch, mesh)
+    return total
+
+
+def gspmd_heated_block(torch, mesh) -> None:
+    """The 32^2 heated block of THERMAL_RECORDS "thermal" 20 steps by
+    rb_sor through convection.ThermalGspmdStepper on `mesh` (an obstacle
+    domain: the four fields all-gathered on the card every step, one
+    device's masked thermal step, the block kept) beside
+    convection.ThermalStepper in the same process, each warmed, every
+    kernel route barred: both give JAX's passes step by step and the
+    same fields bit for bit; prints both runs' seconds."""
+    from navierstokes_parallel_tpu_torch.models import convection
+
+    block = json.loads(THERMAL_RECORDS.read_text())["thermal"]["heated block"]
+    bprm, bcfg = convection.heated_block_setup(**block["kwargs"])
+    makers = {
+        "one device": lambda: convection.ThermalStepper(
+            bprm, bcfg, convection.allocate_thermal(bprm, bcfg, mesh.device),
+            "rb_sor"),
+        "gspmd 1x1": lambda: convection.ThermalGspmdStepper(
+            bprm, bcfg, None, mesh, "rb_sor")}
+    states, seconds = {}, {}
+    for tag, make in makers.items():
+        tag = f"heated block {tag}"
+        stepper = make()
+        failures = 0
+        with no_kernel(tag):
+            stepper.warm()
+            with masked_norms() as solves:
+                torch.cuda.synchronize(mesh.device)
+                t0 = time.perf_counter()
+                for _ in range(block["steps"]):
+                    failures += 0 if stepper.step().sor_converged else 1
+                torch.cuda.synchronize(mesh.device)
+                seconds[tag] = time.perf_counter() - t0
+        passes, margins = passes_and_margins(solves, bprm,
+                                             bprm.sor_refine_every)
+        gate_passes(tag, passes, margins, block["iterations"],
+                    bprm.sor_refine_every)
+        check(failures == block["failures"], f"{tag}: failures differ")
+        states[tag] = stepper.state()
+    one, gs = states.values()
+    same = all(torch.equal(a, b) for a, b in zip(one[:4], gs[:4]))
+    print(f"[gspmd heated block] {bprm.shape}, {block['steps']} steps: "
+          + ", ".join(f"{tag} {sec:.6f} s" for tag, sec in seconds.items())
+          + f"; fields equal bit for bit: {same}")
+    check(same, "the gspmd heated block differs from one device's")
+
+
 def sum_launches(runs) -> dict:
     return {k: sum(run[k] for run in runs) for k in runs[0]}
 
@@ -4052,6 +4260,7 @@ def main(argv=None) -> int:
             "mesh gradients", phase_mesh_gradients, torch)
         paths["mesh ensemble"] = timed_phase("mesh ensemble",
                                              phase_mesh_ensemble, torch)
+        paths["gspmd"] = timed_phase("gspmd", phase_gspmd, torch)
         timed_phase("cpu-gpu", phase_cpu_gpu, torch)
         # After the paths: once the profiler has run in a process, every
         # later launch costs the host more.

@@ -10,9 +10,13 @@ CPU runs.  This package imports torch and numpy, never jax.
 The port covers the lid-driven cavity (problems 1-2), the plane channel
 (3) and the free-slip Taylor-Green box (4), with or without flag-field
 obstacles, by explicit Euler or Adams-Bashforth 2, with every pressure
-method of the JAX package, on one device and on the sharded backend; and
-natural convection (5, models/convection.py) on one device.  ROADMAP.md
-lists what is still to port.
+method of the JAX package; natural convection (5, models/convection.py)
+and free surfaces with marker particles (6, models/freesurface.py); on
+one device, on the sharded backend (parallel/sharded.py) and on the gspmd
+backend (parallel/gspmd.py: one device's program on the same blocks).
+Gradients through the flow (diff.py) and ensembles
+(solver.solve_ensemble) run on one device and on a mesh.  ROADMAP.md
+lists what is left out.
 """
 
 from .config import Params

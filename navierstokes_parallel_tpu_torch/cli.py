@@ -50,8 +50,13 @@ each step's writes every rank learns whether one failed, so a write error
 on rank 0 ends every rank with exit code 1 instead of leaving them waiting
 in the next gather.  The timer brackets the solve between a barrier and a
 synchronize; the final gather follows it.  ``jnp`` and
-``pallas`` are the single-device route, as in the JAX CLI; ``gspmd`` is
-not ported.  ``--outer compensated`` runs the two-float refinement outer
+``pallas`` are the single-device route, as in the JAX CLI.  ``--backend
+gspmd`` (parallel/gspmd.py) runs the same way over the ranks of a
+``--mesh PxQ`` (default: near-square; a 1xN mesh of more than one rank is
+refused, as in the JAX CLI) and gives one device's results: every method
+but pallas_sor, on any grid, problems 1-6 (problem 5 through
+``convection.ThermalGspmdStepper``, problem 6 through the sharded
+backend's free-surface stepper, as ``freesurface.solve_free(mesh=...)``).  ``--outer compensated`` runs the two-float refinement outer
 (ops/sor.py, ops/compensated.py) on one device and on the sharded
 backend, as in the JAX CLI.  Unlike the JAX CLI, a tile size of 0 is
 refused rather than ignored.
@@ -134,7 +139,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="compute path: auto, jnp and pallas run on one "
                          "device (pallas forces pallas_sor); sharded runs one "
                          "rank per shard of --mesh over torch.distributed; "
-                         "gspmd is not ported")
+                         "gspmd runs one device's program on the same "
+                         "blocks (any method but pallas_sor, any grid)")
     ap.add_argument("--method",
                     choices=["rb_sor", "pallas_sor", "rb_sor_sync", "jacobi",
                              "mg", "cg", "fft"],
@@ -158,9 +164,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "re-bootstraps with one Euler step (checkpoints "
                          "carry the state, not the AB2 tendency)")
     ap.add_argument("--mesh", default=None, metavar="PxQ",
-                    help="process mesh of the sharded backend, e.g. 2x2; "
-                         "P * Q must equal the number of ranks (default: "
-                         "the pad-optimal mesh over them)")
+                    help="process mesh of the sharded/gspmd backends, e.g. "
+                         "2x2; P * Q must equal the number of ranks "
+                         "(default: the pad-optimal mesh over them for "
+                         "sharded, near-square for gspmd).  gspmd rejects "
+                         "1xN/Nx1 meshes of more than one rank")
     ap.add_argument("--dtype", choices=["float32", "float64"], default=None,
                     help="override dtype (default: config / float32)")
     ap.add_argument("--refine-every", type=int, default=None,
@@ -293,25 +301,20 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
 
-    if args.backend == "gspmd":
-        print("error: --backend gspmd is not ported (XLA's SPMD partitioner "
-              "has no PyTorch counterpart; ROADMAP \"Left out of the "
-              "port\"); use --backend sharded", file=sys.stderr)
-        return 1
     try:
         mesh_shape = parse_mesh_arg(args.mesh)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-    if mesh_shape is not None and args.backend != "sharded":
-        print(f"error: --mesh applies to the sharded backend, not "
-              f"{args.backend!r}", file=sys.stderr)
+    if mesh_shape is not None and args.backend not in ("sharded", "gspmd"):
+        print(f"error: --mesh applies to the sharded backend or the gspmd "
+              f"backend, not {args.backend!r}", file=sys.stderr)
         return 1
 
     state = None
     if args.resume:
-        # The sharded backend scatters the state from the host.
-        where = "cpu" if args.backend == "sharded" else device
+        # The sharded and gspmd backends scatter the state from the host.
+        where = "cpu" if args.backend in ("sharded", "gspmd") else device
         try:
             state = load_checkpoint(args.resume, params, where)
         except (OSError, ValueError, KeyError, NotImplementedError) as e:
@@ -335,7 +338,7 @@ def main(argv=None) -> int:
                   "Adams-Bashforth tendency carried across a reflag is "
                   "ill-defined)", file=sys.stderr)
             return 1
-        if params.problem == 5 and args.backend == "sharded":
+        if params.problem == 5 and args.backend in ("sharded", "gspmd"):
             print("error: --time-order 2 for problem 5 runs single-chip "
                   "(the multi-chip thermal steppers integrate first-order; "
                   "drop --backend or --time-order)", file=sys.stderr)
@@ -358,6 +361,10 @@ def main(argv=None) -> int:
         if args.backend == "pallas":
             print("warning: problem 6 runs the plain free-surface path; "
                   "--backend pallas is ignored", file=sys.stderr)
+    if args.backend == "gspmd":
+        return _main_sharded(args, params, device, mesh_shape,
+                             pressure_method, state)
+    if params.problem == 6:
         stepper = freesurface.FreeStepper(
             params, state or freesurface.initial_free_state(params, device),
             wall=args.free_wall)
@@ -401,16 +408,25 @@ def _run_timed(args, params: Params, stepper) -> int:
 
 def _main_sharded(args, params: Params, device, mesh_shape,
                   pressure_method: str, state) -> int:
-    """The sharded backend inside a process group; rank 0 reports."""
+    """The sharded or the gspmd backend inside a process group; rank 0
+    reports."""
+    from .parallel import gspmd
     from .parallel.topology import make_grid_mesh
 
     with distributed.process_group(device) as rank_device:
         rank0 = dist.get_rank() == 0
         try:
-            mesh = make_grid_mesh(i_max=params.i_max, j_max=params.j_max,
-                                  shape=mesh_shape, device=rank_device)
-            stepper = _sharded_stepper(args, params, mesh, pressure_method,
-                                       state)
+            if args.backend == "gspmd":
+                mesh = (gspmd._default_mesh(rank_device)
+                        if mesh_shape is None else
+                        make_grid_mesh(shape=mesh_shape, device=rank_device))
+                stepper = _gspmd_stepper(args, params, mesh, pressure_method,
+                                         state)
+            else:
+                mesh = make_grid_mesh(i_max=params.i_max, j_max=params.j_max,
+                                      shape=mesh_shape, device=rank_device)
+                stepper = _sharded_stepper(args, params, mesh,
+                                           pressure_method, state)
         except (NotImplementedError, ValueError) as e:
             if rank0:
                 print(f"error: {e}", file=sys.stderr)
@@ -459,6 +475,32 @@ def _sharded_stepper(args, params: Params, mesh, pressure_method: str,
     sharded.warm_up(params, mesh, pressure_method, args.time_order)
     return sharded.ShardedStepper(params, state, mesh, pressure_method,
                                   args.time_order)
+
+
+def _gspmd_stepper(args, params: Params, mesh, pressure_method: str, state):
+    """The warmed stepper of the problem on the gspmd backend: the thermal
+    stepper for problem 5, the sharded backend's free-surface stepper for
+    problem 6 (``freesurface.solve_free(mesh=...)``'s), else
+    ``gspmd.GspmdStepper``."""
+    from .parallel import gspmd, sharded_free
+
+    if params.problem == 6:
+        gspmd._check_mesh(mesh)
+        fs = (freesurface.initial_free_state(params, mesh.device)
+              if state is None else freesurface.to_device(state, mesh.device))
+        stepper = sharded_free.make_free_stepper(params, fs, mesh,
+                                                 wall=args.free_wall)
+    elif params.problem == 5:
+        cfg = convection.config_from_params(params)
+        stepper = convection.ThermalGspmdStepper(
+            params, cfg, state if state is not None
+            else convection.allocate_thermal(params, cfg, mesh.device),
+            mesh, pressure_method)
+    else:
+        stepper = gspmd.GspmdStepper(params, state, mesh, pressure_method,
+                                     args.time_order)
+    stepper.warm()
+    return stepper
 
 
 class _FrameWriter:

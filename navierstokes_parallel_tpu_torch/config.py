@@ -85,7 +85,11 @@ class Params:
     carries across unchanged; those of the TPU-only routes left out of
     the port (ROADMAP "Left out of the port": ``fft_precision`` other
     than "highest", ``sor_inner_dtype="bfloat16"`` on pallas_sor) are
-    refused where they would be used, and ``disable_pallas`` is ignored.
+    refused where they would be used.  ``disable_pallas`` is kept and
+    ignored: the JAX package sets it to keep its Pallas calls, which its
+    SPMD partitioner cannot shard, off the GSPMD path, where the port's
+    gspmd backend (parallel/gspmd.py) runs on blocks and launches its
+    kernels wherever its route takes them.
     """
 
     problem: int = 1

@@ -42,7 +42,8 @@ Contract and scope, as in the JAX package:
   operation saved them for the backward pass.
 * Gradients are exact at generic states.  The donor-cell stencils take
   |u|, so a state on a kink (the from-rest cavity, mirror-symmetric) gets
-  the subgradient: abs'(0) = 0 in both packages, ``torch.max`` over all
+  the subgradient: abs'(0) = 1 in both packages (``jnp.abs``'s, by
+  ``stencils.upwind_abs``; torch.abs' is 0), ``torch.max`` over all
   elements spreads over ties as JAX's reduce_max does, and
   ``torch.maximum`` / ``torch.minimum`` give half at ties as lax.max /
   lax.min.  The tests break the symmetry before comparing with finite
@@ -54,13 +55,16 @@ backend's step (parallel/sharded.py, sharded_thermal.py) under autograd:
 its halo exchanges, reductions and the global scatter and gather are
 Functions with their transposes (parallel/autograd.py), and the pressure
 solve is the sharded solve with the sharded implicit-function adjoint
-(``sharded._pressure_adjoint``).  The forward is ``ShardedStepper``'s
-arithmetic; the caller passes the global state and the controls on every
-rank and gets the global final state and dts back on every rank, so a loss
-written for one device runs unchanged (every rank computes it and calls
-backward).  The JAX package reaches the same contract with its GSPMD
-recipe (``gspmd.py``, not ported: ROADMAP A12); its refusal of a mesh with
-a trivial axis is kept.
+(``sharded._pressure_adjoint``; an obstacle domain by rb_sor or by the
+masked V-cycle on blocks).  The forward is ``ShardedStepper``'s arithmetic
+with one device's CFL rule, as JAX's mesh gradient runs the one-device
+program under its GSPMD recipe: the maxima seeded with the global ghost
+corner x[0, 0], which every step carries (``ShardedStepper`` seeds with 0,
+as JAX's sharded backend does).  The caller passes the global state and
+the controls on every rank and gets the global final state and dts back
+on every rank, so a loss written for one device runs unchanged (every
+rank computes it and calls backward).  JAX's refusal of a mesh with a
+trivial axis is kept.
 """
 
 from __future__ import annotations
@@ -378,7 +382,8 @@ def solve_thermal_n_steps(params: Params, ts, n_steps: int, cfg, *,
 
         def step(u, v, p, T, t, *values):
             u, v, p, T, dt, _ = sharded_thermal._sharded_thermal_step(
-                u, v, p, T, params, config(values), pressure_method, mesh)
+                u, v, p, T, params, config(values), pressure_method, mesh,
+                corner=True)
             return u, v, p, T, dt
 
         fields, t, n, dts = _mesh_scan(params, mesh, ts[:4], ts.t, int(ts.n),
@@ -416,7 +421,7 @@ def solve_n_steps(params: Params, state: State, n_steps: int, *,
         def step(u, v, p, t, *c):
             u, v, p, dt, _, _ = sharded._sharded_step(
                 u, v, p, t, params, pressure_method, mesh,
-                controls=Controls(*c))
+                controls=Controls(*c), corner=True)
             return u, v, p, dt
 
         fields, t, n, dts = _mesh_scan(params, mesh, state[:3], state.t,

@@ -20,9 +20,10 @@ is ``sor.solve_pressure`` (the SOR kernel on the card under ``pallas_sor``,
 the coarse cycle under ``mg``; the masked solve with obstacles).  The JAX
 package's on-device loops are host loops here, as in solver.py:
 ``thermal_solve`` reads t once per step, ``solve_convection`` one rate
-per chunk.  The JAX module's GSPMD functions are not ported (``gspmd.py``
-is left out of the port); ``solve_convection`` refuses a `mesh`.  The
-sharded backend steps problem 5 with parallel/sharded_thermal.py.
+per chunk.  The sharded backend steps problem 5 with
+parallel/sharded_thermal.py; the gspmd backend (``mesh=`` on
+``thermal_solve`` and ``solve_convection``, ``ThermalGspmdStepper``) with
+the same blocks' step under one device's CFL rule and pressure schedule.
 """
 
 from __future__ import annotations
@@ -418,10 +419,22 @@ def warm_up(params: Params, cfg: ThermalConfig, device,
 def thermal_solve(params: Params, cfg: ThermalConfig,
                   state: Optional[ThermalState] = None, *, device=None,
                   pressure_method: str = "mg", max_steps: int = 0,
-                  time_order: int = 1):
+                  time_order: int = 1, mesh=None):
     """Integrate the Boussinesq system to t >= params.T (or `max_steps`
     steps when > 0) from `state` (the conduction state on `device` if
-    None); returns (ThermalState, SolveStats)."""
+    None); returns (ThermalState, SolveStats).  With `mesh` (a 2-D
+    ``parallel.topology.Mesh`` over the process group) the integration is
+    the gspmd backend's (``ThermalGspmdStepper``), Euler only, and every
+    rank returns the reference-layout state."""
+    if mesh is not None:
+        if time_order != 1:
+            raise ValueError(
+                "problem 5 with time_order 2 runs on one device (the "
+                "multi-chip thermal steppers integrate first-order)")
+        stepper = ThermalGspmdStepper(params, cfg, state, mesh,
+                                      pressure_method)
+        stats = run_steps(stepper, params, max_steps=max_steps)
+        return stepper.state(), stats
     if state is None:
         if device is None:
             raise ValueError("thermal_solve needs a state or a device")
@@ -429,6 +442,133 @@ def thermal_solve(params: Params, cfg: ThermalConfig,
     stepper = ThermalStepper(params, cfg, state, pressure_method, time_order)
     stats = run_steps(stepper, params, max_steps=max_steps)
     return stepper.state(), stats
+
+
+# ---------------------------------------------------------------------------
+# Problem 5 on the gspmd backend (parallel/gspmd.py): u, v, p and T as
+# blocks of a process mesh, the sharded thermal step (parallel/
+# sharded_thermal.py) with one device's CFL rule and pressure schedule.
+# ---------------------------------------------------------------------------
+
+
+def place_thermal(ts: ThermalState, params: Params, mesh) -> ThermalState:
+    """This rank's padded blocks of a reference-layout ``ThermalState`` (the
+    port's or the JAX package's) on the mesh's device; t, n replicated."""
+    from ..parallel import sharded_thermal
+
+    return sharded_thermal.scatter_thermal(params, ts, mesh)
+
+
+def fetch_thermal(local: ThermalState, params: Params,
+                  mesh) -> ThermalState:
+    """The reference-layout ``ThermalState`` of every rank's blocks, on
+    every rank (a collective)."""
+    from ..parallel import sharded_thermal
+
+    return sharded_thermal.gather_thermal(params, local, mesh)
+
+
+class ThermalGspmdStepper:
+    """Host-loop adapter for problem 5 on the gspmd backend (the JAX
+    package's ``ThermalGspmdStepper``): this rank's blocks of a
+    reference-layout ``ThermalState`` (`state`; None: the conduction state),
+    advanced by ``sharded_thermal._sharded_thermal_step`` with one
+    device's CFL rule (the ghost corner seed, carried) and one device's
+    pressure schedule (``gspmd._pressure_solve``).  An obstacle domain
+    (the heated block) is stepped by all-gathering the four fields onto
+    every rank's device, one device's ``thermal_step`` there, and keeping
+    the block: the sharded thermal step has no obstacle arm.  ``state()`` gathers on
+    every rank (a collective); ``last_max_dT`` is the last step's global
+    max |dT| (a collective, read on demand)."""
+
+    def __init__(self, params: Params, cfg: ThermalConfig,
+                 state: Optional[ThermalState] = None, mesh=None,
+                 pressure_method: str = "mg"):
+        from ..parallel import gspmd, sharded_thermal
+
+        gspmd._check_method(pressure_method)
+        sharded_thermal.check_thermal_config(params, cfg, obstacles=True)
+        gspmd._check_route(params, pressure_method)
+        if mesh is None:
+            mesh = gspmd._default_mesh()
+        gspmd._check_mesh(mesh)
+        self.params, self.cfg, self.mesh = params, cfg, mesh
+        self.pressure_method = pressure_method
+        self._local = place_thermal(
+            state if state is not None
+            else allocate_thermal(params, cfg, mesh.device), params, mesh)
+        self._dT = None
+
+    def warm(self) -> None:
+        """One throw-away step with a single sweep from the conduction
+        state: the kernels' build and first-use costs."""
+        ThermalGspmdStepper(self.params.replace(max_it=1), self.cfg, None,
+                            self.mesh, self.pressure_method).step()
+        if self.mesh.device.type == "cuda":
+            torch.cuda.synchronize(self.mesh.device)
+
+    @property
+    def t(self) -> float:
+        return float(self._local.t)
+
+    @property
+    def n(self) -> int:
+        return self._local.n
+
+    def step(self) -> StepDiagnostics:
+        from ..parallel import gspmd, sharded_thermal
+        from ..parallel.autograd import block_of
+
+        loc = self._local
+        if self.params.obstacles:
+            # An obstacle domain: the fields all-gathered on the device,
+            # one device's thermal_step on every rank (its masked solve),
+            # this rank's blocks kept.
+            new, (_, _, diag) = thermal_step(self.state(), self.params,
+                                             self.cfg, self.pressure_method)
+            self._local = ThermalState(
+                *(block_of(x, self.params, self.mesh).contiguous()
+                  for x in new[:4]), t=new.t, n=new.n)
+            self._dT = (self._local.T, loc.T)
+            return diag
+        u, v, p, T, dt, result = sharded_thermal._sharded_thermal_step(
+            loc.u, loc.v, loc.p, loc.T, self.params, self.cfg,
+            self.pressure_method, self.mesh, corner=True,
+            solve=gspmd._pressure_solve)
+        self._local = ThermalState(u=u, v=v, p=p, T=T, t=loc.t + dt,
+                                   n=loc.n + 1)
+        self._dT = (T, loc.T)
+        return StepDiagnostics(dt=dt, sor_iterations=result.iterations,
+                               sor_res_norm=result.res_norm,
+                               sor_converged=result.converged)
+
+    @property
+    def last_max_dT(self) -> torch.Tensor:
+        """max |T_new - T| of the last step over the global interior."""
+        import torch.distributed as dist
+
+        from ..parallel import sharded
+
+        new, old = self._dT
+        li, lj = new.shape[0] - 2, new.shape[1] - 2
+        valid = sharded._valid_mask_or_none(self.params, li, lj,
+                                            self.mesh)[0]
+        d = _max_dT(new, old) if valid is None else torch.max(torch.where(
+            valid, torch.abs(new[1:-1, 1:-1] - old[1:-1, 1:-1]),
+            torch.zeros((), dtype=new.dtype, device=new.device)))
+        dist.all_reduce(d, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        return d
+
+    def state(self) -> ThermalState:
+        return fetch_thermal(self._local, self.params, self.mesh)
+
+    def any_rank(self, flag: bool) -> bool:
+        """Whether `flag` is set on any rank (collective)."""
+        import torch.distributed as dist
+
+        x = torch.tensor(int(flag), device=self.mesh.device)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        return bool(x)
 
 
 def thermal_solve_ab2(params: Params, cfg: ThermalConfig,
@@ -449,18 +589,19 @@ def solve_convection(params: Params, cfg: ThermalConfig,
     """Integrate to steady state: stop once max|dT|/dt of the last step of
     a chunk of `chunk` steps falls under `steady_tol` (or after
     `max_steps`), reading that rate once per chunk.  Returns (state, info
-    dict).  The JAX package's `mesh` (its GSPMD recipe) is not ported."""
+    dict).  With `mesh` (a 2-D ``parallel.topology.Mesh``) the steps are
+    the gspmd backend's (``ThermalGspmdStepper``), and every rank returns
+    the reference-layout state."""
     if mesh is not None:
-        raise NotImplementedError(
-            "solve_convection(mesh=...) runs the GSPMD recipe, which is not "
-            "ported (ROADMAP \"Left out of the port\": gspmd.py); step "
-            "problem 5 on the sharded backend with "
-            "parallel/sharded_thermal.py::solve_sharded_thermal")
-    if state is None:
-        if device is None:
-            raise ValueError("solve_convection needs a state or a device")
-        state = allocate_thermal(params, cfg, device)
-    stepper = ThermalStepper(params, cfg, state, pressure_method)
+        stepper = ThermalGspmdStepper(params, cfg, state, mesh,
+                                      pressure_method)
+    else:
+        if state is None:
+            if device is None:
+                raise ValueError("solve_convection needs a state or a "
+                                 "device")
+            state = allocate_thermal(params, cfg, device)
+        stepper = ThermalStepper(params, cfg, state, pressure_method)
     steps = failures = 0
     rate = math.inf
     while steps < max_steps:

@@ -22,9 +22,10 @@ of ops/surface.py.  One time step (Griebel et al. 1998 alg. 8.1):
 The whole step is plain PyTorch on every device, as it is jnp in the JAX
 package: no kernel stands behind it.  ``solve_free`` and ``trace_free``
 are host loops over ``FreeStepper`` (one t read per step, one residual
-norm per pressure outer pass).  The JAX module's GSPMD functions
-(``place_free``, ``fetch_free``, ``make_free_step_gspmd``) are not ported;
-the sharded backend steps problem 6 with parallel/sharded_free.py.
+norm per pressure outer pass).  The sharded backend steps problem 6 with
+parallel/sharded_free.py, and so does the gspmd backend
+(``solve_free(mesh=...)``): the fields and the particles replicated on
+every rank, the pressure sweeps partitioned.
 """
 
 from __future__ import annotations
@@ -262,16 +263,24 @@ def solve_free(params: Params, fs: FreeSurfaceState, *,
                p_surface: str = "interpolated", mesh=None,
                max_steps: int = 0) -> Tuple[FreeSurfaceState, SolveStats]:
     """Integrate to t >= T (or `max_steps` steps when > 0), reading t once
-    per step.  The JAX package's `mesh` (its GSPMD recipe) is not ported:
-    the sharded backend is parallel/sharded_free.py::solve_free_sharded."""
+    per step.  With `mesh` (a 2-D ``parallel.topology.Mesh`` over the
+    process group; the gspmd backend's refusal of a mesh with a trivial
+    axis holds) every rank holds the whole state, fields and particles,
+    and steps it as one device does with the pressure sweeps partitioned
+    over the mesh (``sharded_free.make_free_stepper``).  The JAX package
+    shards the fields here and its partitioner gathers them for the
+    particle and flag operations; blocks between steps would save nothing,
+    since the step needs the whole fields on every rank."""
     if mesh is not None:
-        raise NotImplementedError(
-            "solve_free(mesh=...) runs the GSPMD recipe, which is not ported "
-            "(ROADMAP \"Left out of the port\": gspmd.py); step problem 6 on "
-            "the sharded backend with parallel/sharded_free.py::"
-            "solve_free_sharded")
-    stepper = FreeStepper(params, fs, wall=wall, ppc=ppc,
-                          p_surface=p_surface)
+        from ..parallel import gspmd, sharded_free
+
+        gspmd._check_mesh(mesh)
+        stepper = sharded_free.make_free_stepper(
+            params, to_device(fs, mesh.device), mesh, wall=wall, ppc=ppc,
+            p_surface=p_surface)
+    else:
+        stepper = FreeStepper(params, fs, wall=wall, ppc=ppc,
+                              p_surface=p_surface)
     stats = run_steps(stepper, params, max_steps=max_steps)
     return stepper.free_state(), stats
 

@@ -38,8 +38,8 @@ def duT_dx(u, T, dx, gamma):
     u_c = st.shifted(u, 0, 0)
     u_w = st.shifted(u, -1, 0)
     flux = div(u_c * (T_c + T_e), 2.0) - div(u_w * (T_w + T_c), 2.0)
-    don = (div(torch.abs(u_c) * (T_c - T_e), 2.0)
-           - div(torch.abs(u_w) * (T_w - T_c), 2.0))
+    don = (div(st.upwind_abs(u_c) * (T_c - T_e), 2.0)
+           - div(st.upwind_abs(u_w) * (T_w - T_c), 2.0))
     return div(flux + gamma * don, dx)
 
 
@@ -51,8 +51,8 @@ def dvT_dy(v, T, dy, gamma):
     v_c = st.shifted(v, 0, 0)
     v_s = st.shifted(v, 0, -1)
     flux = div(v_c * (T_c + T_n), 2.0) - div(v_s * (T_s + T_c), 2.0)
-    don = (div(torch.abs(v_c) * (T_c - T_n), 2.0)
-           - div(torch.abs(v_s) * (T_s - T_c), 2.0))
+    don = (div(st.upwind_abs(v_c) * (T_c - T_n), 2.0)
+           - div(st.upwind_abs(v_s) * (T_s - T_c), 2.0))
     return div(flux + gamma * don, dy)
 
 

@@ -233,3 +233,66 @@ def make_sharded_inner(params: Params, li: int, lj: int, mesh):
         return out
 
     return inner_fn
+
+
+def pencils_tile(params: Params, mesh_shape) -> bool:
+    """Whether the pencil decomposition runs on this grid and mesh: the
+    interior divides the mesh evenly and the pencils tile."""
+    px, py = mesh_shape
+    ni, nj = params.i_max, params.j_max
+    return (ni % px == 0 and nj % py == 0 and (ni // px) % py == 0
+            and (nj // py) % px == 0)
+
+
+def make_gspmd_inner(params: Params, li: int, lj: int, mesh):
+    """The gspmd backend's inner_fn(rhs_neg_full, n) -> delta on this
+    rank's (li + 2, lj + 2) block: ``inner_direct``'s n direct solves, with
+    the f32 defect between them when ``fft_solves_per_outer`` > 1.
+
+      * Where the pencils tile (``pencils_tile``), each solve is the
+        pencil decomposition (``make_sharded_inner``) and the defect is
+        taken on the exchanged blocks.
+      * Elsewhere (a grid that does not divide the mesh, or pencils that
+        do not tile) the rhs is all-gathered and every rank runs the
+        one-device ``inner_direct`` on the whole grid, then keeps its
+        block."""
+    from ..parallel import halo
+    from . import mg, sor
+
+    f32 = torch.float32
+    if not pencils_tile(params, mesh.shape):
+        dims = (params.i_max, params.j_max)
+
+        def gathered(rhs_neg_full: torch.Tensor, n: int) -> torch.Tensor:
+            g = rhs_neg_full.new_zeros(params.shape)
+            g[1:-1, 1:-1] = mg.gather_interior(rhs_neg_full[1:-1, 1:-1],
+                                               mesh, dims)
+            d = inner_direct(g, n, params)
+            out = torch.zeros(rhs_neg_full.shape, dtype=f32,
+                              device=rhs_neg_full.device)
+            out[1:-1, 1:-1] = mg.cut_interior(d[1:-1, 1:-1], mesh, li, lj)
+            return out
+
+        return gathered
+    solve = make_sharded_inner(params, li, lj, mesh)
+    if params.fft_solves_per_outer == 1:
+        return solve
+    dx2 = torch.tensor(1.0 / (params.dx * params.dx), dtype=f32,
+                       device=mesh.device)
+    dy2 = torch.tensor(1.0 / (params.dy * params.dy), dtype=f32,
+                       device=mesh.device)
+
+    def pencils(rhs_neg_full: torch.Tensor, n: int) -> torch.Tensor:
+        rhs_int = rhs_neg_full[1:-1, 1:-1].to(f32)
+        delta = torch.zeros(rhs_neg_full.shape, dtype=f32,
+                            device=rhs_neg_full.device)
+        corr = torch.zeros_like(delta)
+        for _ in range(int(n)):
+            res = sor.residual(halo.neumann_or_exchange(delta, mesh),
+                               rhs_int, dx2, dy2)
+            corr[1:-1, 1:-1] = -res
+            delta[1:-1, 1:-1] += solve(corr, 1)[1:-1, 1:-1]
+        return delta
+
+    return pencils
+

@@ -294,6 +294,98 @@ def _v_cycle_masked(p, rhs_int, levels, depth=0, nu1=2, nu2=2,
 
 
 # ---------------------------------------------------------------------------
+# The masked V-cycle on the blocks of a process mesh (the gspmd backend's
+# obstacle runs by mg, and the mesh gradient's).
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=32)
+def _block_levels(params: Params, mesh_shape, coords, depth: int,
+                  device: torch.device) -> Tuple[_DeviceWeights, ...]:
+    """Levels 0..depth of ``_masked_levels`` cut to the rank's interior
+    block (each level splits into equal blocks over the mesh), in f32 on
+    `device`, with the block's colour parity."""
+    px, py = mesh_shape
+    out = []
+    for lvl in _masked_levels(params)[:depth + 1]:
+        w = lvl.weights
+        li, lj = w.fluid.shape[0] // px, w.fluid.shape[1] // py
+        ox, oy = coords[0] * li, coords[1] * lj
+
+        def cut(a):
+            return np.ascontiguousarray(a[ox:ox + li, oy:oy + lj])
+
+        block = _Weights(*(cut(a) for a in w[:6]),
+                         n_fluid=int(cut(w.fluid).sum()))
+        out.append(_on_device(block, torch.float32, device, (ox + oy) % 2))
+    return tuple(out)
+
+
+def make_sharded_mg_inner(params: Params, li: int, lj: int, mesh):
+    """The refinement's inner_fn(rhs_neg_full, n) -> delta on this rank's
+    (li + 2, lj + 2) block: n masked V(2,2) cycles of ``_v_cycle_masked``
+    over the levels of ``_masked_levels``, from delta = 0.  A level runs
+    on blocks while it splits into equal, even blocks over the mesh
+    (``mg.split_depth``): its weights cut per rank as the fine level's
+    are, each half-sweep of the smoother after a halo exchange, the
+    residual on the exchanged block, restriction and prolongation local.
+    From the first level that does not split (level 0 on a grid that does
+    not divide the mesh) the level is all-gathered and every rank finishes
+    the cycle with ``_v_cycle_masked`` from that depth.  Every operation
+    is the one-device cycle's on the same cells, so the cores are its
+    bits."""
+    from ..parallel import halo
+    from .mg import cut_interior, gather_interior, split_depth
+
+    f32 = torch.float32
+    device = mesh.device
+    dims = [lvl.weights.fluid.shape for lvl in _masked_levels(params)]
+    depth = split_depth(dims, mesh.shape)
+    blocks = _block_levels(params, mesh.shape, mesh.coords, depth, device)
+    whole = device_levels(params, f32, device)
+    one = torch.ones((), dtype=f32, device=device)
+    zero = torch.zeros((), dtype=f32, device=device)
+
+    def smooth(p, rhs, w, n):
+        # _smooth_masked's sweeps, each half-sweep after an exchange.
+        one_minus_omega, omega_over_diag = 1.0 - one, one / w.diag
+        for _ in range(n):
+            for colour in (w.red, w.black):
+                p = _masked_half_sweep(halo.exchange_halo(p, mesh), rhs,
+                                       colour, one_minus_omega,
+                                       omega_over_diag, w)
+        return p
+
+    def cycle(p, rhs, k, nu1=2, nu2=2):
+        bi, bj = p.shape[0] - 2, p.shape[1] - 2
+        if k == depth:
+            pg = p.new_zeros((dims[k][0] + 2, dims[k][1] + 2))
+            pg[1:-1, 1:-1] = gather_interior(p[1:-1, 1:-1], mesh, dims[k])
+            pg = _v_cycle_masked(pg, gather_interior(rhs, mesh, dims[k]),
+                                 whole, k, one=one)
+            out = torch.zeros_like(p)
+            out[1:-1, 1:-1] = cut_interior(pg[1:-1, 1:-1], mesh, bi, bj)
+            return out
+        w = blocks[k]
+        p = smooth(p, rhs, w, nu1)
+        r = -masked_residual(halo.exchange_halo(p, mesh), rhs, w)
+        r_c = torch.where(blocks[k + 1].fluid, _restrict(r), zero)
+        e_c = cycle(p.new_zeros((bi // 2 + 2, bj // 2 + 2)), r_c, k + 1)
+        up = e_c[1:-1, 1:-1].repeat_interleave(2, 0).repeat_interleave(2, 1)
+        p[1:-1, 1:-1] += torch.where(w.fluid, up, zero)
+        return smooth(p, rhs, w, nu2)
+
+    def inner(rhs_full: torch.Tensor, n: int) -> torch.Tensor:
+        rhs = rhs_full[1:-1, 1:-1].to(f32)
+        d = torch.zeros((li + 2, lj + 2), dtype=f32, device=device)
+        for _ in range(int(n)):
+            d = cycle(d, rhs, 0)
+        return d
+
+    return inner
+
+
+# ---------------------------------------------------------------------------
 # The mixed-precision refinement outer (structure of ops/sor.py's).
 # ---------------------------------------------------------------------------
 

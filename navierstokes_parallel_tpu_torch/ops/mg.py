@@ -353,34 +353,47 @@ def _all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def gather_interior(x: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """The global (ni, nj) = `dims` array of every rank's interior-shaped
+    block `x`, on every rank: all-gathered over "x", then "y", with the
+    pad-to-divisible cells on the high side dropped."""
+    x = _all_gather(_all_gather(x, mesh, "x", 0), mesh, "y", 1)
+    return x[:dims[0], :dims[1]]
+
+
+def cut_interior(g: torch.Tensor, mesh, li: int, lj: int) -> torch.Tensor:
+    """This rank's (li, lj) block of a global interior-shaped array, zero
+    on the pad (the inverse of ``gather_interior``)."""
+    px, py = mesh.shape
+    full = g.new_zeros((px * li, py * lj))
+    full[:g.shape[0], :g.shape[1]] = g
+    ox, oy = mesh.origin(li, lj)
+    return full[ox:ox + li, oy:oy + lj]
+
+
 def _coarse_solve_replicated(p, rhs, level, nu1: int, nu2: int,
                              coarse_sweeps: int, mesh):
     """The coarsest sharded level's solve: all-gather the (small) level over
-    "x", then "y", onto every rank, finish the V-cycle on the replicated
-    global array with ``v_cycle`` (down to the <= 8^2 level), and cut the
-    local block back out.  On the card ``v_cycle`` takes its kernels, the
-    smoother and the coarse cycle, whose bits equal their plain twins'
-    (the JAX package runs its jnp smoother here)."""
+    "x", then "y", onto every rank (``gather_interior``; a padded level
+    drops its pad), finish the V-cycle on the replicated global array with
+    ``v_cycle`` (down to the <= 8^2 level), and cut the local block back
+    out.  On the card ``v_cycle`` takes its kernels, the smoother and the
+    coarse cycle, whose bits equal their plain twins' (the JAX package
+    runs its jnp smoother here)."""
     shape, g_dims, dx2_inv, dy2_inv = level
     li, lj = shape[0] - 2, shape[1] - 2
-    gi_n, gj_n = g_dims
 
     def gather_global(arr):
-        tile = arr[1:-1, 1:-1]
-        if gi_n > li:
-            tile = _all_gather(tile, mesh, "x", 0)
-        if gj_n > lj:
-            tile = _all_gather(tile, mesh, "y", 1)
-        out = torch.zeros((gi_n + 2, gj_n + 2), dtype=arr.dtype,
-                          device=arr.device)
-        out[1:-1, 1:-1] = tile
+        out = arr.new_zeros((g_dims[0] + 2, g_dims[1] + 2))
+        out[1:-1, 1:-1] = gather_interior(arr[1:-1, 1:-1], mesh, g_dims)
         return out
 
-    glevels = _coarsen(gi_n, gj_n, dx2_inv, dy2_inv, 8)
+    glevels = _coarsen(*g_dims, dx2_inv, dy2_inv, 8)
     e_g = v_cycle(gather_global(p), gather_global(rhs), glevels, nu1=nu1,
                   nu2=nu2, coarse_sweeps=coarse_sweeps)
-    ox, oy = mesh.origin(li, lj)
-    return e_g[ox:ox + li + 2, oy:oy + lj + 2].contiguous()
+    out = torch.zeros_like(p)
+    out[1:-1, 1:-1] = cut_interior(e_g[1:-1, 1:-1], mesh, li, lj)
+    return out
 
 
 def v_cycle_sharded(p, rhs, levels, mesh, depth: int = 0, nu1: int = 2,
@@ -401,10 +414,48 @@ def v_cycle_sharded(p, rhs, levels, mesh, depth: int = 0, nu1: int = 2,
     return _smooth_sharded(p, rhs, lvl, nu2, mesh)
 
 
-def make_sharded_inner(params: Params, li: int, lj: int, mesh):
+def split_depth(dims, mesh_shape, cap: int = None) -> int:
+    """The first level of a hierarchy (global interior `dims` per level)
+    that the gspmd V-cycle gathers: a level stays sharded while it is not
+    the coarsest, its interior splits into equal blocks over the mesh and
+    the blocks are even (so the restriction to the next level stays
+    local), and while it lies above `cap`."""
+    px, py = mesh_shape
+    for k, (ni, nj) in enumerate(dims):
+        if (k == len(dims) - 1 or (cap is not None and k >= cap)
+                or ni % px or nj % py or (ni // px) % 2 or (nj // py) % 2):
+            return k
+    return len(dims) - 1
+
+
+def build_levels_gspmd(params: Params, mesh_shape,
+                       cuda: bool = False) -> List[_ShardedLevel]:
+    """The gspmd backend's levels: exactly one device's ``build_levels``,
+    each as a rank's block, down to the gathered level ``split_depth``
+    (the last entry; on the card at most ``sor_kernel.coarse_cycle_depth``,
+    where one device enters the coarse cycle).  A grid that does not
+    divide the mesh (17^2 on 2x2) gathers at level 0: every rank runs the
+    whole V-cycle."""
+    from ..parallel.topology import local_block_dims
+
+    levels = build_levels(params)
+    dims = [(lvl.shape[0] - 2, lvl.shape[1] - 2) for lvl in levels]
+    cap = sor_kernel.coarse_cycle_depth(levels) if cuda else None
+    d = split_depth(dims, mesh_shape, cap)
+    li, lj = local_block_dims(mesh_shape, params.i_max, params.j_max)
+    return [_ShardedLevel(((li >> k) + 2, (lj >> k) + 2), dims[k],
+                          lvl.dx2_inv, lvl.dy2_inv)
+            for k, lvl in enumerate(levels[:d + 1])]
+
+
+def make_sharded_inner(params: Params, li: int, lj: int, mesh,
+                       levels=None):
     """inner_fn(rhs_neg_local_padded, n_cycles) -> delta for the refinement
-    loop: n V-cycles of the sharded hierarchy from delta = 0."""
-    levels = build_levels_sharded(params, li, lj)
+    loop: n V-cycles of the sharded hierarchy from delta = 0.  `levels`
+    (default ``build_levels_sharded``: coarsened while the local block
+    stays at least 4 cells) ends in the level that is gathered."""
+    if levels is None:
+        levels = build_levels_sharded(params, li, lj)
 
     def inner(rhs_neg: torch.Tensor, n_cycles: int) -> torch.Tensor:
         rhs = rhs_neg.to(torch.float32)

@@ -259,8 +259,10 @@ def solve_pressure(p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
     mean_fn = hooks.pop("mean_fn", None) or torch.mean
     if params.obstacles:
         if hooks:
-            raise ValueError("obstacle domains are single-chip/gspmd only "
-                             "(the shard_map halo machinery is unmasked)")
+            raise ValueError(
+                "obstacle domains are single-chip here: solve_pressure takes "
+                "no shard hooks for them (the sharded and gspmd backends run "
+                "their masked routes, parallel/sharded.py)")
         from . import masked  # it imports this module
 
         return masked.solve_pressure_masked(p, rhs, params, method=method)

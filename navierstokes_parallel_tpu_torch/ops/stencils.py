@@ -33,6 +33,15 @@ def div(x: torch.Tensor, d) -> torch.Tensor:
     return x / d
 
 
+def upwind_abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| of the donor-cell terms.  Under autograd its derivative is
+    ``jnp.abs``'s, 1 at x = 0 (torch.abs' is 0 there): x times +-1, the
+    value |x| exactly.  Without a gradient it is torch.abs."""
+    if not x.requires_grad:
+        return torch.abs(x)
+    return x * torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
+
+
 def shifted(x, di: int, dj: int):
     """Interior view of `x` shifted by (di, dj); offsets in {-1, 0, +1}.
 
@@ -52,8 +61,8 @@ def du2_dx(u, v, dx, gamma):
     uc, ue, uw = shifted(u, 0, 0), shifted(u, 1, 0), shifted(u, -1, 0)
     avg_e = 0.5 * (uc + ue)
     avg_w = 0.5 * (uw + uc)
-    upw_e = torch.abs(avg_e) * 0.5 * (uc - ue)
-    upw_w = torch.abs(avg_w) * 0.5 * (uw - uc)
+    upw_e = upwind_abs(avg_e) * 0.5 * (uc - ue)
+    upw_w = upwind_abs(avg_w) * 0.5 * (uw - uc)
     return div(avg_e * avg_e - avg_w * avg_w, dx) + div(gamma, dx) * (upw_e - upw_w)
 
 
@@ -66,8 +75,8 @@ def duv_dy(u, v, dy, gamma):
     v_s = 0.5 * (vs + vse)
     flux_n = v_n * 0.5 * (uc + un)
     flux_s = v_s * 0.5 * (us + uc)
-    upw_n = torch.abs(v_n) * 0.5 * (uc - un)
-    upw_s = torch.abs(v_s) * 0.5 * (us - uc)
+    upw_n = upwind_abs(v_n) * 0.5 * (uc - un)
+    upw_s = upwind_abs(v_s) * 0.5 * (us - uc)
     return div(flux_n - flux_s, dy) + div(gamma, dy) * (upw_n - upw_s)
 
 
@@ -76,8 +85,8 @@ def dv2_dy(u, v, dy, gamma):
     vc, vn, vs = shifted(v, 0, 0), shifted(v, 0, 1), shifted(v, 0, -1)
     avg_n = 0.5 * (vc + vn)
     avg_s = 0.5 * (vs + vc)
-    upw_n = torch.abs(avg_n) * 0.5 * (vc - vn)
-    upw_s = torch.abs(avg_s) * 0.5 * (vs - vc)
+    upw_n = upwind_abs(avg_n) * 0.5 * (vc - vn)
+    upw_s = upwind_abs(avg_s) * 0.5 * (vs - vc)
     return (div(avg_n * avg_n - avg_s * avg_s, dy)
             + div(gamma, dy) * (upw_n - upw_s))
 
@@ -91,8 +100,8 @@ def duv_dx(u, v, dx, gamma):
     u_w = 0.5 * (uw + unw)
     flux_e = u_e * 0.5 * (vc + ve)
     flux_w = u_w * 0.5 * (vw + vc)
-    upw_e = torch.abs(u_e) * 0.5 * (vc - ve)
-    upw_w = torch.abs(u_w) * 0.5 * (vw - vc)
+    upw_e = upwind_abs(u_e) * 0.5 * (vc - ve)
+    upw_w = upwind_abs(u_w) * 0.5 * (vw - vc)
     return div(flux_e - flux_w, dx) + div(gamma, dx) * (upw_e - upw_w)
 
 

@@ -40,7 +40,8 @@ i_max/j_max, so pad cells stay inert.
 ``solve_sharded`` takes and returns reference-layout (i_max+2, j_max+2)
 states: a JAX ``State`` goes in unchanged (its arrays through numpy), the
 blocks are cut with the JAX package's ``_scatter_blocks`` layout and put
-back with ``_gather_blocks`` after an all-gather, on every rank.
+back in ``_gather_blocks``' layout after an all-gather, on every rank and
+on its device (``gather_field``).
 
 ``ShardedStepper`` holds each rank's blocks for the CLI's host loop and
 advances them one step per ``step()``; its ``state()`` is ``gather_state``,
@@ -416,28 +417,44 @@ def _local_fg(u, v, dt, gamma, params: Params, gi, gj, mesh: Mesh,
     return F, G
 
 
-def _global_maxima(u, v, valid, mesh: Mesh):
-    """(u_max, v_max): ``st.max_interior`` of the global fields from the
-    local blocks, the signed maxima over the true interior cells (pad cells
-    left out) seeded with the global corner x[0, 0] (rank (0, 0)'s; 0 on
-    every state a step leaves, whose exchange zeroes the corners), both in
-    one all-reduce; under autograd with the tie rule of ``torch.max``
-    (parallel/autograd.py)."""
+def _global_maxima(u, v, valid, mesh: Mesh, corner: bool = False):
+    """(u_max, v_max): the signed maxima of the global fields over the true
+    interior cells (pad cells left out), both in one all-reduce; under
+    autograd with the tie rule of ``torch.max`` (parallel/autograd.py).
+    The seed is 0, as the JAX package's sharded steppers seed their pmax
+    (``jnp.maximum(0.0, lax.pmax(...))``), or with `corner` the global
+    corner x[0, 0] (rank (0, 0)'s), the one-device rule of
+    ``st.max_interior`` that the mesh gradient and the gspmd backend
+    follow: their steps carry the corners (``_keep_corners``)."""
     if autograd.tracked(u, v):
         m_u, c_u, m_v, c_v = autograd.global_maxima((u, v), valid, mesh)
     else:
         m_u, c_u, m_v, c_v = autograd.maxima((u, v), valid, mesh).unbind()
+    if not corner:
+        c_u = c_v = torch.zeros((), dtype=u.dtype, device=u.device)
     return torch.maximum(c_u, m_u), torch.maximum(c_v, m_v)
 
 
-def _sharded_dt_gamma(u, v, params: Params, valid, mesh: Mesh, limit=None):
+def _keep_corners(new, old, params: Params, mesh: Mesh):
+    """`new` with the four global ghost corners of `old` (at every block
+    position that holds one, halo copies included): one device never
+    writes them, where a sharded exchange zeroes them on a corner shard's
+    ring."""
+    gi, gj = halo.padded_global_indices(new.shape, mesh)
+    corner = (((gi == 0) | (gi == params.i_max + 1))
+              & ((gj == 0) | (gj == params.j_max + 1)))
+    return torch.where(corner, old, new)
+
+
+def _sharded_dt_gamma(u, v, params: Params, valid, mesh: Mesh, limit=None,
+                      corner: bool = False):
     """The adaptive dt and the donor-cell weight from the global maxima of
-    the local blocks (``_global_maxima``) by the AD-safe CFL rule of the
-    differentiable step (``momentum.cfl_dt_gamma``).  `limit` joins the
-    viscous bound in the min: the energy equation's explicit-diffusion
-    bound of problem 5 (a host float, or a 0-d tensor when alpha carries a
-    gradient)."""
-    u_max, v_max = _global_maxima(u, v, valid, mesh)
+    the local blocks (``_global_maxima``, seeded with 0 or with the
+    `corner`) by the AD-safe CFL rule of the differentiable step
+    (``momentum.cfl_dt_gamma``).  `limit` joins the viscous bound in the
+    min: the energy equation's explicit-diffusion bound of problem 5 (a
+    host float, or a 0-d tensor when alpha carries a gradient)."""
+    u_max, v_max = _global_maxima(u, v, valid, mesh, corner)
     dx, dy = params.dx, params.dy
     visc = params.Re / 2.0 / (1.0 / (dx * dx) + 1.0 / (dy * dy))
     # Device tensors, not Python scalars: CUDA divides by a host scalar as
@@ -480,15 +497,22 @@ def _project(u, v, F, G, p, dt, params: Params, gi, gj) -> None:
 
 
 def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
-                  mesh: Mesh, ab2=None, controls=None):
+                  mesh: Mesh, ab2=None, controls=None, corner: bool = False,
+                  solve=None):
     """One time step on local padded blocks (reference main.c:86-146);
     returns (u, v, p, dt, SORResult, carry) with new blocks.  `ab2` is the
     ``AB2Carry`` of these blocks, or None for the Euler step; `carry` is
     the next one (None for Euler).  `controls` (diff.Controls, replicated
-    0-d tensors) scales the lid and overrides the body force."""
+    0-d tensors) scales the lid and overrides the body force.  With
+    `corner` the step follows one device's rule: the CFL maxima seeded
+    with the global corner, and the ghost corners of u, v and p carried
+    through (the mesh gradient, the gspmd backend).  `solve` takes the
+    place of ``_pressure_solve`` (same arguments; the gspmd backend's
+    one-device schedule)."""
     li, lj = u.shape[0] - 2, u.shape[1] - 2
     valid, gi, gj = _valid_mask_or_none(params, li, lj, mesh)
-    dt, gamma = _sharded_dt_gamma(u, v, params, valid, mesh)
+    dt, gamma = _sharded_dt_gamma(u, v, params, valid, mesh, corner=corner)
+    start = (u, v, p)
 
     if params.problem == 3:
         u, v = _apply_channel_bcs_sharded(u, v, params, mesh)
@@ -528,8 +552,8 @@ def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
             Fa, Ga = F * au, G * av
     rhs = _local_rhs(Fa, Ga, dt, params, valid,
                      None if geo is None else geo.fluid[1:-1, 1:-1])
-    result = _pressure_solve(p, rhs, params, pressure_method, li, lj, valid,
-                             mesh)
+    result = (solve or _pressure_solve)(p, rhs, params, pressure_method, li,
+                                        lj, valid, mesh)
     p = result.p
     # The projection writes in place; F and G's stencils saved u and v.
     u, v = u.clone(), v.clone()
@@ -537,6 +561,9 @@ def _sharded_step(u, v, p, t, params: Params, pressure_method: str,
     if geo is not None:
         # The projection sweeps the obstacle faces too: restore them.
         u, v = _apply_obstacle_bcs_sharded(u, v, params, mesh)
+    if corner:
+        u, v, p = (_keep_corners(x, x0, params, mesh)
+                   for x, x0 in zip((u, v, p), start))
     return u, v, p, dt, result, carry
 
 
@@ -598,16 +625,15 @@ def _ghost_fn(params: Params, valid, mesh: Mesh):
     return halo.make_masked_ghost_fn(params.i_max, params.j_max, mesh)
 
 
-def _sharded_pressure_solve(p, rhs, params: Params, pressure_method: str,
-                            li: int, lj: int, valid, mesh: Mesh):
-    """The pressure solve on local padded blocks with the sharded hooks:
-    the exchange-and-Neumann ghost fill (masked on padded grids), the
-    all-reduced L2 norm, the block's parity and pad mask; the inner stage
-    by method, as JAX's ``_sharded_pressure_solve`` picks it."""
+def solve_hooks(params: Params, li: int, lj: int, valid,
+                mesh: Mesh) -> dict:
+    """The hooks that adapt ops/sor.py's solves to a rank's block: the
+    exchange-and-Neumann ghost fill (masked on padded grids), the
+    all-reduced L2 norm and interior mean (over the fluid cells of an
+    obstacle domain), and the block's parity."""
     ox, oy = mesh.origin(li, lj)
     # Obstacle domains: the L2 norm over the fluid cells (ops/masked.py).
     n_cells = obstacles.n_fluid_cells(params)
-    ghost_fn = _ghost_fn(params, valid, mesh)
 
     def l2_fn(arr):
         return torch.sqrt(st.div(_all_reduce(torch.sum(arr * arr),
@@ -620,16 +646,31 @@ def _sharded_pressure_solve(p, rhs, params: Params, pressure_method: str,
         return st.div(_all_reduce(torch.sum(arr), dist.ReduceOp.SUM, mesh),
                       n_cells)
 
-    hooks = dict(ghost_fn=ghost_fn, l2_fn=l2_fn, parity=(ox + oy) % 2,
-                 mean_fn=mean_fn)
+    return dict(ghost_fn=_ghost_fn(params, valid, mesh), l2_fn=l2_fn,
+                parity=(ox + oy) % 2, mean_fn=mean_fn)
+
+
+def _sharded_pressure_solve(p, rhs, params: Params, pressure_method: str,
+                            li: int, lj: int, valid, mesh: Mesh):
+    """The pressure solve on local padded blocks with the sharded hooks
+    (``solve_hooks``) and the block's pad mask; the inner stage by method,
+    as JAX's ``_sharded_pressure_solve`` picks it."""
+    hooks = solve_hooks(params, li, lj, valid, mesh)
     refined = params.replace(sor_refine_every=max(1, params.sor_refine_every))
     if params.obstacles:
-        # The masked deep-halo inner, and the masked f64 defect through the
-        # residual_fn hook; _check_method admits rb_sor and pallas_sor.
+        # The masked f64 defect through the residual_fn hook around the
+        # masked deep-halo inner (rb_sor, pallas_sor), or around
+        # mg_cycles_per_outer masked V-cycles on blocks (mg: the mesh
+        # gradient and the gspmd backend; the steppers refuse it).
         fluid = _obstacle_block(params, mesh, li, lj).fluid[1:-1, 1:-1]
+        if pressure_method == "mg":
+            inner = masked.make_sharded_mg_inner(params, li, lj, mesh)
+            refined = params.replace(
+                sor_refine_every=max(1, params.mg_cycles_per_outer))
+        else:
+            inner = deep_halo.make_deep_inner(params, li, lj, mesh)
         return sor._solve_pressure_refined(
-            p, rhs, refined,
-            inner_fn=deep_halo.make_deep_inner(params, li, lj, mesh),
+            p, rhs, refined, inner_fn=inner,
             valid_mask=fluid if valid is None else valid & fluid,
             residual_fn=_masked_residual_fn(params, li, lj, mesh), **hooks)
     if pressure_method == "mg":
@@ -725,8 +766,8 @@ def _check_method(params: Params, mesh: Mesh, pressure_method: str,
             raise ValueError(
                 f"sharded obstacle domains run the masked deep-halo rb_sor "
                 f"inner only (got {pressure_method!r}) — masked mg runs on "
-                f"one device (drop --backend sharded); the port has no "
-                f"gspmd backend")
+                f"one device (drop --backend sharded) or on the gspmd "
+                f"backend (--backend gspmd)")
         if params.dtype != "float32" or params.sor_refine_every < 1:
             raise ValueError(
                 "sharded obstacle domains require the f32 state with the "
@@ -778,10 +819,10 @@ def check_gradient(params: Params, mesh: Mesh,
     configuration as ``_check_method`` checks its route.  The routes are the
     steppers', and two more that one device runs: an f64 state on an
     obstacle domain (the masked deep-halo inner in f32 under the f64
-    master) and by pallas_sor (the deep-halo inner, kernel B6 on the card).
-    Masked mg on a mesh is not ported (ROADMAP A12).  A mesh of more than
-    one device with a trivial axis is refused, as the JAX package's mesh
-    gradient refuses it."""
+    master) and by pallas_sor (the deep-halo inner, kernel B6 on the card);
+    an obstacle domain also by mg (the masked V-cycle on blocks,
+    ops/masked.py).  A mesh of more than one device with a trivial axis is
+    refused, as the JAX package's mesh gradient refuses it."""
     if len(mesh.shape) != 2:
         raise ValueError(f"the mesh gradient needs a 2-D grid mesh; got "
                          f"the axes {mesh.axes}")
@@ -792,15 +833,13 @@ def check_gradient(params: Params, mesh: Mesh,
             f"package's does (its GSPMD partitioner gives wrong values when "
             f"one mesh axis is trivial): use a 2D factorization or one "
             f"device")
-    if params.obstacles and pressure_method == "mg":
-        raise ValueError(
-            "masked mg on a mesh is not ported (ROADMAP A12, the JAX "
-            "package's gspmd backend): the mesh gradient of an obstacle "
-            "domain runs rb_sor or pallas_sor")
     if params.obstacles or pressure_method == "pallas_sor":
         params = params.replace(
             dtype="float32", sor_refine_every=max(1, params.sor_refine_every))
-    _check_method(params, mesh, pressure_method)
+    # Masked mg passes the masked route's checks (any grid: its V-cycle
+    # gathers from the first level that does not split into even blocks).
+    _check_method(params, mesh, "rb_sor" if params.obstacles
+                  and pressure_method == "mg" else pressure_method)
     return params
 
 
@@ -865,18 +904,28 @@ def scatter_field(params: Params, arr, mesh: Mesh) -> torch.Tensor:
     return torch.tensor(mine, dtype=dtype, device=mesh.device)
 
 
-def gather_field(params: Params, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The reference-layout field of every rank's block `x`, on every rank
-    (an all-gather, then `_gather_blocks`), on the mesh's device."""
+def gather_field(params: Params, x: torch.Tensor, mesh: Mesh,
+                 padded: bool = False) -> torch.Tensor:
+    """The reference-layout field of every rank's block `x`, on every rank:
+    an all-gather, then `_gather_blocks`' layout assembled on the mesh's
+    device (no host copy); with `padded` the (px li + 2, py lj + 2) layout
+    of the padded grid."""
     px, py = mesh.shape
     li, lj = local_block_dims((px, py), params.i_max, params.j_max)
     parts = [torch.empty_like(x) for _ in range(px * py)]
     dist.all_gather(parts, x.contiguous(), group=mesh.group)
-    rows = [torch.cat(parts[ax * py:(ax + 1) * py], dim=1)
-            for ax in range(px)]
-    blocks = torch.cat(rows, dim=0).cpu().numpy()
-    out = _gather_blocks(blocks, px, py, li, lj, params.shape)
-    return torch.tensor(out, device=mesh.device)
+    b = torch.stack(parts).view(px, py, li + 2, lj + 2)
+    out = x.new_zeros((px * li + 2, py * lj + 2))
+    out[1:-1, 1:-1] = b[:, :, 1:-1, 1:-1].permute(0, 2, 1, 3).reshape(
+        px * li, py * lj)
+    out[0, 1:-1] = b[0, :, 0, 1:-1].reshape(-1)
+    out[-1, 1:-1] = b[-1, :, -1, 1:-1].reshape(-1)
+    out[1:-1, 0] = b[:, 0, 1:-1, 0].reshape(-1)
+    out[1:-1, -1] = b[:, -1, 1:-1, -1].reshape(-1)
+    out[0, 0], out[0, -1] = b[0, 0, 0, 0], b[0, -1, 0, -1]
+    out[-1, 0], out[-1, -1] = b[-1, 0, -1, 0], b[-1, -1, -1, -1]
+    shape = (px * li + 2, py * lj + 2) if padded else params.shape
+    return out[:shape[0], :shape[1]].contiguous()
 
 
 def scatter_state(params: Params, state, mesh: Mesh) -> State:
@@ -899,7 +948,7 @@ def scatter_state(params: Params, state, mesh: Mesh) -> State:
 
 def gather_state(params: Params, local: State, mesh: Mesh) -> State:
     """The reference-layout state of every rank's blocks, on every rank
-    (an all-gather, then `_gather_blocks`), on the mesh's device."""
+    (``gather_field``), on the mesh's device."""
     return State(u=gather_field(params, local.u, mesh),
                  v=gather_field(params, local.v, mesh),
                  p=gather_field(params, local.p, mesh), t=local.t, n=local.n)

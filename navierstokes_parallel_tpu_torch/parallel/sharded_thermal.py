@@ -17,8 +17,9 @@ blocks:
     masks), after which F's west and G's south halo strips are refilled, so
     the divergence across a seam reads the neighbour's buoyant values.
 
-dt is the sharded step's (the all-reduced maxima seeded with 0) with the
-energy equation's explicit-diffusion bound.  The pressure solve is the
+dt is the sharded step's (the all-reduced maxima seeded with 0, or with
+the global corner on the mesh gradient's and the gspmd backend's steps)
+with the energy equation's explicit-diffusion bound.  The pressure solve is the
 isothermal one (``sharded._sharded_pressure_solve``): the deep-halo inner
 under rb_sor / pallas_sor (kernel B6 on the card), the sharded V-cycle
 under mg (B6 as its smoother, the coarse cycle for the replicated tail),
@@ -48,16 +49,25 @@ from ..ops import stencils as st
 from ..solver import SolveStats, StepDiagnostics, run_steps
 from . import halo
 from .sharded import (_all_reduce, _apply_bcs_sharded, _check_method,
-                      _local_fg, _local_rhs, _pressure_solve, _project,
-                      _sharded_dt_gamma, _valid_mask_or_none, gather_field,
-                      scatter_field)
+                      _keep_corners, _local_fg, _local_rhs, _pressure_solve,
+                      _project, _sharded_dt_gamma, _valid_mask_or_none,
+                      gather_field, scatter_field)
 from .topology import Mesh, make_grid_mesh
 
 
 def _check_thermal(params: Params, cfg, mesh: Mesh, pressure_method: str):
     """The thermal contract on top of ``sharded._check_method``; returns
     (px, py, li, lj)."""
-    if params.obstacles:
+    check_thermal_config(params, cfg)
+    return _check_method(params, mesh, pressure_method)
+
+
+def check_thermal_config(params: Params, cfg, obstacles: bool = False):
+    """The configurations the blocks' thermal step runs (the sharded and
+    the gspmd backend's): a known heating pattern and sidewall condition,
+    and no obstacle domain unless `obstacles` (the gspmd backend steps
+    those as one device does)."""
+    if params.obstacles and not obstacles:
         raise ValueError(
             "sharded thermal runs do not compose with obstacle domains "
             "yet — run them on a single device")
@@ -68,7 +78,6 @@ def _check_thermal(params: Params, cfg, mesh: Mesh, pressure_method: str):
             raise ValueError("lid_u requires sidewalls='noslip'")
     elif cfg.sidewalls != "noslip":
         raise ValueError(f"unknown sidewall mode {cfg.sidewalls!r}")
-    return _check_method(params, mesh, pressure_method)
 
 
 def _apply_thermal_vel_bcs_sharded(u, v, params: Params, cfg, mesh: Mesh):
@@ -165,15 +174,19 @@ def _buoyant_fg_sharded(F, G, T, u, v, dt, params: Params, cfg, gi, gj,
 
 
 def _sharded_thermal_step(u, v, p, T, params: Params, cfg,
-                          pressure_method: str, mesh: Mesh):
+                          pressure_method: str, mesh: Mesh,
+                          corner: bool = False, solve=None):
     """One Boussinesq step on local padded blocks (``thermal_step``'s
     order: T advances with the old velocities, the momentum takes the new
-    T); returns (u, v, p, T, dt, SORResult) with new blocks."""
+    T); returns (u, v, p, T, dt, SORResult) with new blocks.  `corner` and
+    `solve` as in ``sharded._sharded_step`` (one device's CFL rule with
+    the ghost corners carried; another pressure solve)."""
     li, lj = u.shape[0] - 2, u.shape[1] - 2
     valid, gi, gj = _valid_mask_or_none(params, li, lj, mesh)
     dt, gamma = _sharded_dt_gamma(
         u, v, params, valid, mesh,
-        limit=energy.thermal_dt_limit(params, cfg.alpha))
+        limit=energy.thermal_dt_limit(params, cfg.alpha), corner=corner)
+    start = (u, v, p)
 
     u, v = _apply_thermal_vel_bcs_sharded(u, v, params, cfg, mesh)
     T = _apply_t_bcs_sharded(T, params, cfg, mesh)
@@ -189,12 +202,16 @@ def _sharded_thermal_step(u, v, p, T, params: Params, cfg,
     F, G = _buoyant_fg_sharded(F, G, T_new, u, v, dt, params, cfg, gi, gj,
                                mesh)
     rhs = _local_rhs(F, G, dt, params, valid)
-    result = _pressure_solve(p, rhs, params, pressure_method, li, lj, valid,
-                             mesh)
+    result = (solve or _pressure_solve)(p, rhs, params, pressure_method, li,
+                                        lj, valid, mesh)
     # The projection writes in place; F and G's stencils saved u and v.
     u, v = u.clone(), v.clone()
     _project(u, v, F, G, result.p, dt, params, gi, gj)
-    return u, v, result.p, T_new, dt, result
+    p = result.p
+    if corner:
+        u, v, p = (_keep_corners(x, x0, params, mesh)
+                   for x, x0 in zip((u, v, p), start))
+    return u, v, p, T_new, dt, result
 
 
 def scatter_thermal(params: Params, ts, mesh: Mesh) -> ThermalState:

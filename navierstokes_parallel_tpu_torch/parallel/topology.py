@@ -68,6 +68,21 @@ def choose_mesh_shape_padded(n_devices: int, i_max: int,
     return best[1]
 
 
+def choose_mesh_shape_square(n_devices: int) -> Tuple[int, int]:
+    """Nearest-square (px, py) with px * py == n_devices and, whenever the
+    count allows it, both axes > 1: the gspmd backend's mesh (it refuses a
+    trivial axis on more than one device, as the JAX package's does).
+    Raises for a prime count, which has only 1 x n factorizations (2
+    included, as in the JAX package)."""
+    for px, py in _factor_pairs(n_devices):
+        if min(px, py) > 1 or n_devices == 1:
+            return px, py
+    raise ValueError(
+        f"{n_devices} devices admit only 1x{n_devices} meshes (prime "
+        f"count); the gspmd backend needs both mesh axes > 1 — use a "
+        f"composite device count or the manual sharded backend")
+
+
 def local_block_dims(mesh_shape: Tuple[int, int], i_max: int,
                      j_max: int) -> Tuple[int, int]:
     """Per-shard interior block dims (li, lj) = ceil(i_max/px),

@@ -63,10 +63,27 @@ centre values, max |u| of the interior), each with its definition:
     JAX_PLATFORMS=cpu python tests/jax_records.py diff
     JAX_PLATFORMS=cpu python tests/jax_records.py compensated
     JAX_PLATFORMS=cpu python tests/jax_records.py ensemble
+
+``gspmd`` writes tests/jax_gspmd_records.json (GSPMD_RECORDS; a path may
+follow, ~4 min): the JAX gspmd backend's runs of GSPMD_RUNS on a 1x1 mesh
+(chip_smoke.py's "gspmd" phase: per step the iterations, convergence and
+t, then the centre values and max |u|, |v|; the dam break's fluid
+volume), and tests/test_torch_gspmd.py's cases on a 2x2 mesh of four CPU
+devices (every method at each of GSPMD_SIZES, GSPMD_CASES, and the CLI on
+GSPMD_CLI).  The script asks XLA for eight CPU devices before it imports
+jax:
+
+    JAX_PLATFORMS=cpu python tests/jax_records.py gspmd
 """
 
 import os
 import sys
+
+# The gspmd records' 2x2 meshes take four CPU devices (before jax loads).
+if "xla_force_host_platform_device_count" not in os.environ.get(
+        "XLA_FLAGS", ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + (
+        " --xla_force_host_platform_device_count=8")).strip()
 
 import jax
 
@@ -635,6 +652,150 @@ def record_free(path: str) -> None:
     _update(path, "free", out)
 
 
+# The gspmd backend's runs (record_gspmd): chip_smoke.py's "gspmd" phase on
+# a 1x1 mesh (name: configuration or model, pressure method, steps; the
+# cavity of configs/1.in by every method, configs/4.in by mg, convection
+# by mg, the dam break with free-slip walls, the square cylinder of
+# OBSTACLE_RUNS by the masked mg from initial_state(perturb=0.3)), and
+# tests/test_torch_gspmd.py's cases on a 2x2 mesh of four CPU devices
+# (GSPMD_SMALL's fields at each size of GSPMD_SIZES by every method, and
+# the AB2 and obstacle cases of GSPMD_CASES).
+GSPMD_RECORDS = "tests/jax_gspmd_records.json"
+GSPMD_RUNS = {
+    "cavity rb_sor": ("configs/1.in", "rb_sor", 1),
+    "cavity jacobi": ("configs/1.in", "jacobi", 1),
+    "cavity cg": ("configs/1.in", "cg", 1),
+    "cavity mg": ("configs/1.in", "mg", 3),
+    "cavity fft": ("configs/1.in", "fft", 3),
+    "big mg": ("configs/4.in", "mg", 4),
+    "convection mg": ("configs/convection.in", "mg", 300),
+    "dambreak": ("configs/dambreak.in", "freeslip", 60),
+    "square_cylinder mg": ("square_cylinder", "mg", 5),
+}
+GSPMD_SMALL = {"problem": 1, "T": 0.05, "Re": 100.0, "tau": 0.5,
+               "omega": 1.7, "epsilon": 1e-4, "max_it": 500,
+               "dtype": "float32"}
+GSPMD_SIZES = (16, 17, 18)
+GSPMD_METHODS = ("rb_sor", "jacobi", "mg", "cg", "fft")
+# tag: (extra fields over GSPMD_SMALL, pressure method, time order).
+GSPMD_CASES = {
+    "ab2 mg 16": ({"i_max": 16, "j_max": 16}, "mg", 2),
+    "ab2 rb_sor 18": ({"i_max": 18, "j_max": 18}, "rb_sor", 2),
+    "obstacle rb_sor 16": ({"i_max": 16, "j_max": 16,
+                            "obstacles": [[6, 10, 6, 10]]}, "rb_sor", 1),
+    "obstacle mg 16": ({"i_max": 16, "j_max": 16,
+                        "obstacles": [[6, 10, 6, 10]]}, "mg", 1),
+    "obstacle mg 18": ({"i_max": 18, "j_max": 18,
+                        "obstacles": [[6, 10, 6, 10]]}, "mg", 1),
+}
+# The CLI on a 2x2 mesh (a parameter file written from GSPMD_SMALL at
+# 16^2 with T = 0.2 by the test, the path given as {path}).
+GSPMD_CLI = ["{path}", "--backend", "gspmd", "--mesh", "2x2", "--method",
+             "mg", "--stats"]
+
+
+def gspmd_params(fields: dict) -> Params:
+    """GSPMD_SMALL with `fields` (obstacles as tuples)."""
+    kw = {**GSPMD_SMALL, **fields}
+    if "obstacles" in kw:
+        kw["obstacles"] = tuple(tuple(o) for o in kw["obstacles"])
+    return Params(**kw)
+
+
+def _gspmd_steps(stepper, n_steps=None, T=None):
+    """Step to `n_steps` (or t >= T): per step iterations and convergence,
+    and t after each."""
+    iters, converged, ts = [], [], []
+    while (len(iters) < n_steps) if n_steps else (stepper.t < T):
+        diag = stepper.step()
+        iters.append(int(diag.sor_iterations))
+        converged.append(bool(diag.sor_converged))
+        ts.append(stepper.t)
+    return {"iterations": iters, "converged": converged, "t": ts}
+
+
+def _summary(state, prm) -> dict:
+    uc, vc = (float(x) for x in solver.center_values(state, prm))
+    return {"centre": [uc, vc],
+            "max_abs": [float(np.max(np.abs(np.asarray(state.u)))),
+                        float(np.max(np.abs(np.asarray(state.v))))]}
+
+
+def record_gspmd(path: str) -> None:
+    from jax.sharding import Mesh
+
+    from navierstokes_parallel_tpu.models import convection
+    from navierstokes_parallel_tpu.models import freesurface as FS
+    from navierstokes_parallel_tpu.parallel import gspmd
+
+    one = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("x", "y"))
+    runs = {}
+    for name, (what, method, n_steps) in GSPMD_RUNS.items():
+        rec = {"config": what, "method": method, "steps": n_steps}
+        if what == "square_cylinder":
+            prm, state, _ = obstacle_setup(what, {"n_per_d": 8}, "force")
+            rec["kwargs"] = {"n_per_d": 8}
+        else:
+            prm = Params.from_file(os.path.join(ROOT, what))
+        if prm.problem == 5:
+            cfg = convection.config_from_params(prm)
+            stepper = convection.ThermalGspmdStepper(
+                prm, cfg, convection.allocate_thermal(prm, cfg), mesh=one,
+                pressure_method=method)
+            rec.update(_gspmd_steps(stepper, n_steps))
+            final = stepper.state()
+        elif prm.problem == 6:
+            fn = FS.make_free_step_gspmd(prm, one, wall=method)
+            fs = FS.place_free(FS.initial_free_state(prm), prm, one)
+            per = {"iterations": [], "converged": [], "t": []}
+            for _ in range(n_steps):
+                fs, diag = fn(fs)
+                per["iterations"].append(int(diag.sor_iterations))
+                per["converged"].append(bool(diag.sor_converged))
+                per["t"].append(float(fs.state.t))
+            final_fs = FS.fetch_free(fs, prm)
+            rec.update(per, fluid_volume=FS.fluid_volume(final_fs, prm))
+            final = final_fs.state
+        else:
+            if what != "square_cylinder":
+                state = allocate_state(prm)
+            stepper = gspmd.GspmdStepper(prm, state, mesh=one,
+                                         pressure_method=method)
+            rec.update(_gspmd_steps(stepper, n_steps))
+            final = stepper.state()
+        rec.update(_summary(final, prm))
+        runs[name] = rec
+        print(name, prm.shape, sum(rec["iterations"]), rec["centre"],
+              flush=True)
+    _update(path, "chip", runs)
+
+    four = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("x", "y"))
+    cases = {}
+    todo = {f"{m} {n}": ({"i_max": n, "j_max": n}, m, 1)
+            for n in GSPMD_SIZES for m in GSPMD_METHODS}
+    todo.update(GSPMD_CASES)
+    for tag, (fields, method, order) in todo.items():
+        prm = gspmd_params(fields)
+        stepper = gspmd.GspmdStepper(prm, allocate_state(prm), mesh=four,
+                                     pressure_method=method,
+                                     time_order=order)
+        rec = {"fields": fields, "method": method, "time_order": order,
+               **_gspmd_steps(stepper, T=float(np.float32(prm.T)))}
+        rec.update(_summary(stepper.state(), prm))
+        cases[tag] = rec
+        print(tag, rec["iterations"], rec["centre"], flush=True)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prm_path = os.path.join(tmp, "gspmd16.in")
+        gspmd_params({"i_max": 16, "j_max": 16, "T": 0.2}).to_file(prm_path)
+        cli = _cli_record([a.format(path=prm_path) for a in GSPMD_CLI])
+    cli["argv"] = GSPMD_CLI
+    cases["cli"] = cli
+    print("cli", cli, flush=True)
+    _update(path, "mesh_2x2", cases)
+
+
 if __name__ == "__main__":
     what, *args = sys.argv[1:]
     if what == "channel":
@@ -651,6 +812,8 @@ if __name__ == "__main__":
         record_sharded_thermal(args[0])
     elif what == "free":
         record_free(args[0])
+    elif what == "gspmd":
+        record_gspmd(args[0] if args else os.path.join(ROOT, GSPMD_RECORDS))
     elif what in ("diff", "compensated", "ensemble"):
         {"diff": record_diff, "compensated": record_compensated,
          "ensemble": record_ensemble}[what](
@@ -658,4 +821,4 @@ if __name__ == "__main__":
     else:
         sys.exit(f"unknown record {what!r}: channel, taylor-green, "
                  f"obstacles, thermal, sharded-obstacles, sharded-thermal, "
-                 f"free, diff, compensated or ensemble")
+                 f"free, gspmd, diff, compensated or ensemble")

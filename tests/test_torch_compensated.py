@@ -18,6 +18,7 @@ tests/test_torch_protocol.py.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -196,8 +197,12 @@ def test_solve_parity_float64_state(method, monkeypatch):
     solve leaves the impulsive first step's defect at 1.086 of the
     threshold (a second solve) where the rfft route's, like the port's,
     is at 0.47-0.48 of it, under the f64 outer as under the compensated
-    one.  Counts exact."""
+    one.  Counts exact.  JAX's caches are cleared first: its own
+    tests/test_compensated.py traces these very Params on the CPU's
+    default route, and a test process that ran it before would reuse that
+    trace whatever PREFER_RFFT says."""
     monkeypatch.setattr(jfft, "PREFER_RFFT", True)
+    jax.clear_caches()
     got, want, f64 = _solve_both(method, T=0.02, Re=100.0, max_it=2000,
                                  dtype="float64", sor_refine_every=64)
     _check(got, want, f64)

@@ -180,11 +180,14 @@ def test_solve_convection_matches_jax():
     assert info["steady"] is bool(jinfo["steady"]) is False
     assert info["dT_rate"] == pytest.approx(jinfo["dT_rate"], rel=1e-4)
     _assert_contract(state.T, jstate.T)
-    # The JAX GSPMD recipe stays unported; the message names the sharded
-    # thermal stepper that replaces it.
-    with pytest.raises(NotImplementedError,
-                       match="sharded_thermal.py::solve_sharded_thermal"):
-        convection.solve_convection(prm, cfg, mesh=object())
+    # On a mesh the steps are the gspmd backend's, which refuses a mesh of
+    # more than one device with a trivial axis before any collective, as
+    # the JAX package's does (tests/test_torch_gspmd.py runs it).
+    from navierstokes_parallel_tpu_torch.parallel import topology
+
+    with pytest.raises(ValueError, match="rejects the 1x4 mesh"):
+        convection.solve_convection(prm, cfg, mesh=topology.Mesh(
+            (1, 4), (0, 0), torch.device("cpu"), None))
 
 
 def test_thermal_solve_and_rb_growth_rate_match_jax():

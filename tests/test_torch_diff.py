@@ -403,3 +403,17 @@ def test_mesh_is_refused_and_the_default_controls():
     final, dts = diff.solve_n_steps(prm, state, 2)
     np.testing.assert_allclose(dts.numpy(), np.asarray(jdts), rtol=1e-12)
     assert final.n == 2
+
+
+def test_upwind_abs_is_jnp_abs_with_its_derivative_at_zero():
+    """The donor-cell |x| under autograd: the value torch.abs', the
+    derivative jnp.abs' (1 at +-0, where torch.abs' is 0)."""
+    from navierstokes_parallel_tpu_torch.ops import stencils
+
+    x = np.array([-2.5, -1e-300, -0.0, 0.0, 1e-300, 3.0])
+    t = torch.tensor(x, requires_grad=True)
+    y = stencils.upwind_abs(t)
+    y.sum().backward()
+    assert torch.equal(y.detach(), torch.abs(t.detach()))
+    want = jax.vmap(jax.grad(jnp.abs))(jnp.asarray(x))
+    np.testing.assert_array_equal(t.grad.numpy(), np.asarray(want))

@@ -25,8 +25,8 @@ single-device ones.
     holds its mesh gradient; mg within 1e-7 (the sharded V-cycle stops
     its levels at a block of 4 cells, one device at the whole grid's).
   * One rank: the 1x1 mesh against one device, in process; the refusals
-    (a mesh with a trivial axis, as JAX's; masked mg, ROADMAP A12; the
-    sharded backend's own).
+    (a mesh with a trivial axis, as JAX's; masked fft; the sharded
+    backend's own).
 
 The spawned workers import this module, which imports no jax at its top.
 """
@@ -43,19 +43,20 @@ import torch.multiprocessing as mp
 
 from navierstokes_parallel_tpu_torch import diff
 from navierstokes_parallel_tpu_torch.config import Params
-from navierstokes_parallel_tpu_torch.grid import allocate_state
+from navierstokes_parallel_tpu_torch.grid import State, allocate_state
 from navierstokes_parallel_tpu_torch.models import convection as cv
 from navierstokes_parallel_tpu_torch.ops import stencils as st
 from navierstokes_parallel_tpu_torch.parallel import (autograd, halo, sharded,
                                                       sharded_thermal,
                                                       topology)
 from navierstokes_parallel_tpu_torch.utils import distributed
-from test_torch_sharded import _free_port
+from test_torch_sharded import PROBE_SEED, _free_port, probe_fields
 
 WORLD = 4
 WORKER_TIMEOUT_S = 240
 MESH = (2, 2)
 STEPS = 2
+PROBE_STEPS = 3
 JAX_REL = 1e-6
 # Against the port's single-device gradient, by method.
 SELF_REL = {"rb_sor": 1e-10, "pallas_sor": 1e-10, "mg": 1e-7}
@@ -70,6 +71,7 @@ GRAD_CASES = [
     ("rb_sor", "rb_sor", {}, False, False),
     ("ragged", "rb_sor", {"i_max": 17, "j_max": 13}, False, False),
     ("obstacle", "rb_sor", {"obstacles": ((6, 10, 6, 10),)}, False, True),
+    ("obstacle_mg", "mg", {"obstacles": ((6, 10, 6, 10),)}, False, True),
     ("thermal", "mg", {"Re": 200.0}, True, True)]
 CASE_TAGS = [c[0] for c in GRAD_CASES]
 # The cases whose forward is held against the steppers bit for bit (the
@@ -183,12 +185,13 @@ def _maxima_field(n_ties, corner):
 
 
 def _mesh_maxima(x, prm, mesh):
-    """(u_max, v_max) of x and -x by ``sharded._global_maxima``."""
+    """(u_max, v_max) of x and -x by ``sharded._global_maxima`` with the
+    mesh gradient's seed, the global corner."""
     li, lj = topology.local_block_dims(mesh.shape, prm.i_max, prm.j_max)
     valid = sharded._valid_mask_or_none(prm, li, lj, mesh)[0]
     with autograd.ordered(mesh):
         b = autograd.scatter(x, prm, mesh)
-        return sharded._global_maxima(b, -b, valid, mesh)
+        return sharded._global_maxima(b, -b, valid, mesh, corner=True)
 
 
 def _maxima_gradcheck(mesh):
@@ -212,6 +215,44 @@ def _maxima_ties_gradient(mesh):
     y = x.detach().clone().requires_grad_(True)
     st.max_interior(y).backward()
     return x.grad, y.grad
+
+
+# The probe's starts: v = 0 on the interior (the probe as it stands, every
+# donor-cell |v| on its kink, where the gradient is jnp.abs' 1 at 0) and
+# v drawn as u is from the next seed (a generic state).
+PROBE_STARTS = ("v_zero", "v_drawn")
+
+
+def _probe_start(start):
+    """The CFL-seed probe of tests/test_torch_sharded.py in f64 (24^2, the
+    ghost corner u[0, 0] = 5 above the interior u in [0, 0.01)) with the
+    interior v of `start` (``PROBE_STARTS``)."""
+    u, v, p = probe_fields(np.float64)
+    if start == "v_drawn":
+        v[1:-1, 1:-1] = np.random.default_rng(PROBE_SEED + 1).uniform(
+            0.0, 0.01, (24, 24))
+    return u, v, p
+
+
+def _probe_gradient(mesh, start):
+    """The loss of PROBE_STEPS steps by mg from ``_probe_start(start)`` (on
+    `mesh`, or one device for None) and its gradients w.r.t. the Controls
+    and the start, with the dts."""
+    prm = Params(**_fields(i_max=24, j_max=24))
+    state = [torch.from_numpy(x).requires_grad_(True)
+             for x in _probe_start(start)]
+    controls = [x.clone().requires_grad_(True)
+                for x in diff.default_controls(prm, "cpu")]
+    final, dts = diff.solve_n_steps(
+        prm, State(*state, t=torch.zeros((), dtype=F64), n=0), PROBE_STEPS,
+        controls=diff.Controls(*controls), pressure_method="mg", mesh=mesh)
+    loss = _energy(final)
+    loss.backward()
+    out = {f"probe_{start}_loss": float(loss.detach()),
+           f"probe_{start}_dts": dts.detach().numpy()}
+    for k, x in enumerate(controls + state):
+        out[f"probe_{start}_grad{k}"] = x.grad.numpy()
+    return out
 
 
 def _gloo_worker(rank, port, outdir):
@@ -245,6 +286,8 @@ def _gloo_worker(rank, port, outdir):
         _, no_remat, _ = _port_gradient(GRAD_CASES[0], mesh, remat=False)
         out["remat_equal"] = all(torch.equal(a, b)
                                  for a, b in zip(remat, no_remat))
+        for start in PROBE_STARTS:
+            out.update(_probe_gradient(mesh, start))
         out["gradcheck_exchange"] = _exchange_gradcheck(mesh, rank)
         out["gradcheck_maxima"] = _maxima_gradcheck(mesh)
         got, want = _maxima_ties_gradient(mesh)
@@ -309,8 +352,34 @@ def _jax_gradients():
             jalloc(prm), jdiff.default_controls(prm))
         return float(val), [np.asarray(x) for x in (*gc, *gs[:3])]
 
-    with ThreadPoolExecutor(len(GRAD_CASES)) as pool:
-        return dict(zip(CASE_TAGS, pool.map(one, GRAD_CASES)))
+    def probe(start):
+        """jax.grad of the one-device solve from the probe's `start`."""
+        from navierstokes_parallel_tpu.grid import State as JState
+
+        prm = JaxParams(**_fields(i_max=24, j_max=24))
+        u, v, p = (jnp.asarray(x) for x in _probe_start(start))
+        state = JState(u=u, v=v, p=p, t=jnp.zeros((), jnp.float64),
+                       n=jnp.zeros((), jnp.int32))
+
+        def loss(state, controls):
+            final, dts = jdiff.solve_n_steps(prm, state, PROBE_STEPS,
+                                             controls=controls,
+                                             pressure_method="mg")
+            return (jnp.sum(final.u[1:-1, 1:-1] ** 2)
+                    + jnp.sum(final.v[1:-1, 1:-1] ** 2)), dts
+
+        (val, dts), (gs, gc) = jax.jit(jax.value_and_grad(
+            loss, argnums=(0, 1), has_aux=True, allow_int=True))(
+            state, jdiff.default_controls(prm))
+        return float(val), [np.asarray(x) for x in (*gc, *gs[:3])], \
+            np.asarray(dts)
+
+    with ThreadPoolExecutor(len(GRAD_CASES) + len(PROBE_STARTS)) as pool:
+        probes = {start: pool.submit(probe, start) for start in PROBE_STARTS}
+        out = dict(zip(CASE_TAGS, pool.map(one, GRAD_CASES)))
+        for start, future in probes.items():
+            out[f"probe_{start}"] = future.result()
+        return out
 
 
 @pytest.fixture(scope="module")
@@ -377,6 +446,24 @@ def test_mesh_gradient_matches_one_device(gloo4, tag):
 @pytest.mark.parametrize("tag", FORWARD_TAGS)
 def test_mesh_forward_equals_the_sharded_stepper(gloo4, tag):
     assert bool(gloo4["mesh"][f"{tag}_forward_equal"])
+
+
+@pytest.mark.parametrize("start", PROBE_STARTS)
+def test_mesh_gradient_from_a_corner_above_the_interior_is_one_devices(
+        gloo4, start):
+    """The CFL-seed probe (u[0, 0] = 5 above every interior value): the
+    mesh gradient seeds the maxima with the corner and carries it through
+    every step, so its dts, loss and gradients are jax.grad's of the
+    one-device solve (the sharded stepper seeds with 0, and a step's
+    exchange zeroes the corner).  From v = 0 every donor-cell |v| sits on
+    its kink: the gradient holds there too (``stencils.upwind_abs``)."""
+    jloss, want, jdts = gloo4["jax"][f"probe_{start}"]
+    mesh = {k[len(f"probe_{start}_"):]: x for k, x in gloo4["mesh"].items()
+            if k.startswith(f"probe_{start}_")}
+    np.testing.assert_allclose(mesh["dts"], jdts, rtol=1e-12)
+    assert float(mesh["loss"]) == pytest.approx(jloss, rel=1e-10)
+    _assert_grads_close([mesh[f"grad{k}"] for k in range(len(want))],
+                        want, JAX_REL)
 
 
 def test_mesh_remat_equals_no_remat(gloo4):
@@ -447,7 +534,7 @@ def test_trivial_mesh_axis_is_refused_as_in_jax():
 
 
 @pytest.mark.parametrize("kw,method,needle", [
-    ({"obstacles": ((6, 10, 6, 10),)}, "mg", "ROADMAP A12"),
+    ({"obstacles": ((6, 10, 6, 10),)}, "fft", "masked deep-halo"),
     ({"i_max": 17}, "mg", "evenly-divisible"),
     ({}, "jacobi_typo", "unknown pressure solver method"),
     ({"problem": 6}, "rb_sor", "sharded_free")])

@@ -343,8 +343,13 @@ def test_refusals_as_jax():
         with pytest.raises(ValueError, match=needle) as want:
             JF.free_step(jfs, jp, **args[1])
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="solve_free_sharded"):
-        FS.solve_free(prm, fs, mesh=object())
+    # solve_free(mesh=...) is the gspmd backend's (tests/test_torch_gspmd.py
+    # runs it), which refuses a trivial mesh axis as the JAX package does.
+    from navierstokes_parallel_tpu_torch.parallel import topology
+
+    with pytest.raises(ValueError, match="rejects the 1x4 mesh"):
+        FS.solve_free(prm, fs, mesh=topology.Mesh(
+            (1, 4), (0, 0), torch.device("cpu"), None))
     with pytest.raises(ValueError, match="device"):
         FS.dam_break(n=8)
 

@@ -14,9 +14,10 @@ a free-surface step of a small dam break and a particle trace
 of the tiled and colour-compressed SOR kernels and of the multigrid
 coarse cycle, one step of the
 sharded backend on a one-rank process group, with and without an
-obstacle, of the sharded convection and of the sharded free surface
+obstacle, of the sharded convection and of the sharded free surface, and
+of the gspmd backend by mg, its convection and its free surface
 (parallel/, including the extended-block twin and the masked sweeps,
-and utils/distributed.py), and one step of the CLI's
+parallel/gspmd.py and utils/distributed.py), and one step of the CLI's
 host loop that writes a frame, a checkpoint and a history row with the
 physics monitors (utils/io.py and its native writer, utils/checkpoint.py,
 utils/diagnostics.py), then a gradient through one differentiable step
@@ -111,7 +112,7 @@ SCRIPT = textwrap.dedent("""
         levels[1:]))
     assert sk.coarse_cycle_depth(levels) == 0 and sk.CYCLE_LAUNCHES == 0
     from navierstokes_parallel_tpu_torch.parallel import (
-        sharded, sharded_free, sharded_thermal)
+        gspmd, sharded, sharded_free, sharded_thermal)
     from navierstokes_parallel_tpu_torch.utils import distributed
     dvd, dvd_cfg = convection.convection_setup(Ra=1e4, n=8)
     with distributed.process_group("cpu"):
@@ -120,13 +121,25 @@ SCRIPT = textwrap.dedent("""
         _, th_stats = sharded_thermal.solve_sharded_thermal(
             dvd, dvd_cfg, max_steps=1)
         _, fr_stats = sharded_free.solve_free_sharded(dam, fs, max_steps=1)
+        # The gspmd backend (parallel/gspmd.py): mg over one device's
+        # levels, convection and the free surface by mesh=.
+        mesh = gspmd._default_mesh()
+        _, gs_stats = gspmd.solve_gspmd(prm, mesh=mesh, max_steps=1,
+                                        pressure_method="mg")
+        _, gt_stats = convection.thermal_solve(dvd, dvd_cfg, mesh=mesh,
+                                               max_steps=1)
+        _, gf_stats = freesurface.solve_free(dam, fs, mesh=mesh,
+                                             max_steps=1)
     assert sh_stats.steps == 1 and sh_stats.total_sor_iterations > 0
     assert ob_stats.steps == 1 and ob_stats.sor_failures == 0
     assert th_stats.steps == 1 and th_stats.sor_failures == 0
     assert fr_stats.steps == 1 and fr_stats.sor_failures == 0
+    for stats in (gs_stats, gt_stats, gf_stats):
+        assert stats.steps == 1 and stats.sor_failures == 0, stats
     for name in ("parallel.topology", "parallel.halo", "parallel.deep_halo",
                  "parallel.sharded", "parallel.sharded_thermal",
-                 "parallel.sharded_free", "utils.distributed"):
+                 "parallel.sharded_free", "parallel.gspmd",
+                 "utils.distributed"):
         assert "navierstokes_parallel_tpu_torch." + name in sys.modules, name
     import contextlib, io, os
     from navierstokes_parallel_tpu_torch import cli

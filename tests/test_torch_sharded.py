@@ -180,6 +180,37 @@ def _physics(problem, i_max, j_max):
                                 for x in (u, v, np.zeros_like(u)))
 
 
+# The CFL-seed probe: 24^2, Re 100, tau 0.5, interior u in [0, 0.01) from a
+# numpy seed, the ghost corner u[0, 0] = 5 above every interior value, to
+# T = PROBE_T.  One device seeds the maxima with the corner (3 steps);
+# the JAX package's sharded backend seeds them with 0 (1 step).
+PROBE_T, PROBE_SEED = 0.011, 16
+
+
+def probe_fields(dtype=np.float32):
+    """(u, v, p) of the CFL-seed probe."""
+    u = np.zeros((26, 26), dtype)
+    u[1:-1, 1:-1] = np.random.default_rng(PROBE_SEED).uniform(0.0, 0.01,
+                                                             (24, 24))
+    u[0, 0] = 5.0
+    return u, np.zeros_like(u), np.zeros_like(u)
+
+
+def _probe_state():
+    return State(*(torch.from_numpy(x) for x in probe_fields()),
+                 t=torch.zeros(()), n=0)
+
+
+def _jax_probe_state():
+    import jax.numpy as jnp
+
+    from navierstokes_parallel_tpu.grid import State as JState
+
+    u, v, p = (jnp.asarray(x) for x in probe_fields())
+    return JState(u=u, v=v, p=p, t=jnp.zeros((), jnp.float32),
+                  n=jnp.zeros((), jnp.int32))
+
+
 def _jax_params(**kw):
     from navierstokes_parallel_tpu.config import Params as JaxParams
 
@@ -286,6 +317,10 @@ def _gloo_worker(rank, port, outdir):
                 out[f"{tag}_{name}"] = getattr(state, name).numpy()
             out[f"{tag}_stats"] = np.asarray(
                 [stats.steps, stats.total_sor_iterations, stats.sor_failures])
+        # The CFL-seed probe on 2x2: the sharded stepper seeds with 0.
+        state, stats = sharded.solve_sharded(_params(T=PROBE_T),
+                                             _probe_state(), mesh=mesh)
+        out["probe_steps_t"] = np.asarray([stats.steps, float(state.t)])
         # The CLI's host loop on 2x2 over an odd grid (11^2, padded to
         # 12^2): straight, then in two pieces (--max-steps, --resume); every
         # rank gathers at the same steps, rank 0 writes every file.
@@ -478,6 +513,19 @@ def test_gloo_channel_and_freeslip_match_jax(gloo4, case):
         _assert_contract(gloo4[f"{tag}_{name}"], getattr(jstate, name))
 
 
+def test_gloo_cfl_seed_is_jax_sharded(gloo4):
+    """The probe on four ranks takes the JAX sharded backend's one step on
+    the same mesh (seed 0), with t bit for bit."""
+    from navierstokes_parallel_tpu.parallel import sharded as jsh
+
+    jstate, jstats = jsh.solve_sharded(_jax_params(T=PROBE_T),
+                                       _jax_probe_state(),
+                                       mesh=_jax_mesh((2, 2)))
+    steps, t = gloo4["probe_steps_t"]
+    assert int(steps) == int(jstats.steps) == 1
+    assert np.float32(t) == np.float32(jstate.t)
+
+
 # --- one rank -----------------------------------------------------------------------
 
 @pytest.fixture
@@ -485,6 +533,23 @@ def one_rank():
     with distributed.process_group("cpu"):
         yield topology.make_grid_mesh(shape=(1, 1), device="cpu")
     assert not dist.is_initialized()
+
+
+def test_one_rank_cfl_seed_is_jax_sharded(one_rank):
+    """The probe: the sharded stepper seeds the maxima with 0 as the JAX
+    package's sharded backend does (1 step, t bit for bit), where one
+    device seeds with the ghost corner u[0, 0] = 5 (3 steps)."""
+    from navierstokes_parallel_tpu.parallel import sharded as jsh
+
+    prm = _params(T=PROBE_T)
+    state, stats = sharded.solve_sharded(prm, _probe_state(), mesh=one_rank)
+    jstate, jstats = jsh.solve_sharded(_jax_params(T=PROBE_T),
+                                       _jax_probe_state(),
+                                       mesh=_jax_mesh((1, 1)))
+    assert stats.steps == int(jstats.steps) == 1
+    assert float(state.t) == float(jstate.t)
+    single, sstats = solver.solve(prm, _probe_state())
+    assert sstats.steps == 3
 
 
 def test_one_rank_solve_matches_solver_and_jax(one_rank):
@@ -790,7 +855,8 @@ def test_cli_backends_and_max_steps(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--backend", "gspmd"], "gspmd is not ported"),
+    (["--backend", "gspmd", "--method", "pallas_sor"],
+     "gspmd backend supports"),
     (["--backend", "sharded", "--mesh", "2x2"], "needs 4 ranks"),
     (["--mesh", "1x1"], "applies to the sharded backend"),
     (["--backend", "sharded", "--mesh", "2y2"], "expects PxQ"),

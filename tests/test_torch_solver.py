@@ -189,7 +189,8 @@ def test_cli_refine_every_and_dtype(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--device", "cpu", "--backend", "gspmd"], "not ported"),
+    (["--device", "cpu", "--backend", "gspmd", "--method", "pallas_sor"],
+     "gspmd backend supports"),
     (["--device", "cpu", "--refine-every", "0"], "refine-every"),
     (["--device", "cuda"], "CUDA"),
 ])
