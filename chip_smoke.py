@@ -1365,26 +1365,33 @@ def time_compressed(torch, prm, rhs, bounds):
     return (mean["kernel"], mean["plain"], *bounds["sor_compressed"])
 
 
-def reset_launches() -> None:
-    from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
-                                                          sor_kernel)
+# The kernel launch counters of utils/timing.py, by the names this file
+# gives them.
+LAUNCH_COUNTERS = {"sor": "launch.sor_whole_grid",
+                   "sor_warm": "launch.sor_warm",
+                   "mg_coarse_cycle": "launch.mg_coarse_cycle",
+                   "momentum": "launch.momentum",
+                   "sor_tiled": "launch.sor_tiled",
+                   "sor_compressed": "launch.sor_compressed",
+                   "sor_ext": "launch.sor_ext"}
+_launch_start: dict = {}
 
-    sor_kernel.LAUNCHES = sor_kernel.WARM_LAUNCHES = 0
-    sor_kernel.TILED_LAUNCHES = sor_kernel.COMPRESSED_LAUNCHES = 0
-    sor_kernel.EXT_LAUNCHES = sor_kernel.CYCLE_LAUNCHES = 0
-    momentum_kernel.LAUNCHES = 0
+
+def reset_launches() -> None:
+    """Start counting launches from here (read_launches)."""
+    from navierstokes_parallel_tpu_torch.utils import timing
+
+    _launch_start.clear()
+    _launch_start.update(timing.counts())
 
 
 def read_launches() -> dict:
-    from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
-                                                          sor_kernel)
+    """Each kernel's launches since the last reset_launches."""
+    from navierstokes_parallel_tpu_torch.utils import timing
 
-    return {"sor": sor_kernel.LAUNCHES, "sor_warm": sor_kernel.WARM_LAUNCHES,
-            "mg_coarse_cycle": sor_kernel.CYCLE_LAUNCHES,
-            "momentum": momentum_kernel.LAUNCHES,
-            "sor_tiled": sor_kernel.TILED_LAUNCHES,
-            "sor_compressed": sor_kernel.COMPRESSED_LAUNCHES,
-            "sor_ext": sor_kernel.EXT_LAUNCHES}
+    now = timing.counts()
+    return {key: now.get(name, 0) - _launch_start.get(name, 0)
+            for key, name in LAUNCH_COUNTERS.items()}
 
 
 def check_only(launches: dict, kernels, where: str) -> None:
@@ -3500,7 +3507,7 @@ def phase_mesh_gradients(torch) -> dict:
 # The mesh ensemble's launches: 3 steps of 8 members, the batched SOR
 # sweep kernel (B1) once per refinement pass of 64 sweeps (max_it 2000:
 # 32 passes a step) and the fused momentum kernel (B2) once a step.
-MESH_ENSEMBLE_LAUNCHES = {"sor": 96, "momentum": 3}
+MESH_ENSEMBLE_LAUNCH_COUNTS = {"sor": 96, "momentum": 3}
 
 
 def phase_mesh_ensemble(torch) -> dict:
@@ -3508,7 +3515,7 @@ def phase_mesh_ensemble(torch) -> dict:
     one-device batch mesh over a one-rank NCCL group: the ensemble phase's
     8 members of configs/1.in (max_it 2000) by rb_sor, every field and
     stat equal to the unmeshed batch's of this call bit for bit, the counts
-    JAX's record, B1 and B2 launched MESH_ENSEMBLE_LAUNCHES times, and the
+    JAX's record, B1 and B2 launched MESH_ENSEMBLE_LAUNCH_COUNTS times, and the
     seconds of both.  Returns the mesh run's launch counts."""
     from navierstokes_parallel_tpu_torch import solver
     from navierstokes_parallel_tpu_torch.config import Params
@@ -3547,7 +3554,7 @@ def phase_mesh_ensemble(torch) -> dict:
     check(same, "the mesh ensemble differs from the unmeshed batch")
     check(counts == want_counts,
           "the mesh ensemble's counts differ from JAX's record")
-    for name, n in MESH_ENSEMBLE_LAUNCHES.items():
+    for name, n in MESH_ENSEMBLE_LAUNCH_COUNTS.items():
         check(launches[name] == n, f"the mesh ensemble launched {name} "
                                    f"{launches[name]} times, not {n}")
     check_only(launches, ("sor",), "the mesh ensemble")

@@ -18,10 +18,8 @@ from __future__ import annotations
 import torch
 
 from ...config import Params
+from ...utils import timing
 from . import _build
-
-# Kernel launches through momentum_rhs (one per call).
-LAUNCHES = 0
 
 
 def kernel_constants(params: Params):
@@ -161,7 +159,6 @@ def momentum_rhs(u, v, dt, gamma, params: Params):
     v may carry a leading member axis (solver.solve_ensemble), dt and gamma
     then one entry per member (or one for all): every member in the same
     launch."""
-    global LAUNCHES
     if u.device.type == "cpu" and v.device.type == "cpu":
         return momentum_rhs_plain(u, v, dt, gamma, params)
     if u.device.type != "cuda":
@@ -182,7 +179,7 @@ def momentum_rhs(u, v, dt, gamma, params: Params):
         params.i_max, params.j_max, *kernel_constants(params),
         *_build.device_and_stream(u))
     _build.check_status(status, "nsp_momentum_rhs")
-    LAUNCHES += 1
+    timing.count("launch.momentum")
     return F, G, rhs
 
 

@@ -60,20 +60,16 @@ import functools
 import torch
 
 from ...config import Params
+from ...utils import timing
 from . import _build
 
-# Kernel launches, one per call of a wrapper that launches (each call runs
-# all its launches in C): whole_grid_sweeps counts in LAUNCHES,
-# inner_sweeps_tiled in TILED_LAUNCHES, compressed_colour_sweeps (the
-# kernel of inner_sweeps_compressed) in COMPRESSED_LAUNCHES, warm_sweeps in
-# WARM_LAUNCHES, coarse_cycle in CYCLE_LAUNCHES and ext_sweeps in
-# EXT_LAUNCHES.
-LAUNCHES = 0
-TILED_LAUNCHES = 0
-COMPRESSED_LAUNCHES = 0
-WARM_LAUNCHES = 0
-CYCLE_LAUNCHES = 0
-EXT_LAUNCHES = 0
+# Kernel launches are counted in utils/timing.py's table, one per call of a
+# wrapper that launches (each call runs all its launches in C):
+# whole_grid_sweeps in "launch.sor_whole_grid", inner_sweeps_tiled in
+# "launch.sor_tiled", compressed_colour_sweeps (the kernel of
+# inner_sweeps_compressed) in "launch.sor_compressed", warm_sweeps in
+# "launch.sor_warm", coarse_cycle in "launch.mg_coarse_cycle" and
+# ext_sweeps in "launch.sor_ext".
 
 # The tiled route (JAX TILE_ROWS, SWEEPS_PER_CHUNK).  A tile writes
 # TILE_ROWS x TILE_COLS cells per chunk of SWEEPS_PER_CHUNK = K sweeps and
@@ -272,13 +268,12 @@ def whole_grid_sweeps(rhs_neg: torch.Tensor, n_sweeps: int,
     one for n_sweeps = 0) for a CUDA one.  rhs_neg may carry a leading
     member axis (solver.solve_ensemble): each member is swept alone, all in
     the same launches."""
-    global LAUNCHES
     if not _cuda_tensor(rhs_neg):
         return inner_sweeps_plain(rhs_neg, n_sweeps, params)
     check_inputs(rhs_neg, n_sweeps, params, batched=True)
     out = _tile_sweeps_from_zero(rhs_neg, n_sweeps, params,
                                  *whole_grid_tile(params.shape))
-    LAUNCHES += 1
+    timing.count("launch.sor_whole_grid")
     return out
 
 
@@ -470,14 +465,13 @@ def inner_sweeps_tiled(rhs_neg: torch.Tensor, n_sweeps: int, params: Params,
     TILE_COLS cells: the plain version for a CPU tensor, the CUDA kernel
     (one launch per chunk, one for n_sweeps = 0) for a CUDA one, over every
     member of a leading member axis at once."""
-    global TILED_LAUNCHES
     B, K = int(tile_rows or TILE_ROWS), int(sweeps_per_chunk)
     if not _cuda_tensor(rhs_neg):
         return inner_sweeps_tiled_plain(rhs_neg, n_sweeps, params, B, K)
     check_inputs(rhs_neg, n_sweeps, params, batched=True)
     check_tile(B, K)
     out = _tile_sweeps_from_zero(rhs_neg, n_sweeps, params, B, TILE_COLS, K)
-    TILED_LAUNCHES += 1
+    timing.count("launch.sor_tiled")
     return out
 
 
@@ -597,7 +591,6 @@ def compressed_colour_sweeps(rhs_colours: torch.Tensor, n_sweeps: int,
     One launch of whole_grid_tile's tile per chunk of sweeps (one for
     n_sweeps = 0), two pairs of arrays taking turns; every cell of the
     result comes from the kernel."""
-    global COMPRESSED_LAUNCHES
     _require_cuda(rhs_colours, "compressed_colour_sweeps")
     ni, nj = params.shape
     shape = (2, ni, nj // 2)
@@ -616,7 +609,7 @@ def compressed_colour_sweeps(rhs_colours: torch.Tensor, n_sweeps: int,
         rhs_colours[1].data_ptr(), ni, nj, int(n_sweeps), rows, cols, K,
         *sweep_constants(params), *_build.device_and_stream(rhs_colours))
     _build.check_status(status, "nsp_sor_compressed_sweeps")
-    COMPRESSED_LAUNCHES += 1
+    timing.count("launch.sor_compressed")
     n_chunks = max(1, -(-int(n_sweeps) // K))
     return other if n_chunks % 2 else first
 
@@ -672,7 +665,6 @@ def warm_sweeps(p: torch.Tensor, rhs: torch.Tensor, n_sweeps: int,
     whose ghost ring is p's: the plain version for a CPU tensor, the CUDA
     kernel (one launch of the tile per WARM_SWEEPS_PER_LAUNCH sweeps, one
     for n_sweeps = 0) for a CUDA one."""
-    global WARM_LAUNCHES
     if not _cuda_tensor(p):
         return warm_sweeps_plain(p, rhs, n_sweeps, omega, dx2_inv, dy2_inv)
     check_warm_inputs(p, rhs, n_sweeps)
@@ -688,7 +680,7 @@ def warm_sweeps(p: torch.Tensor, rhs: torch.Tensor, n_sweeps: int,
         *warm_constants(omega, dx2_inv, dy2_inv),
         *_build.device_and_stream(p))
     _build.check_status(status, "nsp_sor_warm_sweeps")
-    WARM_LAUNCHES += 1
+    timing.count("launch.sor_warm")
     return out
 
 
@@ -786,7 +778,6 @@ def coarse_cycle(p: torch.Tensor, rhs: torch.Tensor, levels, nu1: int = 2,
     tensor whose ghost ring is p's: the plain version for a CPU tensor, the
     CUDA kernel (one launch, every level in one block's shared memory) for
     a CUDA one."""
-    global CYCLE_LAUNCHES
     if not _cuda_tensor(p):
         return coarse_cycle_plain(p, rhs, levels, nu1, nu2, coarse_sweeps)
     check_cycle_inputs(p, rhs, levels, nu1, nu2, coarse_sweeps)
@@ -803,7 +794,7 @@ def coarse_cycle(p: torch.Tensor, rhs: torch.Tensor, levels, nu1: int = 2,
         (ctypes.c_float * len(consts))(*consts), len(levels), int(nu1),
         int(nu2), int(coarse_sweeps), *_build.device_and_stream(p))
     _build.check_status(status, "nsp_mg_coarse_cycle")
-    CYCLE_LAUNCHES += 1
+    timing.count("launch.mg_coarse_cycle")
     return out
 
 
@@ -883,7 +874,6 @@ def ext_sweeps(delta_ext: torch.Tensor, rhs_ext: torch.Tensor, ns: int,
     CUDA kernel (one launch) for a CUDA one.  Cells of the core (H deep
     inside the block) equal a sweep of the whole grid; the kernel and its
     twin agree on every cell at least 2 ns from the block's edge."""
-    global EXT_LAUNCHES
     if not _cuda_tensor(delta_ext):
         return ext_sweeps_plain(delta_ext, rhs_ext, ns, origin, H,
                                 params_or_consts)
@@ -898,5 +888,5 @@ def ext_sweeps(delta_ext: torch.Tensor, rhs_ext: torch.Tensor, ns: int,
         int(ns), ox, oy, int(H), i_max, j_max, EXT_TILE_ROWS, TILE_COLS,
         *constants, *_build.device_and_stream(delta_ext))
     _build.check_status(status, "nsp_sor_ext_sweeps")
-    EXT_LAUNCHES += 1
+    timing.count("launch.sor_ext")
     return out

@@ -48,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import Params
+from ..utils import timing
 from .cuda import sor_kernel
 
 
@@ -157,23 +158,27 @@ def _cycle(p: torch.Tensor, rhs: torch.Tensor, levels: List[_Level],
            tail_depth: int) -> torch.Tensor:
     """One V(nu1, nu2) cycle at `depth` with `smooth(p, rhs, level, n)` as
     the smoother; at tail_depth the rest of the cycle is one call of
-    sor_kernel.coarse_cycle."""
+    sor_kernel.coarse_cycle.  Each level's work runs in the span
+    ``mg.level<depth>``, which holds the next level's: a level's own time
+    is its span less its child."""
     lvl = levels[depth]
     if depth == tail_depth:
-        return sor_kernel.coarse_cycle(p, rhs, levels[depth:], nu1, nu2,
-                                       coarse_sweeps)
-    if depth == len(levels) - 1:
-        return smooth(p, rhs, lvl, coarse_sweeps)
+        with timing.span("mg.coarse_cycle"):
+            return sor_kernel.coarse_cycle(p, rhs, levels[depth:], nu1, nu2,
+                                           coarse_sweeps)
+    with timing.span(f"mg.level{depth}"):
+        if depth == len(levels) - 1:
+            return smooth(p, rhs, lvl, coarse_sweeps)
 
-    p = smooth(p, rhs, lvl, nu1)
-    r = rhs - _lap(p, lvl)
-    coarse = levels[depth + 1]
-    r_c = _restrict(r, coarse.shape)  # reads the interior only
-    e_c = torch.zeros(coarse.shape, dtype=p.dtype, device=p.device)
-    e_c = _cycle(e_c, r_c, levels, depth + 1, nu1, nu2, coarse_sweeps, smooth,
-                 tail_depth)
-    p = p + _prolong(e_c, lvl.shape)
-    return smooth(p, rhs, lvl, nu2)
+        p = smooth(p, rhs, lvl, nu1)
+        r = rhs - _lap(p, lvl)
+        coarse = levels[depth + 1]
+        r_c = _restrict(r, coarse.shape)  # reads the interior only
+        e_c = torch.zeros(coarse.shape, dtype=p.dtype, device=p.device)
+        e_c = _cycle(e_c, r_c, levels, depth + 1, nu1, nu2, coarse_sweeps,
+                     smooth, tail_depth)
+        p = p + _prolong(e_c, lvl.shape)
+        return smooth(p, rhs, lvl, nu2)
 
 
 def v_cycle(p: torch.Tensor, rhs: torch.Tensor, levels: List[_Level],
@@ -213,6 +218,7 @@ def inner_v_cycle(rhs_neg: torch.Tensor, n_cycles: int,
     rhs = rhs_neg.to(torch.float32)
     d = torch.zeros(params.shape, dtype=torch.float32, device=rhs.device)
     for _ in range(int(n_cycles)):
+        timing.count("mg.cycles")
         d = v_cycle(d, rhs, levels)
     return d
 

@@ -70,6 +70,7 @@ from typing import Callable, List, NamedTuple, Optional
 import torch
 
 from ..config import Params
+from ..utils import timing
 from . import compensated, fft, mg
 from .cuda import sor_kernel
 from .stencils import l2_norm
@@ -421,8 +422,18 @@ def _finish(p_out: torch.Tensor, going: Optional[torch.Tensor],
     if going is not None:
         return BatchResult(p=p_out, iterations=iterations, res_norm=res_norm,
                            converged=converged)
-    return SORResult(p=p_out, iterations=int(iterations),
-                     res_norm=float(res_norm), converged=bool(converged))
+    timing.count("sync.pressure_result", 3)
+    with timing.span("pressure.finish"):
+        return SORResult(p=p_out, iterations=int(iterations),
+                         res_norm=float(res_norm), converged=bool(converged))
+
+
+def _still_going(on: torch.Tensor) -> bool:
+    """Whether any problem of the solve is still going: the host read of
+    the go-on flags, once a pass (once a chunk of the direct solve)."""
+    timing.count("sync.pressure_flag")
+    with timing.span("pressure.flag"):
+        return bool(on.any())
 
 
 def _prepare(rhs, params: Params, method: str, mean_fn: Callable):
@@ -513,7 +524,7 @@ def _solve_pressure_direct(p: torch.Tensor, rhs: torch.Tensor,
     res_norm = torch.full(on.shape, math.inf, dtype=dtype, device=device)
     chunk = chunk or DIRECT_CHUNK
     done = 0
-    while done < params.max_it and bool(on.any()):  # one read per chunk
+    while done < params.max_it and _still_going(on):  # one read a chunk
         for _ in range(min(chunk, params.max_it - done)):
             p = torch.where(on3, iteration(p.clone()), p)
             norm = l2_fn(masked(residual(p, rhs_int, dx2_inv, dy2_inv)))
@@ -626,44 +637,53 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
     l2_fn = l2_fn or _default_l2(params)
     masked = _masker(valid_mask)
 
-    p64 = p.to(f64, copy=True)  # the master; updated in place below
-    rhs_int64 = rhs[..., 1:-1, 1:-1].to(f64)
-    threshold = params.epsilon * (l2_fn(masked(p64[..., 1:-1, 1:-1]))
-                                  + NORM_OFFSET)
+    with timing.span("pressure.setup"):
+        p64 = p.to(f64, copy=True)  # the master; updated in place below
+        rhs_int64 = rhs[..., 1:-1, 1:-1].to(f64)
+        threshold = params.epsilon * (l2_fn(masked(p64[..., 1:-1, 1:-1]))
+                                      + NORM_OFFSET)
 
-    def defect():
-        if residual_fn is None:
-            r = masked(residual(ghost_fn(p64), rhs_int64, dx2_inv, dy2_inv))
-        else:
-            r = masked(residual_fn(p64, rhs_int64))
-        if params.problem == 3:
-            # Exact at the outer's precision; its rounding shrinks with the
-            # defect (a deflation of the f32 rhs alone leaves a floor above
-            # the threshold on the channel's first step).
-            r = masked(r - mean_fn(r))
-        return r
+        def defect():
+            if residual_fn is None:
+                r = masked(residual(ghost_fn(p64), rhs_int64, dx2_inv,
+                                    dy2_inv))
+            else:
+                r = masked(residual_fn(p64, rhs_int64))
+            if params.problem == 3:
+                # Exact at the outer's precision; its rounding shrinks with
+                # the defect (a deflation of the f32 rhs alone leaves a
+                # floor above the threshold on the channel's first step).
+                r = masked(r - mean_fn(r))
+            return r
 
-    rhs_full = torch.zeros(p.shape, dtype=f32, device=p.device)
-    r64 = defect()
-    on = _members(going, p.device)
-    on3 = on.view(*on.shape, 1, 1)  # follows `on` in place
-    iterations = torch.zeros(on.shape, dtype=torch.int64, device=p.device)
-    res_norm = torch.full(on.shape, math.inf, dtype=f64, device=p.device)
-    done = 0  # the sweeps of every problem still going
-    while done < params.max_it and bool(on.any()):  # the one sync per pass
-        n_inner = min(K, params.max_it - done)
-        # rhs_full's ghost ring stays 0; only its interior is rewritten.
-        rhs_full[..., 1:-1, 1:-1] = -r64.to(f32)
-        delta = inner_fn(rhs_full, n_inner)
-        interior = p64[..., 1:-1, 1:-1]
-        interior.copy_(torch.where(on3, interior + delta[..., 1:-1, 1:-1]
-                                   .to(f64), interior))
+        rhs_full = torch.zeros(p.shape, dtype=f32, device=p.device)
         r64 = defect()
-        norm = l2_fn(r64)
-        res_norm = torch.where(on, norm, res_norm)
-        iterations += on * n_inner
-        done += n_inner
-        on &= norm > threshold
+        on = _members(going, p.device)
+        on3 = on.view(*on.shape, 1, 1)  # follows `on` in place
+        iterations = torch.zeros(on.shape, dtype=torch.int64, device=p.device)
+        res_norm = torch.full(on.shape, math.inf, dtype=f64, device=p.device)
+        done = 0  # the sweeps of every problem still going
+        go_on = done < params.max_it and _still_going(on)
+    while go_on:
+        timing.count("pressure.passes")
+        with timing.span("pressure.pass"):
+            n_inner = min(K, params.max_it - done)
+            # rhs_full's ghost ring stays 0; only its interior is rewritten.
+            rhs_full[..., 1:-1, 1:-1] = -r64.to(f32)
+            with timing.span("pressure.inner"):
+                delta = inner_fn(rhs_full, n_inner)
+            with timing.span("pressure.defect"):
+                interior = p64[..., 1:-1, 1:-1]
+                interior.copy_(torch.where(
+                    on3, interior + delta[..., 1:-1, 1:-1].to(f64), interior))
+                r64 = defect()
+                norm = l2_fn(r64)
+                res_norm = torch.where(on, norm, res_norm)
+                iterations += on * n_inner
+                done += n_inner
+                on &= norm > threshold
+            # The one sync a pass: whether to go on.
+            go_on = done < params.max_it and _still_going(on)
     return _finish(ghost_fn(p64).to(p.dtype), going, iterations, res_norm,
                    threshold, p.dtype)
 
@@ -717,54 +737,67 @@ def _solve_pressure_refined_compensated(
     # For a float64 state the low f32 words of p and rhs are significant:
     # dropping them would certify convergence of a rounded problem.
     wide = p.dtype.itemsize > 4
-    hi = p.to(f32, copy=True)  # the master pair; updated in place below
-    rhs_int = rhs[1:-1, 1:-1]
-    rhs_int32 = rhs_int.to(f32)
-    if wide:
-        lo = (p - hi.to(p.dtype)).to(f32)
-        rhs_lo32 = (rhs_int - rhs_int32.to(rhs.dtype)).to(f32)
-    else:
-        lo = torch.zeros_like(hi)
-        rhs_lo32 = None
-    norm_p0 = l2_fn(masked(hi[1:-1, 1:-1]))
-    # f32, as the JAX package forms it; exact as a Python float.
-    threshold = float(torch.tensor(params.epsilon, dtype=f32, device=device)
-                      * (norm_p0 + NORM_OFFSET))
+    with timing.span("pressure.setup"):
+        hi = p.to(f32, copy=True)  # the master pair; updated in place below
+        rhs_int = rhs[1:-1, 1:-1]
+        rhs_int32 = rhs_int.to(f32)
+        if wide:
+            lo = (p - hi.to(p.dtype)).to(f32)
+            rhs_lo32 = (rhs_int - rhs_int32.to(rhs.dtype)).to(f32)
+        else:
+            lo = torch.zeros_like(hi)
+            rhs_lo32 = None
+        norm_p0 = l2_fn(masked(hi[1:-1, 1:-1]))
+        # f32, as the JAX package forms it; exact as a Python float.
+        timing.count("sync.pressure_result")
+        threshold = float(torch.tensor(params.epsilon, dtype=f32,
+                                       device=device)
+                          * (norm_p0 + NORM_OFFSET))
 
-    def defect():
-        r = masked(compensated.residual_df(
-            ghost_fn(hi), ghost_fn(lo), rhs_int32, dx2_inv, dy2_inv,
-            rhs_lo=rhs_lo32))
-        if params.problem == 3:
-            # The constant-mode deflation of the f64 outer, here relative to
-            # the shrinking f32 defect.
-            r = masked(r - mean_fn(r))
-        return r
+        def defect():
+            r = masked(compensated.residual_df(
+                ghost_fn(hi), ghost_fn(lo), rhs_int32, dx2_inv, dy2_inv,
+                rhs_lo=rhs_lo32))
+            if params.problem == 3:
+                # The constant-mode deflation of the f64 outer, here
+                # relative to the shrinking f32 defect.
+                r = masked(r - mean_fn(r))
+            return r
 
-    rhs_full = torch.zeros(p.shape, dtype=f32, device=device)
-    r32 = defect()
+        rhs_full = torch.zeros(p.shape, dtype=f32, device=device)
+        r32 = defect()
     it = 0
     res_norm = math.inf
     while it < params.max_it and res_norm > threshold:
-        n_inner = min(K, params.max_it - it)
-        rhs_full[1:-1, 1:-1] = -r32
-        delta = inner_fn(rhs_full, n_inner)
-        h2, l2 = compensated.df_add_f32(hi[1:-1, 1:-1], lo[1:-1, 1:-1],
-                                 delta[1:-1, 1:-1])
-        hi[1:-1, 1:-1] = h2
-        lo[1:-1, 1:-1] = l2
-        r32 = defect()
-        res_norm = float(l2_fn(r32))  # the one sync per pass
-        it += n_inner
+        timing.count("pressure.passes")
+        with timing.span("pressure.pass"):
+            n_inner = min(K, params.max_it - it)
+            rhs_full[1:-1, 1:-1] = -r32
+            with timing.span("pressure.inner"):
+                delta = inner_fn(rhs_full, n_inner)
+            with timing.span("pressure.defect"):
+                h2, l2 = compensated.df_add_f32(hi[1:-1, 1:-1],
+                                                lo[1:-1, 1:-1],
+                                                delta[1:-1, 1:-1])
+                hi[1:-1, 1:-1] = h2
+                lo[1:-1, 1:-1] = l2
+                r32 = defect()
+                norm = l2_fn(r32)
+            # The one sync a pass.
+            timing.count("sync.pressure_flag")
+            with timing.span("pressure.flag"):
+                res_norm = float(norm)
+            it += n_inner
     # (hi, lo) stays normalized, so hi alone is the correctly rounded f32
     # master; a wider state gets the ~48-bit value of the pair.
     if wide:
         p_out = ghost_fn(hi.to(p.dtype) + lo.to(p.dtype))
     else:
         p_out = ghost_fn(hi).to(p.dtype)
-    return SORResult(
-        p=p_out,
-        iterations=it,
-        res_norm=float(torch.tensor(res_norm, dtype=p.dtype)),
-        converged=res_norm <= threshold,
-    )
+    with timing.span("pressure.finish"):
+        return SORResult(
+            p=p_out,
+            iterations=it,
+            res_norm=float(torch.tensor(res_norm, dtype=p.dtype)),
+            converged=res_norm <= threshold,
+        )

@@ -39,6 +39,7 @@ from .config import Params
 from .grid import State, allocate_state
 from .ops import boundary, momentum, obstacles, sor
 from .ops.cuda import momentum_kernel
+from .utils import timing
 from .utils.timing import device_fence
 
 
@@ -96,8 +97,9 @@ def step(state: State, params: Params, *,
     u, v, p, t, n = state
     u, v = u.clone(), v.clone()
 
-    dt, gamma = momentum.adaptive_dt_gamma(u, v, params)
-    _apply_bcs(u, v, t, params)
+    with timing.span("step.dt_bcs"):
+        dt, gamma = momentum.adaptive_dt_gamma(u, v, params)
+        _apply_bcs(u, v, t, params)
     if momentum_kernel.usable(params, u.device):
         F, G, rhs = momentum_kernel.momentum_rhs(u, v, dt, gamma, params)
     else:
@@ -111,11 +113,12 @@ def _advance(u, v, p, t, n, F, G, rhs, dt, params: Params,
     """The pressure solve and the projection (in place on u and v), the
     tail of `step` and `step_ab2`."""
     result = sor.solve_pressure(p, rhs, params, method=pressure_method)
-    momentum.project_velocities(u, v, F, G, result.p, dt, params)
-    if params.obstacles:
-        # The projection sweeps the obstacle faces too (not the outer
-        # walls): restore their no-slip values.
-        obstacles.apply_obstacle_bcs(u, v, params)
+    with timing.span("step.project"):
+        momentum.project_velocities(u, v, F, G, result.p, dt, params)
+        if params.obstacles:
+            # The projection sweeps the obstacle faces too (not the outer
+            # walls): restore their no-slip values.
+            obstacles.apply_obstacle_bcs(u, v, params)
 
     new_state = State(u=u, v=v, p=result.p, t=t + dt, n=n + 1)
     diag = StepDiagnostics(
@@ -177,8 +180,9 @@ def step_ab2(ab2: AB2State, params: Params, *,
     u, v, p, t, n = ab2.s
     u, v = u.clone(), v.clone()
 
-    dt, gamma = momentum.adaptive_dt_gamma(u, v, params)
-    _apply_bcs(u, v, t, params)
+    with timing.span("step.dt_bcs"):
+        dt, gamma = momentum.adaptive_dt_gamma(u, v, params)
+        _apply_bcs(u, v, t, params)
     F, G, ru, rv = ab2_extrapolate(
         *momentum.compute_fg(u, v, dt, gamma, params), u, v, dt, ab2)
     F, G, rhs = _rhs(F, G, u, v, dt, params)
@@ -227,7 +231,7 @@ def run_steps(stepper, params: Params, *, max_steps: int = 0,
     T = float(torch.tensor(params.T, dtype=params.torch_dtype))
     steps = iters = failures = 0
     last = 0.0
-    while not 0 < max_steps <= steps and stepper.t < T:
+    while not 0 < max_steps <= steps and _read_t(stepper) < T:
         if before is not None:
             before()
         diag = stepper.step()
@@ -239,6 +243,13 @@ def run_steps(stepper, params: Params, *, max_steps: int = 0,
             after(diag, steps)
     return SolveStats(steps=steps, total_sor_iterations=iters,
                       sor_failures=failures, last_res_norm=last)
+
+
+def _read_t(stepper) -> float:
+    """The stepper's time on the host: the loop's one sync a step."""
+    timing.count("sync.loop_t")
+    with timing.span("loop.read_t"):
+        return stepper.t
 
 
 class Stepper:

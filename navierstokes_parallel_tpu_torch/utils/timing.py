@@ -2,18 +2,53 @@
 
 PyTorch returns before the device finishes, so a host clock around device
 work must end at a fence.  ``profiler_trace`` is the counterpart of the JAX
-package's ``jax.profiler`` capture.  The JAX module's bandwidth and VPU
-probes and its roofline helpers are not here: the VPU is a TPU unit, and
-a bandwidth probe belongs to the port's bench arm (ROADMAP).
+package's ``jax.profiler`` capture, and the one exporter of the program's
+spans.  The JAX module's bandwidth and VPU probes and its roofline helpers
+are not here: the VPU is a TPU unit, and a bandwidth probe belongs to the
+benchmark (``nsbench/``).
+
+Spans and counters mark the step's host work where it happens (the time
+loop, the pressure outer, the V-cycle).  ``span(name)`` is a profiler range
+named ``nsp.<name>`` while a profiler records, and a shared null context
+otherwise, so that a span costs one flag check when nothing traces.
+``count(name, n)`` adds to one table of ever-increasing ints, always on;
+``counts()`` is a snapshot of it, and a reader takes the difference of two.
+Every kernel launch is counted there (``launch.*``), every outer pass and
+V-cycle, and every host read of a device value on the step path
+(``sync.*``).
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
-from typing import Optional
+from collections import defaultdict
+from typing import Dict
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+SPAN_PREFIX = "nsp."
+_NULL_SPAN = contextlib.nullcontext()
+_COUNTS: Dict[str, int] = defaultdict(int)
+
+
+def span(name: str):
+    """A context manager around one piece of the program's host work: a
+    ``torch.profiler.record_function`` range named ``nsp.<name>`` while a
+    profiler records, else the same null context every time."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NULL_SPAN
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name`."""
+    _COUNTS[name] += n
+
+
+def counts() -> Dict[str, int]:
+    """A snapshot of every counter (name -> total since the process began)."""
+    return dict(_COUNTS)
 
 
 def device_fence(state_or_tensor) -> float:
@@ -24,29 +59,6 @@ def device_fence(state_or_tensor) -> float:
         torch.cuda.synchronize(x.device)
     idx = tuple(s // 2 for s in x.shape)
     return float(x[idx])
-
-
-class Timer:
-    """Wall timer; ``stop(fence_on=...)`` waits for the device first."""
-
-    def __init__(self):
-        self.elapsed = 0.0
-        self._t0: Optional[float] = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def stop(self, fence_on=None) -> float:
-        if fence_on is not None:
-            device_fence(fence_on)
-        self.elapsed = time.perf_counter() - self._t0
-        return self.elapsed
-
-    def __exit__(self, *exc):
-        if self._t0 is not None and self.elapsed == 0.0:
-            self.elapsed = time.perf_counter() - self._t0
-        return False
 
 
 @contextlib.contextmanager

@@ -66,10 +66,9 @@ def main(argv=None) -> int:
     from navierstokes_parallel_tpu_torch.config import Params
     from navierstokes_parallel_tpu_torch.grid import resolve_device
     from navierstokes_parallel_tpu_torch.models import convection
-    from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
-                                                          sor_kernel)
     from navierstokes_parallel_tpu_torch.ops.sor import default_method
     from navierstokes_parallel_tpu_torch.solver import center_values
+    from navierstokes_parallel_tpu_torch.utils import timing
 
     device = resolve_device(args.device)
     card = card_line() if device.type == "cuda" else "cpu"
@@ -79,7 +78,7 @@ def main(argv=None) -> int:
     cfg = convection.config_from_params(prm)
     method = default_method(prm, device)
     convection.warm_up(prm, cfg, device, method)
-    sor_kernel.LAUNCHES = momentum_kernel.LAUNCHES = 0
+    start = timing.counts()
     if device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -89,6 +88,10 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    now = timing.counts()
+    sor_launches, momentum_launches = (
+        now.get(name, 0) - start.get(name, 0)
+        for name in ("launch.sor_whole_grid", "launch.momentum"))
     result = {
         "card": card, "device": str(device), "method": method,
         "steps": stats.steps, "sor_iterations": stats.total_sor_iterations,
@@ -98,14 +101,14 @@ def main(argv=None) -> int:
                                                    cfg.t_left),
         "nusselt_cold": convection.nusselt_cold_wall(state.T, prm,
                                                      cfg.t_right),
-        "seconds": seconds, "sor_launches": sor_kernel.LAUNCHES,
-        "momentum_launches": momentum_kernel.LAUNCHES, "jax": jax}
+        "seconds": seconds, "sor_launches": sor_launches,
+        "momentum_launches": momentum_launches, "jax": jax}
     print(f"[witness] {method}: {stats.steps} steps (JAX {jax['steps']}), "
           f"{stats.total_sor_iterations} sweeps (JAX "
           f"{jax['sor_iterations']}), {stats.sor_failures} failures, centre "
           f"{result['centre']} (JAX {jax['centre']}), {seconds:.3f} s, "
-          f"{sor_kernel.LAUNCHES} SOR kernel launches, "
-          f"{momentum_kernel.LAUNCHES} momentum kernel launches", flush=True)
+          f"{sor_launches} SOR kernel launches, "
+          f"{momentum_launches} momentum kernel launches", flush=True)
     nu_ref = convection.DE_VAHL_DAVIS_NU[prm.Ra]
     misses = []
     for key in ("nusselt_hot", "nusselt_cold"):
@@ -124,7 +127,7 @@ def main(argv=None) -> int:
                       f"{nu_ref}")
     if stats.sor_failures:
         misses.append(f"{stats.sor_failures} pressure failures")
-    if momentum_kernel.LAUNCHES:
+    if momentum_launches:
         misses.append("the fused momentum kernel ran on a thermal step")
     if args.max_steps:
         print("[witness] --max-steps: a cut run, readings not held",

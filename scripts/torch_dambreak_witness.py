@@ -80,9 +80,8 @@ def main(argv=None) -> int:
     from navierstokes_parallel_tpu_torch.config import Params
     from navierstokes_parallel_tpu_torch.grid import resolve_device
     from navierstokes_parallel_tpu_torch.models import freesurface as FS
-    from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
-                                                          sor_kernel)
     from navierstokes_parallel_tpu_torch.solver import run_steps
+    from navierstokes_parallel_tpu_torch.utils import timing
 
     device = resolve_device(args.device)
     card = card_line() if device.type == "cuda" else "cpu"
@@ -97,11 +96,7 @@ def main(argv=None) -> int:
                "particles": int(fs0.pset.active.sum())}
     stepper = FS.FreeStepper(prm, fs0, wall="freeslip")
     stepper.warm()
-    counters = ("LAUNCHES", "WARM_LAUNCHES", "TILED_LAUNCHES",
-                "COMPRESSED_LAUNCHES", "EXT_LAUNCHES", "CYCLE_LAUNCHES")
-    for name in counters:
-        setattr(sor_kernel, name, 0)
-    momentum_kernel.LAUNCHES = 0
+    start = timing.counts()
     trace = {"t": [], "front_position": [], "column_height": [],
              "fluid_volume": []}
 
@@ -123,8 +118,9 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {name: getattr(sor_kernel, name) for name in counters}
-    launches["momentum"] = momentum_kernel.LAUNCHES
+    launches = {name: n - start.get(name, 0)
+                for name, n in timing.counts().items()
+                if name.startswith("launch.")}
     fs = stepper.free_state()
     jax_stats = jax["whole"]["stats"]
     result = {

@@ -25,12 +25,20 @@ from navierstokes_parallel_tpu_torch.config import Params
 from navierstokes_parallel_tpu_torch.grid import allocate_state, resolve_device
 from navierstokes_parallel_tpu_torch.ops.cuda import (_build, momentum_kernel,
                                                       sor_kernel)
+from navierstokes_parallel_tpu_torch.utils import timing
 
 # Kernel vs plain on the card, relative to the plain result's max: both
 # round every f32 operation once in the same order (no FMA contraction in
 # the kernels), so they agree bit for bit; the bound is a margin, not an
 # expected error.
 KERNEL_RTOL = 1e-6
+
+
+def launches(kernel: str, since=None) -> int:
+    """The launches of `kernel` in utils/timing.py's table (its counter
+    "launch.<kernel>"): all so far, or since the snapshot `since`."""
+    name = "launch." + kernel
+    return timing.counts().get(name, 0) - (since or {}).get(name, 0)
 
 
 @pytest.fixture
@@ -290,11 +298,11 @@ def test_kernel_used_only_for_f32_cuda():
 def test_sor_kernel_matches_plain(cuda, shape, n):
     prm = _params(*shape)
     rhs = _rhs(prm, seed=n).to(cuda)
-    before = sor_kernel.LAUNCHES
+    before = launches("sor_whole_grid")
     got = sor_kernel.inner_sweeps(rhs, n, prm)
     want = sor_kernel.inner_sweeps_plain(rhs, n, prm)
     torch.cuda.synchronize()
-    assert sor_kernel.LAUNCHES == before + 1
+    assert launches("sor_whole_grid") == before + 1
     scale = max(float(want.abs().max()), 1e-30)
     assert float((got - want).abs().max()) / scale <= KERNEL_RTOL
     assert torch.equal(got, sor_kernel.whole_grid_sweeps_simple(rhs, n, prm))
@@ -312,10 +320,10 @@ def test_tiled_kernel_matches_plain_and_whole_grid(cuda, shape, n, tile):
     ends on a short chunk (8 + 8 + 4)."""
     prm = _params(*shape)
     rhs = _rhs(prm, seed=n).to(cuda)
-    before = sor_kernel.TILED_LAUNCHES
+    before = launches("sor_tiled")
     got = sor_kernel.inner_sweeps_tiled(rhs, n, prm, tile_rows=tile)
     torch.cuda.synchronize()
-    assert sor_kernel.TILED_LAUNCHES == before + 1
+    assert launches("sor_tiled") == before + 1
     assert torch.equal(got,
                        sor_kernel.whole_grid_sweeps_simple(rhs, n, prm))
     assert torch.equal(got, sor_kernel.inner_sweeps_tiled_plain(
@@ -331,10 +339,10 @@ def test_compressed_kernel_matches_plain_and_whole_grid(cuda, shape, n):
     kernel."""
     prm = _params(*shape)
     rhs = _rhs(prm, seed=n).to(cuda)
-    before = sor_kernel.COMPRESSED_LAUNCHES
+    before = launches("sor_compressed")
     got = sor_kernel.inner_sweeps_compressed(rhs, n, prm)
     torch.cuda.synchronize()
-    assert sor_kernel.COMPRESSED_LAUNCHES == before + 1
+    assert launches("sor_compressed") == before + 1
     assert torch.equal(got,
                        sor_kernel.whole_grid_sweeps_simple(rhs, n, prm))
     assert torch.equal(got, sor_kernel.inner_sweeps_compressed_plain(
@@ -356,9 +364,9 @@ def test_compressed_tile_equals_twin_and_first_kernels(cuda, shape, n,
     prm = _params(*shape)
     rhs = _rhs(prm, seed=n).to(cuda)
     _poison_empty(monkeypatch)
-    before = sor_kernel.COMPRESSED_LAUNCHES
+    before = launches("sor_compressed")
     got = sor_kernel.inner_sweeps_compressed(rhs, n, prm)
-    assert sor_kernel.COMPRESSED_LAUNCHES == before + 1
+    assert launches("sor_compressed") == before + 1
     assert torch.equal(got, sor_kernel.inner_sweeps_compressed_plain(
         rhs, n, prm))
     assert torch.equal(got, sor_kernel.whole_grid_sweeps_simple(rhs, n, prm))
@@ -388,11 +396,11 @@ def test_compressed_tile_has_a_kernel_compiled_for_it(cuda):
 @pytest.mark.parametrize("case", ["budget", "forced_off", "compressed",
                                   "compressed_odd", "forced_on"])
 def test_inner_sweeps_routes_on_the_card(cuda, case, monkeypatch):
-    shape, counter = {"budget": ((2048, 2048), "TILED_LAUNCHES"),
-                      "forced_off": ((2048, 2048), "LAUNCHES"),
-                      "compressed": ((64, 62), "COMPRESSED_LAUNCHES"),
-                      "compressed_odd": ((64, 61), "LAUNCHES"),
-                      "forced_on": ((64, 61), "TILED_LAUNCHES")}[case]
+    shape, counter = {"budget": ((2048, 2048), "sor_tiled"),
+                      "forced_off": ((2048, 2048), "sor_whole_grid"),
+                      "compressed": ((64, 62), "sor_compressed"),
+                      "compressed_odd": ((64, 61), "sor_whole_grid"),
+                      "forced_on": ((64, 61), "sor_tiled")}[case]
     if case == "forced_off":
         monkeypatch.setattr(sor_kernel, "PREFER_TILED", False)
     if case == "forced_on":
@@ -401,11 +409,10 @@ def test_inner_sweeps_routes_on_the_card(cuda, case, monkeypatch):
         monkeypatch.setattr(sor_kernel, "USE_COMPRESSED", True)
     prm = _params(*shape)
     rhs = _rhs(prm).to(cuda)
-    counts = {name: getattr(sor_kernel, name) for name in (
-        "LAUNCHES", "TILED_LAUNCHES", "COMPRESSED_LAUNCHES")}
+    start = timing.counts()
     got = sor_kernel.inner_sweeps(rhs, 9, prm)
-    for name, before in counts.items():
-        assert getattr(sor_kernel, name) == before + (name == counter)
+    for name in ("sor_whole_grid", "sor_tiled", "sor_compressed"):
+        assert launches(name, start) == (name == counter)
     assert torch.equal(got, sor_kernel.inner_sweeps_plain(rhs, 9, prm))
 
 
@@ -562,12 +569,12 @@ def test_warm_kernel_matches_plain(cuda, shape, omega, n, monkeypatch):
     rhs = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     p, rhs = p.to(cuda), rhs.to(cuda)
     dx2, dy2 = 0.9 * shape[0] ** 2, 1.3 * shape[1] ** 2
-    before = sor_kernel.WARM_LAUNCHES
+    before = launches("sor_warm")
     _poison_empty(monkeypatch)
     got = sor_kernel.warm_sweeps(p, rhs, n, omega, dx2, dy2)
     want = sor_kernel.warm_sweeps_plain(p, rhs, n, omega, dx2, dy2)
     torch.cuda.synchronize()
-    assert sor_kernel.WARM_LAUNCHES == before + 1
+    assert launches("sor_warm") == before + 1
     assert torch.equal(got, want)
     assert torch.equal(got, sor_kernel.warm_sweeps_simple(p, rhs, n, omega,
                                                           dx2, dy2))
@@ -596,11 +603,11 @@ def test_coarse_cycle_matches_plain(cuda, size, counts, monkeypatch):
     rng = np.random.default_rng(size[0] + counts[0])
     p, rhs = (torch.from_numpy(rng.standard_normal(levels[0].shape).astype(
         np.float32)).to(cuda) for _ in range(2))
-    before = sor_kernel.CYCLE_LAUNCHES
+    before = launches("mg_coarse_cycle")
     _poison_empty(monkeypatch)
     got = sor_kernel.coarse_cycle(p, rhs, levels, *counts)
     torch.cuda.synchronize()
-    assert sor_kernel.CYCLE_LAUNCHES == before + 1
+    assert launches("mg_coarse_cycle") == before + 1
     assert torch.equal(got, sor_kernel.coarse_cycle_plain(p, rhs, levels,
                                                           *counts))
 
@@ -627,9 +634,10 @@ def test_v_cycle_on_card_calls_smoother_and_coarse_cycle(cuda):
     rhs[1:-1, 1:-1] = rng.standard_normal((512, 512))
     rhs = torch.from_numpy(rhs).to(cuda)
     p = torch.zeros_like(rhs)
-    sor_kernel.WARM_LAUNCHES = sor_kernel.CYCLE_LAUNCHES = 0
+    start = timing.counts()
     got = mg.v_cycle(p, rhs, levels)
-    assert (sor_kernel.WARM_LAUNCHES, sor_kernel.CYCLE_LAUNCHES) == (2 * t, 1)
+    assert (launches("sor_warm", start),
+            launches("mg_coarse_cycle", start)) == (2 * t, 1)
     assert torch.equal(got, mg.v_cycle_plain(p, rhs, levels))
 
 
@@ -641,11 +649,11 @@ def test_momentum_kernel_matches_plain(cuda, shape):
     u, v = (x.to(cuda) for x in _uv(prm, seed=shape[0]))
     dt = torch.tensor(0.003, device=cuda)
     gamma = torch.tensor(0.8, device=cuda)
-    before = momentum_kernel.LAUNCHES
+    before = launches("momentum")
     got = momentum_kernel.momentum_rhs(u, v, dt, gamma, prm)
     want = momentum_kernel.momentum_rhs_plain(u, v, dt, gamma, prm)
     torch.cuda.synchronize()
-    assert momentum_kernel.LAUNCHES == before + 1
+    assert launches("momentum") == before + 1
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) / float(w.abs().max()) <= KERNEL_RTOL
 
@@ -668,9 +676,9 @@ def test_fused_momentum_equals_plain_and_first_kernel(cuda, shape, scalars,
     if scalars == "tensors":
         dt, gamma = (torch.tensor(x, device=cuda) for x in (dt, gamma))
     _poison_empty(monkeypatch)
-    before = momentum_kernel.LAUNCHES
+    before = launches("momentum")
     got = momentum_kernel.momentum_rhs(u, v, dt, gamma, prm)
-    assert momentum_kernel.LAUNCHES == before + 1
+    assert launches("momentum") == before + 1
     for want in (momentum_kernel.momentum_rhs_plain(u, v, dt, gamma, prm),
                  momentum_kernel.momentum_rhs_simple(u, v, dt, gamma, prm)):
         for g, w in zip(got, want):
@@ -705,9 +713,10 @@ def test_gpu_solve_matches_cpu_solve(cuda):
     versions): equal iteration counts, fields within the 1e-4 contract."""
     prm = Params(i_max=32, j_max=24, T=0.05, Re=100.0, tau=0.5,
                  max_it=2000)
-    sor_kernel.LAUNCHES = momentum_kernel.LAUNCHES = 0
+    start = timing.counts()
     gs, gstats = solver.solve(prm, device=cuda, pressure_method="pallas_sor")
-    assert sor_kernel.LAUNCHES > 0 and momentum_kernel.LAUNCHES == gstats.steps
+    assert launches("sor_whole_grid", start) > 0
+    assert launches("momentum", start) == gstats.steps
     cs, cstats = solver.solve(prm, device="cpu", pressure_method="pallas_sor")
     assert gstats[:3] == cstats[:3] and gstats.sor_failures == 0
     for name in ("u", "v", "p"):
@@ -728,17 +737,17 @@ def test_gpu_mg_cg_solve_matches_cpu_solve(cuda, method):
 
     prm = Params(i_max=64, j_max=64, T=0.06, Re=100.0, tau=0.5,
                  max_it=2000)
-    sor_kernel.LAUNCHES = sor_kernel.WARM_LAUNCHES = 0
-    sor_kernel.CYCLE_LAUNCHES = 0
+    start = timing.counts()
     gs, gstats = solver.solve(prm, device=cuda, pressure_method=method)
     if method == "mg":
         t = sor_kernel.coarse_cycle_depth(mg.build_levels(prm))
         assert t == 0
-        assert sor_kernel.WARM_LAUNCHES == 2 * t * gstats.total_sor_iterations
-        assert sor_kernel.CYCLE_LAUNCHES == gstats.total_sor_iterations
+        assert launches("sor_warm", start) == 2 * t * gstats.total_sor_iterations
+        assert launches("mg_coarse_cycle", start) == gstats.total_sor_iterations
     else:
-        assert sor_kernel.WARM_LAUNCHES == sor_kernel.CYCLE_LAUNCHES == 0
-    assert sor_kernel.LAUNCHES == 0
+        assert launches("sor_warm", start) == 0
+        assert launches("mg_coarse_cycle", start) == 0
+    assert launches("sor_whole_grid", start) == 0
     cs, cstats = solver.solve(prm, device="cpu", pressure_method=method)
     assert gstats[:3] == cstats[:3] and gstats.sor_failures == 0
     for name in ("u", "v", "p"):
@@ -852,11 +861,11 @@ def test_ext_kernel_matches_plain(cuda, cut, ns):
     for origin in origins:
         d_ext = deep_halo.cut_ext_block(d0, origin, li, lj, H)
         r_ext = deep_halo.cut_ext_block(rhs, origin, li, lj, H)
-        before = sor_kernel.EXT_LAUNCHES
+        before = launches("sor_ext")
         got = sor_kernel.ext_sweeps(d_ext, r_ext, ns, origin, H, prm)
         want = sor_kernel.ext_sweeps_plain(d_ext, r_ext, ns, origin, H, prm)
         torch.cuda.synchronize()
-        assert sor_kernel.EXT_LAUNCHES == before + 1
+        assert launches("sor_ext") == before + 1
         e = 2 * ns
         inner = (slice(e, got.shape[0] - e), slice(e, got.shape[1] - e))
         assert torch.equal(got[inner], want[inner])
@@ -934,11 +943,11 @@ def test_sharded_solve_on_card_matches_cpu(cuda):
     prm = Params(i_max=32, j_max=24, T=0.05, Re=100.0, tau=0.5, max_it=2000)
     runs = {}
     for device in ("cuda", "cpu"):
-        sor_kernel.EXT_LAUNCHES = 0
+        start = timing.counts()
         with distributed.process_group(device) as dev:
             mesh = topology.make_grid_mesh(shape=(1, 1), device=dev)
             runs[device] = (*sharded.solve_sharded(prm, mesh=mesh),
-                            sor_kernel.EXT_LAUNCHES)
+                            launches("sor_ext", start))
     (gs, gstats, g_launches), (cs, cstats, c_launches) = (runs["cuda"],
                                                           runs["cpu"])
     assert g_launches > 0 and c_launches == 0
@@ -983,10 +992,10 @@ def test_sharded_mg_smoother_launches_the_ext_kernel(cuda):
     runs = {}
     for device in ("cpu", cuda):
         mesh = topology.Mesh((1, 1), (0, 0), torch.device(device), None)
-        before = sor_kernel.EXT_LAUNCHES
+        before = launches("sor_ext")
         runs[str(device)] = mg._smooth_sharded(p.to(device), rhs.to(device),
                                                level, 2, mesh).cpu()
-        launched = sor_kernel.EXT_LAUNCHES - before
+        launched = launches("sor_ext") - before
         assert launched == (0 if device == "cpu" else 1)
     assert torch.equal(runs["cpu"], runs["cuda"])
 
@@ -1053,15 +1062,15 @@ def test_channel_and_taylor_green_on_the_card_match_cpu(cuda, problem,
         states = {d: taylorgreen.taylor_green(n=256, device=d)[1]
                   for d in (cuda, "cpu")}
         method = "mg"
-    sor_kernel.LAUNCHES = sor_kernel.WARM_LAUNCHES = 0
-    sor_kernel.CYCLE_LAUNCHES = momentum_kernel.LAUNCHES = 0
+    start = timing.counts()
     gs, gstats = solver.solve(prm, states[cuda], pressure_method=method,
                               time_order=order, max_steps=3)
     if problem == 3:
-        assert sor_kernel.LAUNCHES > 0
+        assert launches("sor_whole_grid", start) > 0
     else:
-        assert sor_kernel.WARM_LAUNCHES > 0 and sor_kernel.CYCLE_LAUNCHES > 0
-    assert momentum_kernel.LAUNCHES == (gstats.steps if order == 1 else 0)
+        assert launches("sor_warm", start) > 0
+        assert launches("mg_coarse_cycle", start) > 0
+    assert launches("momentum", start) == (gstats.steps if order == 1 else 0)
     cs, cstats = solver.solve(prm, states["cpu"], pressure_method=method,
                               time_order=order, max_steps=3)
     assert gstats[:3] == cstats[:3] and gstats.sor_failures == 0
@@ -1084,18 +1093,15 @@ def test_obstacle_step_on_the_card_launches_no_kernel(cuda, order):
     assert not momentum_kernel.usable(prm, cuda)
     states = {}
     for device in (cuda, "cpu"):
-        sor_kernel.LAUNCHES = sor_kernel.WARM_LAUNCHES = 0
-        sor_kernel.TILED_LAUNCHES = sor_kernel.COMPRESSED_LAUNCHES = 0
-        sor_kernel.EXT_LAUNCHES = sor_kernel.CYCLE_LAUNCHES = 0
-        momentum_kernel.LAUNCHES = 0
+        start = timing.counts()
         states[device], stats = solver.solve(
             prm, device=device, pressure_method="mg", time_order=order,
             max_steps=3)
         assert stats.steps == 3 and stats.sor_failures == 0
-        assert momentum_kernel.LAUNCHES == 0
-        assert sor_kernel.LAUNCHES == sor_kernel.WARM_LAUNCHES == 0
-        assert sor_kernel.TILED_LAUNCHES == sor_kernel.CYCLE_LAUNCHES == 0
-        assert sor_kernel.COMPRESSED_LAUNCHES == sor_kernel.EXT_LAUNCHES == 0
+        assert launches("momentum", start) == 0
+        assert launches("sor_whole_grid", start) == launches("sor_warm", start) == 0
+        assert launches("sor_tiled", start) == launches("mg_coarse_cycle", start) == 0
+        assert launches("sor_compressed", start) == launches("sor_ext", start) == 0
     for name in ("u", "v", "p"):
         g = getattr(states[cuda], name).cpu().numpy()
         c = getattr(states["cpu"], name).numpy()
@@ -1144,15 +1150,14 @@ def test_thermal_steps_on_the_card_take_no_momentum_kernel(cuda, method):
     for order in (1, 2):
         states = {}
         for device in (cuda, "cpu"):
-            sor_kernel.LAUNCHES = sor_kernel.CYCLE_LAUNCHES = 0
-            momentum_kernel.LAUNCHES = 0
+            start = timing.counts()
             states[device], stats = convection.thermal_solve(
                 prm, cfg, device=device, pressure_method=method,
                 time_order=order, max_steps=4)
             assert stats.steps == 4 and stats.sor_failures == 0
-            assert momentum_kernel.LAUNCHES == 0
-            launched = (sor_kernel.LAUNCHES if method == "pallas_sor"
-                        else sor_kernel.CYCLE_LAUNCHES)
+            assert launches("momentum", start) == 0
+            launched = launches("sor_whole_grid" if method == "pallas_sor"
+                                else "mg_coarse_cycle", start)
             assert (launched > 0) == (device == cuda)
         for name in ("u", "v", "p", "T"):
             g = getattr(states[cuda], name).cpu().numpy()
@@ -1172,11 +1177,11 @@ def test_sharded_obstacle_step_on_the_card_launches_no_kernel(cuda):
     from navierstokes_parallel_tpu_torch.utils import distributed
 
     prm = step_model.backward_facing_step(nx=32, ny=8, T=0.3)
-    sor_kernel.EXT_LAUNCHES = momentum_kernel.LAUNCHES = 0
+    start = timing.counts()
     with distributed.process_group(cuda) as device:
         mesh = topology.make_grid_mesh(shape=(1, 1), device=device)
         state, stats = sharded.solve_sharded(prm, mesh=mesh, max_steps=3)
-    assert sor_kernel.EXT_LAUNCHES == momentum_kernel.LAUNCHES == 0
+    assert launches("sor_ext", start) == launches("momentum", start) == 0
     single, sstats = solver.solve(prm, device=cuda, max_steps=3)
     assert stats[:3] == sstats[:3] and stats.sor_failures == 0
     for name in ("u", "v"):
@@ -1197,15 +1202,12 @@ def test_free_surface_on_the_card_launches_no_kernel(cuda):
     runs = {}
     for device in (cuda, "cpu"):
         prm, fs = FS.dam_break(n=15, T=0.25, dtype="float32", device=device)
-        sor_kernel.LAUNCHES = sor_kernel.WARM_LAUNCHES = 0
-        sor_kernel.TILED_LAUNCHES = sor_kernel.COMPRESSED_LAUNCHES = 0
-        sor_kernel.EXT_LAUNCHES = sor_kernel.CYCLE_LAUNCHES = 0
-        momentum_kernel.LAUNCHES = 0
+        start = timing.counts()
         out, stats = FS.solve_free(prm, fs, wall="freeslip", max_steps=3)
-        assert momentum_kernel.LAUNCHES == 0
-        assert sor_kernel.LAUNCHES == sor_kernel.WARM_LAUNCHES == 0
-        assert sor_kernel.TILED_LAUNCHES == sor_kernel.CYCLE_LAUNCHES == 0
-        assert sor_kernel.COMPRESSED_LAUNCHES == sor_kernel.EXT_LAUNCHES == 0
+        assert launches("momentum", start) == 0
+        assert launches("sor_whole_grid", start) == launches("sor_warm", start) == 0
+        assert launches("sor_tiled", start) == launches("mg_coarse_cycle", start) == 0
+        assert launches("sor_compressed", start) == launches("sor_ext", start) == 0
         flags = surface.cell_flags(out.pset.x, out.pset.y, out.pset.active,
                                    prm)
         runs[device] = (out, stats, flags)
@@ -1268,14 +1270,15 @@ def test_gradient_on_the_card_equals_the_cpu(cuda):
             lid = torch.tensor(1.0, dtype=torch.float64, device=device,
                                requires_grad=True)
             c = diff.default_controls(prm, device)._replace(lid_scale=lid)
-            sor_kernel.WARM_LAUNCHES = sor_kernel.CYCLE_LAUNCHES = 0
+            start = timing.counts()
             final, _ = diff.solve_n_steps(prm, state._replace(u=u0), 2,
                                           controls=c, remat=remat)
-            fwd = (sor_kernel.WARM_LAUNCHES, sor_kernel.CYCLE_LAUNCHES)
+            fwd = (launches("sor_warm", start),
+                   launches("mg_coarse_cycle", start))
             ((final.u[1:-1, 1:-1] ** 2).sum()
              + (final.v[1:-1, 1:-1] ** 2).sum()).backward()
-            bwd = (sor_kernel.WARM_LAUNCHES - fwd[0],
-                   sor_kernel.CYCLE_LAUNCHES - fwd[1])
+            bwd = (launches("sor_warm", start) - fwd[0],
+                   launches("mg_coarse_cycle", start) - fwd[1])
             if device == cuda:
                 assert fwd[1] > 0 and bwd[1] > 0, (fwd, bwd)
             grads[device, remat] = (lid.grad.cpu(), u0.grad.cpu())
@@ -1377,13 +1380,13 @@ def test_batched_sweeps_equal_each_members_launch(cuda, shape, n):
     prm = _params(*shape)
     rhs = torch.stack([_rhs(prm, seed=k) for k in range(3)]).to(cuda)
     for call, counter in (
-            (sor_kernel.whole_grid_sweeps, "LAUNCHES"),
+            (sor_kernel.whole_grid_sweeps, "sor_whole_grid"),
             (lambda r, m, p: sor_kernel.inner_sweeps_tiled(r, m, p,
                                                            tile_rows=16),
-             "TILED_LAUNCHES")):
-        before = getattr(sor_kernel, counter)
+             "sor_tiled")):
+        before = launches(counter)
         got = call(rhs, n, prm)
-        assert getattr(sor_kernel, counter) == before + 1
+        assert launches(counter) == before + 1
         want = sor_kernel.inner_sweeps_plain(rhs, n, prm)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
@@ -1402,9 +1405,9 @@ def test_batched_momentum_equals_each_members_launch(cuda, shape):
             for x in zip(*(_uv(prm, seed=k) for k in range(3))))
     dt = torch.tensor([0.004, 0.002, 0.003], device=cuda)
     gamma = torch.tensor([0.7, 0.5, 0.9], device=cuda)
-    before = momentum_kernel.LAUNCHES
+    before = launches("momentum")
     got = momentum_kernel.momentum_rhs(u, v, dt, gamma, prm)
-    assert momentum_kernel.LAUNCHES == before + 1
+    assert launches("momentum") == before + 1
     want = momentum_kernel.momentum_rhs_plain(u, v, dt, gamma, prm)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -1432,11 +1435,11 @@ def test_ensemble_on_the_card_launches_the_batched_kernels(cuda):
         members.append(s._replace(u=s.u + torch.tensor(
             0.01 * k * rng.standard_normal(prm.shape), dtype=s.u.dtype,
             device=cuda)))
-    sweeps, momentum = sor_kernel.LAUNCHES, momentum_kernel.LAUNCHES
+    sweeps, momentum = launches("sor_whole_grid"), launches("momentum")
     out, stats = solver.solve_ensemble(prm, solver.stack_states(members))
     steps = max(stats.steps.tolist())
-    assert momentum_kernel.LAUNCHES - momentum == steps
-    assert sor_kernel.LAUNCHES - sweeps >= steps
+    assert launches("momentum") - momentum == steps
+    assert launches("sor_whole_grid") - sweeps >= steps
     for k, member in enumerate(members):
         state, _ = solver.solve(prm, member)
         for name in ("u", "v", "p"):

@@ -10,6 +10,7 @@ numpy (the cavity model, the vortex location, the Ghia errors) is exact.
 """
 
 import dataclasses
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -169,14 +170,20 @@ def test_check_step_names_the_step():
 
 
 def test_timer_and_profiler_trace(tmp_path):
-    x = torch.ones(4, 4)
-    with timing.Timer() as timer:
-        y = x @ x
-    assert timer.elapsed > 0
-    with timing.Timer() as timer:
-        assert timer.stop(fence_on=y) == timer.elapsed > 0
+    """A profiler_trace capture of a 24^2 pallas_sor solve holds one
+    ``nsp.pressure.pass`` span for each outer pass counted."""
+    prm = Params(i_max=24, j_max=24, Re=1000.0, T=0.3, tau=0.5,
+                 epsilon=1e-12, max_it=300)
+    before = timing.counts()
     with timing.profiler_trace(str(tmp_path / "trace")) as where:
-        (x @ x).sum()
+        solver.solve(prm, device="cpu", pressure_method="pallas_sor",
+                     max_steps=2)
+    passes = (timing.counts()["pressure.passes"]
+              - before.get("pressure.passes", 0))
     assert where == str(tmp_path / "trace")
     traces = list((tmp_path / "trace").glob("*.pt.trace.json"))
     assert len(traces) == 1 and traces[0].stat().st_size > 0
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    spans = [e for e in events if e.get("name") == "nsp.pressure.pass"
+             and e.get("cat") == "user_annotation"]
+    assert passes == 2 * 5 and len(spans) == passes

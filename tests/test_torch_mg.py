@@ -41,6 +41,7 @@ from navierstokes_parallel_tpu_torch.config import Params
 from navierstokes_parallel_tpu_torch.grid import allocate_state
 from navierstokes_parallel_tpu_torch.ops import mg, sor
 from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+from navierstokes_parallel_tpu_torch.utils import timing
 
 from conftest import assert_close_reference_contract
 
@@ -105,11 +106,11 @@ def test_warm_sweeps_cpu_dispatches_to_plain():
     p = torch.from_numpy(rng.standard_normal(prm.shape).astype(np.float32))
     rhs = torch.from_numpy(_interior_field(prm.shape, rng))
     before_p = p.clone()
-    before = sor_kernel.WARM_LAUNCHES
+    before = timing.counts()
     got = sor_kernel.warm_sweeps(p, rhs, 2, 1.0, 3.0, 5.0)
     assert torch.equal(got, sor_kernel.warm_sweeps_plain(p, rhs, 2, 1.0, 3.0,
                                                          5.0))
-    assert sor_kernel.WARM_LAUNCHES == before  # no kernel launched
+    assert timing.counts() == before  # no kernel launched
     assert torch.equal(p, before_p)  # p is not modified
     zero = sor_kernel.warm_sweeps(p, rhs, 0, 1.0, 3.0, 5.0)
     assert torch.equal(zero, p) and zero.data_ptr() != p.data_ptr()
@@ -261,10 +262,10 @@ def test_coarse_cycle_cpu_dispatches_to_plain(counts):
     shape = levels[1].shape
     p = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     rhs = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-    before_p, before = p.clone(), sor_kernel.CYCLE_LAUNCHES
+    before_p, before = p.clone(), timing.counts()
     got = sor_kernel.coarse_cycle(p, rhs, [tuple(lv) for lv in levels[1:]],
                                   *counts)
-    assert sor_kernel.CYCLE_LAUNCHES == before and torch.equal(p, before_p)
+    assert timing.counts() == before and torch.equal(p, before_p)
     assert torch.equal(got, mg.v_cycle(p, rhs, levels, 1, *counts))
     assert torch.equal(got, mg.v_cycle_plain(p, rhs, levels[1:], *counts))
     assert torch.equal(got[0], p[0]) and torch.equal(got[:, -1], p[:, -1])
