@@ -15,9 +15,11 @@ launch once per half-sweep and share nothing with the temporal-blocked tile
 but the cell update; the compressed kernel also against its first kernel,
 and the fused momentum kernel against its first, two-launch kernel) on the
 card with error 0.0 (every kernel rounds each f32 operation once, as its
-plain twin does: csrc/nsp_round.cuh), times them beside those first
-kernels, drives the paths and checks each answer against the JAX package's
-recorded answer:
+plain twin does: csrc/nsp_round.cuh), and the f64 outer's fused pass
+(csrc/defect.cu) against its twin over two passes, master and next rhs
+with error 0.0 and the norm within DEFECT_NORM_RTOL; times them beside
+those first kernels (the fused pass beside its twin), drives the paths and
+checks each answer against the JAX package's recorded answer:
 
   * SOR: ``python -m navierstokes_parallel_tpu_torch configs/1.in --stats``
     through ``cli.main`` (kernels sor_sweeps and momentum_rhs), at the
@@ -466,6 +468,15 @@ PEAK_F32_FLOPS = 67e12
 # for G, 2 for the gamma factors, 6 for rhs).
 SWEEP_FLOPS_PER_CELL = 11
 MOMENTUM_FLOPS_PER_CELL = 122
+# Bytes per interior cell of the f64 outer's fused pass (csrc/defect.cu):
+# the master (8), delta (4) and rhs (8) read, the new master (8) and the
+# next rhs (4) written.  Its ~12 f64 operations a cell take a 25th of that
+# time at the card's 34 TFLOP/s of float64, so bytes bound it.
+DEFECT_BYTES_PER_CELL = 32
+# The f64 outer's fused pass against its twin: the norm's sum runs in
+# another order (per-block partials, then the blocks in order), so it
+# agrees to rounding; master and next rhs are bit for bit.
+DEFECT_NORM_RTOL = 1e-13
 
 
 class PhaseFailed(Exception):
@@ -671,7 +682,76 @@ def phase_compare(torch) -> dict:
     errs["sor_ext"] = compare_ext(torch, rng)
     for key, err in compare_batched(torch, rng).items():
         errs[key] = max(errs[key], err)
+    errs["pressure_defect"] = compare_defect(torch, rng)
     return errs
+
+
+def defect_case(torch, rng, i_max: int, j_max: int):
+    """(params, master, delta, rhs interior, threshold) on the card for
+    the f64 outer's pass on an i_max x j_max interior: a random master and
+    rhs, an f32 delta, the threshold of a solve whose passes go on."""
+    from navierstokes_parallel_tpu_torch.config import Params
+
+    prm = Params(i_max=i_max, j_max=j_max, a=1.0, b=0.7, Re=1000.0,
+                 omega=1.7)
+    p64 = torch.from_numpy(rng.standard_normal(prm.shape)).cuda()
+    delta = torch.from_numpy(rng.standard_normal(prm.shape).astype(
+        np.float32)).cuda()
+    rhs = torch.from_numpy(rng.standard_normal((i_max, j_max))).cuda()
+    return prm, p64, delta, rhs, torch.zeros((), dtype=torch.float64,
+                                             device="cuda")
+
+
+def defect_passes(torch, pass_fn, p64, delta, n_passes: int):
+    """n_passes of pass_fn (a defect_kernel.outer_pass) from p64: (master,
+    on, iterations, res_norm) after them."""
+    on = torch.ones((), dtype=torch.bool, device=p64.device)
+    iterations = torch.zeros((), dtype=torch.int64, device=p64.device)
+    res_norm = torch.full((), float("inf"), dtype=torch.float64,
+                          device=p64.device)
+    for _ in range(n_passes):
+        p64 = pass_fn(p64, delta, on, iterations, res_norm, SOR_SWEEPS)
+    return p64, on, iterations, res_norm
+
+
+def compare_defect(torch, rng) -> float:
+    """The f64 outer's fused pass (defect_kernel.outer_pass, one launch)
+    against its plain twin on the CPU, two passes from one master (the
+    kernel's master ping-pongs between two buffers) at the SOR path's
+    258^2, the mg path's 2050^2 and the channel's 130 x 66: the masters'
+    interiors and the next rhs bit for bit, the flag and the count equal,
+    the norm within DEFECT_NORM_RTOL.  Returns the largest abs error of
+    master and rhs."""
+    from navierstokes_parallel_tpu_torch.ops.cuda import defect_kernel
+
+    worst = 0.0
+    for i_max, j_max in ((256, 256), (2048, 2048), (128, 64)):
+        prm, p64, delta, rhs, threshold = defect_case(torch, rng, i_max,
+                                                      j_max)
+        out = {}
+        # outer_pass takes the kernel on the card and the twin on the CPU.
+        for name, device in (("kernel", "cuda"), ("plain", "cpu")):
+            master, d, r, thr = (x.to(device, copy=True)
+                                 for x in (p64, delta, rhs, threshold))
+            rhs_full = torch.zeros(prm.shape, dtype=torch.float32,
+                                   device=device)
+            got = defect_passes(torch, defect_kernel.outer_pass(
+                master, r, rhs_full, thr, prm), master, d, 2)
+            out[name] = tuple(x.cpu() for x in (*got, rhs_full))
+        (km, kon, kit, knorm, krhs), (pm, pon, pit, pnorm, prhs) = (
+            out["kernel"], out["plain"])
+        err = max(float((km - pm)[1:-1, 1:-1].abs().max()),
+                  float((krhs - prhs).abs().max()))
+        rel = abs(float(knorm) - float(pnorm)) / float(pnorm)
+        flags = (bool(kon), int(kit)) == (bool(pon), int(pit))
+        print(f"[compare] pressure_defect {prm.shape}, 2 passes: max abs err "
+              f"{err:.3e} (expected 0), norm {float(knorm):.17g} vs "
+              f"{float(pnorm):.17g} (rel {rel:.2e}), flag and count equal "
+              f"{flags}")
+        check(err == 0.0 and rel <= DEFECT_NORM_RTOL and flags,
+              f"pressure_defect kernel disagrees at {prm.shape}")
+        worst = max(worst, err)
+    return worst
 
 
 def compare_batched(torch, rng) -> dict:
@@ -1189,6 +1269,7 @@ def phase_time(torch) -> dict:
 
     times["momentum"] = time_momentum(torch, rng, prm)
     times["sor_compressed"] = time_compressed(torch, prm, rhs, bounds)
+    times["pressure_defect"] = time_defect(torch, rng)
 
     # The tiled kernel at 258^2 and 2050^2, each beside its plain twin, the
     # first whole-grid kernel and the current one, 64 sweeps.
@@ -1313,6 +1394,53 @@ def time_momentum(torch, rng, prm1):
     return out
 
 
+def time_defect(torch, rng):
+    """The f64 outer's fused pass (one launch) at the SOR path's 258^2 and
+    the mg path's 2050^2, in turns with its plain twin on the card (~28
+    launches): plain, kernel, kernel, plain, per call, and the kernel's
+    device time in a CUDA graph, beside its bytes bound.  Returns (kernel ms, plain ms,
+    bound ms, bound by) at 2050^2."""
+    from navierstokes_parallel_tpu_torch.ops.cuda import defect_kernel
+
+    out = None
+    for n, reps, p_reps in ((256, 500, 100), (2048, 200, 20)):
+        prm, p64, delta, rhs, threshold = defect_case(torch, rng, n, n)
+        # Tiny corrections keep the master's scale over every timed pass.
+        delta *= 1e-6
+        rhs_full = torch.zeros(prm.shape, dtype=torch.float32, device="cuda")
+        on = torch.ones((), dtype=torch.bool, device="cuda")
+        iterations = torch.zeros((), dtype=torch.int64, device="cuda")
+        res_norm = torch.zeros((), dtype=torch.float64, device="cuda")
+        kernel = defect_kernel.outer_pass(p64, rhs, rhs_full, threshold, prm)
+        master = [p64]
+
+        def run_kernel():
+            master[0] = kernel(master[0], delta, on, iterations, res_norm,
+                               SOR_SWEEPS)
+
+        p_master = p64.clone()
+
+        def run_plain():
+            defect_kernel.outer_pass_plain(
+                p_master, delta, on, iterations, res_norm, SOR_SWEEPS,
+                rhs_int64=rhs, rhs_full=rhs_full, threshold=threshold,
+                params=prm)
+
+        p1 = cuda_ms(torch, run_plain, p_reps)
+        k1 = cuda_ms(torch, run_kernel, reps)
+        k2 = cuda_ms(torch, run_kernel, reps)
+        p2 = cuda_ms(torch, run_plain, p_reps)
+        g_k = graph_ms(torch, run_kernel)
+        b_ms, by = bound(DEFECT_BYTES_PER_CELL * prm.i_max * prm.j_max, 0)
+        print(f"[time] pressure_defect at {prm.shape}: kernel {k1:.4f} / "
+              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms per call; kernel "
+              f"device time in a CUDA graph {g_k * 1e3:.3f} us; bound "
+              f"{b_ms * 1e3:.3f} us ({by}), the kernel's device time "
+              f"{b_ms / g_k:.4f} of it")
+        out = ((k1 + k2) / 2, (p1 + p2) / 2, b_ms, by)
+    return out
+
+
 def time_compressed(torch, prm, rhs, bounds):
     """The compressed kernel at configs/1.in's 258^2, 64 sweeps, in turns
     with its plain twin, its first kernel (inner_sweeps_compressed_simple,
@@ -1373,7 +1501,8 @@ LAUNCH_COUNTERS = {"sor": "launch.sor_whole_grid",
                    "momentum": "launch.momentum",
                    "sor_tiled": "launch.sor_tiled",
                    "sor_compressed": "launch.sor_compressed",
-                   "sor_ext": "launch.sor_ext"}
+                   "sor_ext": "launch.sor_ext",
+                   "pressure_defect": "launch.pressure_defect"}
 _launch_start: dict = {}
 
 
@@ -1732,16 +1861,23 @@ def phase_sharded_path(torch) -> dict:
 
 def method_launches(tag: str, cycles: int) -> dict:
     """The kernel launches a METHOD_PATHS run must make (every other count
-    0): B2 once per step and once for the warm-up where the state is f32 on
-    one device; on the sharded mg path, for each V-cycle and the warm-up's
+    0): B2 once per step and once for the warm-up, and the f64 outer's
+    fused pass once per outer pass and once for the warm-up's, where the
+    state is f32 on one device; on the sharded mg path, for each V-cycle and the warm-up's
     one, two sor_ext_sweeps calls on every sharded level above the coarsest
     and one mg_coarse_cycle for the replicated coarse solve."""
     from navierstokes_parallel_tpu_torch.config import Params
     from navierstokes_parallel_tpu_torch.ops import mg
 
-    config, _, _, _, (steps, _, _), _ = METHOD_PATHS[tag]
+    config, _, _, _, (steps, _, failures), _ = METHOD_PATHS[tag]
     if tag in ("jacobi", "fft"):
-        return {"momentum": steps + 1}
+        # One problem with the default hooks: the f64 outer's fused pass,
+        # one launch a pass, the warm-up's pass too.
+        prm = Params.from_file(str(ROOT / "configs" / config))
+        K = (max(1, prm.fft_solves_per_outer) if tag == "fft"
+             else prm.sor_refine_every)
+        return {"momentum": steps + 1, "pressure_defect": outer_passes(
+            prm, K, cycles, failures) + 1}
     if tag == "sharded mg":
         prm = Params.from_file(str(ROOT / "configs" / config))
         levels = mg.build_levels_sharded(prm, prm.i_max, prm.j_max)
@@ -1810,6 +1946,14 @@ def compare_dct(torch) -> None:
         check(err <= DCT_RTOL, f"the DCT solve differs at {i_max}x{j_max}")
 
 
+def outer_passes(prm, K: int, iterations: int, failures: int) -> int:
+    """The outer passes of K inner steps behind a run's `iterations`, of
+    which `failures` steps ran into max_it (ceil(max_it / K) passes each)
+    and the others converged after whole passes."""
+    return ((iterations - failures * prm.max_it) // K
+            + failures * -(-prm.max_it // K))
+
+
 def channel_launches(tag: str, prm, iterations: int) -> dict:
     """The kernel launches a CHANNEL_PATHS run must make (every other count
     0).  On one card one sor_sweeps call per outer pass of K sweeps (max_it
@@ -1821,8 +1965,7 @@ def channel_launches(tag: str, prm, iterations: int) -> dict:
 
     _, argv, _, _, (steps, _, failures), _, order, _ = CHANNEL_PATHS[tag]
     K = prm.sor_refine_every
-    passes = (iterations - failures * prm.max_it) // K \
-        + failures * -(-prm.max_it // K)
+    passes = outer_passes(prm, K, iterations, failures)
     if "sharded" in argv:
         depth = deep_halo.comm_depth(prm, prm.i_max, prm.j_max)
         check(K % depth == 0 and failures == 0,
@@ -2024,7 +2167,9 @@ def phase_taylor_green(torch) -> dict:
     errors = taylorgreen.errors(state, prm)
     uc, vc = solver.center_values(state, prm)
     cycles = stats.total_sor_iterations
-    want = {"sor_warm": cycles * 2 * depth, "mg_coarse_cycle": cycles}
+    # The free-slip box (problem 4) takes the f64 outer's fused pass.
+    want = {"sor_warm": cycles * 2 * depth, "mg_coarse_cycle": cycles,
+            "pressure_defect": cycles // prm.mg_cycles_per_outer}
     got = {k: n for k, n in launches.items() if n}
     print(f"[taylor-green] {TG_N}^2 mg solve_ab2: {tuple(stats[:3])} vs JAX "
           f"{JAX_TG_STATS} in {seconds:.6f} s; centre {uc:.6f} {vc:.6f} vs "
@@ -4299,7 +4444,11 @@ def main(argv=None) -> int:
                                   f"{tpu}sor_kernel.py:782"),
                "sor_ext": ("sor_ext_sweeps", "sor_ext.cu",
                            "navierstokes_parallel_tpu/parallel/"
-                           "deep_halo.py:226")}
+                           "deep_halo.py:226"),
+               "pressure_defect": ("pressure_defect", "defect.cu",
+                                   "none (the f64 outer's pass after the "
+                                   "inner, jnp in navierstokes_parallel_tpu/"
+                                   "ops/sor.py::_solve_pressure_refined)")}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"navierstokes_parallel_tpu_torch/csrc/{src}",
                 "replaces": replaces, "launches": launches[key],

@@ -1,0 +1,158 @@
+"""The f64 outer's pass after its inner stage: the hand-written CUDA kernel
+and its plain twin.
+
+One pass of ops/sor.py::_solve_pressure_refined, once the inner stage has
+returned delta, updates the f64 master where the problem is still going,
+fills the Neumann ghost ring, forms the f64 defect r = A p - rhs, takes its
+L2 norm and updates the result's norm, the count and the go-on flag; the
+next pass's inner solves A delta = -r.  For one problem with the default
+hooks (ops/sor.py::_fused_outer) ``outer_pass`` makes that pass for one
+solve, the next pass's rhs, f32(-r), included: ``outer_pass_plain`` (the
+outer's statements as they were, plain PyTorch) for CPU tensors, one
+launch of ``csrc/defect.cu`` for CUDA tensors, which raises on anything the
+kernel does not take.  Its source note says what bounds it on the card.  No
+TPU kernel stands behind it: the JAX package's outer is jnp.
+
+The kernel's launches are counted in utils/timing.py's table under
+"launch.pressure_defect", one a call.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ...config import Params
+from ...utils import timing
+from ..stencils import l2_norm
+from . import _build
+
+# A block's interior cells (csrc/defect.cu::kTileRows, kTileCols): the
+# kernel's blocks, and so its partial sums, follow from them.
+TILE_ROWS = 16
+TILE_COLS = 32
+
+
+def blocks(i_max: int, j_max: int) -> int:
+    """Blocks of one launch over an i_max x j_max interior."""
+    return -(-i_max // TILE_ROWS) * -(-j_max // TILE_COLS)
+
+
+def _spacing(params: Params):
+    """(dx2_inv, dy2_inv) as Python doubles, as the outer forms them."""
+    return 1.0 / (params.dx * params.dx), 1.0 / (params.dy * params.dy)
+
+
+def outer_pass_plain(p64, delta, on, iterations, res_norm, n_inner, *,
+                     rhs_int64, rhs_full, threshold, params: Params):
+    """The pass in plain PyTorch: the f64 outer's statements, in place on
+    p64 (its ghost ring filled), res_norm, iterations, on and the interior
+    of rhs_full; returns p64."""
+    from .. import sor  # sor imports this module
+
+    dx2_inv, dy2_inv = _spacing(params)
+    interior = p64[1:-1, 1:-1]
+    interior.copy_(torch.where(
+        on, interior + delta[1:-1, 1:-1].to(torch.float64), interior))
+    r64 = sor.residual(sor.ghost_fill(p64), rhs_int64, dx2_inv, dy2_inv)
+    norm = l2_norm(r64, params.i_max, params.j_max)
+    res_norm.copy_(torch.where(on, norm, res_norm))
+    iterations += on * n_inner
+    on &= norm > threshold
+    rhs_full[1:-1, 1:-1] = -r64.to(torch.float32)
+    return p64
+
+
+def check_inputs(p64, rhs_int64, rhs_full, threshold, params: Params) -> None:
+    """Raise on a solve's tensors that the kernel does not take."""
+    shape = params.shape
+    for name, x, dtype, want in (
+            ("master", p64, torch.float64, shape),
+            ("rhs_full", rhs_full, torch.float32, shape),
+            ("rhs", rhs_int64, torch.float64, (params.i_max, params.j_max)),
+            ("threshold", threshold, torch.float64, ())):
+        if x.dtype != dtype:
+            raise TypeError(f"pressure defect kernel takes {dtype} {name}, "
+                            f"got {x.dtype}")
+        if tuple(x.shape) != want:
+            raise ValueError(f"pressure defect kernel takes {name} of shape "
+                             f"{want}, got {tuple(x.shape)}")
+        if x.device != p64.device:
+            raise ValueError(f"{name} on {x.device}, the master on "
+                             f"{p64.device}")
+    if not (p64.is_contiguous() and rhs_full.is_contiguous()):
+        raise ValueError("pressure defect kernel takes a contiguous master "
+                         "and rhs_full")
+    if rhs_int64.stride(-1) != 1:
+        raise ValueError("pressure defect kernel takes rhs rows of unit "
+                         "stride")
+
+
+def _check_pass(master, delta, on, iterations, res_norm,
+                params: Params) -> None:
+    """Raise on a pass's tensors that the kernel does not take."""
+    if (delta.dtype != torch.float32 or tuple(delta.shape) != params.shape
+            or not delta.is_contiguous()):
+        raise ValueError(f"pressure defect kernel takes a contiguous float32 "
+                         f"delta of shape {params.shape}, got {delta.dtype} "
+                         f"{tuple(delta.shape)}")
+    for name, x, dtype in (("on", on, torch.bool),
+                           ("iterations", iterations, torch.int64),
+                           ("res_norm", res_norm, torch.float64)):
+        if x.dtype != dtype or x.dim() != 0:
+            raise ValueError(f"pressure defect kernel takes a 0-d {dtype} "
+                             f"{name}, got {x.dtype} of shape "
+                             f"{tuple(x.shape)}")
+    for name, x in (("delta", delta), ("on", on), ("iterations", iterations),
+                    ("res_norm", res_norm)):
+        if x.device != master.device:
+            raise ValueError(f"{name} on {x.device}, the master on "
+                             f"{master.device}")
+
+
+def outer_pass(p64, rhs_int64, rhs_full, threshold, params: Params):
+    """The pass of one solve: a function (p64, delta, on, iterations,
+    res_norm, n_inner) -> the new master, which updates res_norm,
+    iterations and on in place and writes the next pass's rhs into the
+    interior of rhs_full (its ring stays 0).  CPU tensors take
+    ``outer_pass_plain``, which works on p64 in place; CUDA tensors the
+    kernel, one launch a pass, which writes the new master into a second
+    buffer and returns it (the caller's p64 becomes the next pass's
+    spare)."""
+    if p64.device.type == "cpu":
+        return functools.partial(outer_pass_plain, rhs_int64=rhs_int64,
+                                 rhs_full=rhs_full, threshold=threshold,
+                                 params=params)
+    if p64.device.type != "cuda":
+        raise ValueError(f"no pressure defect kernel for device "
+                         f"{p64.device}")
+    check_inputs(p64, rhs_int64, rhs_full, threshold, params)
+    lib = _build.load()
+    # The clone carries the master's corners, which no pass writes.
+    spare = p64.clone()
+    # One partial per block, then the ticket, which each launch leaves 0.
+    workspace = torch.zeros(blocks(params.i_max, params.j_max) + 1,
+                            dtype=torch.float64, device=p64.device)
+    dx2_inv, dy2_inv = _spacing(params)
+
+    def launch(master, delta, on, iterations, res_norm, n_inner):
+        nonlocal spare
+        _check_pass(master, delta, on, iterations, res_norm, params)
+        out = spare
+        if out.data_ptr() == master.data_ptr():
+            raise ValueError("the pass's master is its own spare: pass the "
+                             "master the last pass returned")
+        status = lib.nsp_pressure_defect(
+            master.data_ptr(), out.data_ptr(), delta.data_ptr(),
+            rhs_int64.data_ptr(), rhs_int64.stride(0), rhs_full.data_ptr(),
+            on.data_ptr(), iterations.data_ptr(), res_norm.data_ptr(),
+            threshold.data_ptr(), workspace.data_ptr(), workspace.numel(),
+            params.i_max, params.j_max, int(n_inner), dx2_inv, dy2_inv,
+            *_build.device_and_stream(master))
+        _build.check_status(status, "nsp_pressure_defect")
+        timing.count("launch.pressure_defect")
+        spare = master
+        return out
+
+    return launch

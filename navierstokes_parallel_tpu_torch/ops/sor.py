@@ -10,9 +10,12 @@ sweeps (the Laplacian amplifies p's storage rounding), so the f32 solve is
 the JAX package's mixed-precision iterative refinement: an f64 master
 pressure, an f64 defect and L2 check every K = ``sor_refine_every`` sweeps,
 and K f32 red-black sweeps on the correction in between.  The H100 has
-native FP64, so the outer is plain PyTorch in float64; the sweeps are
-hand-written kernels (ops/cuda/sor_kernel.py::inner_sweeps), routed as the
-JAX package routes its Pallas kernels: the temporal-blocked tiled kernel
+native FP64, so the outer runs in float64: one problem with the default
+hooks takes one hand-written kernel a pass for the master update, defect,
+norm and stop test (ops/cuda/defect_kernel.py), every other call plain
+PyTorch.  The sweeps are hand-written kernels
+(ops/cuda/sor_kernel.py::inner_sweeps), routed as the JAX package routes
+its Pallas kernels: the temporal-blocked tiled kernel
 where the grid exceeds the JAX whole-grid budget (2048^2 and up), else the
 whole-grid kernel (or the colour-compressed one with
 ``sor_kernel.USE_COMPRESSED``).  ``method="pallas_sor"`` and ``"rb_sor"``
@@ -72,7 +75,7 @@ import torch
 from ..config import Params
 from ..utils import timing
 from . import compensated, fft, mg
-from .cuda import sor_kernel
+from .cuda import defect_kernel, sor_kernel
 from .stencils import l2_norm
 
 # The serial reference's convergence-threshold offset (integration.c:164).
@@ -428,12 +431,13 @@ def _finish(p_out: torch.Tensor, going: Optional[torch.Tensor],
                          res_norm=float(res_norm), converged=bool(converged))
 
 
-def _still_going(on: torch.Tensor) -> bool:
+def _still_going(on: torch.Tensor, fused: bool = False) -> bool:
     """Whether any problem of the solve is still going: the host read of
-    the go-on flags, once a pass (once a chunk of the direct solve)."""
+    the go-on flags, once a pass (once a chunk of the direct solve).  The
+    fused pass's one flag is read as it is, with no reduction launched."""
     timing.count("sync.pressure_flag")
     with timing.span("pressure.flag"):
-        return bool(on.any())
+        return bool(on if fused else on.any())
 
 
 def _prepare(rhs, params: Params, method: str, mean_fn: Callable):
@@ -618,6 +622,12 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
     two-float f32 one (``_solve_pressure_refined_compensated``), with every
     hook but `residual_fn`, which it refuses as the JAX package does; it
     solves one problem (a batch goes member by member).
+
+    Where ``_fused_outer`` holds (one problem, the default hooks), the pass
+    after the inner is ``defect_kernel.outer_pass``: one kernel launch on
+    the card (its plain twin on the CPU), which also writes the next pass's
+    rhs, and the flag is read without a reduction.  Every other call takes
+    the plain statements below.
     """
     if params.outer_precision == "compensated":
         if residual_fn is not None:
@@ -629,6 +639,9 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
         return _solve_pressure_refined_compensated(
             p, rhs, params, ghost_fn=ghost_fn, l2_fn=l2_fn, parity=parity,
             inner_fn=inner_fn, valid_mask=valid_mask, mean_fn=mean_fn)
+    fused = _fused_outer(p, rhs, params, ghost_fn=ghost_fn, l2_fn=l2_fn,
+                         valid_mask=valid_mask, residual_fn=residual_fn,
+                         going=going)
     inner_fn = _default_inner(params, parity, inner_fn)
     K = params.sor_refine_every
     f64, f32 = torch.float64, torch.float32
@@ -662,30 +675,63 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
         on3 = on.view(*on.shape, 1, 1)  # follows `on` in place
         iterations = torch.zeros(on.shape, dtype=torch.int64, device=p.device)
         res_norm = torch.full(on.shape, math.inf, dtype=f64, device=p.device)
+        if fused:
+            outer_pass = defect_kernel.outer_pass(p64, rhs_int64, rhs_full,
+                                                  threshold, params)
+            # The set-up's defect stays plain (once a solve); each fused
+            # pass writes the next pass's rhs itself.
+            rhs_full[..., 1:-1, 1:-1] = -r64.to(f32)
         done = 0  # the sweeps of every problem still going
-        go_on = done < params.max_it and _still_going(on)
+        go_on = done < params.max_it and _still_going(on, fused)
     while go_on:
         timing.count("pressure.passes")
         with timing.span("pressure.pass"):
             n_inner = min(K, params.max_it - done)
-            # rhs_full's ghost ring stays 0; only its interior is rewritten.
-            rhs_full[..., 1:-1, 1:-1] = -r64.to(f32)
+            if not fused:
+                # rhs_full's ghost ring stays 0; only its interior is
+                # rewritten.
+                rhs_full[..., 1:-1, 1:-1] = -r64.to(f32)
             with timing.span("pressure.inner"):
                 delta = inner_fn(rhs_full, n_inner)
             with timing.span("pressure.defect"):
-                interior = p64[..., 1:-1, 1:-1]
-                interior.copy_(torch.where(
-                    on3, interior + delta[..., 1:-1, 1:-1].to(f64), interior))
-                r64 = defect()
-                norm = l2_fn(r64)
-                res_norm = torch.where(on, norm, res_norm)
-                iterations += on * n_inner
+                if fused:
+                    timing.count("pressure.fused_passes")
+                    p64 = outer_pass(p64, delta, on, iterations, res_norm,
+                                     n_inner)
+                else:
+                    interior = p64[..., 1:-1, 1:-1]
+                    interior.copy_(torch.where(
+                        on3, interior + delta[..., 1:-1, 1:-1].to(f64),
+                        interior))
+                    r64 = defect()
+                    norm = l2_fn(r64)
+                    res_norm = torch.where(on, norm, res_norm)
+                    iterations += on * n_inner
+                    on &= norm > threshold
                 done += n_inner
-                on &= norm > threshold
             # The one sync a pass: whether to go on.
-            go_on = done < params.max_it and _still_going(on)
+            go_on = done < params.max_it and _still_going(on, fused)
     return _finish(ghost_fn(p64).to(p.dtype), going, iterations, res_norm,
                    threshold, p.dtype)
+
+
+def _fused_outer(p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
+                 ghost_fn: Callable, l2_fn: Optional[Callable],
+                 valid_mask: Optional[torch.Tensor],
+                 residual_fn: Optional[Callable],
+                 going: Optional[torch.Tensor]) -> bool:
+    """Whether the f64 outer's pass after the inner takes
+    ``defect_kernel.outer_pass``: one problem (no `going`: a batch keeps
+    its member axis) of a 2-D contiguous float32 state, outside autograd,
+    with the default hooks (a shard's ghost fill, norm, pad mask or masked
+    defect each need the plain statements) and no deflation (problem 3's
+    needs a second global reduction before the norm)."""
+    return (going is None and p.dim() == 2 and p.dtype == torch.float32
+            and p.is_contiguous() and ghost_fn is ghost_fill and l2_fn is None
+            and valid_mask is None and residual_fn is None
+            and params.problem != 3
+            and not (torch.is_grad_enabled()
+                     and (p.requires_grad or rhs.requires_grad)))
 
 
 def _default_inner(params: Params, parity: int,

@@ -112,8 +112,8 @@ def test_library_name_follows_source_contents(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     first = _build.library_path()
     assert [p.name for p in _build.sources()] == [
-        "mg_cycle.cu", "momentum.cu", "sor.cu", "sor_compressed.cu",
-        "sor_ext.cu", "sor_tiled.cu"]
+        "defect.cu", "mg_cycle.cu", "momentum.cu", "sor.cu",
+        "sor_compressed.cu", "sor_ext.cu", "sor_tiled.cu"]
     with open(csrc / "nsp_round.cuh", "a") as fh:
         fh.write("// edited\n")
     assert _build.library_path() != first
@@ -1444,3 +1444,166 @@ def test_ensemble_on_the_card_launches_the_batched_kernels(cuda):
         state, _ = solver.solve(prm, member)
         for name in ("u", "v", "p"):
             assert torch.equal(getattr(out, name)[k], getattr(state, name))
+
+
+# --- the f64 outer's fused pass (csrc/defect.cu) -------------------------------
+
+# The fused pass's norm against its twin's: the kernel sums r^2 in another
+# order (per-block partials, then the blocks in order), so the two agree
+# to rounding; master and next rhs agree bit for bit.
+DEFECT_NORM_RTOL = 1e-13
+
+
+def _defect_inputs(i_max, j_max, seed):
+    """(params, master, delta, rhs interior) of one pass, on the CPU."""
+    prm = Params(i_max=i_max, j_max=j_max, a=1.0, b=0.7)
+    rng = np.random.default_rng(seed)
+    return (prm, torch.from_numpy(rng.standard_normal(prm.shape)),
+            torch.from_numpy(rng.standard_normal(prm.shape).astype(
+                np.float32)),
+            torch.from_numpy(rng.standard_normal((i_max, j_max))))
+
+
+def _defect_run(prm, p64, delta, rhs, device, case: str, n_passes: int = 2):
+    """n_passes of defect_kernel.outer_pass from p64 on `device` (the
+    kernel on the card, the twin on the CPU): (master, rhs_full, on,
+    iterations, res_norm) after them.  case: "going" (threshold 0),
+    "stopped" (the flag already off) or "stops" (the first pass's norm
+    meets the threshold)."""
+    from navierstokes_parallel_tpu_torch.ops.cuda import defect_kernel
+
+    # Copies: the twin works on its master in place.
+    p64, delta, rhs = (x.to(device, copy=True) for x in (p64, delta, rhs))
+    rhs_full = torch.zeros(prm.shape, dtype=torch.float32, device=device)
+    threshold = torch.tensor(1e300 if case == "stops" else 0.0,
+                             dtype=torch.float64, device=device)
+    on = torch.tensor(case != "stopped", device=device)
+    iterations = torch.zeros((), dtype=torch.int64, device=device)
+    res_norm = torch.full((), float("inf"), dtype=torch.float64,
+                          device=device)
+    pass_fn = defect_kernel.outer_pass(p64, rhs, rhs_full, threshold, prm)
+    for _ in range(n_passes):
+        p64 = pass_fn(p64, delta, on, iterations, res_norm, 64)
+    return p64, rhs_full, on, iterations, res_norm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["going", "stopped", "stops"])
+@pytest.mark.parametrize("interior", [(256, 256), (2048, 2048), (128, 64)],
+                         ids=lambda s: f"{s[0] + 2}x{s[1] + 2}")
+def test_defect_kernel_matches_plain(cuda, interior, case):
+    """Two passes of the kernel (its master ping-pongs between two buffers)
+    against two of the twin on the CPU: masters' interiors and the next rhs
+    bit for bit, the flag and the count equal, the norm within
+    DEFECT_NORM_RTOL; the kernel writes no ghost ring."""
+    prm, p64, delta, rhs = _defect_inputs(*interior, seed=interior[1])
+    start = timing.counts()
+    km, krhs, kon, kit, knorm = _defect_run(prm, p64, delta, rhs, cuda, case)
+    torch.cuda.synchronize()
+    assert launches("pressure_defect", start) == 2
+    pm, prhs, pon, pit, pnorm = _defect_run(prm, p64, delta, rhs, "cpu", case)
+    assert torch.equal(km.cpu()[1:-1, 1:-1], pm[1:-1, 1:-1])
+    assert torch.equal(krhs.cpu(), prhs)
+    assert (bool(kon), int(kit)) == (bool(pon), int(pit))
+    assert int(kit) == {"going": 128, "stopped": 0, "stops": 64}[case]
+    ring = torch.ones(prm.shape, dtype=torch.bool)
+    ring[1:-1, 1:-1] = False
+    assert torch.equal(km.cpu()[ring], p64[ring])
+    if case == "stopped":
+        assert float(knorm) == float(pnorm) == float("inf")
+        assert torch.equal(km.cpu(), p64)
+    else:
+        assert (abs(float(knorm) - float(pnorm))
+                <= DEFECT_NORM_RTOL * float(pnorm))
+
+
+@pytest.mark.gpu
+def test_defect_kernel_gives_the_same_bits_twice(cuda):
+    """Two runs of three passes from one master at 2050^2: the same
+    masters, next rhs and norms bit for bit (the norm's sum has a fixed
+    order)."""
+    prm, p64, delta, rhs = _defect_inputs(2048, 2048, seed=12)
+    runs = [_defect_run(prm, p64, delta, rhs, cuda, "going", n_passes=3)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_defect_kernel_raises_on_what_it_does_not_take(cuda):
+    from navierstokes_parallel_tpu_torch.ops.cuda import defect_kernel
+
+    prm, p64, delta, rhs = _defect_inputs(16, 12, seed=13)
+    p64, delta, rhs = p64.to(cuda), delta.to(cuda), rhs.to(cuda)
+    rhs_full = torch.zeros(prm.shape, device=cuda)
+    threshold = torch.zeros((), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        defect_kernel.outer_pass(p64.float(), rhs, rhs_full, threshold, prm)
+    pass_fn = defect_kernel.outer_pass(p64, rhs, rhs_full, threshold, prm)
+    on = torch.ones((), dtype=torch.bool, device=cuda)
+    it = torch.zeros((), dtype=torch.int64, device=cuda)
+    norm = torch.zeros((), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="delta"):
+        pass_fn(p64, delta.double(), on, it, norm, 4)
+    with pytest.raises(ValueError, match="on"):
+        pass_fn(p64, delta, on.reshape(1), it, norm, 4)
+    out = pass_fn(p64, delta, on, it, norm, 4)
+    with pytest.raises(ValueError, match="spare"):
+        pass_fn(p64, delta, on, it, norm, 4)  # the spare of the next pass
+    pass_fn(out, delta, on, it, norm, 4)
+
+
+def _plain_outer(monkeypatch):
+    """Send every refined solve to the plain statements (an explicit
+    default norm)."""
+    from navierstokes_parallel_tpu_torch.ops import sor
+
+    refined = sor._solve_pressure_refined
+
+    def plain(p, rhs, params, **kw):
+        return refined(p, rhs, params, **{"l2_fn": sor._default_l2(params),
+                                          **kw})
+
+    monkeypatch.setattr(sor, "_solve_pressure_refined", plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["1.in pallas_sor", "514 mg"])
+def test_fused_outer_on_the_card_equals_the_plain_statements(cuda, case,
+                                                             monkeypatch):
+    """One step of configs/1.in by pallas_sor (313 passes into max_it) and
+    one of a 514^2 cavity by mg, each with the fused pass (one launch a
+    pass) and with the plain statements: equal counts, fields within
+    1e-12."""
+    from pathlib import Path
+
+    configs = Path(__file__).resolve().parents[1] / "configs"
+    if case == "514 mg":
+        prm = Params.from_file(str(configs / "4.in")).replace(i_max=512,
+                                                              j_max=512)
+        method = "mg"
+    else:
+        prm = Params.from_file(str(configs / "1.in"))
+        method = "pallas_sor"
+    runs = {}
+    for name in ("fused", "plain"):
+        if name == "plain":
+            _plain_outer(monkeypatch)
+        stepper = solver.Stepper(prm, allocate_state(prm, cuda), method)
+        start = timing.counts()
+        stats = solver.run_steps(stepper, prm, max_steps=1)
+        passes = timing.counts()["pressure.passes"] - start.get(
+            "pressure.passes", 0)
+        runs[name] = (stepper.state(), stats, passes,
+                      launches("pressure_defect", start))
+    (fs, fstats, fpasses, flaunch), (ps, pstats, ppasses, plaunch) = (
+        runs["fused"], runs["plain"])
+    assert fstats == pstats and fpasses == ppasses >= 1
+    assert flaunch == fpasses and plaunch == 0
+    if method == "pallas_sor":
+        assert fpasses == -(-prm.max_it // prm.sor_refine_every)
+    for name in ("u", "v", "p"):
+        f = getattr(fs, name).double()
+        p = getattr(ps, name).double()
+        assert float((f - p).abs().max()) <= 1e-12 * max(
+            1.0, float(p.abs().max())), name
