@@ -4,15 +4,17 @@ program's over many seeds, and the precision control's.
     python3 -m nsbench.calibrate --workload <cell> --seeds 1,2,3 \
         [--control-seeds 4,5,6] [--out chiprun_out/<file>.jsonl]
 
-For each seed of ``--seeds`` it runs one solve of the timed path (the
-harness's own ``Solves.run``: ``solver.run_steps`` over ``solver.Stepper``
-from the seeded state, after ``solver.warm_up``) and compares its fields
-with the reference's.  For each seed of ``--control-seeds`` it puts the
-control in the program's place: the reference with every field the
-configuration keeps in float32 (u, v, F, G, rhs, p) rounded to bfloat16,
-the precision below float32, and compares it with the reference in the
-same way.  One JSON line per reading.  The benchmark's own runs never run
-this.
+Every step goes through the family that the cell's configuration names
+(``families/<name>.py``).  For each seed of ``--seeds`` it runs one solve
+of the timed path (the harness's own ``Solves.run``: ``solver.run_steps``
+over the family's stepper from its seeded state, after its ``warm_up``)
+and compares the family's fields with the reference's by the family's
+readings.  For each seed of ``--control-seeds`` it puts the control in the
+program's place: the family's reference with every field the
+configuration keeps in float32 (for the cavity u, v, F, G, rhs, p) rounded
+to bfloat16, the precision below float32, and reads the fields of its
+result against the reference in the same way.  One JSON line per reading.
+The benchmark's own runs never run this.
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ import time
 
 import torch
 
-from . import compare
 from .harness import Cell, Solves
 from .registry import Registry
 
@@ -38,18 +39,18 @@ def control_readings(cell: Cell, seed: int, device) -> dict:
     state = cell.initial_state(seed, device)
     ref = cell.reference(state)
     ctl = cell.reference(state, store=bfloat16_store)
-    return compare.field_errors(ctl.u, ctl.v, ctl.p, ctl.steps, ref,
-                                cell.prm["i_max"], cell.prm["j_max"])
+    return cell.family.readings(cell.family.fields(ctl), ctl.steps, ref,
+                                cell)
 
 
 def program_readings(cell: Cell, seed: int, device) -> dict:
     state = cell.initial_state(seed, device)
     out, steps = Solves(cell, state).run()
-    kept = [x.to(torch.float64) for x in (out.u, out.v, out.p)]
+    kept = {name: x.to(torch.float64)
+            for name, x in cell.family.fields(out).items()}
     del out
     ref = cell.reference(state)
-    return compare.field_errors(*kept, steps, ref, cell.prm["i_max"],
-                                cell.prm["j_max"])
+    return cell.family.readings(kept, steps, ref, cell)
 
 
 def main(argv=None) -> int:
@@ -59,11 +60,9 @@ def main(argv=None) -> int:
     parser.add_argument("--control-seeds", default="")
     parser.add_argument("--out", default="")
     args = parser.parse_args(argv)
-    from navierstokes_parallel_tpu_torch import solver
-
     cell = Cell(Registry(), args.workload)
     device = torch.device("cuda")
-    solver.warm_up(cell.params, device, cell.method)
+    cell.family.warm_up(cell, device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = open(args.out, "a") if args.out else None

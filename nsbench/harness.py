@@ -1,20 +1,25 @@
 """One run of one cell: set-up, the measured window (or the traced solves),
 the comparison with the reference, and the result line.
 
-The window drives the program's host loop, ``solver.run_steps`` over a
-``solver.Stepper`` (what ``solver.solve`` and the CLI run), from the same
-seeded state for every solve, back to back until the seconds have passed.
-Its ``before`` hook, called where the loop has read t (a sync), marks each
-step's boundary with a CUDA event, so step times come from the device's
-clock.  Every solve's fields are held against the first timed solve's on
-the device (no sync); the first timed solve is compared with the reference
-once the window has closed, the peak memory read and the program's state
-freed.
+What belongs to one kind of problem (its seeded state, its stepper, its
+step guard, the fields a solve is judged by, its plain reference and the
+readings) comes from the family that the cell's configuration names,
+``families/<name>.py`` (``families/cavity.py`` where it names none; that
+module's docstring lists the functions a family gives).
+
+The window drives the program's host loop, ``solver.run_steps`` over the
+family's stepper (for the cavity ``solver.Stepper``, what ``solver.solve``
+and the CLI run), from the same seeded state for every solve, back to back
+until the seconds have passed.  Its ``before`` hook, called where the loop
+has read t (a sync), marks each step's boundary with a CUDA event, so step
+times come from the device's clock.  Every solve's fields are held against
+the first timed solve's on the device (no sync); the first timed solve is
+compared with the reference once the window has closed, the peak memory
+read and the program's state freed.
 """
 
 from __future__ import annotations
 
-import math
 import os
 import subprocess
 import sys
@@ -25,8 +30,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import compare, peaks, seed as seeding, trace
-from .reference import cavity
+from . import compare, peaks, trace
+from .families.cavity import guard as step_guard  # noqa: F401
 from .registry import Registry
 
 # Top-level module names that may not be loaded in a run.
@@ -45,15 +50,6 @@ def forbidden_modules() -> List[str]:
     compared whole (the part before the first dot)."""
     loaded = {name.split(".", 1)[0] for name in list(sys.modules)}
     return sorted(loaded.intersection(FORBIDDEN))
-
-
-def step_guard(prm: Dict) -> int:
-    """The most steps a solve may take: four times what it would take at
-    the smaller of the viscous bound and a step at twice the lid speed."""
-    dx, dy = prm["a"] / prm["i_max"], prm["b"] / prm["j_max"]
-    visc = prm["Re"] / 2.0 / (1.0 / dx ** 2 + 1.0 / dy ** 2)
-    dt = prm["tau"] * min(visc, min(dx, dy) / 2.0)
-    return 4 * math.ceil(prm["T"] / dt) + 16
 
 
 class StepClock:
@@ -88,7 +84,9 @@ class StepClock:
 
 
 class Cell:
-    """A cell's configuration, traffic, limits and the program's Params."""
+    """A cell's configuration, traffic, limits, the program's Params and
+    the configuration's family (``families/cavity.py`` where it names
+    none)."""
 
     def __init__(self, registry: Registry, workload: str):
         from navierstokes_parallel_tpu_torch.config import Params
@@ -101,26 +99,16 @@ class Cell:
         self.prm = {**self.config["params"], **self.traffic["params"]}
         self.params = Params(**self.prm)
         self.method = self.traffic["method"]
-        self.guard = step_guard(self.prm)
+        self.family = registry.family(self.config.get("family", "cavity"))
+        self.guard = self.family.guard(self.prm)
 
     def initial_state(self, seed: int, device: torch.device):
-        """The program's seeded State (float32 fields, p = 0, t = 0)."""
-        from navierstokes_parallel_tpu_torch.grid import State
-
-        assumed = self.config["assumed"]
-        u, v = seeding.initial_velocity(
-            self.prm, seed, assumed["perturbation_amplitude"],
-            assumed["perturbation_modes"], device)
-        dtype = self.params.torch_dtype
-        u, v = u.to(dtype), v.to(dtype)
-        return State(u=u, v=v, p=torch.zeros_like(u),
-                     t=torch.zeros((), dtype=dtype, device=device), n=0)
+        """The program's seeded state."""
+        return self.family.initial_state(self, seed, device)
 
     def reference(self, state, store=None):
         """The reference's solve from the program's initial fields."""
-        ref = self.traffic["reference"]
-        return cavity.solve(state.u, state.v, self.prm, ref["pressure"],
-                            ref.get("check_every", 1), store=store)
+        return self.family.reference(self, state, store)
 
 
 class Solves:
@@ -140,8 +128,7 @@ class Solves:
 
     def run(self, before=None):
         """One solve; returns (state, steps)."""
-        stepper = self.solver.Stepper(self.cell.params, self.state0,
-                                      self.cell.method)
+        stepper = self.cell.family.stepper(self.cell, self.state0)
         stats = self.solver.run_steps(stepper, self.cell.params,
                                       max_steps=self.cell.guard,
                                       before=before)
@@ -154,12 +141,13 @@ class Solves:
         if done is not None:
             done()
         self.count += 1
+        fields = self.cell.family.fields(state)
         if self.kept is None:
-            self.kept, self.kept_steps = (state.u, state.v, state.p), steps
+            self.kept, self.kept_steps = fields, steps
         else:
             differ = torch.zeros((), dtype=torch.bool, device=state.u.device)
-            for own, kept in zip((state.u, state.v, state.p), self.kept):
-                differ |= (own != kept).any()
+            for name, own in fields.items():
+                differ |= (own != self.kept[name]).any()
             self.differ += differ
             self.steps_differ += steps != self.kept_steps
         return steps
@@ -195,10 +183,8 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     registry = registry or Registry()
     device = torch.device(device)
     cell = Cell(registry, workload)
-    from navierstokes_parallel_tpu_torch import solver
-
     state0 = cell.initial_state(seed, device)
-    solver.warm_up(cell.params, device, cell.method)
+    cell.family.warm_up(cell, device)
     solves = Solves(cell, state0)
     solves.run()  # untimed: every shape of the window, warm
     if device.type == "cuda":
@@ -263,7 +249,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
         dev["memory_peak_bytes"] = 0
     mismatches = solves.mismatches()
     attempted = solves.count
-    kept = [x.to(torch.float64) for x in solves.kept]
+    kept = {name: x.to(torch.float64) for name, x in solves.kept.items()}
     kept_steps = solves.kept_steps
     del solves
     if device.type == "cuda":
@@ -275,8 +261,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ref = cell.reference(state0)
-    readings = compare.field_errors(*kept, kept_steps, ref,
-                                    cell.prm["i_max"], cell.prm["j_max"])
+    readings = cell.family.readings(kept, kept_steps, ref, cell)
     readings["window_mismatch"] = float(mismatches)
     correct, checks = compare.verdict(readings, cell.limits)
     fields_ok = compare.verdict(

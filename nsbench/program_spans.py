@@ -227,10 +227,8 @@ def traced_run(workload: str, seed: int, seconds: float, device="cuda",
     registry = registry or Registry()
     device = torch.device(device)
     cell = Cell(registry, workload)
-    from navierstokes_parallel_tpu_torch import solver
-
     state0 = cell.initial_state(seed, device)
-    solver.warm_up(cell.params, device, cell.method)
+    cell.family.warm_up(cell, device)
     solves = Solves(cell, state0)
     solves.run()
     if device.type == "cuda":

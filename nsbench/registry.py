@@ -1,10 +1,15 @@
 """Finds a cell's pieces by name: everything that belongs to one
-configuration, traffic mix, layer, per-layer metric or operation's work
-count is a file of its own under the benchmark's directory, so a new one is
-a new file and no edit.
+configuration, kind of problem, traffic mix, layer, per-layer metric or
+operation's work count is a file of its own under the benchmark's
+directory, so a new one is a new file and no edit.
 
     BENCHMARK.json            the cells, metrics and bounds (checkout root)
-    configs/<name>.json       a configuration (its path is in BENCHMARK.json)
+    configs/<name>.json       a configuration (its path is in BENCHMARK.json);
+                              its key "family" names its family, "cavity"
+                              where it has none
+    families/<name>.py        a kind of problem: its seeded state, stepper,
+                              step guard, compared fields, plain reference
+                              and readings (families/cavity.py lists them)
     traffic/<name>.json       the method, the Params overrides and the
                               reference's pressure solve
     limits/<workload>.json    the limits of the numbers `correct` compares
@@ -68,6 +73,14 @@ class Registry:
         module = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(module)
         return module
+
+    def family(self, name: str):
+        """The family module `name`; a name with no file raises here,
+        before any timing."""
+        path = self.root / "families" / f"{name}.py"
+        if not path.is_file():
+            raise KeyError(f"no family {name!r}: {path} does not exist")
+        return self._module("families", name)
 
     def metric(self, name: str):
         return self._module("metrics", name)

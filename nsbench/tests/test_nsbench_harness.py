@@ -144,3 +144,40 @@ def test_step_guard_bounds_the_configured_solves():
             (harness.Registry().root / f"configs/{name}.json").read_text())
         assert config["assumed"]["steps_per_solve"] == steps
         assert steps < harness.step_guard(config["params"]) < 20 * steps + 20
+
+
+@pytest.mark.parametrize("traffic", ["pallas_sor", "fft"])
+@pytest.mark.parametrize("seed", [3, 7])
+def test_the_cavity_family_is_the_path_it_replaced(tiny, traffic, seed):
+    """At 24^2, families/cavity.py's seeded state, reference and readings
+    are, bit for bit, those of the calls the harness made before it had
+    families."""
+    cell = harness.Cell(tiny, f"tiny.{traffic}")
+    family = tiny.family("cavity")
+    assert cell.family.__file__ == family.__file__
+    state = family.initial_state(cell, seed, torch.device("cpu"))
+    assumed = cell.config["assumed"]
+    u, v = seeding.initial_velocity(cell.prm, seed,
+                                    assumed["perturbation_amplitude"],
+                                    assumed["perturbation_modes"], "cpu")
+    assert state.u.dtype == torch.float32 and state.n == 0
+    assert torch.equal(state.u, u.to(torch.float32))
+    assert torch.equal(state.v, v.to(torch.float32))
+    assert torch.equal(state.p, torch.zeros_like(state.u))
+    assert torch.equal(state.t, torch.zeros((), dtype=torch.float32))
+
+    ref = family.reference(cell, state)
+    plain = cavity.solve(state.u, state.v, cell.prm,
+                         cell.traffic["reference"]["pressure"],
+                         cell.traffic["reference"].get("check_every", 1))
+    assert (ref.t, ref.steps, ref.sweeps) == (plain.t, plain.steps,
+                                              plain.sweeps)
+    for name in ("u", "v", "p"):
+        assert torch.equal(getattr(ref, name), getattr(plain, name))
+
+    out, steps = harness.Solves(cell, state).run()
+    kept = {k: x.to(torch.float64)
+            for k, x in family.fields(out).items()}
+    assert list(kept) == ["u", "v", "p"]
+    assert family.readings(kept, steps, ref, cell) == compare.field_errors(
+        out.u, out.v, out.p, steps, plain, 24, 24)
