@@ -10,6 +10,7 @@ eroded until it passes the obstacle geometry rules; ``sharp=True`` also
 registers the analytic circle, for the second-order immersed-boundary
 velocity BCs and the cut-cell pressure operator (ops/obstacles.py).  And the
 confined square cylinder (Breuer et al. 2000), exact on any grid.
+``schafer_turek(n_per_d=20)`` is the benchmark's cell ``schaefer_turek.mg``.
 
 Measurement: ``shedding_signal`` steps a ``solver.Stepper`` in whole chunks
 of steps, recording per-step diagnostics on the device (the wake probe's

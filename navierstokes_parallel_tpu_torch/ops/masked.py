@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..config import Params
+from ..utils import timing
 from . import obstacles
 from .sor import NORM_OFFSET, SORResult, _checkerboard
 from .stencils import div
@@ -273,24 +274,28 @@ def _v_cycle_masked(p, rhs_int, levels, depth=0, nu1=2, nu2=2,
     p, in place on p: the coarsest level takes `coarse_sweeps` smoothing
     iterations; residuals restrict by full weighting and are zeroed on
     coarse-solid cells, corrections prolong by injection and are zeroed on
-    fine-solid cells."""
+    fine-solid cells.  Each level's work runs in the span
+    ``masked.level<depth>``, which holds the next level's: a level's own
+    time is its span less its child."""
     w = levels[depth]
     if one is None:
         one = torch.ones((), dtype=p.dtype, device=p.device)
-    if depth == len(levels) - 1:
-        return _smooth_masked(p, rhs_int, w, coarse_sweeps, one)
-    p = _smooth_masked(p, rhs_int, w, nu1, one)
-    r = -masked_residual(p, rhs_int, w)
-    coarse = levels[depth + 1]
-    zero = torch.zeros((), dtype=p.dtype, device=p.device)
-    r_c = torch.where(coarse.fluid, _restrict(r), zero)
-    ni_c, nj_c = coarse.fluid.shape
-    e_c = torch.zeros((ni_c + 2, nj_c + 2), dtype=p.dtype, device=p.device)
-    e_c = _v_cycle_masked(e_c, r_c, levels, depth + 1, nu1, nu2,
-                          coarse_sweeps, one)
-    up = e_c[1:-1, 1:-1].repeat_interleave(2, 0).repeat_interleave(2, 1)
-    p[1:-1, 1:-1] += torch.where(w.fluid, up, zero)
-    return _smooth_masked(p, rhs_int, w, nu2, one)
+    with timing.span(f"masked.level{depth}"):
+        if depth == len(levels) - 1:
+            return _smooth_masked(p, rhs_int, w, coarse_sweeps, one)
+        p = _smooth_masked(p, rhs_int, w, nu1, one)
+        r = -masked_residual(p, rhs_int, w)
+        coarse = levels[depth + 1]
+        zero = torch.zeros((), dtype=p.dtype, device=p.device)
+        r_c = torch.where(coarse.fluid, _restrict(r), zero)
+        ni_c, nj_c = coarse.fluid.shape
+        e_c = torch.zeros((ni_c + 2, nj_c + 2), dtype=p.dtype,
+                          device=p.device)
+        e_c = _v_cycle_masked(e_c, r_c, levels, depth + 1, nu1, nu2,
+                              coarse_sweeps, one)
+        up = e_c[1:-1, 1:-1].repeat_interleave(2, 0).repeat_interleave(2, 1)
+        p[1:-1, 1:-1] += torch.where(w.fluid, up, zero)
+        return _smooth_masked(p, rhs_int, w, nu2, one)
 
 
 # ---------------------------------------------------------------------------
@@ -396,11 +401,19 @@ def solve_pressure_masked(p: torch.Tensor, rhs: torch.Tensor, params: Params,
     and exact f64 defect against the masked operator, and f32 correction
     iterations (K masked red-black sweeps, or ``mg_cycles_per_outer``
     masked V-cycles) between the checks.  The returned p keeps the ghost
-    ring of the input (the masked operator never reads it)."""
+    ring of the input (the masked operator never reads it).
+
+    Spans (``utils/timing.py``): ``masked.setup`` (master, threshold, first
+    defect), then one ``masked.pass`` a pass around ``masked.inner``,
+    ``masked.defect`` (master update, defect, norm) and ``masked.flag`` (the
+    pass's one host read).  Counters: ``masked.passes``, ``masked.cycles``
+    (mg) or ``masked.sweeps`` (rb_sor), each by the pass's inner steps, and
+    ``sync.masked_flag``."""
     device = p.device
     f64, f32 = torch.float64, torch.float32
     if method == "rb_sor":
         K = max(1, params.sor_refine_every)
+        counter = "masked.sweeps"
         w32 = device_weights(params, f32, device)
         omega32 = torch.tensor(params.omega, dtype=f32, device=device)
 
@@ -409,6 +422,7 @@ def solve_pressure_masked(p: torch.Tensor, rhs: torch.Tensor, params: Params,
             return _smooth_masked(d, neg_r32, w32, n_inner, omega32)
     elif method == "mg":
         K = max(1, params.mg_cycles_per_outer)
+        counter = "masked.cycles"
         levels = device_levels(params, f32, device)
 
         def inner(neg_r32, n_inner):
@@ -422,33 +436,43 @@ def solve_pressure_masked(p: torch.Tensor, rhs: torch.Tensor, params: Params,
             "rb_sor or mg (fft transforms are separable, cg/pallas kernels "
             "are unmasked)")
 
-    w64 = device_weights(params, f64, device)
-    zero = torch.zeros((), dtype=f64, device=device)
-    p64 = p.to(f64, copy=True)  # the master; updated in place below
-    rhs_int64 = torch.where(w64.fluid, rhs[1:-1, 1:-1].to(f64), zero)
-    norm_p0 = _l2_fluid(torch.where(w64.fluid, p64[1:-1, 1:-1], zero), w64)
-    threshold = float(params.epsilon * (norm_p0 + NORM_OFFSET))
-    deflate = params.problem == 3
+    with timing.span("masked.setup"):
+        w64 = device_weights(params, f64, device)
+        zero = torch.zeros((), dtype=f64, device=device)
+        p64 = p.to(f64, copy=True)  # the master; updated in place below
+        rhs_int64 = torch.where(w64.fluid, rhs[1:-1, 1:-1].to(f64), zero)
+        norm_p0 = _l2_fluid(torch.where(w64.fluid, p64[1:-1, 1:-1], zero),
+                            w64)
+        threshold = float(params.epsilon * (norm_p0 + NORM_OFFSET))
+        deflate = params.problem == 3
 
-    def defect():
-        r = masked_residual(p64, rhs_int64, w64)
-        if deflate:
-            # Constant-mode deflation over FLUID cells (see ops/sor.py):
-            # the mean leaves out the inert solid zeros.
-            r = r - torch.where(w64.fluid, div(torch.sum(r), w64.n_fluid),
-                                zero)
-        return r
+        def defect():
+            r = masked_residual(p64, rhs_int64, w64)
+            if deflate:
+                # Constant-mode deflation over FLUID cells (see ops/sor.py):
+                # the mean leaves out the inert solid zeros.
+                r = r - torch.where(w64.fluid,
+                                    div(torch.sum(r), w64.n_fluid), zero)
+            return r
 
-    r64 = defect()
+        r64 = defect()
     it = 0
     res_norm = math.inf
     while it < params.max_it and res_norm > threshold:
-        n_inner = min(K, params.max_it - it)
-        delta = inner(-r64.to(f32), n_inner)
-        p64[1:-1, 1:-1] += delta[1:-1, 1:-1].to(f64)
-        r64 = defect()
-        res_norm = float(_l2_fluid(r64, w64))  # the one sync per pass
-        it += n_inner
+        timing.count("masked.passes")
+        with timing.span("masked.pass"):
+            n_inner = min(K, params.max_it - it)
+            timing.count(counter, n_inner)
+            with timing.span("masked.inner"):
+                delta = inner(-r64.to(f32), n_inner)
+            with timing.span("masked.defect"):
+                p64[1:-1, 1:-1] += delta[1:-1, 1:-1].to(f64)
+                r64 = defect()
+                norm = _l2_fluid(r64, w64)
+            timing.count("sync.masked_flag")
+            with timing.span("masked.flag"):
+                res_norm = float(norm)  # the one sync per pass
+            it += n_inner
     return SORResult(
         p=p64.to(p.dtype),
         iterations=it,

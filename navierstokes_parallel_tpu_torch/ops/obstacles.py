@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..config import Params
+from ..utils import timing
 from . import momentum
 from . import stencils as st
 
@@ -173,19 +174,23 @@ def apply_obstacle_bcs(u: torch.Tensor, v: torch.Tensor, params: Params):
     With ``params.obstacle_surfaces`` the same edges take the second-order
     ghost-fluid values against the analytic wall (``ib_weights``).  Every
     value is built from the fields as they were on entry (JAX's rolls of
-    its input) before either field is written."""
-    m = device_masks(params, u.device)
-    if params.obstacle_surfaces:
-        u_bc, v_bc = _ib_values(u, v, params)
-    else:
-        zero = torch.zeros((), dtype=u.dtype, device=u.device)
-        u_bc = torch.where(m.u_refl_n, -torch.roll(u, -1, 1),
-                           torch.where(m.u_refl_s, -torch.roll(u, 1, 1), zero))
-        v_bc = torch.where(m.v_refl_e, -torch.roll(v, -1, 0),
-                           torch.where(m.v_refl_w, -torch.roll(v, 1, 0), zero))
-    u.copy_(torch.where(m.u_solid, u_bc, u))
-    v.copy_(torch.where(m.v_solid, v_bc, v))
-    return u, v
+    its input) before either field is written.  It runs in the span
+    ``obstacle.bcs``."""
+    with timing.span("obstacle.bcs"):
+        m = device_masks(params, u.device)
+        if params.obstacle_surfaces:
+            u_bc, v_bc = _ib_values(u, v, params)
+        else:
+            zero = torch.zeros((), dtype=u.dtype, device=u.device)
+            u_bc = torch.where(m.u_refl_n, -torch.roll(u, -1, 1),
+                               torch.where(m.u_refl_s, -torch.roll(u, 1, 1),
+                                           zero))
+            v_bc = torch.where(m.v_refl_e, -torch.roll(v, -1, 0),
+                               torch.where(m.v_refl_w, -torch.roll(v, 1, 0),
+                                           zero))
+        u.copy_(torch.where(m.u_solid, u_bc, u))
+        v.copy_(torch.where(m.v_solid, v_bc, v))
+        return u, v
 
 
 def _ib_values(u, v, params: Params):

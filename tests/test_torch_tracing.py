@@ -6,7 +6,9 @@ passes, the loop its read of t, and the outer its host reads: one flag a
 pass (one more when the flag, not max_it, ends the loop) and three reads
 of the result.  The refined outer keeps the parent's loop: its fields and
 counts equal a transcription of that loop (``_parent_refined``) bit for
-bit.
+bit.  The masked outer of obstacle domains, on a 40 x 16 channel, keeps
+its bits under the profiler and counts its passes, its V-cycles or sweeps
+and its flag reads.
 """
 
 import json
@@ -18,7 +20,7 @@ import torch
 from navierstokes_parallel_tpu_torch import solver
 from navierstokes_parallel_tpu_torch.config import Params
 from navierstokes_parallel_tpu_torch.grid import allocate_state
-from navierstokes_parallel_tpu_torch.ops import fft, mg, sor
+from navierstokes_parallel_tpu_torch.ops import fft, masked, mg, obstacles, sor
 from navierstokes_parallel_tpu_torch.utils import timing
 
 # One 24^2 lid-driven cavity.  pallas_sor at eps 1e-12 runs every step into
@@ -205,3 +207,77 @@ def test_compensated_outer_counts_the_same_passes():
     # Its one read a pass is the norm; its threshold is read once.
     assert comp["sync.pressure_flag"] == comp["pressure.passes"]
     assert comp["sync.pressure_result"] == 1
+
+
+# A 40 x 16 channel with a 4 x 4 block: the masked outer's passes at a size
+# the CPU takes in a moment.
+MASKED = Params(problem=3, i_max=40, j_max=16, a=5.0, b=2.0, Re=100.0,
+                tau=0.5, max_it=2000, epsilon=1e-4, sor_refine_every=16,
+                obstacles=((8, 11, 7, 10),))
+MASKED_K = {"mg": MASKED.mg_cycles_per_outer,
+            "rb_sor": MASKED.sor_refine_every}
+MASKED_COUNTER = {"mg": "masked.cycles", "rb_sor": "masked.sweeps"}
+
+
+def _masked_rhs(prm):
+    g = torch.Generator().manual_seed(5)
+    rhs = torch.zeros(prm.shape, dtype=torch.float32)
+    rhs[1:-1, 1:-1] = torch.randn((prm.i_max, prm.j_max), generator=g)
+    return obstacles.mask_rhs(rhs, prm)
+
+
+@pytest.mark.parametrize("method", ["mg", "rb_sor"])
+def test_masked_spans_keep_the_bits_and_counters_add_up(method, tmp_path):
+    p = torch.zeros(MASKED.shape)
+    rhs = _masked_rhs(MASKED)
+    start = timing.counts()
+    plain = masked.solve_pressure_masked(p, rhs, MASKED, method)
+    counted = since(start)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        traced = masked.solve_pressure_masked(p, rhs, MASKED, method)
+    assert torch.equal(plain.p, traced.p)
+    assert (plain.iterations, plain.res_norm, plain.converged) == (
+        traced.iterations, traced.res_norm, traced.converged)
+    assert plain.converged and plain.iterations > MASKED_K[method]
+    passes = math.ceil(plain.iterations / MASKED_K[method])
+    assert counted["masked.passes"] == counted["sync.masked_flag"] == passes
+    assert counted[MASKED_COUNTER[method]] == plain.iterations
+    assert not {"masked.cycles", "masked.sweeps"} - {MASKED_COUNTER[method]} \
+        & set(counted)
+
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    spans = _user_spans(path)
+    for name in ("setup", "pass", "inner", "defect", "flag"):
+        assert spans.get("nsp.masked." + name), name
+    assert len(spans["nsp.masked.pass"]) == passes
+    for name in ("inner", "defect", "flag"):
+        assert all(_inside(s, spans["nsp.masked.pass"])
+                   for s in spans["nsp.masked." + name])
+    if method == "mg":
+        levels = spans["nsp.masked.level0"]
+        assert len(levels) == plain.iterations
+        assert all(_inside(s, spans["nsp.masked.inner"]) for s in levels)
+        assert len(spans["nsp.masked.level1"]) == len(levels)
+        assert all(_inside(s, levels) for s in spans["nsp.masked.level1"])
+    else:
+        assert "nsp.masked.level0" not in spans
+
+
+def test_an_obstacle_step_keeps_its_bits_and_marks_its_bcs(tmp_path):
+    prm = MASKED.replace(T=1.0, epsilon=1e-4)
+    state = _state(prm)
+    plain, _ = solver.step(state, prm, pressure_method="mg")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        traced, _ = solver.step(state, prm, pressure_method="mg")
+    for name in ("u", "v", "p"):
+        assert torch.equal(getattr(plain, name), getattr(traced, name))
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    spans = _user_spans(path)
+    # Once with the outer walls' BCs, once after the projection.
+    assert len(spans["nsp.obstacle.bcs"]) == 2
+    assert _inside(spans["nsp.obstacle.bcs"][0], spans["nsp.step.dt_bcs"])
+    assert _inside(spans["nsp.obstacle.bcs"][1], spans["nsp.step.project"])
