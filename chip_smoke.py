@@ -79,10 +79,16 @@ checks each answer against the JAX package's recorded answer:
     --max-steps 20 --stats`` through ``cli.main``: every step's passes
     held to JAX's (a step may move by one pass only within 1 % of its
     threshold), the failures, the force and probe records and the centre
-    values within the contract, and no kernel launched (every route and
-    plain sweep twin barred: the masked solvers are plain PyTorch, as the
-    JAX package's are jnp); its seconds are printed, and, last, one
-    profiled outer pass of each masked solve counts its launches;
+    values within the contract, and no other route's kernel launched
+    (every route and plain sweep twin barred): the masked rb_sor solves
+    launch nothing, and every masked V-cycle of an mg run takes the masked
+    kernels (ops/cuda/masked_kernel.py, csrc/masked_cycle.cu: 11 launches
+    a cycle at 440 x 82, one one-block launch a cycle, every cycle fused);
+    its seconds are printed; then one masked V-cycle at 440 x 82 by the
+    kernels and by the plain cycle on the card, in turns, bits equal and
+    timed, the one-block launch and one half-sweep launch beside their
+    bounds; last, one profiled outer pass of each masked solve counts its
+    launches;
 
   * obstacle domains on the sharded backend (the "sharded obstacles"
     phase, a one-rank NCCL group): the backward-facing step at 128 x 32
@@ -2197,9 +2203,15 @@ def phase_taylor_green(torch) -> dict:
 # cylinder at 160 x 64 by mg, 5 steps, the backward-facing step at
 # 128 x 32 by rb_sor (Euler and AB2), 3 steps each, and the CLI on
 # configs/channel.in --obstacle 17:24:27:34 --max-steps 20.  No kernel
-# stands behind an obstacle path: every kernel and plain sweep twin is
-# barred, and every launch count must stay 0.
+# of another route stands behind an obstacle path: every such kernel and
+# plain sweep twin is barred, and its launch count must stay 0.  The masked
+# V-cycle's own kernels (MASKED_LAUNCHES) run every cycle of the mg runs
+# and nothing of the rb_sor runs.
 OBSTACLE_RECORDS = ROOT / "tests" / "jax_obstacle_records.json"
+# The masked V-cycle's launch counters (ops/cuda/masked_kernel.py), read
+# apart from LAUNCH_COUNTERS, which no_kernel holds at 0.
+MASKED_LAUNCHES = ("masked_cycle", "masked_half_sweep", "masked_restrict",
+                   "masked_prolong")
 # Every kernel wrapper and plain twin an obstacle path must not reach.
 SWEEP_ROUTES = ("inner_sweeps", "inner_sweeps_plain", "inner_sweeps_tiled",
                 "inner_sweeps_tiled_plain", "inner_sweeps_compressed",
@@ -2257,6 +2269,91 @@ def no_kernel(where: str):
         check(not any(launches.values()), f"{where} launched a kernel")
 
 
+def check_masked_launches(tag: str, prm, method: str, start: dict) -> dict:
+    """The masked V-cycle's launches since the snapshot `start`: by mg
+    every cycle fused, with ``launches_per_cycle`` of its hierarchy each;
+    by rb_sor none.  Returns them by counter, with the cycles."""
+    from navierstokes_parallel_tpu_torch.ops import masked
+    from navierstokes_parallel_tpu_torch.ops.cuda import masked_kernel
+    from navierstokes_parallel_tpu_torch.utils import timing
+
+    now = timing.counts()
+
+    def since(name):
+        return now.get(name, 0) - start.get(name, 0)
+
+    got = {k: since("launch." + k) for k in MASKED_LAUNCHES}
+    cycles, fused = since("masked.cycles"), since("masked.fused_cycles")
+    print(f"[{tag}] masked launches {got}, {cycles} V-cycles, {fused} "
+          f"fused")
+    want = dict.fromkeys(MASKED_LAUNCHES, 0)
+    if method == "mg":
+        shapes = tuple(lvl.weights.fluid.shape
+                       for lvl in masked._masked_levels(prm))
+        per = masked_kernel.launches_per_cycle(shapes)
+        want = {k: per[k] * cycles for k in MASKED_LAUNCHES}
+        check(cycles > 0 and fused == cycles,
+              f"{tag}: {fused} of {cycles} masked V-cycles took the kernels")
+    check(got == want, f"{tag}: masked launches {got}, expected {want}")
+    return dict(got, cycles=cycles)
+
+
+def time_masked_cycle(torch) -> None:
+    """One masked V(2,2) cycle at the Schäfer-Turek 440 x 82 (sharp) by the
+    kernels and by the plain cycle on the card, in turns (CUDA events, mean
+    ms a call of 20 after 2), the two from one p bit for bit; then the
+    one-block launch (level 1, 32 sweeps) and one half-sweep launch of
+    level 0 alone, each beside its bound (every interior cell counted, 11
+    f32 operations an update; each array read once, p written once)."""
+    from navierstokes_parallel_tpu_torch.models import karman
+    from navierstokes_parallel_tpu_torch.ops import masked
+    from navierstokes_parallel_tpu_torch.ops.cuda import masked_kernel
+
+    prm = karman.schafer_turek(n_per_d=20)
+    levels = masked.device_levels(prm, torch.float32, torch.device("cuda"))
+    plain = tuple(w._replace(packed=None) for w in levels)
+    rng = np.random.default_rng(5)
+    fluid = masked._weights(prm).fluid
+    rhs = torch.from_numpy(np.where(fluid, rng.standard_normal(
+        fluid.shape), 0.0).astype(np.float32)).cuda()
+    p0 = torch.zeros(prm.shape, device="cuda")
+    got = masked._v_cycle_masked(p0.clone(), rhs, levels)
+    want = masked._v_cycle_masked(p0.clone(), rhs, plain)
+    check(torch.equal(got, want) and torch.equal(torch.signbit(got),
+                                                 torch.signbit(want)),
+          "the masked kernels' cycle differs from the plain cycle")
+    p_k, p_p = p0.clone(), p0.clone()
+    times = {"kernels": [], "plain": []}
+    for name in ("kernels", "plain", "plain", "kernels"):
+        lv, p = (levels, p_k) if name == "kernels" else (plain, p_p)
+        times[name].append(cuda_ms(torch, lambda: masked._v_cycle_masked(
+            p, rhs, lv), 20))
+    t = masked_kernel.one_block_depth(tuple(tuple(w.fluid.shape)
+                                            for w in levels))
+    w1, w0 = levels[t], levels[0]
+    (n1, m1), (n0, m0) = w1.fluid.shape, w0.fluid.shape
+    e1 = torch.zeros((n1 + 2, m1 + 2), device="cuda")
+    r1 = torch.from_numpy(rng.standard_normal((n1, m1)).astype(
+        np.float32)).cuda()
+    block_ms = cuda_ms(torch, lambda: masked_kernel.cycle(
+        e1, r1, [w.packed for w in levels[t:]]), 20)
+    half_ms = cuda_ms(torch, lambda: masked_kernel.half_sweeps(
+        p_k, rhs, w0.packed, 1), 20) / 2
+    pad1, pad0 = (n1 + 2) * (m1 + 2), (n0 + 2) * (m0 + 2)
+    block_bound = bound(4 * (4 * pad1 + 2 * n1 * m1) + n1 * m1,
+                        11 * 32 * n1 * m1)
+    half_bound = bound(4 * (3 * pad0 + 2 * n0 * m0 + n0 * m0 / 2) + n0 * m0,
+                       11 * n0 * m0 / 2)
+    print(f"[masked cycle] one V-cycle at {prm.shape}: kernels "
+          f"{times['kernels']} ms, plain {times['plain']} ms (CUDA events, "
+          f"mean of 20, in turns); bits equal")
+    print(f"[masked cycle] one-block launch from level {t} "
+          f"({n1} x {m1}, 32 sweeps): {block_ms:.4f} ms, bound "
+          f"{block_bound[0] * 1e3:.4f} us ({block_bound[1]}); one half-sweep "
+          f"launch of level 0 ({n0} x {m0}): {half_ms:.4f} ms, bound "
+          f"{half_bound[0] * 1e3:.4f} us ({half_bound[1]})")
+
+
 def passes_and_margins(solves, prm, K: int):
     """Per masked solve: its outer passes and the relative margins (norm -
     threshold) / threshold of its last pass and of the pass before."""
@@ -2303,10 +2400,13 @@ def phase_obstacles(torch) -> dict:
     """The obstacle runs of OBSTACLE_RECORDS on the card, each stepped
     through solver.Stepper as recorded: passes per step through the gate,
     failures equal, the per-step records and the final centre values and
-    max |u|, |v| within the contract, no kernel launched; then the CLI run
-    (its record, its per-step passes through the gate, no launch).
-    Returns the (zero) launch counts."""
+    max |u|, |v| within the contract, no other route's kernel launched and
+    the masked V-cycle's launches as check_masked_launches holds them;
+    then the CLI run (its record, its per-step passes through the gate, no
+    launch); then time_masked_cycle.  Returns the (zero) launch counts of
+    the other routes."""
     from navierstokes_parallel_tpu_torch import solver
+    from navierstokes_parallel_tpu_torch.utils import timing
 
     records = json.loads(OBSTACLE_RECORDS.read_text())
     for tag, run in records["runs"].items():
@@ -2315,6 +2415,7 @@ def phase_obstacles(torch) -> dict:
              else prm.mg_cycles_per_outer)
         stepper = solver.Stepper(prm, state, run["method"], run["time_order"])
         recs, iterations, failures = {}, 0, 0
+        start = timing.counts()
         with no_kernel(tag), masked_norms() as solves:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2328,6 +2429,7 @@ def phase_obstacles(torch) -> dict:
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         SOLVE_SECONDS[tag] = seconds
+        check_masked_launches(tag, prm, run["method"], start)
         jax_iterations = run["iterations"]
         print(f"[{tag}] {prm.shape}, {run['method']}, order "
               f"{run['time_order']}: {run['steps']} steps, {iterations} "
@@ -2356,6 +2458,7 @@ def phase_obstacles(torch) -> dict:
     want = {k: int(cli_run["stats"][k]) for k in ("steps", "sor_failures")}
     uc, vc = (float(line.split()[1]) for line in cli_run["stdout"])
     prm = obstacle_cli_params()
+    start = timing.counts()
     with no_kernel("obstacle cli"), masked_norms() as solves:
         stats, _ = run_cli("obstacle cli", [
             str(ROOT / cli_run["argv"][0]), *cli_run["argv"][1:]], uc, vc,
@@ -2370,9 +2473,11 @@ def phase_obstacles(torch) -> dict:
           "obstacle cli: the passes and the sweeps disagree")
     gate_passes("obstacle cli", passes, margins, cli_run["iterations"],
                 prm.sor_refine_every)
+    check_masked_launches("obstacle cli", prm, "rb_sor", start)
     print("[obstacles] solve seconds: " + ", ".join(
         f"{tag} {SOLVE_SECONDS[tag]:.6f}" for tag in
         [*records["runs"], "obstacle cli"]))
+    time_masked_cycle(torch)
     return {k: 0 for k in read_launches()}
 
 
@@ -3278,8 +3383,9 @@ def thermal_gradient(torch, rec: dict, device: str) -> None:
 
 def masked_gradient(torch, rec: dict, device: str) -> None:
     """The masked adjoint: a directional derivative w.r.t. the initial u on
-    the backward-facing step against the JAX record (DIFF_MASKED); the
-    masked solves are plain PyTorch (no kernel launched)."""
+    the backward-facing step against the JAX record (DIFF_MASKED); no
+    sweep kernel of another route is launched (the masked V-cycles take
+    their own kernels wherever no gradient flows through them)."""
     from navierstokes_parallel_tpu_torch import diff
     from navierstokes_parallel_tpu_torch.grid import allocate_state
     from navierstokes_parallel_tpu_torch.models import step as bfs
@@ -3717,8 +3823,9 @@ def gspmd_kernels(prm, method: str):
     """The kernels a gspmd run launches: B6 in rb_sor's deep-halo sweeps;
     under mg B6 on each sharded level (those above one device's
     coarse-cycle depth) and the coarse cycle for the gathered tail;
-    nothing for jacobi, cg, fft (cuFFT), the masked solves and the free
-    surface, which run plain PyTorch."""
+    nothing for jacobi, cg, fft (cuFFT), the masked solves (whose gathered
+    V-cycle tail takes the masked kernels, counted apart) and the free
+    surface."""
     from navierstokes_parallel_tpu_torch.ops import mg
 
     if prm.obstacles or prm.problem == 6 or method not in ("rb_sor", "mg"):

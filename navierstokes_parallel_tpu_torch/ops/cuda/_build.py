@@ -53,6 +53,20 @@ SIGNATURES = {
     # out, p0, rhs, shapes (int[2 n_levels], host), consts (float[5
     # n_levels], host), n_levels, nu1, nu2, coarse_sweeps, device, stream
     "nsp_mg_coarse_cycle": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # p, rhs, we, wn, diag, fluid, ni, nj, n_sweeps, omega,
+    # one_minus_omega, device, stream
+    "nsp_masked_half_sweeps": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                               _I, _P),
+    # e_c, r_c, p, rhs, we, wn, diag, fluid, coarse_fluid, ni, nj, device,
+    # stream
+    "nsp_masked_restrict": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _P),
+    # p, e_c, fluid, ni, nj, device, stream
+    "nsp_masked_prolong": (_P, _P, _P, _I, _I, _I, _P),
+    # p, rhs, arrays (void*[4 n_levels], host: we, wn, diag, fluid),
+    # shapes (int[2 n_levels], host), n_levels, nu1, nu2, coarse_sweeps,
+    # omega, one_minus_omega, device, stream
+    "nsp_masked_cycle": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
     # d, scratch, rhs, batch, ni, nj, n_sweeps, tile_rows, tile_cols,
     # sweeps_per_chunk, one_minus_omega, coef, dx2_inv, dy2_inv, device,
     # stream

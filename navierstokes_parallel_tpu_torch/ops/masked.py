@@ -23,8 +23,15 @@ cycles ("mg").  Every other method is refused with JAX's ``ValueError``.  On
 problem 3 each defect loses its constant mode over the fluid cells.  As in
 ops/sor.py, the loop runs on the host and reads one norm per pass.
 
-No kernel stands behind these solvers, as no Pallas kernel stands behind
-them in the JAX package: on every device they are plain PyTorch.
+The JAX package has no Pallas kernel for these solvers.  On the card the
+masked V-cycle (``_v_cycle_masked``) runs hand-written CUDA kernels
+(ops/cuda/masked_kernel.py, ``csrc/masked_cycle.cu``) wherever its levels,
+p and rhs are float32 and need no gradient, with the plain functions' bits:
+a launch a half-sweep, a restriction and a prolongation on the levels too
+large for one block, and one launch for the rest of the cycle.  Everything
+else is plain PyTorch on every device: the CPU, float64 levels, autograd,
+the masked rb_sor sweeps (``relaxed_sweeps``) and the sharded blocks'
+levels.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch
 from ..config import Params
 from ..utils import timing
 from . import obstacles
+from .cuda import masked_kernel
 from .sor import NORM_OFFSET, SORResult, _checkerboard
 from .stencils import div
 
@@ -93,7 +101,10 @@ def _weights(params: Params) -> _Weights:
 
 class _DeviceWeights(NamedTuple):
     """A ``_Weights`` on a device in one dtype; ``red``/``black`` are the
-    fluid cells of each colour (interior-shaped bool)."""
+    fluid cells of each colour (interior-shaped bool); ``packed`` the
+    level's arrays for the masked V-cycle's kernels
+    (``masked_kernel.pack_level``), on the float32 CUDA levels of
+    ``device_levels`` only."""
 
     w_e: torch.Tensor
     w_w: torch.Tensor
@@ -104,6 +115,7 @@ class _DeviceWeights(NamedTuple):
     n_fluid: int
     red: torch.Tensor
     black: torch.Tensor
+    packed: object = None
 
 
 def _on_device(w: _Weights, dtype, device,
@@ -255,9 +267,14 @@ def _masked_levels(params: Params, min_cells: int = 8):
 @functools.lru_cache(maxsize=32)
 def device_levels(params: Params, dtype: torch.dtype,
                   device: torch.device) -> Tuple[_DeviceWeights, ...]:
-    """Every level of ``_masked_levels`` in `dtype` on `device`."""
-    return tuple(_on_device(lvl.weights, dtype, device)
-                 for lvl in _masked_levels(params))
+    """Every level of ``_masked_levels`` in `dtype` on `device`; float32
+    levels on a CUDA device carry their kernel arrays (``packed``)."""
+    levels = tuple(_on_device(lvl.weights, dtype, device)
+                   for lvl in _masked_levels(params))
+    if dtype == torch.float32 and torch.device(device).type == "cuda":
+        levels = tuple(w._replace(packed=masked_kernel.pack_level(w))
+                       for w in levels)
+    return levels
 
 
 def _restrict(r: torch.Tensor) -> torch.Tensor:
@@ -276,8 +293,18 @@ def _v_cycle_masked(p, rhs_int, levels, depth=0, nu1=2, nu2=2,
     coarse-solid cells, corrections prolong by injection and are zeroed on
     fine-solid cells.  Each level's work runs in the span
     ``masked.level<depth>``, which holds the next level's: a level's own
-    time is its span less its child."""
+    time is its span less its child.
+
+    Where ``masked_kernel.usable`` holds (float32 CUDA levels, p and rhs
+    float32 needing no gradient) the cycle is ``_v_cycle_kernel``'s, bit
+    for bit this one, and counts in ``masked.fused_cycles``."""
     w = levels[depth]
+    if masked_kernel.usable(p, rhs_int, w):
+        timing.count("masked.fused_cycles")
+        shapes = tuple(tuple(lv.fluid.shape) for lv in levels)
+        return _v_cycle_kernel(p, rhs_int.contiguous(), levels, depth, nu1,
+                               nu2, coarse_sweeps,
+                               masked_kernel.one_block_depth(shapes))
     if one is None:
         one = torch.ones((), dtype=p.dtype, device=p.device)
     with timing.span(f"masked.level{depth}"):
@@ -296,6 +323,31 @@ def _v_cycle_masked(p, rhs_int, levels, depth=0, nu1=2, nu2=2,
         up = e_c[1:-1, 1:-1].repeat_interleave(2, 0).repeat_interleave(2, 1)
         p[1:-1, 1:-1] += torch.where(w.fluid, up, zero)
         return _smooth_masked(p, rhs_int, w, nu2, one)
+
+
+def _v_cycle_kernel(p, rhs_int, levels, depth, nu1, nu2, coarse_sweeps,
+                    block_depth):
+    """``_v_cycle_masked``'s cycle on the card, in place on p: from
+    `block_depth` (``masked_kernel.one_block_depth``) one launch of
+    ``masked_kernel.cycle`` runs the rest of the cycle in one block; above
+    it a level's sweeps take a launch a half-sweep, its residual's
+    restriction one and the prolongation one (11 launches a cycle at
+    440 x 82).  Spans as ``_v_cycle_masked``'s."""
+    w = levels[depth].packed
+    with timing.span(f"masked.level{depth}"):
+        if depth >= block_depth:
+            return masked_kernel.cycle(
+                p, rhs_int, [lv.packed for lv in levels[depth:]], nu1, nu2,
+                coarse_sweeps)
+        if depth == len(levels) - 1:
+            return masked_kernel.half_sweeps(p, rhs_int, w, coarse_sweeps)
+        masked_kernel.half_sweeps(p, rhs_int, w, nu1)
+        e_c, r_c = masked_kernel.restrict(p, rhs_int, w,
+                                          levels[depth + 1].packed)
+        _v_cycle_kernel(e_c, r_c, levels, depth + 1, nu1, nu2, coarse_sweeps,
+                        block_depth)
+        masked_kernel.prolong(p, e_c, w)
+        return masked_kernel.half_sweeps(p, rhs_int, w, nu2)
 
 
 # ---------------------------------------------------------------------------

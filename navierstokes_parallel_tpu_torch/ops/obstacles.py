@@ -22,7 +22,8 @@ Geometry rules (checked in ``masks``): an obstacle is at least 2 cells thick
 wherever it has fluid on both sides, and the fluid region is connected.
 
 No kernel stands behind any of this, as none stands behind it in the JAX
-package: an obstacle step runs plain PyTorch on every device.
+package: an obstacle step runs plain PyTorch on every device, but for the
+masked V-cycle's kernels on the card (ops/masked.py).
 """
 
 from __future__ import annotations

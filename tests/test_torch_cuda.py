@@ -112,8 +112,8 @@ def test_library_name_follows_source_contents(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     first = _build.library_path()
     assert [p.name for p in _build.sources()] == [
-        "defect.cu", "mg_cycle.cu", "momentum.cu", "sor.cu",
-        "sor_compressed.cu", "sor_ext.cu", "sor_tiled.cu"]
+        "defect.cu", "masked_cycle.cu", "mg_cycle.cu", "momentum.cu",
+        "sor.cu", "sor_compressed.cu", "sor_ext.cu", "sor_tiled.cu"]
     with open(csrc / "nsp_round.cuh", "a") as fh:
         fh.write("// edited\n")
     assert _build.library_path() != first
@@ -1085,7 +1085,8 @@ def test_channel_and_taylor_green_on_the_card_match_cpu(cuda, problem,
 def test_obstacle_step_on_the_card_launches_no_kernel(cuda, order):
     """An obstacle step on the card takes the plain F/G pinned on the
     obstacle faces and the masked solve: no B2 launch (the fused kernel
-    forms rhs before pin_fg) and no sweep kernel, by Euler and AB2; the
+    forms rhs before pin_fg) and no sweep kernel, by Euler and AB2; its
+    masked V-cycles (one level of 32 x 8) one one-block launch each; the
     fields within the 1e-4 contract of the CPU's."""
     from navierstokes_parallel_tpu_torch.models import step as step_model
 
@@ -1102,6 +1103,11 @@ def test_obstacle_step_on_the_card_launches_no_kernel(cuda, order):
         assert launches("sor_whole_grid", start) == launches("sor_warm", start) == 0
         assert launches("sor_tiled", start) == launches("mg_coarse_cycle", start) == 0
         assert launches("sor_compressed", start) == launches("sor_ext", start) == 0
+        cycles = timing.counts()["masked.cycles"] - start.get(
+            "masked.cycles", 0)
+        assert cycles > 0
+        assert launches("masked_cycle", start) == (
+            cycles if device == cuda else 0)
     for name in ("u", "v", "p"):
         g = getattr(states[cuda], name).cpu().numpy()
         c = getattr(states["cpu"], name).numpy()
@@ -1607,3 +1613,405 @@ def test_fused_outer_on_the_card_equals_the_plain_statements(cuda, case,
         p = getattr(ps, name).double()
         assert float((f - p).abs().max()) <= 1e-12 * max(
             1.0, float(p.abs().max())), name
+
+
+# --- the masked V-cycle's kernels (csrc/masked_cycle.cu) ----------------------
+#
+# ops/masked.py::_v_cycle_masked on the card: a launch a half-sweep, a
+# restriction and a prolongation on the levels too large for one block, one
+# launch of one block for the rest (ops/cuda/masked_kernel.py).  Every
+# comparison is bit for bit (signs of zero too) against the plain cycle,
+# which a level without its packed arrays takes on any device.
+
+MASKED_CASES = ["schafer_turek", "square_cylinder", "step"]
+MASKED_COUNTERS = ("masked_cycle", "masked_half_sweep", "masked_restrict",
+                   "masked_prolong")
+
+
+def _masked_params(name):
+    """Schäfer-Turek 2D-2 at 440 x 82 with face fractions (2 levels, the
+    coarse one in one block), the square cylinder at 160 x 64 on the
+    staircase (4 levels, 3 in one block), the backward-facing step at
+    64 x 16 (2 levels, both in one block)."""
+    from navierstokes_parallel_tpu_torch.models import karman
+    from navierstokes_parallel_tpu_torch.models import step as step_model
+
+    return {"schafer_turek": lambda: karman.schafer_turek(n_per_d=20),
+            "square_cylinder": karman.square_cylinder,
+            "step": lambda: step_model.backward_facing_step(nx=64, ny=16),
+            }[name]()
+
+
+def _masked_levels(prm, device="cpu", dtype=torch.float32):
+    from navierstokes_parallel_tpu_torch.ops import masked
+
+    return masked.device_levels(prm, dtype, torch.device(device))
+
+
+def _shapes(levels):
+    return tuple(tuple(w.fluid.shape) for w in levels)
+
+
+def _same_bits(a, b):
+    return torch.equal(a, b) and torch.equal(torch.signbit(a),
+                                             torch.signbit(b))
+
+
+def _masked_inputs(prm, device, seed=0):
+    """A random f32 p (padded, ghost ring not 0) and rhs (interior)."""
+    rng = np.random.default_rng(seed)
+    p = rng.standard_normal(prm.shape).astype(np.float32)
+    rhs = rng.standard_normal((prm.i_max, prm.j_max)).astype(np.float32)
+    return torch.from_numpy(p).to(device), torch.from_numpy(rhs).to(device)
+
+
+@pytest.mark.parametrize("name", MASKED_CASES)
+def test_masked_levels_pack_for_the_kernels(name):
+    """Each level's kernel arrays: the east and north couplings padded
+    with a zero ring, their one-cell shift the west and south couplings bit
+    for bit (on the cylinder's face fractions too), the f32 diagonal, one
+    fluid byte a cell, and the colours the level's own checkerboard (the
+    kernels' parity 0)."""
+    from navierstokes_parallel_tpu_torch.ops import masked
+    from navierstokes_parallel_tpu_torch.ops.cuda import masked_kernel
+
+    for w in _masked_levels(_masked_params(name)):
+        pk = masked_kernel.pack_level(w)
+        masked_kernel.check_packed(pk)
+        for pad, inner in ((pk.we, w.w_e), (pk.wn, w.w_n)):
+            assert _same_bits(pad[1:-1, 1:-1], inner)
+            ring = torch.cat([pad[0], pad[-1], pad[:, 0], pad[:, -1]])
+            assert _same_bits(ring, torch.zeros_like(ring))
+        assert _same_bits(pk.we[:-2, 1:-1], w.w_w)
+        assert _same_bits(pk.wn[1:-1, :-2], w.w_s)
+        assert _same_bits(pk.diag, w.diag)
+        assert pk.fluid.dtype == torch.uint8
+        assert torch.equal(pk.fluid.bool(), w.fluid)
+        for colour, mask in ((0, w.red), (1, w.black)):
+            assert torch.equal(
+                mask, masked._checkerboard(w.fluid.shape, colour) & w.fluid)
+
+
+@pytest.mark.parametrize("bad", ["west", "south", "float64"])
+def test_masked_packing_refuses_what_the_kernels_cannot_read(bad):
+    """A level whose west or south coupling is not the shifted east or
+    north one, or that is not float32, is refused."""
+    from navierstokes_parallel_tpu_torch.ops.cuda import masked_kernel
+
+    prm = _masked_params("step")
+    if bad == "float64":
+        w = _masked_levels(prm, dtype=torch.float64)[0]
+        with pytest.raises(TypeError, match="float32"):
+            masked_kernel.pack_level(w)
+        return
+    w = _masked_levels(prm)[0]
+    field = {"west": "w_w", "south": "w_s"}[bad]
+    moved = getattr(w, field).clone()
+    moved[3, 3] = moved[3, 3] * 2.0 + 1.0
+    with pytest.raises(ValueError, match="one cell over"):
+        masked_kernel.pack_level(w._replace(**{field: moved}))
+
+
+@pytest.mark.parametrize("name,depth,in_block,launches", [
+    ("schafer_turek", 1, 1, (1, 8, 1, 1)),
+    ("square_cylinder", 1, 3, (1, 8, 1, 1)),
+    ("step", 0, 2, (1, 0, 0, 0))])
+def test_masked_one_block_level_by_shared_bytes(name, depth, in_block,
+                                                launches):
+    """The one-block cycle starts at the first level whose tail fits one
+    block's 232,448 B: 440 x 82 gives level 1 at 195,732 B (level 0 alone
+    770,256 B); the square cylinder's holds 3 levels; a cycle's launches
+    per counter follow (11 at 440 x 82)."""
+    from navierstokes_parallel_tpu_torch.ops.cuda import masked_kernel
+
+    shapes = _shapes(_masked_levels(_masked_params(name)))
+    t = masked_kernel.one_block_depth(shapes)
+    assert (t, len(shapes) - t) == (depth, in_block)
+    assert masked_kernel.cycle_shared_bytes(shapes[t:]) <= 232448
+    assert masked_kernel.cycle_shared_bytes(shapes[t - 1:]) > 232448 or t == 0
+    got = masked_kernel.launches_per_cycle(shapes)
+    assert tuple(got[k] for k in MASKED_COUNTERS) == launches
+    if name == "schafer_turek":
+        assert masked_kernel.level_shared_bytes(220, 41) == 195732
+        assert masked_kernel.level_shared_bytes(440, 82) == 770256
+        assert sum(got.values()) == 11
+
+
+def test_masked_hierarchy_with_no_level_in_one_block():
+    """Where even the coarsest level exceeds one block, every level takes
+    half-sweep launches, the coarse sweeps too, and no one-block launch."""
+    from navierstokes_parallel_tpu_torch.ops.cuda import masked_kernel
+
+    shapes = ((600, 602), (300, 301))
+    assert masked_kernel.one_block_depth(shapes) == 2
+    assert masked_kernel.launches_per_cycle(shapes) == {
+        "masked_cycle": 0, "masked_half_sweep": 8 + 64,
+        "masked_restrict": 1, "masked_prolong": 1}
+    nine = tuple((2 ** (9 - k), 2 ** (9 - k)) for k in range(9))
+    assert masked_kernel.one_block_depth(nine) == 3  # 64^2 down to 2^2
+
+
+@pytest.mark.parametrize("case", ["cpu", "float64", "requires_grad",
+                                  "unpacked"])
+def test_masked_cycle_stays_plain_off_the_kernels(case, monkeypatch):
+    """Off the card, on float64 levels, under a gradient and on levels
+    without their kernel arrays the cycle is the plain one: no wrapper is
+    called and no cycle counts as fused."""
+    from navierstokes_parallel_tpu_torch.ops import masked
+    from navierstokes_parallel_tpu_torch.ops.cuda import masked_kernel
+
+    prm = _masked_params("step")
+    dtype = torch.float64 if case == "float64" else torch.float32
+    levels = _masked_levels(prm, dtype=dtype)
+    assert all(w.packed is None for w in levels)
+    if case == "unpacked":
+        levels = tuple(w._replace(packed=masked_kernel.pack_level(w))
+                       for w in levels)
+    p, rhs = (x.to(dtype) for x in _masked_inputs(prm, "cpu"))
+    if case == "requires_grad":
+        rhs.requires_grad_(True)
+    assert not masked_kernel.usable(p, rhs, levels[0])
+    for name in ("cycle", "half_sweeps", "restrict", "prolong"):
+        monkeypatch.setattr(masked_kernel, name, None)
+    fused = timing.counts().get("masked.fused_cycles", 0)
+    masked._v_cycle_masked(p.detach().clone(), rhs, levels)
+    assert timing.counts().get("masked.fused_cycles", 0) == fused
+
+
+@pytest.mark.parametrize("bad", ["float64", "p_shape", "rhs_shape", "strided",
+                                 "negative", "no_level", "nine_levels",
+                                 "not_halved", "shared", "fluid_dtype",
+                                 "other_device", "device"])
+def test_masked_cycle_checks_before_launch(bad):
+    """What the masked kernels do not take is refused before a launch, the
+    shared-memory need by name."""
+    from navierstokes_parallel_tpu_torch.ops.cuda import masked_kernel
+
+    prm = _masked_params("step")
+    levels = [masked_kernel.pack_level(w) for w in _masked_levels(prm)]
+    assert _shapes(levels) == ((64, 16), (32, 8))
+    p, rhs = torch.zeros(66, 18), torch.zeros(64, 16)
+    counts, match = (2, 2, 32), None
+    if bad == "float64":
+        p, match = p.double(), "float32"
+    elif bad == "p_shape":
+        p, match = torch.zeros(66, 17), "shape"
+    elif bad == "rhs_shape":
+        rhs, match = torch.zeros(66, 18), "shape"
+    elif bad == "strided":
+        p, match = torch.zeros(18, 66).t(), "contiguous"
+    elif bad == "negative":
+        counts, match = (2, -1, 32), ">= 0"
+    elif bad == "no_level":
+        levels, match = [], "1 to 8 levels"
+    elif bad == "nine_levels":
+        levels, match = levels * 5, "1 to 8 levels"
+    elif bad == "not_halved":
+        levels, match = [levels[0], levels[0]], "halve"
+    elif bad == "shared":
+        big = _masked_levels(_masked_params("square_cylinder"))
+        levels = [masked_kernel.pack_level(w) for w in big]
+        p, rhs = torch.zeros(162, 66), torch.zeros(160, 64)
+        match = "bytes of shared memory"
+    elif bad == "fluid_dtype":
+        levels[1] = levels[1]._replace(fluid=levels[1].fluid.bool())
+        match = "uint8"
+    elif bad == "other_device":
+        p, match = torch.zeros(66, 18, device="meta"), "is on meta"
+    if bad == "device":
+        for call in (lambda: masked_kernel.cycle(p, rhs, levels),
+                     lambda: masked_kernel.half_sweeps(p, rhs, levels[0], 1),
+                     lambda: masked_kernel.restrict(p, rhs, *levels),
+                     lambda: masked_kernel.prolong(p, torch.zeros(34, 10),
+                                                   levels[0])):
+            with pytest.raises(ValueError, match="CUDA tensor only"):
+                call()
+        return
+    with pytest.raises((TypeError, ValueError), match=match):
+        masked_kernel.check_cycle_inputs(p, rhs, levels, *counts)
+    masked_kernel.check_cycle_inputs(torch.zeros(66, 18), torch.zeros(64, 16),
+                                     [masked_kernel.pack_level(w) for w in
+                                      _masked_levels(prm)], 2, 2, 32)
+
+
+def _masked_launches(since):
+    return tuple(launches(k, since) for k in MASKED_COUNTERS)
+
+
+def _plain_levels(levels):
+    return tuple(w._replace(packed=None) for w in levels)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", MASKED_CASES)
+def test_masked_cycle_on_the_card_equals_plain(cuda, name, monkeypatch):
+    """One masked V-cycle on the card from a random p (ghost ring not 0):
+    the kernels' launches per counter, one fused cycle, and the plain
+    cycle's bits on the same card, into buffers the kernels must fill."""
+    from navierstokes_parallel_tpu_torch.ops import masked
+    from navierstokes_parallel_tpu_torch.ops.cuda import masked_kernel
+
+    prm = _masked_params(name)
+    levels = _masked_levels(prm, cuda)
+    assert all(w.packed is not None for w in levels)
+    p, rhs = _masked_inputs(prm, cuda, seed=len(name))
+    want = masked._v_cycle_masked(p.clone(), rhs, _plain_levels(levels))
+    start = timing.counts()
+    _poison_empty(monkeypatch)
+    got = masked._v_cycle_masked(p.clone(), rhs, levels)
+    torch.cuda.synchronize()
+    per = masked_kernel.launches_per_cycle(_shapes(levels))
+    assert _masked_launches(start) == tuple(per[k] for k in MASKED_COUNTERS)
+    assert (timing.counts()["masked.fused_cycles"]
+            - start.get("masked.fused_cycles", 0)) == 1
+    assert _same_bits(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("counts", [(2, 2, 32), (0, 1, 0), (3, 0, 5)],
+                         ids=lambda c: "nu%d_%d_coarse%d" % c)
+@pytest.mark.parametrize("name", MASKED_CASES)
+def test_masked_kernels_equal_their_plain_pieces(cuda, name, counts):
+    """Each kernel against the plain function it replaces, on every level:
+    half-sweeps for n = 0, 1, 3 (_smooth_masked), the restriction
+    (masked_residual, _restrict), the prolongation, and the one-block cycle
+    from every level whose tail fits one block, with other sweep counts."""
+    from navierstokes_parallel_tpu_torch.ops import masked
+    from navierstokes_parallel_tpu_torch.ops.cuda import masked_kernel
+
+    prm = _masked_params(name)
+    levels = _masked_levels(prm, cuda)
+    plain = _plain_levels(levels)
+    rng = np.random.default_rng(sum(counts))
+    for d, w in enumerate(levels):
+        ni, nj = w.fluid.shape
+        p = torch.from_numpy(rng.standard_normal((ni + 2, nj + 2)).astype(
+            np.float32)).to(cuda)
+        rhs = torch.from_numpy(rng.standard_normal((ni, nj)).astype(
+            np.float32)).to(cuda)
+        one = torch.ones((), device=cuda)
+        for n in (0, 1, 3):
+            want = masked._smooth_masked(p.clone(), rhs, w, n, one)
+            got = masked_kernel.half_sweeps(p.clone(), rhs, w.packed, n)
+            assert _same_bits(got, want)
+        if d + 1 < len(levels):
+            coarse = levels[d + 1]
+            e_c, r_c = masked_kernel.restrict(p, rhs, w.packed, coarse.packed)
+            zero = torch.zeros((), device=cuda)
+            want = torch.where(coarse.fluid, masked._restrict(
+                -masked.masked_residual(p, rhs, w)), zero)
+            assert _same_bits(r_c, want)
+            assert _same_bits(e_c, torch.zeros_like(e_c))
+            e_c = torch.from_numpy(rng.standard_normal(e_c.shape).astype(
+                np.float32)).to(cuda)
+            want = p.clone()
+            up = e_c[1:-1, 1:-1].repeat_interleave(2, 0).repeat_interleave(
+                2, 1)
+            want[1:-1, 1:-1] += torch.where(w.fluid, up, zero)
+            assert _same_bits(masked_kernel.prolong(p.clone(), e_c, w.packed),
+                              want)
+        if d >= masked_kernel.one_block_depth(_shapes(levels)):
+            before = launches("masked_cycle")
+            got = masked_kernel.cycle(p.clone(), rhs,
+                                      [lv.packed for lv in levels[d:]],
+                                      *counts)
+            assert launches("masked_cycle") == before + 1
+            want = masked._v_cycle_masked(p.clone(), rhs, plain, d, *counts)
+            assert _same_bits(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["schafer_turek", "square_cylinder"])
+def test_masked_mg_solve_on_the_card_equals_plain(cuda, name, monkeypatch):
+    """A whole solve_pressure_masked(..., "mg") on the card: the same
+    iterations, residual and p bits as the plain cycle on the card, every
+    cycle fused and one one-block launch a cycle."""
+    from navierstokes_parallel_tpu_torch.ops import masked
+    from navierstokes_parallel_tpu_torch.ops.cuda import masked_kernel
+
+    prm = _masked_params(name)
+    rng = np.random.default_rng(7)
+    fluid = masked._weights(prm).fluid
+    rhs = np.zeros(prm.shape, np.float32)
+    rhs[1:-1, 1:-1] = np.where(fluid, rng.standard_normal(fluid.shape), 0.0)
+    rhs = torch.from_numpy(rhs).to(cuda)
+    p0 = torch.zeros_like(rhs)
+    start = timing.counts()
+    got = masked.solve_pressure_masked(p0, rhs, prm, "mg")
+    torch.cuda.synchronize()
+    now = timing.counts()
+    cycles = now["masked.cycles"] - start.get("masked.cycles", 0)
+    assert cycles == got.iterations > 0
+    assert (now["masked.fused_cycles"]
+            - start.get("masked.fused_cycles", 0)) == cycles
+    assert launches("masked_cycle", start) == cycles
+    monkeypatch.setattr(masked_kernel, "usable", lambda *a: False)
+    want = masked.solve_pressure_masked(p0, rhs, prm, "mg")
+    assert (got.iterations, got.res_norm, got.converged) == (
+        want.iterations, want.res_norm, want.converged)
+    assert _same_bits(got.p, want.p)
+
+
+@pytest.mark.gpu
+def test_masked_cycle_on_the_card_routes_plain_for_f64_and_grad(cuda):
+    """On the card, float64 levels and an rhs that needs a gradient take
+    the plain cycle: no masked launch."""
+    from navierstokes_parallel_tpu_torch.ops import masked
+
+    prm = _masked_params("step")
+    p, rhs = _masked_inputs(prm, cuda)
+    start = timing.counts()
+    masked._v_cycle_masked(p.double(), rhs.double(),
+                           _masked_levels(prm, cuda, torch.float64))
+    masked._v_cycle_masked(p.clone(), rhs.clone().requires_grad_(True),
+                           _masked_levels(prm, cuda))
+    assert _masked_launches(start) == (0, 0, 0, 0)
+
+
+@pytest.mark.gpu
+def test_masked_gathered_tail_on_a_1x1_mesh(cuda, monkeypatch):
+    """make_sharded_mg_inner at 440 x 82 on a 1x1 mesh: level 0 on the
+    block (plain), the gathered tail from level 1 the one-block launch, a
+    launch a cycle, with the plain tail's bits."""
+    from navierstokes_parallel_tpu_torch.ops import masked
+    from navierstokes_parallel_tpu_torch.ops.cuda import masked_kernel
+    from navierstokes_parallel_tpu_torch.parallel import topology
+
+    prm = _masked_params("schafer_turek")
+    mesh = topology.Mesh((1, 1), (0, 0), cuda, None)
+    rng = np.random.default_rng(3)
+    rhs = torch.from_numpy(rng.standard_normal(prm.shape)).to(cuda)
+    runs = []
+    for kernel in (True, False):
+        if not kernel:
+            monkeypatch.setattr(masked_kernel, "usable", lambda *a: False)
+        inner = masked.make_sharded_mg_inner(prm, prm.i_max, prm.j_max, mesh)
+        start = timing.counts()
+        runs.append(inner(rhs, 2))
+        torch.cuda.synchronize()
+        assert _masked_launches(start) == ((2, 0, 0, 0) if kernel
+                                           else (0, 0, 0, 0))
+    assert _same_bits(*runs)
+
+
+@pytest.mark.gpu
+def test_masked_counters_add_up_to_the_launches(cuda):
+    """Under the profiler one masked V-cycle at 440 x 82 runs as many
+    device kernels as its launch counters add up to: 11."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from navierstokes_parallel_tpu_torch.ops import masked
+
+    prm = _masked_params("schafer_turek")
+    levels = _masked_levels(prm, cuda)
+    p, rhs = _masked_inputs(prm, cuda)
+    masked._v_cycle_masked(p.clone(), rhs, levels)
+    torch.cuda.synchronize()
+    start = timing.counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        masked._v_cycle_masked(p, rhs, levels)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert sum(_masked_launches(start)) == 11
+    assert kernels == 11
