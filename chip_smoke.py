@@ -214,6 +214,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import shutil
@@ -1406,6 +1407,7 @@ def time_defect(torch, rng):
     launches): plain, kernel, kernel, plain, per call, and the kernel's
     device time in a CUDA graph, beside its bytes bound.  Returns (kernel ms, plain ms,
     bound ms, bound by) at 2050^2."""
+    from navierstokes_parallel_tpu_torch.ops import sor
     from navierstokes_parallel_tpu_torch.ops.cuda import defect_kernel
 
     out = None
@@ -1425,12 +1427,13 @@ def time_defect(torch, rng):
                                SOR_SWEEPS)
 
         p_master = p64.clone()
+        plain = functools.partial(
+            sor.outer_pass_plain, defect=sor._make_defect(rhs, prm),
+            l2_fn=sor._default_l2(prm), threshold=threshold,
+            rhs_full=rhs_full)
 
         def run_plain():
-            defect_kernel.outer_pass_plain(
-                p_master, delta, on, iterations, res_norm, SOR_SWEEPS,
-                rhs_int64=rhs, rhs_full=rhs_full, threshold=threshold,
-                params=prm)
+            plain(p_master, delta, on, iterations, res_norm, SOR_SWEEPS)
 
         p1 = cuda_ms(torch, run_plain, p_reps)
         k1 = cuda_ms(torch, run_kernel, reps)

@@ -7,11 +7,11 @@ fills the Neumann ghost ring, forms the f64 defect r = A p - rhs, takes its
 L2 norm and updates the result's norm, the count and the go-on flag; the
 next pass's inner solves A delta = -r.  For one problem with the default
 hooks (ops/sor.py::_fused_outer) ``outer_pass`` makes that pass for one
-solve, the next pass's rhs, f32(-r), included: ``outer_pass_plain`` (the
-outer's statements as they were, plain PyTorch) for CPU tensors, one
-launch of ``csrc/defect.cu`` for CUDA tensors, which raises on anything the
-kernel does not take.  Its source note says what bounds it on the card.  No
-TPU kernel stands behind it: the JAX package's outer is jnp.
+solve, the next pass's rhs, f32(-r), included: the outer's own plain pass
+(ops/sor.py::outer_pass_plain with the default defect and norm) for CPU
+tensors, one launch of ``csrc/defect.cu`` for CUDA tensors, which raises on
+anything the kernel does not take.  Its source note says what bounds it on
+the card.  No TPU kernel stands behind it: the JAX package's outer is jnp.
 
 The kernel's launches are counted in utils/timing.py's table under
 "launch.pressure_defect", one a call.
@@ -25,7 +25,6 @@ import torch
 
 from ...config import Params
 from ...utils import timing
-from ..stencils import l2_norm
 from . import _build
 
 # A block's interior cells (csrc/defect.cu::kTileRows, kTileCols): the
@@ -42,26 +41,6 @@ def blocks(i_max: int, j_max: int) -> int:
 def _spacing(params: Params):
     """(dx2_inv, dy2_inv) as Python doubles, as the outer forms them."""
     return 1.0 / (params.dx * params.dx), 1.0 / (params.dy * params.dy)
-
-
-def outer_pass_plain(p64, delta, on, iterations, res_norm, n_inner, *,
-                     rhs_int64, rhs_full, threshold, params: Params):
-    """The pass in plain PyTorch: the f64 outer's statements, in place on
-    p64 (its ghost ring filled), res_norm, iterations, on and the interior
-    of rhs_full; returns p64."""
-    from .. import sor  # sor imports this module
-
-    dx2_inv, dy2_inv = _spacing(params)
-    interior = p64[1:-1, 1:-1]
-    interior.copy_(torch.where(
-        on, interior + delta[1:-1, 1:-1].to(torch.float64), interior))
-    r64 = sor.residual(sor.ghost_fill(p64), rhs_int64, dx2_inv, dy2_inv)
-    norm = l2_norm(r64, params.i_max, params.j_max)
-    res_norm.copy_(torch.where(on, norm, res_norm))
-    iterations += on * n_inner
-    on &= norm > threshold
-    rhs_full[1:-1, 1:-1] = -r64.to(torch.float32)
-    return p64
 
 
 def check_inputs(p64, rhs_int64, rhs_full, threshold, params: Params) -> None:
@@ -116,14 +95,17 @@ def outer_pass(p64, rhs_int64, rhs_full, threshold, params: Params):
     res_norm, n_inner) -> the new master, which updates res_norm,
     iterations and on in place and writes the next pass's rhs into the
     interior of rhs_full (its ring stays 0).  CPU tensors take
-    ``outer_pass_plain``, which works on p64 in place; CUDA tensors the
+    ``sor.outer_pass_plain``, which works on p64 in place; CUDA tensors the
     kernel, one launch a pass, which writes the new master into a second
     buffer and returns it (the caller's p64 becomes the next pass's
     spare)."""
     if p64.device.type == "cpu":
-        return functools.partial(outer_pass_plain, rhs_int64=rhs_int64,
-                                 rhs_full=rhs_full, threshold=threshold,
-                                 params=params)
+        from .. import sor  # sor imports this module
+
+        return functools.partial(
+            sor.outer_pass_plain, defect=sor._make_defect(rhs_int64, params),
+            l2_fn=sor._default_l2(params), threshold=threshold,
+            rhs_full=rhs_full)
     if p64.device.type != "cuda":
         raise ValueError(f"no pressure defect kernel for device "
                          f"{p64.device}")

@@ -16,12 +16,12 @@ then thresholds as the half-height cavity does).
 The weights and level geometry are the JAX module's numpy code, copied (so
 equal bit for bit), cached per ``Params`` and moved to a device once per
 (params, dtype, device).  The solve is the JAX module's mixed-precision
-refinement: an f64 master and f64 defect against the masked operator, and
-f32 correction iterations between the checks -- K = ``sor_refine_every``
+refinement, run by ops/sor.py's one f64 outer with this operator's hooks:
+an f64 master and f64 defect against the masked operator, and f32
+correction iterations between the checks -- K = ``sor_refine_every``
 masked red-black sweeps ("rb_sor") or ``mg_cycles_per_outer`` masked V(2,2)
 cycles ("mg").  Every other method is refused with JAX's ``ValueError``.  On
-problem 3 each defect loses its constant mode over the fluid cells.  As in
-ops/sor.py, the loop runs on the host and reads one norm per pass.
+problem 3 each defect loses its constant mode over the fluid cells.
 
 The JAX package has no Pallas kernel for these solvers.  On the card the
 masked V-cycle (``_v_cycle_masked``) runs hand-written CUDA kernels
@@ -37,7 +37,6 @@ levels.
 from __future__ import annotations
 
 import functools
-import math
 from typing import List, NamedTuple, Tuple
 
 import numpy as np
@@ -45,9 +44,9 @@ import torch
 
 from ..config import Params
 from ..utils import timing
-from . import obstacles
+from . import obstacles, sor
 from .cuda import masked_kernel
-from .sor import NORM_OFFSET, SORResult, _checkerboard
+from .sor import SORResult, _checkerboard
 from .stencils import div
 
 
@@ -443,91 +442,57 @@ def make_sharded_mg_inner(params: Params, li: int, lj: int, mesh):
 
 
 # ---------------------------------------------------------------------------
-# The mixed-precision refinement outer (structure of ops/sor.py's).
+# The one device's solve: ops/sor.py's f64 outer over the masked operator.
 # ---------------------------------------------------------------------------
 
 
 def solve_pressure_masked(p: torch.Tensor, rhs: torch.Tensor, params: Params,
                           method: str = "rb_sor") -> SORResult:
-    """The masked analogue of sor._solve_pressure_refined: an f64 master
-    and exact f64 defect against the masked operator, and f32 correction
-    iterations (K masked red-black sweeps, or ``mg_cycles_per_outer``
-    masked V-cycles) between the checks.  The returned p keeps the ghost
-    ring of the input (the masked operator never reads it).
-
-    Spans (``utils/timing.py``): ``masked.setup`` (master, threshold, first
-    defect), then one ``masked.pass`` a pass around ``masked.inner``,
-    ``masked.defect`` (master update, defect, norm) and ``masked.flag`` (the
-    pass's one host read).  Counters: ``masked.passes``, ``masked.cycles``
-    (mg) or ``masked.sweeps`` (rb_sor), each by the pass's inner steps, and
-    ``sync.masked_flag``."""
+    """The masked solve: ``sor._solve_pressure_refined`` (an f64 master
+    and exact f64 defect, f32 corrections between the checks) with the
+    masked operator's hooks, as the sharded backend's obstacle branch
+    passes them on a block (parallel/sharded.py::_sharded_pressure_solve):
+    the masked defect (``masked_residual``), the fluid cells as the valid
+    mask, the fluid norm (``_l2_fluid``) and, on problem 3, the fluid mean.
+    The inner stage is K masked red-black sweeps (rb_sor) or
+    ``mg_cycles_per_outer`` masked V-cycles (mg) from delta = 0, counted in
+    ``masked.sweeps`` or ``masked.cycles``; the spans and the other
+    counters are the outer's (``pressure.*``).  The returned p keeps the
+    ghost ring of the input (the masked operator never reads it)."""
     device = p.device
-    f64, f32 = torch.float64, torch.float32
+    f32 = torch.float32
     if method == "rb_sor":
-        K = max(1, params.sor_refine_every)
-        counter = "masked.sweeps"
+        K = params.sor_refine_every
         w32 = device_weights(params, f32, device)
         omega32 = torch.tensor(params.omega, dtype=f32, device=device)
 
-        def inner(neg_r32, n_inner):
+        def inner(rhs_full, n_inner):
+            timing.count("masked.sweeps", n_inner)
             d = torch.zeros(params.shape, dtype=f32, device=device)
-            return _smooth_masked(d, neg_r32, w32, n_inner, omega32)
+            return _smooth_masked(d, rhs_full[1:-1, 1:-1], w32, n_inner,
+                                  omega32)
     elif method == "mg":
-        K = max(1, params.mg_cycles_per_outer)
-        counter = "masked.cycles"
+        K = params.mg_cycles_per_outer
         levels = device_levels(params, f32, device)
 
-        def inner(neg_r32, n_inner):
+        def inner(rhs_full, n_inner):
+            timing.count("masked.cycles", n_inner)
+            # Outside the cycles, which the kernels take contiguous.
+            rhs_int = rhs_full[1:-1, 1:-1].contiguous()
             d = torch.zeros(params.shape, dtype=f32, device=device)
             for _ in range(n_inner):
-                d = _v_cycle_masked(d, neg_r32, levels)
+                d = _v_cycle_masked(d, rhs_int, levels)
             return d
     else:
         raise ValueError(
             f"method {method!r} does not support obstacle domains — use "
             "rb_sor or mg (fft transforms are separable, cg/pallas kernels "
             "are unmasked)")
-
-    with timing.span("masked.setup"):
-        w64 = device_weights(params, f64, device)
-        zero = torch.zeros((), dtype=f64, device=device)
-        p64 = p.to(f64, copy=True)  # the master; updated in place below
-        rhs_int64 = torch.where(w64.fluid, rhs[1:-1, 1:-1].to(f64), zero)
-        norm_p0 = _l2_fluid(torch.where(w64.fluid, p64[1:-1, 1:-1], zero),
-                            w64)
-        threshold = float(params.epsilon * (norm_p0 + NORM_OFFSET))
-        deflate = params.problem == 3
-
-        def defect():
-            r = masked_residual(p64, rhs_int64, w64)
-            if deflate:
-                # Constant-mode deflation over FLUID cells (see ops/sor.py):
-                # the mean leaves out the inert solid zeros.
-                r = r - torch.where(w64.fluid,
-                                    div(torch.sum(r), w64.n_fluid), zero)
-            return r
-
-        r64 = defect()
-    it = 0
-    res_norm = math.inf
-    while it < params.max_it and res_norm > threshold:
-        timing.count("masked.passes")
-        with timing.span("masked.pass"):
-            n_inner = min(K, params.max_it - it)
-            timing.count(counter, n_inner)
-            with timing.span("masked.inner"):
-                delta = inner(-r64.to(f32), n_inner)
-            with timing.span("masked.defect"):
-                p64[1:-1, 1:-1] += delta[1:-1, 1:-1].to(f64)
-                r64 = defect()
-                norm = _l2_fluid(r64, w64)
-            timing.count("sync.masked_flag")
-            with timing.span("masked.flag"):
-                res_norm = float(norm)  # the one sync per pass
-            it += n_inner
-    return SORResult(
-        p=p64.to(p.dtype),
-        iterations=it,
-        res_norm=float(torch.tensor(res_norm, dtype=p.dtype)),
-        converged=res_norm <= threshold,
-    )
+    w64 = device_weights(params, torch.float64, device)
+    return sor._solve_pressure_refined(
+        p, rhs, params.replace(sor_refine_every=max(1, K),
+                               outer_precision="float64"),
+        inner_fn=inner, ghost_fn=lambda q: q, valid_mask=w64.fluid,
+        l2_fn=lambda r: _l2_fluid(r, w64),
+        mean_fn=lambda r: div(torch.sum(r), w64.n_fluid),
+        residual_fn=lambda q, r: masked_residual(q, r, w64))

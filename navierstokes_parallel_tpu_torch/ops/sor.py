@@ -44,12 +44,15 @@ chunk of sweeps, so the count and the bits are those of a check after
 every sweep.  No kernel stands behind the direct solve or the plain inner:
 the JAX package runs them in jnp.
 
-The refinement loop runs on the host: each outer pass reads one scalar (the
-residual norm) back to decide whether to go on, i.e. one device sync per K
-sweeps.  ``outer_precision="compensated"`` runs the JAX package's two-float
-outer instead (``_solve_pressure_refined_compensated``: an f32 pair master
-and a compensated f32 defect, ops/compensated.py) around the same inner
-stages; obstacle domains keep the masked f64 outer, as in the JAX package.
+The refinement loop runs on the host: each outer pass reads one flag (the
+norm above the threshold) back to decide whether to go on, i.e. one device
+sync per K sweeps.  It is the port's one f64-master outer: obstacle domains
+(ops/masked.py) and free surfaces (ops/surface.py) run it with the masked
+operator's hooks, on one device as on a shard.
+``outer_precision="compensated"`` runs the JAX package's two-float outer
+instead (``_solve_pressure_refined_compensated``: an f32 pair master and a
+compensated f32 defect, ops/compensated.py) around the same inner stages;
+obstacle domains keep the f64 outer, as in the JAX package.
 
 ``solve_pressure_batch`` solves a batch of independent problems (a leading
 member axis, solver.solve_ensemble) with per-member thresholds, counts and
@@ -66,9 +69,10 @@ every defect (the ``mean_fn`` hook, all-reduced on a shard).
 
 from __future__ import annotations
 
+import functools
 import math
 import warnings
-from typing import Callable, List, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -217,14 +221,15 @@ def _colour_masks(shape, parity, valid_mask, device):
     return red, black
 
 
-def _masker(valid_mask):
+def _masker(valid_mask, dtype):
     """arr -> arr with the cells outside valid_mask zeroed (identity when
-    there is no mask)."""
+    there is no mask), for arrays of `dtype`: the zero is made once."""
+    if valid_mask is None:
+        return lambda arr: arr
+    zero = torch.zeros((), dtype=dtype, device=valid_mask.device)
+
     def masked(arr):
-        if valid_mask is None:
-            return arr
-        return torch.where(valid_mask, arr,
-                           torch.zeros((), dtype=arr.dtype, device=arr.device))
+        return torch.where(valid_mask, arr, zero)
     return masked
 
 
@@ -415,29 +420,33 @@ def _members(going: Optional[torch.Tensor], device) -> torch.Tensor:
 
 
 def _finish(p_out: torch.Tensor, going: Optional[torch.Tensor],
-            iterations: torch.Tensor, res_norm: torch.Tensor,
-            threshold: torch.Tensor, dtype):
+            iterations, res_norm: torch.Tensor, threshold: torch.Tensor,
+            dtype):
     """The solve's result: a BatchResult for a batch (`going` given), else
-    the SORResult of the one problem, with host numbers.  Convergence is
-    read on the norm before its rounding to the state's dtype."""
+    the SORResult of the one problem, with host numbers.  `iterations` is
+    a device count, or a host int (one refined problem's lean pass).
+    Convergence is read on the norm before its rounding to the state's
+    dtype."""
     converged = res_norm <= threshold
     res_norm = res_norm.to(dtype)
     if going is not None:
         return BatchResult(p=p_out, iterations=iterations, res_norm=res_norm,
                            converged=converged)
-    timing.count("sync.pressure_result", 3)
+    timing.count("sync.pressure_result",
+                 3 if isinstance(iterations, torch.Tensor) else 2)
     with timing.span("pressure.finish"):
         return SORResult(p=p_out, iterations=int(iterations),
                          res_norm=float(res_norm), converged=bool(converged))
 
 
-def _still_going(on: torch.Tensor, fused: bool = False) -> bool:
+def _still_going(on: torch.Tensor, one: bool = False) -> bool:
     """Whether any problem of the solve is still going: the host read of
     the go-on flags, once a pass (once a chunk of the direct solve).  The
-    fused pass's one flag is read as it is, with no reduction launched."""
+    one flag of one refined problem is read as it is, with no reduction
+    launched."""
     timing.count("sync.pressure_flag")
     with timing.span("pressure.flag"):
-        return bool(on if fused else on.any())
+        return bool(on if one else on.any())
 
 
 def _prepare(rhs, params: Params, method: str, mean_fn: Callable):
@@ -514,7 +523,7 @@ def _solve_pressure_direct(p: torch.Tensor, rhs: torch.Tensor,
     l2_fn = l2_fn or _default_l2(params)
     red, black = _colour_masks((p.shape[-2] - 2, p.shape[-1] - 2), parity,
                                valid_mask, device)
-    masked = _masker(valid_mask)
+    masked = _masker(valid_mask, dtype)
     iteration = _make_iteration(method, rhs_int, omega, dx2_inv, dy2_inv,
                                 red, black, ghost_fn=ghost_fn)
 
@@ -587,7 +596,8 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
                             mean_fn: Callable = torch.mean,
                             residual_fn: Optional[Callable] = None,
                             going: Optional[torch.Tensor] = None):
-    """Mixed-precision iterative refinement around an f32 inner stage.
+    """Mixed-precision iterative refinement around an f32 inner stage: the
+    port's one f64-master outer.
 
     Outer loop (f64, once per K inner steps): defect r = A p - RHS, L2
     norm, convergence test against the reference threshold, p += delta.
@@ -595,28 +605,33 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
     A delta = -r from delta = 0 (the SOR kernel route).
 
     The hooks are the JAX package's (``_refined_setup``), for a shard of
-    the sharded backend (parallel/sharded.py): `ghost_fn` fills the ring
-    before each defect (it may work in place or return a new tensor),
-    `l2_fn` is the norm of an interior-shaped array (all-reduced across
-    shards), `valid_mask` zeroes the pad cells of a padded block in the
-    defect and the norms, and `parity` is the block's colour offset
-    (ox + oy) % 2, which the default inner (the whole grid, parity 0)
-    cannot take: a shard brings its own `inner_fn`.  On problem 3 every
-    defect loses its constant mode, `mean_fn` of it (the interior mean; the
-    all-reduced one on a shard), and is masked again, so that a padded
-    block's pad cells stay 0.  `residual_fn(p64, rhs_int64)`, when given,
-    takes the place of the ghost fill and the Laplacian's defect: it returns
-    the interior defect of another operator (the masked one of the sharded
-    backend's obstacle domains, parallel/sharded.py; one device takes
-    ops/masked.py instead).
+    the sharded backend (parallel/sharded.py) or another operator:
+    `ghost_fn` fills the ring before each defect (it may work in place or
+    return a new tensor) and once on the result, `l2_fn` is the norm of an
+    interior-shaped array (all-reduced across shards), `valid_mask` zeroes
+    the pad cells of a padded block (or the solid cells of an obstacle
+    domain) in the defect and the norms, and `parity` is the block's
+    colour offset (ox + oy) % 2, which the default inner (the whole grid,
+    parity 0) cannot take: a shard brings its own `inner_fn`.  On problem 3
+    every defect loses its constant mode, `mean_fn` of it (the interior
+    mean; the all-reduced one on a shard; the fluid mean of an obstacle
+    domain), and is masked again, so that the masked cells stay 0.
+    `residual_fn(p64, rhs_int64)`, when given, takes the place of the
+    ghost fill and the Laplacian's defect: it returns the interior defect
+    of another operator, the masked one of obstacle domains
+    (ops/masked.py::solve_pressure_masked on one device, the sharded
+    backend's on a shard) or of the free surface
+    (ops/surface.py::solve_pressure_free).
 
     With `going` (bool, one per member; solve_pressure_batch), p and rhs
     carry a leading member axis: every member has its own f64 defect,
     norm, threshold and count, every member still going has taken the
     same sweeps, so one inner call serves them all, and a member stops by
-    keeping its master (``torch.where``) while the others go on; the
-    result is a BatchResult.  Without it the mask is one 0-d flag and the
-    result one problem's SORResult.  Either way each pass reads one flag.
+    keeping its master (``torch.where``, ``outer_pass_plain``) while the
+    others go on; the result is a BatchResult.  Without it the result is
+    one problem's SORResult, and its flag is True until a pass reads it
+    False: the pass adds delta to the master in place and keeps its count
+    on the host.  Either way each pass reads one flag.
 
     ``params.outer_precision == "compensated"`` swaps the f64 outer for the
     two-float f32 one (``_solve_pressure_refined_compensated``), with every
@@ -625,9 +640,8 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
 
     Where ``_fused_outer`` holds (one problem, the default hooks), the pass
     after the inner is ``defect_kernel.outer_pass``: one kernel launch on
-    the card (its plain twin on the CPU), which also writes the next pass's
-    rhs, and the flag is read without a reduction.  Every other call takes
-    the plain statements below.
+    the card (``outer_pass_plain`` on the CPU), and the flag is read
+    without a reduction.
     """
     if params.outer_precision == "compensated":
         if residual_fn is not None:
@@ -642,77 +656,119 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
     fused = _fused_outer(p, rhs, params, ghost_fn=ghost_fn, l2_fn=l2_fn,
                          valid_mask=valid_mask, residual_fn=residual_fn,
                          going=going)
+    # One problem off the fused pass: the lean pass below.
+    lean = going is None and not fused
     inner_fn = _default_inner(params, parity, inner_fn)
     K = params.sor_refine_every
     f64, f32 = torch.float64, torch.float32
-    dx2_inv = 1.0 / (params.dx * params.dx)
-    dy2_inv = 1.0 / (params.dy * params.dy)
     l2_fn = l2_fn or _default_l2(params)
-    masked = _masker(valid_mask)
+    masked = _masker(valid_mask, f64)
 
     with timing.span("pressure.setup"):
         p64 = p.to(f64, copy=True)  # the master; updated in place below
         rhs_int64 = rhs[..., 1:-1, 1:-1].to(f64)
         threshold = params.epsilon * (l2_fn(masked(p64[..., 1:-1, 1:-1]))
                                       + NORM_OFFSET)
-
-        def defect():
-            if residual_fn is None:
-                r = masked(residual(ghost_fn(p64), rhs_int64, dx2_inv,
-                                    dy2_inv))
-            else:
-                r = masked(residual_fn(p64, rhs_int64))
-            if params.problem == 3:
-                # Exact at the outer's precision; its rounding shrinks with
-                # the defect (a deflation of the f32 rhs alone leaves a
-                # floor above the threshold on the channel's first step).
-                r = masked(r - mean_fn(r))
-            return r
-
+        defect = _make_defect(rhs_int64, params, ghost_fn=ghost_fn,
+                              masked=masked, mean_fn=mean_fn,
+                              residual_fn=residual_fn)
+        # rhs_full's ghost ring stays 0; only its interior is rewritten.
         rhs_full = torch.zeros(p.shape, dtype=f32, device=p.device)
-        r64 = defect()
+        r64 = defect(p64)
         on = _members(going, p.device)
-        on3 = on.view(*on.shape, 1, 1)  # follows `on` in place
-        iterations = torch.zeros(on.shape, dtype=torch.int64, device=p.device)
+        iterations = 0 if lean else torch.zeros(on.shape, dtype=torch.int64,
+                                                device=p.device)
         res_norm = torch.full(on.shape, math.inf, dtype=f64, device=p.device)
         if fused:
             outer_pass = defect_kernel.outer_pass(p64, rhs_int64, rhs_full,
                                                   threshold, params)
-            # The set-up's defect stays plain (once a solve); each fused
-            # pass writes the next pass's rhs itself.
+        else:
+            outer_pass = functools.partial(
+                outer_pass_plain, defect=defect, l2_fn=l2_fn,
+                threshold=threshold, rhs_full=rhs_full)
+        if not lean:
+            # The first pass's rhs; each pass writes the next one's.
             rhs_full[..., 1:-1, 1:-1] = -r64.to(f32)
         done = 0  # the sweeps of every problem still going
-        go_on = done < params.max_it and _still_going(on, fused)
+        go_on = done < params.max_it and (
+            lean or _still_going(on, going is None))
     while go_on:
         timing.count("pressure.passes")
         with timing.span("pressure.pass"):
             n_inner = min(K, params.max_it - done)
-            if not fused:
-                # rhs_full's ghost ring stays 0; only its interior is
-                # rewritten.
-                rhs_full[..., 1:-1, 1:-1] = -r64.to(f32)
+            if lean:
+                # f32(-r) in two launches: the rounding copy, the sign.
+                rhs_full[..., 1:-1, 1:-1].copy_(r64).neg_()
             with timing.span("pressure.inner"):
                 delta = inner_fn(rhs_full, n_inner)
             with timing.span("pressure.defect"):
-                if fused:
-                    timing.count("pressure.fused_passes")
+                if lean:
+                    p64[..., 1:-1, 1:-1].add_(delta[..., 1:-1, 1:-1])
+                    r64 = defect(p64)
+                    res_norm = l2_fn(r64)
+                    iterations += n_inner
+                    on = res_norm > threshold
+                else:
+                    if fused:
+                        timing.count("pressure.fused_passes")
                     p64 = outer_pass(p64, delta, on, iterations, res_norm,
                                      n_inner)
-                else:
-                    interior = p64[..., 1:-1, 1:-1]
-                    interior.copy_(torch.where(
-                        on3, interior + delta[..., 1:-1, 1:-1].to(f64),
-                        interior))
-                    r64 = defect()
-                    norm = l2_fn(r64)
-                    res_norm = torch.where(on, norm, res_norm)
-                    iterations += on * n_inner
-                    on &= norm > threshold
                 done += n_inner
             # The one sync a pass: whether to go on.
-            go_on = done < params.max_it and _still_going(on, fused)
+            go_on = done < params.max_it and _still_going(on, going is None)
     return _finish(ghost_fn(p64).to(p.dtype), going, iterations, res_norm,
                    threshold, p.dtype)
+
+
+def _make_defect(rhs_int64: torch.Tensor, params: Params, *,
+                 ghost_fn: Callable = ghost_fill,
+                 masked: Callable = lambda arr: arr,
+                 mean_fn: Callable = torch.mean,
+                 residual_fn: Optional[Callable] = None) -> Callable:
+    """p64 -> the f64 outer's defect r = A p - rhs on the interior, with
+    the hooks of ``_solve_pressure_refined`` (`masked` is its
+    ``_masker``); the default hooks give the Laplacian's defect after the
+    Neumann ghost fill, in place on p64's ring."""
+    dx2_inv = 1.0 / (params.dx * params.dx)
+    dy2_inv = 1.0 / (params.dy * params.dy)
+
+    def defect(p64):
+        if residual_fn is None:
+            r = masked(residual(ghost_fn(p64), rhs_int64, dx2_inv, dy2_inv))
+        else:
+            r = masked(residual_fn(p64, rhs_int64))
+        if params.problem == 3:
+            # Exact at the outer's precision; its rounding shrinks with the
+            # defect (a deflation of the f32 rhs alone leaves a floor above
+            # the threshold on the channel's first step).
+            r = masked(r - mean_fn(r))
+        return r
+
+    return defect
+
+
+def outer_pass_plain(p64, delta, on, iterations, res_norm, n_inner, *,
+                     defect: Callable, l2_fn: Callable, threshold,
+                     rhs_full) -> torch.Tensor:
+    """The f64 outer's pass after its inner stage in plain PyTorch, for
+    every problem of a solve at once (``on``: one go-on flag each, or the
+    0-d flag of one): where a problem goes on, its master takes delta (in
+    place on p64), then `defect(p64)`, its norm, the result's norm and
+    count and the go-on flag (in place on res_norm, iterations and on),
+    and the next pass's rhs, f32(-r), in the interior of rhs_full; returns
+    p64.  The pass of a batch, and the CPU twin of
+    ``defect_kernel.outer_pass``."""
+    interior = p64[..., 1:-1, 1:-1]
+    on3 = on.view(*on.shape, 1, 1)
+    interior.copy_(torch.where(
+        on3, interior + delta[..., 1:-1, 1:-1].to(torch.float64), interior))
+    r64 = defect(p64)
+    norm = l2_fn(r64)
+    res_norm.copy_(torch.where(on, norm, res_norm))
+    iterations += on * n_inner
+    on &= norm > threshold
+    rhs_full[..., 1:-1, 1:-1] = -r64.to(torch.float32)
+    return p64
 
 
 def _fused_outer(p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
@@ -778,7 +834,7 @@ def _solve_pressure_refined_compensated(
     dy2_inv = torch.tensor(1.0 / (params.dy * params.dy), dtype=f32,
                            device=device)
     l2_fn = l2_fn or _default_l2(params)
-    masked = _masker(valid_mask)
+    masked = _masker(valid_mask, f32)
 
     # For a float64 state the low f32 words of p and rhs are significant:
     # dropping them would certify convergence of a rounded problem.

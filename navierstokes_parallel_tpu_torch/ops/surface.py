@@ -16,28 +16,28 @@ PyTorch counterpart of ``navierstokes_parallel_tpu/ops/surface.py``
     SUMMAC interpolated condition p_c = alpha p_ref refreshed once per
     outer pass).  The operator is ops/masked.py's neighbour-weight form,
     its weights built on the device from the flags every step (never
-    cached: the flags change every step), and the solve is its f64-master
-    / f32-correction refinement with K masked red-black sweeps per pass.
+    cached: the flags change every step), and the solve is ops/sor.py's
+    f64-master / f32-correction outer with its hooks, K masked red-black
+    sweeps per pass.
 
 Obstacle cells are folded out of the interior (``cell_flags``): they act as
 the ghost ring does, and ``solve_pressure_free`` re-classifies flags made
 by ``classify`` alone.  As in the JAX package, which runs this as jnp, no
 kernel stands behind these operators: they are plain PyTorch on every
-device.  ``solve_pressure_free``'s outer loop runs on the host and reads
-one residual norm per pass, as ``masked.solve_pressure_masked`` does.
+device.  ``solve_pressure_free``'s outer loop is ops/sor.py's, as
+``masked.solve_pressure_masked``'s is: on the host, one flag read a pass.
 """
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config import Params
-from . import masked, obstacles
+from . import masked, obstacles, sor
 from . import stencils as st
-from .sor import NORM_OFFSET, SORResult, _checkerboard
+from .sor import SORResult, _checkerboard
 
 
 class Flags(NamedTuple):
@@ -276,17 +276,18 @@ def solve_pressure_free(p: torch.Tensor, rhs: torch.Tensor, flags: Flags,
                         p_surf: Optional[torch.Tensor] = None,
                         interpolated: bool = False,
                         inner_fn=None) -> SORResult:
-    """The pressure solve on the free-surface geometry: ops/masked.py's
-    f64-master / f32-correction refinement over ``_traced_weights``.  The
-    surface Dirichlet values (`p_surf`, default 0) ride in the pressure
-    array, so there is no null space and no deflation.  With
-    `interpolated` they are the SUMMAC condition instead (``interp_coeffs``),
-    refreshed from the current field once per outer pass, after the
-    correction and before the defect.  `inner_fn(neg_r32, n_inner, w32) ->
-    delta` replaces the K masked red-black sweeps from delta = 0 (w32: the
-    float32 ``_DeviceWeights``); parallel/sharded_free.py plugs its
-    partitioned sweeps in here.  The loop runs on the host and reads one
-    norm per pass."""
+    """The pressure solve on the free-surface geometry: ops/sor.py's f64
+    outer (``sor._solve_pressure_refined``) over ``_traced_weights``, with
+    the masked solve's hooks (ops/masked.py::solve_pressure_masked) and the
+    bulk cells as the valid ones.  The surface Dirichlet values (`p_surf`,
+    default 0) ride in the master, set here once, so there is no null
+    space and no deflation.  With `interpolated` they are the SUMMAC
+    condition instead (``interp_coeffs``), refreshed from the current field
+    in place on the master before each defect: once the set-up's masking
+    is done, then after each pass's correction.  `inner_fn(neg_r32,
+    n_inner, w32) -> delta` replaces the K masked red-black sweeps from
+    delta = 0 (w32: the float32 ``_DeviceWeights``);
+    parallel/sharded_free.py plugs its partitioned sweeps in here."""
     device = p.device
     f64, f32 = torch.float64, torch.float32
     if params.obstacles:
@@ -296,7 +297,6 @@ def solve_pressure_free(p: torch.Tensor, rhs: torch.Tensor, flags: Flags,
         flags = classify(flags.fluid & interior, interior, flags.fill)
     w = _traced_weights(flags, params)
     w32 = _as_dtype(w, f32)
-    K = max(1, params.sor_refine_every)
     if inner_fn is None:
         omega32 = torch.tensor(params.omega, dtype=f32, device=device)
         one_minus_omega, omega_over_diag = 1.0 - omega32, omega32 / w32.diag
@@ -306,43 +306,30 @@ def solve_pressure_free(p: torch.Tensor, rhs: torch.Tensor, flags: Flags,
             return masked.relaxed_sweeps(d, neg_r32, w32, n_inner,
                                          one_minus_omega, omega_over_diag)
 
-    zero = torch.zeros((), dtype=f64, device=device)
     if interpolated:
         use_below, use_above, alpha = interp_coeffs(flags)
         refresh_mask = use_below | use_above
 
-        def refresh(p64):
+        def residual_fn(p64, rhs_int64):
             ref = torch.where(use_below, p64[1:-1, :-2], p64[1:-1, 2:])
             p64[1:-1, 1:-1] = torch.where(refresh_mask, alpha * ref,
                                           p64[1:-1, 1:-1])
-            return p64
+            return masked.masked_residual(p64, rhs_int64, w)
     else:
-        def refresh(p64):
-            return p64
+        def residual_fn(p64, rhs_int64):
+            return masked.masked_residual(p64, rhs_int64, w)
 
-    p64 = refresh(mask_pressure(p.to(f64), flags, p_surf))
-    rhs_int64 = torch.where(w.fluid, rhs[1:-1, 1:-1].to(f64), zero)
-    norm_p0 = masked._l2_fluid(torch.where(w.fluid, p64[1:-1, 1:-1], zero),
-                               w)
-    threshold = float(params.epsilon * (norm_p0 + NORM_OFFSET))
-    r64 = masked.masked_residual(p64, rhs_int64, w)
-    it = 0
-    res_norm = math.inf
-    while it < params.max_it and res_norm > threshold:
-        n_inner = min(K, params.max_it - it)
-        delta = inner_fn(-r64.to(f32), n_inner, w32)
-        p64[1:-1, 1:-1] += torch.where(w.fluid, delta[1:-1, 1:-1].to(f64),
-                                       zero)
-        p64 = refresh(p64)
-        r64 = masked.masked_residual(p64, rhs_int64, w)
-        res_norm = float(masked._l2_fluid(r64, w))  # the one sync per pass
-        it += n_inner
-    return SORResult(
-        p=p64.to(p.dtype),
-        iterations=it,
-        res_norm=float(torch.tensor(res_norm, dtype=p.dtype)),
-        converged=res_norm <= threshold,
-    )
+    result = sor._solve_pressure_refined(
+        mask_pressure(p.to(f64), flags, p_surf), rhs,
+        params.replace(sor_refine_every=max(1, params.sor_refine_every),
+                       outer_precision="float64"),
+        inner_fn=lambda rhs_full, n: inner_fn(rhs_full[1:-1, 1:-1], n, w32),
+        ghost_fn=lambda q: q, valid_mask=w.fluid,
+        l2_fn=lambda r: masked._l2_fluid(r, w), residual_fn=residual_fn)
+    # The master is float64: the result in p's dtype.
+    return result._replace(
+        p=result.p.to(p.dtype),
+        res_norm=float(torch.tensor(result.res_norm, dtype=p.dtype)))
 
 
 def fluid_face_masks(flags: Flags) -> Tuple[torch.Tensor, torch.Tensor]:

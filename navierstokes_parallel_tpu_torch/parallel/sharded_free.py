@@ -23,8 +23,10 @@ does; only the f32 correction sweeps inside
 
 The numerics are the single-device solve's (same sweeps, masks and order);
 the f64 master, the SUMMAC refresh and the defect stay
-``solve_pressure_free``'s.  As in the JAX package, where these sweeps are
-jnp, no kernel stands behind them: plain PyTorch on every device.
+``solve_pressure_free``'s (ops/sor.py's outer with its hooks, which hands
+this hook the interior of its padded f32 rhs).  As in the JAX package,
+where these sweeps are jnp, no kernel stands behind them: plain PyTorch on
+every device.
 """
 
 from __future__ import annotations

@@ -2,10 +2,11 @@
 
 The default call of ``sor._solve_pressure_refined`` (one problem, a 2-D
 float32 state, the default hooks, no deflation) takes the fused pass, on
-the CPU its plain twin ``outer_pass_plain``; every other call keeps the
-outer's plain statements.  Both give the same bits: a call with an
-explicit ``l2_fn=_default_l2(params)`` takes the plain statements and
-serves as the yardstick.  The kernel itself runs on the card
+the CPU its plain twin, the outer's own plain pass
+(``sor.outer_pass_plain`` with the default defect and norm); every other
+call keeps the outer's plain statements.  Both give the same bits: a call
+with an explicit ``l2_fn=_default_l2(params)`` takes the plain statements
+and serves as the yardstick.  The kernel itself runs on the card
 (tests/test_torch_cuda.py).
 """
 
@@ -210,6 +211,7 @@ def test_one_pass_of_the_twin(going, stops):
     iterations = torch.tensor(5)
     res_norm = torch.tensor(math.inf, dtype=torch.float64)
     pass_fn = defect_kernel.outer_pass(p64, rhs, rhs_full, threshold, prm)
+    assert pass_fn.func is sor.outer_pass_plain  # the outer's own pass
     out = pass_fn(p64, delta, on, iterations, res_norm, 64)
     assert out is p64 and torch.equal(out, q)
     assert torch.equal(rhs_full[1:-1, 1:-1], -r.float())

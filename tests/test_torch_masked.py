@@ -10,6 +10,9 @@ their dispatch in ops/sor.py vs the JAX package, on the CPU.
     iterations and convergence, p within the 1e-4 contract.
   * The JAX package's domain-equivalence test: a cavity whose lower half
     is one obstacle gives the half-height cavity.
+  * The masked solve runs ops/sor.py's one f64 outer: a pass reads one
+    flag and stays within two device ops of the masked solve's own loop
+    before the two outers were one.
 """
 
 import dataclasses
@@ -18,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from navierstokes_parallel_tpu.config import Params as JaxParams
 from navierstokes_parallel_tpu.models import karman as jkarman
@@ -26,7 +30,8 @@ from navierstokes_parallel_tpu.ops import masked as jmasked
 from navierstokes_parallel_tpu.ops import sor as jsor
 from navierstokes_parallel_tpu_torch import solver
 from navierstokes_parallel_tpu_torch.config import Params
-from navierstokes_parallel_tpu_torch.ops import masked, sor
+from navierstokes_parallel_tpu_torch.ops import masked, obstacles, sor
+from navierstokes_parallel_tpu_torch.utils import timing
 
 from conftest import assert_close_reference_contract
 
@@ -199,3 +204,59 @@ def test_half_blocked_cavity_equals_half_cavity(method):
     vh = sth.v.numpy()[:, 1: n // 2 + 1]
     np.testing.assert_allclose(uf, uh, atol=1e-9)
     np.testing.assert_allclose(vf, vh, atol=1e-9)
+
+
+# A 40 x 16 channel (problem 3: the fluid-mean deflation) with a 4 x 4
+# block, the tracing tests' masked case.
+PASS_CASE = Params(problem=3, i_max=40, j_max=16, a=5.0, b=2.0, Re=100.0,
+                   tau=0.5, sor_refine_every=16, obstacles=((8, 11, 7, 10),))
+# Device ops (every ATen op but views) of one pass of the masked solve's
+# own loop, which it had before it ran ops/sor.py's outer, measured on
+# that code at PASS_CASE: K = 16 masked sweeps, or one masked V-cycle on
+# its two levels, then the f64 update, defect, deflation and norm and one
+# host read of the norm.
+LOOP_OPS_PER_PASS = {"rb_sor": 445, "mg": 995}
+
+
+class _DeviceOps(TorchDispatchMode):
+    """Counts the ATen ops dispatched under it, views left out (they
+    launch nothing on a device)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += not func.is_view
+        return func(*args, **(kwargs or {}))
+
+
+def _pass_ops(method, passes):
+    """(device ops, flag reads) of one CPU masked solve of `passes` passes
+    into max_it from a seeded rhs."""
+    K = {"rb_sor": PASS_CASE.sor_refine_every,
+         "mg": PASS_CASE.mg_cycles_per_outer}[method]
+    prm = PASS_CASE.replace(max_it=passes * K, epsilon=1e-14)
+    g = torch.Generator().manual_seed(5)
+    rhs = torch.zeros(prm.shape)
+    rhs[1:-1, 1:-1] = torch.randn((prm.i_max, prm.j_max), generator=g)
+    rhs = obstacles.mask_rhs(rhs, prm)
+    p = torch.zeros(prm.shape)
+    masked.solve_pressure_masked(p, rhs, prm, method)  # the caches
+    start = timing.counts().get("sync.pressure_flag", 0)
+    with _DeviceOps() as ops:
+        got = masked.solve_pressure_masked(p, rhs, prm, method)
+    assert got.iterations == passes * K and not got.converged
+    return ops.n, timing.counts().get("sync.pressure_flag", 0) - start
+
+
+@pytest.mark.parametrize("method", ["rb_sor", "mg"])
+def test_masked_pass_ops(method):
+    """A pass of the masked solve, the difference of a two- and a
+    one-pass solve (the last pass reads no flag: max_it ends the loop):
+    one flag read, and device ops at most two above the masked loop's own
+    (the rhs of the inner now goes through the outer's padded f32 array)."""
+    (one, one_reads), (two, two_reads) = (_pass_ops(method, n)
+                                          for n in (1, 2))
+    assert (one_reads, two_reads) == (0, 1)
+    assert 0 < two - one <= LOOP_OPS_PER_PASS[method] + 2

@@ -216,3 +216,32 @@ def test_unknown_method_and_default_method():
         sor.solve_pressure(z, z, prm, method="nope")
     assert sor.default_method(prm, "cpu") == "rb_sor"
     assert sor.default_method(prm, "cuda") == "pallas_sor"
+
+
+@pytest.mark.parametrize("problem", [1, 3], ids=["cavity", "channel"])
+@pytest.mark.parametrize("method", ["rb_sor", "jacobi"])
+def test_one_problem_equals_a_batch_of_one(method, problem):
+    """One problem's solve against ``solve_pressure_batch`` of one member:
+    the same p bit for bit, iterations, norm and convergence.  The batch
+    takes the outer's plain pass with a member axis (``torch.where`` on
+    its flags); one problem takes the fused pass's CPU twin on the cavity
+    and the lean pass (the master updated in place, the count on the
+    host) on the channel, whose deflation is off the fused pass."""
+    # K = 16: rb_sor stops on a pass whose norm is near its threshold.
+    prm, _ = _params(14, 10, max_it=600, epsilon=1e-7, problem=problem,
+                     sor_refine_every=16)
+    rhs = torch.from_numpy(_rhs(14, 10, seed=11, zero_mean=problem == 1))
+    p0 = torch.from_numpy(_rhs(14, 10, seed=12, zero_mean=False)) * 0.1
+    start = timing.counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # jacobi's omega clamp
+        one = sor.solve_pressure(p0, rhs, prm, method=method)
+        fused = timing.counts().get("pressure.fused_passes", 0) - start.get(
+            "pressure.fused_passes", 0)
+        batch = sor.solve_pressure_batch(p0[None], rhs[None], prm,
+                                         method=method)
+    assert (fused > 0) == (problem == 1)
+    assert torch.equal(one.p, batch.p[0])
+    assert one.iterations == int(batch.iterations[0]) > 0
+    assert one.res_norm == float(batch.res_norm[0])
+    assert one.converged == bool(batch.converged[0])

@@ -6,9 +6,11 @@ passes, the loop its read of t, and the outer its host reads: one flag a
 pass (one more when the flag, not max_it, ends the loop) and three reads
 of the result.  The refined outer keeps the parent's loop: its fields and
 counts equal a transcription of that loop (``_parent_refined``) bit for
-bit.  The masked outer of obstacle domains, on a 40 x 16 channel, keeps
-its bits under the profiler and counts its passes, its V-cycles or sweeps
-and its flag reads.
+bit.  The masked solve of obstacle domains, on a 40 x 16 channel, runs
+that same outer (``pressure.*`` spans and counters, one flag read a pass
+and none at the set-up), keeps its bits under the profiler and counts its
+V-cycles or sweeps, with the masked levels' spans inside the outer's
+inner stage.
 """
 
 import json
@@ -241,7 +243,12 @@ def test_masked_spans_keep_the_bits_and_counters_add_up(method, tmp_path):
         traced.iterations, traced.res_norm, traced.converged)
     assert plain.converged and plain.iterations > MASKED_K[method]
     passes = math.ceil(plain.iterations / MASKED_K[method])
-    assert counted["masked.passes"] == counted["sync.masked_flag"] == passes
+    # The one outer's counters: a flag read a pass, none at the set-up,
+    # and the result's two reads (its count is a host int).
+    assert counted["pressure.passes"] == counted["sync.pressure_flag"] \
+        == passes
+    assert counted["sync.pressure_result"] == 2
+    assert "pressure.fused_passes" not in counted
     assert counted[MASKED_COUNTER[method]] == plain.iterations
     assert not {"masked.cycles", "masked.sweeps"} - {MASKED_COUNTER[method]} \
         & set(counted)
@@ -249,16 +256,19 @@ def test_masked_spans_keep_the_bits_and_counters_add_up(method, tmp_path):
     path = str(tmp_path / "trace.json")
     prof.export_chrome_trace(path)
     spans = _user_spans(path)
-    for name in ("setup", "pass", "inner", "defect", "flag"):
-        assert spans.get("nsp.masked." + name), name
-    assert len(spans["nsp.masked.pass"]) == passes
+    assert not [name for name in spans if name.startswith("nsp.masked.")
+                and not name.startswith("nsp.masked.level")]
+    for name in ("setup", "pass", "inner", "defect", "flag", "finish"):
+        assert spans.get("nsp.pressure." + name), name
+    assert len(spans["nsp.pressure.pass"]) == passes
     for name in ("inner", "defect", "flag"):
-        assert all(_inside(s, spans["nsp.masked.pass"])
-                   for s in spans["nsp.masked." + name])
+        assert len(spans["nsp.pressure." + name]) == passes
+        assert all(_inside(s, spans["nsp.pressure.pass"])
+                   for s in spans["nsp.pressure." + name])
     if method == "mg":
         levels = spans["nsp.masked.level0"]
         assert len(levels) == plain.iterations
-        assert all(_inside(s, spans["nsp.masked.inner"]) for s in levels)
+        assert all(_inside(s, spans["nsp.pressure.inner"]) for s in levels)
         assert len(spans["nsp.masked.level1"]) == len(levels)
         assert all(_inside(s, levels) for s in spans["nsp.masked.level1"])
     else:
