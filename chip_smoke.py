@@ -27,9 +27,10 @@ checks each answer against the JAX package's recorded answer:
     2048``;
   * multigrid: ``... configs/4.in --method mg --stats`` through
     ``cli.main``, the 2048^2 cavity (kernels sor_warm_sweeps, the smoother
-    of the four levels from 2050^2 to 258^2, mg_coarse_cycle, the rest of
-    each V-cycle from 130^2 down in one launch, and momentum_rhs), with
-    both plain twins barred;
+    of the four levels from 2050^2 to 258^2, mg_restrict and mg_prolong,
+    their grid transfers, mg_coarse_cycle, the rest of each V-cycle from
+    130^2 down in one launch, and momentum_rhs), with the plain twins of
+    the smoother, the coarse cycle and the transfers barred;
   * tiled SOR: ``... configs/4.in --max-steps 2 --stats`` through
     ``cli.main``, the default method on the 2048^2 cavity, which routes the
     sweeps to the temporal-blocked kernel sor_tiled_sweeps, with the
@@ -434,7 +435,8 @@ SOR_SWEEPS = 64  # the main path's K: one kernel call = 64 sweeps
 ENSEMBLE_MEMBERS = 8
 # The kernels each method's batched ensemble step launches on the card.
 ENSEMBLE_KERNELS = {"rb_sor": ("momentum", "sor"), "fft": ("momentum",),
-                    "mg": ("momentum", "sor_warm", "mg_coarse_cycle")}
+                    "mg": ("momentum", "sor_warm", "mg_restrict",
+                           "mg_prolong", "mg_coarse_cycle")}
 # The refinement interval of the benchmark's SOR arm; the main path runs a
 # second time with it.
 BENCH_REFINE_EVERY = 2048
@@ -641,6 +643,7 @@ def phase_compare(torch) -> dict:
 
     errs["sor_warm"] = compare_warm(torch, rng)
     errs["mg_coarse_cycle"] = compare_coarse_cycle(torch, rng)
+    errs["mg_restrict"], errs["mg_prolong"] = compare_transfers(torch, rng)
 
     # The tiled kernel at the SOR paths' 258^2 and 2050^2 and at 99 x 63,
     # over one sweep, one chunk, the path's 64 and 20 (a short last chunk),
@@ -932,7 +935,65 @@ def cycle_on_simple(p, rhs, levels):
         return sor_kernel.warm_sweeps_simple(q, rhs_l, n, 1.0, lvl.dx2_inv,
                                              lvl.dy2_inv)
 
-    return mg._cycle(p, rhs, levels, 0, 2, 2, 32, smooth, len(levels))
+    return mg._cycle(p, rhs, levels, 0, 2, 2, 32, smooth, mg._down_plain,
+                     mg._up_plain, len(levels))
+
+
+def transfer_cases(torch, rng):
+    """(level, its coarse level, p, rhs, e_c, p's ghost ring) on the card
+    for the grid transfers: configs/4.in's four levels above the coarse cycle and a
+    non-square 2048 x 1024 level, p's ghost ring random, and the finest
+    again with p's ghost ring -0.0 (the add must turn it into +0.0)."""
+    from navierstokes_parallel_tpu_torch.config import Params
+    from navierstokes_parallel_tpu_torch.ops import mg
+
+    levels, depth = mg_levels()
+    wide = mg.build_levels(Params(i_max=CHANNEL_WIDE[0],
+                                  j_max=CHANNEL_WIDE[1], a=1.0, b=0.5))
+    pairs = [(lv, levels[k + 1]) for k, lv in enumerate(levels[:depth])]
+    pairs += [wide[:2], pairs[0]]
+    cases = []
+    for k, (lvl, coarse) in enumerate(pairs):
+        size = (lvl.shape[0] - 2, lvl.shape[1] - 2)
+        p = random_grid(torch, rng, size, ring=True) / lvl.dx2_inv
+        ring = "random"
+        if k == len(pairs) - 1:
+            ring = "-0.0"
+            for edge in (p[0], p[-1], p[:, 0], p[:, -1]):
+                edge.fill_(-0.0)
+        rhs = random_grid(torch, rng, size, ring=True)
+        e_c = random_grid(torch, rng, (coarse.shape[0] - 2,
+                                       coarse.shape[1] - 2), ring=False)
+        cases.append((lvl, coarse, p, rhs, e_c, ring))
+    return cases
+
+
+def compare_transfers(torch, rng):
+    """mg_restrict and mg_prolong against their plain twins (ops/mg.py's
+    _down_plain and _up_plain) at transfer_cases' levels: error 0.0 and
+    the same sign bits.  Returns the max abs error of each."""
+    from navierstokes_parallel_tpu_torch.ops import mg
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+
+    worst = [0.0, 0.0]
+    for lvl, coarse, p, rhs, e_c, ring in transfer_cases(torch, rng):
+        pairs = (
+            (sor_kernel.mg_restrict(p, rhs, lvl.dx2_inv, lvl.dy2_inv),
+             mg._down_plain(p, rhs, lvl, coarse)),
+            ((sor_kernel.mg_prolong(p, e_c),), (mg._up_plain(p, e_c, lvl),)))
+        torch.cuda.synchronize()
+        for k, (name, (got, want)) in enumerate(zip(
+                ("mg_restrict", "mg_prolong"), pairs)):
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            signs = all(torch.equal(torch.signbit(g), torch.signbit(w))
+                        for g, w in zip(got, want))
+            print(f"[compare] {name} at {lvl.shape} (ring {ring}): max abs "
+                  f"err {err:.3e} vs its plain twin (expected 0), signs "
+                  f"equal {signs}")
+            check(err == 0.0 and signs,
+                  f"{name} disagrees with its twin at {lvl.shape}")
+            worst[k] = max(worst[k], err)
+    return tuple(worst)
 
 
 def compare_coarse_cycle(torch, rng) -> float:
@@ -1142,6 +1203,53 @@ def cycle_bound(levels, nu1: int = 2, nu2: int = 2, coarse_sweeps: int = 32):
     return bound(3 * 4 * shape[0] * shape[1], flops)
 
 
+def time_transfers(torch, rng) -> dict:
+    """mg_restrict and mg_prolong at configs/4.in's finest level (2050^2)
+    beside their plain twins, in turns (plain, kernel, kernel, plain; ms
+    per call by CUDA events, the host's cost included), and each kernel's
+    device time in a CUDA graph (20 calls on the same arrays, which the
+    50 MB L2 partly holds between calls) beside its bound: the bytes of
+    its arrays read once or written once (restriction: p, rhs, r_c, e_c;
+    prolongation: p, e_c, the new p).  Returns (kernel ms, plain ms, bound
+    ms, bound by) per kernel."""
+    from navierstokes_parallel_tpu_torch.ops import mg
+    from navierstokes_parallel_tpu_torch.ops.cuda import sor_kernel
+
+    levels, _ = mg_levels()
+    lvl, coarse = levels[0], levels[1]
+    size = (lvl.shape[0] - 2, lvl.shape[1] - 2)
+    p = random_grid(torch, rng, size, ring=True) / lvl.dx2_inv
+    rhs = random_grid(torch, rng, size, ring=True)
+    e_c = random_grid(torch, rng, (coarse.shape[0] - 2, coarse.shape[1] - 2),
+                      ring=False)
+    fine = lvl.shape[0] * lvl.shape[1]
+    cells = coarse.shape[0] * coarse.shape[1]
+    # name: (kernel, plain, bound): the residual's 12 operations a fine
+    # cell and the restriction's 4 a coarse cell; the add's 1 a fine cell.
+    cases = {
+        "mg_restrict": (
+            lambda: sor_kernel.mg_restrict(p, rhs, lvl.dx2_inv, lvl.dy2_inv),
+            lambda: mg._down_plain(p, rhs, lvl, coarse),
+            bound(4 * (2 * fine + 2 * cells), 12 * fine + 4 * cells)),
+        "mg_prolong": (lambda: sor_kernel.mg_prolong(p, e_c),
+                       lambda: mg._up_plain(p, e_c, lvl),
+                       bound(4 * (2 * fine + cells), fine)),
+    }
+    out = {}
+    for name, (kernel, plain, (b_ms, b_by)) in cases.items():
+        p1 = cuda_ms(torch, plain, 20)
+        k1 = cuda_ms(torch, kernel, 200)
+        k2 = cuda_ms(torch, kernel, 200)
+        p2 = cuda_ms(torch, plain, 20)
+        device_ms = graph_ms(torch, kernel)
+        out[name] = ((k1 + k2) / 2, (p1 + p2) / 2, b_ms, b_by)
+        print(f"[time] {name} at {lvl.shape}: kernel {k1:.4f} / {k2:.4f} ms "
+              f"per call, {device_ms * 1e3:.2f} us of device time in a CUDA "
+              f"graph; plain {p1:.4f} / {p2:.4f} ms per call; bound "
+              f"{b_ms * 1e3:.2f} us ({b_by})")
+    return out
+
+
 def tile_note(sor_kernel, tile_rows: int, ns: int, halo: int,
               updates: int, k_ms: float) -> str:
     """The tile's geometry on the card, its cell updates per written cell
@@ -1277,6 +1385,7 @@ def phase_time(torch) -> dict:
     times["momentum"] = time_momentum(torch, rng, prm)
     times["sor_compressed"] = time_compressed(torch, prm, rhs, bounds)
     times["pressure_defect"] = time_defect(torch, rng)
+    times.update(time_transfers(torch, rng))
 
     # The tiled kernel at 258^2 and 2050^2, each beside its plain twin, the
     # first whole-grid kernel and the current one, 64 sweeps.
@@ -1507,6 +1616,8 @@ def time_compressed(torch, prm, rhs, bounds):
 LAUNCH_COUNTERS = {"sor": "launch.sor_whole_grid",
                    "sor_warm": "launch.sor_warm",
                    "mg_coarse_cycle": "launch.mg_coarse_cycle",
+                   "mg_restrict": "launch.mg_restrict",
+                   "mg_prolong": "launch.mg_prolong",
                    "momentum": "launch.momentum",
                    "sor_tiled": "launch.sor_tiled",
                    "sor_compressed": "launch.sor_compressed",
@@ -1641,23 +1752,29 @@ def phase_mg_path() -> dict:
     check(0 < depth < len(levels), "the coarse cycle is not on the mg path")
 
     with barred(sor_kernel, ("warm_sweeps_plain", "coarse_cycle_plain",
-                             "warm_sweeps_simple"), "the mg path"):
+                             "warm_sweeps_simple"), "the mg path"), \
+            barred(mg, ("_down_plain", "_up_plain"), "the mg path"):
         stats, launches = run_cli(
             "mg", [str(config), "--method", "mg", "--stats"],
             JAX_MG_U_CENTER, JAX_MG_V_CENTER, JAX_MG_STATS)
     cycles = int(stats["sor_iterations"])
     smooths = (cycles + 1) * 2 * depth
+    transfers = (cycles + 1) * depth
     print(f"[mg] {cycles} V-cycles in {stats['steps']} steps "
           f"({cycles / int(stats['steps']):.3f} per step); smoother calls "
           f"expected ({cycles} + 1) x 2 x {depth} = {smooths}, launched "
-          f"{launches['sor_warm']}; coarse cycles expected {cycles + 1}, "
-          f"launched {launches['mg_coarse_cycle']}")
+          f"{launches['sor_warm']}; transfers each way expected ({cycles} + "
+          f"1) x {depth} = {transfers}, launched {launches['mg_restrict']} "
+          f"/ {launches['mg_prolong']}; coarse cycles expected "
+          f"{cycles + 1}, launched {launches['mg_coarse_cycle']}")
     check(launches["sor_warm"] == smooths,
           "warm-start kernel launches differ from the smoother calls")
+    check(launches["mg_restrict"] == launches["mg_prolong"] == transfers,
+          "transfer kernel launches differ from the levels above the tail")
     check(launches["mg_coarse_cycle"] == cycles + 1,
           "coarse-cycle launches differ from the V-cycles")
-    check_only(launches, ("sor_warm", "mg_coarse_cycle", "momentum"),
-               "the mg path")
+    check_only(launches, ("sor_warm", "mg_restrict", "mg_prolong",
+                          "mg_coarse_cycle", "momentum"), "the mg path")
     return launches
 
 
@@ -2177,7 +2294,8 @@ def phase_taylor_green(torch) -> dict:
     uc, vc = solver.center_values(state, prm)
     cycles = stats.total_sor_iterations
     # The free-slip box (problem 4) takes the f64 outer's fused pass.
-    want = {"sor_warm": cycles * 2 * depth, "mg_coarse_cycle": cycles,
+    want = {"sor_warm": cycles * 2 * depth, "mg_restrict": cycles * depth,
+            "mg_prolong": cycles * depth, "mg_coarse_cycle": cycles,
             "pressure_defect": cycles // prm.mg_cycles_per_outer}
     got = {k: n for k, n in launches.items() if n}
     print(f"[taylor-green] {TG_N}^2 mg solve_ab2: {tuple(stats[:3])} vs JAX "
@@ -4267,9 +4385,11 @@ def device_us(evt) -> float:
 def phase_cycle(torch) -> None:
     """One V-cycle at configs/4.in's 2048^2 from delta = 0: CUDA-event time
     and kernel launches counted under the profiler, for the cycle as it
-    runs (the smoother on the four fine levels, the coarse cycle from
-    130^2) and as it ran with the first smoother kernel on every level and
-    no coarse cycle.  Both give the same bits."""
+    runs (the smoother and the two transfer kernels on the four fine
+    levels, the coarse cycle from 130^2), with the plain transfers instead
+    (the cycle before the transfer kernels), and as it ran with the first
+    smoother kernel on every level and no coarse cycle.  All give the same
+    bits."""
     from torch.profiler import ProfilerActivity, profile
 
     from navierstokes_parallel_tpu_torch.ops import mg
@@ -4283,8 +4403,11 @@ def phase_cycle(torch) -> None:
     rhs = torch.from_numpy(rhs).cuda()
     p0 = torch.zeros_like(rhs)
 
-    cases = [(f"coarse cycle from {levels[depth].shape}",
+    cases = [(f"coarse cycle from {levels[depth].shape}, transfer kernels",
               lambda: mg.v_cycle(p0, rhs, levels)),
+             (f"coarse cycle from {levels[depth].shape}, plain transfers",
+              lambda: mg._cycle(p0, rhs, levels, 0, 2, 2, 32, mg._smooth,
+                                mg._down_plain, mg._up_plain, depth)),
              ("first smoother kernel on every level, no coarse cycle",
               lambda: cycle_on_simple(p0, rhs, levels))]
     # Every time first, in two turns, then the profiles: once the profiler
@@ -4545,6 +4668,13 @@ def main(argv=None) -> int:
                                    f"{tpu}sor_kernel.py:67 (warm_start=True,"
                                    f" the smoother of the V-cycle's coarse "
                                    f"levels)"),
+               "mg_restrict": ("mg_restrict", "mg_cycle.cu",
+                               "none (the V-cycle's residual and 2x2 "
+                               "restriction, jnp in navierstokes_parallel_"
+                               "tpu/ops/mg.py)"),
+               "mg_prolong": ("mg_prolong", "mg_cycle.cu",
+                              "none (the V-cycle's injection and add, jnp "
+                              "in navierstokes_parallel_tpu/ops/mg.py)"),
                "momentum": ("momentum_rhs", "momentum.cu",
                             f"{tpu}momentum_kernel.py:36"),
                "sor_tiled": ("sor_tiled_sweeps", "sor_tiled.cu",

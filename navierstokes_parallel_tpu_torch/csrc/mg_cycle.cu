@@ -35,6 +35,23 @@
 //   p    += e_c of the coarse cell that covers it (+ 0 on the ghost ring)
 // with every constant rounded to f32 once on the host and every operation
 // rounded alone (nsp_round.cuh).
+//
+// The grid transfers of the levels above that tail, where a level is in
+// device memory and the smoother is B3 (csrc/sor.cu), take one launch each
+// way, with the same device functions as the one-block cycle:
+//  * nsp_mg_restrict: r_c and the zeroed e_c of the next level from the
+//    fine p and rhs, one thread a coarse cell reading its 2x2 fine block
+//    and the block's ring (no intermediate residual array);
+//  * nsp_mg_prolong: p + e_c of the covering coarse cell into a new array
+//    (+ 0 on the ghost ring, which turns -0.0 into +0.0 as the plain add
+//    does), one thread a fine cell.
+// They replace no TPU kernel: the JAX package runs these transfers in jnp
+// (ops/mg.py::_lap, _restrict, _prolong), and the port ran them as ~26
+// PyTorch launches a level.  They are bound by bytes: at 2050^2 the
+// restriction reads p and rhs and writes r_c and e_c (~42 MB, 12.5 us at
+// 3.35 TB/s), the prolongation reads p and e_c and writes p (~38 MB,
+// 11 us).  What they buy is launches: a fine level takes 4 (two smoother
+// calls and these two) instead of 28.
 
 #include <cuda_runtime.h>
 
@@ -87,7 +104,8 @@ __device__ __forceinline__ void level_sweeps(float* p, const float* rhs,
   }
 }
 
-// rhs - A p at interior cell (i, j).
+// rhs - A p at interior cell (i, j); p and rhs in shared memory (the
+// one-block cycle) or in device memory (nsp_mg_restrict).
 __device__ __forceinline__ float level_residual(const float* p,
                                                 const float* rhs,
                                                 const Level& L, int i, int j) {
@@ -103,6 +121,32 @@ __device__ __forceinline__ float level_residual(const float* p,
                            mul(add(p[c - 1], p[c + 1]), L.dy2_inv)),
                        mul(pc, self_coef));
   return sub(rhs[c], sub(nb, mul(L.s2, pc)));
+}
+
+// r_c at interior coarse cell (ci, cj) of fine level F:
+// 0.25 ((r00 + r01) + (r10 + r11)) over the 2x2 fine block it covers.
+__device__ __forceinline__ float restricted_residual(const float* p,
+                                                    const float* rhs,
+                                                    const Level& F, int ci,
+                                                    int cj) {
+  const int i = 2 * ci - 1, j = 2 * cj - 1;
+  return nsp::mul(
+      0.25f, nsp::add(nsp::add(level_residual(p, rhs, F, i, j),
+                               level_residual(p, rhs, F, i, j + 1)),
+                      nsp::add(level_residual(p, rhs, F, i + 1, j),
+                               level_residual(p, rhs, F, i + 1, j + 1))));
+}
+
+// p + e_c of the coarse cell that covers cell (i, j) of fine level F, + 0
+// on F's ghost ring; e is the coarse level's padded array, nj_c wide.
+__device__ __forceinline__ float prolonged(const float* p, const float* e,
+                                           const Level& F, int nj_c, int i,
+                                           int j) {
+  const bool interior = i >= 1 && i <= F.ni - 2 && j >= 1 && j <= F.nj - 2;
+  const size_t k =
+      static_cast<size_t>((i - 1) / 2 + 1) * nj_c + (j - 1) / 2 + 1;
+  const float up = interior ? e[k] : 0.0f;
+  return nsp::add(p[static_cast<size_t>(i) * F.nj + j], up);
 }
 
 __device__ __forceinline__ int block_thread() {
@@ -146,17 +190,10 @@ __global__ void __launch_bounds__(kBlockJ* kBlockI, 1)
     level_sweeps(p, rhs, F, cy.nu1);
     for (int c = tid; c < C.ni * C.nj; c += nt) {
       const int ci = c / C.nj, cj = c % C.nj;
-      float avg = 0.0f;
-      if (ci >= 1 && ci <= C.ni - 2 && cj >= 1 && cj <= C.nj - 2) {
-        const int i = 2 * ci - 1, j = 2 * cj - 1;
-        avg = nsp::mul(
-            0.25f, nsp::add(nsp::add(level_residual(p, rhs, F, i, j),
-                                     level_residual(p, rhs, F, i, j + 1)),
-                            nsp::add(level_residual(p, rhs, F, i + 1, j),
-                                     level_residual(p, rhs, F, i + 1, j + 1))));
-      }
+      const bool interior =
+          ci >= 1 && ci <= C.ni - 2 && cj >= 1 && cj <= C.nj - 2;
       e[c] = 0.0f;
-      r_c[c] = avg;
+      r_c[c] = interior ? restricted_residual(p, rhs, F, ci, cj) : 0.0f;
     }
     __syncthreads();
   }
@@ -174,11 +211,7 @@ __global__ void __launch_bounds__(kBlockJ* kBlockI, 1)
     float* p = smem + off[l];
     const float* e = smem + off[l + 1];
     for (int c = tid; c < F.ni * F.nj; c += nt) {
-      const int i = c / F.nj, j = c % F.nj;
-      const bool interior = i >= 1 && i <= F.ni - 2 && j >= 1 && j <= F.nj - 2;
-      const float up =
-          interior ? e[((i - 1) / 2 + 1) * C.nj + (j - 1) / 2 + 1] : 0.0f;
-      p[c] = nsp::add(p[c], up);
+      p[c] = prolonged(p, e, F, C.nj, c / F.nj, c % F.nj);
     }
     __syncthreads();
     level_sweeps(p, p + F.ni * F.nj, F, cy.nu2);
@@ -186,6 +219,44 @@ __global__ void __launch_bounds__(kBlockJ* kBlockI, 1)
 
   const int cells = cy.lv[0].ni * cy.lv[0].nj;
   for (int c = tid; c < cells; c += nt) out[c] = smem[c];
+}
+
+// The transfers of a level in device memory: one thread a coarse cell
+// (restriction) or a fine cell (prolongation), blocks of kGridJ x kGridI
+// threads, j the contiguous axis.
+constexpr int kGridJ = 32;
+constexpr int kGridI = 8;
+
+__global__ void __launch_bounds__(kGridJ* kGridI)
+    restrict_kernel(float* __restrict__ r_c, float* __restrict__ e_c,
+                    const float* __restrict__ p,
+                    const float* __restrict__ rhs, const Level F, int nci,
+                    int ncj) {
+  const int cj = blockIdx.x * blockDim.x + threadIdx.x;
+  const int ci = blockIdx.y * blockDim.y + threadIdx.y;
+  if (ci >= nci || cj >= ncj) return;
+  const size_t c = static_cast<size_t>(ci) * ncj + cj;
+  const bool interior = ci >= 1 && ci <= nci - 2 && cj >= 1 && cj <= ncj - 2;
+  r_c[c] = interior ? restricted_residual(p, rhs, F, ci, cj) : 0.0f;
+  e_c[c] = 0.0f;
+}
+
+__global__ void __launch_bounds__(kGridJ* kGridI)
+    prolong_kernel(float* __restrict__ out, const float* __restrict__ p,
+                   const float* __restrict__ e_c, const Level F, int ncj) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= F.ni || j >= F.nj) return;
+  out[static_cast<size_t>(i) * F.nj + j] = prolonged(p, e_c, F, ncj, i, j);
+}
+
+// A padded fine level of ni x nj whose interior halves: even, at least 2.
+bool halves(int ni, int nj) {
+  return ni >= 4 && nj >= 4 && (ni - 2) % 2 == 0 && (nj - 2) % 2 == 0;
+}
+
+dim3 grid_of(int ni, int nj) {
+  return dim3((nj + kGridJ - 1) / kGridJ, (ni + kGridI - 1) / kGridI);
 }
 
 cudaError_t allow_shared(const void* fn, size_t bytes) {
@@ -232,5 +303,41 @@ extern "C" int nsp_mg_coarse_cycle(float* out, const float* p0,
   if (err != cudaSuccess) return static_cast<int>(err);
   coarse_cycle<<<1, dim3(kBlockJ, kBlockI), bytes,
                  static_cast<cudaStream_t>(stream)>>>(out, p0, rhs, cy);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The transfer down from a fine level of padded shape ni x nj (interior
+// even): r_c = the 2x2 restriction of rhs - A p, ghost ring 0, and e_c = 0,
+// both of the coarse padded shape (ni / 2 + 1) x (nj / 2 + 1), row-major
+// f32.  dx2_inv, dy2_inv and s2 = 2 (dx2_inv + dy2_inv) are the level's
+// constants rounded to f32.  Returns cudaGetLastError() after the launch.
+extern "C" int nsp_mg_restrict(float* r_c, float* e_c, const float* p,
+                               const float* rhs, int ni, int nj,
+                               float dx2_inv, float dy2_inv, float s2,
+                               int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!halves(ni, nj)) return static_cast<int>(cudaErrorInvalidValue);
+  const Level F{ni, nj, 0.0f, 0.0f, dx2_inv, dy2_inv, s2};
+  const int nci = (ni - 2) / 2 + 2, ncj = (nj - 2) / 2 + 2;
+  restrict_kernel<<<grid_of(nci, ncj), dim3(kGridJ, kGridI), 0,
+                    static_cast<cudaStream_t>(stream)>>>(r_c, e_c, p, rhs, F,
+                                                         nci, ncj);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The transfer up onto a fine level of padded shape ni x nj (interior
+// even): out = p + e_c of the covering coarse cell, + 0 on the ghost ring;
+// e_c of the coarse padded shape.  out must not alias p or e_c.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int nsp_mg_prolong(float* out, const float* p, const float* e_c,
+                              int ni, int nj, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!halves(ni, nj)) return static_cast<int>(cudaErrorInvalidValue);
+  const Level F{ni, nj, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  prolong_kernel<<<grid_of(ni, nj), dim3(kGridJ, kGridI), 0,
+                   static_cast<cudaStream_t>(stream)>>>(out, p, e_c, F,
+                                                        (nj - 2) / 2 + 2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -53,6 +53,10 @@ SIGNATURES = {
     # out, p0, rhs, shapes (int[2 n_levels], host), consts (float[5
     # n_levels], host), n_levels, nu1, nu2, coarse_sweeps, device, stream
     "nsp_mg_coarse_cycle": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # r_c, e_c, p, rhs, ni, nj, dx2_inv, dy2_inv, s2, device, stream
+    "nsp_mg_restrict": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _P),
+    # out, p, e_c, ni, nj, device, stream
+    "nsp_mg_prolong": (_P, _P, _P, _I, _I, _I, _P),
     # p, rhs, we, wn, diag, fluid, ni, nj, n_sweeps, omega,
     # one_minus_omega, device, stream
     "nsp_masked_half_sweeps": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,

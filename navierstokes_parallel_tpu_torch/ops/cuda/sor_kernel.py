@@ -31,6 +31,10 @@ Counterpart of ``navierstokes_parallel_tpu/ops/pallas/sor_kernel.py``:
     its coarse levels): one whole V-cycle on the levels whose p and rhs fit
     one block's shared memory together, in one launch
     (``csrc/mg_cycle.cu``); ``coarse_cycle_depth`` says from which level;
+  * ``mg_restrict`` and ``mg_prolong`` (no TPU kernel: the JAX package's
+    jnp transfers): the V-cycle's residual with its restriction, and its
+    prolongation with the add, on the levels above the coarse cycle, one
+    launch each (``csrc/mg_cycle.cu``);
   * ``ext_sweeps`` (``parallel/deep_halo.py::_make_ext_kernel`` through
     ``_ext_sweeps_call``): ns <= H / 2 sweeps from a given delta on one
     shard's extended block, masks and parity from the shard's global
@@ -42,6 +46,8 @@ give the same bits: every updated cell goes through the same expression on
 the same neighbour values.  The kernels' source notes say what bounds them
 on the card.  Each wrapper dispatches on the tensor's device: a CPU tensor
 goes to its ``*_plain`` twin; a CUDA tensor launches the kernel or raises.
+The transfers take CUDA tensors only: ops/mg.py routes them by device, its
+plain twins beside its recursion.
 
 ``whole_grid_sweeps_simple`` and ``warm_sweeps_simple`` are the first
 kernels of ``whole_grid_sweeps`` and ``warm_sweeps`` (one launch per
@@ -68,7 +74,8 @@ from . import _build
 # whole_grid_sweeps in "launch.sor_whole_grid", inner_sweeps_tiled in
 # "launch.sor_tiled", compressed_colour_sweeps (the kernel of
 # inner_sweeps_compressed) in "launch.sor_compressed", warm_sweeps in
-# "launch.sor_warm", coarse_cycle in "launch.mg_coarse_cycle" and
+# "launch.sor_warm", coarse_cycle in "launch.mg_coarse_cycle", the grid
+# transfers in "launch.mg_restrict" and "launch.mg_prolong", and
 # ext_sweeps in "launch.sor_ext".
 
 # The tiled route (JAX TILE_ROWS, SWEEPS_PER_CHUNK).  A tile writes
@@ -639,17 +646,22 @@ def inner_sweeps_compressed_simple(rhs_neg: torch.Tensor, n_sweeps: int,
 
 # --- the multigrid smoother ------------------------------------------------------
 
+def _check_grid(name: str, x: torch.Tensor) -> None:
+    """Raise unless x is a non-empty contiguous 2-D float32 array."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"SOR kernel takes float32 {name}, got {x.dtype}")
+    if x.dim() != 2 or min(x.shape) < 1:
+        raise ValueError(f"SOR kernel takes a non-empty 2-D {name}, got "
+                         f"shape {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"SOR kernel takes a contiguous {name}")
+
+
 def check_warm_inputs(p: torch.Tensor, rhs: torch.Tensor,
                       n_sweeps: int) -> None:
     """Raise on anything the warm-start kernel does not take."""
-    for name, x in (("p", p), ("rhs", rhs)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"SOR kernel takes float32 {name}, got {x.dtype}")
-        if x.dim() != 2 or min(x.shape) < 1:
-            raise ValueError(f"SOR kernel takes a non-empty 2-D {name}, got "
-                             f"shape {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"SOR kernel takes a contiguous {name}")
+    _check_grid("p", p)
+    _check_grid("rhs", rhs)
     if p.shape != rhs.shape:
         raise ValueError(f"p {tuple(p.shape)} and rhs {tuple(rhs.shape)} "
                          f"differ in shape")
@@ -730,6 +742,15 @@ def coarse_cycle_depth(levels) -> int:
     return len(levels)
 
 
+def _check_halving(shapes) -> None:
+    """Raise unless each padded shape's interior is twice the next one's."""
+    for fine, coarse in zip(shapes, shapes[1:]):
+        if min(coarse) < 3 or any(f - 2 != 2 * (c - 2)
+                                  for f, c in zip(fine, coarse)):
+            raise ValueError(f"level {coarse} does not halve the interior "
+                             f"of level {fine}")
+
+
 def check_cycle_inputs(p: torch.Tensor, rhs: torch.Tensor, levels, nu1: int,
                        nu2: int, coarse_sweeps: int) -> None:
     """Raise on anything the coarse-cycle kernel does not take: tensors
@@ -748,11 +769,7 @@ def check_cycle_inputs(p: torch.Tensor, rhs: torch.Tensor, levels, nu1: int,
     if tuple(p.shape) != shapes[0]:
         raise ValueError(f"p {tuple(p.shape)} is not of the first level's "
                          f"shape {shapes[0]}")
-    for fine, coarse in zip(shapes, shapes[1:]):
-        if min(coarse) < 3 or any(f - 2 != 2 * (c - 2)
-                                  for f, c in zip(fine, coarse)):
-            raise ValueError(f"level {coarse} does not halve the interior "
-                             f"of level {fine}")
+    _check_halving(shapes)
     need = cycle_shared_bytes(levels)
     if need > MAX_SHARED_BYTES:
         raise ValueError(
@@ -796,6 +813,114 @@ def coarse_cycle(p: torch.Tensor, rhs: torch.Tensor, levels, nu1: int = 2,
     _build.check_status(status, "nsp_mg_coarse_cycle")
     timing.count("launch.mg_coarse_cycle")
     return out
+
+
+# --- the grid transfers of the V-cycle's levels above the coarse tail ------------
+#
+# ops/mg.py::_cycle runs a level that lies in device memory as two smoother
+# calls and two transfers.  On a CUDA tensor the transfers are these
+# launches (csrc/mg_cycle.cu), the same bits as ops/mg.py's plain twins
+# _down_plain and _up_plain.  The cycle checks its whole hierarchy once
+# (check_transfer_levels) and launches through mg_restrict_unchecked and
+# mg_prolong_unchecked; mg_restrict and mg_prolong check each call.
+
+def _coarse_shape(shape) -> tuple:
+    """The padded shape of the level below a padded level of `shape`: its
+    interior halved."""
+    return (int(shape[0]) // 2 + 1, int(shape[1]) // 2 + 1)
+
+
+def check_restrict_inputs(p: torch.Tensor, rhs: torch.Tensor) -> None:
+    """Raise on anything nsp_mg_restrict does not take: p and rhs not
+    matching contiguous 2-D float32 arrays on one device, or an interior
+    that does not halve (even, at least 2 x 2)."""
+    check_warm_inputs(p, rhs, 0)
+    _check_halving((tuple(p.shape), _coarse_shape(p.shape)))
+
+
+def check_prolong_inputs(p: torch.Tensor, e_c: torch.Tensor) -> None:
+    """Raise on anything nsp_mg_prolong does not take: p and e_c not
+    contiguous 2-D float32 arrays on one device, an interior of p that
+    does not halve, or e_c not of the coarse level's shape."""
+    _check_grid("p", p)
+    _check_grid("e_c", e_c)
+    coarse = _coarse_shape(p.shape)
+    _check_halving((tuple(p.shape), coarse))
+    if tuple(e_c.shape) != coarse:
+        raise ValueError(f"e_c {tuple(e_c.shape)} is not of the coarse "
+                         f"shape {coarse} of p {tuple(p.shape)}")
+    if p.device != e_c.device:
+        raise ValueError(f"p on {p.device} and e_c on {e_c.device}")
+
+
+def check_transfer_levels(p: torch.Tensor, rhs: torch.Tensor,
+                          levels) -> None:
+    """Raise on anything the transfers of a cycle over `levels` (finest
+    first; every level but the last transfers to the next) do not take: p
+    and rhs as check_warm_inputs refuses them or not of the first level's
+    shape, or a level whose interior is not half the one before.  Every
+    array below the first comes from the cycle's own launches."""
+    check_warm_inputs(p, rhs, 0)
+    shapes = [tuple(int(n) for n in lvl[0]) for lvl in levels]
+    if tuple(p.shape) != shapes[0]:
+        raise ValueError(f"p {tuple(p.shape)} is not of the first level's "
+                         f"shape {shapes[0]}")
+    _check_halving(shapes)
+
+
+@functools.lru_cache(maxsize=None)
+def transfer_constants(dx2_inv: float, dy2_inv: float) -> tuple:
+    """(dx2_inv, dy2_inv, s2 = 2 (dx2_inv + dy2_inv)) of a level as Python
+    doubles, built once per level; each is rounded to f32 once where it
+    meets the f32 field, as in ops/mg.py::_lap."""
+    dx2_inv, dy2_inv = float(dx2_inv), float(dy2_inv)
+    return dx2_inv, dy2_inv, 2.0 * (dx2_inv + dy2_inv)
+
+
+def mg_restrict_unchecked(p: torch.Tensor, rhs: torch.Tensor,
+                          constants: tuple):
+    """mg_restrict for inputs checked already, `constants` the level's
+    transfer_constants: one launch."""
+    shape = _coarse_shape(p.shape)
+    r_c = torch.empty(shape, dtype=p.dtype, device=p.device)
+    e_c = torch.empty(shape, dtype=p.dtype, device=p.device)
+    status = _build.load().nsp_mg_restrict(
+        r_c.data_ptr(), e_c.data_ptr(), p.data_ptr(), rhs.data_ptr(),
+        p.shape[0], p.shape[1], *constants, *_build.device_and_stream(p))
+    _build.check_status(status, "nsp_mg_restrict")
+    timing.count("launch.mg_restrict")
+    return r_c, e_c
+
+
+def mg_restrict(p: torch.Tensor, rhs: torch.Tensor, dx2_inv: float,
+                dy2_inv: float):
+    """(r_c, e_c) of a level in device memory: r_c the 2x2 restriction of
+    rhs - A p onto the coarse level's padded shape (ghost ring 0), e_c a
+    zero correction of that shape.  One launch; CUDA tensors only."""
+    _require_cuda(p, "mg_restrict")
+    check_restrict_inputs(p, rhs)
+    return mg_restrict_unchecked(p, rhs, transfer_constants(dx2_inv,
+                                                            dy2_inv))
+
+
+def mg_prolong_unchecked(p: torch.Tensor, e_c: torch.Tensor) -> torch.Tensor:
+    """mg_prolong for inputs checked already: one launch."""
+    out = torch.empty_like(p)
+    status = _build.load().nsp_mg_prolong(
+        out.data_ptr(), p.data_ptr(), e_c.data_ptr(), p.shape[0], p.shape[1],
+        *_build.device_and_stream(p))
+    _build.check_status(status, "nsp_mg_prolong")
+    timing.count("launch.mg_prolong")
+    return out
+
+
+def mg_prolong(p: torch.Tensor, e_c: torch.Tensor) -> torch.Tensor:
+    """p + the correction e_c of the coarse cell that covers each interior
+    cell, + 0 on the ghost ring, into a new tensor.  One launch; CUDA
+    tensors only."""
+    _require_cuda(p, "mg_prolong")
+    check_prolong_inputs(p, e_c)
+    return mg_prolong_unchecked(p, e_c)
 
 
 # --- the extended-block kernel of the sharded inner -------------------------------

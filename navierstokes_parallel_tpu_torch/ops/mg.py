@@ -13,19 +13,22 @@ of cycles.
     self-coefficient formulation, the hand-written warm-start kernel for a
     CUDA tensor and its plain twin for a CPU one
     (ops/cuda/sor_kernel.py::warm_sweeps);
-  * restriction: 2x2 full-weighting average;
+  * restriction: 2x2 full-weighting average of the residual;
   * prolongation: piecewise-constant injection, written as repeats (each
-    output is one input value, so it is exact);
+    output is one input value, so it is exact), added to p;
   * coarse solve: 32 red-black sweeps on the coarsest level.
 
 Every level keeps its ghost ring at 0, which the self-coefficient Laplacian
-expects.  The cycle runs eagerly from Python, where each level costs a few
-dozen small launches, down to the first level whose whole sub-hierarchy
-fits one thread block's shared memory (sor_kernel.coarse_cycle_depth: 130^2
-for a 2048^2 grid).  For a CUDA tensor one kernel launch runs the rest of
-the cycle from there (sor_kernel.coarse_cycle), with the same bits as the
-functions below; for a CPU tensor the recursion goes on to the coarsest
-level.  The levels above it are still bound by the host's launch rate.
+expects.  The cycle runs eagerly from Python down to the first level whose
+whole sub-hierarchy fits one thread block's shared memory
+(sor_kernel.coarse_cycle_depth: 130^2 for a 2048^2 grid).  For a CUDA
+tensor one kernel launch runs the rest of the cycle from there
+(sor_kernel.coarse_cycle), and each level above it is four launches: two
+smoother calls, the residual with its restriction (sor_kernel.mg_restrict)
+and the prolongation with its add (sor_kernel.mg_prolong), the last two
+counted per level in ``mg.fused_levels``.  All give the same bits as the
+plain functions below, which a CPU tensor runs down to the coarsest
+level.
 
 The sharded multigrid (the end of this module) runs the same cycle on each
 rank's block of a process mesh: restriction and prolongation stay local,
@@ -153,11 +156,43 @@ def _prolong(e_coarse: torch.Tensor, fine_shape) -> torch.Tensor:
     return out
 
 
+def _down_plain(p: torch.Tensor, rhs: torch.Tensor, lvl: _Level,
+                coarse: _Level):
+    """(r_c, e_c): the level's residual rhs - A p restricted to the coarse
+    level, and a zero correction there."""
+    r_c = _restrict(rhs - _lap(p, lvl), coarse.shape)  # reads the interior
+    e_c = torch.zeros(coarse.shape, dtype=p.dtype, device=p.device)
+    return r_c, e_c
+
+
+def _up_plain(p: torch.Tensor, e_c: torch.Tensor,
+              lvl: _Level) -> torch.Tensor:
+    """p plus the coarse correction injected onto the level (+ 0 on the
+    ghost ring)."""
+    return p + _prolong(e_c, lvl.shape)
+
+
+def _down_kernel(p: torch.Tensor, rhs: torch.Tensor, lvl: _Level,
+                 coarse: _Level):
+    """_down_plain in one launch (the cycle has checked its levels)."""
+    timing.count("mg.fused_levels")
+    return sor_kernel.mg_restrict_unchecked(
+        p, rhs, sor_kernel.transfer_constants(lvl.dx2_inv, lvl.dy2_inv))
+
+
+def _up_kernel(p: torch.Tensor, e_c: torch.Tensor,
+               lvl: _Level) -> torch.Tensor:
+    """_up_plain in one launch (the cycle has checked its levels)."""
+    return sor_kernel.mg_prolong_unchecked(p, e_c)
+
+
 def _cycle(p: torch.Tensor, rhs: torch.Tensor, levels: List[_Level],
            depth: int, nu1: int, nu2: int, coarse_sweeps: int, smooth,
-           tail_depth: int) -> torch.Tensor:
+           down, up, tail_depth: int) -> torch.Tensor:
     """One V(nu1, nu2) cycle at `depth` with `smooth(p, rhs, level, n)` as
-    the smoother; at tail_depth the rest of the cycle is one call of
+    the smoother and `down(p, rhs, level, coarse)` -> (r_c, e_c) and
+    `up(p, e_c, level)` as the grid transfers (_down_plain and _up_plain
+    or their kernels); at tail_depth the rest of the cycle is one call of
     sor_kernel.coarse_cycle.  Each level's work runs in the span
     ``mg.level<depth>``, which holds the next level's: a level's own time
     is its span less its child."""
@@ -171,55 +206,66 @@ def _cycle(p: torch.Tensor, rhs: torch.Tensor, levels: List[_Level],
             return smooth(p, rhs, lvl, coarse_sweeps)
 
         p = smooth(p, rhs, lvl, nu1)
-        r = rhs - _lap(p, lvl)
-        coarse = levels[depth + 1]
-        r_c = _restrict(r, coarse.shape)  # reads the interior only
-        e_c = torch.zeros(coarse.shape, dtype=p.dtype, device=p.device)
+        r_c, e_c = down(p, rhs, lvl, levels[depth + 1])
         e_c = _cycle(e_c, r_c, levels, depth + 1, nu1, nu2, coarse_sweeps,
-                     smooth, tail_depth)
-        p = p + _prolong(e_c, lvl.shape)
+                     smooth, down, up, tail_depth)
+        p = up(p, e_c, lvl)
         return smooth(p, rhs, lvl, nu2)
+
+
+def _route(p: torch.Tensor, rhs: torch.Tensor, levels: List[_Level],
+           depth: int):
+    """(down, up, tail_depth) of a cycle from `depth` on p's device: for a
+    CUDA tensor the transfer kernels above the coarse cycle, which takes
+    over at t = sor_kernel.coarse_cycle_depth(levels) (at `depth` itself
+    when that lies deeper), the whole hierarchy checked here once; for any
+    other tensor the plain transfers down to the coarsest level."""
+    if p.device.type != "cuda":
+        return _down_plain, _up_plain, len(levels)
+    tail_depth = max(depth, sor_kernel.coarse_cycle_depth(levels))
+    sor_kernel.check_transfer_levels(p, rhs, levels[depth:tail_depth + 1])
+    return _down_kernel, _up_kernel, tail_depth
 
 
 def v_cycle(p: torch.Tensor, rhs: torch.Tensor, levels: List[_Level],
             depth: int = 0, nu1: int = 2, nu2: int = 2,
             coarse_sweeps: int = 32) -> torch.Tensor:
     """One V(nu1, nu2) cycle on A p = rhs at `depth`; returns improved p.
-    For a CPU tensor it calls _smooth 2 (len(levels) - depth) - 1 times.
-    For a CUDA tensor it calls _smooth twice on each level above
+    For a CPU tensor it calls _smooth 2 (len(levels) - depth) - 1 times,
+    with the plain transfers between.  For a CUDA tensor it calls _smooth
+    twice and each transfer kernel once on each level above
     t = sor_kernel.coarse_cycle_depth(levels) and sor_kernel.coarse_cycle
     once, at depth t (at `depth` itself when that lies deeper)."""
-    tail_depth = len(levels)
-    if p.device.type == "cuda":
-        tail_depth = max(depth, sor_kernel.coarse_cycle_depth(levels))
     return _cycle(p, rhs, levels, depth, nu1, nu2, coarse_sweeps, _smooth,
-                  tail_depth)
+                  *_route(p, rhs, levels, depth))
 
 
 def v_cycle_plain(p: torch.Tensor, rhs: torch.Tensor, levels: List[_Level],
                   nu1: int = 2, nu2: int = 2,
                   coarse_sweeps: int = 32) -> torch.Tensor:
-    """v_cycle from levels[0] down on the plain smoother, whatever the
-    tensor's device: the plain twin of sor_kernel.coarse_cycle."""
+    """v_cycle from levels[0] down on the plain smoother and transfers,
+    whatever the tensor's device: the plain twin of sor_kernel.coarse_cycle
+    and of the cycle on the card."""
     def smooth(q, rhs_l, lvl, n_sweeps):
         return sor_kernel.warm_sweeps_plain(q, rhs_l, n_sweeps, 1.0,
                                             lvl.dx2_inv, lvl.dy2_inv)
 
     levels = [_Level(*lvl) for lvl in levels]
     return _cycle(p, rhs, levels, 0, nu1, nu2, coarse_sweeps, smooth,
-                  len(levels))
+                  _down_plain, _up_plain, len(levels))
 
 
 def inner_v_cycle(rhs_neg: torch.Tensor, n_cycles: int,
                   params: Params) -> torch.Tensor:
     """Refinement inner: delta = (approx A^-1) rhs_neg by `n_cycles`
-    V-cycles from delta = 0."""
+    V(2, 2) cycles from delta = 0, routed and checked once for all."""
     levels = build_levels(params)
     rhs = rhs_neg.to(torch.float32)
     d = torch.zeros(params.shape, dtype=torch.float32, device=rhs.device)
+    route = _route(d, rhs, levels, 0)
     for _ in range(int(n_cycles)):
         timing.count("mg.cycles")
-        d = v_cycle(d, rhs, levels)
+        d = _cycle(d, rhs, levels, 0, 2, 2, 32, _smooth, *route)
     return d
 
 

@@ -551,6 +551,74 @@ def test_coarse_cycle_checks_before_launch(bad):
                                   _levels(32, 16), 2, 2, 32)
 
 
+def _transfer_refusals(bad):
+    """(check, arguments, message) triples that must raise for `bad`."""
+    k = sor_kernel
+    levels = _levels(32, 16)
+    p, e = torch.zeros(34, 18), torch.zeros(18, 10)
+    odd, tiny = torch.zeros(35, 18), torch.zeros(3, 18)
+    if bad == "odd_interior":
+        return [(k.check_restrict_inputs, (odd, odd), "halve"),
+                (k.check_prolong_inputs, (odd, e), "halve"),
+                (k.check_transfer_levels,
+                 (odd, odd, [((35, 18), 4.0, 4.0), levels[1]]), "halve")]
+    if bad == "tiny":
+        return [(k.check_restrict_inputs, (tiny, tiny), "halve"),
+                (k.check_prolong_inputs, (tiny, e), "halve")]
+    if bad == "float64":
+        return [(check, (p.double(), other), "float32")
+                for check, other in ((k.check_restrict_inputs, p),
+                                     (k.check_prolong_inputs, e))] + [
+            (k.check_transfer_levels, (p, p.double(), levels), "float32")]
+    if bad == "shape":
+        narrow = torch.zeros(34, 17)
+        return [(k.check_restrict_inputs, (p, narrow), "differ in shape"),
+                (k.check_transfer_levels, (p, narrow, levels),
+                 "differ in shape")]
+    if bad == "strided":
+        strided = torch.zeros(18, 34).t()
+        return [(k.check_restrict_inputs, (strided, p), "contiguous"),
+                (k.check_prolong_inputs, (p, torch.zeros(10, 18).t()),
+                 "contiguous"),
+                (k.check_transfer_levels, (strided, p, levels),
+                 "contiguous")]
+    if bad == "coarse_shape":
+        return [(k.check_prolong_inputs, (p, torch.zeros(18, 9)),
+                 "coarse shape")]
+    if bad == "device":
+        return [(k.check_restrict_inputs,
+                 (p, torch.zeros(34, 18, device="meta")), "on meta"),
+                (k.check_prolong_inputs,
+                 (p, torch.zeros(18, 10, device="meta")), "on meta")]
+    if bad == "not_halved":
+        return [(k.check_transfer_levels, (p, p, [levels[0], levels[0]]),
+                 "halve")]
+    return [(k.check_transfer_levels, (p, p, levels[1:]), "first level")]
+
+
+@pytest.mark.parametrize("bad", ["odd_interior", "tiny", "float64", "shape",
+                                 "strided", "coarse_shape", "device",
+                                 "not_halved", "first_shape"])
+def test_transfer_checks_before_launch(bad):
+    """What the transfer kernels do not take is refused by their checks,
+    which run before a launch: an odd or too small interior, a non-f32
+    array, mismatched shapes, a strided array, tensors on two devices, a
+    correction not of the coarse shape; and for a whole cycle a first
+    level other than p's or one that does not halve the next.  A CPU
+    tensor never reaches a launch."""
+    for check, args, match in _transfer_refusals(bad):
+        with pytest.raises((TypeError, ValueError), match=match):
+            check(*args)
+    p = torch.zeros(34, 18)
+    sor_kernel.check_transfer_levels(p, torch.zeros(34, 18), _levels(32, 16))
+    sor_kernel.check_restrict_inputs(p, torch.zeros(34, 18))
+    sor_kernel.check_prolong_inputs(p, torch.zeros(18, 10))
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        sor_kernel.mg_restrict(p, p, 4.0, 4.0)
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        sor_kernel.mg_prolong(p, torch.zeros(18, 10))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [0, 1, 2, 32])
 @pytest.mark.parametrize("omega", [1.0, 1.7])
@@ -616,14 +684,16 @@ def test_coarse_cycle_matches_plain(cuda, size, counts, monkeypatch):
                                              lvl.dy2_inv)
 
     assert torch.equal(got, mg._cycle(p, rhs, levels, 0, *counts, simple,
+                                      mg._down_plain, mg._up_plain,
                                       len(levels)))
 
 
 @pytest.mark.gpu
 def test_v_cycle_on_card_calls_smoother_and_coarse_cycle(cuda):
     """At 512^2 (7 levels, the coarse cycle from 130^2: depth 2) a V-cycle
-    launches the smoother 2 x 2 times and the coarse cycle once, and equals
-    the plain recursion bit for bit."""
+    launches the smoother 2 x 2 times, each transfer kernel twice (once a
+    level, counted in mg.fused_levels) and the coarse cycle once, and
+    equals the plain recursion bit for bit."""
     from navierstokes_parallel_tpu_torch.ops import mg
 
     levels = _levels(512, 512)
@@ -636,9 +706,119 @@ def test_v_cycle_on_card_calls_smoother_and_coarse_cycle(cuda):
     p = torch.zeros_like(rhs)
     start = timing.counts()
     got = mg.v_cycle(p, rhs, levels)
-    assert (launches("sor_warm", start),
-            launches("mg_coarse_cycle", start)) == (2 * t, 1)
+    assert (launches("sor_warm", start), launches("mg_restrict", start),
+            launches("mg_prolong", start),
+            launches("mg_coarse_cycle", start)) == (2 * t, t, t, 1)
+    fused = timing.counts().get("mg.fused_levels", 0)
+    assert fused - start.get("mg.fused_levels", 0) == t
     assert torch.equal(got, mg.v_cycle_plain(p, rhs, levels))
+
+
+def _same_bits(a, b):
+    return torch.equal(a, b) and torch.equal(torch.signbit(a),
+                                             torch.signbit(b))
+
+
+# Levels the transfer kernels run on: (i_max, j_max) of the finest level.
+# 2048^2 down to 256^2 are configs/4.in's levels above the coarse cycle;
+# 2048 x 1024 is a non-square one.
+TRANSFER_LEVELS = [(2048, 2048), (1024, 1024), (256, 256), (2048, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ring", ["zero", "random", "negative_zero"])
+@pytest.mark.parametrize("size", TRANSFER_LEVELS,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_transfer_kernels_equal_their_plain_twins(cuda, size, ring,
+                                                  monkeypatch):
+    """The residual with its restriction and the prolongation with its add,
+    one launch each, equal ops/mg.py's plain transfers bit for bit, signs
+    included, into buffers they must fill themselves; p's ghost ring 0,
+    random or -0.0 (which the add turns into +0.0)."""
+    from navierstokes_parallel_tpu_torch.ops import mg
+
+    levels = _levels(*size)
+    lvl, coarse = levels[0], levels[1]
+    rng = np.random.default_rng(size[0] + size[1] + len(ring))
+    p = rng.standard_normal(lvl.shape).astype(np.float32) / lvl.dx2_inv
+    if ring != "random":
+        fill = -0.0 if ring == "negative_zero" else 0.0
+        p[0], p[-1], p[:, 0], p[:, -1] = fill, fill, fill, fill
+    rhs = rng.standard_normal(lvl.shape).astype(np.float32)
+    e = rng.standard_normal(coarse.shape).astype(np.float32)
+    p, rhs, e = (torch.from_numpy(x).to(cuda) for x in (p, rhs, e))
+    start = timing.counts()
+    _poison_empty(monkeypatch)
+    r_c, e_c = sor_kernel.mg_restrict(p, rhs, lvl.dx2_inv, lvl.dy2_inv)
+    up = sor_kernel.mg_prolong(p, e)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert (launches("mg_restrict", start),
+            launches("mg_prolong", start)) == (1, 1)
+    want_r, want_e = mg._down_plain(p, rhs, lvl, coarse)
+    assert _same_bits(r_c, want_r) and _same_bits(e_c, want_e)
+    assert _same_bits(up, mg._up_plain(p, e, lvl))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [(2048, 2048), (512, 512)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_v_cycle_on_card_equals_plain_cycle(cuda, size):
+    """A whole V-cycle on the card (B3, the transfer kernels, the coarse
+    cycle) equals v_cycle_plain bit for bit: at 2048^2 nine levels, four
+    above the coarse cycle; inner_v_cycle's two cycles likewise."""
+    from navierstokes_parallel_tpu_torch.ops import mg
+
+    levels = _levels(*size)
+    t = sor_kernel.coarse_cycle_depth(levels)
+    assert (len(levels), t) == {(2048, 2048): (9, 4), (512, 512): (7, 2)}[
+        size]
+    rng = np.random.default_rng(size[0])
+    rhs = np.zeros(levels[0].shape, np.float32)
+    rhs[1:-1, 1:-1] = rng.standard_normal(size)
+    rhs = torch.from_numpy(rhs).to(cuda)
+    p = torch.zeros_like(rhs)
+    got = mg.v_cycle(p, rhs, levels)
+    want = mg.v_cycle_plain(p, rhs, levels)
+    assert torch.equal(got, want)
+    prm = Params(i_max=size[0], j_max=size[1], a=1.0, b=0.8)
+    assert torch.equal(mg.inner_v_cycle(rhs, 2, prm),
+                       mg.v_cycle_plain(want, rhs, levels))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["odd_interior", "float64", "shape",
+                                 "strided"])
+def test_transfer_kernels_raise_before_a_launch_on_card(cuda, bad):
+    """Bad CUDA inputs to the transfer wrappers, and to a V-cycle at 256^2
+    (one level above the coarse cycle) whose levels or arrays the kernels
+    would not take, raise before any launch."""
+    from navierstokes_parallel_tpu_torch.ops import mg
+
+    levels = _levels(256, 256)
+    assert sor_kernel.coarse_cycle_depth(levels) == 1
+    p = torch.zeros(258, 258, device=cuda)
+    rhs = torch.zeros(258, 258, device=cuda)
+    e = torch.zeros(130, 130, device=cuda)
+    if bad == "odd_interior":
+        p, rhs = (torch.zeros(259, 258, device=cuda) for _ in range(2))
+        levels = [mg._Level((259, 258), *levels[0][1:])] + levels[1:]
+    elif bad == "float64":
+        p = p.double()
+    elif bad == "shape":
+        rhs, e = rhs[:, :-1].contiguous(), e[:, :-1].contiguous()
+    elif bad == "strided":
+        p = torch.zeros(258, 258, device=cuda).t()
+    start = timing.counts()
+    with pytest.raises((TypeError, ValueError)):
+        sor_kernel.mg_restrict(p, rhs, levels[0].dx2_inv, levels[0].dy2_inv)
+    with pytest.raises((TypeError, ValueError)):
+        sor_kernel.mg_prolong(p, e)
+    with pytest.raises((TypeError, ValueError)):
+        mg.v_cycle(p, rhs, levels)
+    assert {k: n for k, n in timing.counts().items()
+            if k.startswith("launch.")} == {
+        k: n for k, n in start.items() if k.startswith("launch.")}
 
 
 @pytest.mark.gpu

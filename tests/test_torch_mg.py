@@ -272,15 +272,16 @@ def test_coarse_cycle_cpu_dispatches_to_plain(counts):
 
 
 def test_v_cycle_hands_the_tail_to_coarse_cycle(monkeypatch):
-    """_cycle with the tail entered at depth t smooths twice on each of the
-    t levels above it and calls coarse_cycle once, with the levels from t
-    on, and gives v_cycle's bits; v_cycle on a CPU tensor never calls it."""
+    """_cycle with the tail entered at depth t smooths twice and transfers
+    down and up once on each of the t levels above it and calls
+    coarse_cycle once, with the levels from t on, and gives v_cycle's
+    bits; v_cycle on a CPU tensor never calls it."""
     prm, _ = _params(64, 32)
     levels = mg.build_levels(prm)
     rhs = torch.from_numpy(_interior_field(prm.shape,
                                            np.random.default_rng(0)))
     p = torch.zeros(prm.shape)
-    smooths, tails = [], []
+    smooths, tails, transfers = [], [], []
     real_warm, real_cycle = sor_kernel.warm_sweeps, sor_kernel.coarse_cycle
     monkeypatch.setattr(
         sor_kernel, "warm_sweeps",
@@ -289,16 +290,95 @@ def test_v_cycle_hands_the_tail_to_coarse_cycle(monkeypatch):
         sor_kernel, "coarse_cycle",
         lambda q, r, lv, *a: tails.append((tuple(q.shape), len(lv)))
         or real_cycle(q, r, lv, *a))
+
+    def down(q, r, lvl, coarse):
+        transfers.append(("down", lvl.shape, coarse.shape))
+        return mg._down_plain(q, r, lvl, coarse)
+
+    def up(q, e_c, lvl):
+        transfers.append(("up", lvl.shape))
+        return mg._up_plain(q, e_c, lvl)
+
     want = mg.v_cycle(p, rhs, levels)
     assert len(smooths) == 2 * len(levels) - 1 and not tails
     for t in range(len(levels)):
-        del smooths[:]
-        got = mg._cycle(p, rhs, levels, 0, 2, 2, 32, mg._smooth, t)
+        del smooths[:], transfers[:]
+        got = mg._cycle(p, rhs, levels, 0, 2, 2, 32, mg._smooth, down, up, t)
         assert tails == [(levels[t].shape, len(levels) - t)]
         assert smooths == ([lv.shape for lv in levels[:t]]
                            + [lv.shape for lv in levels[:t]][::-1])
+        assert transfers == (
+            [("down", lv.shape, nxt.shape)
+             for lv, nxt in zip(levels[:t], levels[1:t + 1])]
+            + [("up", lv.shape) for lv in levels[:t]][::-1])
         assert torch.equal(got, want)
         del tails[:]
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (32, 48), (24, 34)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_transfer_twins_are_the_inline_composition(shape):
+    """The plain transfers the V-cycle calls as hooks (and the card's
+    kernels are held to) equal the composition the cycle wrote inline,
+    bit for bit with signs, from a p whose ghost ring holds -0.0 and
+    random values; and they stay within V_CYCLE_TOL of the JAX package's
+    own composition (the prolongation exactly)."""
+    prm, ref = _params(*shape)
+    levels, jlevels = mg.build_levels(prm), jmg.build_levels(ref)
+    lvl, coarse = levels[0], levels[1]
+    rng = np.random.default_rng(shape[1])
+    p = rng.standard_normal(lvl.shape).astype(np.float32) / lvl.dx2_inv
+    p[0], p[:, -1] = -0.0, rng.standard_normal(lvl.shape[0])
+    rhs = _interior_field(lvl.shape, rng)
+    e = rng.standard_normal(coarse.shape).astype(np.float32)
+    tp, trhs, te = map(torch.from_numpy, (p, rhs, e))
+
+    def same_bits(a, b):
+        return torch.equal(a, b) and torch.equal(torch.signbit(a),
+                                                 torch.signbit(b))
+
+    r_c, e_c = mg._down_plain(tp, trhs, lvl, coarse)
+    assert same_bits(r_c, mg._restrict(trhs - mg._lap(tp, lvl), coarse.shape))
+    assert same_bits(e_c, torch.zeros(coarse.shape))
+    up = mg._up_plain(tp, te, lvl)
+    assert same_bits(up, tp + mg._prolong(te, lvl.shape))
+    assert not torch.signbit(up[0, :-1]).any()  # -0.0 + 0.0 on the ring
+
+    want = np.asarray(jmg._restrict(
+        jnp.asarray(rhs) - jmg._lap(jnp.asarray(p), jlevels[0]),
+        jlevels[1].shape))
+    scale = float(np.max(np.abs(want)))
+    np.testing.assert_allclose(r_c.numpy() / scale, want / scale, rtol=0,
+                               atol=V_CYCLE_TOL)
+    np.testing.assert_array_equal(up.numpy(), np.asarray(
+        jnp.asarray(p) + jmg._prolong(jnp.asarray(e), jlevels[0].shape)))
+
+
+def test_cpu_v_cycle_never_calls_the_transfer_kernels(monkeypatch):
+    """On a CPU tensor v_cycle, inner_v_cycle and v_cycle_plain run the
+    plain transfers: no kernel wrapper is called, no launch and no fused
+    level is counted."""
+    def refuse(*_args, **_kw):
+        raise AssertionError("a CPU cycle called a transfer kernel")
+
+    for name in ("mg_restrict", "mg_prolong", "mg_restrict_unchecked",
+                 "mg_prolong_unchecked"):
+        monkeypatch.setattr(sor_kernel, name, refuse)
+    prm, _ = _params(64, 32)
+    levels = mg.build_levels(prm)
+    rhs = torch.from_numpy(_interior_field(prm.shape,
+                                           np.random.default_rng(2)))
+    before = timing.counts()
+    got = mg.v_cycle(torch.zeros(prm.shape), rhs, levels)
+    assert torch.equal(got, mg.v_cycle_plain(torch.zeros(prm.shape), rhs,
+                                             levels))
+    assert torch.equal(mg.inner_v_cycle(rhs, 1, prm), got)
+    after = timing.counts()
+    assert after.get("mg.cycles", 0) == before.get("mg.cycles", 0) + 1
+    assert {k: n for k, n in after.items()
+            if k.startswith("launch.") or k == "mg.fused_levels"} == {
+        k: n for k, n in before.items()
+        if k.startswith("launch.") or k == "mg.fused_levels"}
 
 
 # (levels, the depth the coarse cycle takes over, the whole-grid tile) of
