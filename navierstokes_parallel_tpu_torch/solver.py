@@ -25,8 +25,8 @@ over a ``Stepper``): PyTorch runs eagerly, so the JAX package's on-device
 the same loop with its frames, checkpoints and history rows between the
 steps, so it takes ``solve``'s steps, kernels and bits.  ``solve_ensemble``
 integrates a batch of independent states (``stack_states``: a leading
-member axis, the JAX package's ``vmap``) with one read of the members'
-flags a step.
+member axis, the JAX package's ``vmap``) by the same loop over an
+``EnsembleStepper``, with one read of the members' times a step.
 """
 
 from __future__ import annotations
@@ -220,11 +220,11 @@ def run_steps(stepper, params: Params, *, max_steps: int = 0,
               before: Optional[Callable[[], None]] = None,
               after: Optional[Callable[[StepDiagnostics, int], None]] = None
               ) -> SolveStats:
-    """Advance `stepper` (a ``Stepper`` or a ``sharded.ShardedStepper``) to
-    t >= T, or `max_steps` steps when it is > 0, reading t once per step.
-    ``before()`` runs before each step and ``after(diag, steps)`` after it
-    (the CLI's frames, history rows and checkpoints).  Returns the stats of
-    the steps taken."""
+    """Advance `stepper` (a ``Stepper``, an ``EnsembleStepper`` or a
+    ``sharded.ShardedStepper``) to t >= T, or `max_steps` steps when it is
+    > 0, reading t once per step.  ``before()`` runs before each step and
+    ``after(diag, steps)`` after it (the CLI's frames, history rows and
+    checkpoints).  Returns the stats of the steps taken."""
     # Compare against T in the state's dtype, as the JAX while_loop does: in
     # f32, float(f32(T)) can differ from the Python T by one ulp, which would
     # change the step count.
@@ -330,7 +330,7 @@ def _step_each_member(u, v, p, t, active, params: Params, method: str):
         if flag:
             member, diag = step(member, params, pressure_method=method)
         else:
-            diag = StepDiagnostics(member.t, 0, 0.0, True)
+            diag = StepDiagnostics(torch.zeros_like(member.t), 0, 0.0, True)
         outs.append(member)
         diags.append(diag)
 
@@ -345,28 +345,36 @@ def _step_each_member(u, v, p, t, active, params: Params, method: str):
                               dtype=p.dtype, device=u.device),
         converged=torch.tensor([d.sor_converged for d in diags],
                                device=u.device))
-    return stacked("u"), stacked("v"), stacked("t"), result
+    return (stacked("u"), stacked("v"), stacked("t"),
+            torch.stack([d.dt for d in diags]), result)
 
 
 def _ensemble_step(u, v, p, t, active, params: Params, method: str):
     """One step of the members `active` (host bools) names: the new u, v,
-    t and the batch's ``sor.BatchResult`` (whose p is the new pressure).
-    Problems 1-4 take `step` on the whole batch (the BCs, F/G and rhs by
-    the fused momentum kernel on an f32 CUDA state, every member in one
-    launch, else by the plain formulation; ``sor.solve_pressure_batch``);
-    obstacle domains step member by member."""
+    t, each member's dt and the batch's ``sor.BatchResult`` (whose p is
+    the new pressure).  Problems 1-4 take `step` on the whole batch (the
+    BCs, F/G and rhs by the fused momentum kernel on an f32 CUDA state,
+    every member in one launch, else by the plain formulation;
+    ``sor.solve_pressure_batch``); obstacle domains step member by member.
+    Counts the batch step, the members it steps and those it holds."""
+    stepped = sum(1 for flag in active if flag)
+    timing.count("ensemble.steps")
+    timing.count("ensemble.member_steps", stepped)
+    timing.count("ensemble.held", len(active) - stepped)
     if params.obstacles:
         return _step_each_member(u, v, p, t, active, params, method)
     u, v = u.clone(), v.clone()
-    dt, gamma = momentum.adaptive_dt_gamma(u, v, params)
-    dt3, gamma3 = dt.view(-1, 1, 1), gamma.view(-1, 1, 1)
-    if params.problem == 3:
-        boundary.apply_channel_bcs(u, v, params)
-    elif params.problem == 4:
-        boundary.apply_freeslip_box(u, v)
-    else:
-        lid = boundary.lid_velocity(params.problem, params.f, t)
-        boundary.apply_cavity_bcs(u, v, lid.view(-1, 1) if lid.dim() else lid)
+    with timing.span("step.dt_bcs"):
+        dt, gamma = momentum.adaptive_dt_gamma(u, v, params)
+        dt3, gamma3 = dt.view(-1, 1, 1), gamma.view(-1, 1, 1)
+        if params.problem == 3:
+            boundary.apply_channel_bcs(u, v, params)
+        elif params.problem == 4:
+            boundary.apply_freeslip_box(u, v)
+        else:
+            lid = boundary.lid_velocity(params.problem, params.f, t)
+            boundary.apply_cavity_bcs(u, v,
+                                      lid.view(-1, 1) if lid.dim() else lid)
     if momentum_kernel.usable(params, u.device):
         F, G, rhs = momentum_kernel.momentum_rhs(u, v, dt, gamma, params)
     else:
@@ -374,8 +382,114 @@ def _ensemble_step(u, v, p, t, active, params: Params, method: str):
         rhs = momentum.compute_rhs(F, G, dt3, params)
     result = sor.solve_pressure_batch(p, rhs, params, method=method,
                                       active=active)
-    momentum.project_velocities(u, v, F, G, result.p, dt3, params)
-    return u, v, t + dt, result
+    with timing.span("step.project"):
+        momentum.project_velocities(u, v, F, G, result.p, dt3, params)
+    return u, v, t + dt, dt, result
+
+
+def _check_ensemble_method(pressure_method: str) -> None:
+    if pressure_method == "pallas_sor":
+        raise ValueError(
+            "solve_ensemble cannot batch the Pallas kernels; use rb_sor "
+            "(same algorithm, jnp formulation) or mg/cg/fft")
+
+
+class EnsembleStepper:
+    """Host-loop adapter of a batch of independent states
+    (``stack_states``), the batched counterpart of ``Stepper``, driven by
+    ``run_steps``: each ``step()`` is one ``_ensemble_step`` of the
+    members still short of T, after which a member that has reached T
+    holds its state (``torch.where``), as the JAX package's batched
+    ``while_loop`` holds a finished member's carry.  Each member's n,
+    steps, pressure iterations, failures and last norm stay on the device
+    (``stats()``).
+
+    ``t`` is the earliest member time: its read of every member's t is the
+    loop's one sync a step, and the next ``step()`` takes the members to
+    step (t < T, compared in the state's dtype, as JAX compares) from that
+    same read.  The StepDiagnostics a step returns hold its dt (one per
+    member) and no host number of the solve (0 sweeps, norm 0, converged),
+    so that ``run_steps`` reads nothing more: its SolveStats count the
+    batch's steps alone.  ``run_steps`` compares t with T in params'
+    dtype, so the states take params' dtype."""
+
+    def __init__(self, params: Params, states: State,
+                 pressure_method: str = "rb_sor"):
+        _check_ensemble_method(pressure_method)
+        if pressure_method not in sor.METHODS:
+            raise ValueError(f"unknown pressure solver method "
+                             f"{pressure_method!r}")
+        _check_problem(params)
+        self.params = params
+        self.pressure_method = pressure_method
+        u, v, p, t = (x.clone() for x in states[:4])
+        n = torch.as_tensor(states.n, device=t.device).clone()
+        self._state = State(u=u, v=v, p=p, t=t, n=n)
+        T = torch.tensor(params.T, dtype=t.dtype, device=t.device)
+        self._T, self._T_host = T, float(T)
+        self._active = t < T
+        self._flags = None
+        zero = torch.zeros(t.shape[0], dtype=torch.int64, device=t.device)
+        self._steps, self._iters = zero.clone(), zero.clone()
+        self._failures = zero.clone()
+        self._last = torch.zeros_like(t)
+
+    def warm(self) -> None:
+        """One throw-away batched step at max_it 1 from a batch at rest of
+        the held batch's size, so a timed loop excludes the kernel build
+        and PyTorch's first use of its kernels."""
+        rest = allocate_state(self.params, self._state.u.device)
+        stepper = EnsembleStepper(
+            self.params.replace(max_it=1),
+            stack_states([rest] * self._state.u.shape[0]),
+            self.pressure_method)
+        stepper.step()
+        device_fence(stepper.state())
+
+    def _read_times(self):
+        """Every member's t on the host, the one read a step, and the
+        members the next step takes."""
+        times = self._state.t.tolist()
+        self._flags = [time < self._T_host for time in times]
+        return times
+
+    @property
+    def t(self) -> float:
+        return min(self._read_times())
+
+    def step(self) -> StepDiagnostics:
+        if self._flags is None:
+            self._read_times()
+        flags, self._flags = self._flags, None
+        u, v, p, t, n = self._state
+        u_new, v_new, t_new, dt, res = _ensemble_step(
+            u, v, p, t, flags, self.params, self.pressure_method)
+        with timing.span("ensemble.hold"):
+            active = self._active
+            a3 = active.view(-1, 1, 1)
+            self._state = State(u=torch.where(a3, u_new, u),
+                                v=torch.where(a3, v_new, v),
+                                p=torch.where(a3, res.p, p),
+                                t=torch.where(active, t_new, t),
+                                n=n + active)
+            self._steps += active
+            self._iters += torch.where(active, res.iterations, 0)
+            self._failures += active & ~res.converged
+            self._last = torch.where(active, res.res_norm, self._last)
+            self._active = self._state.t < self._T
+        return StepDiagnostics(dt=dt, sor_iterations=0, sor_res_norm=0.0,
+                               sor_converged=True)
+
+    def state(self) -> State:
+        return self._state
+
+    def stats(self) -> SolveStats:
+        """Each member's steps, pressure iterations, failures and last
+        residual norm, as (B,) tensors on the device."""
+        return SolveStats(steps=self._steps,
+                          total_sor_iterations=self._iters,
+                          sor_failures=self._failures,
+                          last_res_norm=self._last)
 
 
 def solve_ensemble(params: Params, states: State, *,
@@ -386,9 +500,10 @@ def solve_ensemble(params: Params, states: State, *,
     a leading batch axis.  Each member keeps its own adaptive dt, step
     count and pressure iterations; a member that has reached T holds its
     state fixed (``torch.where``) while the others step, as JAX's batched
-    ``while_loop`` does, and the loop reads one flag vector per step for
-    the whole batch.  Returns the batched State and SolveStats whose fields
-    are per-member tensors.
+    ``while_loop`` does.  The loop is ``run_steps`` over an
+    ``EnsembleStepper``, which reads the members' times once a step for
+    the whole batch.  Returns the batched State and SolveStats whose
+    fields are per-member tensors.
 
     The batched step is ``step`` on the member axis: on an f32 CUDA state
     the fused momentum kernel and rb_sor's SOR sweep kernel take every
@@ -407,43 +522,12 @@ def solve_ensemble(params: Params, states: State, *,
     and the fields and the per-member stats are all-gathered in member
     order, on every rank.  JAX's refusals: a mesh of more than one axis,
     and a batch that is not a multiple of the mesh."""
-    if pressure_method == "pallas_sor":
-        raise ValueError(
-            "solve_ensemble cannot batch the Pallas kernels; use rb_sor "
-            "(same algorithm, jnp formulation) or mg/cg/fft")
+    _check_ensemble_method(pressure_method)
     if mesh is not None:
         return _solve_ensemble_on_mesh(params, states, pressure_method, mesh)
-    if pressure_method not in sor.METHODS:
-        raise ValueError(f"unknown pressure solver method "
-                         f"{pressure_method!r}")
-    _check_problem(params)
-    u, v, p, t = (x.clone() for x in states[:4])
-    n = torch.as_tensor(states.n, device=t.device).clone()
-    T = torch.tensor(params.T, dtype=t.dtype, device=t.device)
-    zero = torch.zeros(t.shape[0], dtype=torch.int64, device=t.device)
-    steps, iters, failures = zero.clone(), zero.clone(), zero.clone()
-    last = torch.zeros_like(t)
-    active = t < T  # in the state's dtype, as JAX compares
-    while True:
-        flags = active.tolist()  # the one read per step
-        if not any(flags):
-            break
-        u_new, v_new, t_new, res = _ensemble_step(u, v, p, t, flags, params,
-                                                  pressure_method)
-        a3 = active.view(-1, 1, 1)
-        u = torch.where(a3, u_new, u)
-        v = torch.where(a3, v_new, v)
-        p = torch.where(a3, res.p, p)
-        t = torch.where(active, t_new, t)
-        n += active
-        steps += active
-        iters += torch.where(active, res.iterations, 0)
-        failures += active & ~res.converged
-        last = torch.where(active, res.res_norm, last)
-        active = t < T
-    return State(u=u, v=v, p=p, t=t, n=n), SolveStats(
-        steps=steps, total_sor_iterations=iters, sor_failures=failures,
-        last_res_norm=last)
+    stepper = EnsembleStepper(params, states, pressure_method)
+    run_steps(stepper, params)
+    return stepper.state(), stepper.stats()
 
 
 def _solve_ensemble_on_mesh(params: Params, states: State,

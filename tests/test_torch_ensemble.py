@@ -20,6 +20,12 @@ unmeshed batch (equal: each rank runs the batched route on its slice) and
 JAX's ensemble on a 4-device ("b",) mesh (counts equal, fields within the
 contract), computed in this process while the ranks run.  The spawned
 workers import this module, and with it jax, which they do not call.
+
+``solve_ensemble`` is ``run_steps`` over a ``solver.EnsembleStepper``:
+the stepper under ``run_steps`` gives, bit for bit, the fields and
+per-member stats of a transcription of the closed loop it replaced
+(``_closed_loop``), a member held at T from the start beside members
+that step.
 """
 
 import datetime
@@ -319,3 +325,78 @@ def test_data_parallel_ensemble_matches_batch_and_jax(tmp_path):
     for name in ("u", "v", "p"):
         assert_close_reference_contract(got[name],
                                         np.asarray(getattr(jout, name)))
+
+
+# --- the batched loop as a stepper under run_steps --------------------------
+
+
+def _closed_loop(params, states, method):
+    """``solve_ensemble``'s loop as it was before it became ``run_steps``
+    over an ``EnsembleStepper``: the members' flags read once a step, the
+    holds and the per-member stats on the device."""
+    u, v, p, t = (x.clone() for x in states[:4])
+    n = torch.as_tensor(states.n).clone()
+    T = torch.tensor(params.T, dtype=t.dtype)
+    zero = torch.zeros(t.shape[0], dtype=torch.int64)
+    steps, iters, failures = zero.clone(), zero.clone(), zero.clone()
+    last = torch.zeros_like(t)
+    active = t < T
+    while True:
+        flags = active.tolist()
+        if not any(flags):
+            break
+        u_new, v_new, t_new, _, res = solver._ensemble_step(
+            u, v, p, t, flags, params, method)
+        a3 = active.view(-1, 1, 1)
+        u = torch.where(a3, u_new, u)
+        v = torch.where(a3, v_new, v)
+        p = torch.where(a3, res.p, p)
+        t = torch.where(active, t_new, t)
+        n += active
+        steps += active
+        iters += torch.where(active, res.iterations, 0)
+        failures += active & ~res.converged
+        last = torch.where(active, res.res_norm, last)
+        active = t < T
+    return (u, v, p, t, n), (steps, iters, failures, last)
+
+
+STEPPER_CASES = [("rb_sor", "float32"), ("rb_sor", "float64"),
+                 ("fft", "float32"), ("mg", "float32")]
+
+
+@pytest.mark.parametrize("method,dtype", STEPPER_CASES,
+                         ids=[f"{m}_{d}" for m, d in STEPPER_CASES])
+def test_ensemble_stepper_gives_the_closed_loops_bits(method, dtype):
+    """Three perturbed members and one already at T (held throughout):
+    ``EnsembleStepper`` under ``run_steps``, and ``solve_ensemble``, equal
+    the closed loop's fields and per-member stats bit for bit; the held
+    member keeps its state and counts no step."""
+    prm = Params(**_fields(dtype=dtype))
+    members = []
+    for du in _perturbations(prm, 3):
+        s = allocate_state(prm, "cpu")
+        members.append(s._replace(u=s.u + torch.tensor(du, dtype=s.u.dtype)))
+    done = members[2]._replace(t=torch.tensor(prm.T, dtype=prm.torch_dtype),
+                               n=5)
+    batch = solver.stack_states(members + [done])
+    want, want_stats = _closed_loop(prm, batch, method)
+
+    stepper = solver.EnsembleStepper(prm, batch, method)
+    loop = solver.run_steps(stepper, prm)
+    out, stats = stepper.state(), stepper.stats()
+    api, api_stats = solver.solve_ensemble(prm, batch, pressure_method=method)
+    for got, got_stats in ((out, stats), (api, api_stats)):
+        for name, x in zip(("u", "v", "p", "t", "n"), want):
+            assert torch.equal(getattr(got, name), x), name
+        for name, x in zip(solver.SolveStats._fields, want_stats):
+            assert torch.equal(getattr(got_stats, name), x), name
+    assert loop.steps == int(want_stats[0].max()) > 1
+    assert want_stats[0].tolist()[3] == 0 and out.n.tolist()[3] == 5
+    for name in ("u", "v", "p", "t"):
+        assert torch.equal(getattr(out, name)[3], getattr(done, name))
+    # The batch's own inputs are untouched: a second stepper from them
+    # gives the same bits.
+    again = solver.EnsembleStepper(prm, batch, method)
+    solver.run_steps(again, prm)
+    assert torch.equal(again.state().p, out.p)

@@ -10,7 +10,10 @@ bit.  The masked solve of obstacle domains, on a 40 x 16 channel, runs
 that same outer (``pressure.*`` spans and counters, one flag read a pass
 and none at the set-up), keeps its bits under the profiler and counts its
 V-cycles or sweeps, with the masked levels' spans inside the outer's
-inner stage.
+inner stage.  A batch of 24^2 cavities (solver.EnsembleStepper) marks
+the solo step's spans and its holds, counts its steps, the members it
+steps and those it holds, reads t once a step and no pressure result, and
+keeps its bits under the profiler.
 """
 
 import json
@@ -291,3 +294,66 @@ def test_an_obstacle_step_keeps_its_bits_and_marks_its_bcs(tmp_path):
     assert len(spans["nsp.obstacle.bcs"]) == 2
     assert _inside(spans["nsp.obstacle.bcs"][0], spans["nsp.step.dt_bcs"])
     assert _inside(spans["nsp.obstacle.bcs"][1], spans["nsp.step.project"])
+
+
+# Three seeded 24^2 cavities and a fourth already at T, held throughout: the
+# batched step of solver.EnsembleStepper.
+
+
+def _batch(prm):
+    members = [_state(prm, seed) for seed in range(3)]
+    done = members[0]._replace(t=torch.tensor(prm.T, dtype=prm.torch_dtype))
+    return solver.stack_states(members + [done])
+
+
+def test_ensemble_counters_add_up():
+    prm = PRM.replace(epsilon=1e-4)
+    stepper = solver.EnsembleStepper(prm, _batch(prm), "rb_sor")
+    start = timing.counts()
+    solver.run_steps(stepper, prm, max_steps=1)
+    counted = since(start)
+    assert counted["sync.loop_t"] == counted["ensemble.steps"] == 1
+    assert counted["ensemble.member_steps"] == 3
+    assert counted["ensemble.held"] == 1
+
+    stepper = solver.EnsembleStepper(prm, _batch(prm), "rb_sor")
+    start = timing.counts()
+    loop = solver.run_steps(stepper, prm)
+    counted = since(start)
+    members = stepper.stats().steps
+    assert members.tolist()[3] == 0 and loop.steps == int(members.max()) > 1
+    assert counted["ensemble.steps"] == loop.steps
+    # One read of t a step, and the one that stops the loop.
+    assert counted["sync.loop_t"] == loop.steps + 1
+    assert counted["ensemble.member_steps"] == int(members.sum())
+    assert counted["ensemble.held"] == 4 * loop.steps - int(members.sum())
+    assert counted["pressure.passes"] >= loop.steps
+    # The batched outer reads its flags and never a result: the members'
+    # stats stay on the device.
+    assert "sync.pressure_result" not in counted
+    assert {name for name in counted if name.startswith("sync.")} == {
+        "sync.loop_t", "sync.pressure_flag"}
+
+
+def test_ensemble_step_keeps_its_bits_under_the_profiler(tmp_path):
+    prm = PRM.replace(epsilon=1e-4)
+    plain = solver.EnsembleStepper(prm, _batch(prm), "rb_sor")
+    solver.run_steps(plain, prm, max_steps=2)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        traced = solver.EnsembleStepper(prm, _batch(prm), "rb_sor")
+        solver.run_steps(traced, prm, max_steps=2)
+    for name in ("u", "v", "p", "t", "n"):
+        assert torch.equal(getattr(plain.state(), name),
+                           getattr(traced.state(), name)), name
+    for want, got in zip(plain.stats(), traced.stats()):
+        assert torch.equal(want, got)
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    spans = _user_spans(path)
+    for name in ("nsp.step.dt_bcs", "nsp.step.project", "nsp.ensemble.hold",
+                 "nsp.loop.read_t"):
+        assert len(spans.get(name, ())) == 2, name
+    assert spans["nsp.pressure.pass"] and spans["nsp.pressure.setup"]
+    assert not _inside(spans["nsp.ensemble.hold"][0],
+                       spans["nsp.step.project"])
