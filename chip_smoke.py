@@ -17,7 +17,9 @@ and the fused momentum kernel against its first, two-launch kernel) on the
 card with error 0.0 (every kernel rounds each f32 operation once, as its
 plain twin does: csrc/nsp_round.cuh), and the f64 outer's fused pass
 (csrc/defect.cu) against its twin over two passes, master and next rhs
-with error 0.0 and the norm within DEFECT_NORM_RTOL; times them beside
+with error 0.0 and the norm within DEFECT_NORM_RTOL, for one problem and
+for the ensemble's batch of 8 x 258^2 in one launch a pass (each member
+also against its own launch, bit for bit); times them beside
 those first kernels (the fused pass beside its twin), drives the paths and
 checks each answer against the JAX package's recorded answer:
 
@@ -156,9 +158,10 @@ checks each answer against the JAX package's recorded answer:
 
   * ensembles (the "ensemble" phase, ``solver.solve_ensemble``): 8 seeded
     members of configs/1.in's 256^2 cavity (max_it cut to 2000) by rb_sor
-    (batched: the momentum and the SOR sweep kernels take every member in
-    one launch) and fft (batched; the momentum kernel) and mg (member by
-    member), each member's counts against JAX's ensemble record and its
+    (batched: the momentum and the SOR sweep kernels and the f64 outer's
+    fused pass take every member in one launch) and fft (batched; the
+    momentum kernel and the fused pass) and mg (member by member), each
+    member's counts against JAX's ensemble record and its
     solo run on the card, the batch's seconds (after a warm-up of the
     batched route) and launches beside the solo runs';
 
@@ -173,7 +176,8 @@ checks each answer against the JAX package's recorded answer:
   * the data-parallel ensemble (the "mesh ensemble" phase,
     ``solve_ensemble(mesh=...)`` on a one-device batch mesh): the
     ensemble phase's 8 members by rb_sor equal to the unmeshed batch bit
-    for bit, sor_sweeps 96 and momentum_rhs 3 launches, its seconds;
+    for bit, sor_sweeps 96, pressure_defect 96 and momentum_rhs 3
+    launches, its seconds;
 
   * the gspmd backend (the "gspmd" phase, a one-rank NCCL group,
     parallel/gspmd.py on the 1x1 mesh): the runs of
@@ -434,9 +438,11 @@ SOR_SWEEPS = 64  # the main path's K: one kernel call = 64 sweeps
 # The members of the ensemble phase (tests/jax_a9_records.json "ensemble").
 ENSEMBLE_MEMBERS = 8
 # The kernels each method's batched ensemble step launches on the card.
-ENSEMBLE_KERNELS = {"rb_sor": ("momentum", "sor"), "fft": ("momentum",),
+ENSEMBLE_KERNELS = {"rb_sor": ("momentum", "sor", "pressure_defect"),
+                    "fft": ("momentum", "pressure_defect"),
                     "mg": ("momentum", "sor_warm", "mg_restrict",
-                           "mg_prolong", "mg_coarse_cycle")}
+                           "mg_prolong", "mg_coarse_cycle",
+                           "pressure_defect")}
 # The refinement interval of the benchmark's SOR arm; the main path runs a
 # second time with it.
 BENCH_REFINE_EVERY = 2048
@@ -690,9 +696,9 @@ def phase_compare(torch) -> dict:
                                    f"n={n}, tile={tile}")
         errs[key] = max(errs[key], err)
     errs["sor_ext"] = compare_ext(torch, rng)
+    errs["pressure_defect"] = compare_defect(torch, rng)
     for key, err in compare_batched(torch, rng).items():
         errs[key] = max(errs[key], err)
-    errs["pressure_defect"] = compare_defect(torch, rng)
     return errs
 
 
@@ -712,12 +718,13 @@ def defect_case(torch, rng, i_max: int, j_max: int):
                                              device="cuda")
 
 
-def defect_passes(torch, pass_fn, p64, delta, n_passes: int):
-    """n_passes of pass_fn (a defect_kernel.outer_pass) from p64: (master,
-    on, iterations, res_norm) after them."""
-    on = torch.ones((), dtype=torch.bool, device=p64.device)
-    iterations = torch.zeros((), dtype=torch.int64, device=p64.device)
-    res_norm = torch.full((), float("inf"), dtype=torch.float64,
+def defect_passes(torch, pass_fn, p64, delta, n_passes: int, on=True):
+    """n_passes of pass_fn (a defect_kernel.outer_pass) from p64, `on` the
+    go-on flag of one problem or a list of a batch's: (master, on,
+    iterations, res_norm) after them."""
+    on = torch.tensor(on, device=p64.device)
+    iterations = torch.zeros(on.shape, dtype=torch.int64, device=p64.device)
+    res_norm = torch.full(on.shape, float("inf"), dtype=torch.float64,
                           device=p64.device)
     for _ in range(n_passes):
         p64 = pass_fn(p64, delta, on, iterations, res_norm, SOR_SWEEPS)
@@ -769,8 +776,9 @@ def compare_batched(torch, rng) -> dict:
     at the ensemble phase's shape (8 members of 258^2): the whole-grid
     sweeps (B1) for n = 0, 1, 7 and 64 and the fused momentum kernel (B2)
     with a dt and a gamma per member, each against its plain twin on the
-    member axis and against each member's own launch: error 0.0.  Returns
-    the max abs error per kernel."""
+    member axis and against each member's own launch: error 0.0; and two
+    passes of the f64 outer's fused pass (compare_batched_defect).
+    Returns the max abs error per kernel."""
     from navierstokes_parallel_tpu_torch.config import Params
     from navierstokes_parallel_tpu_torch.ops.cuda import (momentum_kernel,
                                                           sor_kernel)
@@ -778,7 +786,8 @@ def compare_batched(torch, rng) -> dict:
     members = ENSEMBLE_MEMBERS
     prm = Params(i_max=256, j_max=256, a=1.0, b=0.7, Re=1000.0, g_x=0.1,
                  g_y=-0.2, omega=1.7)
-    errs = {"sor": 0.0, "momentum": 0.0}
+    errs = {"sor": 0.0, "momentum": 0.0,
+            "pressure_defect": compare_batched_defect(torch, rng, prm)}
     rhs = torch.stack([random_grid(torch, rng, (256, 256), ring=False)
                        for _ in range(members)])
     for n in (0, 1, 7, SOR_SWEEPS):
@@ -816,6 +825,77 @@ def compare_batched(torch, rng) -> dict:
               f"batched momentum kernel disagrees on {name}")
         errs["momentum"] = max(errs["momentum"], err)
     return errs
+
+
+# The members of compare_batched_defect's batch: going, stopped before the
+# first pass, one whose first norm meets its threshold, the rest going.
+DEFECT_BATCH_ON = [True, False, True] + [True] * (ENSEMBLE_MEMBERS - 3)
+DEFECT_BATCH_THRESHOLD = [0.0, 0.0, 1e300] + [0.0] * (ENSEMBLE_MEMBERS - 3)
+
+
+def compare_batched_defect(torch, rng, prm) -> float:
+    """Two passes of the f64 outer's fused pass (defect_kernel.outer_pass)
+    over a batch of ENSEMBLE_MEMBERS members on prm's grid, one launch a
+    pass, against the plain twin on the same batch on the CPU: the
+    masters' interiors, the next rhs, the flags and the counts bit for
+    bit, the norms within DEFECT_NORM_RTOL; and each member against its
+    own launch (members = 1): every tensor bit for bit.  Returns the
+    largest abs error of masters and rhs against the twin."""
+    from navierstokes_parallel_tpu_torch.ops.cuda import defect_kernel
+    from navierstokes_parallel_tpu_torch.utils import timing
+
+    members = ENSEMBLE_MEMBERS
+    shape = (members, *prm.shape)
+    p64 = torch.from_numpy(rng.standard_normal(shape))
+    delta = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    rhs = torch.from_numpy(rng.standard_normal((members, prm.i_max,
+                                                prm.j_max)))
+
+    def run(device, k=None):
+        """The two passes on `device`, of the batch or of member k."""
+        pick = slice(None) if k is None else k
+        master, d, r = (x[pick].to(device, copy=True)
+                        for x in (p64, delta, rhs))
+        on, thr = ((DEFECT_BATCH_ON, DEFECT_BATCH_THRESHOLD) if k is None
+                   else (DEFECT_BATCH_ON[k], DEFECT_BATCH_THRESHOLD[k]))
+        rhs_full = torch.zeros(master.shape, dtype=torch.float32,
+                               device=device)
+        pass_fn = defect_kernel.outer_pass(
+            master, r, rhs_full,
+            torch.tensor(thr, dtype=torch.float64, device=device), prm)
+        got = defect_passes(torch, pass_fn, master, d, 2, on)
+        return tuple(x.cpu() for x in (*got, rhs_full))
+
+    start = timing.counts()
+    kernel = run("cuda")
+    launched = timing.counts().get("launch.pressure_defect", 0) - start.get(
+        "launch.pressure_defect", 0)
+    plain = run("cpu")
+    (km, kon, kit, knorm, krhs), (pm, pon, pit, pnorm, prhs) = kernel, plain
+    err = max(float((km - pm)[:, 1:-1, 1:-1].abs().max()),
+              float((krhs - prhs).abs().max()))
+    flags = torch.equal(kon, pon) and torch.equal(kit, pit)
+    rel = max(0.0 if not going else
+              abs(float(kn) - float(pn)) / float(pn)
+              for kn, pn, going in zip(knorm, pnorm, DEFECT_BATCH_ON))
+    held = all(float(kn) == float(pn) == float("inf")
+               for kn, pn, going in zip(knorm, pnorm, DEFECT_BATCH_ON)
+               if not going)
+    solo = all(torch.equal(x[k], y) for k in range(members)
+               for x, y in zip(kernel, run("cuda", k)))
+    want = ([128, 0, 64] + [128] * (members - 3),
+            [True, False, False] + [True] * (members - 3))
+    counts = (kit.tolist(), kon.tolist()) == want
+    print(f"[compare] pressure_defect {members} x {prm.shape}, 2 passes (one "
+          f"launch each for the batch, {launched} launched; a member going, "
+          f"one stopped, one that stops): max abs err {err:.3e} vs the "
+          f"plain twin (expected 0), norms rel {rel:.2e}, flags and counts "
+          f"equal {flags} ({kit.tolist()}), stopped norms kept {held}, "
+          f"equals each member's launch {solo}")
+    check(err == 0.0 and rel <= DEFECT_NORM_RTOL and flags and held and solo
+          and counts and launched == 2,
+          "batched pressure_defect kernel disagrees")
+    return err
 
 
 def compare_whole_grid(torch, rng) -> float:
@@ -3877,9 +3957,11 @@ def phase_mesh_gradients(torch) -> dict:
 
 
 # The mesh ensemble's launches: 3 steps of 8 members, the batched SOR
-# sweep kernel (B1) once per refinement pass of 64 sweeps (max_it 2000:
-# 32 passes a step) and the fused momentum kernel (B2) once a step.
-MESH_ENSEMBLE_LAUNCH_COUNTS = {"sor": 96, "momentum": 3}
+# sweep kernel (B1) and the f64 outer's fused pass once per refinement
+# pass of 64 sweeps (max_it 2000: 32 passes a step) and the fused
+# momentum kernel (B2) once a step.
+MESH_ENSEMBLE_LAUNCH_COUNTS = {"sor": 96, "pressure_defect": 96,
+                               "momentum": 3}
 
 
 def phase_mesh_ensemble(torch) -> dict:
@@ -3887,7 +3969,8 @@ def phase_mesh_ensemble(torch) -> dict:
     one-device batch mesh over a one-rank NCCL group: the ensemble phase's
     8 members of configs/1.in (max_it 2000) by rb_sor, every field and
     stat equal to the unmeshed batch's of this call bit for bit, the counts
-    JAX's record, B1 and B2 launched MESH_ENSEMBLE_LAUNCH_COUNTS times, and the
+    JAX's record, B1, the fused pass and B2 launched
+    MESH_ENSEMBLE_LAUNCH_COUNTS times, and the
     seconds of both.  Returns the mesh run's launch counts."""
     from navierstokes_parallel_tpu_torch import solver
     from navierstokes_parallel_tpu_torch.config import Params

@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _D = ctypes.c_double
 # C entry points and their argument types (see the .cu sources).
@@ -103,11 +104,11 @@ SIGNATURES = {
     # inv_dy, inv_re, inv_dx2, inv_dy2, g_x, g_y, device, stream
     "nsp_momentum_rhs_simple": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                 _F, _F, _F, _F, _F, _F, _I, _P),
-    # p_old, p_new, delta, rhs, rhs_stride, rhs_full, on, iterations,
-    # res_norm, threshold, workspace, workspace_len, i_max, j_max, n_inner,
-    # dx2_inv, dy2_inv, device, stream
-    "nsp_pressure_defect": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
-                            _I, _I, _I, _D, _D, _I, _P),
+    # p_old, p_new, delta, rhs, rhs_stride, rhs_member_stride, rhs_full, on,
+    # iterations, res_norm, threshold, workspace, workspace_len, members,
+    # i_max, j_max, n_inner, dx2_inv, dy2_inv, device, stream
+    "nsp_pressure_defect": (_P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _D, _D, _I, _P),
 }
 
 _lib = None  # the loaded library, once built

@@ -351,7 +351,9 @@ def solve_pressure_batch(p: torch.Tensor, rhs: torch.Tensor, params: Params,
     ``_solve_pressure_direct``): rb_sor's f32 sweeps take the SOR kernel
     route, every member in the same launches on the card (its plain twin
     on the CPU), jacobi the plain inner, fft the DCT over the last two
-    axes; each outer pass reads one flag for the whole batch.  mg and cg,
+    axes; on an f32 state the pass after the inner is one launch of the
+    fused pass for every member (``_fused_outer``), and each outer pass
+    reads one flag for the whole batch.  mg and cg,
     and the compensated outer, solve member by member (``solve_pressure``
     on each).  Obstacle domains are refused: solver.solve_ensemble steps
     them member by member.  `active` (host bools, default all) names the
@@ -638,10 +640,11 @@ def _solve_pressure_refined(p: torch.Tensor, rhs: torch.Tensor,
     hook but `residual_fn`, which it refuses as the JAX package does; it
     solves one problem (a batch goes member by member).
 
-    Where ``_fused_outer`` holds (one problem, the default hooks), the pass
-    after the inner is ``defect_kernel.outer_pass``: one kernel launch on
-    the card (``outer_pass_plain`` on the CPU), and the flag is read
-    without a reduction.
+    Where ``_fused_outer`` holds (the default hooks, one problem or a
+    batch), the pass after the inner is ``defect_kernel.outer_pass``: one
+    kernel launch on the card for every member (``outer_pass_plain`` on
+    the CPU); one problem's flag is read without a reduction, a batch's as
+    the any() of its flags.
     """
     if params.outer_precision == "compensated":
         if residual_fn is not None:
@@ -756,8 +759,8 @@ def outer_pass_plain(p64, delta, on, iterations, res_norm, n_inner, *,
     place on p64), then `defect(p64)`, its norm, the result's norm and
     count and the go-on flag (in place on res_norm, iterations and on),
     and the next pass's rhs, f32(-r), in the interior of rhs_full; returns
-    p64.  The pass of a batch, and the CPU twin of
-    ``defect_kernel.outer_pass``."""
+    p64.  The pass of the calls with hooks, and the CPU twin of
+    ``defect_kernel.outer_pass`` for one problem or a batch."""
     interior = p64[..., 1:-1, 1:-1]
     on3 = on.view(*on.shape, 1, 1)
     interior.copy_(torch.where(
@@ -777,12 +780,14 @@ def _fused_outer(p: torch.Tensor, rhs: torch.Tensor, params: Params, *,
                  residual_fn: Optional[Callable],
                  going: Optional[torch.Tensor]) -> bool:
     """Whether the f64 outer's pass after the inner takes
-    ``defect_kernel.outer_pass``: one problem (no `going`: a batch keeps
-    its member axis) of a 2-D contiguous float32 state, outside autograd,
+    ``defect_kernel.outer_pass``: a contiguous float32 state, 2-D for one
+    problem or 3-D for a batch (`going` given: one launch a pass for every
+    member, each with its own flag, count and norm), outside autograd,
     with the default hooks (a shard's ghost fill, norm, pad mask or masked
     defect each need the plain statements) and no deflation (problem 3's
     needs a second global reduction before the norm)."""
-    return (going is None and p.dim() == 2 and p.dtype == torch.float32
+    return (p.dim() == (2 if going is None else 3)
+            and p.dtype == torch.float32
             and p.is_contiguous() and ghost_fn is ghost_fill and l2_fn is None
             and valid_mask is None and residual_fn is None
             and params.problem != 3

@@ -15,6 +15,7 @@ neither nvcc nor a GPU.
 import os
 import shutil
 import stat
+import warnings
 
 import numpy as np
 import pytest
@@ -1622,14 +1623,24 @@ def test_ensemble_on_the_card_launches_the_batched_kernels(cuda):
             0.01 * k * rng.standard_normal(prm.shape), dtype=s.u.dtype,
             device=cuda)))
     sweeps, momentum = launches("sor_whole_grid"), launches("momentum")
+    start = timing.counts()
     out, stats = solver.solve_ensemble(prm, solver.stack_states(members))
+    counted = {name: timing.counts().get(name, 0) - start.get(name, 0)
+               for name in ("pressure.passes", "pressure.fused_passes",
+                            "launch.pressure_defect")}
     steps = max(stats.steps.tolist())
     assert launches("momentum") - momentum == steps
     assert launches("sor_whole_grid") - sweeps >= steps
+    # The f64 outer's pass: one launch of csrc/defect.cu a pass for the
+    # whole batch.
+    assert (counted["launch.pressure_defect"] == counted["pressure.passes"]
+            == counted["pressure.fused_passes"] >= steps)
     for k, member in enumerate(members):
-        state, _ = solver.solve(prm, member)
+        state, solo = solver.solve(prm, member)
         for name in ("u", "v", "p"):
             assert torch.equal(getattr(out, name)[k], getattr(state, name))
+        assert int(stats.total_sor_iterations[k]) == solo.total_sor_iterations
+        assert float(stats.last_res_norm[k]) == solo.last_res_norm
 
 
 # --- the f64 outer's fused pass (csrc/defect.cu) -------------------------------
@@ -1737,6 +1748,131 @@ def test_defect_kernel_raises_on_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="spare"):
         pass_fn(p64, delta, on, it, norm, 4)  # the spare of the next pass
     pass_fn(out, delta, on, it, norm, 4)
+
+
+def _defect_members_run(prm, p64, delta, rhs, device, on, threshold,
+                        n_passes: int = 2):
+    """n_passes of defect_kernel.outer_pass from p64 on `device`, one
+    problem (2-D tensors, `on` and `threshold` numbers) or a batch (3-D,
+    lists): (master, rhs_full, on, iterations, res_norm) after them."""
+    from navierstokes_parallel_tpu_torch.ops.cuda import defect_kernel
+
+    p64, delta, rhs = (x.to(device, copy=True) for x in (p64, delta, rhs))
+    rhs_full = torch.zeros(p64.shape, dtype=torch.float32, device=device)
+    on = torch.tensor(on, device=device)
+    threshold = torch.tensor(threshold, dtype=torch.float64, device=device)
+    iterations = torch.zeros(on.shape, dtype=torch.int64, device=device)
+    res_norm = torch.full(on.shape, float("inf"), dtype=torch.float64,
+                          device=device)
+    pass_fn = defect_kernel.outer_pass(p64, rhs, rhs_full, threshold, prm)
+    for _ in range(n_passes):
+        p64 = pass_fn(p64, delta, on, iterations, res_norm, 64)
+    return p64, rhs_full, on, iterations, res_norm
+
+
+def _defect_batch_inputs(i_max, j_max, n_members, seed):
+    """(params, masters, deltas, rhs interiors) of a batch's pass."""
+    members = [_defect_inputs(i_max, j_max, seed + k)
+               for k in range(n_members)]
+    return (members[0][0], *(torch.stack(x) for x in
+                             zip(*(m[1:] for m in members))))
+
+
+# A batch's members: going, stopped before the first pass, and one whose
+# first pass's norm meets its threshold; their counts after two passes.
+DEFECT_MEMBERS = {"on": [True, False, True], "threshold": [0.0, 0.0, 1e300],
+                  "iterations": [128, 0, 64]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interior", [(256, 256), (97, 61)],
+                         ids=lambda s: f"{s[0] + 2}x{s[1] + 2}")
+def test_batched_defect_equals_each_members_launch(cuda, interior):
+    """Two passes of one launch each over three members (going, stopped,
+    stops) equal two launches on each member alone bit for bit: master
+    (ring included), next rhs, norm, count and flag; and against the twin
+    on the CPU as test_defect_kernel_matches_plain holds one problem."""
+    prm, p64, delta, rhs = _defect_batch_inputs(*interior, 3,
+                                                seed=interior[1])
+    on, threshold = DEFECT_MEMBERS["on"], DEFECT_MEMBERS["threshold"]
+    start = timing.counts()
+    batch = _defect_members_run(prm, p64, delta, rhs, cuda, on, threshold)
+    torch.cuda.synchronize()
+    assert launches("pressure_defect", start) == 2
+    assert batch[3].tolist() == DEFECT_MEMBERS["iterations"]
+    assert batch[2].tolist() == [True, False, False]
+    for k in range(3):
+        solo = _defect_members_run(prm, p64[k], delta[k], rhs[k], cuda,
+                                   on[k], threshold[k])
+        for got, want in zip(batch, solo):
+            assert torch.equal(got[k], want)
+    assert torch.equal(batch[0][1].cpu(), p64[1])  # stopped: kept
+    twin = _defect_members_run(prm, p64, delta, rhs, "cpu", on, threshold)
+    assert torch.equal(batch[0].cpu()[:, 1:-1, 1:-1], twin[0][:, 1:-1, 1:-1])
+    for got, want in zip(batch[1:4], twin[1:4]):
+        assert torch.equal(got.cpu(), want)
+    norms, twin_norms = batch[4].cpu().tolist(), twin[4].tolist()
+    for got, want, going in zip(norms, twin_norms, on):
+        assert (got == want == float("inf") if not going else
+                abs(got - want) <= DEFECT_NORM_RTOL * want)
+
+
+@pytest.mark.gpu
+def test_batched_defect_gives_the_same_bits_twice(cuda):
+    """Two runs of three batched passes over 8 members of 258^2 (the
+    ensemble cell's batch): the same masters, next rhs, flags, counts and
+    norms bit for bit."""
+    prm, p64, delta, rhs = _defect_batch_inputs(256, 256, 8, seed=40)
+    runs = [_defect_members_run(prm, p64, delta, rhs, cuda, [True] * 8,
+                                [0.0] * 8, n_passes=3) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+# Each batched method's tolerance for test_batched_pressure_solve_equals_
+# each_members_solve, and whether its three members stop at different
+# passes there (fft's each stop after two direct solves).
+BATCH_SOLVES = {"rb_sor": (1e-3, True), "jacobi": (3e-2, True),
+                "fft": (1e-5, False)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", sorted(BATCH_SOLVES))
+def test_batched_pressure_solve_equals_each_members_solve(cuda, method):
+    """solve_pressure_batch by each batched method on three members of a
+    ragged 97x61 problem equals each member's solve_pressure bit for bit
+    in p, iterations and res_norm, one fused launch a pass for the
+    batch."""
+    from navierstokes_parallel_tpu_torch.ops import sor
+
+    assert sorted(BATCH_SOLVES) == sorted(sor.BATCHED_METHODS)
+    epsilon, stops_differ = BATCH_SOLVES[method]
+    prm = _params(97, 61).replace(epsilon=epsilon, max_it=3000)
+    rng = np.random.default_rng(30)
+    rhs = np.zeros((3, *prm.shape), np.float32)
+    rhs[:, 1:-1, 1:-1] = (rng.standard_normal((3, prm.i_max, prm.j_max))
+                          * np.array([1.0, 3.0, 0.3])[:, None, None])
+    rhs[:, 1:-1, 1:-1] -= rhs[:, 1:-1, 1:-1].mean(axis=(1, 2),
+                                                   keepdims=True)
+    p0 = (0.1 * rng.standard_normal((3, *prm.shape))).astype(np.float32)
+    p0, rhs = torch.from_numpy(p0).to(cuda), torch.from_numpy(rhs).to(cuda)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # jacobi's omega clamp
+        start = timing.counts()
+        got = sor.solve_pressure_batch(p0, rhs, prm, method=method)
+        counts = timing.counts()
+        solos = [sor.solve_pressure(p0[k], rhs[k], prm, method=method)
+                 for k in range(3)]
+    counted = [counts.get(name, 0) - start.get(name, 0)
+               for name in ("pressure.passes", "pressure.fused_passes",
+                            "launch.pressure_defect")]
+    assert counted[0] == counted[1] == counted[2] >= 1
+    assert got.converged.all()
+    assert (len(set(got.iterations.tolist())) > 1) is stops_differ
+    for k, solo in enumerate(solos):
+        assert torch.equal(got.p[k], solo.p)
+        assert int(got.iterations[k]) == solo.iterations
+        assert float(got.res_norm[k]) == solo.res_norm
 
 
 def _plain_outer(monkeypatch):

@@ -1,16 +1,17 @@
 """The f64 outer's fused pass (ops/cuda/defect_kernel.py) on the CPU.
 
-The default call of ``sor._solve_pressure_refined`` (one problem, a 2-D
-float32 state, the default hooks, no deflation) takes the fused pass, on
-the CPU its plain twin, the outer's own plain pass
-(``sor.outer_pass_plain`` with the default defect and norm); every other
-call keeps the outer's plain statements.  Both give the same bits: a call
-with an explicit ``l2_fn=_default_l2(params)`` takes the plain statements
-and serves as the yardstick.  The kernel itself runs on the card
-(tests/test_torch_cuda.py).
+The default call of ``sor._solve_pressure_refined`` (a float32 state,
+2-D for one problem or 3-D for a batch, the default hooks, no deflation)
+takes the fused pass, on the CPU its plain twin, the outer's own plain
+pass (``sor.outer_pass_plain`` with the default defect and norm); every
+other call keeps the outer's plain statements.  Both give the same bits: a
+call with an explicit ``l2_fn=_default_l2(params)`` takes the plain
+statements and serves as the yardstick.  The kernel itself runs on the
+card (tests/test_torch_cuda.py).
 """
 
 import math
+import warnings
 
 import numpy as np
 import pytest
@@ -97,9 +98,40 @@ def test_a_shard_hook_takes_the_plain_statements(hook):
     assert _same(got, want)
 
 
+def _stacked(prm, seeds=(2, 3)):
+    """(p, rhs) of a batch: _problem's of each seed on a member axis."""
+    ps, rhss = zip(*(_problem(prm, seed=s) for s in seeds))
+    return torch.stack(ps), torch.stack(rhss)
+
+
+def _going(n_members=2):
+    return torch.ones(n_members, dtype=torch.bool)
+
+
 def _batch():
-    ps, rhss = zip(*(_problem(PRM, seed=s) for s in (2, 3)))
-    return sor.solve_pressure_batch(torch.stack(ps), torch.stack(rhss), PRM)
+    """A batch with a hook (an explicit default norm): a batch off the
+    default hooks keeps the plain statements."""
+    return sor._solve_pressure_refined(*_stacked(PRM), PRM,
+                                       l2_fn=sor._default_l2(PRM),
+                                       going=_going())
+
+
+def _batch_channel():
+    prm = PRM.replace(problem=3, a=2.0, b=1.0)
+    return sor.solve_pressure_batch(*_stacked(prm, (4, 5)), prm)
+
+
+def _batch_float64_state():
+    p, rhs = _stacked(PRM, (6, 7))
+    return sor._solve_pressure_refined(p.double(), rhs.double(), PRM,
+                                       going=_going())
+
+
+def _batch_under_autograd():
+    p, rhs = _stacked(PRM, (7, 8))
+    with torch.enable_grad():
+        return sor._solve_pressure_refined(p.requires_grad_(), rhs, PRM,
+                                           going=_going())
 
 
 def _channel():
@@ -125,7 +157,10 @@ def _under_autograd():
 
 PLAIN_CALLS = {"going": _batch, "problem 3": _channel,
                "compensated": _compensated, "float64 state": _float64_state,
-               "autograd": _under_autograd}
+               "autograd": _under_autograd,
+               "going, problem 3": _batch_channel,
+               "going, float64 state": _batch_float64_state,
+               "going, autograd": _batch_under_autograd}
 
 
 @pytest.mark.parametrize("call", sorted(PLAIN_CALLS))
@@ -135,6 +170,93 @@ def test_other_calls_take_the_plain_statements(call):
     counted = since(start)
     assert counted["pressure.passes"] >= 1
     assert counted["pressure.fused_passes"] == 0
+
+
+def _gate(case: str) -> bool:
+    """sor._fused_outer on a default call changed as `case` says."""
+    p, rhs = _stacked(PRM)
+    prm, kw = PRM, dict(ghost_fn=sor.ghost_fill, l2_fn=None,
+                        valid_mask=None, residual_fn=None, going=_going())
+    if case == "one problem":
+        p, rhs, kw["going"] = p[0], rhs[0], None
+    elif case == "one problem, 3-D state":
+        kw["going"] = None
+    elif case == "batch, 2-D state":
+        p, rhs = p[0], rhs[0]
+    elif case == "batch, strided state":
+        p = p.transpose(-2, -1).contiguous().transpose(-2, -1)
+    elif case == "batch, float64 state":
+        p, rhs = p.double(), rhs.double()
+    elif case == "batch, problem 3":
+        prm = PRM.replace(problem=3, a=2.0, b=1.0)
+    elif case == "batch, autograd":
+        p.requires_grad_()
+    elif case.startswith("batch, hook "):
+        kw.update(EQUAL_HOOKS[case[len("batch, hook "):]](PRM))
+    with torch.enable_grad():
+        return sor._fused_outer(p, rhs, prm, **kw)
+
+
+GATE_CASES = {"one problem": True, "batch": True,
+              "one problem, 3-D state": False, "batch, 2-D state": False,
+              "batch, strided state": False, "batch, float64 state": False,
+              "batch, problem 3": False, "batch, autograd": False,
+              **{f"batch, hook {hook}": False for hook in EQUAL_HOOKS}}
+
+
+@pytest.mark.parametrize("case", sorted(GATE_CASES))
+def test_fused_outer_takes_a_default_batch(case):
+    """The gate holds for a default float32 call, one problem (2-D) or a
+    batch (3-D, `going` given), and for no call with a hook, problem 3,
+    autograd, a float64 or strided state or a state of the other rank."""
+    assert _gate(case) is GATE_CASES[case]
+
+
+BATCH_ACTIVE = (True, False, True)
+
+
+@pytest.mark.parametrize("method", sorted(sor.BATCHED_METHODS))
+def test_a_batch_takes_the_fused_pass_with_the_plain_bits(method,
+                                                          monkeypatch):
+    """A batch of three, the middle member held (`active`), by each
+    batched method: every pass is fused (the twin on the CPU) and the
+    result equals the plain statements' bit for bit."""
+    p, rhs = _stacked(PRM, (10, 11, 12))
+    runs = {}
+    for name in ("fused", "plain"):
+        if name == "plain":
+            _plain_refined(monkeypatch)
+        start = timing.counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # jacobi's omega clamp
+            runs[name] = (sor.solve_pressure_batch(p, rhs, PRM, method=method,
+                                                   active=BATCH_ACTIVE),
+                          since(start))
+    (fused, fcount), (plain, pcount) = runs["fused"], runs["plain"]
+    assert fcount["pressure.fused_passes"] == fcount["pressure.passes"] >= 1
+    assert fcount["launch.pressure_defect"] == 0  # the CPU twin
+    assert pcount["pressure.fused_passes"] == 0
+    assert pcount["pressure.passes"] == fcount["pressure.passes"]
+    for field in fused._fields:
+        assert torch.equal(getattr(fused, field), getattr(plain, field)), field
+    assert int(fused.iterations[1]) == 0
+    assert torch.equal(fused.p[1], p[1])
+
+
+@pytest.mark.parametrize("hook", sorted(EQUAL_HOOKS))
+def test_a_batch_hook_takes_the_plain_statements(hook):
+    """A batch with one of a shard's hooks equal to the defaults: the
+    plain statements, with the default batch's bits."""
+    p, rhs = _stacked(PRM, (13, 14))
+    want = sor._solve_pressure_refined(p, rhs, PRM, going=_going())
+    start = timing.counts()
+    got = sor._solve_pressure_refined(p, rhs, PRM, going=_going(),
+                                      **EQUAL_HOOKS[hook](PRM))
+    counted = since(start)
+    assert counted["pressure.passes"] == 5
+    assert counted["pressure.fused_passes"] == 0
+    for field in got._fields:
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
 
 
 def _plain_refined(monkeypatch):
@@ -274,3 +396,152 @@ def test_outer_pass_raises_on_other_devices():
                                            ((17, 33), 4)])
 def test_blocks_of_one_launch(interior, want):
     assert defect_kernel.blocks(*interior) == want
+
+
+@pytest.mark.parametrize("interior,members,want", [
+    ((256, 256), 1, (128, 129)), ((256, 256), 8, (1024, 1032)),
+    ((97, 61), 3, (42, 45)), ((5, 3), 2, (2, 4))])
+def test_blocks_and_workspace_of_a_batch(interior, members, want):
+    """A launch over `members` interiors: each member's blocks, and a
+    workspace row a member of one partial a block and the ticket; one
+    member is one problem's launch."""
+    assert (defect_kernel.blocks(*interior, members),
+            defect_kernel.workspace_len(*interior, members)) == want
+    if members == 1:
+        assert defect_kernel.blocks(*interior) == want[0]
+
+
+def _batch_pass_inputs(prm, n_members, seed):
+    """(master, delta, rhs) of a batch's pass: _pass_inputs' of each
+    member on a member axis."""
+    members = [_pass_inputs(prm, seed + k) for k in range(n_members)]
+    return tuple(torch.stack(x) for x in zip(*members))
+
+
+def _flags(lead, on=True):
+    """(on, iterations, res_norm) of one problem (lead ()) or a batch."""
+    return (torch.full(lead, on, dtype=torch.bool),
+            torch.zeros(lead, dtype=torch.int64),
+            torch.full(lead, math.inf, dtype=torch.float64))
+
+
+BAD_BATCH_INPUTS = ["rhs_full_members", "rhs_members", "threshold_members",
+                    "threshold_0d", "strided_threshold"]
+
+
+@pytest.mark.parametrize("bad", BAD_BATCH_INPUTS + ["none"])
+def test_kernel_checks_a_batchs_tensors(bad):
+    """A batch's tensors carry one member axis, of one length on all of
+    them, the threshold (B,)."""
+    prm = Params(i_max=12, j_max=10, a=1.0, b=1.0)
+    p64, _, rhs = _batch_pass_inputs(prm, 3, 20)
+    rhs_full = torch.zeros((3, *prm.shape))
+    threshold = torch.ones(3, dtype=torch.float64)
+    args = dict(p64=p64, rhs_int64=rhs, rhs_full=rhs_full,
+                threshold=threshold)
+    if bad == "rhs_full_members":
+        args["rhs_full"] = rhs_full[:2]
+    elif bad == "rhs_members":
+        args["rhs_int64"] = rhs[:2]
+    elif bad == "threshold_members":
+        args["threshold"] = threshold[:2]
+    elif bad == "threshold_0d":
+        args["threshold"] = threshold[0]
+    elif bad == "strided_threshold":
+        args["threshold"] = torch.ones(6, dtype=torch.float64)[::2]
+    if bad == "none":
+        defect_kernel.check_inputs(params=prm, **args)
+    else:
+        with pytest.raises(ValueError):
+            defect_kernel.check_inputs(params=prm, **args)
+
+
+BAD_BATCH_PASSES = ["delta_members", "on_0d", "iterations_0d",
+                    "res_norm_members", "master_members", "flag_of_a_batch",
+                    "master_dtype"]
+
+
+@pytest.mark.parametrize("bad", BAD_BATCH_PASSES + ["none", "one problem"])
+def test_kernel_checks_a_batch_pass(bad):
+    """A pass of a batch takes a master of the solve's shape, delta of
+    that shape, a flag, a count and a norm (B,) each; one problem's pass
+    takes them 0-d, and a (B,) flag on a solve of one problem is
+    refused."""
+    prm = Params(i_max=12, j_max=10, a=1.0, b=1.0)
+    master, delta, _ = _batch_pass_inputs(prm, 3, 21)
+    on, iterations, res_norm = _flags((3,))
+    shape = master.shape  # the solve's
+    if bad == "delta_members":
+        delta = delta[:2]
+    elif bad == "on_0d":
+        on = on[0]
+    elif bad == "iterations_0d":
+        iterations = iterations[0]
+    elif bad == "res_norm_members":
+        res_norm = res_norm[:2]
+    elif bad == "master_members":
+        master, delta = master[:2], delta[:2]
+        on, iterations, res_norm = _flags((2,))
+    elif bad == "flag_of_a_batch":
+        master, delta = master[0], delta[0]
+        shape = prm.shape
+    elif bad == "master_dtype":
+        master = master.float()
+    elif bad == "one problem":
+        master, delta = master[0], delta[0]
+        on, iterations, res_norm = _flags(())
+        shape = prm.shape
+    args = (master, delta, on, iterations, res_norm, shape)
+    if bad in ("none", "one problem"):
+        defect_kernel._check_pass(*args)
+    else:
+        with pytest.raises(ValueError):
+            defect_kernel._check_pass(*args)
+
+
+# The members of the twin's batch pass: going, stopped before the pass,
+# and one whose norm meets its threshold in the pass.
+TWIN_MEMBERS = {"going": (True, 0.0), "stopped": (False, 0.0),
+                "stops": (True, 1e300)}
+
+
+@pytest.mark.parametrize("interior", [(13, 9), (97, 61)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_a_batch_pass_of_the_twin_equals_each_members_pass(interior):
+    """Two passes of the twin over a batch of three (going, stopped,
+    stops) against two of the twin on each member alone: masters, next
+    rhs, flags and counts bit for bit; the norms to rounding (torch.sum
+    over a member axis need not add in one member's order)."""
+    prm = Params(i_max=interior[0], j_max=interior[1], a=1.0, b=0.7)
+    n = len(TWIN_MEMBERS)
+    p64, delta, rhs = _batch_pass_inputs(prm, n, 22)
+    flags = [TWIN_MEMBERS[name][0] for name in TWIN_MEMBERS]
+    thresholds = [TWIN_MEMBERS[name][1] for name in TWIN_MEMBERS]
+
+    def run(master, delta, rhs, on, threshold):
+        master = master.clone()
+        rhs_full = torch.zeros(master.shape)
+        on = torch.tensor(on)
+        iterations = torch.zeros(on.shape, dtype=torch.int64)
+        res_norm = torch.full(on.shape, math.inf, dtype=torch.float64)
+        pass_fn = defect_kernel.outer_pass(
+            master, rhs, rhs_full,
+            torch.tensor(threshold, dtype=torch.float64), prm)
+        for _ in range(2):
+            master = pass_fn(master, delta, on, iterations, res_norm, 64)
+        return master, rhs_full, on, iterations, res_norm
+
+    batch = run(p64, delta, rhs, flags, thresholds)
+    assert batch[3].tolist() == [128, 0, 64]
+    assert batch[2].tolist() == [True, False, False]
+    for k in range(n):
+        solo = run(p64[k], delta[k], rhs[k], flags[k], thresholds[k])
+        for got, want in zip(batch[:4], solo[:4]):
+            assert torch.equal(got[k], want)
+        assert (float(batch[4][k]) == float(solo[4]) == math.inf
+                if not flags[k] else
+                abs(float(batch[4][k]) - float(solo[4]))
+                <= 1e-13 * float(solo[4]))
+    # The stopped member keeps its master's interior (the twin fills the
+    # ring in place).
+    assert torch.equal(batch[0][1, 1:-1, 1:-1], p64[1, 1:-1, 1:-1])
